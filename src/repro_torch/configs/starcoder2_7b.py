@@ -1,0 +1,17 @@
+"""starcoder2-7b — dense, GQA kv=4, RoPE, GELU MLP. [arXiv:2402.19173]"""
+from repro_torch.configs.base import ArchConfig
+
+ARCH = ArchConfig(
+    name="starcoder2-7b",
+    family="dense",
+    n_layers=32,
+    d_model=4608,
+    n_heads=36,
+    n_kv_heads=4,
+    head_dim=128,
+    d_ff=18432,
+    vocab=49152,
+    mlp_act="gelu",
+    rope_theta=1e5,
+    source="arXiv:2402.19173",
+)

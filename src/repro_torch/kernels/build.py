@@ -1,0 +1,98 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+
+Every ``csrc/*.cu`` source compiles on its own into a shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds, not
+minutes):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o build/repro_torch_kernels/<name>-<hash>.so <name>.cu
+
+The library's file name carries a hash of its source, so an edited source
+rebuilds at its next use and an unchanged one is loaded as built.  Sources
+build in parallel, one ``nvcc`` each.  A failed build raises with the
+compiler's output.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, List
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+# <repo>/build/repro_torch_kernels: <repo>/src/repro_torch/kernels/build.py
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_LIBS: Dict[str, ctypes.CDLL] = {}     # loaded once per process
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("repro_torch: nvcc not found (PATH, CUDA_HOME); the "
+                       "CUDA kernels cannot be built")
+
+
+def sources() -> List[str]:
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def _target(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes()
+                       + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{name}-{h}.so"
+
+
+def build(names: List[str] = None) -> Dict[str, str]:
+    """Compile every named source (default: all) whose library is missing,
+    all ``nvcc`` processes at once.  Returns name -> compiler output
+    (``-Xptxas -v``: registers, spills) for each source compiled now."""
+    names = sources() if names is None else list(names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = {n: _target(n) for n in names}
+    todo = [n for n in names if not out[n].exists()]
+    procs, logs = {}, {}
+    try:
+        for n in todo:
+            tmp = out[n].with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+            procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True),
+                        tmp)
+        failed = []
+        for n, (p, tmp) in procs.items():
+            logs[n] = p.communicate()[0]
+            if p.returncode != 0:
+                failed.append(f"--- {n}.cu (nvcc exit {p.returncode})\n{logs[n]}")
+            else:
+                os.replace(tmp, out[n])   # atomic: a reader never sees half a file
+    finally:
+        for p, tmp in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            tmp.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("repro_torch kernel build failed:\n"
+                           + "\n".join(failed))
+    return logs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(_target(name)))
+        _LIBS[name] = lib
+    return lib

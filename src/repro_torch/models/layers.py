@@ -1,0 +1,195 @@
+"""Core layers of the dense decoder: RMSNorm, RoPE (full/partial), GQA
+attention (prefill through the flash kernel, cached decode, paged decode)
+and MLPs.  Counterpart of ``repro/models/layers.py``.
+
+Conventions as there: activations (B, T, d); attention heads (B, T, H, hd);
+softmax and normalisation math in float32, outputs cast back to the compute
+dtype; every dense is ``x @ w`` with ``w`` of shape (d_in, d_out) (the JAX
+package's ``DPContext.dense`` in ``off`` mode).  The DP context itself
+belongs to the training slice and is not ported here.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops as kops
+
+NEG = -1e30
+
+
+@dataclasses.dataclass(frozen=True)
+class P:
+    """Param spec: shape and init rule (fan_in | embed | ones | zeros)."""
+    shape: Tuple[int, ...]
+    init: str = "fan_in"
+
+
+# ---------------------------------------------------------------------------
+# Norms and RoPE
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x, scale, eps: float = 1e-5):
+    """RMSNorm over the last dim of x (any rank); scale: (d,)."""
+    xf = x.float()
+    y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (y * scale.float()).to(x.dtype)
+
+
+def rope(x, pos, theta: float, pct: float):
+    """Half-split (NeoX) rotary on the first ``pct`` of the head dim.
+    x: (B, T, H, hd); pos: (B, T) integer absolute positions."""
+    hd = x.shape[-1]
+    r = int(hd * pct)
+    r -= r % 2
+    if r == 0:
+        return x
+    xr, xp = x[..., :r], x[..., r:]
+    half = r // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = pos.float()[:, :, None, None] * freqs                     # (B,T,1,half)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = xr[..., :half].float(), xr[..., half:].float()
+    rot = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return torch.cat([rot.to(x.dtype), xp], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def attn_spec(cfg) -> dict:
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    spec = {
+        "wq": P((d, H * hd)),
+        "wk": P((d, KV * hd)),
+        "wv": P((d, KV * hd)),
+        "wo": P((H * hd, d)),
+    }
+    if cfg.qk_norm:
+        spec["q_norm"] = P((hd,), "ones")
+        spec["k_norm"] = P((hd,), "ones")
+    return spec
+
+
+def _qkv(p, x, pos, cfg):
+    """Projections, optional qk-norm and rotary: q (B,T,H,hd), k/v (B,T,KV,hd)."""
+    B, T, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = (x @ p["wq"]).reshape(B, T, H, hd)
+    k = (x @ p["wk"]).reshape(B, T, KV, hd)
+    v = (x @ p["wv"]).reshape(B, T, KV, hd)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    if cfg.rotary_pct > 0:
+        q = rope(q, pos, cfg.rope_theta, cfg.rotary_pct)
+        k = rope(k, pos, cfg.rope_theta, cfg.rotary_pct)
+    return q, k, v
+
+
+def attn_apply(p, x, cfg, pos):
+    """Prefill attention through the flash kernel (its plain version for a
+    CPU tensor). x: (B,T,d); pos: (B,T).  Returns (y, (k, v))."""
+    B, T, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q, k, v = _qkv(p, x, pos, cfg)
+    o = kops.flash_attention(q.reshape(B, T, KV, H // KV, hd), k, v, True)
+    return o.reshape(B, T, H * hd) @ p["wo"], (k, v)
+
+
+def _decode_attend(q, gk, gv, pos, p, cfg):
+    """One query per row against a (B, S, KV, hd) cache, keys at
+    positions <= pos.  Scores and softmax in float32."""
+    B = q.shape[0]
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    S = gk.shape[1]
+    qg = q.reshape(B, KV, H // KV, hd)
+    s = torch.einsum("bkrh,bskh->bkrs", qg.float(), gk.float()) / math.sqrt(hd)
+    mask = torch.arange(S, device=q.device)[None, :] <= pos[:, None]  # (B,S)
+    s = torch.where(mask[:, None, None, :], s, NEG)
+    pattn = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkrs,bskh->bkrh", pattn.to(gv.dtype), gv)
+    return o.reshape(B, 1, H * hd) @ p["wo"]
+
+
+def attn_decode(p, x, cache_kv, pos, cfg):
+    """Single-token decode. x: (B,1,d); cache_kv: (k, v) each (B,S,KV,hd);
+    pos: (B,) write positions.  Writes the new k/v into the cache IN PLACE
+    (the JAX version returns updated copies) and returns (y, cache_kv)."""
+    B = x.shape[0]
+    q, k, v = _qkv(p, x, pos[:, None], cfg)
+    ck, cv = cache_kv
+    b = torch.arange(B, device=x.device)
+    ck[b, pos] = k[:, 0].to(ck.dtype)
+    cv[b, pos] = v[:, 0].to(cv.dtype)
+    return _decode_attend(q, ck, cv, pos, p, cfg), (ck, cv)
+
+
+def put_rows(pool, pb, off, val):
+    """``pool[pb[b], off[b]] = val[b]`` in place, where rows whose ``pb`` is
+    the sentinel ``len(pool)`` write nowhere (JAX's ``mode="drop"``).
+
+    Dropping by filtering rows would read the mask on the host; instead the
+    write is two exact accumulations at the clamped index: first subtract
+    the current value where kept (x - x == 0 exactly), then add the new one
+    where kept; a dropped row adds -0·x and 0·v, which leaves its clamped
+    target unchanged even when a kept row writes the same cell.  Exact for
+    finite values, which cache entries always are."""
+    nb = pool.shape[0]
+    keep = (pb < nb).to(pool.dtype).reshape((-1,) + (1,) * (val.dim() - 1))
+    idx = (pb.clamp(max=nb - 1), off)
+    pool.index_put_(idx, -pool[idx] * keep, accumulate=True)
+    pool.index_put_(idx, val.to(pool.dtype) * keep, accumulate=True)
+
+
+def attn_decode_paged(p, x, cache_kv, tables, pos, cfg):
+    """Single-token decode against a block-paged KV pool.  x: (B,1,d);
+    cache_kv: (k, v) each (num_blocks, block_size, KV, hd); tables: (B, nb)
+    block tables, sentinel = num_blocks for unallocated entries; pos: (B,).
+
+    Write at (tables[b, pos//bs], pos%bs) in place, dropping sentinel rows
+    (``put_rows``).  Read by gathering the pool through the table with the
+    sentinel clamped to the last pool row (JAX clamps implicitly): those
+    rows land at positions > pos, where the mask pins them to -1e30 exactly
+    as it pins the contiguous path's unwritten lanes, so outputs match the
+    contiguous path.  Returns (y, cache_kv)."""
+    B = x.shape[0]
+    KV, hd = cfg.n_kv_heads, cfg.hd
+    ck, cv = cache_kv
+    nb_pool, bs = ck.shape[0], ck.shape[1]
+    q, k, v = _qkv(p, x, pos[:, None], cfg)
+    pb = torch.gather(tables, 1, (pos // bs)[:, None])[:, 0]
+    off = pos % bs
+    put_rows(ck, pb, off, k[:, 0])
+    put_rows(cv, pb, off, v[:, 0])
+    S = tables.shape[1] * bs
+    safe = tables.clamp(max=nb_pool - 1)
+    gk = ck[safe].reshape(B, S, KV, hd)
+    gv = cv[safe].reshape(B, S, KV, hd)
+    return _decode_attend(q, gk, gv, pos, p, cfg), (ck, cv)
+
+
+# ---------------------------------------------------------------------------
+# MLP (dense FFN)
+# ---------------------------------------------------------------------------
+
+def mlp_spec(cfg, d_ff: int) -> dict:
+    d = cfg.d_model
+    if cfg.mlp_act == "swiglu":
+        return {"w1": P((d, d_ff)), "w3": P((d, d_ff)), "w2": P((d_ff, d))}
+    return {"w1": P((d, d_ff)), "w2": P((d_ff, d))}
+
+
+def mlp_apply(p, x, cfg):
+    if cfg.mlp_act == "swiglu":
+        h = F.silu((x @ p["w1"]).float()).to(x.dtype) * (x @ p["w3"])
+    else:
+        # jax.nn.gelu defaults to the tanh approximation
+        h = F.gelu((x @ p["w1"]).float(), approximate="tanh").to(x.dtype)
+    return h @ p["w2"]

@@ -1,0 +1,41 @@
+"""The port stands alone: importing every ``repro_torch`` module pulls in
+neither JAX nor anything of the JAX package, and no source of the port (or
+chip_smoke.py, which drives it on the card) imports them."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+IMPORT_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
+
+_PROBE = """
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for n in names:
+    importlib.import_module(n)
+assert len(names) >= 15, names
+bad = sorted(n for n in sys.modules
+             if n == "jax" or n.startswith("jax.") or n == "repro" or n.startswith("repro."))
+assert not bad, bad
+print("ok", len(names))
+"""
+
+
+def test_port_imports_no_jax_and_no_repro():
+    r = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True,
+                       text=True, cwd=ROOT, timeout=120,
+                       env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.startswith("ok")
+
+
+def test_port_sources_import_no_jax_and_no_repro():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 15
+    for f in files:
+        hits = IMPORT_FORBIDDEN.findall(f.read_text())
+        assert not hits, (f, hits)
