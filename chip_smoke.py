@@ -7,23 +7,42 @@ Phases, each printing its own lines; a failure in any of them raises, so
 the script exits nonzero and prints no ``ok`` line:
 
 1. the device: torch's name for it and ``nvidia-smi``'s name and power limit;
-2. build every CUDA kernel of the port from this checkout's sources;
-3. every kernel against its plain PyTorch version on the card, timed beside
+2. build every CUDA kernel of the port from this checkout's sources (one
+   ``nvcc`` per source, all at once);
+3. every kernel against its plain PyTorch version on the card, at the
+   shapes of the serving and training paths, float32 and bf16, timed beside
    the plain version, the one PyTorch call computing the same function
-   (``library_ms``, timing only) and the card's bound;
-4. a small reference: the reduced phi3 model in float32, prefill and decode
-   logits on the card (through the kernel) against the CPU (plain path);
-5. the main path: phi3-mini-3.8b at full width and depth, bf16, seeded
+   (``library_ms``, timing only) and the card's bound; the norm kernels
+   also give exact zeros for all-zero gy rows and bit-identical repeats;
+4. small references in float32 (TF32 off): the reduced phi3 serving
+   (prefill and decode logits) and one ``dpsgd_r`` fused training step
+   (loss, per-example norms², clipped-sum gradients) on the card through
+   the kernels against the CPU through the plain versions;
+5. the serving path: phi3-mini-3.8b at full width and depth, bf16, seeded
    random weights, serving 16 greedy requests through the contiguous engine
-   and the same stream through the paged engine; outputs must agree.
+   and the same stream through the paged engine; outputs must agree;
+6. the training path: phi3-mini-3.8b at full width with 16 of its 32
+   layers (the AdamW state of all 32 and their activations would not fit
+   the card without activation checkpointing, which the port does not have
+   yet), bf16, B = 8 x T = 512 synthetic tokens, ``dpsgd_r`` with the fused
+   norm route through the kernels, AdamW, through the port's ``Trainer``:
+   one warm-up step and three timed steps (each split into its two passes
+   by calling them directly on its batch, outside the counted step), then
+   the next step through the plain norm rules (its norms² must agree) and
+   one ``sgd`` step.
 
-The line before the last is the per-kernel JSON record; the last line is
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
-package.  Needs one card.  Measurements also go to chiprun_out/chip_smoke.json.
+Each path counts the launches of every kernel from zero, and fails if a
+kernel of the path was never launched.  The line before the last is the
+per-kernel JSON record; the last line is ``{"ok": true, "device": {...}}``.
+Imports nothing of JAX or of the JAX package.  Needs one card.
+Measurements also go to ``chip_smoke.json`` in the output directory.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -41,6 +60,9 @@ BF16_ATOL = 2e-2                          # bf16 vs the plain version in f32
 # the main path's traffic: 16 greedy requests, prompts of 64-1024 tokens,
 # 64 new tokens each, through 8 slots of a 2048-position cache
 N_REQUESTS, MAX_NEW, MAX_BATCH, CACHE_LEN, BLOCK = 16, 64, 8, 2048, 16
+# the training path: 16 layers, 8 examples of 512 tokens, 3 timed steps
+TRAIN_LAYERS, TRAIN_B, TRAIN_T, TRAIN_STEPS = 16, 8, 512, 3
+NSQ_RTOL = 2e-2     # bf16 kernel route vs plain route, per-example norms²
 
 
 def request_stream(vocab: int, seed: int = 0):
@@ -66,16 +88,37 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def flash_bound_ms(BH, T, S, hd, rep, causal, dtype_name):
-    """Least time for the work: FLOPs (QK^T and PV, halved when causal)
-    over the type's peak, against bytes (q, k, v read once; o, lse written
-    once) over HBM bandwidth.  Returns (ms, "operations" | "bytes")."""
-    item = 2 if dtype_name == "bfloat16" else 4
-    flops = 4.0 * BH * T * S * hd * (0.5 if causal else 1.0)
-    nbytes = item * (2 * BH * T * hd + 2 * (BH // rep) * S * hd) + 4 * BH * T
+def bound_ms(flops, nbytes, dtype_name):
+    """Least time for the work: the FLOPs over the type's peak against the
+    bytes (each input read once, each output written once) over HBM
+    bandwidth.  Returns (ms, "operations" | "bytes")."""
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def flash_bound_ms(BH, T, S, hd, rep, causal, dtype_name):
+    """The forward: QK^T and PV (halved when causal); q, k, v read, o and
+    lse written."""
+    item = 2 if dtype_name == "bfloat16" else 4
+    flops = 4.0 * BH * T * S * hd * (0.5 if causal else 1.0)
+    nbytes = item * (2 * BH * T * hd + 2 * (BH // rep) * S * hd) + 4 * BH * T
+    return bound_ms(flops, nbytes, dtype_name)
+
+
+def _dtype_name(dtype) -> str:
+    return str(dtype).split(".")[-1]
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| over max |want|."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+def _randn(g, shape, dtype):
+    import torch
+    return torch.randn(shape, generator=g, device="cuda").to(dtype)
 
 
 def check_flash(name, B, H, KV, T, hd, causal, dtype, seed=0):
@@ -84,8 +127,7 @@ def check_flash(name, B, H, KV, T, hd, causal, dtype, seed=0):
     from repro_torch.kernels import flash_attn, ref
     rep = H // KV
     g = torch.Generator(device="cuda").manual_seed(seed)
-    mk = lambda rows: torch.randn((rows, T, hd), generator=g, device="cuda").to(dtype)
-    q, k, v = mk(B * H), mk(B * KV), mk(B * KV)
+    q, k, v = (_randn(g, (rows, T, hd), dtype) for rows in (B * H, B * KV, B * KV))
     o, lse = flash_attn.flash_attn_fwd(q, k, v, causal=causal, rep=rep)
     torch.cuda.synchronize()
     o_ref, lse_ref = ref.flash_attn_fwd_ref(q.float(), k.float(), v.float(),
@@ -115,6 +157,184 @@ def check_flash(name, B, H, KV, T, hd, causal, dtype, seed=0):
     return rec
 
 
+def check_dense_bwd_norm(name, BG, T, di, do, E, dtype, seed=0, iters=10):
+    """dense_bwd_norm at one shape: kernel vs plain version (gx within 1e-4
+    of its largest entry in f32, 1e-2 in bf16 — one bf16 rounding of the
+    output; nsq within rtol 1e-4, since bf16 inputs convert to f32
+    exactly and only the summation order differs), with timings."""
+    import torch
+    from repro_torch.kernels import fused_bwd, ref
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = _randn(g, (BG, T, di), dtype)
+    gy = _randn(g, (BG, T, do), dtype)
+    w = _randn(g, (E, di, do), dtype) * di ** -0.5
+    gx, nsq = fused_bwd.dense_bwd_norm(x, gy, w)
+    torch.cuda.synchronize()
+    nsq_ref = ref.dense_bwd_norm_ref(x, gy, w)[1]
+    gx_f32 = ref.dense_bwd_norm_ref(x.float(), gy.float(), w.float())[0]
+    abs_err = (gx.float() - gx_f32).abs().max().item()
+    gx_err = abs_err / gx_f32.abs().max().item()
+    nsq_err = ((nsq - nsq_ref).abs() / nsq_ref.abs()).max().item()
+    assert gx_err <= (1e-4 if dtype == torch.float32 else 1e-2), (name, gx_err)
+    assert nsq_err <= 1e-4, (name, nsq_err)
+    del gx, gx_f32
+    ms = time_ms(lambda: fused_bwd.dense_bwd_norm(x, gy, w), iters)
+    plain_ms = time_ms(lambda: ref.dense_bwd_norm_ref(x, gy, w), iters)
+    wt = w[0].t() if E == 1 else w[torch.arange(BG, device="cuda") % E].mT
+
+    def library():      # timing only: the port never calls these
+        torch.matmul(gy, wt)
+        gb = torch.bmm(x.mT, gy)
+        return (gb.float() ** 2).sum(dim=(1, 2))
+    library_ms = time_ms(library, iters)
+    dt = _dtype_name(dtype)
+    item = x.element_size()
+    b_ms, b_by = bound_ms(4.0 * BG * T * di * do,
+                          item * (2 * BG * T * di + BG * T * do + E * di * do)
+                          + 4 * BG, dt)
+    rec = dict(shape=name, dtype=dt, BG=BG, T=T, di=di, do=do, E=E,
+               max_abs_err=abs_err, gx_rel_err=gx_err, nsq_rel_err=nsq_err,
+               ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+               bound_by=b_by)
+    print(f"[kernel] dense_bwd_norm {name} {dt}: gx err {abs_err:.2e} "
+          f"({gx_err:.1e} of max), nsq rel err {nsq_err:.1e}  kernel {ms:.3f} "
+          f"ms  plain {plain_ms:.3f} ms  library {library_ms:.3f} ms  bound "
+          f"{b_ms:.4f} ms ({b_by})", flush=True)
+    return rec
+
+
+def check_norm_contracts(dtype):
+    """dense_bwd_norm and gram_norm at a ragged shape: all-zero gy rows give
+    exact zeros (gx rows and norms²), and two launches give bit-identical
+    results (no atomics)."""
+    import torch
+    from repro_torch.kernels import fused_bwd, gram_norm
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x = _randn(g, (6, 333, 700), dtype)
+    gy = _randn(g, (6, 333, 517), dtype)
+    w = _randn(g, (3, 700, 517), dtype)
+    gy[[1, 4]] = 0
+    ids = torch.randint(0, 50, (6, 333), generator=g, device="cuda")
+    a = fused_bwd.dense_bwd_norm(x, gy, w)
+    b = fused_bwd.dense_bwd_norm(x, gy, w)
+    ga = gram_norm.gram_norm(gy, gy, ids, square=False)
+    gb = gram_norm.gram_norm(gy, gy, ids, square=False)
+    gsa = gram_norm.gram_norm(x, gy, None, square=True)
+    torch.cuda.synchronize()
+    for name, (gx, nsq) in (("dense_bwd_norm", a),):
+        assert torch.all(gx[[1, 4]] == 0) and torch.all(nsq[[1, 4]] == 0), name
+        assert torch.all(nsq[[0, 2, 3, 5]] > 0), name
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert torch.all(ga[[1, 4]] == 0) and torch.all(gsa[[1, 4]] == 0)
+    assert torch.equal(ga, gb)
+    print(f"[kernel] {_dtype_name(dtype)}: zero gy rows give exact zeros and "
+          f"repeats are bit-identical (dense_bwd_norm E=3 ragged, gram_norm "
+          f"masked and square)", flush=True)
+
+
+def flash_bwd_inputs(g, BH, KV, T, hd, causal, dtype):
+    """q, k, v, do in ``dtype``, and o, lse from the plain forward."""
+    from repro_torch.kernels import ref
+    q, do = _randn(g, (BH, T, hd), dtype), _randn(g, (BH, T, hd), dtype)
+    k, v = _randn(g, (KV, T, hd), dtype), _randn(g, (KV, T, hd), dtype)
+    o, lse = ref.flash_attn_fwd_ref(q, k, v, causal, BH // KV)
+    return q, k, v, o, lse, do
+
+
+def check_flash_bwd(name, BH, KV, T, hd, causal, dtype, seed=0, iters=10):
+    """flash_attn_bwd at one shape against its plain version: float32 grads
+    within 1e-3 of the largest entry for both input types (the kernels
+    compute in float32 from the same inputs; p goes through exp), with
+    timings; zero do rows give exact zeros, repeats are bit-identical."""
+    import torch
+    from repro_torch.kernels import flash_attn, ref
+    rep = BH // KV
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, o, lse, do = flash_bwd_inputs(g, BH, KV, T, hd, causal, dtype)
+    do[:rep] = 0                   # every query head of kv head 0
+    got = flash_attn.flash_attn_bwd(q, k, v, o, lse, do, causal=causal, rep=rep)
+    again = flash_attn.flash_attn_bwd(q, k, v, o, lse, do, causal=causal, rep=rep)
+    torch.cuda.synchronize()
+    want = ref.flash_attn_bwd_ref(q, k, v, o, lse, do, causal, rep)
+    abs_err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    rel = max(_rel_err(a, b) for a, b in zip(got, want))
+    assert rel <= 1e-3, (name, rel)
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), name
+    assert torch.all(got[0][:rep] == 0) and torch.all(got[1][0] == 0) \
+        and torch.all(got[2][0] == 0), name
+    del got, again, want
+    ms = time_ms(lambda: flash_attn.flash_attn_bwd(q, k, v, o, lse, do,
+                                                   causal=causal, rep=rep), iters)
+    plain_ms = time_ms(lambda: ref.flash_attn_bwd_ref(q, k, v, o, lse, do,
+                                                      causal, rep), iters)
+    # timing only: SDPA's backward = (forward + backward) - forward
+    q4, k4, v4 = (t[None].detach().requires_grad_() for t in (q, k, v))
+    do4 = do[None]
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=causal, enable_gqa=rep > 1)
+    both_ms = time_ms(lambda: torch.autograd.grad(sdpa(), (q4, k4, v4), do4), iters)
+    with torch.no_grad():
+        fwd_ms = time_ms(sdpa, iters)
+    library_ms = both_ms - fwd_ms
+    dt = _dtype_name(dtype)
+    item = q.element_size()
+    flops = 10.0 * BH * T * T * hd * (0.5 if causal else 1.0)
+    nbytes = (item * (3 * BH * T * hd + 2 * KV * T * hd) + 4 * BH * T
+              + 4 * (BH * T * hd + 2 * KV * T * hd))
+    b_ms, b_by = bound_ms(flops, nbytes, dt)
+    rec = dict(shape=name, dtype=dt, BH=BH, KV=KV, T=T, hd=hd, causal=causal,
+               max_abs_err=abs_err, rel_err=rel, ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+    print(f"[kernel] flash_attn_bwd {name} {dt}: max_abs_err {abs_err:.2e} "
+          f"({rel:.1e} of max)  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
+          f"sdpa bwd {library_ms:.3f} ms  bound {b_ms:.4f} ms ({b_by})", flush=True)
+    return rec
+
+
+def check_gram(name, BG, T, d, masked, square, dtype, seed=0, iters=10):
+    """gram_norm at one shape against its plain version (rtol 1e-4: the
+    kernel computes in float32 from the same inputs), with timings."""
+    import torch
+    from repro_torch.kernels import gram_norm, ref
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    gy = _randn(g, (BG, T, d), dtype)
+    x = _randn(g, (BG, T, d), dtype) if square else gy
+    # a small vocab, so tokens repeat within an example
+    ids = torch.randint(0, 64, (BG, T), generator=g, device="cuda") if masked else None
+    out = gram_norm.gram_norm(x, gy, ids, square=square)
+    torch.cuda.synchronize()
+    want = ref.gram_norm_ref(x, gy, ids, square)
+    abs_err = (out - want).abs().max().item()
+    rel = (abs_err / want.abs().max()).item()
+    assert rel <= 1e-4, (name, rel)
+    ms = time_ms(lambda: gram_norm.gram_norm(x, gy, ids, square=square), iters)
+    plain_ms = time_ms(lambda: ref.gram_norm_ref(x, gy, ids, square), iters)
+    mask = None if ids is None else (ids[:, :, None] == ids[:, None, :])
+
+    def library():      # timing only
+        c = torch.bmm(gy, gy.mT).float()
+        if square:
+            c = c * torch.bmm(x, x.mT).float()
+        if mask is not None:
+            c = c * mask
+        return c.sum(dim=(1, 2))
+    library_ms = time_ms(library, iters)
+    dt = _dtype_name(dtype)
+    item = gy.element_size()
+    flops = 1.0 * BG * T * (T + 1) * d * (2 if square else 1)   # s <= t pairs
+    nbytes = item * BG * T * d * (2 if square else 1) + 4 * BG \
+        + (8 * BG * T if masked else 0)
+    b_ms, b_by = bound_ms(flops, nbytes, dt)
+    rec = dict(shape=name, dtype=dt, BG=BG, T=T, d=d, masked=masked,
+               square=square, max_abs_err=abs_err, rel_err=rel, ms=ms,
+               plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+               bound_by=b_by)
+    print(f"[kernel] gram_norm {name} {dt}: max_abs_err {abs_err:.2e} "
+          f"({rel:.1e} of max)  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
+          f"library {library_ms:.3f} ms  bound {b_ms:.4f} ms ({b_by})", flush=True)
+    return rec
+
+
 def small_reference(device_b: str = "cuda"):
     """Reduced phi3 in float32: logits on ``device_b`` (the kernel path on
     the card) against the CPU (plain path), same weights."""
@@ -140,6 +360,63 @@ def small_reference(device_b: str = "cuda"):
         pos = pos + 1
     print(f"[reference] reduced phi3 f32 prefill + 3 decode steps, {device_b} "
           f"vs cpu: max |dlogits| {worst:.3e} (rtol/atol 1e-4)", flush=True)
+
+
+def kernel_counts():
+    """Launch counts of every kernel wrapper: name -> (module, attribute)."""
+    from repro_torch.kernels import flash_attn, fused_bwd, gram_norm
+    return {"flash_attn_fwd": (flash_attn, "LAUNCHES"),
+            "flash_attn_bwd": (flash_attn, "BWD_LAUNCHES"),
+            "dense_bwd_norm": (fused_bwd, "LAUNCHES"),
+            "gram_norm": (gram_norm, "LAUNCHES")}
+
+
+def zero_counts():
+    for mod, attr in kernel_counts().values():
+        setattr(mod, attr, 0)
+
+
+def read_counts():
+    return {k: getattr(mod, attr) for k, (mod, attr) in kernel_counts().items()}
+
+
+def train_reference():
+    """Reduced phi3 in float32: one dpsgd_r fused clipped sum (the step
+    before its noise) on the card through the kernels against the CPU
+    through the plain versions, same weights and batch.  Losses and norms²
+    at rtol 1e-4, gradients within 1e-4 of each leaf's largest entry
+    (float32, other summation order)."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.configs.base import DPConfig
+    from repro_torch.core import algo
+    from repro_torch.models.transformer import Model
+    arch = reduced(get_arch("phi3-mini-3.8b"))
+    a = Model(arch, dtype=torch.float32, device="cpu", seed=0)
+    b = Model(arch, a.params, dtype=torch.float32, device="cuda")
+    toks = torch.randint(0, arch.vocab, (4, 65), generator=torch.Generator().manual_seed(1))
+    dp = DPConfig(algo="dpsgd_r", norm_strategy="fused", use_kernels=True)
+    out = {}
+    zero_counts()
+    for m, dev in ((a, "cpu"), (b, "cuda")):
+        m.requires_grad_(True)
+        fn = algo.make_clipped_sum_fn(m.loss_fn, dp)
+        out[dev] = fn(m.params, {"tokens": toks.to(dev)})
+    counts = read_counts()
+    assert all(n > 0 for n in counts.values()), counts
+    (ga, (la, na)), (gb, (lb, nb)) = out["cpu"], out["cuda"]
+    torch.testing.assert_close(lb.cpu(), la, rtol=1e-4, atol=0.0)
+    torch.testing.assert_close(nb.cpu(), na, rtol=1e-4, atol=0.0)
+    worst = 0.0
+    for x, y in zip(gb, ga):
+        err = _rel_err(x.cpu(), y)
+        worst = max(worst, err)
+        assert err <= 1e-4, err
+    assert len(ga) == len(tree.leaves(a.params))
+    print(f"[reference] reduced phi3 f32 dpsgd_r fused step, cuda (kernels) vs "
+          f"cpu (plain): losses and norms² within rtol 1e-4, grads within "
+          f"{worst:.1e} of max (limit 1e-4); launches {counts}", flush=True)
 
 
 def serve(model, prompts, max_new, paged):
@@ -180,6 +457,7 @@ def decode_breakdown(model, B=MAX_BATCH, S=CACHE_LEN, block_size=BLOCK):
     contiguous cache, attention through block tables, the MLP; and the LM
     head once."""
     import torch
+    from repro_torch.core.context import DPContext
     from repro_torch.models import layers as L
     arch = model.arch
     p = {k: ({n: w[0] for n, w in v.items()} if isinstance(v, dict) else v[0])
@@ -195,7 +473,7 @@ def decode_breakdown(model, B=MAX_BATCH, S=CACHE_LEN, block_size=BLOCK):
         "attn_contiguous": time_ms(lambda: L.attn_decode(p["attn"], h, kv, pos, arch)),
         "attn_paged": time_ms(lambda: L.attn_decode_paged(p["attn"], h, pool,
                                                           tables, pos, arch)),
-        "mlp": time_ms(lambda: L.mlp_apply(p["mlp"], h, arch)),
+        "mlp": time_ms(lambda: L.mlp_apply(p["mlp"], h, DPContext.off(), arch)),
         "head": time_ms(lambda: h @ model.params["head"]),
     }
     n = arch.n_layers
@@ -224,6 +502,7 @@ def main_path(arch, prompts):
           f"{time.perf_counter() - t:.1f} s", flush=True)
     # warm-up (cuBLAS handles, allocator), outside the counted runs
     serve(model, prompts[:2], 2, paged=False)
+    gc.collect()                      # the warm-up engine's reference cycle
     n_attn = arch.n_layers
     runs, launches = {}, 0
     for paged in (False, True):
@@ -257,13 +536,168 @@ def main_path(arch, prompts):
               f"{waves} prefill waves of {rec['prefill_ms_per_wave']:.1f} ms, "
               f"flash launches {n_launch}, peak "
               f"{rec['max_memory_allocated'] / 2**30:.2f} GiB", flush=True)
+        # serve() wraps the engine's methods in closures that refer back to
+        # it: a reference cycle, freed only by the cyclic collector
         del eng
+        gc.collect()
         torch.cuda.empty_cache()
     assert runs["paged"][0] == runs["contiguous"][0], \
         "paged greedy outputs differ from the contiguous engine's"
     print("[main] paged greedy outputs equal the contiguous engine's", flush=True)
     breakdown = decode_breakdown(model)
     return [rec for _, rec in runs.values()], launches, breakdown
+
+
+def profile_step(run):
+    """One more training step under ``torch.profiler``: the device time of
+    every kernel by name, and the device's busy share of the step's wall
+    time (busy = the union of kernel intervals on the timeline)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        rec = run()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.time_range.end > e.time_range.start]
+    if not kernels:
+        print("[profile] the profiler recorded no device activity: device "
+              "time and idle share not measured", flush=True)
+        return dict(step_ms=rec["step_ms"], device_busy_ms=None)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo, hi = busy + hi - lo, a, b
+        else:
+            hi = max(hi, b)
+    busy = (busy + hi - lo) / 1e3                         # us -> ms
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end
+                                                      - e.time_range.start) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    print(f"[profile] one dpsgd_r fused+kernels step under torch.profiler: "
+          f"{rec['step_ms']:.1f} ms wall, device busy {busy:.1f} ms "
+          f"({100 * busy / rec['step_ms']:.1f}%), {len(kernels)} kernel "
+          f"launches", flush=True)
+    for nm, ms in top:
+        print(f"[profile]   {ms:9.2f} ms  {nm[:100]}", flush=True)
+    return dict(step_ms=rec["step_ms"], device_busy_ms=busy,
+                n_kernels=len(kernels), top_ms=top)
+
+
+def train_main_path():
+    """The training path (see the module docstring, phase 6)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import (DPConfig, OptimConfig, ShapeConfig,
+                                          TrainConfig)
+    from repro_torch.core import algo, clipping
+    from repro_torch.models.transformer import Model
+    from repro_torch.train import Trainer
+    arch = dataclasses.replace(get_arch("phi3-mini-3.8b"), n_layers=TRAIN_LAYERS)
+    shape = ShapeConfig("chip_smoke", TRAIN_T, TRAIN_B, "train")
+    cfg = TrainConfig(arch=arch.name, steps=1 + TRAIN_STEPS, log_every=1,
+                      dp=DPConfig(algo="dpsgd_r", norm_strategy="fused",
+                                  use_kernels=True, clip_norm=1.0,
+                                  noise_multiplier=1.0, delta=1e-5),
+                      optim=OptimConfig(name="adamw", lr=1e-4,
+                                        schedule="constant"))
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model = Model(arch, dtype=torch.bfloat16, device="cuda", seed=0)
+    trainer = Trainer(model, cfg, shape)
+    state = trainer.init_state()
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in model.parameters())
+    print(f"[train] {arch.name} at full width, {arch.n_layers} layers: "
+          f"{n_par / 1e9:.3f}B params bf16 + AdamW f32 state, init "
+          f"{time.perf_counter() - t:.1f} s; batch {TRAIN_B} x {TRAIN_T}",
+          flush=True)
+
+    def step(tr):
+        """One Trainer step, synced at both ends."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.run(state, state.step + 1)
+        torch.cuda.synchronize()
+        return dict(step_ms=1e3 * (time.perf_counter() - t0),
+                    loss=tr.history[-1]["loss"])
+
+    def split(dp, batch):
+        """The two passes of one dpsgd_r step on ``batch``, called directly
+        and synced at each end: (norms², pass 1 ms, pass 2 ms)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nsq, _ = algo.norm_pass(model.loss_fn, state.params, batch, dp)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads = algo.reweighted_grads(model.loss_fn, state.params, batch,
+                                      clipping.clip_factors(nsq, dp.clip_norm))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        del grads
+        return nsq, 1e3 * (t1 - t0), 1e3 * (t2 - t1)
+
+    step(trainer)                              # warm-up (allocator, cuBLAS)
+    steps, per_step = [], []
+    for _ in range(TRAIN_STEPS):
+        batch = trainer.make_batch(state.step)
+        zero_counts()
+        rec = step(trainer)
+        counts = read_counts()
+        assert all(n > 0 for n in counts.values()), counts
+        # the split, outside the counted step: the same passes on its batch
+        _, rec["pass1_ms"], rec["pass2_ms"] = split(cfg.dp, batch)
+        rec["noise_opt_ms"] = rec["step_ms"] - rec["pass1_ms"] - rec["pass2_ms"]
+        rec["launches"] = counts
+        steps.append(rec)
+        per_step.append(counts)
+        print(f"[train] dpsgd_r fused+kernels step {state.step - 1}: loss "
+              f"{rec['loss']:.4f}; {rec['step_ms']:.1f} ms = pass 1 "
+              f"{rec['pass1_ms']:.1f} + pass 2 {rec['pass2_ms']:.1f} + noise "
+              f"and optimizer {rec['noise_opt_ms']:.1f}; launches {counts}",
+              flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    eps = trainer.accountant.epsilon_at(state.step)
+    losses = [r["loss"] for r in steps]
+    assert all(math.isfinite(x) for x in losses), losses
+    print(f"[train] peak memory {peak / 2**30:.2f} GiB; after {state.step} "
+          f"steps eps = {eps:.4f} (delta {cfg.dp.delta}, q "
+          f"{trainer.sample_rate:.1e}, sigma {cfg.dp.noise_multiplier})",
+          flush=True)
+
+    prof = profile_step(lambda: step(trainer))
+
+    # the next step's norms² through the kernels and through the plain norm
+    # rules on the card, same params and batch; then that step, plain
+    batch = trainer.make_batch(state.step)
+    plain_dp = dataclasses.replace(cfg.dp, use_kernels=False)
+    nsq_k, _, _ = split(cfg.dp, batch)
+    nsq_p, p1, p2 = split(plain_dp, batch)
+    plain = Trainer(model, dataclasses.replace(cfg, dp=plain_dp), shape)
+    plain_rec = dict(step(plain), pass1_ms=p1, pass2_ms=p2)
+    nsq_err = ((nsq_k - nsq_p).abs() / nsq_p.abs()).max().item()
+    assert nsq_err <= NSQ_RTOL, nsq_err
+    print(f"[train] plain norm rules on the card: step {plain_rec['step_ms']:.1f}"
+          f" ms (pass 1 {p1:.1f}); per-example norms² vs the kernel route: max "
+          f"rel err {nsq_err:.2e} (limit {NSQ_RTOL}); kernel-route norms "
+          f"{nsq_k.sqrt().tolist()}", flush=True)
+
+    sgd = Trainer(model, dataclasses.replace(
+        cfg, dp=dataclasses.replace(cfg.dp, algo="sgd")), shape)
+    sgd_rec = step(sgd)
+    assert math.isfinite(sgd_rec["loss"]), sgd_rec
+    dp_ms = float(np.mean([r["step_ms"] for r in steps]))
+    ratio = dp_ms / sgd_rec["step_ms"]
+    print(f"[train] sgd step {sgd_rec['step_ms']:.1f} ms; DP-SGD(R) / SGD "
+          f"step time {ratio:.2f}x", flush=True)
+    launches = {k: sum(c[k] for c in per_step) for k in per_step[0]}
+    return dict(arch=arch.name, n_layers=arch.n_layers, params=n_par,
+                batch=TRAIN_B, seq=TRAIN_T, steps=steps, peak_bytes=peak,
+                epsilon=eps, plain=plain_rec, nsq_rel_err=nsq_err, sgd=sgd_rec,
+                dp_over_sgd=ratio, launches=launches, profile=prof)
 
 
 def main() -> int:
@@ -297,7 +731,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[build] {src}: {line.strip()}")
 
-    # 3. kernels vs plain, at the shapes of the main path and the issue's
+    # 3. kernels vs plain, at the shapes of both paths and a few others
     arch = get_arch("phi3-mini-3.8b")
     prompts = request_stream(arch.vocab)
     # the first prefill wave's padded length (engine: round up to 16)
@@ -310,28 +744,100 @@ def main() -> int:
     for shp in shapes:
         for dtype in (torch.float32, torch.bfloat16):
             kernel_recs.append(check_flash(*shp, dtype))
+    d, f, v = arch.d_model, arch.d_ff, 32256          # the padded vocab
+    L = TRAIN_LAYERS
+    # (name, di, do, calls per training step): q, k, v, o; w1, w3; w2; head
+    dense_mix = [("qkvo", d, d, 4 * L), ("w1w3", d, f, 2 * L),
+                 ("w2", f, d, L), ("head", d, v, 1)]
+    n_tok = TRAIN_B * TRAIN_T
+    dense_recs, bwd_recs, gram_recs = [], [], []
+    for dtype in (torch.float32, torch.bfloat16):
+        for nm, di, do, _ in dense_mix:
+            dense_recs.append(check_dense_bwd_norm(nm, TRAIN_B, TRAIN_T, di, do, 1,
+                                                   dtype, iters=5 if nm == "head" else 10))
+        dense_recs.append(check_dense_bwd_norm("grouped-E4", 8, 300, 1024, 768, 4, dtype))
+        dense_recs.append(check_dense_bwd_norm("ragged", 3, 333, 1000, 517, 1, dtype))
+        check_norm_contracts(dtype)
+        for shp in (("phi3-train", TRAIN_B * arch.n_heads, TRAIN_B * arch.n_kv_heads,
+                     TRAIN_T, arch.hd, True),
+                    ("starcoder2-gqa", 36, 4, 777, 128, True),
+                    ("starcoder2-gqa-full", 36, 4, 333, 128, False)):
+            bwd_recs.append(check_flash_bwd(*shp, dtype))
+        gram_recs.append(check_gram("embed", TRAIN_B, TRAIN_T, d, True, False, dtype))
+        gram_recs.append(check_gram("square", TRAIN_B, TRAIN_T, d, False, True, dtype))
 
-    # 4. small reference
+    # 4. small references
     small_reference("cuda")
+    train_reference()
 
-    # 5. main path
+    # 5. the serving path
+    print(f"[main] allocated before the serving path: "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB", flush=True)
     runs, launches, breakdown = main_path(arch, prompts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[train] allocated before the training path: "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB", flush=True)
 
-    main_rec = next(r for r in kernel_recs
-                    if r["shape"] == "phi3-wave" and r["dtype"] == "bfloat16")
-    kernels = {"kernels": [{
-        "name": "flash_attn_fwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attn_fwd.cu",
-        "replaces": "src/repro/kernels/flash_attn.py:77",
-        "launches": launches, "max_abs_err": main_rec["max_abs_err"],
-        "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
-        "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
-        "library_ms": main_rec["library_ms"]}]}
+    # 6. the training path
+    train = train_main_path()
+    n_steps = len(train["steps"])
+    want = {"dense_bwd_norm": 7 * L + 1, "flash_attn_bwd": 2 * L,
+            "gram_norm": 1, "flash_attn_fwd": 3 * L}
+    for k, n in want.items():
+        assert train["launches"][k] == n * n_steps, (k, train["launches"][k], n)
+
+    def pick(recs, shape):
+        return next(r for r in recs if r["shape"] == shape and r["dtype"] == "bfloat16")
+
+    # dense_bwd_norm: the sum over one training step's calls (dense_mix)
+    per_call = {nm: pick(dense_recs, nm) for nm, *_ in dense_mix}
+    step_sum = {k: sum(n * per_call[nm][k] for nm, _, _, n in dense_mix)
+                for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    # a sum of bounds is the bound of the sum when every call has one roof
+    (dense_bound_by,) = {r["bound_by"] for r in per_call.values()}
+    flash_rec = pick(kernel_recs, "phi3-wave")
+    bwd_rec, gram_rec = pick(bwd_recs, "phi3-train"), pick(gram_recs, "embed")
+
+    def entry(name, source, replaces, n, rec, **extra):
+        out = {"name": name, "route": "cuda",
+               "source": f"src/repro_torch/kernels/csrc/{source}",
+               "replaces": replaces, "launches": n,
+               "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+               "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+               "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
+        out.update(extra)
+        return out
+
+    kernels = {"kernels": [
+        entry("flash_attn_fwd", "flash_attn_fwd.cu",
+              "src/repro/kernels/flash_attn.py:77",
+              launches + train["launches"]["flash_attn_fwd"], flash_rec,
+              shape="serving wave, bf16"),
+        entry("dense_bwd_norm", "dense_bwd_norm.cu",
+              "src/repro/kernels/fused_bwd.py:114",
+              train["launches"]["dense_bwd_norm"],
+              dict(step_sum, max_abs_err=max(per_call[nm]["max_abs_err"]
+                                             for nm in per_call),
+                   bound_by=dense_bound_by),
+              shape="sum over one training step's calls, bf16: "
+                    + " + ".join(f"{n} x ({di},{do})" for _, di, do, n in dense_mix)),
+        entry("flash_attn_bwd", "flash_attn_bwd.cu",
+              "src/repro/kernels/flash_attn.py:210",
+              train["launches"]["flash_attn_bwd"], bwd_rec,
+              shape=f"({bwd_rec['BH']}, {TRAIN_T}, {arch.hd}) causal, bf16"),
+        entry("gram_norm", "gram_norm.cu", "src/repro/kernels/gram_norm.py:66",
+              train["launches"]["gram_norm"], gram_rec,
+              shape=f"embedding rule ({TRAIN_B}, {TRAIN_T}, {d}) masked, bf16"),
+    ]}
+    assert all(k["bound_by"] in ("bytes", "operations") for k in kernels["kernels"])
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        {"device": name, "nvidia_smi": smi, "kernels": kernel_recs,
-         "main": runs, "decode_breakdown_ms": breakdown}, indent=1))
+        {"device": name, "nvidia_smi": smi, "flash_fwd": kernel_recs,
+         "dense_bwd_norm": dense_recs, "flash_attn_bwd": bwd_recs,
+         "gram_norm": gram_recs, "serve": runs, "decode_breakdown_ms": breakdown,
+         "train": train, "json_line": kernels}, indent=1))
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

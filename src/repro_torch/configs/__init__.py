@@ -1,11 +1,14 @@
-"""Architecture registry of the port: ``get_arch(id)``, ``list_archs()``,
-``reduced(arch)`` for the dense decoder family."""
+"""Config registry of the port: ``get_arch(id)``, ``list_archs()``,
+``reduced(arch)`` for the dense decoder family, the input ``SHAPES`` and the
+``--set`` override helpers."""
 from __future__ import annotations
 
 from dataclasses import replace
 from typing import Dict, List
 
-from repro_torch.configs.base import ATTN, MAMBA, ArchConfig
+from repro_torch.configs.base import (ATTN, MAMBA, SHAPES, ArchConfig,
+                                      ShapeConfig, TrainConfig,
+                                      apply_overrides, parse_set_args)
 from repro_torch.configs.chatglm3_6b import ARCH as _chatglm3
 from repro_torch.configs.phi3_mini_3_8b import ARCH as _phi3
 from repro_torch.configs.stablelm_3b import ARCH as _stablelm
@@ -49,5 +52,6 @@ def reduced(arch: ArchConfig) -> ArchConfig:
     )
 
 
-__all__ = ["ARCHS", "ATTN", "MAMBA", "ArchConfig", "get_arch", "list_archs",
-           "reduced"]
+__all__ = ["ARCHS", "ATTN", "MAMBA", "SHAPES", "ArchConfig", "ShapeConfig",
+           "TrainConfig", "apply_overrides", "get_arch", "list_archs",
+           "parse_set_args", "reduced"]

@@ -1,10 +1,24 @@
-"""Architecture config: the port's own copy of ``repro.configs.base``'s
-``ArchConfig``, limited to the fields the serving path reads (and the MoE
-layer placement, so a layer pattern reads the same as there)."""
+"""Configs: the port's own copy of ``repro.configs.base``.
+
+``ArchConfig`` is limited to the fields the dense decoder reads (and the MoE
+layer placement, so a layer pattern reads the same as there).  The shape,
+DP, optimizer and training configs keep the JAX package's field names, so
+``--set a.b=c`` overrides read the same in both packages, but only for what
+the port runs.  The fields of parts it has not taken over (checkpoints,
+pipeline stages, the device mesh and sharding, gradient compression, the
+memory planner, the launch autotuner, the straggler watchdog, adaptive
+clipping's parameters, vanilla DP-SGD's microbatch, adam8bit's block) are
+left out, and ``--set`` on one of them raises ``NotImplementedError``
+(``NOT_PORTED``).  ``remat`` defaults to ``"none"``, the only policy the
+port runs.  The ``Trainer`` holds the model's dtype to ``param_dtype`` and
+``compute_dtype``, which must be equal.
+"""
 from __future__ import annotations
 
-from dataclasses import dataclass, field
-from typing import Optional, Tuple
+import dataclasses
+import typing
+from dataclasses import dataclass, field, replace
+from typing import Any, Dict, Optional, Tuple
 
 # Layer kinds used in ``layer_pattern``.
 ATTN = "attn"
@@ -70,3 +84,219 @@ class ArchConfig:
 
     def ff_dense(self) -> int:
         return self.moe.d_ff_dense or self.d_ff
+
+
+# ---------------------------------------------------------------------------
+# Input shapes: train / prefill / decode / long-context decode
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                      # "train" | "prefill" | "decode"
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+# ---------------------------------------------------------------------------
+# Mesh / DP / optim / train configs
+# ---------------------------------------------------------------------------
+
+# "none" stores every activation for the backward; "block" and "sites"
+# checkpoint in the JAX package and are not ported
+REMAT_POLICIES: Tuple[str, ...] = ("none", "block", "sites")
+
+# --set keys of the JAX package's configs that the port leaves out: the key
+# (or its first part) -> the feature, named in the error
+NOT_PORTED: Dict[str, str] = {
+    "ckpt_every": "checkpoints", "ckpt_dir": "checkpoints",
+    "ckpt_keep": "checkpoints", "ckpt_async": "checkpoints",
+    "pp_stages": "pipeline stages", "pp_microbatches": "pipeline stages",
+    "compress_pod_grads": "gradient compression",
+    "zero1": "sharded optimizer state", "mesh": "the device mesh",
+    "mem": "the memory planner", "tune": "the launch autotuner",
+    "watchdog_factor": "the straggler watchdog",
+    "dp.microbatch": "dp.algo='dpsgd'",
+    "dp.clip_quantile": "adaptive clipping",
+    "dp.clip_lr": "adaptive clipping",
+    "dp.clip_count_noise": "adaptive clipping",
+    "optim.block_size": "optimizer 'adam8bit'",
+}
+
+
+@dataclass(frozen=True)
+class DPConfig:
+    """DP-SGD configuration, as in the JAX package (its docstring is the
+    reference).  In the port:
+
+    ``algo``: ``"sgd"`` (non-private mean-loss gradient) or ``"dpsgd_r"``
+    (reweighted DP-SGD(R): a per-example norm pass through the ``DPContext``
+    side-channel, then backprop of the clip-reweighted loss).  ``"dpsgd"``
+    and ``"dpsgd_r1f"`` raise (ROADMAP).
+
+    ``norm_strategy``: per-site norm rule, resolved against each site's
+    registered rules (``core/sites.py``): ``"materialize"``, ``"gram"``,
+    ``"fused"`` (the activation gradient and the norm² in one backward
+    sweep: the DiVa dataflow) or ``"auto"`` (cheapest by each site's FLOP
+    formulas; never ``"fused"``).
+
+    ``use_kernels``: take each site's kernel route (``dense_bwd_norm``,
+    ``gram_norm``, the flash backward) instead of the plain PyTorch rules.
+    On a CPU tensor every kernel wrapper runs its plain version.
+
+    ``sampling="poisson"``, ``augmult > 1`` and ``adaptive_clip`` raise
+    (ROADMAP).
+    """
+    enabled: bool = True
+    algo: str = "dpsgd_r"          # sgd | dpsgd | dpsgd_r | dpsgd_r1f
+    clip_norm: float = 1.0         # C
+    noise_multiplier: float = 1.0  # sigma
+    delta: float = 1e-5
+    sampling: str = "fixed"        # fixed | poisson
+    norm_strategy: str = "auto"    # auto | materialize | gram | fused
+    use_kernels: bool = False      # route norm rules through the kernels
+    augmult: int = 1               # K augmented views per example
+    adaptive_clip: bool = False    # quantile-adaptive C
+
+
+@dataclass(frozen=True)
+class OptimConfig:
+    name: str = "adamw"            # sgd | adamw | adam8bit
+    lr: float = 1e-3
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    schedule: str = "warmup_cosine"  # constant | warmup_cosine
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    momentum: float = 0.9
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Top-level training configuration.  ``seed`` keys the data stream,
+    init and the DP noise.  ``remat`` defaults to ``"none"`` here (the JAX
+    package's default is ``"block"``): the port has no activation
+    checkpointing yet, and raises on the other policies."""
+    arch: str = "phi3-mini-3.8b"
+    shape: str = "train_4k"
+    seed: int = 0
+    steps: int = 100
+    log_every: int = 10
+    remat: str = "none"            # none | block | sites (REMAT_POLICIES)
+    param_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"
+    grad_accum: int = 1
+    dp: DPConfig = field(default_factory=DPConfig)
+    optim: OptimConfig = field(default_factory=OptimConfig)
+    data_source: str = "synthetic"  # synthetic | memmap:<path>
+
+    def __post_init__(self):
+        if self.remat not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat policy {self.remat!r}; known "
+                             f"policies: {sorted(REMAT_POLICIES)}")
+        if self.remat != "none":
+            raise NotImplementedError(
+                f"remat={self.remat!r}: activation checkpointing is not "
+                f"ported yet (ROADMAP queue 1); the port runs remat='none'")
+
+
+# ---------------------------------------------------------------------------
+# --set a.b=c overrides
+# ---------------------------------------------------------------------------
+
+def _coerce(old: Any, s: str) -> Any:
+    if isinstance(old, bool):
+        return s.lower() in ("1", "true", "yes")
+    if isinstance(old, int):
+        return int(s)
+    if isinstance(old, float):
+        return float(s)
+    if isinstance(old, tuple):
+        parts = [p for p in s.strip("()").split(",") if p]
+        elt = old[0] if old else ""
+        return tuple(_coerce(elt, p.strip()) for p in parts)
+    return s
+
+
+def _coerce_to_type(tp: Any, s: str, key: str) -> Any:
+    """Coerce ``s`` via a declared field type (for fields now ``None``)."""
+    origin = typing.get_origin(tp)
+    if origin is typing.Union:
+        if s.lower() in ("none", "null"):
+            return None
+        for arg in typing.get_args(tp):
+            if arg is not type(None):
+                return _coerce_to_type(arg, s, key)
+    if origin is tuple:
+        args = typing.get_args(tp)
+        elt = args[0] if args else str
+        parts = [p for p in s.strip("()").split(",") if p]
+        return tuple(_coerce_to_type(elt, p.strip(), key) for p in parts)
+    if tp is bool:
+        return s.lower() in ("1", "true", "yes")
+    if tp in (int, float, str):
+        return tp(s)
+    raise ValueError(f"cannot coerce override {key}={s!r}: declared type "
+                     f"{tp!r} is not bool/int/float/str/tuple/Optional")
+
+
+def _field_type(cfg: Any, name: str) -> Any:
+    try:
+        return typing.get_type_hints(type(cfg))[name]
+    except (NameError, TypeError, KeyError):
+        return None
+
+
+def _is_optional(tp: Any) -> bool:
+    return (typing.get_origin(tp) is typing.Union
+            and type(None) in typing.get_args(tp))
+
+
+def apply_overrides(cfg: Any, overrides: Dict[str, str]) -> Any:
+    """Apply {'dp.clip_norm': '0.5', 'optim.lr': '3e-4'} style overrides to
+    a (possibly nested) frozen dataclass."""
+    for key, val in overrides.items():
+        feature = NOT_PORTED.get(key) or NOT_PORTED.get(key.split(".")[0])
+        if feature:
+            raise NotImplementedError(
+                f"--set {key}: {feature} is not ported yet (ROADMAP queue 1)")
+        cfg = _apply_one(cfg, key.split("."), val, key)
+    return cfg
+
+
+def _apply_one(cfg: Any, parts, val: str, key: str) -> Any:
+    name = parts[0]
+    if not dataclasses.is_dataclass(cfg) or not hasattr(cfg, name):
+        raise KeyError(f"unknown config key {key} on {type(cfg).__name__}")
+    cur = getattr(cfg, name)
+    if len(parts) == 1:
+        tp = _field_type(cfg, name)
+        if val.lower() in ("none", "null") and _is_optional(tp):
+            return replace(cfg, **{name: None})
+        if cur is None:
+            if tp is None:
+                raise ValueError(f"cannot coerce override {key}={val!r}: the "
+                                 f"field's declared type is unresolvable")
+            return replace(cfg, **{name: _coerce_to_type(tp, val, key)})
+        return replace(cfg, **{name: _coerce(cur, val)})
+    return replace(cfg, **{name: _apply_one(cur, parts[1:], val, key)})
+
+
+def parse_set_args(pairs) -> Dict[str, str]:
+    out = {}
+    for p in pairs or []:
+        k, sep, v = p.partition("=")
+        if not sep or not k:
+            raise ValueError(f"--set expects key=value, got {p!r}")
+        out[k] = v
+    return out

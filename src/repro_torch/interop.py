@@ -12,17 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-
-def _map(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_map(v, fn) for v in tree]
-    if isinstance(tree, tuple):
-        return tuple(_map(v, fn) for v in tree)
-    if tree is None:
-        return None
-    return fn(tree)
+from repro_torch.tree import tree_map
 
 
 def params_from_numpy(tree, device, dtype=None):
@@ -37,7 +27,7 @@ def params_from_numpy(tree, device, dtype=None):
         if dtype is not None and t.is_floating_point():
             t = t.to(dtype)
         return t.to(device)
-    return _map(tree, leaf)
+    return tree_map(leaf, tree)
 
 
 def params_to_numpy(tree):
@@ -47,4 +37,4 @@ def params_to_numpy(tree):
         if t.dtype == torch.bfloat16:
             t = t.float()
         return t.numpy()
-    return _map(tree, leaf)
+    return tree_map(leaf, tree)

@@ -1,10 +1,13 @@
-"""Flash attention forward: the CUDA kernel ``csrc/flash_attn_fwd.cu`` and
-its wrapper.  Counterpart of ``repro/kernels/flash_attn.py``
-``flash_attn_fwd`` (the Pallas TPU kernel).
+"""Flash attention: the CUDA kernels ``csrc/flash_attn_fwd.cu`` and
+``csrc/flash_attn_bwd.cu`` and their wrappers.  Counterpart of
+``repro/kernels/flash_attn.py`` ``flash_attn_fwd`` and ``flash_attn_bwd``
+(the Pallas TPU kernels).
 
-A CPU tensor takes the plain version (``ref.flash_attn_fwd_ref``); a CUDA
-tensor launches the kernel or raises.  ``LAUNCHES`` counts kernel launches
-(and nothing else), so a run can show that it went through the kernel.
+A CPU tensor takes the plain version (``ref.flash_attn_fwd_ref``,
+``ref.flash_attn_bwd_ref``); a CUDA tensor launches the kernel or raises.
+``LAUNCHES`` and ``BWD_LAUNCHES`` count wrapper calls that launched the
+forward and the backward kernels (and nothing else), so a run can show
+that it went through them.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import torch
 from repro_torch.kernels import build, ref
 
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 MAX_HD = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -23,6 +27,14 @@ def _kernel():
     fn = build.load("flash_attn_fwd").repro_flash_attn_fwd
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                    + [ctypes.c_void_p])       # q k v o lse, ints, stream
+    fn.restype = ctypes.c_int                 # cudaError_t
+    return fn
+
+
+def _bwd_kernel():
+    fn = build.load("flash_attn_bwd").repro_flash_attn_bwd
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p])       # q k v do lse delta dq dk dv, ints, stream
     fn.restype = ctypes.c_int                 # cudaError_t
     return fn
 
@@ -73,3 +85,56 @@ def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            f"cudaError_t {err}")
     LAUNCHES += 1
     return o, lse
+
+
+def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
+                   causal: bool = True, rep: int = 1):
+    """q/o/do: (BH, T, hd); k/v: (BH // rep, S, hd); lse: (BH, T) float32
+    from ``flash_attn_fwd``.  Returns float32 (dq (BH,T,hd), dk, dv
+    (BH//rep,S,hd)).  As in the JAX package, ``delta = Σ do∘o`` is computed
+    before the kernels and the GQA rep-sum of the per-query-head dk/dv
+    after them."""
+    global BWD_LAUNCHES
+    _check(q, k, v, rep)
+    BH, T, hd = q.shape
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != (BH, T):
+        raise ValueError(f"flash_attn_bwd: o {tuple(o.shape)}, do "
+                         f"{tuple(do.shape)}, lse {tuple(lse.shape)} do not "
+                         f"fit q {tuple(q.shape)}")
+    if not (o.dtype == do.dtype == q.dtype) or lse.dtype != torch.float32:
+        raise TypeError(f"flash_attn_bwd: dtypes o {o.dtype}, do {do.dtype}, "
+                        f"lse {lse.dtype} (want q's, q's, float32)")
+    if not (q.device == o.device == do.device == lse.device):
+        raise ValueError("flash_attn_bwd: inputs on different devices")
+    if q.device.type == "cpu":
+        return ref.flash_attn_bwd_ref(q, k, v, o, lse, do, causal, rep)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attn_bwd: unsupported device {q.device}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"flash_attn_bwd: kernel takes float32 or bfloat16, "
+                        f"got {q.dtype}")
+    if hd > MAX_HD:
+        raise ValueError(f"flash_attn_bwd: head dim {hd} > {MAX_HD}")
+    if not all(t.is_contiguous() for t in (q, k, v, o, lse, do)):
+        raise ValueError("flash_attn_bwd: inputs must be contiguous")
+    S = k.shape[1]
+    kernel = _bwd_kernel()
+    with torch.cuda.device(q.device):
+        delta = (do.float() * o.float()).sum(dim=-1)
+        dq = torch.empty((BH, T, hd), dtype=torch.float32, device=q.device)
+        dkh = torch.empty((BH, S, hd), dtype=torch.float32, device=q.device)
+        dvh = torch.empty((BH, S, hd), dtype=torch.float32, device=q.device)
+        err = kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                     lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                     dkh.data_ptr(), dvh.data_ptr(), BH, T, S, hd, rep,
+                     int(causal), _DTYPES[q.dtype],
+                     torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attn_bwd: CUDA launch failed with "
+                           f"cudaError_t {err}")
+    BWD_LAUNCHES += 1
+    if rep > 1:
+        dkh = dkh.reshape(BH // rep, rep, S, hd).sum(dim=1)
+        dvh = dvh.reshape(BH // rep, rep, S, hd).sum(dim=1)
+    return dq, dkh, dvh

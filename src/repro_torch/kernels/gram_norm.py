@@ -1,0 +1,82 @@
+"""Ghost-norm (Gram) reduction: the CUDA kernel ``csrc/gram_norm.cu`` and its
+wrapper.  Counterpart of ``repro/kernels/gram_norm.py`` ``gram_norm`` (the
+Pallas TPU kernel).
+
+A CPU tensor takes the plain version (``ref.gram_norm_ref``); a CUDA tensor
+launches the kernel or raises.  ``LAUNCHES`` counts wrapper calls that
+launched the kernel (and nothing else).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+LAUNCHES = 0
+TILE = 64             # the kernel's (t, s) Gram tile
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _kernel():
+    fn = build.load("gram_norm").repro_gram_norm
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p])       # x gy ids part, ints, stream
+    fn.restype = ctypes.c_int                 # cudaError_t
+    return fn
+
+
+def _check(x, gy, mask_ids):
+    if x.dim() != 3 or gy.dim() != 3 or x.shape[:2] != gy.shape[:2] \
+            or min(x.shape) < 1 or gy.shape[2] < 1:
+        raise ValueError(f"gram_norm: want x (BG,T,di), gy (BG,T,do); got "
+                         f"{tuple(x.shape)}, {tuple(gy.shape)}")
+    if x.dtype != gy.dtype:
+        raise TypeError(f"gram_norm: mixed dtypes {x.dtype}, {gy.dtype}")
+    if x.device != gy.device:
+        raise ValueError("gram_norm: x, gy on different devices")
+    if mask_ids is not None:
+        if mask_ids.shape != x.shape[:2]:
+            raise ValueError(f"gram_norm: ids {tuple(mask_ids.shape)} do not "
+                             f"match rows {tuple(x.shape[:2])}")
+        if mask_ids.device != x.device or mask_ids.is_floating_point():
+            raise ValueError("gram_norm: ids must be integers on x's device")
+
+
+def gram_norm(x: torch.Tensor, gy: torch.Tensor,
+              mask_ids: torch.Tensor | None = None,
+              square: bool = True) -> torch.Tensor:
+    """x: (BG, T, di), gy: (BG, T, do) -> (BG,) float32
+    ``Σ_{t,s} (x_t·x_s)(gy_t·gy_s)``; ``square=False`` drops the x Gram
+    (``Σ gy_t·gy_s``, the embedding rule; x is then not read); with
+    ``mask_ids`` (BG, T) only pairs with equal ids contribute."""
+    global LAUNCHES
+    _check(x, gy, mask_ids)
+    if x.device.type == "cpu":
+        return ref.gram_norm_ref(x, gy, mask_ids, square)
+    if x.device.type != "cuda":
+        raise ValueError(f"gram_norm: unsupported device {x.device}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"gram_norm: kernel takes float32 or bfloat16, got "
+                        f"{x.dtype}")
+    if not (x.is_contiguous() and gy.is_contiguous()):
+        raise ValueError("gram_norm: x, gy must be contiguous")
+    BG, T, di = x.shape
+    if BG > 65535:
+        raise ValueError(f"gram_norm: {BG} rows > 65535 (grid y)")
+    ids = None if mask_ids is None else mask_ids.to(torch.int32).contiguous()
+    kernel = _kernel()
+    n_t = -(-T // TILE)
+    with torch.cuda.device(x.device):
+        part = torch.empty((BG, n_t * (n_t + 1) // 2), dtype=torch.float32,
+                           device=x.device)
+        err = kernel(x.data_ptr(), gy.data_ptr(),
+                     None if ids is None else ids.data_ptr(), part.data_ptr(),
+                     BG, T, di, gy.shape[2], int(ids is not None), int(square),
+                     _DTYPES[x.dtype], torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"gram_norm: CUDA launch failed with cudaError_t {err}")
+    LAUNCHES += 1
+    # partials of a row summed in a fixed order (no atomics): deterministic
+    return part.sum(dim=1)

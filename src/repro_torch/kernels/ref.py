@@ -47,3 +47,66 @@ def flash_attn_fwd_ref(q, k, v, causal: bool = True, rep: int = 1):
     o = torch.matmul(p.to(v.dtype).float(), vv.float()) / l
     lse = (m + torch.log(l))[..., 0]
     return o.to(q.dtype), lse
+
+
+def flash_attn_bwd_ref(q, k, v, o, lse, do, causal: bool = True,
+                       rep: int = 1):
+    """The flash backward kernels' function in their flattened layout:
+    (dq, dk, dv) float32 from the saved row logsumexp, with the kernels'
+    conventions (``repro/kernels/flash_attn.py`` ``_p_ds``): masked logits
+    -1e30, ``p = exp(s - lse)``, ``delta = Σ do∘o``,
+    ``ds = p∘(do·vᵀ - delta)/sqrt(hd)``; dk/dv summed over the rep query
+    heads of each kv head.  q/o/do: (BH, T, hd); k/v: (BH//rep, S, hd)."""
+    BH, T, hd = q.shape
+    S = k.shape[1]
+    scale = 1.0 / math.sqrt(hd)
+    kf = k.float().repeat_interleave(rep, dim=0)
+    vf = v.float().repeat_interleave(rep, dim=0)
+    qf, dof = q.float(), do.float()
+    s = torch.matmul(qf, kf.transpose(1, 2)) * scale
+    if causal:
+        mask = (torch.arange(S, device=q.device)[None, :]
+                <= torch.arange(T, device=q.device)[:, None])
+        s = torch.where(mask, s, NEG)
+    p = torch.exp(s - lse.float()[..., None])
+    delta = (dof * o.float()).sum(dim=-1, keepdim=True)
+    ds = p * (torch.matmul(dof, vf.transpose(1, 2)) - delta) * scale
+    dq = torch.matmul(ds, kf)
+    dk = torch.matmul(ds.transpose(1, 2), qf)
+    dv = torch.matmul(p.transpose(1, 2), dof)
+    if rep > 1:
+        dk = dk.reshape(BH // rep, rep, S, hd).sum(dim=1)
+        dv = dv.reshape(BH // rep, rep, S, hd).sum(dim=1)
+    return dq, dk, dv
+
+
+def pegrad_norm_ref(x, gy):
+    """x: (BG, T, di), gy: (BG, T, do) -> (BG,) ‖x_bᵀ gy_b‖²_F, float32."""
+    g = torch.matmul(x.float().transpose(1, 2), gy.float())
+    return (g * g).sum(dim=(1, 2))
+
+
+def dense_bwd_norm_ref(x, gy, w):
+    """The fused dense backward kernel's function: x (BG, T, di), gy
+    (BG, T, do), w (E, di, do) with row b using group ``b % E`` ->
+    (gx (BG, T, di) in x's dtype, nsq (BG,) float32), both computed in
+    float32 (``repro/kernels/ref.py`` ``dense_bwd_ref``)."""
+    E = w.shape[0]
+    wb = w.float()[torch.arange(x.shape[0], device=w.device) % E]
+    gx = torch.matmul(gy.float(), wb.transpose(1, 2))
+    return gx.to(x.dtype), pegrad_norm_ref(x, gy)
+
+
+def gram_norm_ref(x, gy, mask_ids=None, square: bool = True):
+    """x: (BG, T, di), gy: (BG, T, do) -> (BG,) float32
+    Σ_{t,s} (x_t·x_s)(gy_t·gy_s); ``square=False`` drops the x Gram; with
+    ``mask_ids`` (BG, T) only pairs with equal ids contribute."""
+    gf = gy.float()
+    prod = torch.matmul(gf, gf.transpose(1, 2))
+    if square:
+        xf = x.float()
+        prod = prod * torch.matmul(xf, xf.transpose(1, 2))
+    if mask_ids is not None:
+        prod = torch.where(mask_ids[:, :, None] == mask_ids[:, None, :], prod,
+                           torch.zeros((), dtype=prod.dtype, device=prod.device))
+    return prod.sum(dim=(1, 2))

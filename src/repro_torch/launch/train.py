@@ -1,0 +1,81 @@
+"""Training launcher of the port: one process, one device.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch phi3-mini-3.8b \
+        --reduced --steps 3 --device cpu --dtype float32 \
+        --set dp.norm_strategy=fused --set dp.use_kernels=true
+
+The JAX launcher's flags ``--arch``, ``--reduced``, ``--steps``, ``--batch``,
+``--seq`` and ``--set`` (``--set shape=...`` picks the input shape), plus
+``--device`` (default ``cuda``) and ``--dtype`` as in ``launch/serve.py``.
+``--dtype`` sets ``param_dtype`` and ``compute_dtype`` before the ``--set``
+overrides (default: the config's, ``bfloat16``).  Weights are a seeded
+random init; there are no checkpoints.
+"""
+from __future__ import annotations
+
+import argparse
+from dataclasses import replace
+
+import torch
+
+from repro_torch.configs import (SHAPES, ShapeConfig, TrainConfig,
+                                 apply_overrides, get_arch, parse_set_args,
+                                 reduced)
+from repro_torch.models.transformer import Model
+from repro_torch.train import Trainer
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true",
+                    help="tiny same-family config (CPU smoke scale)")
+    ap.add_argument("--steps", type=int, default=None)
+    ap.add_argument("--batch", type=int, default=None)
+    ap.add_argument("--seq", type=int, default=None)
+    ap.add_argument("--set", action="append", default=[],
+                    help="config overrides, e.g. --set dp.clip_norm=0.5")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--dtype", choices=sorted(DTYPES), default=None)
+    args = ap.parse_args(argv)
+
+    cfg = TrainConfig()
+    if args.dtype:
+        cfg = replace(cfg, param_dtype=args.dtype, compute_dtype=args.dtype)
+    cfg = apply_overrides(cfg, parse_set_args(args.set))
+    if cfg.param_dtype not in DTYPES:
+        raise ValueError(f"param_dtype={cfg.param_dtype!r}; the launcher "
+                         f"takes {sorted(DTYPES)}")
+    if args.steps is not None:
+        cfg = replace(cfg, steps=args.steps,
+                      optim=replace(cfg.optim, total_steps=args.steps))
+    arch = get_arch(args.arch)
+    if args.reduced:
+        arch = reduced(arch)
+    shape = SHAPES[cfg.shape]
+    if args.batch or args.seq or args.reduced:
+        shape = ShapeConfig(shape.name,
+                            args.seq or (64 if args.reduced else shape.seq_len),
+                            args.batch or (8 if args.reduced else
+                                           shape.global_batch),
+                            shape.kind)
+    cfg = replace(cfg, arch=arch.name)
+
+    model = Model(arch, dtype=DTYPES[cfg.param_dtype], device=args.device,
+                  seed=cfg.seed)
+    trainer = Trainer(model, cfg, shape)
+    print(f"[train] {arch.name}: {sum(p.numel() for p in model.parameters())} "
+          f"params {cfg.param_dtype} on {model.device}; batch {shape.global_batch} "
+          f"x {shape.seq_len}; dp {cfg.dp.algo} norm_strategy="
+          f"{cfg.dp.norm_strategy} use_kernels={cfg.dp.use_kernels}",
+          flush=True)
+    state = trainer.run(trainer.init_state())
+    eps = trainer.accountant.epsilon_at(state.step)
+    print(f"[train] finished at step {state.step}; privacy spent: "
+          f"eps={eps:.3f} (delta={cfg.dp.delta}, q={trainer.sample_rate:.2e})")
+
+
+if __name__ == "__main__":
+    main()

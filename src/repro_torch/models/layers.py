@@ -1,12 +1,13 @@
 """Core layers of the dense decoder: RMSNorm, RoPE (full/partial), GQA
-attention (prefill through the flash kernel, cached decode, paged decode)
-and MLPs.  Counterpart of ``repro/models/layers.py``.
+attention (training and prefill through the flash kernels, cached decode,
+paged decode) and MLPs.  Counterpart of ``repro/models/layers.py``.
 
 Conventions as there: activations (B, T, d); attention heads (B, T, H, hd);
 softmax and normalisation math in float32, outputs cast back to the compute
-dtype; every dense is ``x @ w`` with ``w`` of shape (d_in, d_out) (the JAX
-package's ``DPContext.dense`` in ``off`` mode).  The DP context itself
-belongs to the training slice and is not ported here.
+dtype; every dense is ``x @ w`` with ``w`` of shape (d_in, d_out).  The
+training and prefill functions take a ``DPContext`` and route every
+parameterised op through it (``DPContext.off()`` is the plain op); the
+decode paths use plain matmuls.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.context import DPContext
 from repro_torch.kernels import ops as kops
 
 NEG = -1e30
@@ -33,11 +35,17 @@ class P:
 # Norms and RoPE
 # ---------------------------------------------------------------------------
 
-def rmsnorm(x, scale, eps: float = 1e-5):
-    """RMSNorm over the last dim of x (any rank); scale: (d,)."""
+def _rms(x, scale, eps: float):
     xf = x.float()
     y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
     return (y * scale.float()).to(x.dtype)
+
+
+def rmsnorm(x, scale, ctx: DPContext, eps: float = 1e-5):
+    """RMSNorm over the last dim of x (batch dim 0, any rank); scale: (d,)
+    is tapped for per-example norms.  Returns (y, ctx)."""
+    s, ctx = ctx.tap(scale, x.dim() - 1 - scale.dim(), x.shape[0])
+    return _rms(x, s, eps), ctx
 
 
 def rope(x, pos, theta: float, pct: float):
@@ -77,30 +85,43 @@ def attn_spec(cfg) -> dict:
     return spec
 
 
-def _qkv(p, x, pos, cfg):
-    """Projections, optional qk-norm and rotary: q (B,T,H,hd), k/v (B,T,KV,hd)."""
+def _qkv(p, x, pos, cfg, ctx: DPContext):
+    """Projections, optional qk-norm and rotary: q (B,T,H,hd), k/v
+    (B,T,KV,hd), and the context."""
     B, T, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (x @ p["wq"]).reshape(B, T, H, hd)
-    k = (x @ p["wk"]).reshape(B, T, KV, hd)
-    v = (x @ p["wv"]).reshape(B, T, KV, hd)
+    q, ctx = ctx.dense(x, p["wq"])
+    k, ctx = ctx.dense(x, p["wk"])
+    v, ctx = ctx.dense(x, p["wv"])
+    q = q.reshape(B, T, H, hd)
+    k = k.reshape(B, T, KV, hd)
+    v = v.reshape(B, T, KV, hd)
     if cfg.qk_norm:
-        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
-        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+        q, ctx = rmsnorm(q, p["q_norm"], ctx, cfg.norm_eps)
+        k, ctx = rmsnorm(k, p["k_norm"], ctx, cfg.norm_eps)
     if cfg.rotary_pct > 0:
         q = rope(q, pos, cfg.rope_theta, cfg.rotary_pct)
         k = rope(k, pos, cfg.rope_theta, cfg.rotary_pct)
-    return q, k, v
+    return q, k, v, ctx
 
 
-def attn_apply(p, x, cfg, pos):
-    """Prefill attention through the flash kernel (its plain version for a
-    CPU tensor). x: (B,T,d); pos: (B,T).  Returns (y, (k, v))."""
+def attn_apply(p, x, ctx: DPContext, cfg, pos):
+    """Training/prefill attention. x: (B,T,d); pos: (B,T).  Returns
+    (y, ctx, (k, v)).  Under the fused norm pass (``ctx.mode == "norm"``
+    and ``ctx.strategy == "fused"``) attention goes through its registry
+    site, whose backward is the flash backward kernels (``use_kernels``);
+    otherwise through ``ops.flash_attention`` (forward kernel, and the
+    backward kernels when a gradient is needed)."""
     B, T, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q, k, v = _qkv(p, x, pos, cfg)
-    o = kops.flash_attention(q.reshape(B, T, KV, H // KV, hd), k, v, True)
-    return o.reshape(B, T, H * hd) @ p["wo"], (k, v)
+    q, k, v, ctx = _qkv(p, x, pos, cfg, ctx)
+    qg = q.reshape(B, T, KV, H // KV, hd)
+    if ctx.mode == "norm" and ctx.strategy == "fused":
+        o, ctx = ctx.attention(qg, k, v, causal=True)
+    else:
+        o = kops.flash_attention(qg, k, v, True)
+    y, ctx = ctx.dense(o.reshape(B, T, H * hd), p["wo"])
+    return y, ctx, (k, v)
 
 
 def _decode_attend(q, gk, gv, pos, p, cfg):
@@ -123,7 +144,7 @@ def attn_decode(p, x, cache_kv, pos, cfg):
     pos: (B,) write positions.  Writes the new k/v into the cache IN PLACE
     (the JAX version returns updated copies) and returns (y, cache_kv)."""
     B = x.shape[0]
-    q, k, v = _qkv(p, x, pos[:, None], cfg)
+    q, k, v, _ = _qkv(p, x, pos[:, None], cfg, DPContext.off())
     ck, cv = cache_kv
     b = torch.arange(B, device=x.device)
     ck[b, pos] = k[:, 0].to(ck.dtype)
@@ -163,7 +184,7 @@ def attn_decode_paged(p, x, cache_kv, tables, pos, cfg):
     KV, hd = cfg.n_kv_heads, cfg.hd
     ck, cv = cache_kv
     nb_pool, bs = ck.shape[0], ck.shape[1]
-    q, k, v = _qkv(p, x, pos[:, None], cfg)
+    q, k, v, _ = _qkv(p, x, pos[:, None], cfg, DPContext.off())
     pb = torch.gather(tables, 1, (pos // bs)[:, None])[:, 0]
     off = pos % bs
     put_rows(ck, pb, off, k[:, 0])
@@ -186,10 +207,13 @@ def mlp_spec(cfg, d_ff: int) -> dict:
     return {"w1": P((d, d_ff)), "w2": P((d_ff, d))}
 
 
-def mlp_apply(p, x, cfg):
+def mlp_apply(p, x, ctx: DPContext, cfg):
+    """Dense FFN; returns (y, ctx)."""
+    h1, ctx = ctx.dense(x, p["w1"])
     if cfg.mlp_act == "swiglu":
-        h = F.silu((x @ p["w1"]).float()).to(x.dtype) * (x @ p["w3"])
+        h3, ctx = ctx.dense(x, p["w3"])
+        h = F.silu(h1.float()).to(x.dtype) * h3
     else:
         # jax.nn.gelu defaults to the tanh approximation
-        h = F.gelu((x @ p["w1"]).float(), approximate="tanh").to(x.dtype)
-    return h @ p["w2"]
+        h = F.gelu(h1.float(), approximate="tanh").to(x.dtype)
+    return ctx.dense(h, p["w2"])

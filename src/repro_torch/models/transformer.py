@@ -1,6 +1,6 @@
-"""Model assembly for serving: layer grouping (prelude + repeated block),
-param spec, seeded init on the device, prefill and decode.  Counterpart of
-``repro/models/transformer.py``.
+"""Model assembly: layer grouping (prelude + repeated block), param spec,
+seeded init on the device, the training loss, prefill and decode.
+Counterpart of ``repro/models/transformer.py``.
 
 Params keep the JAX package's nesting and layouts: ``{"embed",
 "prelude": [layer, ...], "blocks": (layer, ...), "final_norm", "head"}``,
@@ -10,7 +10,9 @@ KV caches are ``{"prelude": [(k, v), ...], "blocks": ((k, v), ...)}`` with
 the same leading ``(reps,)`` axis on block leaves.
 
 The port covers attention-only dense decoders.  Mamba and MoE layers raise
-``NotImplementedError`` (ROADMAP queue 1).
+``NotImplementedError`` (ROADMAP queue 1).  Training runs without
+activation checkpointing (the JAX package's ``remat="none"``): autograd
+keeps every layer's activations for the backward.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import torch.nn as nn
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ATTN, ArchConfig
+from repro_torch.core.context import DPContext
 from repro_torch.models import layers as L
 from repro_torch.models.layers import P
 
@@ -147,7 +150,9 @@ class Model(nn.Module):
     None draws a seeded init on the device.  ``dtype`` is the compute and
     weight type (norm scales stay float32).  ``device`` defaults to
     ``cuda`` and raises without one; pass ``"cpu"`` for the plain path.
-    Every param is registered (frozen) under its slash-joined tree path."""
+    Every param is registered under its slash-joined tree path, frozen;
+    ``model.requires_grad_(True)`` makes them trainable (the Trainer
+    does)."""
 
     def __init__(self, arch: ArchConfig, params=None, *,
                  dtype: torch.dtype = torch.bfloat16, device=None,
@@ -173,45 +178,65 @@ class Model(nn.Module):
         return prm
 
     # -- per-layer ----------------------------------------------------------
-    def _layer(self, p, x, pos):
+    def _layer(self, p, x, ctx: DPContext, pos):
+        """Full-sequence layer (train / prefill): (x, ctx, kv)."""
         arch = self.arch
-        y, kv = L.attn_apply(p["attn"], L.rmsnorm(x, p["ln1"], arch.norm_eps),
-                             arch, pos)
+        h, ctx = L.rmsnorm(x, p["ln1"], ctx, arch.norm_eps)
+        y, ctx, kv = L.attn_apply(p["attn"], h, ctx, arch, pos)
         x = x + y
         if arch.d_ff > 0:
-            x = x + L.mlp_apply(p["mlp"], L.rmsnorm(x, p["ln2"], arch.norm_eps),
-                                arch)
-        return x, kv
+            h, ctx = L.rmsnorm(x, p["ln2"], ctx, arch.norm_eps)
+            y, ctx = L.mlp_apply(p["mlp"], h, ctx, arch)
+            x = x + y
+        return x, ctx, kv
 
     def _layer_decode(self, p, x, kv, pos, tables=None):
         arch = self.arch
-        h = L.rmsnorm(x, p["ln1"], arch.norm_eps)
+        off = DPContext.off()
+        h, _ = L.rmsnorm(x, p["ln1"], off, arch.norm_eps)
         if tables is None:
             y, kv = L.attn_decode(p["attn"], h, kv, pos, arch)
         else:
             y, kv = L.attn_decode_paged(p["attn"], h, kv, tables, pos, arch)
         x = x + y
         if arch.d_ff > 0:
-            x = x + L.mlp_apply(p["mlp"], L.rmsnorm(x, p["ln2"], arch.norm_eps),
-                                arch)
+            h, _ = L.rmsnorm(x, p["ln2"], off, arch.norm_eps)
+            x = x + L.mlp_apply(p["mlp"], h, off, arch)[0]
         return x, kv
 
-    def _layers(self):
+    def _layers(self, params=None):
         """(params, cache address) of every layer in execution order; the
         address is ("prelude", i) or ("blocks", j, r)."""
+        params = self.params if params is None else params
         pre, period, reps = group_layers(self.arch)
         for i in range(pre):
-            yield self.params["prelude"][i], ("prelude", i)
+            yield params["prelude"][i], ("prelude", i)
         for r in range(reps):
             for j in range(period):
-                yield _index(self.params["blocks"][j], r), ("blocks", j, r)
+                yield _index(params["blocks"][j], r), ("blocks", j, r)
 
-    def _head(self, x):
-        x = L.rmsnorm(x, self.params["final_norm"], self.arch.norm_eps)
-        return x @ self.params["head"]
+    def _head(self, params, x, ctx: DPContext):
+        x, ctx = L.rmsnorm(x, params["final_norm"], ctx, self.arch.norm_eps)
+        return ctx.dense(x, params["head"])
 
-    def _embed(self, tokens):
-        return self.params["embed"][tokens.long()].to(self.dtype)
+    def _embed_in(self, params, tokens, ctx: DPContext):
+        x, ctx = ctx.embed(tokens, params["embed"])
+        return x.to(self.dtype), ctx
+
+    # -- training -------------------------------------------------------------
+    def loss_fn(self, params, batch, ctx: DPContext):
+        """Per-example losses and the context: ``((B,) float32, ctx)``.
+        ``params``: a tree in this model's layout (``self.params``, or the
+        same tree detached); batch: ``{"tokens": (B, T+1) int}``."""
+        toks = batch["tokens"]
+        inputs, labels = toks[:, :-1], toks[:, 1:]
+        B, T = labels.shape
+        x, ctx = self._embed_in(params, inputs, ctx)
+        pos = torch.arange(T, device=x.device)[None].expand(B, T)
+        for p, _ in self._layers(params):
+            x, ctx, _ = self._layer(p, x, ctx, pos)
+        logits, ctx = self._head(params, x, ctx)
+        return per_example_xent(logits, labels, self.arch.vocab), ctx
 
     # -- caches -------------------------------------------------------------
     def _cache_tree(self, shape) -> Dict[str, Any]:
@@ -247,13 +272,14 @@ class Model(nn.Module):
         ``lengths``: optional (B,) true lengths of right-padded prompts;
         logits are then taken at ``lengths - 1`` (exact: padded positions
         are causally masked)."""
-        x = self._embed(tokens)
+        off = DPContext.off()
+        x, _ = self._embed_in(self.params, tokens, off)
         B, T = x.shape[0], x.shape[1]
         pos = torch.arange(T, device=x.device)[None].expand(B, T)
         pre_c: List[Any] = []
         blk_c: Dict[int, List[Any]] = {}
         for p, addr in self._layers():
-            x, kv = self._layer(p, x, pos)
+            x, _, kv = self._layer(p, x, off, pos)
             if addr[0] == "prelude":
                 pre_c.append(kv)
             else:
@@ -263,7 +289,7 @@ class Model(nn.Module):
         else:
             idx = (lengths.long() - 1).to(x.device)
             x_last = x[torch.arange(B, device=x.device), idx][:, None]
-        logits = self._head(x_last)
+        logits, _ = self._head(self.params, x_last, off)
 
         def pad(a):     # (..., T, KV, hd) -> (..., cache_len, KV, hd)
             if cache_len == T:
@@ -280,11 +306,12 @@ class Model(nn.Module):
         return logits, cache
 
     def _decode(self, cache, tokens, pos, tables):
-        x = self._embed(tokens)
+        off = DPContext.off()
+        x, _ = self._embed_in(self.params, tokens, off)
         for p, addr in self._layers():
             x, _ = self._layer_decode(p, x, self._layer_cache(cache, addr),
                                       pos, tables)
-        return self._head(x), cache
+        return self._head(self.params, x, off)[0], cache
 
     @torch.no_grad()
     def decode_step(self, cache, tokens, pos):
@@ -298,3 +325,16 @@ class Model(nn.Module):
         num_blocks.  Same contract as ``decode_step``; greedy outputs equal
         the contiguous path's."""
         return self._decode(cache, tokens, pos, tables)
+
+
+def per_example_xent(logits, labels, vocab: int):
+    """(B,T,Vpad) logits, (B,T) labels -> (B,) mean cross-entropy in
+    float32, with the padded vocab columns masked out."""
+    lf = logits.float()
+    Vpad = lf.shape[-1]
+    if Vpad != vocab:
+        col = torch.arange(Vpad, device=lf.device)
+        lf = torch.where(col < vocab, lf, torch.full((), -1e30, device=lf.device))
+    logp = torch.log_softmax(lf, dim=-1)
+    ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    return -ll.mean(dim=-1)

@@ -7,13 +7,21 @@ machine without it; there, skip the JAX-importing conftest:
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
 Tolerances: float32 at rtol 2e-4 / atol 2e-5 (tests/test_kernels.py);
-bf16 against the plain version computed in float32 at atol 2e-2.
+bf16 against the plain version computed in float32 at atol 2e-2.  The
+backward and norm kernels convert bf16 inputs to float32 exactly and
+accumulate in float32, so their float32 outputs (norms², attention grads)
+differ from the plain version on the same inputs only by summation order:
+rtol 1e-4 (norms²) and 1e-3 (grads, which also go through exp); a bf16 gx
+also rounds its output (one bf16 ulp, 2^-8 relative).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import flash_attn as tfa
+from repro_torch.kernels import fused_bwd as tfb
+from repro_torch.kernels import gram_norm as tgn
+from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
 # (BH, KV rows, T, hd, causal): every head width the kernel is built for
@@ -66,3 +74,150 @@ def test_flash_attn_fwd_rejects_what_it_cannot_run(cuda):
     x = torch.zeros(2, 16, 8, device=cuda).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         tfa.flash_attn_fwd(x, x, x)
+
+
+def _randn(cuda, shape, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(cuda, dtype)
+
+
+# (BG, T, di, do, E): aligned, ragged in every dim, grouped, one row tile
+DENSE_SHAPES = [(2, 128, 128, 256, 1), (3, 37, 100, 70, 1), (4, 33, 65, 129, 2),
+                (2, 200, 300, 260, 1), (5, 9, 8, 24, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", DENSE_SHAPES)
+def test_dense_bwd_norm_matches_plain(cuda, shape, dtype):
+    BG, T, di, do, E = shape
+    x = _randn(cuda, (BG, T, di), dtype, 0)
+    gy = _randn(cuda, (BG, T, do), dtype, 1)
+    w = _randn(cuda, (E, di, do), dtype, 2)
+    before = tfb.LAUNCHES
+    gx, nsq = tfb.dense_bwd_norm(x, gy, w)
+    torch.cuda.synchronize()
+    assert tfb.LAUNCHES == before + 1
+    assert gx.dtype == dtype and nsq.dtype == torch.float32
+    gx_ref, nsq_ref = tref.dense_bwd_norm_ref(x, gy, w)
+    torch.testing.assert_close(nsq, nsq_ref, rtol=1e-4, atol=0.0)
+    gx_want = tref.dense_bwd_norm_ref(x.float(), gy.float(), w.float())[0]
+    if dtype == torch.float32:
+        torch.testing.assert_close(gx, gx_want, rtol=2e-4, atol=2e-4)
+    else:
+        torch.testing.assert_close(gx.float(), gx_want, rtol=1e-2,
+                                   atol=1e-2 * gx_want.abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_bwd_norm_zero_rows_and_determinism(cuda, dtype):
+    x = _randn(cuda, (4, 70, 96), dtype)
+    gy = _randn(cuda, (4, 70, 130), dtype, 1)
+    gy[1] = 0
+    gy[3] = 0
+    w = _randn(cuda, (2, 96, 130), dtype, 2)
+    gx, nsq = tfb.dense_bwd_norm(x, gy, w)
+    gx2, nsq2 = tfb.dense_bwd_norm(x, gy, w)
+    torch.cuda.synchronize()
+    for b in (1, 3):
+        assert torch.all(gx[b] == 0) and nsq[b].item() == 0.0
+    assert torch.all(nsq[[0, 2]] > 0)
+    assert torch.equal(nsq, nsq2) and torch.equal(gx, gx2)
+
+
+# (BG, T, di, do): one tile, ragged T over several tiles, wide d
+GRAM_SHAPES = [(2, 16, 8, 24), (3, 70, 33, 65), (2, 130, 64, 300)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("square", [True, False])
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("shape", GRAM_SHAPES)
+def test_gram_norm_matches_plain(cuda, shape, masked, square, dtype):
+    BG, T, di, do = shape
+    x = _randn(cuda, (BG, T, di), dtype, 0)
+    gy = _randn(cuda, (BG, T, do), dtype, 1)
+    ids = None
+    if masked:   # a small vocab, so tokens repeat
+        ids = torch.from_numpy(np.random.default_rng(3).integers(0, 7, (BG, T))).to(cuda)
+    before = tgn.LAUNCHES
+    out = tgn.gram_norm(x, gy, ids, square=square)
+    torch.cuda.synchronize()
+    assert tgn.LAUNCHES == before + 1 and out.dtype == torch.float32
+    want = tref.gram_norm_ref(x, gy, ids, square)
+    torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-4 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_gram_norm_zero_rows_and_determinism(cuda):
+    gy = _randn(cuda, (3, 200, 96), torch.bfloat16)
+    gy[1] = 0
+    ids = torch.from_numpy(np.random.default_rng(0).integers(0, 5, (3, 200))).to(cuda)
+    a = tgn.gram_norm(gy, gy, ids, square=False)
+    b = tgn.gram_norm(gy, gy, ids, square=False)
+    torch.cuda.synchronize()
+    assert a[1].item() == 0.0 and torch.all(a[[0, 2]] > 0)
+    assert torch.equal(a, b)
+
+
+# (BH, KV rows, T, hd, causal)
+BWD_SHAPES = [(8, 4, 16, 8, True), (3, 1, 33, 20, True), (4, 2, 37, 96, False),
+              (6, 2, 70, 96, True), (18, 2, 130, 128, True), (4, 4, 65, 80, False),
+              (9, 1, 200, 64, True)]
+
+
+def _bwd_inputs(cuda, shape, dtype):
+    BH, KVR, T, hd, causal = shape
+    q, k, v, do = (_randn(cuda, (n, T, hd), dtype, s)
+                   for s, n in enumerate((BH, KVR, KVR, BH)))
+    o, lse = tref.flash_attn_fwd_ref(q, k, v, causal, BH // KVR)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_flash_attn_bwd_matches_plain(cuda, shape, dtype):
+    BH, KVR, T, hd, causal = shape
+    q, k, v, o, lse, do = _bwd_inputs(cuda, shape, dtype)
+    before = tfa.BWD_LAUNCHES
+    got = tfa.flash_attn_bwd(q, k, v, o, lse, do, causal=causal, rep=BH // KVR)
+    torch.cuda.synchronize()
+    assert tfa.BWD_LAUNCHES == before + 1
+    want = tref.flash_attn_bwd_ref(q, k, v, o, lse, do, causal, BH // KVR)
+    for g, r in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == r.shape
+        torch.testing.assert_close(g, r, rtol=1e-3, atol=1e-3 * r.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_flash_attn_bwd_zero_rows_and_determinism(cuda):
+    shape = (6, 3, 100, 96, True)
+    q, k, v, o, lse, do = _bwd_inputs(cuda, shape, torch.bfloat16)
+    do[0:2] = 0     # kv head 0's two query heads see no gradient
+    do[4, 10:30] = 0
+    a = tfa.flash_attn_bwd(q, k, v, o, lse, do, causal=True, rep=2)
+    b = tfa.flash_attn_bwd(q, k, v, o, lse, do, causal=True, rep=2)
+    torch.cuda.synchronize()
+    dq, dk, dv = a
+    assert torch.all(dq[0:2] == 0) and torch.all(dq[4, 10:30] == 0)
+    assert torch.all(dk[0] == 0) and torch.all(dv[0] == 0)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_autograd_matches_plain_autograd(cuda, causal):
+    B, T, KV, rep, hd = 2, 45, 2, 3, 32
+    q = _randn(cuda, (B, T, KV, rep, hd), torch.float32, 0).requires_grad_()
+    k = _randn(cuda, (B, T, KV, hd), torch.float32, 1).requires_grad_()
+    v = _randn(cuda, (B, T, KV, hd), torch.float32, 2).requires_grad_()
+    do = _randn(cuda, (B, T, KV, rep, hd), torch.float32, 3)
+    before = tfa.BWD_LAUNCHES
+    got = torch.autograd.grad(tops.flash_attention(q, k, v, causal), (q, k, v), do)
+    assert tfa.BWD_LAUNCHES == before + 1
+    want = torch.autograd.grad(tref.flash_attn_ref(q, k, v, causal), (q, k, v), do)
+    for g, r in zip(got, want):
+        torch.testing.assert_close(g, r, rtol=1e-3, atol=1e-4)

@@ -14,6 +14,7 @@ from repro.configs import ARCHS as JARCHS, reduced as jreduced
 from repro.core.context import DPContext
 from repro.models import layers as JL
 from repro_torch.configs import ARCHS as TARCHS, reduced as treduced
+from repro_torch.core.context import DPContext as TDPContext
 from repro_torch.models import layers as TL
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -59,7 +60,8 @@ def test_rmsnorm():
     x, scale = _rand(rng, 2, 5, 64), _rand(rng, 64)
     want, _ = JL.rmsnorm(jnp.asarray(x), jnp.asarray(scale), DPContext.off(),
                          1e-5)
-    got = TL.rmsnorm(torch.from_numpy(x), torch.from_numpy(scale), 1e-5)
+    got, _ = TL.rmsnorm(torch.from_numpy(x), torch.from_numpy(scale),
+                        TDPContext.off(), 1e-5)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
@@ -85,7 +87,7 @@ def test_mlp_apply(name):
         p["w3"] = _rand(rng, d, f, scale=d ** -0.5)
     x = _rand(rng, 2, 7, d)
     want, _ = JL.mlp_apply(_j(p), jnp.asarray(x), DPContext.off(), jcfg)
-    got = TL.mlp_apply(_t(p), torch.from_numpy(x), tcfg)
+    got, _ = TL.mlp_apply(_t(p), torch.from_numpy(x), TDPContext.off(), tcfg)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
@@ -101,8 +103,9 @@ def test_attn_apply(name):
     pos = np.broadcast_to(np.arange(T, dtype=np.int32), (B, T))
     want, _, (jk, jv) = JL.attn_apply(_j(p), jnp.asarray(x), DPContext.off(),
                                       jcfg, jnp.asarray(pos))
-    got, (tk, tv) = TL.attn_apply(_t(p), torch.from_numpy(x), tcfg,
-                                  torch.from_numpy(pos.copy()))
+    got, _, (tk, tv) = TL.attn_apply(_t(p), torch.from_numpy(x),
+                                     TDPContext.off(), tcfg,
+                                     torch.from_numpy(pos.copy()))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     np.testing.assert_allclose(tk.numpy(), np.asarray(jk), **TOL)
     np.testing.assert_allclose(tv.numpy(), np.asarray(jv), **TOL)
