@@ -14,6 +14,10 @@ the script exits nonzero and prints no ``ok`` line:
    the plain version, the one PyTorch call computing the same function
    (``library_ms``, timing only) and the card's bound; the norm kernels
    also give exact zeros for all-zero gy rows and bit-identical repeats;
+   ``pegrad_norm`` and ``dense_dgrad`` equal ``dense_bwd_norm``'s two
+   outputs bit for bit, and the fusion A/B times the separate pair against
+   the fused call; ``clip_reduce`` with zeroed clip factors equals the
+   compacted reduction bit for bit;
 4. small references in float32 (TF32 off): the reduced phi3 serving
    (prefill and decode logits) and one ``dpsgd_r`` fused training step
    (loss, per-example norms², clipped-sum gradients) on the card through
@@ -29,11 +33,21 @@ the script exits nonzero and prints no ``ok`` line:
    one warm-up step and three timed steps (each split into its two passes
    by calling them directly on its batch, outside the counted step), then
    the next step through the plain norm rules (its norms² must agree) and
-   one ``sgd`` step.
+   one ``sgd`` step;
+7. the per-site norm rules on phase 6's model and optimizer state:
+   ``materialize`` + kernels at B 8 x T 512 in turns with the fused route
+   (its norms² against the plain ``materialize`` rules); Poisson-sampled
+   batches (expected 8 of N = 1e6, padded to a capacity of 25) through
+   ``materialize``, whose padded rows must have norms² of exactly 0; and
+   ``auto`` + kernels at B 2 x T 2048, where the FLOP formulas send the
+   attention projections to ``pegrad_norm`` and the MLP and head to
+   ``gram_norm`` (its norms² against the plain ``auto`` rules).
 
-Each path counts the launches of every kernel from zero, and fails if a
-kernel of the path was never launched.  The line before the last is the
-per-kernel JSON record; the last line is ``{"ok": true, "device": {...}}``.
+Each path counts the launches of every kernel from zero and must launch
+each kernel exactly as often as the code says it does (``path_launches``):
+every kernel of the path at least once, no other.  The line before the last
+is the per-kernel JSON record; the last line is ``{"ok": true, "device":
+{...}}``.
 Imports nothing of JAX or of the JAX package.  Needs one card.
 Measurements also go to ``chip_smoke.json`` in the output directory.
 """
@@ -63,6 +77,10 @@ N_REQUESTS, MAX_NEW, MAX_BATCH, CACHE_LEN, BLOCK = 16, 64, 8, 2048, 16
 # the training path: 16 layers, 8 examples of 512 tokens, 3 timed steps
 TRAIN_LAYERS, TRAIN_B, TRAIN_T, TRAIN_STEPS = 16, 8, 512, 3
 NSQ_RTOL = 2e-2     # bf16 kernel route vs plain route, per-example norms²
+# phase 7: Poisson sampling at an expected batch of 8 (capacity 25 rows at
+# N = 1e6) in one chunk; auto at 2 examples of 2048 tokens
+POISSON_ACCUM = 1
+AUTO_B, AUTO_T = 2, 2048
 
 
 def request_stream(vocab: int, seed: int = 0):
@@ -157,6 +175,16 @@ def check_flash(name, B, H, KV, T, hd, causal, dtype, seed=0):
     return rec
 
 
+def dense_inputs(BG, T, di, do, E, dtype, seed=0):
+    """x (BG,T,di), gy (BG,T,do), w (E,di,do) in ``dtype`` on the card."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = _randn(g, (BG, T, di), dtype)
+    gy = _randn(g, (BG, T, do), dtype)
+    w = _randn(g, (E, di, do), dtype) * di ** -0.5
+    return x, gy, w
+
+
 def check_dense_bwd_norm(name, BG, T, di, do, E, dtype, seed=0, iters=10):
     """dense_bwd_norm at one shape: kernel vs plain version (gx within 1e-4
     of its largest entry in f32, 1e-2 in bf16 — one bf16 rounding of the
@@ -164,10 +192,7 @@ def check_dense_bwd_norm(name, BG, T, di, do, E, dtype, seed=0, iters=10):
     exactly and only the summation order differs), with timings."""
     import torch
     from repro_torch.kernels import fused_bwd, ref
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    x = _randn(g, (BG, T, di), dtype)
-    gy = _randn(g, (BG, T, do), dtype)
-    w = _randn(g, (E, di, do), dtype) * di ** -0.5
+    x, gy, w = dense_inputs(BG, T, di, do, E, dtype, seed)
     gx, nsq = fused_bwd.dense_bwd_norm(x, gy, w)
     torch.cuda.synchronize()
     nsq_ref = ref.dense_bwd_norm_ref(x, gy, w)[1]
@@ -203,12 +228,120 @@ def check_dense_bwd_norm(name, BG, T, di, do, E, dtype, seed=0, iters=10):
     return rec
 
 
+def check_dense_halves(name, BG, T, di, do, E, dtype, seed=0, iters=10):
+    """pegrad_norm and dense_dgrad at one shape: each against its plain
+    version (the tolerances of ``check_dense_bwd_norm``) and both equal to
+    dense_bwd_norm's outputs bit for bit, with timings; then the fusion
+    A/B, the separate pair (two wrapper calls) against dense_bwd_norm (one
+    call), timed in turns (pair, fused, fused, pair).  Returns
+    {"pegrad_norm": rec, "dense_dgrad": rec, "ab": rec}."""
+    import torch
+    from repro_torch.kernels import fused_bwd, pegrad_norm, ref
+    x, gy, w = dense_inputs(BG, T, di, do, E, dtype, seed)
+    nsq = pegrad_norm.pegrad_norm(x, gy)
+    gx = fused_bwd.dense_dgrad(gy, w)
+    fgx, fnsq = fused_bwd.dense_bwd_norm(x, gy, w)
+    torch.cuda.synchronize()
+    assert torch.equal(nsq, fnsq) and torch.equal(gx, fgx), name
+    del fgx, fnsq
+    nsq_ref = ref.pegrad_norm_ref(x, gy)
+    nsq_abs = (nsq - nsq_ref).abs().max().item()
+    nsq_err = ((nsq - nsq_ref).abs() / nsq_ref.abs()).max().item()
+    gx_f32 = ref.dense_dgrad_ref(gy.float(), w.float())
+    gx_abs = (gx.float() - gx_f32).abs().max().item()
+    gx_err = gx_abs / gx_f32.abs().max().item()
+    assert nsq_err <= 1e-4, (name, nsq_err)
+    assert gx_err <= (1e-4 if dtype == torch.float32 else 1e-2), (name, gx_err)
+    del gx, gx_f32
+    dt = _dtype_name(dtype)
+    item = x.element_size()
+    flops = 2.0 * BG * T * di * do
+    base = dict(shape=name, dtype=dt, BG=BG, T=T, di=di, do=do, E=E)
+
+    def pegrad_library():      # timing only: the port never calls it
+        return (torch.bmm(x.mT, gy).float() ** 2).sum(dim=(1, 2))
+    b_ms, b_by = bound_ms(flops, item * BG * T * (di + do) + 4 * BG, dt)
+    pegrad = dict(base, max_abs_err=nsq_abs, rel_err=nsq_err,
+                  ms=time_ms(lambda: pegrad_norm.pegrad_norm(x, gy), iters),
+                  plain_ms=time_ms(lambda: ref.pegrad_norm_ref(x, gy), iters),
+                  library_ms=time_ms(pegrad_library, iters),
+                  bound_ms=b_ms, bound_by=b_by)
+    wt = w.mT if E == 1 else w[torch.arange(BG, device="cuda") % E].mT
+    b_ms, b_by = bound_ms(flops, item * (BG * T * (do + di) + E * di * do), dt)
+    dgrad = dict(base, max_abs_err=gx_abs, rel_err=gx_err,
+                 ms=time_ms(lambda: fused_bwd.dense_dgrad(gy, w), iters),
+                 plain_ms=time_ms(lambda: ref.dense_dgrad_ref(gy, w), iters),
+                 library_ms=time_ms(lambda: torch.matmul(gy, wt), iters),
+                 bound_ms=b_ms, bound_by=b_by)
+    sep = lambda: (fused_bwd.dense_dgrad(gy, w), pegrad_norm.pegrad_norm(x, gy))
+    fused = lambda: fused_bwd.dense_bwd_norm(x, gy, w)
+    before = fused_bwd.DGRAD_LAUNCHES
+    runs = [time_ms(sep, iters), time_ms(fused, iters), time_ms(fused, iters),
+            time_ms(sep, iters)]
+    sep_ms, fused_ms = (runs[0] + runs[3]) / 2, (runs[1] + runs[2]) / 2
+    ab = dict(base, separate_ms=sep_ms, fused_ms=fused_ms,
+              separate_over_fused=sep_ms / fused_ms, runs_ms=runs,
+              dgrad_launches=fused_bwd.DGRAD_LAUNCHES - before)
+    for nm, r in (("pegrad_norm", pegrad), ("dense_dgrad", dgrad)):
+        print(f"[kernel] {nm} {name} {dt}: max_abs_err {r['max_abs_err']:.2e} "
+              f"({r['rel_err']:.1e} rel), = dense_bwd_norm's bit for bit  kernel "
+              f"{r['ms']:.3f} ms  plain {r['plain_ms']:.3f} ms  library "
+              f"{r['library_ms']:.3f} ms  bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})", flush=True)
+    print(f"[fusion] {name} {dt}: dense_dgrad + pegrad_norm {sep_ms:.3f} ms, "
+          f"dense_bwd_norm {fused_ms:.3f} ms, separate / fused "
+          f"{sep_ms / fused_ms:.4f} (runs {', '.join(f'{v:.3f}' for v in runs)})",
+          flush=True)
+    return {"pegrad_norm": pegrad, "dense_dgrad": dgrad, "ab": ab}
+
+
+def check_clip_reduce(name, B, N, dtype, seed=0, iters=10):
+    """clip_reduce at one shape against its plain version (float32 sums in
+    another order: within 1e-5 of max|g|·Σ|c|), with timings.  Two rows get
+    c_b = 0: the result must equal the reduction of the other rows, and a
+    repeat, bit for bit."""
+    import torch
+    from repro_torch.kernels import clip_reduce, ref
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    grads = _randn(g, (B, N), dtype)
+    c = torch.rand((B,), generator=g, device="cuda")
+    c[1::4] = 0.0
+    keep = c != 0
+    out = clip_reduce.clip_reduce(grads, c)
+    again = clip_reduce.clip_reduce(grads, c)
+    compact = clip_reduce.clip_reduce(grads[keep].contiguous(), c[keep].contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and torch.equal(out, compact), name
+    del compact
+    want = ref.clip_reduce_ref(grads, c)
+    abs_err = (out - want).abs().max().item()
+    rel = abs_err / (grads.float().abs().max().item() * c.abs().sum().item())
+    assert rel <= 1e-5, (name, rel)
+    del out, again, want
+    before = clip_reduce.LAUNCHES
+    ms = time_ms(lambda: clip_reduce.clip_reduce(grads, c), iters)
+    launches = clip_reduce.LAUNCHES - before
+    plain_ms = time_ms(lambda: ref.clip_reduce_ref(grads, c), iters)
+    cg = c.to(dtype)
+    library_ms = time_ms(lambda: torch.matmul(cg, grads), iters)   # timing only
+    dt = _dtype_name(dtype)
+    b_ms, b_by = bound_ms(2.0 * B * N, grads.element_size() * B * N + 4 * (B + N), dt)
+    rec = dict(shape=name, dtype=dt, B=B, N=N, max_abs_err=abs_err, rel_err=rel,
+               ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+               bound_by=b_by, launches=launches)
+    print(f"[kernel] clip_reduce {name} {dt}: max_abs_err {abs_err:.2e} ({rel:.1e} "
+          f"of max|g|·Σ|c|), zeroed rows = compacted bit for bit  kernel {ms:.3f} "
+          f"ms  plain {plain_ms:.3f} ms  library {library_ms:.3f} ms  bound "
+          f"{b_ms:.4f} ms ({b_by})", flush=True)
+    return rec
+
+
 def check_norm_contracts(dtype):
     """dense_bwd_norm and gram_norm at a ragged shape: all-zero gy rows give
     exact zeros (gx rows and norms²), and two launches give bit-identical
     results (no atomics)."""
     import torch
-    from repro_torch.kernels import fused_bwd, gram_norm
+    from repro_torch.kernels import fused_bwd, gram_norm, pegrad_norm
     g = torch.Generator(device="cuda").manual_seed(7)
     x = _randn(g, (6, 333, 700), dtype)
     gy = _randn(g, (6, 333, 517), dtype)
@@ -217,19 +350,24 @@ def check_norm_contracts(dtype):
     ids = torch.randint(0, 50, (6, 333), generator=g, device="cuda")
     a = fused_bwd.dense_bwd_norm(x, gy, w)
     b = fused_bwd.dense_bwd_norm(x, gy, w)
+    halves = [(fused_bwd.dense_dgrad(gy, w), pegrad_norm.pegrad_norm(x, gy))
+              for _ in range(2)]
     ga = gram_norm.gram_norm(gy, gy, ids, square=False)
     gb = gram_norm.gram_norm(gy, gy, ids, square=False)
     gsa = gram_norm.gram_norm(x, gy, None, square=True)
     torch.cuda.synchronize()
-    for name, (gx, nsq) in (("dense_bwd_norm", a),):
+    for name, (gx, nsq) in (("dense_bwd_norm", a), ("dense_dgrad+pegrad_norm",
+                                                    halves[0])):
         assert torch.all(gx[[1, 4]] == 0) and torch.all(nsq[[1, 4]] == 0), name
         assert torch.all(nsq[[0, 2, 3, 5]] > 0), name
-    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    for p, q in ((a, b), (halves[0], halves[1]), (a, halves[0])):
+        assert torch.equal(p[0], q[0]) and torch.equal(p[1], q[1])
     assert torch.all(ga[[1, 4]] == 0) and torch.all(gsa[[1, 4]] == 0)
     assert torch.equal(ga, gb)
     print(f"[kernel] {_dtype_name(dtype)}: zero gy rows give exact zeros and "
-          f"repeats are bit-identical (dense_bwd_norm E=3 ragged, gram_norm "
-          f"masked and square)", flush=True)
+          f"repeats are bit-identical (dense_bwd_norm, dense_dgrad and "
+          f"pegrad_norm E=3 ragged, the halves equal to the fused kernel; "
+          f"gram_norm masked and square)", flush=True)
 
 
 def flash_bwd_inputs(g, BH, KV, T, hd, causal, dtype):
@@ -364,11 +502,38 @@ def small_reference(device_b: str = "cuda"):
 
 def kernel_counts():
     """Launch counts of every kernel wrapper: name -> (module, attribute)."""
-    from repro_torch.kernels import flash_attn, fused_bwd, gram_norm
+    from repro_torch.kernels import (clip_reduce, flash_attn, fused_bwd,
+                                     gram_norm, pegrad_norm)
     return {"flash_attn_fwd": (flash_attn, "LAUNCHES"),
             "flash_attn_bwd": (flash_attn, "BWD_LAUNCHES"),
             "dense_bwd_norm": (fused_bwd, "LAUNCHES"),
-            "gram_norm": (gram_norm, "LAUNCHES")}
+            "gram_norm": (gram_norm, "LAUNCHES"),
+            "pegrad_norm": (pegrad_norm, "LAUNCHES"),
+            "dense_dgrad": (fused_bwd, "DGRAD_LAUNCHES"),
+            "clip_reduce": (clip_reduce, "LAUNCHES")}
+
+
+def path_launches(route: str, L: int, chunks: int = 1):
+    """Launches of every kernel in one dpsgd_r step of the dense decoder
+    with ``L`` layers, as the code makes them: each layer has 7 dense sites
+    (q, k, v, o, w1, w3, w2) and one attention, the model one head and one
+    embedding.  Both passes run the flash forward and its backward at every
+    attention; under ``fused`` pass 1's attention site recomputes the
+    forward once more in its backward.  ``auto`` is at T 2048, where the
+    FLOP formulas send q, k, v, o to ``pegrad_norm`` and w1, w3, w2 and the
+    head to ``gram_norm``.  ``chunks``: grad_accum, every chunk a full
+    step's worth."""
+    n = dict.fromkeys(kernel_counts(), 0)
+    n.update(flash_attn_fwd=2 * L, flash_attn_bwd=2 * L, gram_norm=1)
+    if route == "fused":
+        n.update(dense_bwd_norm=7 * L + 1, flash_attn_fwd=3 * L)
+    elif route == "materialize":
+        n.update(pegrad_norm=7 * L + 1)
+    elif route == "auto-2048":
+        n.update(pegrad_norm=4 * L, gram_norm=3 * L + 2)
+    else:
+        raise ValueError(route)
+    return {k: v * chunks for k, v in n.items()}
 
 
 def zero_counts():
@@ -404,7 +569,7 @@ def train_reference():
         fn = algo.make_clipped_sum_fn(m.loss_fn, dp)
         out[dev] = fn(m.params, {"tokens": toks.to(dev)})
     counts = read_counts()
-    assert all(n > 0 for n in counts.values()), counts
+    assert counts == path_launches("fused", arch.n_layers), counts
     (ga, (la, na)), (gb, (lb, nb)) = out["cpu"], out["cuda"]
     torch.testing.assert_close(lb.cpu(), la, rtol=1e-4, atol=0.0)
     torch.testing.assert_close(nb.cpu(), na, rtol=1e-4, atol=0.0)
@@ -548,7 +713,7 @@ def main_path(arch, prompts):
     return [rec for _, rec in runs.values()], launches, breakdown
 
 
-def profile_step(run):
+def profile_step(run, label):
     """One more training step under ``torch.profiler``: the device time of
     every kernel by name, and the device's busy share of the step's wall
     time (busy = the union of kernel intervals on the timeline)."""
@@ -576,7 +741,7 @@ def profile_step(run):
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end
                                                       - e.time_range.start) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    print(f"[profile] one dpsgd_r fused+kernels step under torch.profiler: "
+    print(f"[profile] one dpsgd_r {label} step under torch.profiler: "
           f"{rec['step_ms']:.1f} ms wall, device busy {busy:.1f} ms "
           f"({100 * busy / rec['step_ms']:.1f}%), {len(kernels)} kernel "
           f"launches", flush=True)
@@ -586,14 +751,65 @@ def profile_step(run):
                 n_kernels=len(kernels), top_ms=top)
 
 
+def timed_step(trainer, state):
+    """One Trainer step on ``state``, synced at both ends."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.run(state, state.step + 1)
+    torch.cuda.synchronize()
+    h = trainer.history[-1]
+    return dict(step_ms=1e3 * (time.perf_counter() - t0), loss=h["loss"],
+                realized_batch=h["realized_batch"])
+
+
+def split_passes(model, state, dp, batch):
+    """The two passes of one dpsgd_r step on ``batch`` (masked or not),
+    called directly and synced at each end: (norms², per-row losses,
+    pass 1 ms, pass 2 ms)."""
+    import torch
+    from repro_torch.core import algo, clipping
+    data, mask = algo.split_mask(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nsq, losses = algo.norm_pass(model.loss_fn, state.params, data, dp, mask)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    c = clipping.clip_factors(nsq, dp.clip_norm)
+    grads = algo.reweighted_grads(model.loss_fn, state.params, data,
+                                  c if mask is None else c * mask)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del grads
+    return nsq, losses, 1e3 * (t1 - t0), 1e3 * (t2 - t1)
+
+
+def counted_step(trainer, model, state, route, chunks=1):
+    """One timed Trainer step with every kernel count from zero, checked
+    against ``path_launches``; then its two passes again on its batch,
+    outside the counted step, for the split.  Returns the step's record
+    and the split's norms² and losses."""
+    batch = trainer.make_batch(state.step)
+    zero_counts()
+    rec = timed_step(trainer, state)
+    counts = read_counts()
+    want = path_launches(route, model.arch.n_layers, chunks)
+    assert counts == want, (route, counts, want)
+    nsq, losses, rec["pass1_ms"], rec["pass2_ms"] = split_passes(
+        model, state, trainer.cfg.dp, batch)
+    rec["noise_opt_ms"] = rec["step_ms"] - rec["pass1_ms"] - rec["pass2_ms"]
+    rec["launches"] = counts
+    return rec, batch, nsq, losses
+
+
 def train_main_path():
-    """The training path (see the module docstring, phase 6)."""
+    """The training path (see the module docstring, phase 6).  Returns its
+    record, the model and the state, which phase 7 goes on with."""
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import (DPConfig, OptimConfig, ShapeConfig,
                                           TrainConfig)
-    from repro_torch.core import algo, clipping
     from repro_torch.models.transformer import Model
     from repro_torch.train import Trainer
     arch = dataclasses.replace(get_arch("phi3-mini-3.8b"), n_layers=TRAIN_LAYERS)
@@ -616,49 +832,16 @@ def train_main_path():
           f"{time.perf_counter() - t:.1f} s; batch {TRAIN_B} x {TRAIN_T}",
           flush=True)
 
-    def step(tr):
-        """One Trainer step, synced at both ends."""
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        tr.run(state, state.step + 1)
-        torch.cuda.synchronize()
-        return dict(step_ms=1e3 * (time.perf_counter() - t0),
-                    loss=tr.history[-1]["loss"])
-
-    def split(dp, batch):
-        """The two passes of one dpsgd_r step on ``batch``, called directly
-        and synced at each end: (norms², pass 1 ms, pass 2 ms)."""
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        nsq, _ = algo.norm_pass(model.loss_fn, state.params, batch, dp)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        grads = algo.reweighted_grads(model.loss_fn, state.params, batch,
-                                      clipping.clip_factors(nsq, dp.clip_norm))
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        del grads
-        return nsq, 1e3 * (t1 - t0), 1e3 * (t2 - t1)
-
-    step(trainer)                              # warm-up (allocator, cuBLAS)
-    steps, per_step = [], []
+    timed_step(trainer, state)                 # warm-up (allocator, cuBLAS)
+    steps = []
     for _ in range(TRAIN_STEPS):
-        batch = trainer.make_batch(state.step)
-        zero_counts()
-        rec = step(trainer)
-        counts = read_counts()
-        assert all(n > 0 for n in counts.values()), counts
-        # the split, outside the counted step: the same passes on its batch
-        _, rec["pass1_ms"], rec["pass2_ms"] = split(cfg.dp, batch)
-        rec["noise_opt_ms"] = rec["step_ms"] - rec["pass1_ms"] - rec["pass2_ms"]
-        rec["launches"] = counts
+        rec, *_ = counted_step(trainer, model, state, "fused")
         steps.append(rec)
-        per_step.append(counts)
         print(f"[train] dpsgd_r fused+kernels step {state.step - 1}: loss "
               f"{rec['loss']:.4f}; {rec['step_ms']:.1f} ms = pass 1 "
               f"{rec['pass1_ms']:.1f} + pass 2 {rec['pass2_ms']:.1f} + noise "
-              f"and optimizer {rec['noise_opt_ms']:.1f}; launches {counts}",
-              flush=True)
+              f"and optimizer {rec['noise_opt_ms']:.1f}; launches "
+              f"{rec['launches']}", flush=True)
     peak = torch.cuda.max_memory_allocated()
     eps = trainer.accountant.epsilon_at(state.step)
     losses = [r["loss"] for r in steps]
@@ -668,16 +851,16 @@ def train_main_path():
           f"{trainer.sample_rate:.1e}, sigma {cfg.dp.noise_multiplier})",
           flush=True)
 
-    prof = profile_step(lambda: step(trainer))
+    prof = profile_step(lambda: timed_step(trainer, state), "fused+kernels")
 
     # the next step's norms² through the kernels and through the plain norm
     # rules on the card, same params and batch; then that step, plain
     batch = trainer.make_batch(state.step)
     plain_dp = dataclasses.replace(cfg.dp, use_kernels=False)
-    nsq_k, _, _ = split(cfg.dp, batch)
-    nsq_p, p1, p2 = split(plain_dp, batch)
+    nsq_k, *_ = split_passes(model, state, cfg.dp, batch)
+    nsq_p, _, p1, p2 = split_passes(model, state, plain_dp, batch)
     plain = Trainer(model, dataclasses.replace(cfg, dp=plain_dp), shape)
-    plain_rec = dict(step(plain), pass1_ms=p1, pass2_ms=p2)
+    plain_rec = dict(timed_step(plain, state), pass1_ms=p1, pass2_ms=p2)
     nsq_err = ((nsq_k - nsq_p).abs() / nsq_p.abs()).max().item()
     assert nsq_err <= NSQ_RTOL, nsq_err
     print(f"[train] plain norm rules on the card: step {plain_rec['step_ms']:.1f}"
@@ -687,17 +870,143 @@ def train_main_path():
 
     sgd = Trainer(model, dataclasses.replace(
         cfg, dp=dataclasses.replace(cfg.dp, algo="sgd")), shape)
-    sgd_rec = step(sgd)
+    sgd_rec = timed_step(sgd, state)
     assert math.isfinite(sgd_rec["loss"]), sgd_rec
     dp_ms = float(np.mean([r["step_ms"] for r in steps]))
     ratio = dp_ms / sgd_rec["step_ms"]
     print(f"[train] sgd step {sgd_rec['step_ms']:.1f} ms; DP-SGD(R) / SGD "
           f"step time {ratio:.2f}x", flush=True)
-    launches = {k: sum(c[k] for c in per_step) for k in per_step[0]}
-    return dict(arch=arch.name, n_layers=arch.n_layers, params=n_par,
-                batch=TRAIN_B, seq=TRAIN_T, steps=steps, peak_bytes=peak,
-                epsilon=eps, plain=plain_rec, nsq_rel_err=nsq_err, sgd=sgd_rec,
-                dp_over_sgd=ratio, launches=launches, profile=prof)
+    launches = {k: sum(r["launches"][k] for r in steps) for k in steps[0]["launches"]}
+    rec = dict(arch=arch.name, n_layers=arch.n_layers, params=n_par,
+               batch=TRAIN_B, seq=TRAIN_T, steps=steps, peak_bytes=peak,
+               epsilon=eps, plain=plain_rec, nsq_rel_err=nsq_err, sgd=sgd_rec,
+               dp_over_sgd=ratio, launches=launches, profile=prof)
+    return rec, model, trainer, state
+
+
+def train_norm_routes(model, fused_trainer, state):
+    """Phase 7 (see the module docstring) on phase 6's model and state."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.accountant import PrivacyAccountant
+    from repro_torch.train import Trainer
+    base = fused_trainer.cfg
+    shape = fused_trainer.shape
+
+    def trainer_for(shape_, **dp):
+        return Trainer(model, dataclasses.replace(
+            base, dp=dataclasses.replace(base.dp, **dp)), shape_)
+
+    out, launches = {}, dict.fromkeys(kernel_counts(), 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    # 1. materialize beside fused, in turns (mat, fused, fused, mat)
+    mat = trainer_for(shape, norm_strategy="materialize")
+    torch.cuda.reset_peak_memory_stats()
+    timed_step(mat, state)                     # warm-up: new cuBLAS shapes
+    recs = {"materialize": [], "fused": []}
+    for route in ("materialize", "fused", "fused", "materialize"):
+        tr = mat if route == "materialize" else fused_trainer
+        rec, *_ = counted_step(tr, model, state, route)
+        recs[route].append(rec)
+        add(rec["launches"])
+        print(f"[route] dpsgd_r {route}+kernels step {state.step - 1}: loss "
+              f"{rec['loss']:.4f}; {rec['step_ms']:.1f} ms = pass 1 "
+              f"{rec['pass1_ms']:.1f} + pass 2 {rec['pass2_ms']:.1f} + noise "
+              f"and optimizer {rec['noise_opt_ms']:.1f}; launches "
+              f"{ {k: v for k, v in rec['launches'].items() if v} }", flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    batch = mat.make_batch(state.step)
+    plain_dp = dataclasses.replace(mat.cfg.dp, use_kernels=False)
+    nsq_k, *_ = split_passes(model, state, mat.cfg.dp, batch)
+    nsq_p, _, p1, _ = split_passes(model, state, plain_dp, batch)
+    nsq_err = ((nsq_k - nsq_p).abs() / nsq_p.abs()).max().item()
+    assert nsq_err <= NSQ_RTOL, nsq_err
+    mean = {r: float(np.mean([x["step_ms"] for x in v])) for r, v in recs.items()}
+    print(f"[route] materialize {mean['materialize']:.1f} ms vs fused "
+          f"{mean['fused']:.1f} ms a step (means of 2, in turns; "
+          f"materialize / fused {mean['materialize'] / mean['fused']:.3f}); "
+          f"norms² vs the plain materialize rules: max rel err {nsq_err:.2e} "
+          f"(limit {NSQ_RTOL}); plain pass 1 {p1:.1f} ms; peak "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    prof = profile_step(lambda: timed_step(mat, state), "materialize+kernels")
+    out["materialize"] = dict(steps=recs, mean_step_ms=mean, nsq_rel_err=nsq_err,
+                              plain_pass1_ms=p1, peak_bytes=peak, profile=prof)
+
+    # 2. Poisson-sampled batches through materialize
+    poisson = Trainer(model, dataclasses.replace(
+        base, grad_accum=POISSON_ACCUM, dp=dataclasses.replace(
+            base.dp, norm_strategy="materialize", sampling="poisson")), shape)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    timed_step(poisson, state)                 # warm-up at the capacity
+    precs = []
+    for _ in range(2):
+        rec, batch, nsq, losses = counted_step(poisson, model, state,
+                                               "materialize", POISSON_ACCUM)
+        add(rec["launches"])
+        mask = batch["mask"]
+        real = int(mask.sum())
+        assert rec["realized_batch"] == real, (rec["realized_batch"], real)
+        assert bool(torch.all(nsq[~mask] == 0.0)), nsq
+        assert bool(torch.all(nsq[mask] > 0.0)), nsq
+        assert bool(torch.all(torch.isfinite(losses))) and math.isfinite(rec["loss"])
+        rec["nsq_real"] = nsq[mask].tolist()
+        precs.append(rec)
+        print(f"[poisson] step {state.step - 1}: realized batch {real} of "
+              f"capacity {poisson.capacity}; padded rows' norms² all exactly "
+              f"0.0; loss {rec['loss']:.4f}; {rec['step_ms']:.1f} ms = pass 1 "
+              f"{rec['pass1_ms']:.1f} + pass 2 {rec['pass2_ms']:.1f} + noise "
+              f"and optimizer {rec['noise_opt_ms']:.1f}", flush=True)
+    ppeak = torch.cuda.max_memory_allocated()
+    # the run's epsilon at its step count, priced at q = B/N by the
+    # accountant (the Poisson steps continue phase 6's step count)
+    last = poisson.history[-1]
+    eps = last["epsilon"]
+    assert math.isfinite(eps) and eps > 0 and eps == PrivacyAccountant(
+        batch_size=shape.global_batch, dataset_size=poisson.source.dataset_size,
+        noise_multiplier=base.dp.noise_multiplier,
+        delta=base.dp.delta).epsilon_at(last["step"] + 1), eps
+    print(f"[poisson] q {poisson.sample_rate:.1e}, capacity {poisson.capacity}, "
+          f"grad_accum {POISSON_ACCUM}; eps after {last['step'] + 1} steps "
+          f"{eps:.6f} (delta {base.dp.delta}, sigma {base.dp.noise_multiplier}); "
+          f"peak {ppeak / 2**30:.2f} GiB", flush=True)
+    out["poisson"] = dict(steps=precs, capacity=poisson.capacity,
+                          grad_accum=POISSON_ACCUM, epsilon=eps, peak_bytes=ppeak)
+
+    # 3. auto at T 2048: q/k/v/o through pegrad_norm, MLP and head through
+    # gram_norm
+    ashape = ShapeConfig("chip_smoke_2k", AUTO_T, AUTO_B, "train")
+    auto = trainer_for(ashape, norm_strategy="auto")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    timed_step(auto, state)                    # warm-up
+    rec, batch, _, _ = counted_step(auto, model, state, "auto-2048")
+    add(rec["launches"])
+    apeak = torch.cuda.max_memory_allocated()
+    batch = auto.make_batch(state.step)
+    nsq_k, *_ = split_passes(model, state, auto.cfg.dp, batch)
+    nsq_p, _, p1, _ = split_passes(model, state, dataclasses.replace(
+        auto.cfg.dp, use_kernels=False), batch)
+    aerr = ((nsq_k - nsq_p).abs() / nsq_p.abs()).max().item()
+    assert aerr <= NSQ_RTOL, aerr
+    print(f"[route] dpsgd_r auto+kernels at B {AUTO_B} x T {AUTO_T}: "
+          f"{rec['step_ms']:.1f} ms = pass 1 {rec['pass1_ms']:.1f} + pass 2 "
+          f"{rec['pass2_ms']:.1f} + noise and optimizer "
+          f"{rec['noise_opt_ms']:.1f}; launches "
+          f"{ {k: v for k, v in rec['launches'].items() if v} }; norms² vs the "
+          f"plain auto rules: max rel err {aerr:.2e} (limit {NSQ_RTOL}); peak "
+          f"{apeak / 2**30:.2f} GiB", flush=True)
+    out["auto"] = dict(step=rec, nsq_rel_err=aerr, plain_pass1_ms=p1,
+                       peak_bytes=apeak)
+    out["launches"] = launches
+    return out
 
 
 def main() -> int:
@@ -749,14 +1058,20 @@ def main() -> int:
     # (name, di, do, calls per training step): q, k, v, o; w1, w3; w2; head
     dense_mix = [("qkvo", d, d, 4 * L), ("w1w3", d, f, 2 * L),
                  ("w2", f, d, L), ("head", d, v, 1)]
-    n_tok = TRAIN_B * TRAIN_T
-    dense_recs, bwd_recs, gram_recs = [], [], []
+    dense_recs, bwd_recs, gram_recs, clip_recs = [], [], [], []
+    halves = {"pegrad_norm": [], "dense_dgrad": [], "ab": []}
     for dtype in (torch.float32, torch.bfloat16):
         for nm, di, do, _ in dense_mix:
+            iters = 5 if nm == "head" else 10
             dense_recs.append(check_dense_bwd_norm(nm, TRAIN_B, TRAIN_T, di, do, 1,
-                                                   dtype, iters=5 if nm == "head" else 10))
-        dense_recs.append(check_dense_bwd_norm("grouped-E4", 8, 300, 1024, 768, 4, dtype))
-        dense_recs.append(check_dense_bwd_norm("ragged", 3, 333, 1000, 517, 1, dtype))
+                                                   dtype, iters=iters))
+            for k, r in check_dense_halves(nm, TRAIN_B, TRAIN_T, di, do, 1, dtype,
+                                           iters=iters).items():
+                halves[k].append(r)
+        for shp in (("grouped-E4", 8, 300, 1024, 768, 4), ("ragged", 3, 333, 1000, 517, 1)):
+            dense_recs.append(check_dense_bwd_norm(*shp, dtype))
+            for k, r in check_dense_halves(*shp, dtype).items():
+                halves[k].append(r)
         check_norm_contracts(dtype)
         for shp in (("phi3-train", TRAIN_B * arch.n_heads, TRAIN_B * arch.n_kv_heads,
                      TRAIN_T, arch.hd, True),
@@ -765,6 +1080,30 @@ def main() -> int:
             bwd_recs.append(check_flash_bwd(*shp, dtype))
         gram_recs.append(check_gram("embed", TRAIN_B, TRAIN_T, d, True, False, dtype))
         gram_recs.append(check_gram("square", TRAIN_B, TRAIN_T, d, False, True, dtype))
+        # one phi3 w1's per-example gradients, stacked as vanilla DP-SGD forms
+        # them; and a ragged width (the one-column-per-thread path)
+        clip_recs.append(check_clip_reduce("phi3-w1", TRAIN_B, d * f, dtype, iters=20))
+        clip_recs.append(check_clip_reduce("ragged", 3, 1_000_003, dtype))
+
+    def pick(recs, shape):
+        return next(r for r in recs if r["shape"] == shape and r["dtype"] == "bfloat16")
+
+    def step_sum(recs, keys=("ms", "plain_ms", "bound_ms", "library_ms")):
+        """Sums over one training step's dense calls (dense_mix), bf16."""
+        per_call = {nm: pick(recs, nm) for nm, *_ in dense_mix}
+        out = {k: sum(n * per_call[nm][k] for nm, _, _, n in dense_mix) for k in keys}
+        if "bound_by" in per_call["qkvo"]:
+            # a sum of bounds is the bound of the sum when every call has one roof
+            (out["bound_by"],) = {r["bound_by"] for r in per_call.values()}
+            out["max_abs_err"] = max(r["max_abs_err"] for r in per_call.values())
+        return out
+
+    ab_step = step_sum(halves["ab"], ("separate_ms", "fused_ms"))
+    dgrad_launches = sum(r["dgrad_launches"] for r in halves["ab"])
+    print(f"[fusion] one training step's {7 * L + 1} dense calls, bf16: "
+          f"dense_dgrad + pegrad_norm {ab_step['separate_ms']:.1f} ms, "
+          f"dense_bwd_norm {ab_step['fused_ms']:.1f} ms, separate / fused "
+          f"{ab_step['separate_ms'] / ab_step['fused_ms']:.4f}", flush=True)
 
     # 4. small references
     small_reference("cuda")
@@ -773,31 +1112,31 @@ def main() -> int:
     # 5. the serving path
     print(f"[main] allocated before the serving path: "
           f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB", flush=True)
-    runs, launches, breakdown = main_path(arch, prompts)
+    runs, serve_launches, breakdown = main_path(arch, prompts)
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[train] allocated before the training path: "
           f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB", flush=True)
 
     # 6. the training path
-    train = train_main_path()
-    n_steps = len(train["steps"])
-    want = {"dense_bwd_norm": 7 * L + 1, "flash_attn_bwd": 2 * L,
-            "gram_norm": 1, "flash_attn_fwd": 3 * L}
-    for k, n in want.items():
-        assert train["launches"][k] == n * n_steps, (k, train["launches"][k], n)
+    train, model, fused_trainer, state = train_main_path()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[route] allocated before the norm-route path (phase 6's model and "
+          f"AdamW state): {torch.cuda.memory_allocated() / 2**30:.3f} GiB",
+          flush=True)
 
-    def pick(recs, shape):
-        return next(r for r in recs if r["shape"] == shape and r["dtype"] == "bfloat16")
+    # 7. the per-site norm rules and Poisson batches, on phase 6's state
+    routes = train_norm_routes(model, fused_trainer, state)
+    del model, fused_trainer, state
+    launches = {k: train["launches"][k] + routes["launches"][k]
+                for k in train["launches"]}
+    launches["flash_attn_fwd"] += serve_launches
 
-    # dense_bwd_norm: the sum over one training step's calls (dense_mix)
-    per_call = {nm: pick(dense_recs, nm) for nm, *_ in dense_mix}
-    step_sum = {k: sum(n * per_call[nm][k] for nm, _, _, n in dense_mix)
-                for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
-    # a sum of bounds is the bound of the sum when every call has one roof
-    (dense_bound_by,) = {r["bound_by"] for r in per_call.values()}
     flash_rec = pick(kernel_recs, "phi3-wave")
     bwd_rec, gram_rec = pick(bwd_recs, "phi3-train"), pick(gram_recs, "embed")
+    clip_rec = pick(clip_recs, "phi3-w1")
+    mix = " + ".join(f"{n} x ({di},{do})" for _, di, do, n in dense_mix)
 
     def entry(name, source, replaces, n, rec, **extra):
         out = {"name": name, "route": "cuda",
@@ -811,33 +1150,41 @@ def main() -> int:
 
     kernels = {"kernels": [
         entry("flash_attn_fwd", "flash_attn_fwd.cu",
-              "src/repro/kernels/flash_attn.py:77",
-              launches + train["launches"]["flash_attn_fwd"], flash_rec,
-              shape="serving wave, bf16"),
+              "src/repro/kernels/flash_attn.py:77", launches["flash_attn_fwd"],
+              flash_rec, shape="serving wave, bf16"),
         entry("dense_bwd_norm", "dense_bwd_norm.cu",
-              "src/repro/kernels/fused_bwd.py:114",
-              train["launches"]["dense_bwd_norm"],
-              dict(step_sum, max_abs_err=max(per_call[nm]["max_abs_err"]
-                                             for nm in per_call),
-                   bound_by=dense_bound_by),
-              shape="sum over one training step's calls, bf16: "
-                    + " + ".join(f"{n} x ({di},{do})" for _, di, do, n in dense_mix)),
+              "src/repro/kernels/fused_bwd.py:114", launches["dense_bwd_norm"],
+              step_sum(dense_recs),
+              shape=f"sum over one training step's calls, bf16: {mix}"),
         entry("flash_attn_bwd", "flash_attn_bwd.cu",
-              "src/repro/kernels/flash_attn.py:210",
-              train["launches"]["flash_attn_bwd"], bwd_rec,
-              shape=f"({bwd_rec['BH']}, {TRAIN_T}, {arch.hd}) causal, bf16"),
+              "src/repro/kernels/flash_attn.py:210", launches["flash_attn_bwd"],
+              bwd_rec, shape=f"({bwd_rec['BH']}, {TRAIN_T}, {arch.hd}) causal, bf16"),
         entry("gram_norm", "gram_norm.cu", "src/repro/kernels/gram_norm.py:66",
-              train["launches"]["gram_norm"], gram_rec,
+              launches["gram_norm"], gram_rec,
               shape=f"embedding rule ({TRAIN_B}, {TRAIN_T}, {d}) masked, bf16"),
+        entry("pegrad_norm", "pegrad_norm.cu", "src/repro/kernels/pegrad_norm.py:52",
+              launches["pegrad_norm"], step_sum(halves["pegrad_norm"]),
+              shape=f"sum over one materialize step's calls, bf16: {mix}"),
+        entry("dense_dgrad", "dense_dgrad.cu", "src/repro/kernels/fused_bwd.py:158",
+              dgrad_launches, step_sum(halves["dense_dgrad"]),
+              shape=f"sum over one training step's dense calls, bf16: {mix}",
+              launched_on="the fusion A/B (no training path calls it)"),
+        entry("clip_reduce", "clip_reduce.cu", "src/repro/kernels/clip_reduce.py:34",
+              clip_rec["launches"], clip_rec,
+              shape=f"({TRAIN_B}, {d * f}) bf16, one w1's per-example gradients",
+              launched_on="its kernel phase (no training path calls it)"),
     ]}
-    assert all(k["bound_by"] in ("bytes", "operations") for k in kernels["kernels"])
+    for k in kernels["kernels"]:
+        assert k["bound_by"] in ("bytes", "operations") and k["launches"] > 0, k
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"device": name, "nvidia_smi": smi, "flash_fwd": kernel_recs,
-         "dense_bwd_norm": dense_recs, "flash_attn_bwd": bwd_recs,
-         "gram_norm": gram_recs, "serve": runs, "decode_breakdown_ms": breakdown,
-         "train": train, "json_line": kernels}, indent=1))
+         "dense_bwd_norm": dense_recs, "dense_halves": halves,
+         "fusion_ab_step": ab_step, "flash_attn_bwd": bwd_recs,
+         "gram_norm": gram_recs, "clip_reduce": clip_recs, "serve": runs,
+         "decode_breakdown_ms": breakdown, "train": train, "routes": routes,
+         "json_line": kernels}, indent=1))
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

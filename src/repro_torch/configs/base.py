@@ -148,12 +148,15 @@ class DPConfig:
     sweep: the DiVa dataflow) or ``"auto"`` (cheapest by each site's FLOP
     formulas; never ``"fused"``).
 
-    ``use_kernels``: take each site's kernel route (``dense_bwd_norm``,
-    ``gram_norm``, the flash backward) instead of the plain PyTorch rules.
-    On a CPU tensor every kernel wrapper runs its plain version.
+    ``use_kernels``: take each site's kernel route (``pegrad_norm`` for
+    ``materialize``, ``gram_norm`` for ``gram`` and the embedding,
+    ``dense_bwd_norm`` and the flash backward for ``fused``) instead of the
+    plain PyTorch rules.  On a CPU tensor every kernel wrapper runs its
+    plain version.
 
-    ``sampling="poisson"``, ``augmult > 1`` and ``adaptive_clip`` raise
-    (ROADMAP).
+    ``sampling``: ``"fixed"`` or ``"poisson"`` (each example enters a step
+    with probability q = B/N; the batch is padded to a fixed capacity and
+    masked).  ``augmult > 1`` and ``adaptive_clip`` raise (ROADMAP).
     """
     enabled: bool = True
     algo: str = "dpsgd_r"          # sgd | dpsgd | dpsgd_r | dpsgd_r1f

@@ -16,10 +16,29 @@ where ``grads`` is a list of float32 tensors aligned with
                   weight gradient is formed; pass 2 (``reweighted_grads``)
                   backpropagates the clip-reweighted loss; then noise.
 
-``grad_accum > 1`` sums the clipped sums of equal chunks of the batch
-before the noise, as in the JAX package.  Not ported (ROADMAP queue 1):
-``"dpsgd"`` and ``"dpsgd_r1f"``, Poisson masks (a ``"mask"`` batch leaf),
+Masked variable batches (Poisson subsampling, lines 15–17): a batch may
+carry a ``"mask"`` leaf, ``(B,)`` bool example-validity flags of a
+right-padded fixed-capacity batch (data/pipeline.py ``poisson_batch_for``).
+Every backward pass is seeded with the masked per-example loss cotangents,
+so a padded row's activation gradients, its norm² at every site (plain rules
+and kernels alike: an all-zero gy row reduces to an exact zero), its clip
+factor and its term of the clipped sum are exact zeros, and a masked batch
+gives the update of the compacted batch.  Metrics are taken over the real
+rows only.  Without a ``"mask"`` leaf every row is real.
+
+``grad_accum > 1`` sums the clipped sums of equal chunks of the batch (the
+mask chunked alongside) before the noise, as in the JAX package.
+
+``expected_batch_size``: the private update's normaliser, in examples.
+Under Poisson sampling the trainer passes the expected sample size q·N
+(Algorithm 1 line 24's lot size), never the capacity or the realized
+size, which would leak the sample size.
+
+Not ported (ROADMAP queue 1): ``"dpsgd"`` and ``"dpsgd_r1f"``,
 ``augmult > 1`` and adaptive clipping; each raises ``NotImplementedError``.
+The view helpers below (``_example_mask``, ``_view_seed``,
+``_expand_rows``) follow the JAX package's ``augmult`` contract, and are
+the identity at K = 1, the only K the port runs.
 
 loss_fn contract: ``loss_fn(params, batch, ctx) -> (per_example_losses,
 ctx)`` with ``per_example_losses: (B,) float32``.
@@ -43,11 +62,43 @@ def _batch_size(batch) -> int:
     return tree.leaves(batch)[0].shape[0]
 
 
+def split_mask(batch):
+    """Split the optional ``"mask"`` leaf off a batch: (model inputs,
+    float32 (B·K,) 0/1 mask or None), so model code never sees it."""
+    if not isinstance(batch, dict) or MASK_KEY not in batch:
+        return batch, None
+    data = {k: v for k, v in batch.items() if k != MASK_KEY}
+    return data, batch[MASK_KEY].to(F32)
+
+
+def _ones_if_none(mask, R: int, device) -> torch.Tensor:
+    return torch.ones((R,), dtype=F32, device=device) if mask is None else mask
+
+
+def _views(dp: DPConfig) -> int:
+    return max(1, int(dp.augmult))
+
+
+def _example_mask(m_rows: torch.Tensor, k: int) -> torch.Tensor:
+    """(B·K,) row mask -> (B,) per-example mask (an example is present with
+    all K views or with none)."""
+    return m_rows if k == 1 else m_rows.reshape(-1, k)[:, 0]
+
+
+def _view_seed(m_rows: torch.Tensor, k: int) -> torch.Tensor:
+    """Loss-cotangent seed: the row mask scaled 1/K, so pulled-back grads
+    and norms² are means over the K views; K = 1 keeps the mask as it is."""
+    return m_rows if k == 1 else m_rows / k
+
+
+def _expand_rows(c_ex: torch.Tensor, k: int) -> torch.Tensor:
+    """(B,) per-example weights -> (B·K,) row weights carrying the 1/K view
+    averaging (pass-2 seeds)."""
+    return c_ex if k == 1 else torch.repeat_interleave(c_ex, k) / k
+
+
 def _unported(dp: DPConfig) -> None:
     """Raise on what the port has not taken over yet."""
-    if dp.sampling != "fixed":
-        raise NotImplementedError(
-            f"dp.sampling={dp.sampling!r} is not ported yet (ROADMAP queue 1)")
     if dp.augmult != 1:
         raise NotImplementedError(
             "dp.augmult > 1 is not ported yet (ROADMAP queue 1)")
@@ -56,13 +107,18 @@ def _unported(dp: DPConfig) -> None:
             "dp.adaptive_clip is not ported yet (ROADMAP queue 1)")
 
 
-def _metrics(losses, nsq, clip_norm):
+def _metrics(losses, nsq, clip_norm, mask_rows, mask_ex):
+    """Metrics over the real entries only: padded rows carry exact-zero
+    norms² but arbitrary losses.  ``losses``/``mask_rows`` are per row,
+    ``nsq``/``mask_ex`` per example."""
     n = torch.sqrt(torch.clamp(nsq, min=0.0))
-    return {"loss": losses.mean(),
-            "grad_norm_mean": n.mean(),
-            "grad_norm_max": n.max(),
-            "clipped_frac": (n > clip_norm).float().mean(),
-            "realized_batch": torch.tensor(float(nsq.shape[0]))}
+    count_rows = torch.clamp(mask_rows.sum(), min=1.0)
+    count_ex = torch.clamp(mask_ex.sum(), min=1.0)
+    return {"loss": (losses * mask_rows).sum() / count_rows,
+            "grad_norm_mean": (n * mask_ex).sum() / count_ex,
+            "grad_norm_max": (n * mask_ex).max(),
+            "clipped_frac": ((n > clip_norm).float() * mask_ex).sum() / count_ex,
+            "realized_batch": mask_ex.sum()}
 
 
 def _require_grad_leaves(params) -> List[torch.Tensor]:
@@ -84,23 +140,28 @@ def _f32_grads(loss, leaves) -> List[torch.Tensor]:
 # the two passes of DP-SGD(R)
 # ---------------------------------------------------------------------------
 
-def norm_pass(loss_fn: Callable, params, data, dp: DPConfig):
-    """Pass 1: (per-example norms² (B,), per-example losses (B,)).
+def norm_pass(loss_fn: Callable, params, data, dp: DPConfig, mask=None):
+    """Pass 1: (per-example norms² (B,), per-row losses (B·K,)).
 
     The accumulator starts as zeros that require grad; every site adds its
     norm² to its gradient.  The params are detached, so the sites compute
-    activation gradients and norms² and no weight gradient."""
+    activation gradients and norms² and no weight gradient.  The loss
+    cotangents are seeded with ``mask`` (float (B·K,) 0/1, default all
+    ones): the pass backpropagates Σ mᵢ·Lᵢ, so every padded row's gy is an
+    exact zero at every site, and so is its norm²."""
     device = tree.leaves(params)[0].device
-    ctx = DPContext.norm_mode(_batch_size(data), dp.norm_strategy,
-                              dp.use_kernels, dp.augmult, device)
+    K = _views(dp)
+    R = _batch_size(data)
+    ctx = DPContext.norm_mode(R // K, dp.norm_strategy, dp.use_kernels, K,
+                              device)
     acc0 = ctx.acc
+    seed = _view_seed(_ones_if_none(mask, R, device), K)
     with torch.enable_grad():
         losses, ctx = loss_fn(tree.tree_map(torch.Tensor.detach, params),
                               data, ctx)
-        (nsq,) = torch.autograd.grad(
-            (losses.sum(), ctx.acc), (acc0,),
-            (torch.ones((), dtype=losses.dtype, device=device),
-             torch.zeros_like(ctx.acc)))
+        (nsq,) = torch.autograd.grad((losses, ctx.acc), (acc0,),
+                                     (seed.to(losses.dtype),
+                                      torch.zeros_like(ctx.acc)))
     return nsq, losses.detach()
 
 
@@ -119,20 +180,27 @@ def reweighted_grads(loss_fn: Callable, params, data, weights) -> List[torch.Ten
 
 def _sgd_sum(loss_fn, dp):
     def fn(params, batch):
+        data, mask = split_mask(batch)
         leaves = _require_grad_leaves(params)
         with torch.enable_grad():
-            losses, _ = loss_fn(params, batch, DPContext.off())
-            grads = _f32_grads(losses.sum(), leaves)
+            losses, _ = loss_fn(params, data, DPContext.off())
+            m = _ones_if_none(mask, losses.shape[0], losses.device)
+            grads = _f32_grads((m * losses).sum(), leaves)
         return grads, (losses.detach(),
                        torch.zeros_like(losses, dtype=F32).detach())
     return fn
 
 
 def _dpsgd_r_sum(loss_fn, dp: DPConfig):
+    K = _views(dp)
+
     def fn(params, batch):
-        nsq, losses = norm_pass(loss_fn, params, batch, dp)       # lines 31-33
-        c = clipping.clip_factors(nsq, dp.clip_norm)              # line 35
-        grads = reweighted_grads(loss_fn, params, batch, c)       # lines 36-39
+        data, mask = split_mask(batch)
+        m = _ones_if_none(mask, _batch_size(data), tree.leaves(params)[0].device)
+        nsq, losses = norm_pass(loss_fn, params, data, dp, m)     # lines 31-33
+        c = clipping.clip_factors(nsq, dp.clip_norm) * _example_mask(m, K)  # 35
+        grads = reweighted_grads(loss_fn, params, data,
+                                 _expand_rows(c, K))              # lines 36-39
         return grads, (losses, nsq)
     return fn
 
@@ -198,17 +266,17 @@ def make_noisy_grad_fn(loss_fn: Callable, dp: DPConfig, grad_accum: int = 1,
     """Build fn(params, batch, generator) -> (grads, metrics).
 
     ``expected_batch_size``: the private update's normaliser; None uses the
-    physical batch size (fixed-size batches).  ``generator`` draws the
-    noise on the gradients' device."""
+    physical example count (fixed-size batches); under Poisson sampling
+    q·N.  ``generator`` draws the noise on the gradients' device."""
     _unported(dp)
     csum = make_clipped_sum_fn(loss_fn, dp)
     private = algo_is_private(dp.algo, dp.enabled)
+    K = _views(dp)
 
     def fn(params, batch, generator: torch.Generator):
-        if MASK_KEY in batch:
-            raise NotImplementedError(
-                "Poisson-masked batches are not ported yet (ROADMAP queue 1)")
+        _, mask = split_mask(batch)
         R = _batch_size(batch)
+        full_mask = _ones_if_none(mask, R, tree.leaves(params)[0].device)
         if grad_accum == 1:
             summed, (losses, nsq) = csum(params, batch)
         else:
@@ -228,15 +296,17 @@ def make_noisy_grad_fn(loss_fn: Callable, dp: DPConfig, grad_accum: int = 1,
             nsq = torch.cat([p[1] for p in parts])
         if private:
             denom = (float(expected_batch_size)
-                     if expected_batch_size is not None else R)
+                     if expected_batch_size is not None else R // K)
             noise.add_noise_(summed, generator, dp.noise_multiplier,
                              dp.clip_norm, denom)                  # lines 24/41
-            metrics = _metrics(losses, nsq, dp.clip_norm)
+            metrics = _metrics(losses, nsq, dp.clip_norm, full_mask,
+                               _example_mask(full_mask, K))
         else:
+            count = torch.clamp(full_mask.sum(), min=1.0)
             for g in summed:
-                g.div_(R)
-            metrics = {"loss": losses.mean(),
-                       "realized_batch": torch.tensor(float(R))}
+                g.div_(count)
+            metrics = {"loss": (losses * full_mask).sum() / count,
+                       "realized_batch": full_mask.sum()}
         return summed, metrics
 
     return fn

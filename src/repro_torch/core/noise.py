@@ -20,8 +20,9 @@ def add_noise_(grads: List[torch.Tensor], generator: torch.Generator,
     In place, unlike the JAX package's functional version: the summed f32
     gradients are the step's largest buffer after the optimizer state, and
     the update needs no second copy of them.  ``denom`` is the physical
-    batch size for fixed-size batches — a Python number, never a function
-    of the realized sample."""
+    batch size for fixed-size batches and the expected batch q·N under
+    Poisson sampling: a Python number, never a function of the realized
+    sample."""
     std = noise_multiplier * clip_norm
     for g in grads:
         if g.dtype != torch.float32:

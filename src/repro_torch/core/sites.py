@@ -230,9 +230,8 @@ def _dense_rule_gram(spec, operands, gy):
 
 
 def _dense_kernel_materialize(spec, operands, gy):
-    raise NotImplementedError(
-        "norm_strategy='materialize' with use_kernels needs the pegrad_norm "
-        "kernel, which is not ported yet (ROADMAP queue 2)")
+    from repro_torch.kernels import ops as kops
+    return kops.pegrad_norm(*_dense_pair4(spec, operands, gy))
 
 
 def _dense_kernel_gram(spec, operands, gy):

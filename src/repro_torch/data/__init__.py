@@ -1,4 +1,7 @@
 """Data pipeline of the port (``repro/data`` counterpart)."""
-from repro_torch.data.pipeline import SyntheticSource, batch_for, make_source
+from repro_torch.data.pipeline import (SyntheticSource, batch_for, make_source,
+                                       poisson_batch_for, poisson_capacity,
+                                       poisson_sample_indices)
 
-__all__ = ["SyntheticSource", "batch_for", "make_source"]
+__all__ = ["SyntheticSource", "batch_for", "make_source", "poisson_batch_for",
+           "poisson_capacity", "poisson_sample_indices"]

@@ -1,19 +1,33 @@
 """Deterministic, stateless synthetic data.  Counterpart of
-``repro/data/pipeline.py`` (``_rng``, ``SyntheticSource``, ``batch_for``),
-for token streams and fixed-size batches.
+``repro/data/pipeline.py`` (``_rng``, ``SyntheticSource``, ``batch_for``,
+``poisson_sample_indices``, ``poisson_capacity``, ``poisson_batch_for``),
+for token streams.
 
 Every batch is a pure function of (seed, step, example index) through a
 counter-based Philox generator in numpy, so a retried step sees the same
 batch and both packages draw the same tokens for the same seed and step.
+
+Two sampling modes, as in the JAX package: ``batch_for`` gives fixed-size
+batches of per-step fresh examples; ``poisson_batch_for`` draws each of the
+N dataset examples independently with probability q, keyed by (seed,
+step), right-pads the draw to a fixed capacity and adds a ``(per,) bool``
+``"mask"`` of the real rows.  Example content is keyed by dataset index,
+so example i is the same tokens in every step that samples it.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+import warnings
+from typing import Dict, Optional
 
 import numpy as np
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
+
+# stream tag for index-keyed (step-independent) example content
+_EXAMPLE_STREAM_STEP = 0x0DA7A5E7
+# stream of the Poisson draw
+_POISSON_STREAM = 0xB0
 
 
 def _rng(seed: int, step: int, stream: int) -> np.random.Generator:
@@ -45,6 +59,15 @@ class SyntheticSource:
             out[i] = gi.integers(0, self.vocab, seq_len + 1, np.int64)
         return {"tokens": out}
 
+    def examples(self, indices: np.ndarray, seq_len: int) -> Dict[str, np.ndarray]:
+        """``{"tokens": (len(indices), seq_len + 1) int32}`` by dataset
+        index: example i is the same tokens whichever step samples it."""
+        out = np.empty((len(indices), seq_len + 1), np.int32)
+        for row, idx in enumerate(indices):
+            gi = _rng(self.seed, _EXAMPLE_STREAM_STEP, int(idx) + 1)
+            out[row] = gi.integers(0, self.vocab, seq_len + 1, np.int64)
+        return {"tokens": out}
+
 
 def make_source(spec: str, vocab: int, seed: int = 0) -> SyntheticSource:
     if spec == "synthetic":
@@ -60,3 +83,75 @@ def batch_for(source: SyntheticSource, arch: ArchConfig, shape: ShapeConfig,
         raise NotImplementedError(f"{arch.name}: embedding-input models are "
                                   f"not ported")
     return source.batch(step, shape.global_batch, shape.seq_len, shard, n_shards)
+
+
+# ---------------------------------------------------------------------------
+# Poisson subsampling (DPConfig.sampling = "poisson")
+# ---------------------------------------------------------------------------
+
+def poisson_sample_indices(seed: int, step: int, dataset_size: int,
+                           sample_rate: float) -> np.ndarray:
+    """The step's Poisson sample: sorted dataset indices, each of the N
+    examples included independently with probability ``sample_rate``.
+    Drawn as S ~ Binomial(N, q), then a uniform subset of size S: the same
+    distribution as N Bernoulli(q) draws, in O(S)."""
+    if not 0.0 <= sample_rate <= 1.0:
+        raise ValueError(f"sample_rate {sample_rate} is not in [0, 1]")
+    g = _rng(seed, step, _POISSON_STREAM)
+    size = int(g.binomial(dataset_size, sample_rate))
+    idx = g.choice(dataset_size, size=size, replace=False)
+    return np.sort(idx.astype(np.int64))
+
+
+def poisson_capacity(expected_batch: int, sample_rate: float,
+                     multiple: int = 1, z: float = 6.0) -> int:
+    """Physical rows of the padded batch: the expected size q·N plus ``z``
+    binomial standard deviations (z = 6: overflow about once in 1e9
+    steps), rounded up to ``multiple``.  The same for every step."""
+    std = float(np.sqrt(expected_batch * max(1.0 - sample_rate, 0.0)))
+    cap = int(np.ceil(expected_batch + z * std))
+    multiple = max(1, multiple)
+    return ((cap + multiple - 1) // multiple) * multiple
+
+
+def poisson_batch_for(source: SyntheticSource, arch: ArchConfig,
+                      shape: ShapeConfig, step: int,
+                      capacity: Optional[int] = None,
+                      sample_rate: Optional[float] = None,
+                      shard: int = 0, n_shards: int = 1) -> Dict[str, np.ndarray]:
+    """This shard's slice of the step's Poisson-sampled batch.
+
+    The expected size is ``shape.global_batch`` (q = B/N unless
+    ``sample_rate`` is given); the physical row count is ``capacity``,
+    right-padded with all-zero rows.  Returns ``"tokens"`` and ``"mask"``,
+    (per,) bool flags of the real rows.  A draw larger than the capacity
+    (z = 6: astronomically rare) is cut to its lowest indices with a
+    ``RuntimeWarning``: that step then deviates from the priced mechanism."""
+    if arch.embed_stub:
+        raise NotImplementedError(f"{arch.name}: embedding-input models are "
+                                  f"not ported")
+    N = source.dataset_size
+    q = sample_rate if sample_rate is not None else shape.global_batch / N
+    cap = capacity if capacity is not None else poisson_capacity(
+        shape.global_batch, q, multiple=n_shards)
+    if cap % n_shards:
+        raise ValueError(f"capacity {cap} does not split into {n_shards} shards")
+    per = cap // n_shards
+    lo = shard * per
+    idx = poisson_sample_indices(source.seed, step, N, q)
+    if len(idx) > cap:
+        warnings.warn(
+            f"poisson draw of {len(idx)} examples exceeds capacity {cap} at "
+            f"step {step}; truncating (the executed sample deviates from the "
+            f"priced Poisson mechanism this step)", RuntimeWarning)
+        idx = idx[:cap]
+    mine = idx[lo:lo + per]                      # this shard's real rows
+    out = {}
+    for k, v in source.examples(mine, shape.seq_len).items():
+        padded = np.zeros((per,) + v.shape[1:], v.dtype)
+        padded[:len(mine)] = v
+        out[k] = padded
+    mask = np.zeros((per,), np.bool_)
+    mask[:len(mine)] = True
+    out["mask"] = mask
+    return out

@@ -7,8 +7,9 @@ minutes):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o build/repro_torch_kernels/<name>-<hash>.so <name>.cu
 
-The library's file name carries a hash of its source, so an edited source
-rebuilds at its next use and an unchanged one is loaded as built.  Sources
+The library's file name carries a hash of its source and of every shared
+header (``csrc/*.cuh``), so an edited source or header rebuilds at its next
+use and an unchanged one is loaded as built.  Sources
 build in parallel, one ``nvcc`` each.  A failed build raises with the
 compiler's output.
 """
@@ -47,10 +48,11 @@ def sources() -> List[str]:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes()
-                       + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{h}.so"
+    h = hashlib.sha256()
+    for f in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: List[str] = None) -> Dict[str, str]:

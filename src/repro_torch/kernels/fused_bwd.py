@@ -1,10 +1,12 @@
 """Fused dense backward: the CUDA kernel ``csrc/dense_bwd_norm.cu`` and its
-wrapper.  Counterpart of ``repro/kernels/fused_bwd.py`` ``dense_bwd_norm``
-(the Pallas TPU kernel).
+wrapper, and its dgrad half alone, ``csrc/dense_dgrad.cu``.  Counterparts
+of ``repro/kernels/fused_bwd.py`` ``dense_bwd_norm`` and ``dense_dgrad``
+(the Pallas TPU kernels).
 
-A CPU tensor takes the plain version (``ref.dense_bwd_norm_ref``); a CUDA
-tensor launches the kernel or raises.  ``LAUNCHES`` counts wrapper calls that
-launched the kernel (and nothing else).
+A CPU tensor takes the plain version (``ref.dense_bwd_norm_ref``,
+``ref.dense_dgrad_ref``); a CUDA tensor launches the kernel or raises.
+``LAUNCHES`` and ``DGRAD_LAUNCHES`` count wrapper calls that launched
+``dense_bwd_norm`` and ``dense_dgrad`` (and nothing else).
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import torch
 from repro_torch.kernels import build, ref
 
 LAUNCHES = 0
+DGRAD_LAUNCHES = 0
 TILE = 128            # the kernel's (i, j) tile of the per-example wgrad
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -23,6 +26,14 @@ def _kernel():
     fn = build.load("dense_bwd_norm").repro_dense_bwd_norm
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                    + [ctypes.c_void_p])       # x gy w gx part, ints, stream
+    fn.restype = ctypes.c_int                 # cudaError_t
+    return fn
+
+
+def _dgrad_kernel():
+    fn = build.load("dense_dgrad").repro_dense_dgrad
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p])       # gy w gx, ints, stream
     fn.restype = ctypes.c_int                 # cudaError_t
     return fn
 
@@ -77,3 +88,41 @@ def dense_bwd_norm(x: torch.Tensor, gy: torch.Tensor, w: torch.Tensor):
     LAUNCHES += 1
     # partials of a row summed in a fixed order (no atomics): deterministic
     return gx, part.sum(dim=1)
+
+
+def dense_dgrad(gy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """gy: (BG, T, do), w: (E, di, do), row b using group ``b % E`` ->
+    gx (BG, T, di) = ``gy_b @ w[b % E]ᵀ`` in gy's dtype: ``dense_bwd_norm``'s
+    gx alone, bit for bit."""
+    global DGRAD_LAUNCHES
+    if gy.dim() != 3 or w.dim() != 3 or w.shape[2] != gy.shape[2] \
+            or min(*gy.shape, *w.shape) < 1:
+        raise ValueError(f"dense_dgrad: want gy (BG,T,do), w (E,di,do); got "
+                         f"{tuple(gy.shape)}, {tuple(w.shape)}")
+    if gy.dtype != w.dtype:
+        raise TypeError(f"dense_dgrad: mixed dtypes {gy.dtype}, {w.dtype}")
+    if gy.device != w.device:
+        raise ValueError("dense_dgrad: gy, w on different devices")
+    if gy.device.type == "cpu":
+        return ref.dense_dgrad_ref(gy, w)
+    if gy.device.type != "cuda":
+        raise ValueError(f"dense_dgrad: unsupported device {gy.device}")
+    if gy.dtype not in _DTYPES:
+        raise TypeError(f"dense_dgrad: kernel takes float32 or bfloat16, got "
+                        f"{gy.dtype}")
+    if not (gy.is_contiguous() and w.is_contiguous()):
+        raise ValueError("dense_dgrad: gy, w must be contiguous")
+    BG, T, do = gy.shape
+    E, di = w.shape[:2]
+    if BG > 65535:
+        raise ValueError(f"dense_dgrad: {BG} rows > 65535 (grid y)")
+    kernel = _dgrad_kernel()
+    with torch.cuda.device(gy.device):
+        gx = torch.empty((BG, T, di), dtype=gy.dtype, device=gy.device)
+        err = kernel(gy.data_ptr(), w.data_ptr(), gx.data_ptr(), BG, T, di, do,
+                     E, _DTYPES[gy.dtype], torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"dense_dgrad: CUDA launch failed with cudaError_t "
+                           f"{err}")
+    DGRAD_LAUNCHES += 1
+    return gx

@@ -11,9 +11,21 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import clip_reduce as _cr
 from repro_torch.kernels import flash_attn as _fa
 from repro_torch.kernels import fused_bwd as _fb
 from repro_torch.kernels import gram_norm as _gn
+from repro_torch.kernels import pegrad_norm as _pn
+
+
+def pegrad_norm(x4, gy4):
+    """(B,G,T,di),(B,G,T,do) -> (B,) per-example grad norms² (float32),
+    the group norms² summed per example."""
+    B, G, T, di = x4.shape
+    do = gy4.shape[-1]
+    out = _pn.pegrad_norm(x4.reshape(B * G, T, di).contiguous(),
+                          gy4.reshape(B * G, T, do).contiguous())
+    return out.reshape(B, G).sum(dim=1)
 
 
 def dense_bwd_norm(x4, gy4, w):
@@ -27,6 +39,21 @@ def dense_bwd_norm(x4, gy4, w):
                                  gy4.reshape(B * G, T, do).contiguous(),
                                  wE.contiguous())
     return gx.reshape(x4.shape), nsq.reshape(B, G).sum(dim=1)
+
+
+def dense_dgrad(gy4, w):
+    """The dgrad half alone: (B,G,T,do), w (di,do) or (G,di,do) ->
+    gx4 (B,G,T,di).  Paired with ``pegrad_norm`` it is the two-launch
+    baseline that ``dense_bwd_norm`` fuses."""
+    B, G, T, do = gy4.shape
+    wE = w if w.dim() == 3 else w[None]
+    gx = _fb.dense_dgrad(gy4.reshape(B * G, T, do).contiguous(), wE.contiguous())
+    return gx.reshape(B, G, T, wE.shape[1])
+
+
+def clip_reduce(g, c):
+    """(B, N), (B,) -> (N,) Σ_b c_b·g_b (float32)."""
+    return _cr.clip_reduce(g.contiguous(), c.float().contiguous())
 
 
 def gram_norm(x4, gy4, mask_ids=None, square: bool = True):

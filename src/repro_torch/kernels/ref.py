@@ -86,15 +86,26 @@ def pegrad_norm_ref(x, gy):
     return (g * g).sum(dim=(1, 2))
 
 
+def dense_dgrad_ref(gy, w):
+    """gy (BG, T, do), w (E, di, do) with row b using group ``b % E`` ->
+    gx (BG, T, di) = gy_b · w[b % E]ᵀ, computed in float32, in gy's dtype."""
+    E = w.shape[0]
+    wb = w.float()[torch.arange(gy.shape[0], device=w.device) % E]
+    return torch.matmul(gy.float(), wb.transpose(1, 2)).to(gy.dtype)
+
+
 def dense_bwd_norm_ref(x, gy, w):
     """The fused dense backward kernel's function: x (BG, T, di), gy
     (BG, T, do), w (E, di, do) with row b using group ``b % E`` ->
     (gx (BG, T, di) in x's dtype, nsq (BG,) float32), both computed in
     float32 (``repro/kernels/ref.py`` ``dense_bwd_ref``)."""
-    E = w.shape[0]
-    wb = w.float()[torch.arange(x.shape[0], device=w.device) % E]
-    gx = torch.matmul(gy.float(), wb.transpose(1, 2))
-    return gx.to(x.dtype), pegrad_norm_ref(x, gy)
+    return dense_dgrad_ref(gy, w).to(x.dtype), pegrad_norm_ref(x, gy)
+
+
+def clip_reduce_ref(g, c):
+    """g (B, N) per-example gradients, c (B,) clip factors -> (N,)
+    Σ_b c_b·g_b, computed in float32."""
+    return torch.matmul(c.float(), g.float())
 
 
 def gram_norm_ref(x, gy, mask_ids=None, square: bool = True):

@@ -4,12 +4,18 @@
         --reduced --steps 3 --device cpu --dtype float32 \
         --set dp.norm_strategy=fused --set dp.use_kernels=true
 
+    PYTHONPATH=src python -m repro_torch.launch.train --arch phi3-mini-3.8b \
+        --reduced --steps 3 --device cpu --dtype float32 \
+        --set dp.sampling=poisson --set dp.norm_strategy=materialize \
+        --set dp.use_kernels=true
+
 The JAX launcher's flags ``--arch``, ``--reduced``, ``--steps``, ``--batch``,
 ``--seq`` and ``--set`` (``--set shape=...`` picks the input shape), plus
 ``--device`` (default ``cuda``) and ``--dtype`` as in ``launch/serve.py``.
 ``--dtype`` sets ``param_dtype`` and ``compute_dtype`` before the ``--set``
 overrides (default: the config's, ``bfloat16``).  Weights are a seeded
-random init; there are no checkpoints.
+random init; there are no checkpoints.  Under ``dp.sampling=poisson`` each
+step's line gives its realized batch and the padded capacity.
 """
 from __future__ import annotations
 
@@ -71,6 +77,10 @@ def main(argv=None) -> None:
           f"x {shape.seq_len}; dp {cfg.dp.algo} norm_strategy="
           f"{cfg.dp.norm_strategy} use_kernels={cfg.dp.use_kernels}",
           flush=True)
+    if trainer.sampling == "poisson":
+        print(f"[train] poisson sampling: q = {trainer.sample_rate:.3e}, "
+              f"expected batch {shape.global_batch}, capacity "
+              f"{trainer.capacity} rows", flush=True)
     state = trainer.run(trainer.init_state())
     eps = trainer.accountant.epsilon_at(state.step)
     print(f"[train] finished at step {state.step}; privacy spent: "

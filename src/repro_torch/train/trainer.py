@@ -1,12 +1,14 @@
 """Training loop of the port.  Counterpart of ``repro/train/trainer.py``.
 
-A single-process ``Trainer`` with fixed-size sampling: each step's batch is
-the (seed, step)-keyed synthetic batch, the noise generator is seeded from
-(seed, step), the privacy accountant prices q = B/N, and every
-``log_every`` steps (and the last) a record goes to ``history``.
+A single-process ``Trainer``: each step's batch is the (seed, step)-keyed
+synthetic batch, the noise generator is seeded from (seed, step), the
+privacy accountant prices q = B/N, and every ``log_every`` steps (and the
+last) a record goes to ``history``.  Under ``dp.sampling="poisson"`` the
+batch is a Poisson sample padded to a step-invariant ``capacity`` with its
+``"mask"``, and the noisy sum is normalised by the expected batch q·N.
 
 Not ported (ROADMAP queue 1): checkpoints (a run always starts from its
-init), Poisson sampling, the memory planner, the launch autotuner,
+init), the memory planner, the launch autotuner,
 gradient compression, pipeline stages, retries, the straggler watchdog,
 activation checkpointing (the port runs ``remat="none"``) and separate
 parameter and compute types.  ``TrainConfig`` has no fields for these, or
@@ -14,6 +16,7 @@ raises on them (``configs/base.py``).
 """
 from __future__ import annotations
 
+import math
 import time
 import zlib
 from typing import Dict, Optional
@@ -24,9 +27,24 @@ from repro_torch import tree
 from repro_torch.configs.base import ShapeConfig, TrainConfig
 from repro_torch.core.accountant import PrivacyAccountant
 from repro_torch.core.algo import make_noisy_grad_fn
-from repro_torch.data.pipeline import batch_for, make_source
+from repro_torch.data.pipeline import (batch_for, make_source,
+                                       poisson_batch_for, poisson_capacity)
 from repro_torch.optim.optimizers import make_optimizer
 from repro_torch.train.state import TrainState
+
+
+def physical_batch_size(train_cfg: TrainConfig, shape: ShapeConfig,
+                        dataset_size: int, shards: int = 1) -> int:
+    """Physical (padded) examples per step.  Fixed sampling: the configured
+    batch.  Poisson: a step-invariant capacity >= the expected size q·N
+    (+6 binomial sigmas), rounded so that ``grad_accum`` chunks and
+    ``shards`` keep dividing it (``dp.microbatch`` is not ported and counts
+    as 1)."""
+    if train_cfg.dp.sampling != "poisson":
+        return shape.global_batch
+    mult = math.lcm(max(1, train_cfg.grad_accum), max(1, shards))
+    return poisson_capacity(shape.global_batch,
+                            shape.global_batch / dataset_size, multiple=mult)
 
 
 class Trainer:
@@ -47,12 +65,22 @@ class Trainer:
         if model.dtype != getattr(torch, train_cfg.param_dtype, None):
             raise ValueError(f"the model is {model.dtype}, the config asks "
                              f"for param_dtype={train_cfg.param_dtype!r}")
+        self.sampling = train_cfg.dp.sampling
+        if self.sampling not in ("fixed", "poisson"):
+            raise ValueError(f"unknown dp.sampling {self.sampling!r}; the "
+                             f"port takes 'fixed' and 'poisson'")
         model.requires_grad_(True)
         self.source = make_source(train_cfg.data_source, model.arch.vocab,
                                   train_cfg.seed)
         self.sample_rate = shape.global_batch / self.source.dataset_size
+        self.capacity = physical_batch_size(train_cfg, shape,
+                                            self.source.dataset_size)
+        # Poisson: the lot size q·N, never the capacity or the realized draw
+        expected = (float(shape.global_batch) if self.sampling == "poisson"
+                    else None)
         self.grad_fn = make_noisy_grad_fn(model.loss_fn, train_cfg.dp,
-                                          grad_accum=train_cfg.grad_accum)
+                                          grad_accum=train_cfg.grad_accum,
+                                          expected_batch_size=expected)
         self.opt = make_optimizer(train_cfg.optim)
         self.accountant = PrivacyAccountant(
             batch_size=shape.global_batch,
@@ -67,8 +95,14 @@ class Trainer:
                           opt_state=self.opt.init(tree.leaves(params)))
 
     def make_batch(self, step: int) -> Dict[str, torch.Tensor]:
-        """The step's (seed, step)-keyed batch, on the model's device."""
-        batch = batch_for(self.source, self.model.arch, self.shape, step)
+        """The step's (seed, step)-keyed batch, on the model's device; under
+        Poisson sampling ``self.capacity`` rows with a ``"mask"`` leaf."""
+        if self.sampling == "poisson":
+            batch = poisson_batch_for(self.source, self.model.arch, self.shape,
+                                      step, capacity=self.capacity,
+                                      sample_rate=self.sample_rate)
+        else:
+            batch = batch_for(self.source, self.model.arch, self.shape, step)
         return {k: torch.from_numpy(v).to(self.device) for k, v in batch.items()}
 
     def noise_generator(self, step: int) -> torch.Generator:
@@ -103,6 +137,10 @@ class Trainer:
                 rec.update(step=step, sec=dt, epsilon=eps,
                            expected_batch=self.shape.global_batch)
                 self.history.append(rec)
+                realized = ""
+                if self.sampling == "poisson":
+                    realized = (f"B {rec['realized_batch']:.0f} of capacity "
+                                f"{self.capacity} ")
                 print(f"[trainer] step {step:5d} loss {rec['loss']:.4f} "
-                      f"eps {eps:.3f} ({dt * 1e3:.0f} ms)", flush=True)
+                      f"eps {eps:.3f} {realized}({dt * 1e3:.0f} ms)", flush=True)
         return state

@@ -12,16 +12,22 @@ backward and norm kernels convert bf16 inputs to float32 exactly and
 accumulate in float32, so their float32 outputs (norms², attention grads)
 differ from the plain version on the same inputs only by summation order:
 rtol 1e-4 (norms²) and 1e-3 (grads, which also go through exp); a bf16 gx
-also rounds its output (one bf16 ulp, 2^-8 relative).
+also rounds its output (one bf16 ulp, 2^-8 relative).  ``pegrad_norm`` and
+``dense_dgrad`` are ``dense_bwd_norm``'s two launches alone and must equal
+its outputs bit for bit; ``clip_reduce`` sums in float32 in row order
+(rtol 1e-5 against the plain version's float32 product, atol 1e-5 of the
+largest |g| times Σ|c| for the cancellations).
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import clip_reduce as tcr
 from repro_torch.kernels import flash_attn as tfa
 from repro_torch.kernels import fused_bwd as tfb
 from repro_torch.kernels import gram_norm as tgn
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import pegrad_norm as tpn
 from repro_torch.kernels import ref as tref
 
 # (BH, KV rows, T, hd, causal): every head width the kernel is built for
@@ -221,3 +227,116 @@ def test_flash_attention_autograd_matches_plain_autograd(cuda, causal):
     want = torch.autograd.grad(tref.flash_attn_ref(q, k, v, causal), (q, k, v), do)
     for g, r in zip(got, want):
         torch.testing.assert_close(g, r, rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", DENSE_SHAPES)
+def test_pegrad_norm_and_dgrad_match_plain_and_the_fused_kernel(cuda, shape, dtype):
+    BG, T, di, do, E = shape
+    x = _randn(cuda, (BG, T, di), dtype, 0)
+    gy = _randn(cuda, (BG, T, do), dtype, 1)
+    w = _randn(cuda, (E, di, do), dtype, 2)
+    before = (tpn.LAUNCHES, tfb.DGRAD_LAUNCHES, tfb.LAUNCHES)
+    nsq = tpn.pegrad_norm(x, gy)
+    gx = tfb.dense_dgrad(gy, w)
+    torch.cuda.synchronize()
+    assert (tpn.LAUNCHES, tfb.DGRAD_LAUNCHES, tfb.LAUNCHES) == \
+        (before[0] + 1, before[1] + 1, before[2])
+    assert nsq.dtype == torch.float32 and gx.dtype == dtype
+    torch.testing.assert_close(nsq, tref.pegrad_norm_ref(x, gy), rtol=1e-4, atol=0.0)
+    gx_want = tref.dense_dgrad_ref(gy.float(), w.float())
+    if dtype == torch.float32:
+        torch.testing.assert_close(gx, gx_want, rtol=2e-4, atol=2e-4)
+    else:
+        torch.testing.assert_close(gx.float(), gx_want, rtol=1e-2,
+                                   atol=1e-2 * gx_want.abs().max().item())
+    fgx, fnsq = tfb.dense_bwd_norm(x, gy, w)
+    assert torch.equal(gx, fgx) and torch.equal(nsq, fnsq)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pegrad_norm_and_dgrad_zero_rows_and_determinism(cuda, dtype):
+    x = _randn(cuda, (4, 70, 96), dtype)
+    gy = _randn(cuda, (4, 70, 130), dtype, 1)
+    gy[1] = 0
+    gy[3] = 0
+    w = _randn(cuda, (2, 96, 130), dtype, 2)
+    a, b = tpn.pegrad_norm(x, gy), tpn.pegrad_norm(x, gy)
+    ga, gb = tfb.dense_dgrad(gy, w), tfb.dense_dgrad(gy, w)
+    torch.cuda.synchronize()
+    for r in (1, 3):
+        assert a[r].item() == 0.0 and torch.all(ga[r] == 0)
+    assert torch.all(a[[0, 2]] > 0)
+    assert torch.equal(a, b) and torch.equal(ga, gb)
+
+
+@pytest.mark.cuda
+def test_dense_shims_on_the_card(cuda):
+    """ops.pegrad_norm / ops.dense_dgrad: (B,G,T,d) operands, w (G,di,do),
+    against the plain versions over the flattened rows."""
+    B, G, T, di, do = 2, 3, 33, 40, 24
+    x = _randn(cuda, (B, G, T, di), torch.float32, 0)
+    gy = _randn(cuda, (B, G, T, do), torch.float32, 1)
+    w = _randn(cuda, (G, di, do), torch.float32, 2)
+    nsq = tops.pegrad_norm(x, gy)
+    gx = tops.dense_dgrad(gy, w)
+    want = tref.pegrad_norm_ref(x.reshape(B * G, T, di),
+                                gy.reshape(B * G, T, do)).reshape(B, G).sum(1)
+    torch.testing.assert_close(nsq, want, rtol=1e-4, atol=0.0)
+    torch.testing.assert_close(gx, tref.dense_dgrad_ref(
+        gy.reshape(B * G, T, do), w).reshape(B, G, T, di), rtol=2e-4, atol=2e-4)
+
+
+# (B, N): aligned for the 16-byte path (f32 and bf16), ragged, one row, a
+# row count past the kernel's 8-row load group
+CLIP_SHAPES = [(8, 4096), (3, 1003), (1, 8), (13, 777), (9, 2048 + 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", CLIP_SHAPES)
+def test_clip_reduce_matches_plain(cuda, shape, dtype):
+    B, N = shape
+    g = _randn(cuda, (B, N), dtype, 0)
+    c = torch.rand(B, generator=torch.Generator().manual_seed(1)).to(cuda)
+    before = tcr.LAUNCHES
+    out = tcr.clip_reduce(g, c)
+    torch.cuda.synchronize()
+    assert tcr.LAUNCHES == before + 1 and out.dtype == torch.float32
+    want = tref.clip_reduce_ref(g, c)
+    scale = g.float().abs().max().item() * c.abs().sum().item()
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", [4096, 1003])
+def test_clip_reduce_zero_rows_equal_compacted_and_repeat(cuda, dtype, N):
+    g = _randn(cuda, (10, N), dtype, 3)
+    c = torch.rand(10, generator=torch.Generator().manual_seed(4)).to(cuda)
+    keep = torch.tensor([1, 0, 1, 1, 0, 0, 1, 1, 1, 0], dtype=torch.bool, device=cuda)
+    cm = torch.where(keep, c, torch.zeros_like(c))
+    a, b = tcr.clip_reduce(g, cm), tcr.clip_reduce(g, cm)
+    compact = tcr.clip_reduce(g[keep].contiguous(), c[keep].contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(a, compact)
+
+
+@pytest.mark.cuda
+def test_new_wrappers_reject_what_they_cannot_run(cuda):
+    x = torch.zeros(2, 8, 16, device=cuda)
+    with pytest.raises(TypeError):
+        tpn.pegrad_norm(x.half(), x.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        tpn.pegrad_norm(x.transpose(1, 2), x.transpose(1, 2))
+    with pytest.raises(TypeError):
+        tfb.dense_dgrad(x.double(), torch.zeros(1, 4, 16, device=cuda).double())
+    with pytest.raises(ValueError):
+        tfb.dense_dgrad(x, torch.zeros(1, 4, 15, device=cuda))
+    g = torch.zeros(3, 10, device=cuda)
+    with pytest.raises(TypeError):
+        tcr.clip_reduce(g, torch.zeros(3, device=cuda, dtype=torch.float64))
+    with pytest.raises(ValueError):
+        tcr.clip_reduce(g, torch.zeros(4, device=cuda))

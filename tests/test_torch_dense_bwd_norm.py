@@ -17,6 +17,7 @@ from repro.kernels import ref as jref
 from repro.kernels.fused_bwd import dense_bwd_norm as j_dense_bwd_norm
 from repro_torch.kernels import fused_bwd as tfb
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import pegrad_norm as tpn
 
 # (BG, T, di, do, E): one tile, ragged in every dim, grouped, a T past 128
 SHAPES = [(2, 16, 24, 40, 1), (3, 37, 100, 70, 1), (4, 9, 33, 17, 2),
@@ -77,6 +78,15 @@ def test_layout_shim_matches_jax_shim(w_ndim):
                                     jnp.asarray(w))
     np.testing.assert_allclose(gx.numpy(), np.asarray(jgx), rtol=1e-5, atol=1e-4)
     np.testing.assert_allclose(nsq.numpy(), np.asarray(jnsq), rtol=1e-5)
+
+
+def test_halves_equal_the_fused_outputs():
+    """pegrad_norm and dense_dgrad are dense_bwd_norm's two halves: equal
+    outputs on the same inputs (bit for bit, here as on the card)."""
+    x, gy, w = map(torch.from_numpy, _arrays((3, 19, 33, 17, 3), seed=4))
+    gx, nsq = tfb.dense_bwd_norm(x, gy, w)
+    assert torch.equal(tfb.dense_dgrad(gy, w), gx)
+    assert torch.equal(tpn.pegrad_norm(x, gy), nsq)
 
 
 def test_wrapper_rejects_bad_inputs():

@@ -1,8 +1,10 @@
 """The port's DP core against the JAX package's: norm rules and the site
 registry against ``repro.core.norms`` / ``repro.core.sites``; the reduced
-phi3's pass-1 per-example norms² and the σ = 0 update of
-``make_noisy_grad_fn`` against JAX's ``dpsgd_r``; ε against
-``repro.core.accountant.compute_epsilon``.
+phi3's pass-1 per-example norms² under every norm strategy, with and
+without kernels, and the σ = 0 update of ``make_noisy_grad_fn`` against
+JAX's ``dpsgd_r``, unmasked and on a Poisson-masked batch (which must also
+give the compacted batch's update, and exact-zero norms² on padded rows);
+ε against ``repro.core.accountant.compute_epsilon``.
 
 Seeded numpy inputs and JAX-initialised weights (``interop``) go through
 both; float32.  Tolerances: the rules and sites at rtol 1e-5 (summation
@@ -22,6 +24,7 @@ import torch
 from repro.configs import ARCHS as JARCHS, reduced as jreduced
 from repro.configs.base import DPConfig as JDPConfig
 from repro.core import DPContext as JDPContext
+from repro.core import algo as jalgo
 from repro.core import make_noisy_grad_fn as j_make_noisy_grad_fn
 from repro.core import norms as jnorms
 from repro.core import sites as jsites
@@ -31,6 +34,7 @@ from repro_torch import interop, tree
 from repro_torch.configs import ARCHS as TARCHS, reduced as treduced
 from repro_torch.configs.base import DPConfig
 from repro_torch.core import algo as talgo
+from repro_torch.core import noise
 from repro_torch.core import norms as tnorms
 from repro_torch.core import sites as tsites
 from repro_torch.core.accountant import compute_epsilon
@@ -93,10 +97,23 @@ def test_small_rules_and_view_folds_match_jax():
         np.testing.assert_array_equal(tnorms.unfold_views4(folded, k).numpy(), x4)
 
 
+# phi3-mini's dense sites at full width (d 3072, d_ff 8192, padded vocab
+# 32256) -> what "auto" picks at B 8 x T 512 and at B 2 x T 2048: gram
+# wins while T < di·do/(di+do) (1536, 2234, 2234, 2805), ties go to
+# materialize (the first-registered rule)
+PHI3_SITES = {(3072, 3072): ("gram", "materialize"), (3072, 8192): ("gram", "gram"),
+              (8192, 3072): ("gram", "gram"), (3072, 32256): ("gram", "gram")}
+
+
 def test_strategy_resolution_matches_jax():
-    for op_shapes, gy_shape in [(((2, 16, 8), (8, 4)), (2, 16, 4)),
-                                (((2, 512, 64), (64, 64)), (2, 512, 64)),
-                                (((4, 8, 256), (256, 512)), (4, 8, 512))]:
+    cases = [(((2, 16, 8), (8, 4)), (2, 16, 4)),
+             (((2, 512, 64), (64, 64)), (2, 512, 64)),
+             (((4, 8, 256), (256, 512)), (4, 8, 512))]
+    for (di, do), picks in PHI3_SITES.items():
+        for (B, T), pick in zip(((8, 512), (2, 2048)), picks):
+            cases.append((((B, T, di), (di, do)), (B, T, do)))
+            assert tsites.resolve_strategy("dense", "auto", *cases[-1]) == pick
+    for op_shapes, gy_shape in cases:
         for strat in ("auto", "materialize", "gram", "fused"):
             assert tsites.resolve_strategy("dense", strat, op_shapes, gy_shape) \
                 == jsites.resolve_strategy("dense", strat, op_shapes, gy_shape)
@@ -114,7 +131,8 @@ def test_strategy_resolution_matches_jax():
 
 @pytest.mark.parametrize("strategy,use_kernels", [("fused", True), ("fused", False),
                                                   ("materialize", False),
-                                                  ("gram", True)])
+                                                  ("materialize", True),
+                                                  ("gram", True), ("auto", True)])
 def test_dense_site_grads_and_norms(strategy, use_kernels):
     """Through the site the operand gradients are those of the plain op,
     and the accumulator's gradient is the per-example norm² — against the
@@ -225,7 +243,9 @@ def _port_model(params):
 
 
 @pytest.mark.parametrize("strategy,use_kernels", [("fused", True), ("fused", False),
-                                                  ("gram", False)])
+                                                  ("gram", False),
+                                                  ("materialize", True),
+                                                  ("auto", True)])
 def test_pass1_norms_match_jax(phi3, strategy, use_kernels):
     jm, params, toks, want_nsq, want_losses = phi3
     tm = _port_model(params)
@@ -264,16 +284,101 @@ def test_sigma0_update_matches_jax_dpsgd_r(phi3, grad_accum):
     assert 0 < float(met["clipped_frac"]) < 1
 
 
+# a Poisson-padded batch: rows 1 and 4 are padding (all-zero tokens)
+KEEP = np.array([True, False, True, True, False])
+
+
+def _masked_batch(vocab, T=16, seed=5):
+    toks = np.random.default_rng(seed).integers(0, vocab, (KEEP.size, T + 1))
+    toks = toks.astype(np.int32)
+    toks[~KEEP] = 0
+    return toks
+
+
+@pytest.mark.parametrize("strategy", ["fused", "materialize"])
+def test_masked_sigma0_update_matches_jax_and_the_compacted_batch(phi3, strategy):
+    """σ = 0, use_kernels, normalised by an expected batch of 4 (q·N):
+    the masked update equals JAX's masked dpsgd_r and the port's own update
+    on the compacted batch; the padded rows' norms² are exactly zero."""
+    jm, params, _, _, _ = phi3
+    tm = _port_model(params)
+    toks = _masked_batch(jm.arch.vocab)
+    batch = {"tokens": torch.from_numpy(toks), "mask": torch.from_numpy(KEEP)}
+    nsq, _ = talgo.norm_pass(tm.loss_fn, tm.params, {"tokens": batch["tokens"]},
+                             DPConfig(norm_strategy=strategy, use_kernels=True),
+                             batch["mask"].float())
+    assert (nsq[~torch.from_numpy(KEEP)] == 0.0).all() and (nsq[KEEP] > 0).all()
+    C = float(np.sqrt(np.median(nsq[KEEP].numpy())))
+    dp = DPConfig(algo="dpsgd_r", norm_strategy=strategy, use_kernels=True,
+                  noise_multiplier=0.0, clip_norm=C)
+    fn = talgo.make_noisy_grad_fn(tm.loss_fn, dp, expected_batch_size=4.0)
+    grads, met = fn(tm.params, batch, torch.Generator().manual_seed(0))
+    compact, cmet = fn(tm.params, {"tokens": torch.from_numpy(toks[KEEP])},
+                       torch.Generator().manual_seed(0))
+    jdp = JDPConfig(algo="dpsgd_r", norm_strategy=strategy, noise_multiplier=0.0,
+                    clip_norm=C)
+    jgrads, jmet = jax.jit(j_make_noisy_grad_fn(jm.loss_fn, jdp,
+                                                expected_batch_size=4.0))(
+        params, {"tokens": jnp.asarray(toks), "mask": jnp.asarray(KEEP)},
+        jax.random.PRNGKey(0))
+    for g, c, w in zip(grads, compact, jax.tree.leaves(jgrads)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4, atol=1e-6)
+        np.testing.assert_allclose(g.numpy(), c.numpy(), rtol=1e-4, atol=1e-6)
+    for k in ("loss", "grad_norm_mean", "grad_norm_max", "clipped_frac",
+              "realized_batch"):
+        np.testing.assert_allclose(float(met[k]), float(jmet[k]), rtol=2e-4)
+        np.testing.assert_allclose(float(met[k]), float(cmet[k]), rtol=2e-4)
+    assert float(met["realized_batch"]) == 3.0
+
+
+def test_all_rows_masked_give_noise_only_and_sgd_is_masked(phi3):
+    """Every row padded: the clipped sum is zero and the update is the
+    noise alone.  ``sgd`` averages the real rows only: the masked batch's
+    gradient is the compacted batch's."""
+    jm, params, _, _, _ = phi3
+    tm = _port_model(params)
+    toks = torch.from_numpy(_masked_batch(jm.arch.vocab))
+    dp = DPConfig(algo="dpsgd_r", norm_strategy="materialize", use_kernels=True,
+                  noise_multiplier=1.0, clip_norm=0.5)
+    fn = talgo.make_noisy_grad_fn(tm.loss_fn, dp, expected_batch_size=4.0)
+    grads, met = fn(tm.params, {"tokens": toks, "mask": torch.zeros(5, dtype=torch.bool)},
+                    torch.Generator().manual_seed(3))
+    noise_only = [torch.zeros_like(g) for g in grads]
+    noise.add_noise_(noise_only, torch.Generator().manual_seed(3), 1.0, 0.5, 4.0)
+    for g, n in zip(grads, noise_only):
+        torch.testing.assert_close(g, n, rtol=0.0, atol=0.0)
+    assert float(met["realized_batch"]) == 0.0
+    sgd = talgo.make_noisy_grad_fn(tm.loss_fn, DPConfig(algo="sgd"))
+    keep = torch.from_numpy(KEEP)
+    masked, mmet = sgd(tm.params, {"tokens": toks, "mask": keep}, None)
+    compact, cmet = sgd(tm.params, {"tokens": toks[keep]}, None)
+    for a, b in zip(masked, compact):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(float(mmet["loss"]), float(cmet["loss"]), rtol=1e-6)
+    assert float(mmet["realized_batch"]) == 3.0
+
+
+def test_view_helpers_match_jax():
+    m = np.array([1, 1, 0, 0, 1, 1], dtype=np.float32)
+    c = np.array([0.5, 2.0, 1.0], dtype=np.float32)
+    for k in (1, 2):
+        for t_fn, j_fn, arg in ((talgo._example_mask, jalgo._example_mask, m),
+                                (talgo._view_seed, jalgo._view_seed, m),
+                                (talgo._expand_rows, jalgo._expand_rows, c)):
+            np.testing.assert_array_equal(t_fn(torch.from_numpy(arg), k).numpy(),
+                                          np.asarray(j_fn(jnp.asarray(arg), k)))
+    data, mask = talgo.split_mask({"tokens": torch.zeros(2, 3),
+                                   "mask": torch.tensor([True, False])})
+    assert list(data) == ["tokens"] and mask.dtype == torch.float32
+    assert mask.tolist() == [1.0, 0.0]
+
+
 def test_unported_options_raise():
     loss_fn = lambda p, b, c: (None, c)
     for dp in (DPConfig(algo="dpsgd"), DPConfig(algo="dpsgd_r1f"),
-               DPConfig(augmult=2), DPConfig(adaptive_clip=True),
-               DPConfig(sampling="poisson")):
+               DPConfig(augmult=2), DPConfig(adaptive_clip=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             talgo.make_noisy_grad_fn(loss_fn, dp)
-    fn = talgo.make_noisy_grad_fn(loss_fn, DPConfig())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fn({}, {"tokens": torch.zeros(2, 3), "mask": torch.ones(2)}, None)
     with pytest.raises(ValueError, match="unknown dp.algo"):
         talgo.make_noisy_grad_fn(loss_fn, DPConfig(algo="nope"))
 

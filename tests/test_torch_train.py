@@ -1,7 +1,8 @@
 """The port's training runtime against the JAX package's: the Trainer on the
 reduced phi3 in float32 at σ = 0 for 3 steps on the same synthetic batches
 (loss trajectory and ε), one AdamW and one SGD step against
-``repro.optim``, the synthetic data stream, and the launcher on the CPU.
+``repro.optim``, the synthetic data stream, and the launcher on the CPU
+(fixed batches with the fused route; Poisson batches with materialize).
 
 Tolerances: the loss trajectory at rtol 1e-4 (float32; the two differ in
 summation order inside each step, and AdamW's first steps move each
@@ -115,6 +116,21 @@ def test_launcher_trains_on_the_cpu(capsys):
                   "--set", "dp.use_kernels=true", "--set", "log_every=1"])
     out = capsys.readouterr().out
     assert out.count("[trainer] step") == 2
+    assert "finished at step 2; privacy spent: eps=" in out
+
+
+def test_launcher_trains_poisson_materialize_on_the_cpu(capsys):
+    """Poisson batches through the materialize kernel route (the plain
+    versions on the CPU): each step's line names its realized batch and
+    the capacity (25 at an expected batch of 8 of N = 1e6)."""
+    tlaunch.main(["--arch", "phi3-mini-3.8b", "--reduced", "--steps", "2",
+                  "--seq", "8", "--device", "cpu", "--dtype", "float32",
+                  "--set", "dp.sampling=poisson",
+                  "--set", "dp.norm_strategy=materialize",
+                  "--set", "dp.use_kernels=true", "--set", "log_every=1"])
+    out = capsys.readouterr().out
+    assert "capacity 25 rows" in out
+    assert out.count("of capacity 25") == 2
     assert "finished at step 2; privacy spent: eps=" in out
 
 
