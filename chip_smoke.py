@@ -8,7 +8,9 @@ the script exits nonzero and prints no ``ok`` line:
 
 1. the device: torch's name for it and ``nvidia-smi``'s name and power limit;
 2. build every CUDA kernel of the port from this checkout's sources (one
-   ``nvcc`` per source, all at once);
+   ``nvcc`` per source, all at once), and print ``-Xptxas -v``'s registers
+   and spills of the bf16 tensor-core kernels (``[ptxas]``; the main-path
+   ones must not spill);
 3. every kernel against its plain PyTorch version on the card, at the
    shapes of the serving and training paths, float32 and bf16, timed beside
    the plain version, the one PyTorch call computing the same function
@@ -17,7 +19,10 @@ the script exits nonzero and prints no ``ok`` line:
    ``pegrad_norm`` and ``dense_dgrad`` equal ``dense_bwd_norm``'s two
    outputs bit for bit, and the fusion A/B times the separate pair against
    the fused call; ``clip_reduce`` with zeroed clip factors equals the
-   compacted reduction bit for bit;
+   compacted reduction bit for bit.  The flash forward's and the dgrad
+   kernel's lines also give TFLOP/s, the share of the bound and the path
+   each shape took (bf16 on the tensor cores, f32 on the CUDA cores); every
+   training shape's bf16 gx must take the TMA-fed path;
 4. small references in float32 (TF32 off): the reduced phi3 serving
    (prefill and decode logits) and one ``dpsgd_r`` fused training step
    (loss, per-example norms², clipped-sum gradients) on the card through
@@ -124,6 +129,28 @@ def flash_bound_ms(BH, T, S, hd, rep, causal, dtype_name):
     return bound_ms(flops, nbytes, dtype_name)
 
 
+def dense_mix(arch, layers):
+    """One training step's dense calls: (name, di, do, calls) for q, k, v,
+    o; w1, w3; w2; the head over the padded vocab."""
+    from repro_torch.models.transformer import padded_vocab
+    d, f, v = arch.d_model, arch.d_ff, padded_vocab(arch.vocab)
+    return [("qkvo", d, d, 4 * layers), ("w1w3", d, f, 2 * layers),
+            ("w2", f, d, layers), ("head", d, v, 1)]
+
+
+def dgrad_bound_ms(BG, T, di, do, E, dtype_name):
+    """gx = gy · wᵀ: 2·BG·T·di·do FLOPs; gy and w read, gx written."""
+    item = 2 if dtype_name == "bfloat16" else 4
+    return bound_ms(2.0 * BG * T * di * do,
+                    item * (BG * T * (do + di) + E * di * do), dtype_name)
+
+
+def first_wave_t(prompts):
+    """The first prefill wave's padded length (the engine rounds the
+    longest prompt of a wave up to 16)."""
+    return -(-max(len(p) for p in prompts[:MAX_BATCH]) // 16) * 16
+
+
 def _dtype_name(dtype) -> str:
     return str(dtype).split(".")[-1]
 
@@ -146,6 +173,7 @@ def check_flash(name, B, H, KV, T, hd, causal, dtype, seed=0):
     rep = H // KV
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = (_randn(g, (rows, T, hd), dtype) for rows in (B * H, B * KV, B * KV))
+    path = flash_attn.fwd_path(q, k, v)
     o, lse = flash_attn.flash_attn_fwd(q, k, v, causal=causal, rep=rep)
     torch.cuda.synchronize()
     o_ref, lse_ref = ref.flash_attn_fwd_ref(q.float(), k.float(), v.float(),
@@ -166,12 +194,15 @@ def check_flash(name, B, H, KV, T, hd, causal, dtype, seed=0):
         q4, k4, v4, is_causal=causal, enable_gqa=rep > 1))
     dt = str(dtype).split(".")[-1]
     bound_ms, bound_by = flash_bound_ms(B * H, T, T, hd, rep, causal, dt)
+    tflops = 4.0 * B * H * T * T * hd * (0.5 if causal else 1.0) / ms / 1e9
     rec = dict(shape=name, dtype=dt, BH=B * H, T=T, S=T, hd=hd, rep=rep,
                causal=causal, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-               library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+               library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+               path=path, tflops=tflops, bound_share=bound_ms / ms)
     print(f"[kernel] flash_attn_fwd {name} {dt}: max_abs_err {err:.3e}  "
           f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  sdpa {library_ms:.4f} ms  "
-          f"bound {bound_ms:.4f} ms ({bound_by})", flush=True)
+          f"bound {bound_ms:.4f} ms ({bound_by})  {tflops:.1f} TFLOP/s, "
+          f"{100 * bound_ms / ms:.1f}% of bound, path {path}", flush=True)
     return rec
 
 
@@ -193,6 +224,7 @@ def check_dense_bwd_norm(name, BG, T, di, do, E, dtype, seed=0, iters=10):
     import torch
     from repro_torch.kernels import fused_bwd, ref
     x, gy, w = dense_inputs(BG, T, di, do, E, dtype, seed)
+    path = fused_bwd.dgrad_path(gy, w)
     gx, nsq = fused_bwd.dense_bwd_norm(x, gy, w)
     torch.cuda.synchronize()
     nsq_ref = ref.dense_bwd_norm_ref(x, gy, w)[1]
@@ -220,11 +252,11 @@ def check_dense_bwd_norm(name, BG, T, di, do, E, dtype, seed=0, iters=10):
     rec = dict(shape=name, dtype=dt, BG=BG, T=T, di=di, do=do, E=E,
                max_abs_err=abs_err, gx_rel_err=gx_err, nsq_rel_err=nsq_err,
                ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
-               bound_by=b_by)
+               bound_by=b_by, path=path)
     print(f"[kernel] dense_bwd_norm {name} {dt}: gx err {abs_err:.2e} "
           f"({gx_err:.1e} of max), nsq rel err {nsq_err:.1e}  kernel {ms:.3f} "
           f"ms  plain {plain_ms:.3f} ms  library {library_ms:.3f} ms  bound "
-          f"{b_ms:.4f} ms ({b_by})", flush=True)
+          f"{b_ms:.4f} ms ({b_by})  gx path {path}", flush=True)
     return rec
 
 
@@ -238,6 +270,7 @@ def check_dense_halves(name, BG, T, di, do, E, dtype, seed=0, iters=10):
     import torch
     from repro_torch.kernels import fused_bwd, pegrad_norm, ref
     x, gy, w = dense_inputs(BG, T, di, do, E, dtype, seed)
+    path = fused_bwd.dgrad_path(gy, w)
     nsq = pegrad_norm.pegrad_norm(x, gy)
     gx = fused_bwd.dense_dgrad(gy, w)
     fgx, fnsq = fused_bwd.dense_bwd_norm(x, gy, w)
@@ -267,12 +300,13 @@ def check_dense_halves(name, BG, T, di, do, E, dtype, seed=0, iters=10):
                   library_ms=time_ms(pegrad_library, iters),
                   bound_ms=b_ms, bound_by=b_by)
     wt = w.mT if E == 1 else w[torch.arange(BG, device="cuda") % E].mT
-    b_ms, b_by = bound_ms(flops, item * (BG * T * (do + di) + E * di * do), dt)
+    b_ms, b_by = dgrad_bound_ms(BG, T, di, do, E, dt)
     dgrad = dict(base, max_abs_err=gx_abs, rel_err=gx_err,
                  ms=time_ms(lambda: fused_bwd.dense_dgrad(gy, w), iters),
                  plain_ms=time_ms(lambda: ref.dense_dgrad_ref(gy, w), iters),
                  library_ms=time_ms(lambda: torch.matmul(gy, wt), iters),
-                 bound_ms=b_ms, bound_by=b_by)
+                 bound_ms=b_ms, bound_by=b_by, path=path)
+    dgrad.update(tflops=flops / dgrad["ms"] / 1e9, bound_share=b_ms / dgrad["ms"])
     sep = lambda: (fused_bwd.dense_dgrad(gy, w), pegrad_norm.pegrad_norm(x, gy))
     fused = lambda: fused_bwd.dense_bwd_norm(x, gy, w)
     before = fused_bwd.DGRAD_LAUNCHES
@@ -283,11 +317,14 @@ def check_dense_halves(name, BG, T, di, do, E, dtype, seed=0, iters=10):
               separate_over_fused=sep_ms / fused_ms, runs_ms=runs,
               dgrad_launches=fused_bwd.DGRAD_LAUNCHES - before)
     for nm, r in (("pegrad_norm", pegrad), ("dense_dgrad", dgrad)):
+        extra = "" if nm == "pegrad_norm" else (
+            f"  {r['tflops']:.1f} TFLOP/s, {100 * r['bound_share']:.1f}% of bound, "
+            f"path {r['path']}")
         print(f"[kernel] {nm} {name} {dt}: max_abs_err {r['max_abs_err']:.2e} "
               f"({r['rel_err']:.1e} rel), = dense_bwd_norm's bit for bit  kernel "
               f"{r['ms']:.3f} ms  plain {r['plain_ms']:.3f} ms  library "
               f"{r['library_ms']:.3f} ms  bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']})", flush=True)
+              f"({r['bound_by']}){extra}", flush=True)
     print(f"[fusion] {name} {dt}: dense_dgrad + pegrad_norm {sep_ms:.3f} ms, "
           f"dense_bwd_norm {fused_ms:.3f} ms, separate / fused "
           f"{sep_ms / fused_ms:.4f} (runs {', '.join(f'{v:.3f}' for v in runs)})",
@@ -471,6 +508,58 @@ def check_gram(name, BG, T, d, masked, square, dtype, seed=0, iters=10):
           f"({rel:.1e} of max)  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
           f"library {library_ms:.3f} ms  bound {b_ms:.4f} ms ({b_by})", flush=True)
     return rec
+
+
+# the bf16 tensor-core kernels (mangled-name pieces) and which of them the
+# main paths run: the dgrad kernel (dense_dgrad and dense_bwd_norm's gx
+# launch) and the flash forward at phi3's head width
+TENSOR_CORE_KERNELS = {"dense_dgrad": ["tc12dgrad_kernel"],
+                       "dense_bwd_norm": ["tc12dgrad_kernel"],
+                       "flash_attn_fwd": ["mma16flash_fwd_kernel"]}
+MAIN_PATH_KERNELS = ("tc12dgrad_kernel", "mma16flash_fwd_kernelILi96E")
+
+
+def ptxas_report(log: str):
+    """Per kernel function in a ``-Xptxas -v`` log: its mangled name,
+    registers, and spill stores and loads in bytes."""
+    import re
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
+        if m:
+            if cur is None or cur["function"] != m.group(1):
+                cur = {"function": m.group(1), "registers": None,
+                       "spill_stores": None, "spill_loads": None}
+                out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+def tensor_core_ptxas():
+    """Print ``-Xptxas -v``'s registers and spills of every bf16
+    tensor-core instantiation; fail if a main-path one spills."""
+    from repro_torch.kernels import build
+    seen = set()
+    for src, pieces in TENSOR_CORE_KERNELS.items():
+        for r in ptxas_report(build.ptxas_log(src)):
+            if not any(p in r["function"] for p in pieces):
+                continue
+            main = any(p in r["function"] for p in MAIN_PATH_KERNELS)
+            print(f"[ptxas] {src}: {r['function']}: {r['registers']} registers, "
+                  f"spill stores {r['spill_stores']} B, spill loads "
+                  f"{r['spill_loads']} B{' (main path)' if main else ''}", flush=True)
+            if main:
+                assert r["spill_stores"] == 0 and r["spill_loads"] == 0, (src, r)
+                seen.update(p for p in MAIN_PATH_KERNELS if p in r["function"])
+    assert seen == set(MAIN_PATH_KERNELS), ("no ptxas report for", seen)
 
 
 def small_reference(device_b: str = "cuda"):
@@ -1039,13 +1128,15 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {src}: {line.strip()}")
+    tensor_core_ptxas()
 
     # 3. kernels vs plain, at the shapes of both paths and a few others
     arch = get_arch("phi3-mini-3.8b")
     prompts = request_stream(arch.vocab)
-    # the first prefill wave's padded length (engine: round up to 16)
-    wave_t = -(-max(len(p) for p in prompts[:MAX_BATCH]) // 16) * 16
+    wave_t = first_wave_t(prompts)
     shapes = [("phi3-wave", 8, 32, 32, wave_t, 96, True),
+              ("phi3-train", TRAIN_B, arch.n_heads, arch.n_kv_heads, TRAIN_T, arch.hd,
+               True),
               ("phi3", 4, 32, 32, 1024, 96, True),
               ("starcoder2-gqa", 1, 36, 4, 777, 128, True),
               ("starcoder2-gqa-full", 1, 36, 4, 333, 128, False)]
@@ -1053,15 +1144,13 @@ def main() -> int:
     for shp in shapes:
         for dtype in (torch.float32, torch.bfloat16):
             kernel_recs.append(check_flash(*shp, dtype))
-    d, f, v = arch.d_model, arch.d_ff, 32256          # the padded vocab
+    d, f = arch.d_model, arch.d_ff
     L = TRAIN_LAYERS
-    # (name, di, do, calls per training step): q, k, v, o; w1, w3; w2; head
-    dense_mix = [("qkvo", d, d, 4 * L), ("w1w3", d, f, 2 * L),
-                 ("w2", f, d, L), ("head", d, v, 1)]
+    train_mix = dense_mix(arch, L)
     dense_recs, bwd_recs, gram_recs, clip_recs = [], [], [], []
     halves = {"pegrad_norm": [], "dense_dgrad": [], "ab": []}
     for dtype in (torch.float32, torch.bfloat16):
-        for nm, di, do, _ in dense_mix:
+        for nm, di, do, _ in train_mix:
             iters = 5 if nm == "head" else 10
             dense_recs.append(check_dense_bwd_norm(nm, TRAIN_B, TRAIN_T, di, do, 1,
                                                    dtype, iters=iters))
@@ -1090,14 +1179,26 @@ def main() -> int:
 
     def step_sum(recs, keys=("ms", "plain_ms", "bound_ms", "library_ms")):
         """Sums over one training step's dense calls (dense_mix), bf16."""
-        per_call = {nm: pick(recs, nm) for nm, *_ in dense_mix}
-        out = {k: sum(n * per_call[nm][k] for nm, _, _, n in dense_mix) for k in keys}
+        per_call = {nm: pick(recs, nm) for nm, *_ in train_mix}
+        out = {k: sum(n * per_call[nm][k] for nm, _, _, n in train_mix) for k in keys}
         if "bound_by" in per_call["qkvo"]:
             # a sum of bounds is the bound of the sum when every call has one roof
             (out["bound_by"],) = {r["bound_by"] for r in per_call.values()}
             out["max_abs_err"] = max(r["max_abs_err"] for r in per_call.values())
         return out
 
+    # every training shape's bf16 gx takes the TMA-fed tensor-core path
+    for recs in (dense_recs, halves["dense_dgrad"]):
+        for nm, *_ in train_mix:
+            assert pick(recs, nm)["path"] == "wgmma+tma", (nm, pick(recs, nm)["path"])
+    dgrad_step = step_sum(halves["dense_dgrad"])
+    dgrad_flops = sum(2.0 * TRAIN_B * TRAIN_T * di * do * n for _, di, do, n in train_mix)
+    print(f"[kernel] dense_dgrad over one training step's {7 * L + 1} calls, bf16: "
+          f"kernel {dgrad_step['ms']:.2f} ms, matmul {dgrad_step['library_ms']:.2f} ms "
+          f"(kernel / matmul {dgrad_step['ms'] / dgrad_step['library_ms']:.2f}), bound "
+          f"{dgrad_step['bound_ms']:.2f} ms; {dgrad_flops / dgrad_step['ms'] / 1e9:.1f} "
+          f"TFLOP/s, {100 * dgrad_step['bound_ms'] / dgrad_step['ms']:.1f}% of bound; "
+          f"path wgmma+tma at every shape", flush=True)
     ab_step = step_sum(halves["ab"], ("separate_ms", "fused_ms"))
     dgrad_launches = sum(r["dgrad_launches"] for r in halves["ab"])
     print(f"[fusion] one training step's {7 * L + 1} dense calls, bf16: "
@@ -1136,7 +1237,7 @@ def main() -> int:
     flash_rec = pick(kernel_recs, "phi3-wave")
     bwd_rec, gram_rec = pick(bwd_recs, "phi3-train"), pick(gram_recs, "embed")
     clip_rec = pick(clip_recs, "phi3-w1")
-    mix = " + ".join(f"{n} x ({di},{do})" for _, di, do, n in dense_mix)
+    mix = " + ".join(f"{n} x ({di},{do})" for _, di, do, n in train_mix)
 
     def entry(name, source, replaces, n, rec, **extra):
         out = {"name": name, "route": "cuda",
@@ -1151,7 +1252,7 @@ def main() -> int:
     kernels = {"kernels": [
         entry("flash_attn_fwd", "flash_attn_fwd.cu",
               "src/repro/kernels/flash_attn.py:77", launches["flash_attn_fwd"],
-              flash_rec, shape="serving wave, bf16"),
+              flash_rec, shape="serving wave, bf16", path=flash_rec["path"]),
         entry("dense_bwd_norm", "dense_bwd_norm.cu",
               "src/repro/kernels/fused_bwd.py:114", launches["dense_bwd_norm"],
               step_sum(dense_recs),
@@ -1166,9 +1267,10 @@ def main() -> int:
               launches["pegrad_norm"], step_sum(halves["pegrad_norm"]),
               shape=f"sum over one materialize step's calls, bf16: {mix}"),
         entry("dense_dgrad", "dense_dgrad.cu", "src/repro/kernels/fused_bwd.py:158",
-              dgrad_launches, step_sum(halves["dense_dgrad"]),
+              dgrad_launches, dgrad_step,
               shape=f"sum over one training step's dense calls, bf16: {mix}",
-              launched_on="the fusion A/B (no training path calls it)"),
+              launched_on="the fusion A/B (no training path calls it)",
+              path="wgmma+tma"),
         entry("clip_reduce", "clip_reduce.cu", "src/repro/kernels/clip_reduce.py:34",
               clip_rec["launches"], clip_rec,
               shape=f"({TRAIN_B}, {d * f}) bf16, one w1's per-example gradients",

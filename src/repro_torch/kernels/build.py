@@ -11,7 +11,8 @@ The library's file name carries a hash of its source and of every shared
 header (``csrc/*.cuh``), so an edited source or header rebuilds at its next
 use and an unchanged one is loaded as built.  Sources
 build in parallel, one ``nvcc`` each.  A failed build raises with the
-compiler's output.
+compiler's output; a successful one keeps it beside the library
+(``ptxas_log``: registers and spills per kernel).
 """
 from __future__ import annotations
 
@@ -77,6 +78,7 @@ def build(names: List[str] = None) -> Dict[str, str]:
             if p.returncode != 0:
                 failed.append(f"--- {n}.cu (nvcc exit {p.returncode})\n{logs[n]}")
             else:
+                out[n].with_suffix(".log").write_text(logs[n])
                 os.replace(tmp, out[n])   # atomic: a reader never sees half a file
     finally:
         for p, tmp in procs.values():
@@ -88,6 +90,13 @@ def build(names: List[str] = None) -> Dict[str, str]:
         raise RuntimeError("repro_torch kernel build failed:\n"
                            + "\n".join(failed))
     return logs
+
+
+def ptxas_log(name: str) -> str:
+    """The compiler output (``-Xptxas -v``) kept beside ``csrc/<name>.cu``'s
+    library when it was built, "" if that build kept none."""
+    log = _target(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def load(name: str) -> ctypes.CDLL:

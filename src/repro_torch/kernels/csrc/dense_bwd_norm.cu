@@ -24,9 +24,10 @@
 // Bound.  The function costs 4·BG·T·di·do FLOPs (dgrad plus per-example
 // wgrad) on BG·T·(di + do) + E·di·do input elements, so at the training
 // path's shapes (BG·T = 4096, di, do >= 3072) it is bound by operations: the
-// bf16 tensor-core rate, 989 TFLOP/s.  CUDA-core FMAs reach a few percent of
-// that; tensor cores (mma.sync, then wgmma fed by TMA) and reading x and gy
-// once for both outputs are later work.
+// bf16 tensor-core rate, 989 TFLOP/s.  In bf16 the gx launch runs on the
+// tensor cores (wgmma fed by TMA, dense_tiles.cuh); the norm launch still
+// runs f32 FMAs on CUDA cores, and reading x and gy once for both outputs
+// is later work.
 
 #include "dense_tiles.cuh"
 

@@ -9,15 +9,18 @@
 // is measured against.
 //
 // Design.  The TPU kernel carries a (bt, bi) f32 accumulator in VMEM over
-// its innermost j grid axis.  Here one block owns one (b, 128-row t tile,
-// 128-col i tile) and loops over do inside the block, the sum in registers,
-// then writes its tile once.  This is the gx launch of dense_bwd_norm.cu,
-// from the same header (dense_tiles.cuh), so its output equals that
-// kernel's gx bit for bit.
+// its innermost j grid axis.  Here one block owns one (b, t tile, i tile)
+// and loops over do inside the block, the sum in registers, then writes its
+// tile once.  This is the gx launch of dense_bwd_norm.cu, from the same
+// header (dense_tiles.cuh), so its output equals that kernel's gx bit for
+// bit.
 //
 // Bound.  2·BG·T·di·do FLOPs on BG·T·do + E·di·do input elements: at the
-// training path's shapes bound by operations, the bf16 tensor-core rate.
-// This version runs f32 FMAs on CUDA cores; tensor cores are later work.
+// training path's shapes bound by operations, the bf16 tensor-core rate
+// (989 TFLOP/s).  bf16 runs on the tensor cores: TMA fills a 4-stage ring of
+// swizzled 64-deep tiles, two warpgroups run wgmma into f32 registers
+// (dense_tiles.cuh, tc::dgrad_kernel).  f32 stays on CUDA-core FMAs, whose
+// 1e-4 tolerance TF32 would not meet.
 
 #include "dense_tiles.cuh"
 
@@ -31,4 +34,13 @@ extern "C" int repro_dense_dgrad(const void* gy, const void* w, void* gx, int BG
   if (dtype == 0) return (int)launch_dgrad<float>(gy, w, gx, BG, T_, di, dout, E, st);
   if (dtype == 1) return (int)launch_dgrad<__nv_bfloat16>(gy, w, gx, BG, T_, di, dout, E, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// Which path the launch takes for these operands: 0 CUDA cores (float32),
+// 1 tensor cores fed by TMA, 2 tensor cores fed by element loads (do % 8 != 0
+// or a base not 16-byte aligned).  -1 for an unknown dtype.
+extern "C" int repro_dense_dgrad_path(const void* gy, const void* w, int dout, int dtype) {
+  if (dtype == 0) return dgrad_path<float>(gy, w, dout);
+  if (dtype == 1) return dgrad_path<__nv_bfloat16>(gy, w, dout);
+  return -1;
 }

@@ -11,27 +11,40 @@
 // Design.  The TPU grid walks (bh, q tile, k tile) in order and carries
 // (m, l, acc) across the k axis in VMEM scratch.  Hopper blocks run in no
 // order, so one block owns one (bh, 64-row query tile) and loops over the
-// key tiles itself; nothing carries over between blocks.  The Q tile is
-// staged once in shared memory, each K/V tile in turn; the 64x64 score tile
-// goes through shared memory for the row softmax.  All arithmetic is f32
-// (inputs f32 or bf16, converted on load with the intrinsics); as in the
-// TPU kernel, p is rounded to v's type before P·V while l sums the
-// unrounded p.  hd is padded to a template width HDP (16, 32, 64, 80, 96,
-// 128) with the pad lanes zero on load and never stored.
+// key tiles itself; nothing carries over between blocks.
+//
+// bf16 (mma::flash_fwd_kernel, FlashAttention-2 style): four warps of 16
+// query rows each.  Q stays in registers as mma.sync A fragments for the
+// whole block; 64-key K/V tiles arrive through a double-buffered cp.async
+// ring (16-byte loads; element loads with zero fill where hd·2 bytes is
+// not 16-byte aligned or a base is not, fwd_path says which); S = QKᵀ is
+// mma.sync.m16n8k16 (bf16 in, f32 out) from ldmatrix fragments of K; the
+// online softmax runs in registers with quad shuffles, in base 2 (exp2 of
+// logits pre-scaled by log2 e, converted back for lse); p is rounded to
+// bf16 in registers and fed as the A operand of P·V, V read with
+// ldmatrix.trans, while l sums the unrounded p, as the TPU kernel does.
+// The score tile never reaches shared memory.  hd is padded to HDP (a
+// multiple of 16) with zero lanes that are never stored.
+//
+// f32 (flash_fwd_kernel, the CUDA cores): the Q tile is staged once in
+// shared memory, each K/V tile in turn; the 64x64 score tile goes through
+// shared memory for the row softmax; all arithmetic f32, as the plain
+// version's tolerances (rtol 2e-4 / atol 2e-5) ask.
 //
 // Bound.  At the phi3 prefill shape (hd 96, T = S = 1024, bf16) the work is
 // about 256 FLOP per byte of q/k/v/o, close to the card's balance point, so
 // the bound is the larger of bytes / 3.35 TB/s and FLOPs / 989 TFLOP/s (the
-// tensor-core rate).  This first version uses CUDA-core FMAs on
-// register-blocked 4x4 (scores) and 4x(HDP/16) (output) micro-tiles, so it
-// is far from that bound; tensor cores (mma.sync, then wgmma with TMA) are
-// later work.  Queries past T and keys past S are padded with zeros and
-// masked, so any T, S >= 1 runs.
+// tensor-core rate).  mma.sync reaches a part of that rate; wgmma with TMA
+// and warp specialisation (FlashAttention-3) is later work.  Queries past T
+// and keys past S are padded with zeros and masked, so any T, S >= 1 runs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -41,13 +54,9 @@ constexpr int NT = 256;   // threads per block, as a 16 x 16 grid
 constexpr float NEG = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 template <int HDP>
 constexpr size_t smem_bytes() {
@@ -222,15 +231,298 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores: mma.sync.m16n8k16, K/V through a cp.async ring.
+// ---------------------------------------------------------------------------
+namespace mma {
+
+constexpr int NTM = 128;            // four warps, 16 query rows each
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+enum Path { CUDA_CORES = 0, CP_ASYNC = 1, LOADS = 2 };
+
+// shared memory: Q (64 rows), K and V (2 buffers x 64 rows each), row
+// stride HDP + 8 elements so the 8 rows of an ldmatrix hit 8 bank groups
+template <int HDP>
+constexpr size_t smem_bytes() {
+  return sizeof(__nv_bfloat16) * (size_t)(BQ + 4 * BK) * (HDP + 8);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  // src-size 0 fills the 16 bytes with zeros and reads nothing
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_1() {
+  asm volatile("cp.async.wait_group 1;" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0, uint32_t& r1, uint32_t& r2,
+                                        uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr)
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t& r0, uint32_t& r1,
+                                          uint32_t& r2, uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr)
+               : "memory");
+}
+
+// d (16 x 8 f32) += a (16 x 16 bf16, row) · b (16 x 8 bf16, col)
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// rows [row0, row0 + 64) of a row-major (rows, hd) bf16 matrix into a
+// shared tile of row stride HDP + 8, zero past `rows` and past hd
+template <int HDP>
+__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* __restrict__ src,
+                                          int row0, int rows, int hd, bool vec) {
+  constexpr int LDS = HDP + 8, CH = HDP / 8;
+  if (vec) {   // hd % 8 == 0: a 16-byte chunk is all in or all out
+    for (int i = threadIdx.x; i < 64 * CH; i += NTM) {
+      const int r = i / CH, d = (i % CH) * 8, gr = row0 + r;
+      const bool valid = gr < rows && d < hd;
+      cp_async16(smem_u32(dst + r * LDS + d), valid ? src + (size_t)gr * hd + d : src, valid);
+    }
+  } else {
+    for (int i = threadIdx.x; i < 64 * HDP; i += NTM) {
+      const int r = i / HDP, d = i % HDP, gr = row0 + r;
+      dst[r * LDS + d] = (gr < rows && d < hd) ? src[(size_t)gr * hd + d] : __float2bfloat16(0.f);
+    }
+  }
+}
+
+template <int HDP>
+__global__ void __launch_bounds__(NTM)
+flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                 float* __restrict__ lse, int T_, int S, int hd, int rep, int causal, int n_q,
+                 float scale_log2, int vec) {
+  constexpr int LDS = HDP + 8, KS = HDP / 16, NO = HDP / 8;
+  extern __shared__ __align__(16) __nv_bfloat16 fsm[];
+  __nv_bfloat16* sQ = fsm;
+  __nv_bfloat16* sK = sQ + BQ * LDS;        // 2 buffers of BK rows
+  __nv_bfloat16* sV = sK + 2 * BK * LDS;    // 2 buffers of BK rows
+
+  const int bh = blockIdx.x / n_q;
+  const int q0 = (n_q - 1 - blockIdx.x % n_q) * BQ;   // longest causal rows first
+  const int kvh = bh / rep;
+  const __nv_bfloat16* qb = q + (size_t)bh * T_ * hd;
+  const __nv_bfloat16* kb = k + (size_t)kvh * S * hd;
+  const __nv_bfloat16* vb = v + (size_t)kvh * S * hd;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;          // fragment row group, column pair
+  const int lr = lane % 8, lm = lane / 8;         // ldmatrix row, matrix
+
+  int n_k = (S + BK - 1) / BK;
+  if (causal) n_k = min(n_k, (q0 + BQ - 1) / BK + 1);   // skip fully masked tiles
+
+  // groups in flight: Q, then K/V tile 0; each iteration commits the next tile
+  load_rows<HDP>(sQ, qb, q0, T_, hd, vec);
+  cp_async_commit();
+  load_rows<HDP>(sK, kb, 0, S, hd, vec);
+  load_rows<HDP>(sV, vb, 0, S, hd, vec);
+  cp_async_commit();
+  cp_async_wait_1();   // Q landed
+  __syncthreads();
+  uint32_t qf[KS][4];   // this warp's 16 rows of Q as A fragments, for the whole block
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+    ldsm_x4(smem_u32(sQ + (16 * warp + lr + 8 * (lm & 1)) * LDS + 16 * ks + 8 * (lm >> 1)),
+            qf[ks][0], qf[ks][1], qf[ks][2], qf[ks][3]);
+
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};   // rows g and g + 8, base-2 units
+
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int buf = kt & 1, k0 = kt * BK;
+    if (kt + 1 < n_k) {   // the other buffer was released by the last iteration's sync
+      load_rows<HDP>(sK + (buf ^ 1) * BK * LDS, kb, k0 + BK, S, hd, vec);
+      load_rows<HDP>(sV + (buf ^ 1) * BK * LDS, vb, k0 + BK, S, hd, vec);
+    }
+    cp_async_commit();
+    cp_async_wait_1();   // tile kt landed
+    __syncthreads();
+    const __nv_bfloat16* tK = sK + buf * BK * LDS;
+    const __nv_bfloat16* tV = sV + buf * BK * LDS;
+
+    // S = Q Kᵀ: 16 rows x 64 keys per warp, 8 n-tiles of 8 keys
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        uint32_t b0, b1, b2, b3;
+        ldsm_x4(smem_u32(tK + (16 * jp + lr + 8 * (lm >> 1)) * LDS + 16 * ks + 8 * (lm & 1)),
+                b0, b1, b2, b3);
+        mma16816(s[2 * jp], qf[ks], b0, b1);
+        mma16816(s[2 * jp + 1], qf[ks], b2, b3);
+      }
+
+    // scale to base 2 and mask: keys past S, and keys after the query when causal
+    const int qmin = q0 + 16 * warp;
+    const bool masked = k0 + BK > S || (causal && k0 + BK - 1 > qmin);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale_log2;
+        if (masked) {
+          const int qpos = qmin + g + 8 * (e >> 1), kpos = k0 + 8 * j + 2 * t4 + (e & 1);
+          if (kpos >= S || (causal && kpos > qpos)) x = NEG;
+        }
+        s[j][e] = x;
+      }
+
+    // online softmax in registers: a row's 64 scores sit in the 4 lanes of a quad
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = NEG;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[h], mx);
+      corr[h] = exp2f(m[h] - m_new);
+      m[h] = m_new;
+    }
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[j][e] - m[e >> 1]);
+        rs[e >> 1] += p;
+        s[j][e] = p;
+      }
+    // l is this lane's share of the row sum (summed over the quad at drain)
+    l[0] = l[0] * corr[0] + rs[0];
+    l[1] = l[1] * corr[1] + rs[1];
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e >> 1];
+
+    // acc += P V: P's accumulator fragments, rounded to bf16, are its A operand
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int np = 0; np < NO / 2; ++np) {
+        uint32_t b0, b1, b2, b3;
+        ldsm_x4_t(smem_u32(tV + (16 * kk + lr + 8 * (lm & 1)) * LDS + 16 * np + 8 * (lm >> 1)),
+                  b0, b1, b2, b3);
+        mma16816(acc[2 * np], a, b0, b1);
+        mma16816(acc[2 * np + 1], a, b2, b3);
+      }
+    }
+    __syncthreads();   // every warp is done with buffer buf before it is refilled
+  }
+
+  // drain: rows g and g + 8 of this warp, column pairs 8n + 2·t4
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float lt = l[h];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const float lf = fmaxf(lt, 1e-30f);
+    const int qpos = q0 + 16 * warp + g + 8 * h;
+    if (qpos >= T_) continue;
+    __nv_bfloat16* orow = o + ((size_t)bh * T_ + qpos) * hd;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const int d = 8 * n + 2 * t4;
+      const float o0 = acc[n][2 * h] / lf, o1 = acc[n][2 * h + 1] / lf;
+      if (d + 1 < hd && hd % 2 == 0) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + d) = __floats2bfloat162_rn(o0, o1);
+      } else {
+        if (d < hd) orow[d] = __float2bfloat16(o0);
+        if (d + 1 < hd) orow[d + 1] = __float2bfloat16(o1);
+      }
+    }
+    if (t4 == 0) lse[(size_t)bh * T_ + qpos] = m[h] * LN2 + logf(lf);
+  }
+}
+
+// 16-byte cp.async needs hd % 8 == 0 and 16-byte-aligned bases
+inline bool vec_ok(const void* q, const void* k, const void* v, int hd) {
+  return hd % 8 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(k) % 16 == 0 && reinterpret_cast<uintptr_t>(v) % 16 == 0;
+}
+
+template <int HDP>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int BH,
+                   int T_, int S, int hd, int rep, int causal, cudaStream_t stream) {
+  const size_t smem = smem_bytes<HDP>();
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<HDP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int n_q = (T_ + BQ - 1) / BQ;
+  const float scale_log2 = LOG2E / sqrtf((float)hd);
+  flash_fwd_kernel<HDP><<<(unsigned)(BH * n_q), NTM, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, T_, S, hd, rep,
+      causal, n_q, scale_log2, (int)vec_ok(q, k, v, hd));
+  return cudaGetLastError();
+}
+
+}  // namespace mma
+
 template <typename T>
 cudaError_t dispatch_hd(const void* q, const void* k, const void* v, void* o, float* lse,
                         int BH, int T_, int S, int hd, int rep, int causal, cudaStream_t st) {
-  if (hd <= 16) return launch<T, 16>(q, k, v, o, lse, BH, T_, S, hd, rep, causal, st);
-  if (hd <= 32) return launch<T, 32>(q, k, v, o, lse, BH, T_, S, hd, rep, causal, st);
-  if (hd <= 64) return launch<T, 64>(q, k, v, o, lse, BH, T_, S, hd, rep, causal, st);
-  if (hd <= 80) return launch<T, 80>(q, k, v, o, lse, BH, T_, S, hd, rep, causal, st);
-  if (hd <= 96) return launch<T, 96>(q, k, v, o, lse, BH, T_, S, hd, rep, causal, st);
-  if (hd <= 128) return launch<T, 128>(q, k, v, o, lse, BH, T_, S, hd, rep, causal, st);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (hd <= 16) return mma::launch<16>(q, k, v, o, lse, BH, T_, S, hd, rep, causal, st);
+    if (hd <= 32) return mma::launch<32>(q, k, v, o, lse, BH, T_, S, hd, rep, causal, st);
+    if (hd <= 64) return mma::launch<64>(q, k, v, o, lse, BH, T_, S, hd, rep, causal, st);
+    if (hd <= 80) return mma::launch<80>(q, k, v, o, lse, BH, T_, S, hd, rep, causal, st);
+    if (hd <= 96) return mma::launch<96>(q, k, v, o, lse, BH, T_, S, hd, rep, causal, st);
+    if (hd <= 128) return mma::launch<128>(q, k, v, o, lse, BH, T_, S, hd, rep, causal, st);
+  } else {
+    if (hd <= 16) return launch<T, 16>(q, k, v, o, lse, BH, T_, S, hd, rep, causal, st);
+    if (hd <= 32) return launch<T, 32>(q, k, v, o, lse, BH, T_, S, hd, rep, causal, st);
+    if (hd <= 64) return launch<T, 64>(q, k, v, o, lse, BH, T_, S, hd, rep, causal, st);
+    if (hd <= 80) return launch<T, 80>(q, k, v, o, lse, BH, T_, S, hd, rep, causal, st);
+    if (hd <= 96) return launch<T, 96>(q, k, v, o, lse, BH, T_, S, hd, rep, causal, st);
+    if (hd <= 128) return launch<T, 128>(q, k, v, o, lse, BH, T_, S, hd, rep, causal, st);
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -248,4 +540,15 @@ extern "C" int repro_flash_attn_fwd(const void* q, const void* k, const void* v,
   if (dtype == 1)
     return (int)dispatch_hd<__nv_bfloat16>(q, k, v, o, lse, BH, T_, S, hd, rep, causal, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// Which path the launch takes for these operands: 0 CUDA cores (float32),
+// 1 tensor cores fed by 16-byte cp.async, 2 tensor cores fed by element
+// loads (hd % 8 != 0 or a base not 16-byte aligned).  -1 for an unknown
+// dtype.
+extern "C" int repro_flash_attn_fwd_path(const void* q, const void* k, const void* v, int hd,
+                                         int dtype) {
+  if (dtype == 0) return mma::CUDA_CORES;
+  if (dtype == 1) return mma::vec_ok(q, k, v, hd) ? mma::CP_ASYNC : mma::LOADS;
+  return -1;
 }

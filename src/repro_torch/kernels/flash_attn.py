@@ -7,7 +7,8 @@ A CPU tensor takes the plain version (``ref.flash_attn_fwd_ref``,
 ``ref.flash_attn_bwd_ref``); a CUDA tensor launches the kernel or raises.
 ``LAUNCHES`` and ``BWD_LAUNCHES`` count wrapper calls that launched the
 forward and the backward kernels (and nothing else), so a run can show
-that it went through them.
+that it went through them; ``fwd_path`` says which of the forward's paths
+a CUDA operand triple takes.
 """
 from __future__ import annotations
 
@@ -29,6 +30,29 @@ def _kernel():
                    + [ctypes.c_void_p])       # q k v o lse, ints, stream
     fn.restype = ctypes.c_int                 # cudaError_t
     return fn
+
+
+def _fwd_path_fn():
+    fn = build.load("flash_attn_fwd").repro_flash_attn_fwd_path
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2   # q k v, hd dtype
+    fn.restype = ctypes.c_int                 # FWD_PATHS index, -1 unknown dtype
+    return fn
+
+
+# the forward's paths (csrc/flash_attn_fwd.cu): CUDA cores for float32; in
+# bf16 the tensor cores, fed by 16-byte cp.async or, where hd % 8 != 0 or a
+# base is not 16-byte aligned, by element loads
+FWD_PATHS = ("cuda-cores", "mma+cp.async", "mma+loads")
+
+
+def fwd_path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The path ``flash_attn_fwd`` takes for these CUDA operands (one of
+    ``FWD_PATHS``).  Launches nothing."""
+    if q.device.type != "cuda" or q.dtype not in _DTYPES:
+        raise ValueError(f"fwd_path: want a float32 or bf16 CUDA tensor, got "
+                         f"{q.dtype} on {q.device}")
+    return FWD_PATHS[_fwd_path_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                    q.shape[-1], _DTYPES[q.dtype])]
 
 
 def _bwd_kernel():

@@ -6,7 +6,8 @@ of ``repro/kernels/fused_bwd.py`` ``dense_bwd_norm`` and ``dense_dgrad``
 A CPU tensor takes the plain version (``ref.dense_bwd_norm_ref``,
 ``ref.dense_dgrad_ref``); a CUDA tensor launches the kernel or raises.
 ``LAUNCHES`` and ``DGRAD_LAUNCHES`` count wrapper calls that launched
-``dense_bwd_norm`` and ``dense_dgrad`` (and nothing else).
+``dense_bwd_norm`` and ``dense_dgrad`` (and nothing else).  ``dgrad_path``
+says which of the gx launch's paths a CUDA operand pair takes.
 """
 from __future__ import annotations
 
@@ -36,6 +37,29 @@ def _dgrad_kernel():
                    + [ctypes.c_void_p])       # gy w gx, ints, stream
     fn.restype = ctypes.c_int                 # cudaError_t
     return fn
+
+
+def _dgrad_path_fn():
+    fn = build.load("dense_dgrad").repro_dense_dgrad_path
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2   # gy w, do dtype
+    fn.restype = ctypes.c_int                 # PATHS index, -1 unknown dtype
+    return fn
+
+
+# the gx launch's paths (csrc/dense_tiles.cuh): CUDA cores for float32;
+# in bf16 the tensor cores, fed by TMA or, where do % 8 != 0 or a base is not
+# 16-byte aligned, by element loads
+PATHS = ("cuda-cores", "wgmma+tma", "wgmma+loads")
+
+
+def dgrad_path(gy: torch.Tensor, w: torch.Tensor) -> str:
+    """The path ``dense_dgrad`` and ``dense_bwd_norm``'s gx launch take for
+    these CUDA operands (one of ``PATHS``).  Launches nothing."""
+    if gy.device.type != "cuda" or gy.dtype not in _DTYPES:
+        raise ValueError(f"dgrad_path: want a float32 or bf16 CUDA tensor, got "
+                         f"{gy.dtype} on {gy.device}")
+    return PATHS[_dgrad_path_fn()(gy.data_ptr(), w.data_ptr(), gy.shape[-1],
+                                  _DTYPES[gy.dtype])]
 
 
 def _check(x, gy, w):

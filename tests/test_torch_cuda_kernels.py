@@ -36,7 +36,13 @@ from repro_torch.kernels import ref as tref
 SHAPES = [(8, 4, 16, 8, True), (3, 1, 33, 20, True), (8, 8, 24, 96, True),
           (4, 2, 16, 8, False), (6, 2, 70, 96, True), (4, 2, 37, 96, False),
           (18, 2, 130, 128, True), (4, 4, 65, 80, True), (4, 4, 9, 16, False),
-          (9, 1, 200, 64, True)]
+          (9, 1, 200, 64, True),
+          # the bf16 tensor-core tiles' edges: T below one 16-row fragment,
+          # S ragged over several 64-key tiles (the cp.async ring wraps),
+          # every head width at rep > 1
+          (8, 4, 9, 8, True), (6, 2, 45, 20, False), (8, 2, 77, 80, True),
+          (4, 2, 300, 96, True), (6, 3, 129, 128, False), (4, 1, 5, 96, True),
+          (6, 2, 200, 16, False), (4, 2, 150, 64, True)]
 
 
 @pytest.fixture
@@ -87,9 +93,15 @@ def _randn(cuda, shape, dtype, seed=0):
     return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(cuda, dtype)
 
 
-# (BG, T, di, do, E): aligned, ragged in every dim, grouped, one row tile
+# (BG, T, di, do, E): aligned, ragged in every dim, grouped, one row tile;
+# then the bf16 tensor-core tile's edges (128 x 256 output tiles, 64-deep
+# stages in a ring of 4): T not a multiple of 64 or 128, di not a multiple
+# of 128, do < 64, do over more stages than the ring holds (TMA), do % 8 != 0
+# over several stages (element loads), grouped E 4 with di % 128 != 0
 DENSE_SHAPES = [(2, 128, 128, 256, 1), (3, 37, 100, 70, 1), (4, 33, 65, 129, 2),
-                (2, 200, 300, 260, 1), (5, 9, 8, 24, 3)]
+                (2, 200, 300, 260, 1), (5, 9, 8, 24, 3),
+                (2, 130, 384, 512, 1), (3, 100, 200, 40, 1), (2, 70, 130, 1000, 2),
+                (3, 45, 70, 333, 1), (4, 96, 520, 136, 4), (8, 300, 1024, 768, 4)]
 
 
 @pytest.mark.cuda
@@ -340,3 +352,56 @@ def test_new_wrappers_reject_what_they_cannot_run(cuda):
         tcr.clip_reduce(g, torch.zeros(3, device=cuda, dtype=torch.float64))
     with pytest.raises(ValueError):
         tcr.clip_reduce(g, torch.zeros(4, device=cuda))
+
+
+# (BG, T, di, do, E, path of the bf16 gx launch)
+DGRAD_PATH_SHAPES = [(4, 70, 96, 512, 2, "wgmma+tma"), (4, 70, 96, 136, 2, "wgmma+tma"),
+                     (4, 70, 96, 333, 2, "wgmma+loads"), (6, 333, 700, 517, 3, "wgmma+loads"),
+                     (4, 200, 300, 64, 1, "wgmma+tma")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", DGRAD_PATH_SHAPES)
+def test_dgrad_tensor_core_paths_zero_rows_repeats_and_fused_bits(cuda, shape):
+    """bf16 gx on both tensor-core paths: the path the library reports,
+    exact zeros for all-zero gy rows, bit-identical repeats, and
+    ``dense_dgrad`` equal to ``dense_bwd_norm``'s gx bit for bit."""
+    BG, T, di, do, E, path = shape
+    x = _randn(cuda, (BG, T, di), torch.bfloat16, 0)
+    gy = _randn(cuda, (BG, T, do), torch.bfloat16, 1)
+    w = _randn(cuda, (E, di, do), torch.bfloat16, 2)
+    gy[1] = 0
+    assert tfb.dgrad_path(gy, w) == path
+    assert tfb.dgrad_path(gy.float(), w.float()) == "cuda-cores"
+    a, b = tfb.dense_dgrad(gy, w), tfb.dense_dgrad(gy, w)
+    fgx, _ = tfb.dense_bwd_norm(x, gy, w)
+    torch.cuda.synchronize()
+    assert torch.all(a[1] == 0) and torch.equal(a, b) and torch.equal(a, fgx)
+    want = tref.dense_dgrad_ref(gy.float(), w.float())
+    torch.testing.assert_close(a.float(), want, rtol=1e-2,
+                               atol=1e-2 * want.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_dgrad_and_flash_take_element_loads_for_unaligned_bases(cuda):
+    """A contiguous view one element into its storage is not 16-byte
+    aligned: TMA and 16-byte cp.async cannot address it, the element-load
+    paths run, and the results still match the plain versions."""
+    gy = _randn(cuda, (2 * 70 * 128 + 1,), torch.bfloat16, 1)[1:].view(2, 70, 128)
+    w = _randn(cuda, (1, 96, 128), torch.bfloat16, 2)
+    assert tfb.dgrad_path(gy, w) == "wgmma+loads"
+    assert tfb.dgrad_path(gy.clone(), w) == "wgmma+tma"
+    got = tfb.dense_dgrad(gy, w)
+    want = tref.dense_dgrad_ref(gy.float(), w.float())
+    torch.testing.assert_close(got.float(), want, rtol=1e-2,
+                               atol=1e-2 * want.abs().max().item())
+    q = _randn(cuda, (4 * 50 * 96 + 1,), torch.bfloat16, 3)[1:].view(4, 50, 96)
+    k, v = (_randn(cuda, (2, 50, 96), torch.bfloat16, s) for s in (4, 5))
+    assert tfa.fwd_path(q, k, v) == "mma+loads"
+    assert tfa.fwd_path(q.clone(), k, v) == "mma+cp.async"
+    assert tfa.fwd_path(q.float(), k.float(), v.float()) == "cuda-cores"
+    assert tfa.fwd_path(*(t[..., :20].contiguous() for t in (q, k, v))) == "mma+loads"
+    o, lse = tfa.flash_attn_fwd(q, k, v, causal=True, rep=2)
+    o_ref, lse_ref = tref.flash_attn_fwd_ref(q.float(), k.float(), v.float(), True, 2)
+    torch.testing.assert_close(o.float(), o_ref, rtol=0.0, atol=2e-2)
+    torch.testing.assert_close(lse, lse_ref, rtol=0.0, atol=2e-2)
