@@ -19,10 +19,15 @@ the script exits nonzero and prints no ``ok`` line:
    ``pegrad_norm`` and ``dense_dgrad`` equal ``dense_bwd_norm``'s two
    outputs bit for bit, and the fusion A/B times the separate pair against
    the fused call; ``clip_reduce`` with zeroed clip factors equals the
-   compacted reduction bit for bit.  The flash forward's and the dgrad
-   kernel's lines also give TFLOP/s, the share of the bound and the path
-   each shape took (bf16 on the tensor cores, f32 on the CUDA cores); every
-   training shape's bf16 gx must take the TMA-fed path;
+   compacted reduction bit for bit.  The dgrad kernel's, the flash
+   pair's and the Gram kernel's lines also give TFLOP/s, the share of the
+   bound and the path each shape took (bf16 on the tensor cores, f32 on
+   the CUDA cores); every training shape's bf16 gx must take the TMA-fed
+   path, its attention backward and Grams the cp.async-fed one.  The bf16
+   attention backward is held to ``BWD_BF16_TOL`` of each output's max
+   (the tensor cores take p and ds in bf16), with SDPA's bf16 backward
+   error on the same inputs printed beside it.  The flash backward and
+   the Gram kernel also run at the ``auto`` route's shapes (B 2 x T 2048);
 4. small references in float32 (TF32 off): the reduced phi3 serving
    (prefill and decode logits) and one ``dpsgd_r`` fused training step
    (loss, per-example norms², clipped-sum gradients) on the card through
@@ -46,7 +51,10 @@ the script exits nonzero and prints no ``ok`` line:
    ``materialize``, whose padded rows must have norms² of exactly 0; and
    ``auto`` + kernels at B 2 x T 2048, where the FLOP formulas send the
    attention projections to ``pegrad_norm`` and the MLP and head to
-   ``gram_norm`` (its norms² against the plain ``auto`` rules).
+   ``gram_norm`` (its norms² against the plain ``auto`` rules).  One
+   fused, one materialize and one auto step run under ``torch.profiler``
+   (``[profile]``: device busy share, the top kernels, and each of the
+   port's kernels' share of the step).
 
 Each path counts the launches of every kernel from zero and must launch
 each kernel exactly as often as the code says it does (``path_launches``):
@@ -82,6 +90,11 @@ N_REQUESTS, MAX_NEW, MAX_BATCH, CACHE_LEN, BLOCK = 16, 64, 8, 2048, 16
 # the training path: 16 layers, 8 examples of 512 tokens, 3 timed steps
 TRAIN_LAYERS, TRAIN_B, TRAIN_T, TRAIN_STEPS = 16, 8, 512, 3
 NSQ_RTOL = 2e-2     # bf16 kernel route vs plain route, per-example norms²
+# bf16 attention backward vs its plain version in float32, a share of each
+# output's largest entry: the tensor cores take p and ds rounded to bf16
+# (check_flash_bwd prints SDPA's bf16 backward error on the same inputs
+# beside the kernel's)
+BWD_BF16_TOL = 5e-3
 # phase 7: Poisson sampling at an expected batch of 8 (capacity 25 rows at
 # N = 1e6) in one chunk; auto at 2 examples of 2048 tokens
 POISSON_ACCUM = 1
@@ -127,6 +140,35 @@ def flash_bound_ms(BH, T, S, hd, rep, causal, dtype_name):
     flops = 4.0 * BH * T * S * hd * (0.5 if causal else 1.0)
     nbytes = item * (2 * BH * T * hd + 2 * (BH // rep) * S * hd) + 4 * BH * T
     return bound_ms(flops, nbytes, dtype_name)
+
+
+def flash_bwd_flops(BH, T, hd, causal):
+    """The backward's five products (S, dP, dV, dK, dQ; halved when
+    causal), whatever the kernels recompute."""
+    return 10.0 * BH * T * T * hd * (0.5 if causal else 1.0)
+
+
+def flash_bwd_bound_ms(BH, KV, T, hd, causal, dtype_name):
+    """q, o, do and k, v read in their type, lse read and dq, dk_h, dv_h
+    written in float32 (dk/dv per query head, as the kernels write them)."""
+    item = 2 if dtype_name == "bfloat16" else 4
+    nbytes = (item * (3 * BH * T * hd + 2 * KV * T * hd) + 4 * BH * T
+              + 4 * (BH * T * hd + 2 * KV * T * hd))
+    return bound_ms(flash_bwd_flops(BH, T, hd, causal), nbytes, dtype_name)
+
+
+def gram_flops(BG, T, di, do, square):
+    """The s <= t tile pairs of C = gy·gyᵀ (and A = x·xᵀ when square)."""
+    return 1.0 * BG * T * (T + 1) * (do + (di if square else 0))
+
+
+def gram_bound_ms(BG, T, di, do, masked, square, dtype_name):
+    """gy (and x when square) read in their type, int64 ids when masked,
+    one float32 norm² a row written."""
+    item = 2 if dtype_name == "bfloat16" else 4
+    nbytes = item * BG * T * (do + (di if square else 0)) + 4 * BG \
+        + (8 * BG * T if masked else 0)
+    return bound_ms(gram_flops(BG, T, di, do, square), nbytes, dtype_name)
 
 
 def dense_mix(arch, layers):
@@ -392,6 +434,10 @@ def check_norm_contracts(dtype):
     ga = gram_norm.gram_norm(gy, gy, ids, square=False)
     gb = gram_norm.gram_norm(gy, gy, ids, square=False)
     gsa = gram_norm.gram_norm(x, gy, None, square=True)
+    # rows of 512: in bf16 the cp.async-fed path, where 517 and 700 take
+    # element loads
+    xa, gya = x[..., :512].contiguous(), gy[..., :512].contiguous()
+    gaa = [gram_norm.gram_norm(xa, gya, ids, square=True) for _ in range(2)]
     torch.cuda.synchronize()
     for name, (gx, nsq) in (("dense_bwd_norm", a), ("dense_dgrad+pegrad_norm",
                                                     halves[0])):
@@ -400,11 +446,12 @@ def check_norm_contracts(dtype):
     for p, q in ((a, b), (halves[0], halves[1]), (a, halves[0])):
         assert torch.equal(p[0], q[0]) and torch.equal(p[1], q[1])
     assert torch.all(ga[[1, 4]] == 0) and torch.all(gsa[[1, 4]] == 0)
-    assert torch.equal(ga, gb)
+    assert torch.all(gaa[0][[1, 4]] == 0) and torch.all(gaa[0][[0, 2, 3, 5]] > 0)
+    assert torch.equal(ga, gb) and torch.equal(gaa[0], gaa[1])
     print(f"[kernel] {_dtype_name(dtype)}: zero gy rows give exact zeros and "
           f"repeats are bit-identical (dense_bwd_norm, dense_dgrad and "
           f"pegrad_norm E=3 ragged, the halves equal to the fused kernel; "
-          f"gram_norm masked and square)", flush=True)
+          f"gram_norm masked and square, rows of 517/700 and of 512)", flush=True)
 
 
 def flash_bwd_inputs(g, BH, KV, T, hd, causal, dtype):
@@ -418,64 +465,79 @@ def flash_bwd_inputs(g, BH, KV, T, hd, causal, dtype):
 
 def check_flash_bwd(name, BH, KV, T, hd, causal, dtype, seed=0, iters=10):
     """flash_attn_bwd at one shape against its plain version: float32 grads
-    within 1e-3 of the largest entry for both input types (the kernels
-    compute in float32 from the same inputs; p goes through exp), with
-    timings; zero do rows give exact zeros, repeats are bit-identical."""
+    within 1e-3 of each output's largest entry from float32 inputs (the
+    CUDA cores, float32 throughout; p goes through exp), within
+    ``BWD_BF16_TOL`` from bf16 inputs (the tensor cores take p and ds
+    rounded to bf16), with SDPA's bf16 backward error against the same
+    plain version beside it as the yardstick; zero do rows give exact
+    zeros, repeats are bit-identical; with timings."""
     import torch
     from repro_torch.kernels import flash_attn, ref
     rep = BH // KV
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, o, lse, do = flash_bwd_inputs(g, BH, KV, T, hd, causal, dtype)
     do[:rep] = 0                   # every query head of kv head 0
+    path = flash_attn.bwd_path(q, k, v, do)
     got = flash_attn.flash_attn_bwd(q, k, v, o, lse, do, causal=causal, rep=rep)
     again = flash_attn.flash_attn_bwd(q, k, v, o, lse, do, causal=causal, rep=rep)
     torch.cuda.synchronize()
     want = ref.flash_attn_bwd_ref(q, k, v, o, lse, do, causal, rep)
     abs_err = max((a - b).abs().max().item() for a, b in zip(got, want))
     rel = max(_rel_err(a, b) for a, b in zip(got, want))
-    assert rel <= 1e-3, (name, rel)
+    assert rel <= (1e-3 if dtype == torch.float32 else BWD_BF16_TOL), (name, rel)
     assert all(torch.equal(a, b) for a, b in zip(got, again)), name
     assert torch.all(got[0][:rep] == 0) and torch.all(got[1][0] == 0) \
         and torch.all(got[2][0] == 0), name
-    del got, again, want
-    ms = time_ms(lambda: flash_attn.flash_attn_bwd(q, k, v, o, lse, do,
-                                                   causal=causal, rep=rep), iters)
-    plain_ms = time_ms(lambda: ref.flash_attn_bwd_ref(q, k, v, o, lse, do,
-                                                      causal, rep), iters)
-    # timing only: SDPA's backward = (forward + backward) - forward
+    del got, again
+    # timing and the yardstick only: the port never calls SDPA
     q4, k4, v4 = (t[None].detach().requires_grad_() for t in (q, k, v))
     do4 = do[None]
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
         q4, k4, v4, is_causal=causal, enable_gqa=rep > 1)
+    sdpa_rel = None
+    if dtype == torch.bfloat16:
+        sg = torch.autograd.grad(sdpa(), (q4, k4, v4), do4)
+        sdpa_rel = max(_rel_err(a[0], b) for a, b in zip(sg, want))
+        del sg
+    del want
+    ms = time_ms(lambda: flash_attn.flash_attn_bwd(q, k, v, o, lse, do,
+                                                   causal=causal, rep=rep), iters)
+    plain_ms = time_ms(lambda: ref.flash_attn_bwd_ref(q, k, v, o, lse, do,
+                                                      causal, rep), iters)
+    # SDPA's backward = (forward + backward) - forward
     both_ms = time_ms(lambda: torch.autograd.grad(sdpa(), (q4, k4, v4), do4), iters)
     with torch.no_grad():
         fwd_ms = time_ms(sdpa, iters)
     library_ms = both_ms - fwd_ms
     dt = _dtype_name(dtype)
-    item = q.element_size()
-    flops = 10.0 * BH * T * T * hd * (0.5 if causal else 1.0)
-    nbytes = (item * (3 * BH * T * hd + 2 * KV * T * hd) + 4 * BH * T
-              + 4 * (BH * T * hd + 2 * KV * T * hd))
-    b_ms, b_by = bound_ms(flops, nbytes, dt)
+    b_ms, b_by = flash_bwd_bound_ms(BH, KV, T, hd, causal, dt)
+    tflops = flash_bwd_flops(BH, T, hd, causal) / ms / 1e9
     rec = dict(shape=name, dtype=dt, BH=BH, KV=KV, T=T, hd=hd, causal=causal,
-               max_abs_err=abs_err, rel_err=rel, ms=ms, plain_ms=plain_ms,
-               library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+               max_abs_err=abs_err, rel_err=rel, sdpa_rel_err=sdpa_rel, ms=ms,
+               plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+               bound_by=b_by, tflops=tflops, bound_share=b_ms / ms, path=path)
+    yard = "" if sdpa_rel is None else f", sdpa bf16 {sdpa_rel:.1e} of max"
     print(f"[kernel] flash_attn_bwd {name} {dt}: max_abs_err {abs_err:.2e} "
-          f"({rel:.1e} of max)  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
-          f"sdpa bwd {library_ms:.3f} ms  bound {b_ms:.4f} ms ({b_by})", flush=True)
+          f"({rel:.1e} of max{yard})  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
+          f"sdpa bwd {library_ms:.3f} ms  bound {b_ms:.4f} ms ({b_by})  "
+          f"{tflops:.1f} TFLOP/s, {100 * b_ms / ms:.1f}% of bound, path {path}",
+          flush=True)
     return rec
 
 
-def check_gram(name, BG, T, d, masked, square, dtype, seed=0, iters=10):
-    """gram_norm at one shape against its plain version (rtol 1e-4: the
-    kernel computes in float32 from the same inputs), with timings."""
+def check_gram(name, BG, T, di, do, masked, square, dtype, seed=0, iters=10):
+    """gram_norm at one shape, x (BG, T, di) and gy (BG, T, do) (x is gy
+    when not ``square``), against its plain version (rtol 1e-4: bf16
+    products are exact in float32, only the summation order differs), with
+    timings."""
     import torch
     from repro_torch.kernels import gram_norm, ref
     g = torch.Generator(device="cuda").manual_seed(seed)
-    gy = _randn(g, (BG, T, d), dtype)
-    x = _randn(g, (BG, T, d), dtype) if square else gy
+    gy = _randn(g, (BG, T, do), dtype)
+    x = _randn(g, (BG, T, di), dtype) if square else gy
     # a small vocab, so tokens repeat within an example
     ids = torch.randint(0, 64, (BG, T), generator=g, device="cuda") if masked else None
+    path = gram_norm.gram_path(x, gy, square)
     out = gram_norm.gram_norm(x, gy, ids, square=square)
     torch.cuda.synchronize()
     want = ref.gram_norm_ref(x, gy, ids, square)
@@ -495,28 +557,31 @@ def check_gram(name, BG, T, d, masked, square, dtype, seed=0, iters=10):
         return c.sum(dim=(1, 2))
     library_ms = time_ms(library, iters)
     dt = _dtype_name(dtype)
-    item = gy.element_size()
-    flops = 1.0 * BG * T * (T + 1) * d * (2 if square else 1)   # s <= t pairs
-    nbytes = item * BG * T * d * (2 if square else 1) + 4 * BG \
-        + (8 * BG * T if masked else 0)
-    b_ms, b_by = bound_ms(flops, nbytes, dt)
-    rec = dict(shape=name, dtype=dt, BG=BG, T=T, d=d, masked=masked,
+    b_ms, b_by = gram_bound_ms(BG, T, di, do, masked, square, dt)
+    tflops = gram_flops(BG, T, di, do, square) / ms / 1e9
+    rec = dict(shape=name, dtype=dt, BG=BG, T=T, di=di, do=do, masked=masked,
                square=square, max_abs_err=abs_err, rel_err=rel, ms=ms,
                plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
-               bound_by=b_by)
+               bound_by=b_by, tflops=tflops, bound_share=b_ms / ms, path=path)
     print(f"[kernel] gram_norm {name} {dt}: max_abs_err {abs_err:.2e} "
           f"({rel:.1e} of max)  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
-          f"library {library_ms:.3f} ms  bound {b_ms:.4f} ms ({b_by})", flush=True)
+          f"library {library_ms:.3f} ms  bound {b_ms:.4f} ms ({b_by})  "
+          f"{tflops:.1f} TFLOP/s, {100 * b_ms / ms:.1f}% of bound, path {path}",
+          flush=True)
     return rec
 
 
 # the bf16 tensor-core kernels (mangled-name pieces) and which of them the
 # main paths run: the dgrad kernel (dense_dgrad and dense_bwd_norm's gx
-# launch) and the flash forward at phi3's head width
+# launch), the flash forward and backward at phi3's head width, gram_norm
 TENSOR_CORE_KERNELS = {"dense_dgrad": ["tc12dgrad_kernel"],
                        "dense_bwd_norm": ["tc12dgrad_kernel"],
-                       "flash_attn_fwd": ["mma16flash_fwd_kernel"]}
-MAIN_PATH_KERNELS = ("tc12dgrad_kernel", "mma16flash_fwd_kernelILi96E")
+                       "flash_attn_fwd": ["mma16flash_fwd_kernel"],
+                       "flash_attn_bwd": ["mma13bwd_kv_kernel", "mma12bwd_q_kernel"],
+                       "gram_norm": ["mma11gram_kernel"]}
+MAIN_PATH_KERNELS = ("tc12dgrad_kernel", "mma16flash_fwd_kernelILi96E",
+                     "mma13bwd_kv_kernelILi96E", "mma12bwd_q_kernelILi96E",
+                     "mma11gram_kernel")
 
 
 def ptxas_report(log: str):
@@ -802,10 +867,20 @@ def main_path(arch, prompts):
     return [rec for _, rec in runs.values()], launches, breakdown
 
 
+# the port's kernels as the profiler names them (substrings of the device
+# function names), for each one's share of a profiled step
+PROFILE_KERNELS = {"flash_attn_fwd": ("flash_fwd_kernel",),
+                   "flash_attn_bwd": ("bwd_kv_kernel", "bwd_q_kernel"),
+                   "gram_norm": ("gram_kernel",),
+                   "norm launch": ("norm_kernel",),
+                   "gx launch": ("dgrad_kernel",)}
+
+
 def profile_step(run, label):
     """One more training step under ``torch.profiler``: the device time of
-    every kernel by name, and the device's busy share of the step's wall
-    time (busy = the union of kernel intervals on the timeline)."""
+    every kernel by name, each of the port's kernels' share of the step's
+    wall time (``PROFILE_KERNELS``), and the device's busy share (busy =
+    the union of kernel intervals on the timeline)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -830,14 +905,19 @@ def profile_step(run, label):
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end
                                                       - e.time_range.start) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    ours = {k: sum(ms for nm, ms in by_name.items() if any(p in nm for p in pieces))
+            for k, pieces in PROFILE_KERNELS.items()}
     print(f"[profile] one dpsgd_r {label} step under torch.profiler: "
           f"{rec['step_ms']:.1f} ms wall, device busy {busy:.1f} ms "
           f"({100 * busy / rec['step_ms']:.1f}%), {len(kernels)} kernel "
           f"launches", flush=True)
     for nm, ms in top:
         print(f"[profile]   {ms:9.2f} ms  {nm[:100]}", flush=True)
+    print("[profile]   the port's kernels: " + ", ".join(
+        f"{k} {ms:.2f} ms ({100 * ms / rec['step_ms']:.1f}%)" for k, ms in ours.items()),
+        flush=True)
     return dict(step_ms=rec["step_ms"], device_busy_ms=busy,
-                n_kernels=len(kernels), top_ms=top)
+                n_kernels=len(kernels), top_ms=top, kernels_ms=ours)
 
 
 def timed_step(trainer, state):
@@ -1092,8 +1172,9 @@ def train_norm_routes(model, fused_trainer, state):
           f"{ {k: v for k, v in rec['launches'].items() if v} }; norms² vs the "
           f"plain auto rules: max rel err {aerr:.2e} (limit {NSQ_RTOL}); peak "
           f"{apeak / 2**30:.2f} GiB", flush=True)
+    prof = profile_step(lambda: timed_step(auto, state), "auto+kernels")
     out["auto"] = dict(step=rec, nsq_rel_err=aerr, plain_pass1_ms=p1,
-                       peak_bytes=apeak)
+                       peak_bytes=apeak, profile=prof)
     out["launches"] = launches
     return out
 
@@ -1106,6 +1187,7 @@ def main() -> int:
         return 1
     from repro_torch.configs import get_arch
     from repro_torch.kernels import build
+    from repro_torch.models.transformer import padded_vocab
     torch.backends.cuda.matmul.allow_tf32 = False   # full-f32 references
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1167,12 +1249,22 @@ def main() -> int:
                     ("starcoder2-gqa", 36, 4, 777, 128, True),
                     ("starcoder2-gqa-full", 36, 4, 333, 128, False)):
             bwd_recs.append(check_flash_bwd(*shp, dtype))
-        gram_recs.append(check_gram("embed", TRAIN_B, TRAIN_T, d, True, False, dtype))
-        gram_recs.append(check_gram("square", TRAIN_B, TRAIN_T, d, False, True, dtype))
+        gram_recs.append(check_gram("embed", TRAIN_B, TRAIN_T, d, d, True, False, dtype))
+        gram_recs.append(check_gram("square", TRAIN_B, TRAIN_T, d, d, False, True, dtype))
         # one phi3 w1's per-example gradients, stacked as vanilla DP-SGD forms
         # them; and a ragged width (the one-column-per-thread path)
         clip_recs.append(check_clip_reduce("phi3-w1", TRAIN_B, d * f, dtype, iters=20))
         clip_recs.append(check_clip_reduce("ragged", 3, 1_000_003, dtype))
+
+    # the auto route's shapes (B 2 x T 2048), bf16: its attention backward
+    # and its three square Gram widths (w1 and w3, w2, the head)
+    bwd_recs.append(check_flash_bwd("auto-2048", AUTO_B * arch.n_heads,
+                                    AUTO_B * arch.n_kv_heads, AUTO_T, arch.hd, True,
+                                    torch.bfloat16, iters=5))
+    for nm, di, do in (("auto-w1w3", d, f), ("auto-w2", f, d),
+                       ("auto-head", d, padded_vocab(arch.vocab))):
+        gram_recs.append(check_gram(nm, AUTO_B, AUTO_T, di, do, False, True,
+                                    torch.bfloat16, iters=5))
 
     def pick(recs, shape):
         return next(r for r in recs if r["shape"] == shape and r["dtype"] == "bfloat16")
@@ -1191,6 +1283,13 @@ def main() -> int:
     for recs in (dense_recs, halves["dense_dgrad"]):
         for nm, *_ in train_mix:
             assert pick(recs, nm)["path"] == "wgmma+tma", (nm, pick(recs, nm)["path"])
+    # every training shape's bf16 attention backward and Gram take the
+    # cp.async-fed tensor-core path
+    for recs, names in ((bwd_recs, ("phi3-train", "auto-2048")),
+                        (gram_recs, ("embed", "square", "auto-w1w3", "auto-w2",
+                                     "auto-head"))):
+        for nm in names:
+            assert pick(recs, nm)["path"] == "mma+cp.async", (nm, pick(recs, nm)["path"])
     dgrad_step = step_sum(halves["dense_dgrad"])
     dgrad_flops = sum(2.0 * TRAIN_B * TRAIN_T * di * do * n for _, di, do, n in train_mix)
     print(f"[kernel] dense_dgrad over one training step's {7 * L + 1} calls, bf16: "
@@ -1259,10 +1358,12 @@ def main() -> int:
               shape=f"sum over one training step's calls, bf16: {mix}"),
         entry("flash_attn_bwd", "flash_attn_bwd.cu",
               "src/repro/kernels/flash_attn.py:210", launches["flash_attn_bwd"],
-              bwd_rec, shape=f"({bwd_rec['BH']}, {TRAIN_T}, {arch.hd}) causal, bf16"),
+              bwd_rec, shape=f"({bwd_rec['BH']}, {TRAIN_T}, {arch.hd}) causal, bf16",
+              path=bwd_rec["path"]),
         entry("gram_norm", "gram_norm.cu", "src/repro/kernels/gram_norm.py:66",
               launches["gram_norm"], gram_rec,
-              shape=f"embedding rule ({TRAIN_B}, {TRAIN_T}, {d}) masked, bf16"),
+              shape=f"embedding rule ({TRAIN_B}, {TRAIN_T}, {d}) masked, bf16",
+              path=gram_rec["path"]),
         entry("pegrad_norm", "pegrad_norm.cu", "src/repro/kernels/pegrad_norm.py:52",
               launches["pegrad_norm"], step_sum(halves["pegrad_norm"]),
               shape=f"sum over one materialize step's calls, bf16: {mix}"),

@@ -46,6 +46,8 @@
 
 #include <type_traits>
 
+#include "mma_tiles.cuh"
+
 namespace {
 
 constexpr int BQ = 64;    // query rows per block
@@ -241,80 +243,11 @@ constexpr int NTM = 128;            // four warps, 16 query rows each
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-enum Path { CUDA_CORES = 0, CP_ASYNC = 1, LOADS = 2 };
-
 // shared memory: Q (64 rows), K and V (2 buffers x 64 rows each), row
 // stride HDP + 8 elements so the 8 rows of an ldmatrix hit 8 bank groups
 template <int HDP>
 constexpr size_t smem_bytes() {
   return sizeof(__nv_bfloat16) * (size_t)(BQ + 4 * BK) * (HDP + 8);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  // src-size 0 fills the 16 bytes with zeros and reads nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_1() {
-  asm volatile("cp.async.wait_group 1;" ::: "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t& r0, uint32_t& r1, uint32_t& r2,
-                                        uint32_t& r3) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(addr)
-               : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t& r0, uint32_t& r1,
-                                          uint32_t& r2, uint32_t& r3) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(addr)
-               : "memory");
-}
-
-// d (16 x 8 f32) += a (16 x 16 bf16, row) · b (16 x 8 bf16, col)
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// rows [row0, row0 + 64) of a row-major (rows, hd) bf16 matrix into a
-// shared tile of row stride HDP + 8, zero past `rows` and past hd
-template <int HDP>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* __restrict__ src,
-                                          int row0, int rows, int hd, bool vec) {
-  constexpr int LDS = HDP + 8, CH = HDP / 8;
-  if (vec) {   // hd % 8 == 0: a 16-byte chunk is all in or all out
-    for (int i = threadIdx.x; i < 64 * CH; i += NTM) {
-      const int r = i / CH, d = (i % CH) * 8, gr = row0 + r;
-      const bool valid = gr < rows && d < hd;
-      cp_async16(smem_u32(dst + r * LDS + d), valid ? src + (size_t)gr * hd + d : src, valid);
-    }
-  } else {
-    for (int i = threadIdx.x; i < 64 * HDP; i += NTM) {
-      const int r = i / HDP, d = i % HDP, gr = row0 + r;
-      dst[r * LDS + d] = (gr < rows && d < hd) ? src[(size_t)gr * hd + d] : __float2bfloat16(0.f);
-    }
-  }
 }
 
 template <int HDP>
@@ -348,7 +281,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
   load_rows<HDP>(sK, kb, 0, S, hd, vec);
   load_rows<HDP>(sV, vb, 0, S, hd, vec);
   cp_async_commit();
-  cp_async_wait_1();   // Q landed
+  cp_async_wait<1>();   // Q landed
   __syncthreads();
   uint32_t qf[KS][4];   // this warp's 16 rows of Q as A fragments, for the whole block
 #pragma unroll
@@ -370,7 +303,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
       load_rows<HDP>(sV + (buf ^ 1) * BK * LDS, vb, k0 + BK, S, hd, vec);
     }
     cp_async_commit();
-    cp_async_wait_1();   // tile kt landed
+    cp_async_wait<1>();   // tile kt landed
     __syncthreads();
     const __nv_bfloat16* tK = sK + buf * BK * LDS;
     const __nv_bfloat16* tV = sV + buf * BK * LDS;
@@ -483,8 +416,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __res
 
 // 16-byte cp.async needs hd % 8 == 0 and 16-byte-aligned bases
 inline bool vec_ok(const void* q, const void* k, const void* v, int hd) {
-  return hd % 8 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
-         reinterpret_cast<uintptr_t>(k) % 16 == 0 && reinterpret_cast<uintptr_t>(v) % 16 == 0;
+  return hd % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
 }
 
 template <int HDP>

@@ -7,8 +7,8 @@ A CPU tensor takes the plain version (``ref.flash_attn_fwd_ref``,
 ``ref.flash_attn_bwd_ref``); a CUDA tensor launches the kernel or raises.
 ``LAUNCHES`` and ``BWD_LAUNCHES`` count wrapper calls that launched the
 forward and the backward kernels (and nothing else), so a run can show
-that it went through them; ``fwd_path`` says which of the forward's paths
-a CUDA operand triple takes.
+that it went through them; ``fwd_path`` and ``bwd_path`` say which of
+the forward's and the backward's paths CUDA operands take.
 """
 from __future__ import annotations
 
@@ -35,24 +35,25 @@ def _kernel():
 def _fwd_path_fn():
     fn = build.load("flash_attn_fwd").repro_flash_attn_fwd_path
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2   # q k v, hd dtype
-    fn.restype = ctypes.c_int                 # FWD_PATHS index, -1 unknown dtype
+    fn.restype = ctypes.c_int                 # PATHS index, -1 unknown dtype
     return fn
 
 
-# the forward's paths (csrc/flash_attn_fwd.cu): CUDA cores for float32; in
-# bf16 the tensor cores, fed by 16-byte cp.async or, where hd % 8 != 0 or a
-# base is not 16-byte aligned, by element loads
-FWD_PATHS = ("cuda-cores", "mma+cp.async", "mma+loads")
+# the paths of the forward and of the backward (csrc/flash_attn_fwd.cu,
+# csrc/flash_attn_bwd.cu): CUDA cores for float32; in bf16 the tensor cores,
+# fed by 16-byte cp.async or, where hd % 8 != 0 or a base is not 16-byte
+# aligned, by element loads
+PATHS = ("cuda-cores", "mma+cp.async", "mma+loads")
 
 
 def fwd_path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The path ``flash_attn_fwd`` takes for these CUDA operands (one of
-    ``FWD_PATHS``).  Launches nothing."""
+    ``PATHS``).  Launches nothing."""
     if q.device.type != "cuda" or q.dtype not in _DTYPES:
         raise ValueError(f"fwd_path: want a float32 or bf16 CUDA tensor, got "
                          f"{q.dtype} on {q.device}")
-    return FWD_PATHS[_fwd_path_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                    q.shape[-1], _DTYPES[q.dtype])]
+    return PATHS[_fwd_path_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                q.shape[-1], _DTYPES[q.dtype])]
 
 
 def _bwd_kernel():
@@ -61,6 +62,25 @@ def _bwd_kernel():
                    + [ctypes.c_void_p])       # q k v do lse delta dq dk dv, ints, stream
     fn.restype = ctypes.c_int                 # cudaError_t
     return fn
+
+
+def _bwd_path_fn():
+    fn = build.load("flash_attn_bwd").repro_flash_attn_bwd_path
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2   # q k v do, hd dtype
+    fn.restype = ctypes.c_int                 # PATHS index, -1 unknown dtype
+    return fn
+
+
+def bwd_path(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             do: torch.Tensor) -> str:
+    """The path ``flash_attn_bwd`` takes for these CUDA operands (one of
+    ``PATHS``: the backward's two launches take the same one).
+    Launches nothing."""
+    if q.device.type != "cuda" or q.dtype not in _DTYPES:
+        raise ValueError(f"bwd_path: want a float32 or bf16 CUDA tensor, got "
+                         f"{q.dtype} on {q.device}")
+    return PATHS[_bwd_path_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                do.data_ptr(), q.shape[-1], _DTYPES[q.dtype])]
 
 
 def _check(q, k, v, rep: int):

@@ -4,7 +4,8 @@ Pallas TPU kernel).
 
 A CPU tensor takes the plain version (``ref.gram_norm_ref``); a CUDA tensor
 launches the kernel or raises.  ``LAUNCHES`` counts wrapper calls that
-launched the kernel (and nothing else).
+launched the kernel (and nothing else); ``gram_path`` says which of the
+kernel's paths CUDA operands take.
 """
 from __future__ import annotations
 
@@ -25,6 +26,30 @@ def _kernel():
                    + [ctypes.c_void_p])       # x gy ids part, ints, stream
     fn.restype = ctypes.c_int                 # cudaError_t
     return fn
+
+
+def _path_fn():
+    fn = build.load("gram_norm").repro_gram_norm_path
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4   # x gy, di do square dtype
+    fn.restype = ctypes.c_int                 # PATHS index, -1 unknown dtype
+    return fn
+
+
+# the kernel's paths (csrc/gram_norm.cu): CUDA cores for float32; in bf16
+# the tensor cores, fed by 16-byte cp.async or, where a row of gy (or of x,
+# when square) is not a multiple of 8 elements or a base is not 16-byte
+# aligned, by element loads
+PATHS = ("cuda-cores", "mma+cp.async", "mma+loads")
+
+
+def gram_path(x: torch.Tensor, gy: torch.Tensor, square: bool = True) -> str:
+    """The path ``gram_norm`` takes for these CUDA operands (one of
+    ``PATHS``).  Launches nothing."""
+    if gy.device.type != "cuda" or gy.dtype not in _DTYPES:
+        raise ValueError(f"gram_path: want a float32 or bf16 CUDA tensor, got "
+                         f"{gy.dtype} on {gy.device}")
+    return PATHS[_path_fn()(x.data_ptr(), gy.data_ptr(), x.shape[-1],
+                            gy.shape[-1], int(square), _DTYPES[gy.dtype])]
 
 
 def _check(x, gy, mask_ids):

@@ -3,7 +3,9 @@ pinned on the CPU: the least time the card could take for the training
 step's dense calls and for the serving path's first prefill wave (H100 SXM
 peaks: 989 TFLOP/s bf16, 3.35 TB/s).  A change to the work counted, to the
 mix of calls or to the traffic moves these numbers and every share of
-bound reported beside them."""
+bound reported beside them.  Also pinned: the parser that reads
+``-Xptxas -v`` for the no-spill check on the main-path tensor-core
+kernels."""
 import importlib.util
 from pathlib import Path
 
@@ -68,3 +70,64 @@ ptxas info    : Used 255 registers, used 1 barriers
     assert [(r["registers"], r["spill_stores"], r["spill_loads"]) for r in got] == \
         [(154, 0, 0), (255, 16, 12)]
     assert all(any(p in r["function"] for p in smoke.MAIN_PATH_KERNELS) for r in got)
+
+
+def test_flash_bwd_bounds_at_the_training_and_auto_shapes(smoke):
+    """The backward's five products (32.2 GFLOP at the training shape) are
+    bound by bytes at T 512 and by operations at the auto route's T 2048."""
+    arch = get_arch("phi3-mini-3.8b")
+    BH = smoke.TRAIN_B * arch.n_heads
+    assert smoke.flash_bwd_flops(BH, 512, arch.hd, True) == pytest.approx(3.2212e10, rel=1e-4)
+    ms, by = smoke.flash_bwd_bound_ms(BH, BH, smoke.TRAIN_T, arch.hd, True, "bfloat16")
+    assert by == "bytes" and ms == pytest.approx(0.082791, abs=1e-6)
+    BH = smoke.AUTO_B * arch.n_heads
+    ms, by = smoke.flash_bwd_bound_ms(BH, BH, smoke.AUTO_T, arch.hd, True, "bfloat16")
+    assert by == "operations" and ms == pytest.approx(0.130282, abs=1e-6)
+    # a causal launch does half the products of a full one
+    assert smoke.flash_bwd_flops(BH, 2048, 96, False) == 2 * smoke.flash_bwd_flops(
+        BH, 2048, 96, True)
+
+
+@pytest.mark.parametrize("shape,want", [
+    (("embed", 8, 512, 3072, 3072, True, False), (0.007522, "bytes")),
+    (("auto-w1w3", 2, 2048, 3072, 8192, False, True), (0.095587, "operations")),
+    (("auto-w2", 2, 2048, 8192, 3072, False, True), (0.095587, "operations")),
+    (("auto-head", 2, 2048, 3072, 32256, False, True), (0.299795, "operations"))])
+def test_gram_bounds_at_the_training_and_auto_shapes(smoke, shape, want):
+    _, BG, T, di, do, masked, square = shape
+    ms, by = smoke.gram_bound_ms(BG, T, di, do, masked, square, "bfloat16")
+    assert by == want[1] and ms == pytest.approx(want[0], abs=1e-6)
+
+
+def test_gram_flops_count_the_s_le_t_pairs(smoke):
+    # the embedding rule: one Gram of gy over T (T + 1) / 2 pairs, 2 FLOPs each
+    assert smoke.gram_flops(8, 512, 3072, 3072, False) == 8 * 512 * 513 * 3072
+    assert smoke.gram_flops(2, 2048, 3072, 8192, True) == 2 * 2048 * 2049 * (3072 + 8192)
+
+
+def test_ptxas_report_names_the_backward_and_gram_kernels(smoke):
+    """The bf16 attention backward's two launches at hd 96 and the bf16
+    Gram kernel are main-path kernels; their f32 siblings are not."""
+    log = """ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_13mma13bwd_kv_kernelILi96EEEvPK13__nv_bfloat16S4_S4_S4_PKfS6_PfS7_iiiiiifi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_13mma13bwd_kv_kernelILi96EEEvPK13__nv_bfloat16S4_S4_S4_PKfS6_PfS7_iiiiiifi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 232 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_13mma12bwd_q_kernelILi128EEEvPK13__nv_bfloat16S4_S4_S4_PKfS6_Pfiiiiiifi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_13mma12bwd_q_kernelILi128EEEvPK13__nv_bfloat16S4_S4_S4_PKfS6_Pfiiiiiifi
+    0 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_13mma11gram_kernelEPK13__nv_bfloat16S3_PKiPfiiiiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_13mma11gram_kernelEPK13__nv_bfloat16S3_PKiPfiiiiiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_113bwd_kv_kernelIfLi96EEEvPKT_S3_S3_S3_PKfS5_PfS6_iiiiiif' for 'sm_90a'
+ptxas info    : Used 120 registers, used 1 barriers
+"""
+    got = smoke.ptxas_report(log)
+    assert [(r["registers"], r["spill_stores"]) for r in got] == \
+        [(232, 0), (255, 4), (128, 0), (120, None)]
+    main = [any(p in r["function"] for p in smoke.MAIN_PATH_KERNELS) for r in got]
+    assert main == [True, False, True, False]
+    tc = [any(p in r["function"] for pieces in smoke.TENSOR_CORE_KERNELS.values()
+              for p in pieces) for r in got]
+    assert tc == [True, True, True, False]

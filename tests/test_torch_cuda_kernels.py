@@ -11,8 +11,12 @@ bf16 against the plain version computed in float32 at atol 2e-2.  The
 backward and norm kernels convert bf16 inputs to float32 exactly and
 accumulate in float32, so their float32 outputs (norms², attention grads)
 differ from the plain version on the same inputs only by summation order:
-rtol 1e-4 (norms²) and 1e-3 (grads, which also go through exp); a bf16 gx
-also rounds its output (one bf16 ulp, 2^-8 relative).  ``pegrad_norm`` and
+rtol 1e-4 (norms²) and 1e-3 (float32 attention grads, which also go
+through exp); a bf16 gx also rounds its output (one bf16 ulp, 2^-8
+relative).  The bf16 attention backward runs on the tensor cores, which
+take p and ds rounded to bf16 as operands (as every tensor-core attention
+backward does), so its grads are held to ``BWD_BF16_TOL`` of each
+output's largest entry.  ``pegrad_norm`` and
 ``dense_dgrad`` are ``dense_bwd_norm``'s two launches alone and must equal
 its outputs bit for bit; ``clip_reduce`` sums in float32 in row order
 (rtol 1e-5 against the plain version's float32 product, atol 1e-5 of the
@@ -144,8 +148,9 @@ def test_dense_bwd_norm_zero_rows_and_determinism(cuda, dtype):
     assert torch.equal(nsq, nsq2) and torch.equal(gx, gx2)
 
 
-# (BG, T, di, do): one tile, ragged T over several tiles, wide d
-GRAM_SHAPES = [(2, 16, 8, 24), (3, 70, 33, 65), (2, 130, 64, 300)]
+# (BG, T, di, do): one tile, ragged T over several tiles, wide d; one row
+# at the auto route's T (32 x 32 tile pairs)
+GRAM_SHAPES = [(2, 16, 8, 24), (3, 70, 33, 65), (2, 130, 64, 300), (1, 2048, 64, 96)]
 
 
 @pytest.mark.cuda
@@ -180,6 +185,11 @@ def test_gram_norm_zero_rows_and_determinism(cuda):
     assert torch.equal(a, b)
 
 
+# the bf16 attention backward against the float32 plain version: a share
+# of each output's largest entry (p and ds are bf16 tensor-core operands,
+# as in every tensor-core attention backward, SDPA's included)
+BWD_BF16_TOL = 5e-3
+
 # (BH, KV rows, T, hd, causal)
 BWD_SHAPES = [(8, 4, 16, 8, True), (3, 1, 33, 20, True), (4, 2, 37, 96, False),
               (6, 2, 70, 96, True), (18, 2, 130, 128, True), (4, 4, 65, 80, False),
@@ -207,7 +217,11 @@ def test_flash_attn_bwd_matches_plain(cuda, shape, dtype):
     want = tref.flash_attn_bwd_ref(q, k, v, o, lse, do, causal, BH // KVR)
     for g, r in zip(got, want):
         assert g.dtype == torch.float32 and g.shape == r.shape
-        torch.testing.assert_close(g, r, rtol=1e-3, atol=1e-3 * r.abs().max().item())
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, r, rtol=1e-3, atol=1e-3 * r.abs().max().item())
+        else:
+            torch.testing.assert_close(g, r, rtol=0.0,
+                                       atol=BWD_BF16_TOL * r.abs().max().item())
 
 
 @pytest.mark.cuda
@@ -405,3 +419,94 @@ def test_dgrad_and_flash_take_element_loads_for_unaligned_bases(cuda):
     o_ref, lse_ref = tref.flash_attn_fwd_ref(q.float(), k.float(), v.float(), True, 2)
     torch.testing.assert_close(o.float(), o_ref, rtol=0.0, atol=2e-2)
     torch.testing.assert_close(lse, lse_ref, rtol=0.0, atol=2e-2)
+
+
+# (BH, KV rows, T, hd, causal, path of the bf16 launches): the training
+# head width, the auto route's T, hd 20 (rows of 40 bytes: element loads)
+BWD_PATH_SHAPES = [(8, 4, 130, 96, True, "mma+cp.async"),
+                   (2, 2, 2048, 96, True, "mma+cp.async"),
+                   (6, 2, 70, 20, True, "mma+loads"), (4, 4, 65, 20, False, "mma+loads")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BWD_PATH_SHAPES)
+def test_flash_attn_bwd_tensor_core_paths_zero_rows_and_repeats(cuda, shape):
+    """bf16 attention backward on both tensor-core paths: the path the
+    library reports, exact zeros from all-zero dO rows, bit-identical
+    repeats, and the bf16 bound against the plain version."""
+    BH, KVR, T, hd, causal, path = shape
+    rep = BH // KVR
+    q, k, v, o, lse, do = _bwd_inputs(cuda, shape[:5], torch.bfloat16)
+    do[:rep] = 0     # every query head of kv head 0
+    do[rep, 3:40] = 0
+    assert tfa.bwd_path(q, k, v, do) == path
+    assert tfa.bwd_path(q.float(), k.float(), v.float(), do.float()) == "cuda-cores"
+    a = tfa.flash_attn_bwd(q, k, v, o, lse, do, causal=causal, rep=rep)
+    b = tfa.flash_attn_bwd(q, k, v, o, lse, do, causal=causal, rep=rep)
+    torch.cuda.synchronize()
+    dq, dk, dv = a
+    assert torch.all(dq[:rep] == 0) and torch.all(dq[rep, 3:40] == 0)
+    assert torch.all(dk[0] == 0) and torch.all(dv[0] == 0)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    want = tref.flash_attn_bwd_ref(q, k, v, o, lse, do, causal, rep)
+    for g, r in zip(a, want):
+        torch.testing.assert_close(g, r, rtol=0.0, atol=BWD_BF16_TOL * r.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_flash_attn_bwd_takes_element_loads_for_an_unaligned_base(cuda):
+    """dO one element into its storage is not 16-byte aligned: the
+    element-load path runs and still matches the plain version."""
+    q, k, v, o, lse, do = _bwd_inputs(cuda, (4, 2, 50, 96, True), torch.bfloat16)
+    dos = _randn(cuda, (4 * 50 * 96 + 1,), torch.bfloat16, 9)[1:].view(4, 50, 96)
+    assert tfa.bwd_path(q, k, v, dos) == "mma+loads"
+    assert tfa.bwd_path(q, k, v, dos.clone()) == "mma+cp.async"
+    got = tfa.flash_attn_bwd(q, k, v, o, lse, dos, causal=True, rep=2)
+    want = tref.flash_attn_bwd_ref(q, k, v, o, lse, dos, True, 2)
+    for g, r in zip(got, want):
+        torch.testing.assert_close(g, r, rtol=0.0, atol=BWD_BF16_TOL * r.abs().max().item())
+
+
+# (BG, T, di, do, square, path of the bf16 launch): the embedding rule at
+# the training width, the auto route's square rule, the head's depth (2016
+# k-steps: the tensor cores' own f32 sums would drift low past rtol 1e-4),
+# D 517 (element loads), x unaligned under the square rule while gy is
+# aligned
+GRAM_PATH_SHAPES = [(3, 200, 3072, 3072, False, "mma+cp.async"),
+                    (2, 300, 96, 256, True, "mma+cp.async"),
+                    (3, 130, 3072, 32256, True, "mma+cp.async"),
+                    (3, 130, 517, 517, False, "mma+loads"),
+                    (2, 150, 20, 64, True, "mma+loads")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", GRAM_PATH_SHAPES)
+def test_gram_tensor_core_paths_zero_rows_and_repeats(cuda, shape):
+    """bf16 gram_norm on both tensor-core paths: the path the library
+    reports, an exact 0.0 for an all-zero gy row, bit-identical repeats,
+    and rtol 1e-4 against the plain version (bf16 products are exact in
+    float32)."""
+    BG, T, di, do, square, path = shape
+    gy = _randn(cuda, (BG, T, do), torch.bfloat16, 1)
+    x = _randn(cuda, (BG, T, di), torch.bfloat16, 0) if square else gy
+    gy[1] = 0
+    ids = torch.from_numpy(np.random.default_rng(2).integers(0, 9, (BG, T))).to(cuda)
+    assert tgn.gram_path(x, gy, square) == path
+    assert tgn.gram_path(x.float(), gy.float(), square) == "cuda-cores"
+    for mask in (None, ids):
+        a = tgn.gram_norm(x, gy, mask, square=square)
+        b = tgn.gram_norm(x, gy, mask, square=square)
+        torch.cuda.synchronize()
+        assert a[1].item() == 0.0 and torch.all(a[[0, 2] if BG > 2 else [0]] > 0)
+        assert torch.equal(a, b)
+        want = tref.gram_norm_ref(x, gy, mask, square)
+        torch.testing.assert_close(a, want, rtol=1e-4, atol=0.0)
+
+
+@pytest.mark.cuda
+def test_gram_takes_element_loads_for_an_unaligned_base(cuda):
+    gy = _randn(cuda, (2 * 100 * 64 + 1,), torch.bfloat16, 1)[1:].view(2, 100, 64)
+    assert tgn.gram_path(gy, gy, False) == "mma+loads"
+    assert tgn.gram_path(gy.clone(), gy.clone(), False) == "mma+cp.async"
+    torch.testing.assert_close(tgn.gram_norm(gy, gy, None, square=False),
+                               tref.gram_norm_ref(gy, gy, None, False), rtol=1e-4, atol=0.0)
