@@ -19,15 +19,17 @@ the script exits nonzero and prints no ``ok`` line:
    ``pegrad_norm`` and ``dense_dgrad`` equal ``dense_bwd_norm``'s two
    outputs bit for bit, and the fusion A/B times the separate pair against
    the fused call; ``clip_reduce`` with zeroed clip factors equals the
-   compacted reduction bit for bit.  The dgrad kernel's, the flash
-   pair's and the Gram kernel's lines also give TFLOP/s, the share of the
-   bound and the path each shape took (bf16 on the tensor cores, f32 on
-   the CUDA cores); every training shape's bf16 gx must take the TMA-fed
-   path, its attention backward and Grams the cp.async-fed one.  The bf16
+   compacted reduction bit for bit.  The dgrad kernel's, the norm
+   launch's (``pegrad_norm``), the flash pair's and the Gram kernel's
+   lines also give TFLOP/s, the share of the bound and the path each shape
+   took (bf16 on the tensor cores, f32 on the CUDA cores); every training
+   shape's bf16 gx and norm launch must take the TMA-fed path, its
+   attention backward and Grams the cp.async-fed one.  The bf16
    attention backward is held to ``BWD_BF16_TOL`` of each output's max
    (the tensor cores take p and ds in bf16), with SDPA's bf16 backward
-   error on the same inputs printed beside it.  The flash backward and
-   the Gram kernel also run at the ``auto`` route's shapes (B 2 x T 2048);
+   error on the same inputs printed beside it.  The flash backward, the
+   Gram kernel and ``pegrad_norm`` also run at the ``auto`` route's shapes
+   (B 2 x T 2048);
 4. small references in float32 (TF32 off): the reduced phi3 serving
    (prefill and decode logits) and one ``dpsgd_r`` fused training step
    (loss, per-example norms², clipped-sum gradients) on the card through
@@ -180,6 +182,14 @@ def dense_mix(arch, layers):
             ("w2", f, d, layers), ("head", d, v, 1)]
 
 
+def norm_bound_ms(BG, T, di, do, dtype_name):
+    """The norm launch, ‖x_bᵀ gy_b‖² per row: 2·BG·T·di·do FLOPs; x and gy
+    read, one float32 a row written."""
+    item = 2 if dtype_name == "bfloat16" else 4
+    return bound_ms(2.0 * BG * T * di * do, item * BG * T * (di + do) + 4 * BG,
+                    dtype_name)
+
+
 def dgrad_bound_ms(BG, T, di, do, E, dtype_name):
     """gx = gy · wᵀ: 2·BG·T·di·do FLOPs; gy and w read, gx written."""
     item = 2 if dtype_name == "bfloat16" else 4
@@ -264,9 +274,10 @@ def check_dense_bwd_norm(name, BG, T, di, do, E, dtype, seed=0, iters=10):
     output; nsq within rtol 1e-4, since bf16 inputs convert to f32
     exactly and only the summation order differs), with timings."""
     import torch
-    from repro_torch.kernels import fused_bwd, ref
+    from repro_torch.kernels import fused_bwd, pegrad_norm, ref
     x, gy, w = dense_inputs(BG, T, di, do, E, dtype, seed)
     path = fused_bwd.dgrad_path(gy, w)
+    norm_path = pegrad_norm.norm_path(x, gy)
     gx, nsq = fused_bwd.dense_bwd_norm(x, gy, w)
     torch.cuda.synchronize()
     nsq_ref = ref.dense_bwd_norm_ref(x, gy, w)[1]
@@ -291,56 +302,92 @@ def check_dense_bwd_norm(name, BG, T, di, do, E, dtype, seed=0, iters=10):
     b_ms, b_by = bound_ms(4.0 * BG * T * di * do,
                           item * (2 * BG * T * di + BG * T * do + E * di * do)
                           + 4 * BG, dt)
+    tflops = 4.0 * BG * T * di * do / ms / 1e9
     rec = dict(shape=name, dtype=dt, BG=BG, T=T, di=di, do=do, E=E,
                max_abs_err=abs_err, gx_rel_err=gx_err, nsq_rel_err=nsq_err,
                ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
-               bound_by=b_by, path=path)
+               bound_by=b_by, path=path, norm_path=norm_path, tflops=tflops,
+               bound_share=b_ms / ms)
     print(f"[kernel] dense_bwd_norm {name} {dt}: gx err {abs_err:.2e} "
           f"({gx_err:.1e} of max), nsq rel err {nsq_err:.1e}  kernel {ms:.3f} "
           f"ms  plain {plain_ms:.3f} ms  library {library_ms:.3f} ms  bound "
-          f"{b_ms:.4f} ms ({b_by})  gx path {path}", flush=True)
+          f"{b_ms:.4f} ms ({b_by})  {tflops:.1f} TFLOP/s, "
+          f"{100 * b_ms / ms:.1f}% of bound, gx path {path}, norm path "
+          f"{norm_path}", flush=True)
     return rec
+
+
+def check_pegrad_norm(name, x, gy, iters=10):
+    """pegrad_norm (the norm launch alone) on x (BG, T, di), gy (BG, T, do):
+    within rtol 1e-4 of its plain version (bf16 inputs convert to float32
+    exactly, only the summation order differs); gy with row 1 zeroed gives
+    an exact 0.0 there, the other rows' bits as before, and the same bits
+    again; with timings, TFLOP/s, share of the bound and the path taken.
+    Returns (record, norms²)."""
+    import torch
+    from repro_torch.kernels import pegrad_norm, ref
+    BG, T, di = x.shape
+    do = gy.shape[2]
+    path = pegrad_norm.norm_path(x, gy)
+    nsq = pegrad_norm.pegrad_norm(x, gy)
+    gz = gy.clone()
+    gz[1] = 0
+    za, zb = pegrad_norm.pegrad_norm(x, gz), pegrad_norm.pegrad_norm(x, gz)
+    torch.cuda.synchronize()
+    keep = torch.arange(BG, device="cuda") != 1
+    assert za[1].item() == 0.0 and torch.equal(za[keep], nsq[keep]), name
+    assert torch.equal(za, zb), name
+    del gz, za, zb
+    nsq_ref = ref.pegrad_norm_ref(x, gy)
+    nsq_abs = (nsq - nsq_ref).abs().max().item()
+    nsq_err = ((nsq - nsq_ref).abs() / nsq_ref.abs()).max().item()
+    assert nsq_err <= 1e-4, (name, nsq_err)
+    dt = _dtype_name(x.dtype)
+    ms = time_ms(lambda: pegrad_norm.pegrad_norm(x, gy), iters)
+    plain_ms = time_ms(lambda: ref.pegrad_norm_ref(x, gy), iters)
+    # timing only: the port never calls it
+    library_ms = time_ms(lambda: (torch.bmm(x.mT, gy).float() ** 2).sum(dim=(1, 2)),
+                         iters)
+    b_ms, b_by = norm_bound_ms(BG, T, di, do, dt)
+    tflops = 2.0 * BG * T * di * do / ms / 1e9
+    rec = dict(shape=name, dtype=dt, BG=BG, T=T, di=di, do=do,
+               max_abs_err=nsq_abs, rel_err=nsq_err, ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=b_ms, bound_by=b_by, path=path,
+               tflops=tflops, bound_share=b_ms / ms)
+    print(f"[kernel] pegrad_norm {name} {dt}: max_abs_err {nsq_abs:.2e} "
+          f"({nsq_err:.1e} rel), zero gy row exact, repeats bit-identical  "
+          f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bmm {library_ms:.3f} ms  "
+          f"bound {b_ms:.4f} ms ({b_by})  {tflops:.1f} TFLOP/s, "
+          f"{100 * b_ms / ms:.1f}% of bound, path {path}", flush=True)
+    return rec, nsq
 
 
 def check_dense_halves(name, BG, T, di, do, E, dtype, seed=0, iters=10):
     """pegrad_norm and dense_dgrad at one shape: each against its plain
-    version (the tolerances of ``check_dense_bwd_norm``) and both equal to
-    dense_bwd_norm's outputs bit for bit, with timings; then the fusion
-    A/B, the separate pair (two wrapper calls) against dense_bwd_norm (one
-    call), timed in turns (pair, fused, fused, pair).  Returns
-    {"pegrad_norm": rec, "dense_dgrad": rec, "ab": rec}."""
+    version (``check_pegrad_norm``; gx as in ``check_dense_bwd_norm``) and
+    both equal to dense_bwd_norm's outputs bit for bit, with timings; then
+    the fusion A/B, the separate pair (two wrapper calls) against
+    dense_bwd_norm (one call), timed in turns (pair, fused, fused, pair).
+    Returns {"pegrad_norm": rec, "dense_dgrad": rec, "ab": rec}."""
     import torch
     from repro_torch.kernels import fused_bwd, pegrad_norm, ref
     x, gy, w = dense_inputs(BG, T, di, do, E, dtype, seed)
     path = fused_bwd.dgrad_path(gy, w)
-    nsq = pegrad_norm.pegrad_norm(x, gy)
+    pegrad, nsq = check_pegrad_norm(name, x, gy, iters)
+    pegrad["E"] = E
     gx = fused_bwd.dense_dgrad(gy, w)
     fgx, fnsq = fused_bwd.dense_bwd_norm(x, gy, w)
     torch.cuda.synchronize()
     assert torch.equal(nsq, fnsq) and torch.equal(gx, fgx), name
     del fgx, fnsq
-    nsq_ref = ref.pegrad_norm_ref(x, gy)
-    nsq_abs = (nsq - nsq_ref).abs().max().item()
-    nsq_err = ((nsq - nsq_ref).abs() / nsq_ref.abs()).max().item()
     gx_f32 = ref.dense_dgrad_ref(gy.float(), w.float())
     gx_abs = (gx.float() - gx_f32).abs().max().item()
     gx_err = gx_abs / gx_f32.abs().max().item()
-    assert nsq_err <= 1e-4, (name, nsq_err)
     assert gx_err <= (1e-4 if dtype == torch.float32 else 1e-2), (name, gx_err)
     del gx, gx_f32
     dt = _dtype_name(dtype)
-    item = x.element_size()
     flops = 2.0 * BG * T * di * do
     base = dict(shape=name, dtype=dt, BG=BG, T=T, di=di, do=do, E=E)
-
-    def pegrad_library():      # timing only: the port never calls it
-        return (torch.bmm(x.mT, gy).float() ** 2).sum(dim=(1, 2))
-    b_ms, b_by = bound_ms(flops, item * BG * T * (di + do) + 4 * BG, dt)
-    pegrad = dict(base, max_abs_err=nsq_abs, rel_err=nsq_err,
-                  ms=time_ms(lambda: pegrad_norm.pegrad_norm(x, gy), iters),
-                  plain_ms=time_ms(lambda: ref.pegrad_norm_ref(x, gy), iters),
-                  library_ms=time_ms(pegrad_library, iters),
-                  bound_ms=b_ms, bound_by=b_by)
     wt = w.mT if E == 1 else w[torch.arange(BG, device="cuda") % E].mT
     b_ms, b_by = dgrad_bound_ms(BG, T, di, do, E, dt)
     dgrad = dict(base, max_abs_err=gx_abs, rel_err=gx_err,
@@ -358,16 +405,14 @@ def check_dense_halves(name, BG, T, di, do, E, dtype, seed=0, iters=10):
     ab = dict(base, separate_ms=sep_ms, fused_ms=fused_ms,
               separate_over_fused=sep_ms / fused_ms, runs_ms=runs,
               dgrad_launches=fused_bwd.DGRAD_LAUNCHES - before)
-    for nm, r in (("pegrad_norm", pegrad), ("dense_dgrad", dgrad)):
-        extra = "" if nm == "pegrad_norm" else (
-            f"  {r['tflops']:.1f} TFLOP/s, {100 * r['bound_share']:.1f}% of bound, "
-            f"path {r['path']}")
-        print(f"[kernel] {nm} {name} {dt}: max_abs_err {r['max_abs_err']:.2e} "
-              f"({r['rel_err']:.1e} rel), = dense_bwd_norm's bit for bit  kernel "
-              f"{r['ms']:.3f} ms  plain {r['plain_ms']:.3f} ms  library "
-              f"{r['library_ms']:.3f} ms  bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}){extra}", flush=True)
-    print(f"[fusion] {name} {dt}: dense_dgrad + pegrad_norm {sep_ms:.3f} ms, "
+    r = dgrad
+    print(f"[kernel] dense_dgrad {name} {dt}: max_abs_err {r['max_abs_err']:.2e} "
+          f"({r['rel_err']:.1e} rel)  kernel {r['ms']:.3f} ms  plain "
+          f"{r['plain_ms']:.3f} ms  library {r['library_ms']:.3f} ms  bound "
+          f"{r['bound_ms']:.4f} ms ({r['bound_by']})  {r['tflops']:.1f} TFLOP/s, "
+          f"{100 * r['bound_share']:.1f}% of bound, path {r['path']}", flush=True)
+    print(f"[fusion] {name} {dt}: pegrad_norm and dense_dgrad = dense_bwd_norm's "
+          f"outputs bit for bit; dense_dgrad + pegrad_norm {sep_ms:.3f} ms, "
           f"dense_bwd_norm {fused_ms:.3f} ms, separate / fused "
           f"{sep_ms / fused_ms:.4f} (runs {', '.join(f'{v:.3f}' for v in runs)})",
           flush=True)
@@ -427,6 +472,9 @@ def check_norm_contracts(dtype):
     w = _randn(g, (3, 700, 517), dtype)
     gy[[1, 4]] = 0
     ids = torch.randint(0, 50, (6, 333), generator=g, device="cuda")
+    # rows of 700 and 517 elements: TMA cannot address them
+    want = "cuda-cores" if dtype == torch.float32 else "wgmma+loads"
+    assert pegrad_norm.norm_path(x, gy) == want, pegrad_norm.norm_path(x, gy)
     a = fused_bwd.dense_bwd_norm(x, gy, w)
     b = fused_bwd.dense_bwd_norm(x, gy, w)
     halves = [(fused_bwd.dense_dgrad(gy, w), pegrad_norm.pegrad_norm(x, gy))
@@ -450,7 +498,8 @@ def check_norm_contracts(dtype):
     assert torch.equal(ga, gb) and torch.equal(gaa[0], gaa[1])
     print(f"[kernel] {_dtype_name(dtype)}: zero gy rows give exact zeros and "
           f"repeats are bit-identical (dense_bwd_norm, dense_dgrad and "
-          f"pegrad_norm E=3 ragged, the halves equal to the fused kernel; "
+          f"pegrad_norm E=3 ragged, norm path {want}, the halves equal to the "
+          f"fused kernel; "
           f"gram_norm masked and square, rows of 517/700 and of 512)", flush=True)
 
 
@@ -573,13 +622,15 @@ def check_gram(name, BG, T, di, do, masked, square, dtype, seed=0, iters=10):
 
 # the bf16 tensor-core kernels (mangled-name pieces) and which of them the
 # main paths run: the dgrad kernel (dense_dgrad and dense_bwd_norm's gx
-# launch), the flash forward and backward at phi3's head width, gram_norm
+# launch), the norm kernel (pegrad_norm and dense_bwd_norm's norm launch),
+# the flash forward and backward at phi3's head width, gram_norm
 TENSOR_CORE_KERNELS = {"dense_dgrad": ["tc12dgrad_kernel"],
-                       "dense_bwd_norm": ["tc12dgrad_kernel"],
+                       "dense_bwd_norm": ["tc12dgrad_kernel", "tc11norm_kernel"],
+                       "pegrad_norm": ["tc11norm_kernel"],
                        "flash_attn_fwd": ["mma16flash_fwd_kernel"],
                        "flash_attn_bwd": ["mma13bwd_kv_kernel", "mma12bwd_q_kernel"],
                        "gram_norm": ["mma11gram_kernel"]}
-MAIN_PATH_KERNELS = ("tc12dgrad_kernel", "mma16flash_fwd_kernelILi96E",
+MAIN_PATH_KERNELS = ("tc12dgrad_kernel", "tc11norm_kernel", "mma16flash_fwd_kernelILi96E",
                      "mma13bwd_kv_kernelILi96E", "mma12bwd_q_kernelILi96E",
                      "mma11gram_kernel")
 
@@ -1265,6 +1316,11 @@ def main() -> int:
                        ("auto-head", d, padded_vocab(arch.vocab))):
         gram_recs.append(check_gram(nm, AUTO_B, AUTO_T, di, do, False, True,
                                     torch.bfloat16, iters=5))
+    # and its pegrad_norm calls (q, k, v, o at B 2 x T 2048)
+    x, gy, _ = dense_inputs(AUTO_B, AUTO_T, d, d, 1, torch.bfloat16)
+    auto_norm, _ = check_pegrad_norm("auto-qkvo", x, gy, iters=5)
+    halves["pegrad_norm"].append(dict(auto_norm, E=1))
+    del x, gy
 
     def pick(recs, shape):
         return next(r for r in recs if r["shape"] == shape and r["dtype"] == "bfloat16")
@@ -1279,10 +1335,15 @@ def main() -> int:
             out["max_abs_err"] = max(r["max_abs_err"] for r in per_call.values())
         return out
 
-    # every training shape's bf16 gx takes the TMA-fed tensor-core path
-    for recs in (dense_recs, halves["dense_dgrad"]):
-        for nm, *_ in train_mix:
-            assert pick(recs, nm)["path"] == "wgmma+tma", (nm, pick(recs, nm)["path"])
+    # every training shape's bf16 gx and norm launch take the TMA-fed
+    # tensor-core path; the ragged shapes the path norm_path reports
+    for recs, key in ((dense_recs, "path"), (halves["dense_dgrad"], "path"),
+                      (dense_recs, "norm_path"), (halves["pegrad_norm"], "path")):
+        for nm in [nm for nm, *_ in train_mix] + ["grouped-E4"]:
+            assert pick(recs, nm)[key] == "wgmma+tma", (nm, key, pick(recs, nm)[key])
+    for recs, key in ((dense_recs, "norm_path"), (halves["pegrad_norm"], "path")):
+        assert pick(recs, "ragged")[key] == "wgmma+loads", (key, pick(recs, "ragged"))
+    assert auto_norm["path"] == "wgmma+tma", auto_norm["path"]
     # every training shape's bf16 attention backward and Gram take the
     # cp.async-fed tensor-core path
     for recs, names in ((bwd_recs, ("phi3-train", "auto-2048")),
@@ -1297,6 +1358,14 @@ def main() -> int:
           f"(kernel / matmul {dgrad_step['ms'] / dgrad_step['library_ms']:.2f}), bound "
           f"{dgrad_step['bound_ms']:.2f} ms; {dgrad_flops / dgrad_step['ms'] / 1e9:.1f} "
           f"TFLOP/s, {100 * dgrad_step['bound_ms'] / dgrad_step['ms']:.1f}% of bound; "
+          f"path wgmma+tma at every shape", flush=True)
+    norm_step = step_sum(halves["pegrad_norm"])
+    print(f"[kernel] pegrad_norm (the norm launch) over one training step's "
+          f"{7 * L + 1} calls, bf16: kernel {norm_step['ms']:.2f} ms, bmm "
+          f"{norm_step['library_ms']:.2f} ms (kernel / bmm "
+          f"{norm_step['ms'] / norm_step['library_ms']:.2f}), bound "
+          f"{norm_step['bound_ms']:.2f} ms; {dgrad_flops / norm_step['ms'] / 1e9:.1f} "
+          f"TFLOP/s, {100 * norm_step['bound_ms'] / norm_step['ms']:.1f}% of bound; "
           f"path wgmma+tma at every shape", flush=True)
     ab_step = step_sum(halves["ab"], ("separate_ms", "fused_ms"))
     dgrad_launches = sum(r["dgrad_launches"] for r in halves["ab"])
@@ -1355,7 +1424,8 @@ def main() -> int:
         entry("dense_bwd_norm", "dense_bwd_norm.cu",
               "src/repro/kernels/fused_bwd.py:114", launches["dense_bwd_norm"],
               step_sum(dense_recs),
-              shape=f"sum over one training step's calls, bf16: {mix}"),
+              shape=f"sum over one training step's calls, bf16: {mix}",
+              path="gx wgmma+tma, norm wgmma+tma"),
         entry("flash_attn_bwd", "flash_attn_bwd.cu",
               "src/repro/kernels/flash_attn.py:210", launches["flash_attn_bwd"],
               bwd_rec, shape=f"({bwd_rec['BH']}, {TRAIN_T}, {arch.hd}) causal, bf16",
@@ -1365,8 +1435,9 @@ def main() -> int:
               shape=f"embedding rule ({TRAIN_B}, {TRAIN_T}, {d}) masked, bf16",
               path=gram_rec["path"]),
         entry("pegrad_norm", "pegrad_norm.cu", "src/repro/kernels/pegrad_norm.py:52",
-              launches["pegrad_norm"], step_sum(halves["pegrad_norm"]),
-              shape=f"sum over one materialize step's calls, bf16: {mix}"),
+              launches["pegrad_norm"], norm_step,
+              shape=f"sum over one materialize step's calls, bf16: {mix}",
+              path="wgmma+tma"),
         entry("dense_dgrad", "dense_dgrad.cu", "src/repro/kernels/fused_bwd.py:158",
               dgrad_launches, dgrad_step,
               shape=f"sum over one training step's dense calls, bf16: {mix}",

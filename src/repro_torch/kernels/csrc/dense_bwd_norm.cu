@@ -24,10 +24,12 @@
 // Bound.  The function costs 4·BG·T·di·do FLOPs (dgrad plus per-example
 // wgrad) on BG·T·(di + do) + E·di·do input elements, so at the training
 // path's shapes (BG·T = 4096, di, do >= 3072) it is bound by operations: the
-// bf16 tensor-core rate, 989 TFLOP/s.  In bf16 the gx launch runs on the
-// tensor cores (wgmma fed by TMA, dense_tiles.cuh); the norm launch still
-// runs f32 FMAs on CUDA cores, and reading x and gy once for both outputs
-// is later work.
+// bf16 tensor-core rate, 989 TFLOP/s.  In bf16 both launches run on the
+// tensor cores (wgmma fed by TMA, dense_tiles.cuh): the gx launch reads its
+// operands K-major, the norm launch reads x and gy MN-major (its depth T is
+// their strided dimension) on a persistent grid; f32 runs both on CUDA-core
+// FMAs.  Reading x and gy once for both outputs is later work: the two
+// launches read different operand pairs in different tile orders.
 
 #include "dense_tiles.cuh"
 

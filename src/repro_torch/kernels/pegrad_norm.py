@@ -5,7 +5,9 @@ the dense sites with ``use_kernels``.
 
 A CPU tensor takes the plain version (``ref.pegrad_norm_ref``); a CUDA
 tensor launches the kernel or raises.  ``LAUNCHES`` counts wrapper calls
-that launched the kernel (and nothing else).
+that launched the kernel (and nothing else).  ``norm_path`` says which of
+the norm launch's paths a CUDA operand pair takes (``dense_bwd_norm``'s
+norm launch is the same kernel and takes the same path).
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels.fused_bwd import PATHS   # the same tc::Path enum
 
 LAUNCHES = 0
 TILE = 128            # the kernel's (i, j) tile of x_bᵀ gy_b
@@ -26,6 +29,25 @@ def _kernel():
                    + [ctypes.c_void_p])       # x gy part, ints, stream
     fn.restype = ctypes.c_int                 # cudaError_t
     return fn
+
+
+def _path_fn():
+    fn = build.load("pegrad_norm").repro_pegrad_norm_path
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3   # x gy, di do dtype
+    fn.restype = ctypes.c_int                 # PATHS index, -1 unknown dtype
+    return fn
+
+
+def norm_path(x: torch.Tensor, gy: torch.Tensor) -> str:
+    """The path ``pegrad_norm`` and ``dense_bwd_norm``'s norm launch take
+    for these CUDA operands (one of ``PATHS``, the gx launch's: in bf16,
+    element loads where di or do % 8 != 0 or a base is not 16-byte
+    aligned).  Launches nothing."""
+    if gy.device.type != "cuda" or gy.dtype not in _DTYPES:
+        raise ValueError(f"norm_path: want a float32 or bf16 CUDA tensor, got "
+                         f"{gy.dtype} on {gy.device}")
+    return PATHS[_path_fn()(x.data_ptr(), gy.data_ptr(), x.shape[-1],
+                            gy.shape[-1], _DTYPES[gy.dtype])]
 
 
 def _check(x, gy):

@@ -41,6 +41,47 @@ def test_dgrad_bound_over_the_training_mix(smoke):
     assert parts[0][0] == pytest.approx(0.078169, abs=1e-6)
 
 
+def test_norm_bound_over_the_training_mix(smoke):
+    """The norm launch (pegrad_norm, dense_bwd_norm's norm half) does the
+    gx launch's FLOPs on x and gy: bound by operations at every training
+    shape, 15.83 ms over one step's 113 calls."""
+    mix = smoke.dense_mix(get_arch("phi3-mini-3.8b"), smoke.TRAIN_LAYERS)
+    parts = [smoke.norm_bound_ms(smoke.TRAIN_B, smoke.TRAIN_T, di, do, "bfloat16")
+             for _, di, do, _ in mix]
+    assert {by for _, by in parts} == {"operations"}
+    total = sum(n * ms for (_, _, _, n), (ms, _) in zip(mix, parts))
+    assert total == pytest.approx(15.8293, abs=1e-4)
+    # the auto route's q, k, v, o: (2, 2048, 3072, 3072), 77.3 GFLOP
+    ms, by = smoke.norm_bound_ms(smoke.AUTO_B, smoke.AUTO_T, 3072, 3072, "bfloat16")
+    assert by == "operations" and ms == pytest.approx(0.078169, abs=1e-6)
+    # in float32 the same call is bound by operations at 67 TFLOP/s
+    ms, by = smoke.norm_bound_ms(smoke.TRAIN_B, smoke.TRAIN_T, 3072, 3072, "float32")
+    assert by == "operations" and ms == pytest.approx(1.153872, abs=1e-6)
+
+
+def test_ptxas_report_names_the_norm_kernel(smoke):
+    """The bf16 norm kernel is a main-path tensor-core kernel of both
+    pegrad_norm and dense_bwd_norm; the f32 CUDA-core kernel is
+    neither."""
+    log = """ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__c68f755b_14_pegrad_norm_cu_fd4a27362tc11norm_kernelE14CUtensorMap_stS1_PK13__nv_bfloat16S4_Pfiiiiixi' for 'sm_90a'
+ptxas info    : Function properties for _ZN47_GLOBAL__N__c68f755b_14_pegrad_norm_cu_fd4a27362tc11norm_kernelE14CUtensorMap_stS1_PK13__nv_bfloat16S4_Pfiiiiixi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 154 registers, used 2 barriers, 128 bytes smem
+ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__c68f755b_14_pegrad_norm_cu_fd4a273611norm_kernelEPKfS1_Pfiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN47_GLOBAL__N__c68f755b_14_pegrad_norm_cu_fd4a273611norm_kernelEPKfS1_Pfiiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 113 registers, used 1 barriers, 8480 bytes smem
+"""
+    got = smoke.ptxas_report(log)
+    assert [(r["registers"], r["spill_stores"]) for r in got] == [(154, 0), (113, 0)]
+    assert "tc11norm_kernel" in smoke.MAIN_PATH_KERNELS
+    for src in ("pegrad_norm", "dense_bwd_norm"):
+        pieces = smoke.TENSOR_CORE_KERNELS[src]
+        assert [any(p in r["function"] for p in pieces) for r in got] == [True, False]
+    main = [any(p in r["function"] for p in smoke.MAIN_PATH_KERNELS) for r in got]
+    assert main == [True, False]
+
+
 def test_flash_bound_at_the_serving_wave(smoke):
     arch = get_arch("phi3-mini-3.8b")
     wave_t = smoke.first_wave_t(smoke.request_stream(arch.vocab))

@@ -510,3 +510,58 @@ def test_gram_takes_element_loads_for_an_unaligned_base(cuda):
     assert tgn.gram_path(gy.clone(), gy.clone(), False) == "mma+cp.async"
     torch.testing.assert_close(tgn.gram_norm(gy, gy, None, square=False),
                                tref.gram_norm_ref(gy, gy, None, False), rtol=1e-4, atol=0.0)
+
+
+# (BG, T, di, do, path of the bf16 norm launch): the training width at a T
+# that is not a multiple of 64; T 2048 (the auto route: 32 stages an item);
+# do 32256 (the head's width: 126 j pairs, two items a block); more items
+# than blocks over a ragged T; one stage an item; i and j boxes wholly past
+# di and do (TMA zero-fills them); di or do % 8 != 0 (element loads), over
+# one item a block and over several
+NORM_PATH_SHAPES = [(3, 300, 3072, 256, "wgmma+tma"), (2, 2048, 384, 512, "wgmma+tma"),
+                    (2, 130, 128, 32256, "wgmma+tma"), (8, 200, 1024, 2048, "wgmma+tma"),
+                    (140, 20, 64, 64, "wgmma+tma"), (3, 100, 8, 40, "wgmma+tma"),
+                    (4, 96, 520, 136, "wgmma+tma"), (6, 333, 700, 517, "wgmma+loads"),
+                    (40, 70, 200, 300, "wgmma+loads")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", NORM_PATH_SHAPES)
+def test_norm_tensor_core_paths_zero_rows_repeats_and_fused_bits(cuda, shape):
+    """The bf16 norm launch on both tensor-core paths: the path the library
+    reports, rtol 1e-4 against the plain version (bf16 products are exact
+    in float32), an exact 0.0 for an all-zero gy row with the other rows'
+    bits unchanged, bit-identical repeats, and ``pegrad_norm`` equal to
+    ``dense_bwd_norm``'s norms² bit for bit."""
+    BG, T, di, do, path = shape
+    x = _randn(cuda, (BG, T, di), torch.bfloat16, 0)
+    gy = _randn(cuda, (BG, T, do), torch.bfloat16, 1)
+    w = _randn(cuda, (1, di, do), torch.bfloat16, 2)
+    assert tpn.norm_path(x, gy) == path
+    assert tpn.norm_path(x.float(), gy.float()) == "cuda-cores"
+    nsq = tpn.pegrad_norm(x, gy)
+    torch.testing.assert_close(nsq, tref.pegrad_norm_ref(x, gy), rtol=1e-4, atol=0.0)
+    gy[1] = 0
+    a, b = tpn.pegrad_norm(x, gy), tpn.pegrad_norm(x, gy)
+    _, fnsq = tfb.dense_bwd_norm(x, gy, w)
+    torch.cuda.synchronize()
+    keep = torch.arange(BG, device=cuda) != 1
+    assert a[1].item() == 0.0 and torch.equal(a[keep], nsq[keep])
+    assert torch.equal(a, b) and torch.equal(a, fnsq)
+
+
+@pytest.mark.cuda
+def test_norm_takes_element_loads_for_an_unaligned_base(cuda):
+    """x or gy one element into its storage is not 16-byte aligned: TMA
+    cannot address it and the element loads fill the same swizzled stages,
+    so their norms² equal the TMA path's bit for bit."""
+    x = _randn(cuda, (3 * 100 * 256 + 1,), torch.bfloat16, 0)[1:].view(3, 100, 256)
+    gy = _randn(cuda, (3 * 100 * 384 + 1,), torch.bfloat16, 1)[1:].view(3, 100, 384)
+    xc, gyc = x.clone(), gy.clone()
+    assert tpn.norm_path(x, gyc) == "wgmma+loads"
+    assert tpn.norm_path(xc, gy) == "wgmma+loads"
+    assert tpn.norm_path(xc, gyc) == "wgmma+tma"
+    tma = tpn.pegrad_norm(xc, gyc)
+    torch.testing.assert_close(tma, tref.pegrad_norm_ref(xc, gyc), rtol=1e-4, atol=0.0)
+    assert torch.equal(tpn.pegrad_norm(x, gyc), tma)
+    assert torch.equal(tpn.pegrad_norm(xc, gy), tma)

@@ -75,7 +75,8 @@ class _Lib:
 def test_sources_and_wrappers_were_found():
     assert len(ENTRY_POINTS) >= 9 and len(BINDINGS) >= 9
     assert {"repro_dense_dgrad_path", "repro_flash_attn_fwd_path",
-            "repro_flash_attn_bwd_path", "repro_gram_norm_path"} <= set(ENTRY_POINTS)
+            "repro_flash_attn_bwd_path", "repro_gram_norm_path",
+            "repro_pegrad_norm_path"} <= set(ENTRY_POINTS)
 
 
 @pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))

@@ -124,3 +124,12 @@ def test_wrappers_reject_bad_inputs():
         tfb.dense_dgrad(torch.zeros(2, 4, 6), torch.zeros(1, 8, 5))
     with pytest.raises(TypeError):
         tfb.dense_dgrad(torch.zeros(2, 4, 6), torch.zeros(1, 8, 6, dtype=torch.float64))
+
+
+def test_norm_path_asks_only_about_cuda_tensors():
+    """``norm_path`` reports the path of a launch on the card; a CPU tensor
+    never launches the kernel, so there is no path to report."""
+    x = torch.zeros(2, 4, 8, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        tpn.norm_path(x, torch.zeros(2, 4, 16, dtype=torch.bfloat16))
+    assert tpn.PATHS == ("cuda-cores", "wgmma+tma", "wgmma+loads")
