@@ -38,14 +38,12 @@ the script exits nonzero and prints no ``ok`` line:
    random weights, serving 16 greedy requests through the contiguous engine
    and the same stream through the paged engine; outputs must agree;
 6. the training path: phi3-mini-3.8b at full width with 16 of its 32
-   layers (the AdamW state of all 32 and their activations would not fit
-   the card without activation checkpointing, which the port does not have
-   yet), bf16, B = 8 x T = 512 synthetic tokens, ``dpsgd_r`` with the fused
-   norm route through the kernels, AdamW, through the port's ``Trainer``:
-   one warm-up step and three timed steps (each split into its two passes
-   by calling them directly on its batch, outside the counted step), then
-   the next step through the plain norm rules (its norms² must agree) and
-   one ``sgd`` step;
+   layers, ``remat="none"``, bf16, B = 8 x T = 512 synthetic tokens,
+   ``dpsgd_r`` with the fused norm route through the kernels, AdamW,
+   through the port's ``Trainer``: one warm-up step and three timed steps
+   (each split into its two passes by calling them directly on its batch,
+   outside the counted step), then the next step through the plain norm
+   rules (its norms² must agree) and one ``sgd`` step;
 7. the per-site norm rules on phase 6's model and optimizer state:
    ``materialize`` + kernels at B 8 x T 512 in turns with the fused route
    (its norms² against the plain ``materialize`` rules); Poisson-sampled
@@ -56,11 +54,31 @@ the script exits nonzero and prints no ``ok`` line:
    ``gram_norm`` (its norms² against the plain ``auto`` rules).  One
    fused, one materialize and one auto step run under ``torch.profiler``
    (``[profile]``: device busy share, the top kernels, and each of the
-   port's kernels' share of the step).
+   port's kernels' share of the step);
+8. activation checkpointing: on a fresh model of phase 6's shape, the
+   norms² of one batch under ``none``, ``block`` and ``sites`` (block and
+   sites held to none at ``NSQ_RTOL``), then one step under each, with its
+   peak memory; then phi3-mini at full width and full depth (32 layers,
+   3.822B params) under ``block``: one warm-up and three timed steps, split
+   as in phase 6, one step by hand stage by stage (pass 1, pass 2, noise,
+   optimizer, the peak reset before each) and one profiled step; then one
+   step under ``sites``, timed and by hand;
+9. the paper's comparison on a fresh 16-layer model of phase 6's shape
+   and optimizer, ``remat="none"``: at σ = 0 the bf16 clipped sums of one
+   batch from the same parameters through ``dpsgd_r``, ``dpsgd_r1f``
+   (fused + kernels) and ``dpsgd`` (the whole batch at once,
+   ``clip_reduce``) against ``dpsgd_r``'s in float32, and the last two
+   against ``dpsgd_r``'s in bf16, within ``CLIP_SUM_TOL`` of each leaf's
+   largest entry;
+   then one warm-up and one timed step each of ``sgd``, ``dpsgd_r``,
+   ``dpsgd_r1f`` and ``dpsgd`` at microbatch 1 and 8, with its peak memory
+   and its step-time ratio to ``sgd``.  ``dpsgd_r1f``'s second pullback
+   is ``dense_dgrad``'s path and ``dpsgd``'s clipped sum ``clip_reduce``'s.
 
 Each path counts the launches of every kernel from zero and must launch
-each kernel exactly as often as the code says it does (``path_launches``):
-every kernel of the path at least once, no other.  The line before the last
+each kernel exactly as often as the code says it does (``path_launches``,
+by algorithm, norm route and remat policy): every kernel of the path at
+least once, no other.  The line before the last
 is the per-kernel JSON record; the last line is ``{"ok": true, "device":
 {...}}``.
 Imports nothing of JAX or of the JAX package.  Needs one card.
@@ -101,6 +119,20 @@ BWD_BF16_TOL = 5e-3
 # N = 1e6) in one chunk; auto at 2 examples of 2048 tokens
 POISSON_ACCUM = 1
 AUTO_B, AUTO_T = 2, 2048
+# phases 8 and 9: the remat policies, and vanilla DP-SGD one example at a
+# time and the whole batch at once
+REMATS = ("none", "block", "sites")
+DPSGD_MICROBATCHES = (1, TRAIN_B)
+# phase 9: the σ = 0 clipped sums in bf16 of dpsgd_r, dpsgd_r1f and dpsgd
+# against dpsgd_r's in float32, and of the last two against dpsgd_r's in
+# bf16, a share of each leaf's largest entry.  bf16 products and
+# activations through 16 layers put each algorithm's sum up to 2.7-3.3e-2
+# of a leaf's largest entry from float32's (phase 9 prints it), and the
+# algorithms round in other places (dpsgd rounds each example's gradient
+# to bf16, clip_reduce sums them in float32, dpsgd_r's backward sums the
+# reweighted examples inside its bf16 products), so two of them can differ
+# by up to the sum of their distances from float32
+CLIP_SUM_TOL = 5e-2
 
 
 def request_stream(vocab: int, seed: int = 0):
@@ -718,26 +750,55 @@ def kernel_counts():
             "clip_reduce": (clip_reduce, "LAUNCHES")}
 
 
-def path_launches(route: str, L: int, chunks: int = 1):
-    """Launches of every kernel in one dpsgd_r step of the dense decoder
+def path_launches(route: str, L: int, chunks: int = 1, algo: str = "dpsgd_r",
+                  remat: str = "none", examples: int = 0, microbatch: int = 0,
+                  leaves: int = 0):
+    """Launches of every kernel in one step of ``algo`` on the dense decoder
     with ``L`` layers, as the code makes them: each layer has 7 dense sites
     (q, k, v, o, w1, w3, w2) and one attention, the model one head and one
-    embedding.  Both passes run the flash forward and its backward at every
-    attention; under ``fused`` pass 1's attention site recomputes the
-    forward once more in its backward.  ``auto`` is at T 2048, where the
+    embedding.
+
+    ``dpsgd_r`` runs two forwards and two backwards, ``dpsgd_r1f`` one
+    forward and two backwards (pullbacks), each with the flash forward and
+    backward at every attention.  A norm-mode backward under ``fused`` runs
+    the attention site's forward once more (once in ``dpsgd_r``'s pass 1,
+    in both of ``dpsgd_r1f``'s pullbacks); its dense sites take
+    ``dense_bwd_norm``, and ``dpsgd_r1f``'s second pullback takes
+    ``dense_dgrad`` at each of them instead.  ``materialize`` takes
+    ``pegrad_norm`` at every dense site; ``auto`` is at T 2048, where the
     FLOP formulas send q, k, v, o to ``pegrad_norm`` and w1, w3, w2 and the
-    head to ``gram_norm``.  ``chunks``: grad_accum, every chunk a full
-    step's worth."""
+    head to ``gram_norm``; the embedding's norm is one ``gram_norm``.
+    ``sgd`` is one forward and one backward; ``dpsgd`` one of each per
+    example (``examples`` of them), and one ``clip_reduce`` per parameter
+    leaf (``leaves``) per chunk of ``microbatch`` examples (0 = all).
+    Under ``block`` and ``sites`` every backward recomputes every block's
+    forward once more.  ``chunks``: grad_accum, every chunk a full step's
+    worth."""
     n = dict.fromkeys(kernel_counts(), 0)
-    n.update(flash_attn_fwd=2 * L, flash_attn_bwd=2 * L, gram_norm=1)
-    if route == "fused":
-        n.update(dense_bwd_norm=7 * L + 1, flash_attn_fwd=3 * L)
-    elif route == "materialize":
-        n.update(pegrad_norm=7 * L + 1)
-    elif route == "auto-2048":
-        n.update(pegrad_norm=4 * L, gram_norm=3 * L + 2)
+    again = 0 if remat == "none" else L       # the recompute, per backward
+    if algo == "sgd":
+        n.update(flash_attn_fwd=L + again, flash_attn_bwd=L)
+    elif algo == "dpsgd":
+        n.update(flash_attn_fwd=examples * (L + again),
+                 flash_attn_bwd=examples * L,
+                 clip_reduce=leaves * (examples // (microbatch or examples)))
+    elif algo in ("dpsgd_r", "dpsgd_r1f"):
+        forwards, norm_pulls = (2, 1) if algo == "dpsgd_r" else (1, 2)
+        n.update(flash_attn_fwd=forwards * L + 2 * again, flash_attn_bwd=2 * L,
+                 gram_norm=1)
+        if route == "fused":
+            n["flash_attn_fwd"] += norm_pulls * L
+            n["dense_bwd_norm"] = 7 * L + 1
+            if algo == "dpsgd_r1f":
+                n["dense_dgrad"] = 7 * L + 1
+        elif route == "materialize":
+            n.update(pegrad_norm=7 * L + 1)
+        elif route == "auto-2048":
+            n.update(pegrad_norm=4 * L, gram_norm=3 * L + 2)
+        else:
+            raise ValueError(route)
     else:
-        raise ValueError(route)
+        raise ValueError(algo)
     return {k: v * chunks for k, v in n.items()}
 
 
@@ -763,8 +824,8 @@ def train_reference():
     from repro_torch.core import algo
     from repro_torch.models.transformer import Model
     arch = reduced(get_arch("phi3-mini-3.8b"))
-    a = Model(arch, dtype=torch.float32, device="cpu", seed=0)
-    b = Model(arch, a.params, dtype=torch.float32, device="cuda")
+    a = Model(arch, dtype=torch.float32, device="cpu", seed=0, remat="none")
+    b = Model(arch, a.params, dtype=torch.float32, device="cuda", remat="none")
     toks = torch.randint(0, arch.vocab, (4, 65), generator=torch.Generator().manual_seed(1))
     dp = DPConfig(algo="dpsgd_r", norm_strategy="fused", use_kernels=True)
     out = {}
@@ -1006,20 +1067,42 @@ def split_passes(model, state, dp, batch):
 
 def counted_step(trainer, model, state, route, chunks=1):
     """One timed Trainer step with every kernel count from zero, checked
-    against ``path_launches``; then its two passes again on its batch,
-    outside the counted step, for the split.  Returns the step's record
-    and the split's norms² and losses."""
+    against ``path_launches`` (at the trainer's algorithm and the model's
+    remat policy); then its two passes again on its batch, outside the
+    counted step, for the split.  Returns the step's record and the
+    split's norms² and losses."""
     batch = trainer.make_batch(state.step)
+    import torch
     zero_counts()
     rec = timed_step(trainer, state)
+    # the peak since the caller's last reset, up to the end of the step
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
     counts = read_counts()
-    want = path_launches(route, model.arch.n_layers, chunks)
-    assert counts == want, (route, counts, want)
+    want = path_launches(route, model.arch.n_layers, chunks,
+                         trainer.cfg.dp.algo, model.remat)
+    assert counts == want, (route, model.remat, counts, want)
     nsq, losses, rec["pass1_ms"], rec["pass2_ms"] = split_passes(
         model, state, trainer.cfg.dp, batch)
     rec["noise_opt_ms"] = rec["step_ms"] - rec["pass1_ms"] - rec["pass2_ms"]
     rec["launches"] = counts
     return rec, batch, nsq, losses
+
+
+def train_shape_and_config(arch, remat):
+    """The training paths' shape (B 8 x T 512) and config: ``dpsgd_r``
+    with the fused route through the kernels, C 1, σ 1, δ 1e-5, AdamW at
+    lr 1e-4, under ``remat``."""
+    from repro_torch.configs.base import (DPConfig, OptimConfig, ShapeConfig,
+                                          TrainConfig)
+    shape = ShapeConfig("chip_smoke", TRAIN_T, TRAIN_B, "train")
+    cfg = TrainConfig(arch=arch.name, steps=1 + TRAIN_STEPS, log_every=1,
+                      remat=remat,
+                      dp=DPConfig(algo="dpsgd_r", norm_strategy="fused",
+                                  use_kernels=True, clip_norm=1.0,
+                                  noise_multiplier=1.0, delta=1e-5),
+                      optim=OptimConfig(name="adamw", lr=1e-4,
+                                        schedule="constant"))
+    return shape, cfg
 
 
 def train_main_path():
@@ -1028,21 +1111,14 @@ def train_main_path():
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
-    from repro_torch.configs.base import (DPConfig, OptimConfig, ShapeConfig,
-                                          TrainConfig)
     from repro_torch.models.transformer import Model
     from repro_torch.train import Trainer
     arch = dataclasses.replace(get_arch("phi3-mini-3.8b"), n_layers=TRAIN_LAYERS)
-    shape = ShapeConfig("chip_smoke", TRAIN_T, TRAIN_B, "train")
-    cfg = TrainConfig(arch=arch.name, steps=1 + TRAIN_STEPS, log_every=1,
-                      dp=DPConfig(algo="dpsgd_r", norm_strategy="fused",
-                                  use_kernels=True, clip_norm=1.0,
-                                  noise_multiplier=1.0, delta=1e-5),
-                      optim=OptimConfig(name="adamw", lr=1e-4,
-                                        schedule="constant"))
+    shape, cfg = train_shape_and_config(arch, "none")
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
-    model = Model(arch, dtype=torch.bfloat16, device="cuda", seed=0)
+    model = Model(arch, dtype=torch.bfloat16, device="cuda", seed=0,
+                  remat="none")
     trainer = Trainer(model, cfg, shape)
     state = trainer.init_state()
     torch.cuda.synchronize()
@@ -1230,6 +1306,273 @@ def train_norm_routes(model, fused_trainer, state):
     return out
 
 
+def staged_step(trainer, state):
+    """One dpsgd_r step by hand, stage by stage as ``Trainer.train_step``
+    makes it (without its update-norm metric): pass 1, pass 2, the noise
+    and the optimizer, each synced at its ends with the peak memory reset
+    before it, so each stage's peak says what sets the step's.  Returns
+    {stage: {"ms", "peak_bytes"}}."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.core import algo, clipping, noise
+    model, dp = trainer.model, trainer.cfg.dp
+    data, mask = algo.split_mask(trainer.make_batch(state.step))
+    out = {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out[name] = dict(ms=1e3 * (time.perf_counter() - t0),
+                         peak_bytes=torch.cuda.max_memory_allocated())
+        return res
+
+    nsq, _ = stage("pass 1", lambda: algo.norm_pass(
+        model.loss_fn, state.params, data, dp, mask))
+    c = clipping.clip_factors(nsq, dp.clip_norm)
+    grads = stage("pass 2", lambda: algo.reweighted_grads(
+        model.loss_fn, state.params, data, c if mask is None else c * mask))
+    stage("noise", lambda: noise.add_noise_(
+        grads, trainer.noise_generator(state.step), dp.noise_multiplier,
+        dp.clip_norm, TRAIN_B))
+    stage("optimizer", lambda: trainer.opt.apply(
+        grads, state.opt_state, tree.leaves(state.params), state.step))
+    state.step += 1
+    return out
+
+
+def _stages_line(staged):
+    return ", ".join(f"{k} {v['ms']:.1f} ms peak {v['peak_bytes'] / 2**30:.2f} GiB"
+                     for k, v in staged.items())
+
+
+def train_remat():
+    """Phase 8 (see the module docstring).  Returns its record."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core import algo
+    from repro_torch.models.transformer import Model
+    from repro_torch.train import Trainer
+    out, launches = {}, dict.fromkeys(kernel_counts(), 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    # 1. 16 layers: the norms² of one batch under each policy, then one step
+    # under each, on one model and one AdamW state
+    arch = dataclasses.replace(get_arch("phi3-mini-3.8b"), n_layers=TRAIN_LAYERS)
+    shape, cfg = train_shape_and_config(arch, "none")
+    model = Model(arch, dtype=torch.bfloat16, device="cuda", seed=0,
+                  remat="none")
+    trainer = Trainer(model, cfg, shape)
+    state = trainer.init_state()
+    timed_step(trainer, state)                 # warm-up
+    batch = trainer.make_batch(state.step)
+    nsq = {}
+    for remat in REMATS:
+        model.remat = remat
+        nsq[remat], _ = algo.norm_pass(model.loss_fn, state.params, batch,
+                                       cfg.dp)
+    errs = {r: ((nsq[r] - nsq["none"]).abs() / nsq["none"].abs()).max().item()
+            for r in REMATS[1:]}
+    assert all(e <= NSQ_RTOL for e in errs.values()), errs
+    recs = {}
+    for remat in REMATS:
+        tr = Trainer(model, dataclasses.replace(cfg, remat=remat), shape)
+        gc.collect()
+        torch.cuda.empty_cache()
+        timed_step(tr, state)                  # warm-up under the policy
+        torch.cuda.reset_peak_memory_stats()
+        rec, *_ = counted_step(tr, model, state, "fused")
+        assert math.isfinite(rec["loss"]), rec
+        add(rec["launches"])
+        rec["staged"] = staged_step(tr, state)
+        recs[remat] = rec
+        print(f"[remat] {TRAIN_LAYERS} layers, dpsgd_r fused+kernels, remat "
+              f"{remat}: step {rec['step_ms']:.1f} ms = pass 1 "
+              f"{rec['pass1_ms']:.1f} + pass 2 {rec['pass2_ms']:.1f} + noise "
+              f"and optimizer {rec['noise_opt_ms']:.1f}; peak "
+              f"{rec['peak_bytes'] / 2**30:.2f} GiB; loss {rec['loss']:.4f}; "
+              f"launches { {k: v for k, v in rec['launches'].items() if v} }; "
+              f"stage by stage: {_stages_line(rec['staged'])}", flush=True)
+    print(f"[remat] norms² of one batch, block and sites against none: max "
+          f"rel err {errs['block']:.2e} and {errs['sites']:.2e} (limit "
+          f"{NSQ_RTOL})", flush=True)
+    out["16"] = dict(steps=recs, nsq_rel_err=errs)
+    del model, trainer, tr, state, batch, nsq
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. phi3-mini at full depth under block, then one step under sites
+    arch = get_arch("phi3-mini-3.8b")
+    shape, cfg = train_shape_and_config(arch, "block")
+    before = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    model = Model(arch, dtype=torch.bfloat16, device="cuda", seed=0,
+                  remat="block")
+    torch.cuda.synchronize()
+    params_bytes = torch.cuda.memory_allocated() - before
+    trainer = Trainer(model, cfg, shape)
+    state = trainer.init_state()
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in model.parameters())
+    print(f"[remat] {arch.name} at full width and depth, {arch.n_layers} "
+          f"layers: {n_par / 1e9:.3f}B params bf16 + AdamW f32 state: "
+          f"{before / 2**30:.2f} GiB allocated before, params "
+          f"{params_bytes / 2**30:.2f} GiB, params and state "
+          f"{(torch.cuda.memory_allocated() - before) / 2**30:.2f} GiB; init "
+          f"{time.perf_counter() - t:.1f} s; batch {TRAIN_B} x {TRAIN_T}",
+          flush=True)
+    timed_step(trainer, state)                 # warm-up
+    steps = []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.reset_peak_memory_stats()
+        rec, *_ = counted_step(trainer, model, state, "fused")
+        add(rec["launches"])
+        steps.append(rec)
+        print(f"[remat] {arch.n_layers} layers, remat block, dpsgd_r "
+              f"fused+kernels step {state.step - 1}: loss {rec['loss']:.4f}; "
+              f"{rec['step_ms']:.1f} ms = pass 1 {rec['pass1_ms']:.1f} + pass 2 "
+              f"{rec['pass2_ms']:.1f} + noise and optimizer "
+              f"{rec['noise_opt_ms']:.1f}; peak {rec['peak_bytes'] / 2**30:.2f} "
+              f"GiB; launches {rec['launches']}", flush=True)
+    staged = staged_step(trainer, state)
+    print(f"[remat] {arch.n_layers} layers, remat block, one step stage by "
+          f"stage: {_stages_line(staged)}", flush=True)
+    prof = profile_step(lambda: timed_step(trainer, state),
+                        f"fused+kernels, {arch.n_layers} layers, remat block,")
+    sites = Trainer(model, dataclasses.replace(cfg, remat="sites"), shape)
+    timed_step(sites, state)                   # warm-up under sites
+    torch.cuda.reset_peak_memory_stats()
+    srec, *_ = counted_step(sites, model, state, "fused")
+    add(srec["launches"])
+    sstaged = staged_step(sites, state)
+    losses = [r["loss"] for r in steps] + [srec["loss"]]
+    assert all(math.isfinite(x) for x in losses), losses
+    print(f"[remat] {arch.n_layers} layers, remat sites: step "
+          f"{srec['step_ms']:.1f} ms = pass 1 {srec['pass1_ms']:.1f} + pass 2 "
+          f"{srec['pass2_ms']:.1f} + noise and optimizer "
+          f"{srec['noise_opt_ms']:.1f}; peak {srec['peak_bytes'] / 2**30:.2f} "
+          f"GiB; loss {srec['loss']:.4f}; stage by stage: "
+          f"{_stages_line(sstaged)}", flush=True)
+    mean = sum(r["step_ms"] for r in steps) / len(steps)
+    print(f"[remat] {arch.n_layers} layers, remat block: mean step {mean:.1f} "
+          f"ms, {TRAIN_B * TRAIN_T / mean * 1e3:.0f} tokens/s", flush=True)
+    out["32"] = dict(params=n_par, steps=steps, staged=staged, profile=prof,
+                     sites=srec, sites_staged=sstaged, mean_step_ms=mean)
+    out["launches"] = launches
+    return out
+
+
+def train_algorithms():
+    """Phase 9 (see the module docstring).  Returns its record."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_arch
+    from repro_torch.core import algo
+    from repro_torch.models.transformer import Model
+    from repro_torch.train import Trainer
+    arch = dataclasses.replace(get_arch("phi3-mini-3.8b"), n_layers=TRAIN_LAYERS)
+    shape, cfg = train_shape_and_config(arch, "none")
+    model = Model(arch, dtype=torch.bfloat16, device="cuda", seed=0,
+                  remat="none")
+    trainer = Trainer(model, cfg, shape)
+    n_leaves = len(tree.leaves(model.params))
+
+    # 1. σ = 0: the clipped sums of one batch from the same parameters, in
+    # bf16 through each algorithm and in float32 through dpsgd_r
+    batch = trainer.make_batch(0)
+
+    def clipped_sum(model_, **dp):
+        fn = algo.make_clipped_sum_fn(model_.loss_fn,
+                                      dataclasses.replace(cfg.dp, **dp))
+        return fn(model_.params, batch)
+
+    def leaf_errs(got, want):
+        return [((a - b).abs().max() / b.abs().max()).item()
+                for a, b in zip(got, want)]
+
+    f32 = Model(arch, tree.tree_map(lambda p: p.float(), model.params),
+                dtype=torch.float32, device="cuda", remat="block")
+    f32.requires_grad_(True)
+    truth, _ = clipped_sum(f32)
+    del f32
+    errs = {}
+    for name, dp in (("dpsgd_r", {}), ("dpsgd_r1f", dict(algo="dpsgd_r1f")),
+                     ("dpsgd", dict(algo="dpsgd", microbatch=TRAIN_B))):
+        got, (_, nsq) = clipped_sum(model, **dp)
+        errs[name] = dict(f32=max(leaf_errs(got, truth)))
+        if name == "dpsgd_r":
+            want, want_nsq = got, nsq
+        else:
+            pair = leaf_errs(got, want)
+            errs[name].update(
+                sum=max(pair), worst_leaf=tuple(want[pair.index(max(pair))].shape),
+                median_leaf=sorted(pair)[len(pair) // 2],
+                nsq=((nsq - want_nsq).abs() / want_nsq).max().item())
+            del got
+        gc.collect()
+        torch.cuda.empty_cache()
+    del truth, want, want_nsq
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[algo] σ = 0, one batch, same params: each bf16 clipped sum "
+          f"against dpsgd_r's in float32, max over leaves of the error over "
+          f"the leaf's largest entry: " + ", ".join(
+              f"{k} {v['f32']:.2e}" for k, v in errs.items())
+          + f" (limit {CLIP_SUM_TOL})", flush=True)
+    for name in ("dpsgd_r1f", "dpsgd"):
+        e = errs[name]
+        print(f"[algo] σ = 0: {name}'s clipped sum against dpsgd_r's, both "
+              f"bf16: within {e['sum']:.2e} of each leaf's largest entry "
+              f"(limit {CLIP_SUM_TOL}; worst leaf {e['worst_leaf']}, median "
+              f"leaf {e['median_leaf']:.2e}); norms² max rel err "
+              f"{e['nsq']:.2e}", flush=True)
+    assert all(e["f32"] <= CLIP_SUM_TOL for e in errs.values()), errs
+    assert all(errs[n]["sum"] <= CLIP_SUM_TOL for n in ("dpsgd_r1f", "dpsgd")), errs
+
+    # 2. one timed step of each algorithm on one AdamW state
+    state = trainer.init_state()
+    runs = [("sgd", dict(algo="sgd")), ("dpsgd_r", {}),
+            ("dpsgd_r1f", dict(algo="dpsgd_r1f"))]
+    runs += [(f"dpsgd mb{mb}", dict(algo="dpsgd", microbatch=mb))
+             for mb in DPSGD_MICROBATCHES]
+    recs, launches = {}, dict.fromkeys(kernel_counts(), 0)
+    for name, dp in runs:
+        tr = Trainer(model, dataclasses.replace(
+            cfg, dp=dataclasses.replace(cfg.dp, **dp)), shape)
+        gc.collect()
+        torch.cuda.empty_cache()
+        timed_step(tr, state)                  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        rec = timed_step(tr, state)
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+        counts = read_counts()
+        want_n = path_launches("fused", arch.n_layers, algo=tr.cfg.dp.algo,
+                               examples=TRAIN_B,
+                               microbatch=tr.cfg.dp.microbatch,
+                               leaves=n_leaves)
+        assert counts == want_n, (name, counts, want_n)
+        assert math.isfinite(rec["loss"]), rec
+        for k, v in counts.items():
+            launches[k] += v
+        rec["launches"] = counts
+        recs[name] = rec
+    sgd_ms = recs["sgd"]["step_ms"]
+    for name, rec in recs.items():
+        rec["over_sgd"] = rec["step_ms"] / sgd_ms
+        print(f"[algo] {TRAIN_LAYERS} layers, {name}: step {rec['step_ms']:.1f} "
+              f"ms ({rec['over_sgd']:.2f}x sgd), peak "
+              f"{rec['peak_bytes'] / 2**30:.2f} GiB, loss {rec['loss']:.4f}; "
+              f"launches { {k: v for k, v in rec['launches'].items() if v} }",
+              flush=True)
+    return dict(steps=recs, sigma0=errs, launches=launches)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1302,9 +1645,11 @@ def main() -> int:
             bwd_recs.append(check_flash_bwd(*shp, dtype))
         gram_recs.append(check_gram("embed", TRAIN_B, TRAIN_T, d, d, True, False, dtype))
         gram_recs.append(check_gram("square", TRAIN_B, TRAIN_T, d, d, False, True, dtype))
-        # one phi3 w1's per-example gradients, stacked as vanilla DP-SGD forms
-        # them; and a ragged width (the one-column-per-thread path)
-        clip_recs.append(check_clip_reduce("phi3-w1", TRAIN_B, d * f, dtype, iters=20))
+        # the largest leaf's per-example gradients as vanilla DP-SGD stacks
+        # them (phase 9: the stacked w1 of 16 layers, a whole batch at once);
+        # and a ragged width (the one-column-per-thread path)
+        clip_recs.append(check_clip_reduce("phi3-w1-stack", TRAIN_B, L * d * f,
+                                           dtype))
         clip_recs.append(check_clip_reduce("ragged", 3, 1_000_003, dtype))
 
     # the auto route's shapes (B 2 x T 2048), bf16: its attention backward
@@ -1368,7 +1713,6 @@ def main() -> int:
           f"TFLOP/s, {100 * norm_step['bound_ms'] / norm_step['ms']:.1f}% of bound; "
           f"path wgmma+tma at every shape", flush=True)
     ab_step = step_sum(halves["ab"], ("separate_ms", "fused_ms"))
-    dgrad_launches = sum(r["dgrad_launches"] for r in halves["ab"])
     print(f"[fusion] one training step's {7 * L + 1} dense calls, bf16: "
           f"dense_dgrad + pegrad_norm {ab_step['separate_ms']:.1f} ms, "
           f"dense_bwd_norm {ab_step['fused_ms']:.1f} ms, separate / fused "
@@ -1398,13 +1742,25 @@ def main() -> int:
     # 7. the per-site norm rules and Poisson batches, on phase 6's state
     routes = train_norm_routes(model, fused_trainer, state)
     del model, fused_trainer, state
-    launches = {k: train["launches"][k] + routes["launches"][k]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 8. remat at 16 layers and phi3-mini at full depth
+    remat = train_remat()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 9. the paper's comparison: sgd, dpsgd_r, dpsgd_r1f, dpsgd
+    algos = train_algorithms()
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {k: sum(r["launches"][k] for r in (train, routes, remat, algos))
                 for k in train["launches"]}
     launches["flash_attn_fwd"] += serve_launches
 
     flash_rec = pick(kernel_recs, "phi3-wave")
     bwd_rec, gram_rec = pick(bwd_recs, "phi3-train"), pick(gram_recs, "embed")
-    clip_rec = pick(clip_recs, "phi3-w1")
+    clip_rec = pick(clip_recs, "phi3-w1-stack")
     mix = " + ".join(f"{n} x ({di},{do})" for _, di, do, n in train_mix)
 
     def entry(name, source, replaces, n, rec, **extra):
@@ -1439,14 +1795,15 @@ def main() -> int:
               shape=f"sum over one materialize step's calls, bf16: {mix}",
               path="wgmma+tma"),
         entry("dense_dgrad", "dense_dgrad.cu", "src/repro/kernels/fused_bwd.py:158",
-              dgrad_launches, dgrad_step,
+              launches["dense_dgrad"], dgrad_step,
               shape=f"sum over one training step's dense calls, bf16: {mix}",
-              launched_on="the fusion A/B (no training path calls it)",
+              launched_on="dpsgd_r1f's second pullback (phase 9)",
               path="wgmma+tma"),
         entry("clip_reduce", "clip_reduce.cu", "src/repro/kernels/clip_reduce.py:34",
-              clip_rec["launches"], clip_rec,
-              shape=f"({TRAIN_B}, {d * f}) bf16, one w1's per-example gradients",
-              launched_on="its kernel phase (no training path calls it)"),
+              launches["clip_reduce"], clip_rec,
+              shape=f"({TRAIN_B}, {L * d * f}) bf16, the per-example gradients "
+                    f"of the stacked w1",
+              launched_on="dpsgd's clipped sums (phase 9)"),
     ]}
     for k in kernels["kernels"]:
         assert k["bound_by"] in ("bytes", "operations") and k["launches"] > 0, k
@@ -1458,7 +1815,7 @@ def main() -> int:
          "fusion_ab_step": ab_step, "flash_attn_bwd": bwd_recs,
          "gram_norm": gram_recs, "clip_reduce": clip_recs, "serve": runs,
          "decode_breakdown_ms": breakdown, "train": train, "routes": routes,
-         "json_line": kernels}, indent=1))
+         "remat": remat, "algos": algos, "json_line": kernels}, indent=1))
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

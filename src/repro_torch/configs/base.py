@@ -7,11 +7,10 @@ DP, optimizer and training configs keep the JAX package's field names, so
 the port runs.  The fields of parts it has not taken over (checkpoints,
 pipeline stages, the device mesh and sharding, gradient compression, the
 memory planner, the launch autotuner, the straggler watchdog, adaptive
-clipping's parameters, vanilla DP-SGD's microbatch, adam8bit's block) are
-left out, and ``--set`` on one of them raises ``NotImplementedError``
-(``NOT_PORTED``).  ``remat`` defaults to ``"none"``, the only policy the
-port runs.  The ``Trainer`` holds the model's dtype to ``param_dtype`` and
-``compute_dtype``, which must be equal.
+clipping's parameters, adam8bit's block) are left out, and ``--set`` on one
+of them raises ``NotImplementedError`` (``NOT_PORTED``).  The ``Trainer``
+holds the model's dtype to ``param_dtype`` and ``compute_dtype``, which
+must be equal, and its remat policy to ``remat``.
 """
 from __future__ import annotations
 
@@ -110,9 +109,19 @@ SHAPES: Dict[str, ShapeConfig] = {
 # Mesh / DP / optim / train configs
 # ---------------------------------------------------------------------------
 
-# "none" stores every activation for the backward; "block" and "sites"
-# checkpoint in the JAX package and are not ported
+# "none" stores every activation for the backward, "block" only each
+# block's input, "sites" the operands the DP norm rules consume
+# (models/layers.py remat_wrap)
 REMAT_POLICIES: Tuple[str, ...] = ("none", "block", "sites")
+
+
+def validate_remat(remat: str) -> str:
+    """Raise on a policy the port does not implement, listing the known
+    ones; never a silent fall-through to no checkpointing."""
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {remat!r}; known policies: "
+                         f"{sorted(REMAT_POLICIES)}")
+    return remat
 
 # --set keys of the JAX package's configs that the port leaves out: the key
 # (or its first part) -> the feature, named in the error
@@ -124,7 +133,6 @@ NOT_PORTED: Dict[str, str] = {
     "zero1": "sharded optimizer state", "mesh": "the device mesh",
     "mem": "the memory planner", "tune": "the launch autotuner",
     "watchdog_factor": "the straggler watchdog",
-    "dp.microbatch": "dp.algo='dpsgd'",
     "dp.clip_quantile": "adaptive clipping",
     "dp.clip_lr": "adaptive clipping",
     "dp.clip_count_noise": "adaptive clipping",
@@ -137,10 +145,15 @@ class DPConfig:
     """DP-SGD configuration, as in the JAX package (its docstring is the
     reference).  In the port:
 
-    ``algo``: ``"sgd"`` (non-private mean-loss gradient) or ``"dpsgd_r"``
-    (reweighted DP-SGD(R): a per-example norm pass through the ``DPContext``
-    side-channel, then backprop of the clip-reweighted loss).  ``"dpsgd"``
-    and ``"dpsgd_r1f"`` raise (ROADMAP).
+    ``algo``: ``"sgd"`` (non-private mean-loss gradient), ``"dpsgd"``
+    (vanilla DP-SGD: per-example gradients, ``microbatch`` examples at a
+    time, clipped and summed), ``"dpsgd_r"`` (reweighted DP-SGD(R): a
+    per-example norm pass through the ``DPContext`` side-channel, then
+    backprop of the clip-reweighted loss) or ``"dpsgd_r1f"`` (DP-SGD(R)
+    with one forward and two pullbacks through its graph).
+
+    ``microbatch``: ``dpsgd``'s examples per chunk of per-example
+    gradients (0 = the whole batch); it must divide the batch.
 
     ``norm_strategy``: per-site norm rule, resolved against each site's
     registered rules (``core/sites.py``): ``"materialize"``, ``"gram"``,
@@ -166,6 +179,7 @@ class DPConfig:
     sampling: str = "fixed"        # fixed | poisson
     norm_strategy: str = "auto"    # auto | materialize | gram | fused
     use_kernels: bool = False      # route norm rules through the kernels
+    microbatch: int = 0            # dpsgd: examples per chunk (0 = batch)
     augmult: int = 1               # K augmented views per example
     adaptive_clip: bool = False    # quantile-adaptive C
 
@@ -187,15 +201,15 @@ class OptimConfig:
 @dataclass(frozen=True)
 class TrainConfig:
     """Top-level training configuration.  ``seed`` keys the data stream,
-    init and the DP noise.  ``remat`` defaults to ``"none"`` here (the JAX
-    package's default is ``"block"``): the port has no activation
-    checkpointing yet, and raises on the other policies."""
+    init and the DP noise.  ``remat`` is the model's activation
+    checkpointing policy (``REMAT_POLICIES``), ``"block"`` by default as in
+    the JAX package."""
     arch: str = "phi3-mini-3.8b"
     shape: str = "train_4k"
     seed: int = 0
     steps: int = 100
     log_every: int = 10
-    remat: str = "none"            # none | block | sites (REMAT_POLICIES)
+    remat: str = "block"           # none | block | sites (REMAT_POLICIES)
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
     grad_accum: int = 1
@@ -204,13 +218,7 @@ class TrainConfig:
     data_source: str = "synthetic"  # synthetic | memmap:<path>
 
     def __post_init__(self):
-        if self.remat not in REMAT_POLICIES:
-            raise ValueError(f"unknown remat policy {self.remat!r}; known "
-                             f"policies: {sorted(REMAT_POLICIES)}")
-        if self.remat != "none":
-            raise NotImplementedError(
-                f"remat={self.remat!r}: activation checkpointing is not "
-                f"ported yet (ROADMAP queue 1); the port runs remat='none'")
+        validate_remat(self.remat)
 
 
 # ---------------------------------------------------------------------------

@@ -10,11 +10,26 @@ where ``grads`` is a list of float32 tensors aligned with
 ``dp.algo`` in:
 
 * ``"sgd"``     — non-private baseline: the mean-loss gradient.
+* ``"dpsgd"``   — vanilla DP-SGD (lines 15–25): per-example gradients of
+                  ``m_i · L_i`` in the parameter dtype, ``dp.microbatch``
+                  examples at a time (0 = the whole batch), stacked
+                  ``(mbe, ...)`` per leaf, then ``clipping.clip_and_sum``
+                  (``clip_reduce`` with kernels) into the float32 sum.  One
+                  ``autograd.grad`` per example on its own rows, where the
+                  JAX package vmaps over the microbatch: the flash kernels'
+                  ``autograd.Function``s have no vmap rule.
 * ``"dpsgd_r"`` — reweighted DP-SGD(R) (lines 27–42): pass 1
                   (``norm_pass``) gives the per-example norms² through the
                   ``DPContext`` side-channel on detached parameters, so no
                   weight gradient is formed; pass 2 (``reweighted_grads``)
                   backpropagates the clip-reweighted loss; then noise.
+* ``"dpsgd_r1f"`` — DP-SGD(R) with one forward: the parameters are not
+                  detached, and two pullbacks run through its retained
+                  graph, the first seeded with the mask (the norms²), the
+                  second with the clip weights (the clipped sum).  A
+                  ``sites.Pull`` switch keeps the first from forming weight
+                  gradients and the second from computing norms², which
+                  the JAX package leaves to XLA's dead-code elimination.
 
 Masked variable batches (Poisson subsampling, lines 15–17): a batch may
 carry a ``"mask"`` leaf, ``(B,)`` bool example-validity flags of a
@@ -34,11 +49,11 @@ Under Poisson sampling the trainer passes the expected sample size q·N
 (Algorithm 1 line 24's lot size), never the capacity or the realized
 size, which would leak the sample size.
 
-Not ported (ROADMAP queue 1): ``"dpsgd"`` and ``"dpsgd_r1f"``,
-``augmult > 1`` and adaptive clipping; each raises ``NotImplementedError``.
-The view helpers below (``_example_mask``, ``_view_seed``,
-``_expand_rows``) follow the JAX package's ``augmult`` contract, and are
-the identity at K = 1, the only K the port runs.
+Not ported (ROADMAP queue 1): ``augmult > 1`` and adaptive clipping; each
+raises ``NotImplementedError``.  The view helpers below
+(``_example_mask``, ``_view_seed``, ``_expand_rows``) follow the JAX
+package's ``augmult`` contract, and are the identity at K = 1, the only K
+the port runs.
 
 loss_fn contract: ``loss_fn(params, batch, ctx) -> (per_example_losses,
 ctx)`` with ``per_example_losses: (B,) float32``.
@@ -51,7 +66,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.configs.base import DPConfig
-from repro_torch.core import clipping, noise
+from repro_torch.core import clipping, noise, sites
 from repro_torch.core.context import DPContext
 
 F32 = torch.float32
@@ -129,8 +144,8 @@ def _require_grad_leaves(params) -> List[torch.Tensor]:
     return leaves
 
 
-def _f32_grads(loss, leaves) -> List[torch.Tensor]:
-    grads = list(torch.autograd.grad(loss, leaves))
+def _f32_grads(outputs, leaves, grad_outputs=None) -> List[torch.Tensor]:
+    grads = list(torch.autograd.grad(outputs, leaves, grad_outputs))
     for i, g in enumerate(grads):      # one leaf at a time: the param-type
         grads[i] = g.float()           # grad is freed as its copy is made
     return grads
@@ -205,12 +220,72 @@ def _dpsgd_r_sum(loss_fn, dp: DPConfig):
     return fn
 
 
-def _unported_algo(name):
-    def factory(loss_fn, dp):
-        raise NotImplementedError(
-            f"dp.algo={name!r} is not ported yet (ROADMAP queue 1); the port "
-            f"runs 'sgd' and 'dpsgd_r'")
-    return factory
+def _dpsgd_sum(loss_fn, dp: DPConfig):
+    K = _views(dp)
+
+    def fn(params, batch):
+        data, mask = split_mask(batch)
+        leaves = _require_grad_leaves(params)
+        device = leaves[0].device
+        R = _batch_size(data)
+        B = R // K                         # examples (privacy units)
+        me = _example_mask(_ones_if_none(mask, R, device), K)
+        mbe = dp.microbatch or B
+        if B % mbe:
+            raise ValueError(f"dp.microbatch={dp.microbatch} does not divide "
+                             f"the {B} examples of the batch")
+        summed = [torch.zeros(p.shape, dtype=F32, device=device) for p in leaves]
+        # one microbatch of per-example gradients, filled in place: a stack
+        # of a list would hold two copies at once
+        stack = [torch.empty((mbe,) + tuple(p.shape), dtype=p.dtype,
+                             device=device) for p in leaves]
+        losses, nsqs = [], []
+        for start in range(0, B, mbe):
+            for i in range(mbe):
+                b = start + i
+                ex = tree.tree_map(lambda a: a[b * K:(b + 1) * K], data)
+                with torch.enable_grad():
+                    raw, _ = loss_fn(params, ex, DPContext.off())
+                    # masked at the loss: a padded example's gradient and
+                    # norm are exact zeros; the mean over its K views
+                    grads = torch.autograd.grad(me[b] * raw.mean(), leaves)
+                for s_, g in zip(stack, grads):
+                    s_[i].copy_(g)
+                del grads
+                losses.append(raw.detach())
+            nsqs.append(clipping.clip_and_sum(stack, dp.clip_norm, summed,
+                                              me[start:start + mbe],
+                                              dp.use_kernels))
+        return summed, (torch.cat(losses), torch.cat(nsqs))
+    return fn
+
+
+def _dpsgd_r1f_sum(loss_fn, dp: DPConfig):
+    K = _views(dp)
+
+    def fn(params, batch):
+        data, mask = split_mask(batch)
+        leaves = _require_grad_leaves(params)
+        device = leaves[0].device
+        R = _batch_size(data)
+        m = _ones_if_none(mask, R, device)
+        pull = sites.Pull()
+        ctx = DPContext.norm_mode(R // K, dp.norm_strategy, dp.use_kernels, K,
+                                  device, pull=pull)
+        acc0 = ctx.acc
+        with torch.enable_grad():
+            losses, ctx = loss_fn(params, data, ctx)
+            pull.stage = "norms"            # no weight gradient
+            (nsq,) = torch.autograd.grad(
+                (losses, ctx.acc), (acc0,),
+                (_view_seed(m, K).to(losses.dtype), torch.zeros_like(ctx.acc)),
+                retain_graph=True)
+            c = clipping.clip_factors(nsq, dp.clip_norm) * _example_mask(m, K)
+            pull.stage = "grads"            # no norm²
+            grads = _f32_grads(losses, leaves,
+                               _expand_rows(c, K).to(losses.dtype))
+        return grads, (losses.detach(), nsq)
+    return fn
 
 
 _ALGOS: dict = {}
@@ -241,9 +316,9 @@ def _lookup(name: str):
 
 
 register_algo("sgd", _sgd_sum, private=False)
-register_algo("dpsgd", _unported_algo("dpsgd"))
+register_algo("dpsgd", _dpsgd_sum)
 register_algo("dpsgd_r", _dpsgd_r_sum)
-register_algo("dpsgd_r1f", _unported_algo("dpsgd_r1f"))
+register_algo("dpsgd_r1f", _dpsgd_r1f_sum)
 
 
 def make_clipped_sum_fn(loss_fn: Callable, dp: DPConfig) -> Callable:

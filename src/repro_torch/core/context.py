@@ -11,6 +11,12 @@ initial accumulator, without a per-example gradient ever being formed.
 
 In ``off`` mode every method is the plain op, so the same model code serves
 SGD, DP-SGD(R)'s second pass and inference.
+
+Every operand a site's norm rules consume (``save_operands``) is recorded
+in ``saved`` in both modes, when a ``remat="sites"`` region passes one
+down (``models/layers.py``): pass 1 (norm rules) and pass 2 (weight
+gradients) both need those residuals, so the region keeps exactly them
+and recomputes the rest.
 """
 from __future__ import annotations
 
@@ -30,12 +36,17 @@ class DPContext:
     """``mode``: "off" (plain ops) or "norm" (the per-example norm pass).
     ``strategy`` names a norm rule resolved per site against the registry;
     ``use_kernels`` takes the sites' kernel routes; ``augmult`` is the
-    number of views per example (rows B·K, accumulator (B,))."""
+    number of views per example (rows B·K, accumulator (B,)).  ``pull``:
+    a ``sites.Pull`` the sites' backwards read (None: both halves);
+    ``saved``: the site-operand record of an enclosing ``remat="sites"``
+    region (None outside one)."""
     acc: Optional[torch.Tensor] = None
     mode: str = "off"
     strategy: str = "auto"
     use_kernels: bool = False
     augmult: int = 1
+    pull: Optional[sites.Pull] = None
+    saved: Optional[dict] = None
 
     @staticmethod
     def off() -> "DPContext":
@@ -43,12 +54,13 @@ class DPContext:
 
     @staticmethod
     def norm_mode(batch: int, strategy: str = "auto", use_kernels: bool = False,
-                  augmult: int = 1, device=None) -> "DPContext":
+                  augmult: int = 1, device=None,
+                  pull: Optional[sites.Pull] = None) -> "DPContext":
         """A fresh accumulator of ``batch`` examples that requires grad."""
         acc = torch.zeros((batch,), dtype=torch.float32, device=device,
                           requires_grad=True)
         return DPContext(acc=acc, mode="norm", strategy=strategy,
-                         use_kernels=use_kernels, augmult=augmult)
+                         use_kernels=use_kernels, augmult=augmult, pull=pull)
 
     def site(self, kind: str, *operands, meta: tuple = ()) -> Tuple[torch.Tensor, "DPContext"]:
         """Run registered site ``kind`` on ``operands``: the plain op in
@@ -57,9 +69,10 @@ class DPContext:
                         use_kernels=self.use_kernels, meta=tuple(meta),
                         augmult=self.augmult)
         site = sites.get_site(kind)        # raises with registered kinds
+        sites.name_saved_operands(site, operands, self.saved)
         if self.mode == "off":
             return site.fwd(spec, *operands), self
-        y, acc = sites.site_call(spec, self.acc, *operands)
+        y, acc = sites.site_call(spec, self.pull, self.acc, *operands)
         return y, dataclasses.replace(self, acc=acc)
 
     def dense(self, x, w):

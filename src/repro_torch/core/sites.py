@@ -13,7 +13,9 @@ site's per-example squared-grad-norm to the accumulator's gradient and
 returns the operand gradients.  An operand that needs no gradient gets
 none: pass 1 of DP-SGD(R) runs on detached parameters, so no weight
 gradient is computed there (the counterpart of the JAX package's DCE of
-the discarded parameter cotangents).
+the discarded parameter cotangents).  Where one forward serves two
+pullbacks (``dpsgd_r1f``), a ``Pull`` switch tells each ``SiteCall``
+backward which half to compute.
 
 Contracts every entry satisfies, as in the JAX package: each rule returns
 the exact per-example norm² as a (B,) float32 tensor; an all-zero ``gy``
@@ -25,9 +27,13 @@ Callbacks: ``fwd(spec, *operands) -> y``;
 ``bwd(spec, operands, gy, needs) -> operand grads``;
 ``nsq_rules[name](spec, operands, gy) -> (B,)``;
 ``kernel_route[name]`` the same with kernels (``spec.use_kernels``);
-``fused_bwd[name](spec, operands, gy, needs) -> (grads, nsq)`` one joint
-backward; ``flops[name](operand_shapes, gy_shape)``.  ``needs[i]`` says
-whether operand i needs a gradient; a grad it does not need may be None.
+``fused_bwd[name](spec, operands, gy, needs, want_nsq=True) -> (grads,
+nsq)`` one joint backward (``nsq`` None when ``want_nsq`` is False);
+``flops[name](operand_shapes, gy_shape)``.  ``needs[i]`` says whether
+operand i needs a gradient; a grad it does not need may be None.
+``save_operands``: the operands the norm rules consume, which
+``remat="sites"`` keeps (``name_saved_operands``); ``param_operands``: the
+operands that are parameters, whose gradients a ``Pull("norms")`` skips.
 
 Registered here: ``dense``, ``embed``, ``tap`` and the parameter-free
 ``attention`` site.  ``moe_dense``, ``conv2d`` and ``bias`` are not ported
@@ -66,6 +72,40 @@ class SiteDef:
     kernel_route: Mapping[str, Callable] = dataclasses.field(default_factory=dict)
     fused_bwd: Mapping[str, Callable] = dataclasses.field(default_factory=dict)
     flops: Mapping[str, Callable] = dataclasses.field(default_factory=dict)
+    save_operands: Tuple[int, ...] = ()
+    param_operands: Tuple[int, ...] = ()
+
+
+@dataclasses.dataclass
+class Pull:
+    """Which half of every ``SiteCall`` backward runs, read when the
+    backward runs (``needs_input_grad`` is fixed at the forward).  One
+    forward serves two pullbacks in ``dpsgd_r1f``: ``"norms"`` computes the
+    norms² and the activation gradients and no parameter gradient;
+    ``"grads"`` computes the operand gradients and no norm².  ``"both"``
+    (the default, and what no ``Pull`` means) computes both."""
+    stage: str = "both"
+
+
+def _storage_key(t: torch.Tensor) -> int:
+    return t.untyped_storage().data_ptr()
+
+
+def name_saved_operands(site: "SiteDef", operands: tuple, saved) -> None:
+    """The counterpart of the JAX package's ``checkpoint_name`` tag: record
+    the storage of every operand ``site.save_operands`` names in ``saved``
+    (a dict a ``remat="sites"`` region passes down, or None), which keeps
+    the saved tensors that live in one of them and recomputes the rest.
+    The dict holds the tensors too, so no storage is reused while the
+    region runs."""
+    if saved is None:
+        return
+    for i in site.save_operands:
+        saved[_storage_key(operands[i])] = operands[i]
+
+
+def is_saved_operand(t: torch.Tensor, saved) -> bool:
+    return saved is not None and _storage_key(t) in saved
 
 
 _REGISTRY: Dict[str, SiteDef] = {}
@@ -76,7 +116,9 @@ def register_site(kind: str, *, fwd: Callable, bwd: Callable,
                   nsq_rules: Mapping[str, Callable],
                   kernel_route: Optional[Mapping[str, Callable]] = None,
                   fused_bwd: Optional[Mapping[str, Callable]] = None,
-                  flops: Optional[Mapping[str, Callable]] = None) -> SiteDef:
+                  flops: Optional[Mapping[str, Callable]] = None,
+                  save_operands: Tuple[int, ...] = (),
+                  param_operands: Tuple[int, ...] = ()) -> SiteDef:
     """Register a site type; returns its ``SiteDef``."""
     if not nsq_rules:
         raise ValueError(f"site {kind!r} needs at least one nsq rule")
@@ -87,7 +129,9 @@ def register_site(kind: str, *, fwd: Callable, bwd: Callable,
                          f"kinds: {sorted(_REGISTRY)})")
     site = SiteDef(kind=kind, fwd=fwd, bwd=bwd, nsq_rules=dict(nsq_rules),
                    kernel_route=dict(kernel_route or {}),
-                   fused_bwd=dict(fused_bwd or {}), flops=dict(flops or {}))
+                   fused_bwd=dict(fused_bwd or {}), flops=dict(flops or {}),
+                   save_operands=tuple(save_operands),
+                   param_operands=tuple(param_operands))
     for name, mapping in (("kernel_route", site.kernel_route),
                           ("fused_bwd", site.fused_bwd),
                           ("flops", site.flops)):
@@ -146,38 +190,46 @@ def site_nsq(spec: SiteSpec, operands, gy) -> torch.Tensor:
 
 
 class SiteCall(torch.autograd.Function):
-    """``y, acc = SiteCall.apply(spec, acc, *operands)``: the forward is the
-    plain op and the identity on ``acc``; the backward returns
-    ``gacc + nsq`` for ``acc`` and the operand gradients."""
+    """``y, acc = SiteCall.apply(spec, pull, acc, *operands)``: the forward
+    is the plain op and the identity on ``acc``; the backward returns
+    ``gacc + nsq`` for ``acc`` and the operand gradients, or the half of
+    them that ``pull`` (a ``Pull`` or None) asks for."""
 
     @staticmethod
-    def forward(ctx, spec, acc, *operands):
-        ctx.spec = spec
+    def forward(ctx, spec, pull, acc, *operands):
+        ctx.spec, ctx.pull = spec, pull
         ctx.save_for_backward(*operands)
         return get_site(spec.kind).fwd(spec, *operands), acc.clone()
 
     @staticmethod
     def backward(ctx, gy, gacc):
         spec = ctx.spec
+        stage = ctx.pull.stage if ctx.pull is not None else "both"
         operands = ctx.saved_tensors
-        needs = ctx.needs_input_grad[2:]
         site = get_site(spec.kind)
+        needs = list(ctx.needs_input_grad[3:])
+        if stage == "norms":
+            for i in site.param_operands:
+                needs[i] = False
+        want_nsq = stage != "grads"
         strat = resolve_strategy(spec.kind, spec.strategy, _shapes(operands),
                                  tuple(gy.shape))
         fused = site.fused_bwd.get(strat)
         if fused is not None:
-            grads, nsq = fused(spec, operands, gy, needs)
+            grads, nsq = (fused(spec, operands, gy, needs) if want_nsq else
+                          fused(spec, operands, gy, needs, want_nsq=False))
         else:
             grads = site.bwd(spec, operands, gy, needs)
-            nsq = site_nsq(spec, operands, gy)
-        if gacc is None:
-            gacc = torch.zeros_like(nsq)
+            nsq = site_nsq(spec, operands, gy) if want_nsq else None
+        if nsq is not None:
+            gacc = nsq if gacc is None else gacc + nsq
         grads = tuple(g if n else None for g, n in zip(grads, needs))
-        return (None, gacc + nsq) + grads
+        return (None, None, gacc) + grads
 
 
-def site_call(spec: SiteSpec, acc, *operands) -> Tuple[torch.Tensor, torch.Tensor]:
-    return SiteCall.apply(spec, acc, *operands)
+def site_call(spec: SiteSpec, pull: Optional[Pull], acc,
+              *operands) -> Tuple[torch.Tensor, torch.Tensor]:
+    return SiteCall.apply(spec, pull, acc, *operands)
 
 
 # ---------------------------------------------------------------------------
@@ -239,19 +291,28 @@ def _dense_kernel_gram(spec, operands, gy):
     return kops.gram_norm(*_dense_pair4(spec, operands, gy))
 
 
-def _dense_fused_bwd(spec, operands, gy, needs):
+def _dense_fused_bwd(spec, operands, gy, needs, want_nsq=True):
     """The fused strategy: with kernels, ``dense_bwd_norm`` gives the dgrad
-    rows and the norm² in one call; without, the plain dgrad and the
+    rows and the norm² in one call, and ``dense_dgrad`` the dgrad rows
+    alone when no norm² is wanted; without kernels, the plain dgrad and the
     ``materialize`` rule.  The summed weight gradient stays outside the
     kernel, computed only when ``w`` needs it."""
     x, w = operands
+    nsq = None
     if spec.use_kernels:
         from repro_torch.kernels import ops as kops
-        gx4, nsq = kops.dense_bwd_norm(*_dense_pair4(spec, operands, gy), w)
-        gx = norms.unfold_views4(gx4, spec.augmult).reshape(x.shape).to(x.dtype)
+        x4, gy4 = _dense_pair4(spec, operands, gy)
+        gx4 = None
+        if want_nsq:
+            gx4, nsq = kops.dense_bwd_norm(x4, gy4, w)
+        elif needs[0]:
+            gx4 = kops.dense_dgrad(gy4, w)
+        gx = (None if gx4 is None else norms.unfold_views4(
+            gx4, spec.augmult).reshape(x.shape).to(x.dtype))
     else:
         gx = _dense_gx(gy, w, x) if needs[0] else None
-        nsq = _dense_rule_materialize(spec, operands, gy)
+        if want_nsq:
+            nsq = _dense_rule_materialize(spec, operands, gy)
     return (gx, _dense_gw(x, gy, w) if needs[1] else None), nsq
 
 
@@ -269,7 +330,8 @@ register_site(
     fused_bwd={"fused": _dense_fused_bwd},
     flops=dict(materialize=_dense_flops(norms.flops_materialize),
                gram=_dense_flops(norms.flops_gram),
-               fused=_dense_flops(norms.flops_fused)))
+               fused=_dense_flops(norms.flops_fused)),
+    save_operands=(0,), param_operands=(1,))
 
 
 # ---------------------------------------------------------------------------
@@ -315,7 +377,8 @@ def _embed_flops(operand_shapes, gy_shape):
 register_site("embed", fwd=_embed_fwd, bwd=_embed_bwd,
               nsq_rules={"segment_sum": _embed_rule},
               kernel_route={"segment_sum": _embed_kernel_rule},
-              flops={"segment_sum": _embed_flops})
+              flops={"segment_sum": _embed_flops},
+              save_operands=(0,), param_operands=(1,))
 
 
 # ---------------------------------------------------------------------------
@@ -355,8 +418,11 @@ def _tap_flops(operand_shapes, gy_shape):
     return 2 * n
 
 
+# tap's only operand is the parameter itself and its rule consumes only gy,
+# so the sites remat policy has nothing to save here
 register_site("tap", fwd=_tap_fwd, bwd=_tap_bwd,
-              nsq_rules={"direct": _tap_rule}, flops={"direct": _tap_flops})
+              nsq_rules={"direct": _tap_rule}, flops={"direct": _tap_flops},
+              save_operands=(), param_operands=(0,))
 
 
 # ---------------------------------------------------------------------------
@@ -393,9 +459,9 @@ def _attention_rule(spec, operands, gy):
                        device=gy.device)
 
 
-def _attention_fused_bwd(spec, operands, gy, needs):
+def _attention_fused_bwd(spec, operands, gy, needs, want_nsq=True):
     q, k, v = operands
-    nsq = _attention_rule(spec, operands, gy)
+    nsq = _attention_rule(spec, operands, gy) if want_nsq else None
     if spec.use_kernels:
         from repro_torch.kernels import ops as kops
         dq, dk, dv = kops.flash_attention_bwd(q, k, v, gy, _attn_causal(spec))
@@ -403,7 +469,10 @@ def _attention_fused_bwd(spec, operands, gy, needs):
     return _attention_bwd(spec, operands, gy, needs), nsq
 
 
+# the rule consumes nothing (norm² ≡ 0): nothing for the sites remat policy
+# to save, and no parameter
 register_site("attention", fwd=_attention_fwd, bwd=_attention_bwd,
               nsq_rules={"fused": _attention_rule},
               fused_bwd={"fused": _attention_fused_bwd},
-              flops={"fused": lambda shapes, gy_shape: 0.0})
+              flops={"fused": lambda shapes, gy_shape: 0.0},
+              save_operands=(), param_operands=())

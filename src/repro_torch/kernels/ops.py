@@ -132,9 +132,9 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q_shape, kv_shape = ctx.shapes
-        qf, kf, vf = ctx.saved_tensors[:3]
-        dq, dk, dv = _flash_bwd_impl(ctx.saved_tensors, do, ctx.causal,
-                                     q_shape, kv_shape)
+        saved = ctx.saved_tensors      # once: a checkpoint hands each out once
+        qf, kf, vf = saved[:3]
+        dq, dk, dv = _flash_bwd_impl(saved, do, ctx.causal, q_shape, kv_shape)
         return dq.to(qf.dtype), dk.to(kf.dtype), dv.to(vf.dtype), None
 
 

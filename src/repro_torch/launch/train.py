@@ -9,6 +9,10 @@
         --set dp.sampling=poisson --set dp.norm_strategy=materialize \
         --set dp.use_kernels=true
 
+    PYTHONPATH=src python -m repro_torch.launch.train --arch phi3-mini-3.8b \
+        --reduced --steps 3 --device cpu --dtype float32 --set remat=sites \
+        --set dp.algo=dpsgd --set dp.microbatch=2 --set dp.use_kernels=true
+
 The JAX launcher's flags ``--arch``, ``--reduced``, ``--steps``, ``--batch``,
 ``--seq`` and ``--set`` (``--set shape=...`` picks the input shape), plus
 ``--device`` (default ``cuda``) and ``--dtype`` as in ``launch/serve.py``.
@@ -70,12 +74,13 @@ def main(argv=None) -> None:
     cfg = replace(cfg, arch=arch.name)
 
     model = Model(arch, dtype=DTYPES[cfg.param_dtype], device=args.device,
-                  seed=cfg.seed)
+                  seed=cfg.seed, remat=cfg.remat)
     trainer = Trainer(model, cfg, shape)
     print(f"[train] {arch.name}: {sum(p.numel() for p in model.parameters())} "
           f"params {cfg.param_dtype} on {model.device}; batch {shape.global_batch} "
-          f"x {shape.seq_len}; dp {cfg.dp.algo} norm_strategy="
-          f"{cfg.dp.norm_strategy} use_kernels={cfg.dp.use_kernels}",
+          f"x {shape.seq_len}; remat {cfg.remat}; dp {cfg.dp.algo} "
+          f"norm_strategy={cfg.dp.norm_strategy} use_kernels="
+          f"{cfg.dp.use_kernels}",
           flush=True)
     if trainer.sampling == "poisson":
         print(f"[train] poisson sampling: q = {trainer.sample_rate:.3e}, "

@@ -7,7 +7,8 @@ softmax and normalisation math in float32, outputs cast back to the compute
 dtype; every dense is ``x @ w`` with ``w`` of shape (d_in, d_out).  The
 training and prefill functions take a ``DPContext`` and route every
 parameterised op through it (``DPContext.off()`` is the plain op); the
-decode paths use plain matmuls.
+decode paths use plain matmuls.  ``remat_wrap`` puts a block function under
+an activation-checkpointing policy.
 """
 from __future__ import annotations
 
@@ -18,6 +19,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.configs.base import validate_remat
+from repro_torch.core import sites
 from repro_torch.core.context import DPContext
 from repro_torch.kernels import ops as kops
 
@@ -29,6 +32,103 @@ class P:
     """Param spec: shape and init rule (fan_in | embed | ones | zeros)."""
     shape: Tuple[int, ...]
     init: str = "fan_in"
+
+
+# ---------------------------------------------------------------------------
+# Remat policies (configs/base.py REMAT_POLICIES is the vocabulary)
+# ---------------------------------------------------------------------------
+
+class _Recompute:
+    """A saved tensor of a checkpointed region, rebuilt on demand."""
+    __slots__ = ("region", "index")
+
+    def __init__(self, region, index):
+        self.region, self.index = region, index
+
+
+class _Region:
+    """One call of a block function ``fn(x, acc, saved) -> (x, acc)`` under
+    a checkpoint: autograd's saved tensors go through
+    ``saved_tensors_hooks``; the region keeps the ones that live in a
+    storage the sites recorded in ``saved`` (``keep_site_operands``, the
+    ``"sites"`` policy) and replaces every other one by a placeholder.  The
+    first backward to unpack a placeholder runs ``fn`` once more on the same
+    inputs, under ``enable_grad``, and takes that run's saved tensors in
+    the order they were packed; each is handed out once and dropped, so a
+    later backward through the same graph (``retain_graph``) recomputes
+    again.  The recompute is deterministic, so it saves the same tensors
+    in the same order, with the same values.
+
+    The graph the backward walks is the first run's, so every ``SiteCall``
+    adds its norm² to the accumulator's gradient exactly once however often
+    the region is recomputed.  ``torch.utils.checkpoint``'s selective
+    policy cannot serve here: it allows one backward through a region, and
+    ``dpsgd_r1f`` pulls back twice."""
+
+    def __init__(self, fn, args, keep_site_operands: bool):
+        self.fn, self.args = fn, args
+        self.keep = keep_site_operands
+        self.count = 0           # placeholders handed out by the first run
+        self.values = {}         # index -> recomputed tensor, until unpacked
+
+    def _run(self, pack_other):
+        saved = {} if self.keep else None
+
+        def pack(t):
+            if sites.is_saved_operand(t, saved):
+                return t.detach()
+            return pack_other(t)
+
+        try:
+            with torch.autograd.graph.saved_tensors_hooks(pack, self._unpack):
+                return self.fn(*self.args, saved)
+        finally:
+            # every saved tensor holds ``pack``; a record still holding the
+            # tagged tensors would close a cycle through their grad_fns
+            # that keeps them, and the graph behind them, alive
+            if saved is not None:
+                saved.clear()
+
+    def forward(self):
+        def placeholder(t):
+            self.count += 1
+            return _Recompute(self, self.count - 1)
+        return self._run(placeholder)
+
+    def _recompute(self):
+        values = {}
+
+        def record(t):
+            values[len(values)] = t.detach()
+        with torch.enable_grad():
+            self._run(record)
+        if len(values) != self.count:
+            raise RuntimeError(f"remat: the recompute saved {len(values)} "
+                               f"tensors where the forward saved {self.count}")
+        self.values = values
+
+    @staticmethod
+    def _unpack(packed):
+        if isinstance(packed, torch.Tensor):
+            return packed
+        region = packed.region
+        if packed.index not in region.values:
+            region._recompute()
+        return region.values.pop(packed.index)
+
+
+def remat_wrap(fn, remat: str):
+    """Wrap a block function ``fn(x, acc, saved=None) -> (x, acc)`` in the
+    configured activation-checkpointing policy; returns ``g(x, acc)``.
+    ``"none"`` stores everything, ``"block"`` stores only the block's
+    inputs, ``"sites"`` also keeps exactly the site operands the DP norm
+    rules consume (``sites.name_saved_operands``) and recomputes the rest.
+    ``acc`` is the norm² accumulator (None in ``off`` mode); ``fn`` rebuilds
+    its ``DPContext`` around it and ``saved``.  Unknown policies raise."""
+    if validate_remat(remat) == "none":
+        return fn
+    keep = remat == "sites"
+    return lambda x, acc: _Region(fn, (x, acc), keep).forward()
 
 
 # ---------------------------------------------------------------------------

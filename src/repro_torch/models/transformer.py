@@ -10,12 +10,14 @@ KV caches are ``{"prelude": [(k, v), ...], "blocks": ((k, v), ...)}`` with
 the same leading ``(reps,)`` axis on block leaves.
 
 The port covers attention-only dense decoders.  Mamba and MoE layers raise
-``NotImplementedError`` (ROADMAP queue 1).  Training runs without
-activation checkpointing (the JAX package's ``remat="none"``): autograd
-keeps every layer's activations for the backward.
+``NotImplementedError`` (ROADMAP queue 1).  Training puts each block (one
+period of the repeated layers) under the model's ``remat`` policy
+(``layers.remat_wrap``), as the JAX package wraps its scanned block; the
+prelude is not wrapped.
 """
 from __future__ import annotations
 
+import dataclasses
 import zlib
 from typing import Any, Dict, List, Tuple
 
@@ -23,7 +25,7 @@ import torch
 import torch.nn as nn
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ATTN, ArchConfig
+from repro_torch.configs.base import ATTN, ArchConfig, validate_remat
 from repro_torch.core.context import DPContext
 from repro_torch.models import layers as L
 from repro_torch.models.layers import P
@@ -150,16 +152,20 @@ class Model(nn.Module):
     None draws a seeded init on the device.  ``dtype`` is the compute and
     weight type (norm scales stay float32).  ``device`` defaults to
     ``cuda`` and raises without one; pass ``"cpu"`` for the plain path.
+    ``remat``: the training loss's activation-checkpointing policy
+    (``configs.base.REMAT_POLICIES``), ``"block"`` by default as in the JAX
+    package.
     Every param is registered under its slash-joined tree path, frozen;
     ``model.requires_grad_(True)`` makes them trainable (the Trainer
     does)."""
 
     def __init__(self, arch: ArchConfig, params=None, *,
                  dtype: torch.dtype = torch.bfloat16, device=None,
-                 seed: int = 0):
+                 seed: int = 0, remat: str = "block"):
         super().__init__()
         self.arch = arch
         self.dtype = dtype
+        self.remat = validate_remat(remat)
         self.device = resolve_device(device)
         model_spec(arch)          # raises early for unported layer kinds
         if params is None:
@@ -233,10 +239,27 @@ class Model(nn.Module):
         B, T = labels.shape
         x, ctx = self._embed_in(params, inputs, ctx)
         pos = torch.arange(T, device=x.device)[None].expand(B, T)
-        for p, _ in self._layers(params):
-            x, ctx, _ = self._layer(p, x, ctx, pos)
+        pre, period, reps = group_layers(self.arch)
+        for i in range(pre):
+            x, ctx, _ = self._layer(params["prelude"][i], x, ctx, pos)
+        for r in range(reps):
+            block = self._block_fn([_index(params["blocks"][j], r)
+                                    for j in range(period)], ctx, pos)
+            x, acc = L.remat_wrap(block, self.remat)(x, ctx.acc)
+            ctx = dataclasses.replace(ctx, acc=acc)
         logits, ctx = self._head(params, x, ctx)
         return per_example_xent(logits, labels, self.arch.vocab), ctx
+
+    def _block_fn(self, layer_params, ctx: DPContext, pos):
+        """One period of blocks as ``fn(x, acc, saved=None) -> (x, acc)``:
+        tensors in and out, the ``DPContext`` rebuilt inside around the
+        accumulator, so a checkpoint boundary sees it."""
+        def block(x, acc, saved=None):
+            c = dataclasses.replace(ctx, acc=acc, saved=saved)
+            for p in layer_params:
+                x, c, _ = self._layer(p, x, c, pos)
+            return x, c.acc
+        return block
 
     # -- caches -------------------------------------------------------------
     def _cache_tree(self, shape) -> Dict[str, Any]:

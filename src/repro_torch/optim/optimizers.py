@@ -8,8 +8,11 @@ step)``, where ``params`` and ``grads`` are lists aligned leaf by leaf
 (``tree.leaves``) and the gradients arrive noised and averaged (float32).
 Unlike the JAX package's functional version, ``apply`` updates the state
 and the params in place: at full width the AdamW state is 12 bytes a
-parameter, and a second copy of it would not fit beside the first.
-``adam8bit`` is not ported (ROADMAP).
+parameter, and a second copy of it would not fit beside the first.  It
+also updates one slice of a leaf's leading (stacked-layer) dimension at a
+time (``tree.leaf_slices``), so its float32 temporaries take a slice's
+size and not a stacked leaf's; the arithmetic is elementwise, so the bits
+are those of the whole-leaf update.  ``adam8bit`` is not ported (ROADMAP).
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from typing import Callable, List
 
 import torch
 
+from repro_torch import tree
 from repro_torch.configs.base import OptimConfig
 
 F32 = torch.float32
@@ -49,9 +53,10 @@ def _make_sgd(cfg: OptimConfig) -> Optimizer:
     @torch.no_grad()
     def apply(grads, state, params, step):
         lr = lr_at(cfg, step)
-        for p, m, g in zip(params, state["mom"], grads):
-            m.mul_(cfg.momentum).add_(g)
-            p.copy_(p.float() - lr * m)
+        for leaf in zip(params, state["mom"], grads):
+            for p, m, g in zip(*map(tree.leaf_slices, leaf)):
+                m.mul_(cfg.momentum).add_(g)
+                p.copy_(p.float() - lr * m)
 
     return Optimizer(cfg, init, apply)
 
@@ -69,15 +74,15 @@ def _make_adamw(cfg: OptimConfig) -> Optimizer:
         lr = lr_at(cfg, step)
         bc1 = 1 - cfg.b1 ** (step + 1)
         bc2 = 1 - cfg.b2 ** (step + 1)
-        for p, g, m, v, w in zip(params, grads, state["m"], state["v"],
-                                 state["master"]):
-            m.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
-            v.mul_(cfg.b2).addcmul_(g, g, value=1 - cfg.b2)
-            u = (m / bc1).div_(torch.sqrt(v / bc2).add_(cfg.eps))
-            if cfg.weight_decay:
-                u.add_(w, alpha=cfg.weight_decay)
-            w.sub_(lr * u)
-            p.copy_(w)
+        for leaf in zip(params, grads, state["m"], state["v"], state["master"]):
+            for p, g, m, v, w in zip(*map(tree.leaf_slices, leaf)):
+                m.mul_(cfg.b1).add_(g, alpha=1 - cfg.b1)
+                v.mul_(cfg.b2).addcmul_(g, g, value=1 - cfg.b2)
+                u = (m / bc1).div_(torch.sqrt(v / bc2).add_(cfg.eps))
+                if cfg.weight_decay:
+                    u.add_(w, alpha=cfg.weight_decay)
+                w.sub_(lr * u)
+                p.copy_(w)
 
     return Optimizer(cfg, init, apply)
 

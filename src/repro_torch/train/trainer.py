@@ -7,12 +7,14 @@ last) a record goes to ``history``.  Under ``dp.sampling="poisson"`` the
 batch is a Poisson sample padded to a step-invariant ``capacity`` with its
 ``"mask"``, and the noisy sum is normalised by the expected batch q·N.
 
+The model trains under the config's ``remat`` policy, which the Trainer
+sets on it.
+
 Not ported (ROADMAP queue 1): checkpoints (a run always starts from its
-init), the memory planner, the launch autotuner,
-gradient compression, pipeline stages, retries, the straggler watchdog,
-activation checkpointing (the port runs ``remat="none"``) and separate
-parameter and compute types.  ``TrainConfig`` has no fields for these, or
-raises on them (``configs/base.py``).
+init), the memory planner, the launch autotuner, gradient compression,
+pipeline stages, retries, the straggler watchdog and separate parameter
+and compute types.  ``TrainConfig`` has no fields for these, or raises on
+them (``configs/base.py``).
 """
 from __future__ import annotations
 
@@ -37,12 +39,12 @@ def physical_batch_size(train_cfg: TrainConfig, shape: ShapeConfig,
                         dataset_size: int, shards: int = 1) -> int:
     """Physical (padded) examples per step.  Fixed sampling: the configured
     batch.  Poisson: a step-invariant capacity >= the expected size q·N
-    (+6 binomial sigmas), rounded so that ``grad_accum`` chunks and
-    ``shards`` keep dividing it (``dp.microbatch`` is not ported and counts
-    as 1)."""
+    (+6 binomial sigmas), rounded so that ``grad_accum`` chunks of
+    ``dp.microbatch`` examples and ``shards`` keep dividing it."""
     if train_cfg.dp.sampling != "poisson":
         return shape.global_batch
-    mult = math.lcm(max(1, train_cfg.grad_accum), max(1, shards))
+    mult = math.lcm(max(1, train_cfg.grad_accum)
+                    * max(1, train_cfg.dp.microbatch), max(1, shards))
     return poisson_capacity(shape.global_batch,
                             shape.global_batch / dataset_size, multiple=mult)
 
@@ -50,7 +52,8 @@ def physical_batch_size(train_cfg: TrainConfig, shape: ShapeConfig,
 class Trainer:
     """``Trainer(model, train_cfg, shape)``; ``model`` is a
     ``repro_torch.models.transformer.Model`` whose params the Trainer makes
-    trainable and updates in place."""
+    trainable and updates in place, and whose ``remat`` it sets to the
+    config's."""
 
     def __init__(self, model, train_cfg: TrainConfig, shape: ShapeConfig):
         self.model = model
@@ -70,6 +73,7 @@ class Trainer:
             raise ValueError(f"unknown dp.sampling {self.sampling!r}; the "
                              f"port takes 'fixed' and 'poisson'")
         model.requires_grad_(True)
+        model.remat = train_cfg.remat
         self.source = make_source(train_cfg.data_source, model.arch.vocab,
                                   train_cfg.seed)
         self.sample_rate = shape.global_batch / self.source.dataset_size

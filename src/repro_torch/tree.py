@@ -6,6 +6,10 @@ from __future__ import annotations
 
 from typing import Any, Callable, List
 
+# elements of one slice of a leaf (128 MiB in float32): bounds the
+# temporaries of elementwise work over a stacked-layer leaf
+SLICE_ELEMS = 1 << 25
+
 
 def tree_map(fn: Callable, tree):
     """``fn`` on every leaf; ``None`` stays ``None``."""
@@ -29,3 +33,12 @@ def leaves(tree) -> List[Any]:
     if tree is None:
         return []
     return [tree]
+
+
+def leaf_slices(t, max_elems: int = SLICE_ELEMS):
+    """Views of ``t`` along its leading (stacked-layer) dim, each of at most
+    ``max_elems`` elements, or one row where a row is larger; a tensor of
+    fewer than two dims is one slice.  Tensors of one shape slice alike."""
+    if t.dim() < 2:
+        return (t,)
+    return t.split(max(1, max_elems // max(1, t[0].numel())))

@@ -172,3 +172,47 @@ ptxas info    : Used 120 registers, used 1 barriers
     tc = [any(p in r["function"] for pieces in smoke.TENSOR_CORE_KERNELS.values()
               for p in pieces) for r in got]
     assert tc == [True, True, True, False]
+
+
+@pytest.mark.parametrize("algo,route,remat,microbatch", [
+    ("sgd", "fused", "none", 0), ("sgd", "fused", "block", 0),
+    ("dpsgd_r", "fused", "none", 0), ("dpsgd_r", "fused", "block", 0),
+    ("dpsgd_r", "fused", "sites", 0), ("dpsgd_r", "materialize", "block", 0),
+    ("dpsgd_r1f", "fused", "none", 0), ("dpsgd_r1f", "fused", "sites", 0),
+    ("dpsgd_r1f", "materialize", "block", 0),
+    ("dpsgd", "fused", "none", 1), ("dpsgd", "fused", "block", 2),
+    ("dpsgd", "fused", "sites", 0)])
+def test_path_launches_count_the_wrapper_calls(smoke, monkeypatch, algo, route,
+                                               remat, microbatch):
+    """``path_launches``, which the card's run holds every path's launch
+    counts to, against the calls one Trainer step of the reduced phi3
+    makes to each kernel wrapper on the CPU (where a wrapper takes its
+    plain version and counts nothing, so each is wrapped here to count
+    its calls): every algorithm, under each remat policy."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import reduced
+    from repro_torch.configs.base import (DPConfig, OptimConfig, ShapeConfig,
+                                          TrainConfig)
+    from repro_torch.models.transformer import Model
+    from repro_torch.train import Trainer
+    for name, (mod, attr) in smoke.kernel_counts().items():
+        def counting(*args, _fn=getattr(mod, name), _mod=mod, _attr=attr,
+                     **kwargs):
+            setattr(_mod, _attr, getattr(_mod, _attr) + 1)
+            return _fn(*args, **kwargs)
+        monkeypatch.setattr(mod, name, counting)
+        monkeypatch.setattr(mod, attr, 0)
+    arch = reduced(get_arch("phi3-mini-3.8b"))
+    model = Model(arch, dtype=torch.float32, device="cpu", remat=remat)
+    cfg = TrainConfig(param_dtype="float32", compute_dtype="float32",
+                      remat=remat, optim=OptimConfig(schedule="constant"),
+                      dp=DPConfig(algo=algo, norm_strategy=route,
+                                  use_kernels=True, microbatch=microbatch))
+    trainer = Trainer(model, cfg, ShapeConfig("t", 8, 4, "train"))
+    state = trainer.init_state()
+    smoke.zero_counts()
+    trainer.train_step(state, trainer.make_batch(0))
+    assert smoke.read_counts() == smoke.path_launches(
+        route, arch.n_layers, algo=algo, remat=remat, examples=4,
+        microbatch=microbatch, leaves=len(tree.leaves(model.params)))

@@ -375,8 +375,7 @@ def test_view_helpers_match_jax():
 
 def test_unported_options_raise():
     loss_fn = lambda p, b, c: (None, c)
-    for dp in (DPConfig(algo="dpsgd"), DPConfig(algo="dpsgd_r1f"),
-               DPConfig(augmult=2), DPConfig(adaptive_clip=True)):
+    for dp in (DPConfig(augmult=2), DPConfig(adaptive_clip=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             talgo.make_noisy_grad_fn(loss_fn, dp)
     with pytest.raises(ValueError, match="unknown dp.algo"):

@@ -87,13 +87,20 @@ def test_truncation_warns_like_jax():
                                                    ("poisson", 5, 1), ("poisson", 4, 6),
                                                    ("poisson", 3, 2)])
 def test_physical_batch_size_matches_jax(sampling, accum, shards):
-    cfg = TrainConfig(grad_accum=accum, dp=DPConfig(sampling=sampling))
-    jcfg = JTrainConfig(grad_accum=accum, dp=JDPConfig(sampling=sampling))
-    for B, N in ((8, 1_000_000), (256, 60_000)):
-        got = physical_batch_size(cfg, ShapeConfig("t", 16, B, "train"), N, shards)
-        assert got == j_physical_batch_size(jcfg, JShapeConfig("t", 16, B, "train"),
-                                            N, shards)
-        assert got % math.lcm(accum, shards) == 0 or sampling == "fixed"
+    """The capacity is a multiple of lcm(grad_accum · dp.microbatch,
+    shards), as in the JAX package (microbatch 0 counts as 1)."""
+    for mb in (0, 3):
+        cfg = TrainConfig(grad_accum=accum,
+                          dp=DPConfig(sampling=sampling, microbatch=mb))
+        jcfg = JTrainConfig(grad_accum=accum,
+                            dp=JDPConfig(sampling=sampling, microbatch=mb))
+        for B, N in ((8, 1_000_000), (256, 60_000)):
+            got = physical_batch_size(cfg, ShapeConfig("t", 16, B, "train"), N,
+                                      shards)
+            assert got == j_physical_batch_size(
+                jcfg, JShapeConfig("t", 16, B, "train"), N, shards)
+            assert (got % math.lcm(accum * max(mb, 1), shards) == 0
+                    or sampling == "fixed")
 
 
 def test_poisson_trainer_matches_jax_trainer(tmp_path):

@@ -134,6 +134,20 @@ def test_launcher_trains_poisson_materialize_on_the_cpu(capsys):
     assert "finished at step 2; privacy spent: eps=" in out
 
 
+def test_launcher_trains_dpsgd_under_sites_remat_on_the_cpu(capsys):
+    """Vanilla DP-SGD two examples at a time, under remat="sites", through
+    the launcher on the CPU (``clip_reduce``'s plain version)."""
+    tlaunch.main(["--arch", "phi3-mini-3.8b", "--reduced", "--steps", "2",
+                  "--batch", "4", "--seq", "8", "--device", "cpu",
+                  "--dtype", "float32", "--set", "remat=sites",
+                  "--set", "dp.algo=dpsgd", "--set", "dp.microbatch=2",
+                  "--set", "dp.use_kernels=true", "--set", "log_every=1"])
+    out = capsys.readouterr().out
+    assert "remat sites; dp dpsgd" in out
+    assert out.count("[trainer] step") == 2
+    assert "finished at step 2; privacy spent: eps=" in out
+
+
 @pytest.mark.parametrize("pair", ["pp_stages=2", "ckpt_every=5", "zero1=false",
                                   "mesh.shape=4,2", "tune.seed=1",
                                   "dp.clip_quantile=0.3", "optim.block_size=64"])
@@ -146,15 +160,24 @@ def test_unported_overrides_raise(pair):
 
 
 def test_remat_and_dtypes_are_held():
-    """remat runs as "none" only; the model's dtype must be the config's,
-    and one type serves as both parameter and compute type."""
-    assert TrainConfig().remat == "none"
-    with pytest.raises(NotImplementedError, match="remat='block'"):
-        TrainConfig(remat="block")
-    with pytest.raises(ValueError, match="unknown remat"):
+    """remat defaults to "block", as in the JAX package, an unknown policy
+    raises and names the known ones, and the Trainer trains the model
+    under its config's policy; the model's dtype must be the config's, and
+    one type serves as both parameter and compute type."""
+    assert TrainConfig().remat == "block" == JTrainConfig().remat
+    for policy in ("none", "block", "sites"):
+        assert TrainConfig(remat=policy).remat == policy
+    with pytest.raises(ValueError, match=r"unknown remat.*'block', 'none', 'sites'"):
         TrainConfig(remat="everything")
+    with pytest.raises(ValueError, match="unknown remat"):
+        Model(treduced(TARCHS["phi3-mini-3.8b"]), dtype=torch.float32,
+              device="cpu", remat="everything")
     tm = Model(treduced(TARCHS["phi3-mini-3.8b"]), dtype=torch.float32,
                device="cpu")
+    assert tm.remat == "block"
+    Trainer(tm, TrainConfig(param_dtype="float32", compute_dtype="float32",
+                            remat="sites"), ShapeConfig("t", 8, 2, "train"))
+    assert tm.remat == "sites"
     shape = ShapeConfig("t", 8, 2, "train")
     with pytest.raises(ValueError, match="param_dtype='bfloat16'"):
         Trainer(tm, TrainConfig(), shape)
