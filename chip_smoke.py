@@ -73,7 +73,21 @@ the script exits nonzero and prints no ``ok`` line:
    then one warm-up and one timed step each of ``sgd``, ``dpsgd_r``,
    ``dpsgd_r1f`` and ``dpsgd`` at microbatch 1 and 8, with its peak memory
    and its step-time ratio to ``sgd``.  ``dpsgd_r1f``'s second pullback
-   is ``dense_dgrad``'s path and ``dpsgd``'s clipped sum ``clip_reduce``'s.
+   is ``dense_dgrad``'s path and ``dpsgd``'s clipped sum ``clip_reduce``'s;
+10. chatglm3-6b at full width and full depth (28 layers, 6.24B params),
+   bf16, GQA on 2 kv heads at hd 128, ``remat="block"``, ``dpsgd_r`` fused
+   + kernels, ``adam8bit``, B 8 x T 512 from a memmap corpus of 2^24 int32
+   tokens that the phase writes with numpy from a seed: its kernels at its
+   shapes against their plain versions (the flash pair at hd 128 and rep
+   16, ``dense_bwd_norm`` at every dense shape, ``gram_norm`` at the
+   embedding); a warm-up and three timed steps, one by hand stage by
+   stage, one profiled; then the checkpoint drill at full width and 4
+   layers: two steps, an asynchronous save at step 2, step 3 while the
+   write runs, a restore into a fresh Model and Trainer and step 3 again,
+   whose loss, norms² and every leaf must equal the first run's bit for
+   bit.  Its files live in a temporary directory under ``build/``, removed
+   at the end; the full-depth run saves nothing.  No phase steps through
+   ``Trainer.run``, which checkpoints at its last step.
 
 Each path counts the launches of every kernel from zero and must launch
 each kernel exactly as often as the code says it does (``path_launches``,
@@ -207,11 +221,16 @@ def gram_bound_ms(BG, T, di, do, masked, square, dtype_name):
 
 def dense_mix(arch, layers):
     """One training step's dense calls: (name, di, do, calls) for q, k, v,
-    o; w1, w3; w2; the head over the padded vocab."""
+    o (q and o apart from k and v under GQA); w1, w3; w2; the head over the
+    padded vocab."""
     from repro_torch.models.transformer import padded_vocab
     d, f, v = arch.d_model, arch.d_ff, padded_vocab(arch.vocab)
-    return [("qkvo", d, d, 4 * layers), ("w1w3", d, f, 2 * layers),
-            ("w2", f, d, layers), ("head", d, v, 1)]
+    q, kv = arch.n_heads * arch.hd, arch.n_kv_heads * arch.hd
+    assert q == d, (arch.name, q, d)
+    attn = ([("qkvo", d, d, 4 * layers)] if kv == d else
+            [("qo", d, d, 2 * layers), ("kv", d, kv, 2 * layers)])
+    return attn + [("w1w3", d, f, 2 * layers), ("w2", f, d, layers),
+                   ("head", d, v, 1)]
 
 
 def norm_bound_ms(BG, T, di, do, dtype_name):
@@ -664,7 +683,8 @@ TENSOR_CORE_KERNELS = {"dense_dgrad": ["tc12dgrad_kernel"],
                        "gram_norm": ["mma11gram_kernel"]}
 MAIN_PATH_KERNELS = ("tc12dgrad_kernel", "tc11norm_kernel", "mma16flash_fwd_kernelILi96E",
                      "mma13bwd_kv_kernelILi96E", "mma12bwd_q_kernelILi96E",
-                     "mma11gram_kernel")
+                     "mma16flash_fwd_kernelILi128E", "mma13bwd_kv_kernelILi128E",
+                     "mma12bwd_q_kernelILi128E", "mma11gram_kernel")
 
 
 def ptxas_report(log: str):
@@ -1033,15 +1053,23 @@ def profile_step(run, label):
 
 
 def timed_step(trainer, state):
-    """One Trainer step on ``state``, synced at both ends."""
+    """One Trainer step on ``state`` (its batch, ``Trainer.train_step`` and
+    the metrics read back), synced at both ends, with the record
+    ``Trainer.run`` keeps; not through ``run``, which checkpoints at its
+    last step."""
     import torch
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    trainer.run(state, state.step + 1)
+    step = state.step
+    rec = {k: float(v) for k, v in
+           trainer.train_step(state, trainer.make_batch(step)).items()}
     torch.cuda.synchronize()
-    h = trainer.history[-1]
-    return dict(step_ms=1e3 * (time.perf_counter() - t0), loss=h["loss"],
-                realized_batch=h["realized_batch"])
+    ms = 1e3 * (time.perf_counter() - t0)
+    rec.update(step=step, sec=ms / 1e3,
+               epsilon=trainer.accountant.epsilon_at(step + 1))
+    trainer.history.append(rec)
+    return dict(step_ms=ms, loss=rec["loss"],
+                realized_batch=rec["realized_batch"])
 
 
 def split_passes(model, state, dp, batch):
@@ -1091,12 +1119,14 @@ def counted_step(trainer, model, state, route, chunks=1):
 def train_shape_and_config(arch, remat):
     """The training paths' shape (B 8 x T 512) and config: ``dpsgd_r``
     with the fused route through the kernels, C 1, σ 1, δ 1e-5, AdamW at
-    lr 1e-4, under ``remat``."""
+    lr 1e-4, under ``remat``; checkpoints under the checkout's ``build/``
+    (no phase writes one: ``timed_step`` does not go through
+    ``Trainer.run``)."""
     from repro_torch.configs.base import (DPConfig, OptimConfig, ShapeConfig,
                                           TrainConfig)
     shape = ShapeConfig("chip_smoke", TRAIN_T, TRAIN_B, "train")
     cfg = TrainConfig(arch=arch.name, steps=1 + TRAIN_STEPS, log_every=1,
-                      remat=remat,
+                      remat=remat, ckpt_dir=str(ROOT / "build" / "chip_smoke_ckpt"),
                       dp=DPConfig(algo="dpsgd_r", norm_strategy="fused",
                                   use_kernels=True, clip_norm=1.0,
                                   noise_multiplier=1.0, delta=1e-5),
@@ -1573,6 +1603,227 @@ def train_algorithms():
     return dict(steps=recs, sigma0=errs, launches=launches)
 
 
+# phase 10: chatglm3-6b at full width and depth, batches from a memmap
+# corpus of 2^24 int32 tokens, adam8bit; the checkpoint drill at 4 layers
+GLM_ARCH, GLM_DRILL_LAYERS, CORPUS_TOKENS = "chatglm3-6b", 4, 1 << 24
+
+
+def write_corpus(path, vocab, seed=0):
+    """A flat int32 token file of ``CORPUS_TOKENS`` tokens, from ``seed``."""
+    import numpy as np
+    np.random.default_rng(seed).integers(0, vocab, CORPUS_TOKENS,
+                                         dtype=np.int32).tofile(path)
+
+
+def glm_shape_and_config(arch, corpus, ckpt_dir):
+    """Phase 10's shape (B 8 x T 512) and config: ``dpsgd_r`` fused through
+    the kernels, C 1, σ 1, δ 1e-5, remat ``block``, adam8bit at lr 1e-4,
+    batches from the memmap ``corpus``, asynchronous checkpoints to
+    ``ckpt_dir`` (the steps here never reach ``Trainer.run``'s saves)."""
+    from repro_torch.configs.base import OptimConfig
+    shape, cfg = train_shape_and_config(arch, "block")
+    return shape, dataclasses.replace(
+        cfg, data_source=f"memmap:{corpus}", ckpt_dir=str(ckpt_dir),
+        ckpt_async=True, optim=OptimConfig(name="adam8bit", lr=1e-4,
+                                           schedule="constant"))
+
+
+def check_glm_kernels(arch):
+    """The kernels of phase 10's path at its shapes, bf16, each against its
+    plain version: the flash pair at 8 x 32 heads on 2 kv heads, T 512, hd
+    128; dense_bwd_norm at every dense shape of the layer and the head;
+    gram_norm at the masked embedding."""
+    import torch
+    bf16 = torch.bfloat16
+    B, T, H, KV, hd = TRAIN_B, TRAIN_T, arch.n_heads, arch.n_kv_heads, arch.hd
+    fwd = check_flash("glm-train", B, H, KV, T, hd, True, bf16)
+    bwd = check_flash_bwd("glm-train", B * H, B * KV, T, hd, True, bf16)
+    mix = dense_mix(arch, arch.n_layers)
+    dense = [check_dense_bwd_norm(nm, B, T, di, do, 1, bf16,
+                                  iters=5 if nm == "head" else 10)
+             for nm, di, do, _ in mix]
+    gram = check_gram("glm-embed", B, T, arch.d_model, arch.d_model, True, False, bf16)
+    for r in (fwd, bwd, gram):
+        assert r["path"] == "mma+cp.async", r
+    for r in dense:
+        assert r["path"] == r["norm_path"] == "wgmma+tma", r
+    step = {k: sum(n * r[k] for (_, _, _, n), r in zip(mix, dense))
+            for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    # k and v (4096 -> 256) are bound by bytes, the rest by operations: the
+    # step's bound is the sum, named by the roof that holds most of it
+    by = {}
+    for (_, _, _, n), r in zip(mix, dense):
+        by[r["bound_by"]] = by.get(r["bound_by"], 0.0) + n * r["bound_ms"]
+    step["bound_by"] = max(by, key=by.get)
+    step["bound_ms_by_roof"] = by
+    step["max_abs_err"] = max(r["max_abs_err"] for r in dense)
+    print(f"[glm] dense_bwd_norm over one step's {sum(n for *_, n in mix)} calls, "
+          f"bf16: kernel {step['ms']:.2f} ms, plain {step['plain_ms']:.1f} ms, "
+          f"matmul + bmm {step['library_ms']:.2f} ms, bound {step['bound_ms']:.2f} "
+          f"ms ({step['bound_by']}), {100 * step['bound_ms'] / step['ms']:.1f}% of "
+          f"bound", flush=True)
+    return dict(flash_fwd=fwd, flash_bwd=bwd, dense=dense, dense_step=step,
+                gram=gram, mix=mix)
+
+
+def train_glm(corpus, ckpt_dir):
+    """Phase 10's full-depth run: chatglm3-6b, 28 layers, from the memmap
+    corpus, under adam8bit: a warm-up step, three counted steps, one by
+    hand stage by stage, one profiled.  Saves nothing."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import Model
+    from repro_torch.train import Trainer
+    arch = get_arch(GLM_ARCH)
+    shape, cfg = glm_shape_and_config(arch, corpus, ckpt_dir)
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    model = Model(arch, dtype=torch.bfloat16, device="cuda", seed=0, remat="block")
+    torch.cuda.synchronize()
+    params_bytes = torch.cuda.memory_allocated() - before
+    trainer = Trainer(model, cfg, shape)
+    state = trainer.init_state()
+    torch.cuda.synchronize()
+    state_bytes = torch.cuda.memory_allocated() - before - params_bytes
+    n_par = sum(p.numel() for p in model.parameters())
+    print(f"[glm] {arch.name} at full width and depth, {arch.n_layers} layers: "
+          f"{n_par / 1e9:.3f}B params bf16 {params_bytes / 2**30:.2f} GiB + adam8bit "
+          f"state {state_bytes / 2**30:.2f} GiB; init {time.perf_counter() - t:.1f} s; "
+          f"batch {TRAIN_B} x {TRAIN_T} from {trainer.source.dataset_size} memmap "
+          f"tokens, remat block", flush=True)
+    timed_step(trainer, state)                 # warm-up
+    steps = []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.reset_peak_memory_stats()
+        rec, *_ = counted_step(trainer, model, state, "fused")
+        steps.append(rec)
+        print(f"[glm] {arch.n_layers} layers, dpsgd_r fused+kernels, adam8bit, step "
+              f"{state.step - 1}: loss {rec['loss']:.4f}; {rec['step_ms']:.1f} ms = "
+              f"pass 1 {rec['pass1_ms']:.1f} + pass 2 {rec['pass2_ms']:.1f} + noise "
+              f"and optimizer {rec['noise_opt_ms']:.1f}; peak "
+              f"{rec['peak_bytes'] / 2**30:.2f} GiB; launches {rec['launches']}",
+              flush=True)
+    staged = staged_step(trainer, state)
+    print(f"[glm] one step stage by stage: {_stages_line(staged)}", flush=True)
+    prof = profile_step(lambda: timed_step(trainer, state),
+                        f"fused+kernels, {arch.name}, {arch.n_layers} layers, "
+                        f"adam8bit,")
+    losses = [r["loss"] for r in steps]
+    assert all(math.isfinite(x) for x in losses), losses
+    mean = float(np.mean([r["step_ms"] for r in steps]))
+    eps = trainer.accountant.epsilon_at(state.step)
+    print(f"[glm] mean step {mean:.1f} ms, {TRAIN_B * TRAIN_T / mean * 1e3:.0f} "
+          f"tokens/s; eps after {state.step} steps {eps:.6f} (q "
+          f"{trainer.sample_rate:.3e}, N = {trainer.source.dataset_size} tokens)",
+          flush=True)
+    launches = {k: sum(r["launches"][k] for r in steps) for k in steps[0]["launches"]}
+    return dict(params=n_par, params_bytes=params_bytes, state_bytes=state_bytes,
+                steps=steps, staged=staged, profile=prof, mean_step_ms=mean,
+                tokens_per_s=TRAIN_B * TRAIN_T / mean * 1e3, epsilon=eps,
+                launches=launches)
+
+
+def checkpoint_drill(corpus, ckpt_dir):
+    """Phase 10's checkpoint drill at full width and 4 layers: two steps,
+    an asynchronous save at step 2, step 3 at once (its update mutates the
+    state while the write runs); then a fresh Model and Trainer restore
+    step 2 and run step 3 again: its loss, norms² and every leaf after it
+    must equal the first run's bit for bit."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core import algo
+    from repro_torch.models.transformer import Model
+    from repro_torch.train import Trainer
+    from repro_torch.train.checkpoint import flatten
+    arch = dataclasses.replace(get_arch(GLM_ARCH), n_layers=GLM_DRILL_LAYERS)
+    shape, cfg = glm_shape_and_config(arch, corpus, ckpt_dir)
+
+    def step3(trainer, state):
+        """Step 3's norms² (pass 1 on its batch) and the step itself."""
+        data, mask = algo.split_mask(trainer.make_batch(state.step))
+        nsq, _ = algo.norm_pass(trainer.model.loss_fn, state.params, data,
+                                trainer.cfg.dp, mask)
+        return nsq, timed_step(trainer, state)
+
+    model = Model(arch, dtype=torch.bfloat16, device="cuda", seed=0, remat="block")
+    trainer = Trainer(model, cfg, shape)
+    state = trainer.init_state()
+    for _ in range(2):
+        timed_step(trainer, state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.ckpt.save(state, state.step)
+    blocked = time.perf_counter() - t0
+    nsq, rec = step3(trainer, state)
+    overlapped = trainer.ckpt._thread is not None and trainer.ckpt._thread.is_alive()
+    trainer.ckpt.wait()
+    write_s = trainer.ckpt.write_seconds
+    after = [t.clone() if isinstance(t, torch.Tensor) else t for t in flatten(state)]
+    step_dir = Path(ckpt_dir) / "step_2"
+    nbytes = sum(f.stat().st_size for f in step_dir.iterdir())
+    n_par = sum(p.numel() for p in model.parameters())
+    del model, trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model = Model(arch, dtype=torch.bfloat16, device="cuda", seed=1, remat="block")
+    trainer = Trainer(model, cfg, shape)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = trainer.restore_or_init()
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    assert state.step == 2, state.step
+    nsq_b, rec_b = step3(trainer, state)
+    leaves = flatten(state)
+    same = [torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+            for a, b in zip(after, leaves)]
+    assert rec_b["loss"] == rec["loss"], (rec_b, rec)
+    assert torch.equal(nsq_b, nsq), (nsq_b, nsq)
+    assert len(same) == len(leaves) and all(same), same.count(False)
+    print(f"[ckpt] {arch.name} at full width, {arch.n_layers} layers ({n_par / 1e9:.3f}B "
+          f"params, adam8bit): step 2 saved, {nbytes / 1e9:.3f} GB in "
+          f"{len(list(step_dir.iterdir())) - 1} files; save blocked {blocked:.3f} s, "
+          f"the write took {write_s:.3f} s (still running when step 3 ended: "
+          f"{overlapped}); restore into a fresh Model and Trainer {restore_s:.3f} s; "
+          f"step 3 after the restore: loss {rec_b['loss']:.6f}, norms² and all "
+          f"{len(leaves)} leaves bit-identical to the uninterrupted run's", flush=True)
+    del model, trainer, state, after, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(params=n_par, bytes=nbytes, save_blocked_s=blocked, write_s=write_s,
+                write_outlasted_step=overlapped, restore_s=restore_s,
+                loss=rec["loss"], step3_ms=rec["step_ms"], leaves=len(same))
+
+
+def train_glm_path():
+    """Phase 10 (see the module docstring), in a temporary directory under
+    the checkout's ``build/`` that is removed at the end."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import get_arch
+    arch = get_arch(GLM_ARCH)
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_glm_", dir=ROOT / "build"))
+    try:
+        corpus = tmp / "tokens.bin"
+        write_corpus(corpus, arch.vocab)
+        kernels = check_glm_kernels(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        full = train_glm(corpus, tmp / "ckpt_full")
+        assert not any((tmp / "ckpt_full").iterdir())    # the full depth saved nothing
+        gc.collect()
+        torch.cuda.empty_cache()
+        drill = checkpoint_drill(corpus, tmp / "ckpt_drill")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(kernels=kernels, full=full, drill=drill, launches=full["launches"])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1754,7 +2005,13 @@ def main() -> int:
     algos = train_algorithms()
     gc.collect()
     torch.cuda.empty_cache()
-    launches = {k: sum(r["launches"][k] for r in (train, routes, remat, algos))
+
+    # 10. chatglm3-6b at full width and depth from a memmap corpus, adam8bit;
+    # the checkpoint drill
+    glm = train_glm_path()
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {k: sum(r["launches"][k] for r in (train, routes, remat, algos, glm))
                 for k in train["launches"]}
     launches["flash_attn_fwd"] += serve_launches
 
@@ -1762,6 +2019,14 @@ def main() -> int:
     bwd_rec, gram_rec = pick(bwd_recs, "phi3-train"), pick(gram_recs, "embed")
     clip_rec = pick(clip_recs, "phi3-w1-stack")
     mix = " + ".join(f"{n} x ({di},{do})" for _, di, do, n in train_mix)
+
+    gk = glm["kernels"]
+
+    def glm_row(rec, shape):
+        """A kernel's numbers at phase 10's shape (bf16)."""
+        return {"shape": shape, **{k: rec[k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "path": rec.get("path", "wgmma+tma")}
 
     def entry(name, source, replaces, n, rec, **extra):
         out = {"name": name, "route": "cuda",
@@ -1776,20 +2041,29 @@ def main() -> int:
     kernels = {"kernels": [
         entry("flash_attn_fwd", "flash_attn_fwd.cu",
               "src/repro/kernels/flash_attn.py:77", launches["flash_attn_fwd"],
-              flash_rec, shape="serving wave, bf16", path=flash_rec["path"]),
+              flash_rec, shape="serving wave, bf16", path=flash_rec["path"],
+              chatglm3=glm_row(gk["flash_fwd"], f"({TRAIN_B} x 32 heads, kv 2, "
+                               f"T {TRAIN_T}, hd 128) causal")),
         entry("dense_bwd_norm", "dense_bwd_norm.cu",
               "src/repro/kernels/fused_bwd.py:114", launches["dense_bwd_norm"],
               step_sum(dense_recs),
               shape=f"sum over one training step's calls, bf16: {mix}",
-              path="gx wgmma+tma, norm wgmma+tma"),
+              path="gx wgmma+tma, norm wgmma+tma",
+              chatglm3=glm_row(gk["dense_step"], "sum over one chatglm3-6b step's "
+                               "calls: " + " + ".join(f"{n} x ({di},{do})" for _, di, do, n
+                                                      in gk["mix"]))),
         entry("flash_attn_bwd", "flash_attn_bwd.cu",
               "src/repro/kernels/flash_attn.py:210", launches["flash_attn_bwd"],
               bwd_rec, shape=f"({bwd_rec['BH']}, {TRAIN_T}, {arch.hd}) causal, bf16",
-              path=bwd_rec["path"]),
+              path=bwd_rec["path"],
+              chatglm3=glm_row(gk["flash_bwd"], f"({TRAIN_B * 32}, kv {TRAIN_B * 2}, "
+                               f"{TRAIN_T}, 128) causal")),
         entry("gram_norm", "gram_norm.cu", "src/repro/kernels/gram_norm.py:66",
               launches["gram_norm"], gram_rec,
               shape=f"embedding rule ({TRAIN_B}, {TRAIN_T}, {d}) masked, bf16",
-              path=gram_rec["path"]),
+              path=gram_rec["path"],
+              chatglm3=glm_row(gk["gram"], f"embedding rule ({TRAIN_B}, {TRAIN_T}, "
+                               f"4096) masked")),
         entry("pegrad_norm", "pegrad_norm.cu", "src/repro/kernels/pegrad_norm.py:52",
               launches["pegrad_norm"], norm_step,
               shape=f"sum over one materialize step's calls, bf16: {mix}",
@@ -1815,7 +2089,8 @@ def main() -> int:
          "fusion_ab_step": ab_step, "flash_attn_bwd": bwd_recs,
          "gram_norm": gram_recs, "clip_reduce": clip_recs, "serve": runs,
          "decode_breakdown_ms": breakdown, "train": train, "routes": routes,
-         "remat": remat, "algos": algos, "json_line": kernels}, indent=1))
+         "remat": remat, "algos": algos, "glm": glm, "json_line": kernels},
+        indent=1, default=str))
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

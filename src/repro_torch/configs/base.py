@@ -4,13 +4,13 @@
 layer placement, so a layer pattern reads the same as there).  The shape,
 DP, optimizer and training configs keep the JAX package's field names, so
 ``--set a.b=c`` overrides read the same in both packages, but only for what
-the port runs.  The fields of parts it has not taken over (checkpoints,
-pipeline stages, the device mesh and sharding, gradient compression, the
-memory planner, the launch autotuner, the straggler watchdog, adaptive
-clipping's parameters, adam8bit's block) are left out, and ``--set`` on one
-of them raises ``NotImplementedError`` (``NOT_PORTED``).  The ``Trainer``
-holds the model's dtype to ``param_dtype`` and ``compute_dtype``, which
-must be equal, and its remat policy to ``remat``.
+the port runs.  The fields of parts it has not taken over (pipeline
+stages, the device mesh and sharding, gradient compression, the memory
+planner, the launch autotuner, adaptive clipping's parameters) are left
+out, and ``--set`` on one of them raises ``NotImplementedError``
+(``NOT_PORTED``).  The ``Trainer`` holds the model's parameter and compute
+types to ``param_dtype`` and ``compute_dtype``, and its remat policy to
+``remat``.
 """
 from __future__ import annotations
 
@@ -126,17 +126,13 @@ def validate_remat(remat: str) -> str:
 # --set keys of the JAX package's configs that the port leaves out: the key
 # (or its first part) -> the feature, named in the error
 NOT_PORTED: Dict[str, str] = {
-    "ckpt_every": "checkpoints", "ckpt_dir": "checkpoints",
-    "ckpt_keep": "checkpoints", "ckpt_async": "checkpoints",
     "pp_stages": "pipeline stages", "pp_microbatches": "pipeline stages",
     "compress_pod_grads": "gradient compression",
     "zero1": "sharded optimizer state", "mesh": "the device mesh",
     "mem": "the memory planner", "tune": "the launch autotuner",
-    "watchdog_factor": "the straggler watchdog",
     "dp.clip_quantile": "adaptive clipping",
     "dp.clip_lr": "adaptive clipping",
     "dp.clip_count_noise": "adaptive clipping",
-    "optim.block_size": "optimizer 'adam8bit'",
 }
 
 
@@ -196,6 +192,7 @@ class OptimConfig:
     eps: float = 1e-8
     weight_decay: float = 0.0
     momentum: float = 0.9
+    block_size: int = 256          # adam8bit quantization block
 
 
 @dataclass(frozen=True)
@@ -203,12 +200,19 @@ class TrainConfig:
     """Top-level training configuration.  ``seed`` keys the data stream,
     init and the DP noise.  ``remat`` is the model's activation
     checkpointing policy (``REMAT_POLICIES``), ``"block"`` by default as in
-    the JAX package."""
+    the JAX package.  Checkpoints go to ``ckpt_dir`` every ``ckpt_every``
+    steps and at the last (``ckpt_keep`` kept, written on a thread under
+    ``ckpt_async``); a step slower than ``watchdog_factor`` times the
+    median is logged."""
     arch: str = "phi3-mini-3.8b"
     shape: str = "train_4k"
     seed: int = 0
     steps: int = 100
     log_every: int = 10
+    ckpt_every: int = 50
+    ckpt_dir: str = "/tmp/repro_ckpt"
+    ckpt_keep: int = 3
+    ckpt_async: bool = True
     remat: str = "block"           # none | block | sites (REMAT_POLICIES)
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
@@ -216,6 +220,7 @@ class TrainConfig:
     dp: DPConfig = field(default_factory=DPConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
     data_source: str = "synthetic"  # synthetic | memmap:<path>
+    watchdog_factor: float = 3.0    # straggler logging threshold
 
     def __post_init__(self):
         validate_remat(self.remat)

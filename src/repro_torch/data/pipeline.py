@@ -1,5 +1,5 @@
-"""Deterministic, stateless synthetic data.  Counterpart of
-``repro/data/pipeline.py`` (``_rng``, ``SyntheticSource``, ``batch_for``,
+"""Deterministic, stateless data.  Counterpart of ``repro/data/pipeline.py``
+(``_rng``, ``SyntheticSource``, ``MemmapSource``, ``batch_for``,
 ``poisson_sample_indices``, ``poisson_capacity``, ``poisson_batch_for``),
 for token streams.
 
@@ -69,14 +69,59 @@ class SyntheticSource:
         return {"tokens": out}
 
 
-def make_source(spec: str, vocab: int, seed: int = 0) -> SyntheticSource:
+@dataclasses.dataclass(frozen=True)
+class MemmapSource:
+    """File-backed token corpus: a flat int32 memmap; each example is a
+    window of it whose start is drawn from the same (seed, step, example)
+    keyed streams as the synthetic tokens, so both packages read the same
+    windows.  ``dataset_size`` is the token count, as in the JAX package,
+    so the accountant prices the same q = B/N."""
+    path: str
+    vocab: int
+    seed: int = 0
+
+    def __post_init__(self):
+        object.__setattr__(self, "_data",
+                           np.memmap(self.path, dtype=np.int32, mode="r"))
+
+    @property
+    def dataset_size(self) -> int:
+        return len(self._data)
+
+    def _windows(self, step: int, streams, seq_len: int) -> Dict[str, np.ndarray]:
+        hi_start = len(self._data) - (seq_len + 1)
+        out = np.empty((len(streams), seq_len + 1), np.int32)
+        for row, stream in enumerate(streams):
+            s = int(_rng(self.seed, step, stream).integers(0, hi_start))
+            out[row] = self._data[s:s + seq_len + 1]
+        return {"tokens": np.clip(out, 0, self.vocab - 1)}
+
+    def batch(self, step: int, n: int, seq_len: int, shard: int = 0,
+              n_shards: int = 1) -> Dict[str, np.ndarray]:
+        """This shard's slice of the step's windows, as ``SyntheticSource``."""
+        if n % n_shards:
+            raise ValueError(f"batch {n} does not split into {n_shards} shards")
+        per = n // n_shards
+        lo = shard * per
+        return self._windows(step, range(lo + 1, lo + per + 1), seq_len)
+
+    def examples(self, indices: np.ndarray, seq_len: int) -> Dict[str, np.ndarray]:
+        """Windows by dataset index: index i is the same window whichever
+        step samples it."""
+        return self._windows(_EXAMPLE_STREAM_STEP,
+                             [int(i) + 1 for i in indices], seq_len)
+
+
+def make_source(spec: str, vocab: int, seed: int = 0):
+    """``"synthetic"`` or ``"memmap:<path>"``."""
     if spec == "synthetic":
         return SyntheticSource(vocab=vocab, seed=seed)
-    raise NotImplementedError(f"data source {spec!r} is not ported yet "
-                              f"(the port reads synthetic data only)")
+    if spec.startswith("memmap:"):
+        return MemmapSource(path=spec.split(":", 1)[1], vocab=vocab, seed=seed)
+    raise ValueError(f"unknown data source {spec!r}")
 
 
-def batch_for(source: SyntheticSource, arch: ArchConfig, shape: ShapeConfig,
+def batch_for(source, arch: ArchConfig, shape: ShapeConfig,
               step: int, shard: int = 0, n_shards: int = 1) -> Dict[str, np.ndarray]:
     """This shard's slice of the global batch for (arch, shape) at ``step``."""
     if arch.embed_stub:
@@ -114,7 +159,7 @@ def poisson_capacity(expected_batch: int, sample_rate: float,
     return ((cap + multiple - 1) // multiple) * multiple
 
 
-def poisson_batch_for(source: SyntheticSource, arch: ArchConfig,
+def poisson_batch_for(source, arch: ArchConfig,
                       shape: ShapeConfig, step: int,
                       capacity: Optional[int] = None,
                       sample_rate: Optional[float] = None,

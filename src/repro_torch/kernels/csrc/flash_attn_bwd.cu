@@ -388,15 +388,15 @@ __device__ __forceinline__ void store_rows(float* __restrict__ out, const float 
   }
 }
 
-// acc (16 x HDP) += a (16 x 64, four k-steps of 16 from the f32
-// accumulators s, rounded to bf16) · tile (64 x HDP, row-major, through
-// ldmatrix.trans)
-template <int HDP>
-__device__ __forceinline__ void acc_times_tile(float (&acc)[HDP / 8][4], const float (&s)[8][4],
-                                               const __nv_bfloat16* tile) {
+// acc (16 x HDP) += a (16 x 8·NJ, NJ/2 k-steps of 16 from the f32
+// accumulators s, rounded to bf16) · tile rows row0 .. row0 + 8·NJ (x HDP,
+// row-major, through ldmatrix.trans)
+template <int HDP, int NJ = 8>
+__device__ __forceinline__ void acc_times_tile(float (&acc)[HDP / 8][4], const float (&s)[NJ][4],
+                                               const __nv_bfloat16* tile, int row0 = 0) {
   constexpr int LDS = HDP + 8;
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < NJ / 2; ++kk) {
     const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
                            pack_bf16(s[2 * kk][2], s[2 * kk][3]),
                            pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
@@ -404,7 +404,7 @@ __device__ __forceinline__ void acc_times_tile(float (&acc)[HDP / 8][4], const f
 #pragma unroll
     for (int np = 0; np < HDP / 16; ++np) {
       uint32_t b0, b1, b2, b3;
-      ldsm_b_t(b0, b1, b2, b3, tile, LDS, 16 * kk, 16 * np);
+      ldsm_b_t(b0, b1, b2, b3, tile, LDS, row0 + 16 * kk, 16 * np);
       mma16816(acc[2 * np], a, b0, b1);
       mma16816(acc[2 * np + 1], a, b2, b3);
     }
@@ -420,6 +420,13 @@ bwd_kv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
               float* __restrict__ dk, float* __restrict__ dv, int T_, int S, int hd, int rep,
               int causal, int n_k, float scale, int vec) {
   constexpr int LDS = HDP + 8, KS = HDP / 16, NO = HDP / 8;
+  // query parts a tile: at hd 128 the dK and dV accumulators take 128 f32
+  // registers a lane, and Sᵀ and dPᵀ of all 64 queries 64 more, which
+  // spilled; two parts of 32 queries, in a loop the compiler keeps rolled
+  // (unrolled, it holds both parts' values at once and spills again), fit
+  // in 248 registers.  Each accumulator still sums the same products in the
+  // same order, so the bits do not change.
+  constexpr int NH = HDP > 96 ? 2 : 1, NJ = 8 / NH;
   extern __shared__ __align__(16) __nv_bfloat16 ksm[];
   __nv_bfloat16* sK = ksm;
   __nv_bfloat16* sV = sK + 64 * LDS;
@@ -456,6 +463,7 @@ bwd_kv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
     for (int e = 0; e < 4; ++e) adk[n][e] = adv[n][e] = 0.f;
 
   const int key_lo = k0 + 16 * warp;   // this warp's 16 keys
+#pragma unroll 1
   for (int qt = qt0; qt < n_q; ++qt) {
     const int buf = (qt - qt0) & 1, q0 = qt * BQ;
     cp_async_wait<0>();   // tile qt landed
@@ -473,51 +481,57 @@ bwd_kv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
     const float* tL = sL + buf * 64;
     const float* tD = sD + buf * 64;
 
-    // Sᵀ = K Qᵀ and dPᵀ = V dOᵀ: 16 keys x 64 queries per warp
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      uint32_t ka[4], va[4];
-      ldsm_a(ka, sK, LDS, 16 * warp, 16 * ks);
-      ldsm_a(va, sV, LDS, 16 * warp, 16 * ks);
-#pragma unroll
-      for (int jp = 0; jp < 4; ++jp) {
-        uint32_t b0, b1, b2, b3;
-        ldsm_b(b0, b1, b2, b3, tQ, LDS, 16 * jp, 16 * ks);
-        mma16816(s[2 * jp], ka, b0, b1);
-        mma16816(s[2 * jp + 1], ka, b2, b3);
-        ldsm_b(b0, b1, b2, b3, tO, LDS, 16 * jp, 16 * ks);
-        mma16816(dp[2 * jp], va, b0, b1);
-        mma16816(dp[2 * jp + 1], va, b2, b3);
-      }
-    }
-
-    // Pᵀ and dSᵀ (without the scale) in place; zero where the query is past
-    // T or (causal) before the key (keys past S are never stored)
+    // Sᵀ = K Qᵀ and dPᵀ = V dOᵀ: 16 keys x 64 queries per warp, in NH
+    // parts of 64 / NH queries (see NH)
     const bool masked = q0 + BQ > T_ || (causal && key_lo + 15 > q0);
+#pragma unroll 1
+    for (int hq = 0; hq < NH; ++hq) {
+      float s[NJ][4], dp[NJ][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float2 L = *reinterpret_cast<const float2*>(tL + 8 * j + 2 * t4);
-      const float2 D = *reinterpret_cast<const float2*>(tD + 8 * j + 2 * t4);
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float p = exp2f(fmaf(s[j][e], scale_log2, -((e & 1) ? L.y : L.x) * LOG2E));
-        if (masked) {
-          const int key = key_lo + g + 8 * (e >> 1), qpos = q0 + 8 * j + 2 * t4 + (e & 1);
-          if (qpos >= T_ || (causal && key > qpos)) p = 0.f;
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t ka[4], va[4];
+        ldsm_a(ka, sK, LDS, 16 * warp, 16 * ks);
+        ldsm_a(va, sV, LDS, 16 * warp, 16 * ks);
+#pragma unroll
+        for (int jp = 0; jp < NJ / 2; ++jp) {
+          const int qr = 8 * NJ * hq + 16 * jp;
+          uint32_t b0, b1, b2, b3;
+          ldsm_b(b0, b1, b2, b3, tQ, LDS, qr, 16 * ks);
+          mma16816(s[2 * jp], ka, b0, b1);
+          mma16816(s[2 * jp + 1], ka, b2, b3);
+          ldsm_b(b0, b1, b2, b3, tO, LDS, qr, 16 * ks);
+          mma16816(dp[2 * jp], va, b0, b1);
+          mma16816(dp[2 * jp + 1], va, b2, b3);
         }
-        s[j][e] = p;
-        dp[j][e] = p * (dp[j][e] - ((e & 1) ? D.y : D.x));
       }
-    }
 
-    // dV += Pᵀ dO, dK += dSᵀ Q
-    acc_times_tile<HDP>(adv, s, tO);
-    acc_times_tile<HDP>(adk, dp, tQ);
+      // Pᵀ and dSᵀ (without the scale) in place; zero where the query is
+      // past T or (causal) before the key (keys past S are never stored)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int qc = 8 * (NJ * hq + j) + 2 * t4;   // this lane's query column
+        const float2 L = *reinterpret_cast<const float2*>(tL + qc);
+        const float2 D = *reinterpret_cast<const float2*>(tD + qc);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2f(fmaf(s[j][e], scale_log2, -((e & 1) ? L.y : L.x) * LOG2E));
+          if (masked) {
+            const int key = key_lo + g + 8 * (e >> 1), qpos = q0 + qc + (e & 1);
+            if (qpos >= T_ || (causal && key > qpos)) p = 0.f;
+          }
+          s[j][e] = p;
+          dp[j][e] = p * (dp[j][e] - ((e & 1) ? D.y : D.x));
+        }
+      }
+
+      // dV += Pᵀ dO, dK += dSᵀ Q over this part's queries
+      acc_times_tile<HDP, NJ>(adv, s, tO, 8 * NJ * hq);
+      acc_times_tile<HDP, NJ>(adk, dp, tQ, 8 * NJ * hq);
+    }
   }
   cp_async_wait<0>();   // nothing in flight at exit (no query tile when qt0 >= n_q)
 

@@ -13,13 +13,23 @@
         --reduced --steps 3 --device cpu --dtype float32 --set remat=sites \
         --set dp.algo=dpsgd --set dp.microbatch=2 --set dp.use_kernels=true
 
+    PYTHONPATH=src python -m repro_torch.launch.train --arch phi3-mini-3.8b \
+        --reduced --steps 6 --device cpu --dtype float32 \
+        --set ckpt_dir=/path/to/ckpts --set ckpt_every=3 \
+        --set data_source=memmap:/path/to/tokens.bin --set optim.name=adam8bit
+
 The JAX launcher's flags ``--arch``, ``--reduced``, ``--steps``, ``--batch``,
 ``--seq`` and ``--set`` (``--set shape=...`` picks the input shape), plus
 ``--device`` (default ``cuda``) and ``--dtype`` as in ``launch/serve.py``.
 ``--dtype`` sets ``param_dtype`` and ``compute_dtype`` before the ``--set``
-overrides (default: the config's, ``bfloat16``).  Weights are a seeded
-random init; there are no checkpoints.  Under ``dp.sampling=poisson`` each
-step's line gives its realized batch and the padded capacity.
+overrides (default: the config's, ``bfloat16``); ``--set param_dtype=float32
+--set compute_dtype=bfloat16`` holds float32 weights and computes in bf16.
+A run resumes from the latest checkpoint in ``ckpt_dir`` (``[trainer]
+restored step N``), else starts from a seeded random init, and saves every
+``ckpt_every`` steps, at its last and on SIGTERM/SIGINT.  ``data_source=
+memmap:<path>`` reads windows of a flat int32 token file.  Under
+``dp.sampling=poisson`` each step's line gives its realized batch and the
+padded capacity.
 """
 from __future__ import annotations
 
@@ -55,9 +65,10 @@ def main(argv=None) -> None:
     if args.dtype:
         cfg = replace(cfg, param_dtype=args.dtype, compute_dtype=args.dtype)
     cfg = apply_overrides(cfg, parse_set_args(args.set))
-    if cfg.param_dtype not in DTYPES:
-        raise ValueError(f"param_dtype={cfg.param_dtype!r}; the launcher "
-                         f"takes {sorted(DTYPES)}")
+    for key in ("param_dtype", "compute_dtype"):
+        if getattr(cfg, key) not in DTYPES:
+            raise ValueError(f"{key}={getattr(cfg, key)!r}; the launcher "
+                             f"takes {sorted(DTYPES)}")
     if args.steps is not None:
         cfg = replace(cfg, steps=args.steps,
                       optim=replace(cfg.optim, total_steps=args.steps))
@@ -73,11 +84,13 @@ def main(argv=None) -> None:
                             shape.kind)
     cfg = replace(cfg, arch=arch.name)
 
-    model = Model(arch, dtype=DTYPES[cfg.param_dtype], device=args.device,
+    model = Model(arch, dtype=DTYPES[cfg.compute_dtype],
+                  param_dtype=DTYPES[cfg.param_dtype], device=args.device,
                   seed=cfg.seed, remat=cfg.remat)
     trainer = Trainer(model, cfg, shape)
     print(f"[train] {arch.name}: {sum(p.numel() for p in model.parameters())} "
-          f"params {cfg.param_dtype} on {model.device}; batch {shape.global_batch} "
+          f"params {cfg.param_dtype} (compute {cfg.compute_dtype}) on "
+          f"{model.device}; data {cfg.data_source}; batch {shape.global_batch} "
           f"x {shape.seq_len}; remat {cfg.remat}; dp {cfg.dp.algo} "
           f"norm_strategy={cfg.dp.norm_strategy} use_kernels="
           f"{cfg.dp.use_kernels}",
@@ -86,7 +99,7 @@ def main(argv=None) -> None:
         print(f"[train] poisson sampling: q = {trainer.sample_rate:.3e}, "
               f"expected batch {shape.global_batch}, capacity "
               f"{trainer.capacity} rows", flush=True)
-    state = trainer.run(trainer.init_state())
+    state = trainer.run(trainer.restore_or_init())
     eps = trainer.accountant.epsilon_at(state.step)
     print(f"[train] finished at step {state.step}; privacy spent: "
           f"eps={eps:.3f} (delta={cfg.dp.delta}, q={trainer.sample_rate:.2e})")

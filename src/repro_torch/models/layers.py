@@ -7,8 +7,12 @@ softmax and normalisation math in float32, outputs cast back to the compute
 dtype; every dense is ``x @ w`` with ``w`` of shape (d_in, d_out).  The
 training and prefill functions take a ``DPContext`` and route every
 parameterised op through it (``DPContext.off()`` is the plain op); the
-decode paths use plain matmuls.  ``remat_wrap`` puts a block function under
-an activation-checkpointing policy.
+decode paths use plain matmuls.  Weights are held in the parameter type
+and cast to the activations' (the compute) type where they are used
+(``cast``), so the kernels see the compute type and autograd returns each
+weight's gradient in its parameter type; norm scales stay float32.
+``remat_wrap`` puts a block function under an activation-checkpointing
+policy.
 """
 from __future__ import annotations
 
@@ -25,6 +29,11 @@ from repro_torch.core.context import DPContext
 from repro_torch.kernels import ops as kops
 
 NEG = -1e30
+
+
+def cast(w, x):
+    """Weight ``w`` in ``x``'s type (itself where the two are one type)."""
+    return w if w.dtype == x.dtype else w.to(x.dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -190,9 +199,9 @@ def _qkv(p, x, pos, cfg, ctx: DPContext):
     (B,T,KV,hd), and the context."""
     B, T, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q, ctx = ctx.dense(x, p["wq"])
-    k, ctx = ctx.dense(x, p["wk"])
-    v, ctx = ctx.dense(x, p["wv"])
+    q, ctx = ctx.dense(x, cast(p["wq"], x))
+    k, ctx = ctx.dense(x, cast(p["wk"], x))
+    v, ctx = ctx.dense(x, cast(p["wv"], x))
     q = q.reshape(B, T, H, hd)
     k = k.reshape(B, T, KV, hd)
     v = v.reshape(B, T, KV, hd)
@@ -220,7 +229,8 @@ def attn_apply(p, x, ctx: DPContext, cfg, pos):
         o, ctx = ctx.attention(qg, k, v, causal=True)
     else:
         o = kops.flash_attention(qg, k, v, True)
-    y, ctx = ctx.dense(o.reshape(B, T, H * hd), p["wo"])
+    o = o.reshape(B, T, H * hd)
+    y, ctx = ctx.dense(o, cast(p["wo"], o))
     return y, ctx, (k, v)
 
 
@@ -236,7 +246,7 @@ def _decode_attend(q, gk, gv, pos, p, cfg):
     s = torch.where(mask[:, None, None, :], s, NEG)
     pattn = torch.softmax(s, dim=-1)
     o = torch.einsum("bkrs,bskh->bkrh", pattn.to(gv.dtype), gv)
-    return o.reshape(B, 1, H * hd) @ p["wo"]
+    return o.reshape(B, 1, H * hd) @ cast(p["wo"], o)
 
 
 def attn_decode(p, x, cache_kv, pos, cfg):
@@ -309,11 +319,11 @@ def mlp_spec(cfg, d_ff: int) -> dict:
 
 def mlp_apply(p, x, ctx: DPContext, cfg):
     """Dense FFN; returns (y, ctx)."""
-    h1, ctx = ctx.dense(x, p["w1"])
+    h1, ctx = ctx.dense(x, cast(p["w1"], x))
     if cfg.mlp_act == "swiglu":
-        h3, ctx = ctx.dense(x, p["w3"])
+        h3, ctx = ctx.dense(x, cast(p["w3"], x))
         h = F.silu(h1.float()).to(x.dtype) * h3
     else:
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(h1.float(), approximate="tanh").to(x.dtype)
-    return ctx.dense(h, p["w2"])
+    return ctx.dense(h, cast(p["w2"], h))

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import zlib
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -149,8 +149,11 @@ class Model(nn.Module):
     """Serving model of one dense ``ArchConfig``.
 
     ``params``: a tree in the JAX layout (``interop.params_from_numpy``);
-    None draws a seeded init on the device.  ``dtype`` is the compute and
-    weight type (norm scales stay float32).  ``device`` defaults to
+    None draws a seeded init on the device.  ``dtype`` is the compute type
+    (activations and caches), ``param_dtype`` the type the weights are
+    held in (default ``dtype``; norm scales stay float32); each weight is
+    cast to the compute type where it is used, as the JAX package's
+    ``param_dtype`` and ``compute_dtype``.  ``device`` defaults to
     ``cuda`` and raises without one; pass ``"cpu"`` for the plain path.
     ``remat``: the training loss's activation-checkpointing policy
     (``configs.base.REMAT_POLICIES``), ``"block"`` by default as in the JAX
@@ -161,15 +164,17 @@ class Model(nn.Module):
 
     def __init__(self, arch: ArchConfig, params=None, *,
                  dtype: torch.dtype = torch.bfloat16, device=None,
-                 seed: int = 0, remat: str = "block"):
+                 seed: int = 0, remat: str = "block",
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.arch = arch
         self.dtype = dtype
+        self.param_dtype = dtype if param_dtype is None else param_dtype
         self.remat = validate_remat(remat)
         self.device = resolve_device(device)
         model_spec(arch)          # raises early for unported layer kinds
         if params is None:
-            params = init_params(arch, seed, dtype, self.device)
+            params = init_params(arch, seed, self.param_dtype, self.device)
         self.params = self._register(params)
 
     def _register(self, tree, path=()):
@@ -223,9 +228,11 @@ class Model(nn.Module):
 
     def _head(self, params, x, ctx: DPContext):
         x, ctx = L.rmsnorm(x, params["final_norm"], ctx, self.arch.norm_eps)
-        return ctx.dense(x, params["head"])
+        return ctx.dense(x, L.cast(params["head"], x))
 
     def _embed_in(self, params, tokens, ctx: DPContext):
+        # the rows are gathered in the parameter type and cast, as the JAX
+        # package does (its embedding site sees the parameter type)
         x, ctx = ctx.embed(tokens, params["embed"])
         return x.to(self.dtype), ctx
 

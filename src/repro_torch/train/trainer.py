@@ -1,28 +1,49 @@
 """Training loop of the port.  Counterpart of ``repro/train/trainer.py``.
 
 A single-process ``Trainer``: each step's batch is the (seed, step)-keyed
-synthetic batch, the noise generator is seeded from (seed, step), the
-privacy accountant prices q = B/N, and every ``log_every`` steps (and the
-last) a record goes to ``history``.  Under ``dp.sampling="poisson"`` the
-batch is a Poisson sample padded to a step-invariant ``capacity`` with its
-``"mask"``, and the noisy sum is normalised by the expected batch q·N.
+batch of the config's data source (synthetic or ``memmap:<path>``), the
+noise generator is seeded from (seed, step), the privacy accountant prices
+q = B/N, and every ``log_every`` steps (and the last) a record goes to
+``history``.  Under ``dp.sampling="poisson"`` the batch is a Poisson sample
+padded to a step-invariant ``capacity`` with its ``"mask"``, and the noisy
+sum is normalised by the expected batch q·N.  The model trains under the
+config's ``remat`` policy, which the Trainer sets on it.
 
-The model trains under the config's ``remat`` policy, which the Trainer
-sets on it.
+Fault tolerance, as in the JAX package:
 
-Not ported (ROADMAP queue 1): checkpoints (a run always starts from its
-init), the memory planner, the launch autotuner, gradient compression,
-pipeline stages, retries, the straggler watchdog and separate parameter
-and compute types.  ``TrainConfig`` has no fields for these, or raises on
-them (``configs/base.py``).
+* **Checkpoints** (``train/checkpoint.py``, the JAX package's layout):
+  ``run`` saves every ``ckpt_every`` steps and at the last, and waits for
+  the write at its end; ``restore_or_init`` resumes from the latest one.
+  The data and the noise are (seed, step)-keyed, so a resumed run takes
+  the steps the uninterrupted one would have taken, bit for bit.
+* **Preemption**: SIGTERM or SIGINT lets the step in flight finish, saves,
+  and leaves ``run``.
+* **Retries**: a step that raises is tried again, three attempts in all.
+  The JAX package keeps the last good state because its step is a pure
+  function; the port's optimizer updates params and state in place, so a
+  retry is only sound while the update has not begun.  The gradient
+  function (both passes and the noise) only reads the state, so a failure
+  there is retried and the retry is bit-identical; a failure raised from
+  the update itself is raised at once, since the state is no longer the
+  last good one.  ``inject_failure_at`` raises once at that step, before
+  the step (``inject_inside_step=False``) or inside the gradient function
+  (the first forward after pass 1; see ``_injected_loss_fn``).
+* **Straggler watchdog**: a step slower than ``watchdog_factor`` times the
+  median of the last 50 is logged.
+
+Not ported (ROADMAP queue 1): the memory planner, the launch autotuner,
+gradient compression and pipeline stages (``configs/base.py`` raises on
+their keys).
 """
 from __future__ import annotations
 
 import math
+import signal
 import time
 import zlib
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch import tree
@@ -32,6 +53,7 @@ from repro_torch.core.algo import make_noisy_grad_fn
 from repro_torch.data.pipeline import (batch_for, make_source,
                                        poisson_batch_for, poisson_capacity)
 from repro_torch.optim.optimizers import make_optimizer
+from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.state import TrainState
 
 
@@ -53,21 +75,21 @@ class Trainer:
     """``Trainer(model, train_cfg, shape)``; ``model`` is a
     ``repro_torch.models.transformer.Model`` whose params the Trainer makes
     trainable and updates in place, and whose ``remat`` it sets to the
-    config's."""
+    config's.  Its parameter and compute types must be the config's."""
 
-    def __init__(self, model, train_cfg: TrainConfig, shape: ShapeConfig):
+    def __init__(self, model, train_cfg: TrainConfig, shape: ShapeConfig,
+                 inject_failure_at: Optional[int] = None,
+                 inject_inside_step: bool = False):
         self.model = model
         self.cfg = train_cfg
         self.shape = shape
         self.device = model.device
-        if train_cfg.param_dtype != train_cfg.compute_dtype:
-            raise NotImplementedError(
-                f"param_dtype={train_cfg.param_dtype!r} with compute_dtype="
-                f"{train_cfg.compute_dtype!r}: separate parameter and "
-                f"compute types are not ported yet (ROADMAP queue 1)")
-        if model.dtype != getattr(torch, train_cfg.param_dtype, None):
-            raise ValueError(f"the model is {model.dtype}, the config asks "
-                             f"for param_dtype={train_cfg.param_dtype!r}")
+        for name, got in (("param_dtype", model.param_dtype),
+                          ("compute_dtype", model.dtype)):
+            want = getattr(train_cfg, name)
+            if got != getattr(torch, want, None):
+                raise ValueError(f"the model's {name} is {got}, the config "
+                                 f"asks for {name}={want!r}")
         self.sampling = train_cfg.dp.sampling
         if self.sampling not in ("fixed", "poisson"):
             raise ValueError(f"unknown dp.sampling {self.sampling!r}; the "
@@ -79,24 +101,66 @@ class Trainer:
         self.sample_rate = shape.global_batch / self.source.dataset_size
         self.capacity = physical_batch_size(train_cfg, shape,
                                             self.source.dataset_size)
+        self.inject_failure_at = inject_failure_at
+        self.inject_inside_step = inject_inside_step
+        self._injected = False
+        self._step_in_flight: Optional[int] = None
+        loss_fn = model.loss_fn
+        if inject_failure_at is not None and inject_inside_step:
+            loss_fn = self._injected_loss_fn(loss_fn)
         # Poisson: the lot size q·N, never the capacity or the realized draw
         expected = (float(shape.global_batch) if self.sampling == "poisson"
                     else None)
-        self.grad_fn = make_noisy_grad_fn(model.loss_fn, train_cfg.dp,
+        self.grad_fn = make_noisy_grad_fn(loss_fn, train_cfg.dp,
                                           grad_accum=train_cfg.grad_accum,
                                           expected_batch_size=expected)
         self.opt = make_optimizer(train_cfg.optim)
+        self.ckpt = CheckpointManager(train_cfg.ckpt_dir,
+                                      keep=train_cfg.ckpt_keep,
+                                      use_async=train_cfg.ckpt_async)
         self.accountant = PrivacyAccountant(
             batch_size=shape.global_batch,
             dataset_size=self.source.dataset_size,
             noise_multiplier=train_cfg.dp.noise_multiplier,
             delta=train_cfg.dp.delta, sample_rate=self.sample_rate)
+        self._preempted = False
+        self._step_times: list = []
         self.history: list = []
 
+    def _injected_loss_fn(self, loss_fn):
+        """``loss_fn`` that raises once, in step ``inject_failure_at``, on
+        the first forward after pass 1: pass 2 of ``dpsgd_r`` (a plain-mode
+        forward); ``sgd`` and ``dpsgd``, which have no norm pass, at their
+        first forward, and ``dpsgd_r1f``, whose one forward is pass 1's, at
+        it.  Either way inside the gradient function, before the update."""
+        mode = "norm" if self.cfg.dp.algo == "dpsgd_r1f" else "off"
+
+        def wrapped(params, batch, ctx):
+            if (self._step_in_flight == self.inject_failure_at
+                    and not self._injected and ctx.mode == mode):
+                self._injected = True
+                raise RuntimeError("injected transient failure inside the step")
+            return loss_fn(params, batch, ctx)
+        return wrapped
+
+    # -- lifecycle ---------------------------------------------------------
     def init_state(self) -> TrainState:
         params = self.model.params
         return TrainState(step=0, params=params,
                           opt_state=self.opt.init(tree.leaves(params)))
+
+    def restore_or_init(self) -> TrainState:
+        """The latest checkpoint in ``ckpt_dir``, restored into the model's
+        params and a fresh optimizer state in place, or the init."""
+        state = self.init_state()
+        if self.ckpt.latest_step() is not None:
+            state = self.ckpt.restore(state)
+            print(f"[trainer] restored step {state.step} from "
+                  f"{self.cfg.ckpt_dir}", flush=True)
+        return state
+
+    def _handle_preempt(self, signum, frame):
+        self._preempted = True
 
     def make_batch(self, step: int) -> Dict[str, torch.Tensor]:
         """The step's (seed, step)-keyed batch, on the model's device; under
@@ -115,36 +179,95 @@ class Trainer:
         g.manual_seed(zlib.crc32(f"{self.cfg.seed}:{step}:noise".encode()))
         return g
 
-    def train_step(self, state: TrainState, batch) -> Dict[str, torch.Tensor]:
-        """One step in place on ``state``; returns the metrics (0-d tensors,
-        not yet synchronised)."""
+    def gradients(self, state: TrainState, batch):
+        """The step's noised gradients and metrics; reads ``state`` only."""
+        self._step_in_flight = state.step
         grads, metrics = self.grad_fn(state.params, batch,
                                       self.noise_generator(state.step))
         metrics["update_norm"] = torch.sqrt(sum((g * g).sum() for g in grads))
+        return grads, metrics
+
+    def update(self, state: TrainState, grads) -> None:
+        """The optimizer step, in place on ``state``."""
         self.opt.apply(grads, state.opt_state, tree.leaves(state.params),
                        state.step)
         state.step += 1
+
+    def train_step(self, state: TrainState, batch) -> Dict[str, torch.Tensor]:
+        """One step in place on ``state``; returns the metrics (0-d tensors,
+        not yet synchronised)."""
+        grads, metrics = self.gradients(state, batch)
+        self.update(state, grads)
         return metrics
 
-    def run(self, state: TrainState, steps: Optional[int] = None) -> TrainState:
-        """Steps ``state.step .. steps - 1`` (default ``cfg.steps``)."""
+    def _step_with_retries(self, state: TrainState, batch):
+        """``train_step`` with up to two retries of a failure in the
+        gradient function, which leaves ``state`` as it was; a failure in
+        the update is raised at once.  Returns the metrics as floats."""
+        for attempt in range(3):
+            try:
+                if (self.inject_failure_at == state.step
+                        and not self.inject_inside_step and not self._injected):
+                    self._injected = True
+                    raise RuntimeError("injected transient failure")
+                grads, metrics = self.gradients(state, batch)
+                break
+            except RuntimeError as e:
+                if attempt == 2:
+                    raise
+                print(f"[trainer] step {state.step} attempt {attempt} failed: "
+                      f"{e}; retrying", flush=True)
+        self.update(state, grads)
+        return {k: float(v) for k, v in metrics.items()}   # waits for the step
+
+    # -- loop ---------------------------------------------------------------
+    def run(self, state: TrainState, steps: Optional[int] = None,
+            install_signals: bool = True) -> TrainState:
+        """Steps ``state.step .. steps - 1`` (default ``cfg.steps``),
+        checkpointing every ``ckpt_every`` steps, at the last, and on
+        preemption."""
         cfg = self.cfg
         steps = cfg.steps if steps is None else steps
-        for step in range(state.step, steps):
-            batch = self.make_batch(step)
-            t0 = time.perf_counter()
-            metrics = self.train_step(state, batch)
-            rec = {k: float(v) for k, v in metrics.items()}   # waits for the step
-            dt = time.perf_counter() - t0
-            if (step + 1) % cfg.log_every == 0 or step == steps - 1:
-                eps = self.accountant.epsilon_at(step + 1)
-                rec.update(step=step, sec=dt, epsilon=eps,
-                           expected_batch=self.shape.global_batch)
-                self.history.append(rec)
-                realized = ""
-                if self.sampling == "poisson":
-                    realized = (f"B {rec['realized_batch']:.0f} of capacity "
-                                f"{self.capacity} ")
-                print(f"[trainer] step {step:5d} loss {rec['loss']:.4f} "
-                      f"eps {eps:.3f} {realized}({dt * 1e3:.0f} ms)", flush=True)
-        return state
+        old_handlers = {}
+        if install_signals:
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                old_handlers[sig] = signal.signal(sig, self._handle_preempt)
+        try:
+            for step in range(state.step, steps):
+                batch = self.make_batch(step)
+                t0 = time.perf_counter()
+                rec = self._step_with_retries(state, batch)
+                dt = time.perf_counter() - t0
+                self._watchdog(step, dt)
+                if (step + 1) % cfg.log_every == 0 or step == steps - 1:
+                    eps = self.accountant.epsilon_at(step + 1)
+                    rec.update(step=step, sec=dt, epsilon=eps,
+                               expected_batch=self.shape.global_batch)
+                    self.history.append(rec)
+                    realized = ""
+                    if self.sampling == "poisson":
+                        realized = (f"B {rec['realized_batch']:.0f} of capacity "
+                                    f"{self.capacity} ")
+                    print(f"[trainer] step {step:5d} loss {rec['loss']:.4f} "
+                          f"eps {eps:.3f} {realized}({dt * 1e3:.0f} ms)",
+                          flush=True)
+                if ((step + 1) % cfg.ckpt_every == 0 or step == steps - 1
+                        or self._preempted):
+                    self.ckpt.save(state, step + 1)
+                if self._preempted:
+                    print(f"[trainer] preempted at step {step}; checkpoint "
+                          f"saved, exiting", flush=True)
+                    break
+            self.ckpt.wait()
+            return state
+        finally:
+            for sig, h in old_handlers.items():
+                signal.signal(sig, h)
+
+    def _watchdog(self, step: int, dt: float) -> None:
+        self._step_times.append(dt)
+        hist = self._step_times[-50:]
+        med = float(np.median(hist))
+        if len(hist) >= 5 and dt > self.cfg.watchdog_factor * med:
+            print(f"[trainer] WATCHDOG straggler: step {step} took "
+                  f"{dt:.2f}s (median {med:.2f}s)", flush=True)

@@ -147,8 +147,9 @@ def test_gram_flops_count_the_s_le_t_pairs(smoke):
 
 
 def test_ptxas_report_names_the_backward_and_gram_kernels(smoke):
-    """The bf16 attention backward's two launches at hd 96 and the bf16
-    Gram kernel are main-path kernels; their f32 siblings are not."""
+    """The bf16 attention backward's two launches at hd 96 (phi3) and hd
+    128 (chatglm3, phase 10) and the bf16 Gram kernel are main-path
+    kernels; their f32 siblings are not."""
     log = """ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_13mma13bwd_kv_kernelILi96EEEvPK13__nv_bfloat16S4_S4_S4_PKfS6_PfS7_iiiiiifi' for 'sm_90a'
 ptxas info    : Function properties for _ZN12_GLOBAL__N_13mma13bwd_kv_kernelILi96EEEvPK13__nv_bfloat16S4_S4_S4_PKfS6_PfS7_iiiiiifi
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
@@ -168,7 +169,7 @@ ptxas info    : Used 120 registers, used 1 barriers
     assert [(r["registers"], r["spill_stores"]) for r in got] == \
         [(232, 0), (255, 4), (128, 0), (120, None)]
     main = [any(p in r["function"] for p in smoke.MAIN_PATH_KERNELS) for r in got]
-    assert main == [True, False, True, False]
+    assert main == [True, True, True, False]
     tc = [any(p in r["function"] for pieces in smoke.TENSOR_CORE_KERNELS.values()
               for p in pieces) for r in got]
     assert tc == [True, True, True, False]
@@ -216,3 +217,69 @@ def test_path_launches_count_the_wrapper_calls(smoke, monkeypatch, algo, route,
     assert smoke.read_counts() == smoke.path_launches(
         route, arch.n_layers, algo=algo, remat=remat, examples=4,
         microbatch=microbatch, leaves=len(tree.leaves(model.params)))
+
+
+def test_chatglm3_mix_bounds_and_launches(smoke):
+    """Phase 10's path: chatglm3-6b at 28 layers, B 8 x T 512.  Its dense
+    calls split q and o (4096 -> 4096) from k and v (4096 -> 256, GQA on 2
+    kv heads of hd 128), the only ones bound by bytes; one step launches
+    dense_bwd_norm 28 x 7 + 1 = 197 times and the flash pair 140 and 56
+    times under remat="block"."""
+    arch = get_arch("chatglm3-6b")
+    mix = smoke.dense_mix(arch, arch.n_layers)
+    assert mix == [("qo", 4096, 4096, 56), ("kv", 4096, 256, 56),
+                   ("w1w3", 4096, 13696, 56), ("w2", 13696, 4096, 28),
+                   ("head", 4096, 65024, 1)]
+    parts = [smoke.norm_bound_ms(smoke.TRAIN_B, smoke.TRAIN_T, di, do, "bfloat16")
+             for _, di, do, _ in mix]
+    assert [by for _, by in parts] == ["operations", "bytes", "operations",
+                                       "operations", "operations"]
+    total = sum(n * ms for (_, _, _, n), (ms, _) in zip(mix, parts))
+    assert total == pytest.approx(49.6168, abs=1e-4)
+    ms, by = smoke.flash_bwd_bound_ms(smoke.TRAIN_B * 32, smoke.TRAIN_B * 2,
+                                      smoke.TRAIN_T, 128, True, "bfloat16")
+    assert by == "bytes" and ms == pytest.approx(0.053994, abs=1e-6)
+    assert smoke.flash_bwd_flops(256, 512, 128, True) == 42949672960.0
+    ms, by = smoke.flash_bound_ms(256, 512, 512, 128, 16, True, "bfloat16")
+    assert by == "bytes" and ms == pytest.approx(0.021441, abs=1e-6)
+    ms, by = smoke.gram_bound_ms(8, 512, 4096, 4096, True, False, "bfloat16")
+    assert by == "bytes" and ms == pytest.approx(0.010026, abs=1e-6)
+    want = dict.fromkeys(smoke.kernel_counts(), 0)
+    want.update(flash_attn_fwd=140, flash_attn_bwd=56, dense_bwd_norm=197,
+                gram_norm=1)
+    assert smoke.path_launches("fused", arch.n_layers, remat="block") == want
+
+
+def test_path_launches_count_chatglm3s_wrapper_calls(smoke, monkeypatch, tmp_path):
+    """``path_launches`` against the wrapper calls of one Trainer step of
+    the reduced chatglm3 (GQA, rotary on half the head) under phase 10's
+    route, remat and optimizer, from a memmap corpus."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import reduced
+    from repro_torch.configs.base import (DPConfig, OptimConfig, ShapeConfig,
+                                          TrainConfig)
+    from repro_torch.models.transformer import Model
+    from repro_torch.train import Trainer
+    for name, (mod, attr) in smoke.kernel_counts().items():
+        def counting(*args, _fn=getattr(mod, name), _mod=mod, _attr=attr,
+                     **kwargs):
+            setattr(_mod, _attr, getattr(_mod, _attr) + 1)
+            return _fn(*args, **kwargs)
+        monkeypatch.setattr(mod, name, counting)
+        monkeypatch.setattr(mod, attr, 0)
+    corpus = tmp_path / "tokens.bin"
+    np.random.default_rng(0).integers(0, 256, 4096, dtype=np.int32).tofile(corpus)
+    arch = reduced(get_arch("chatglm3-6b"))
+    model = Model(arch, dtype=torch.float32, device="cpu", remat="block")
+    cfg = TrainConfig(param_dtype="float32", compute_dtype="float32",
+                      remat="block", ckpt_dir=str(tmp_path / "ckpt"),
+                      data_source=f"memmap:{corpus}",
+                      optim=OptimConfig(name="adam8bit", schedule="constant"),
+                      dp=DPConfig(norm_strategy="fused", use_kernels=True))
+    trainer = Trainer(model, cfg, ShapeConfig("t", 8, 4, "train"))
+    state = trainer.init_state()
+    smoke.zero_counts()
+    trainer.train_step(state, trainer.make_batch(0))
+    assert smoke.read_counts() == smoke.path_launches("fused", arch.n_layers,
+                                                      remat="block")

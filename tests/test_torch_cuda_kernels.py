@@ -46,7 +46,10 @@ SHAPES = [(8, 4, 16, 8, True), (3, 1, 33, 20, True), (8, 8, 24, 96, True),
           # every head width at rep > 1
           (8, 4, 9, 8, True), (6, 2, 45, 20, False), (8, 2, 77, 80, True),
           (4, 2, 300, 96, True), (6, 3, 129, 128, False), (4, 1, 5, 96, True),
-          (6, 2, 200, 16, False), (4, 2, 150, 64, True)]
+          (6, 2, 200, 16, False), (4, 2, 150, 64, True),
+          # chatglm3-6b's training shape: 8 x 32 heads on 2 kv heads (rep
+          # 16), T 512, hd 128
+          (256, 16, 512, 128, True)]
 
 
 @pytest.fixture
@@ -193,7 +196,7 @@ BWD_BF16_TOL = 5e-3
 # (BH, KV rows, T, hd, causal)
 BWD_SHAPES = [(8, 4, 16, 8, True), (3, 1, 33, 20, True), (4, 2, 37, 96, False),
               (6, 2, 70, 96, True), (18, 2, 130, 128, True), (4, 4, 65, 80, False),
-              (9, 1, 200, 64, True)]
+              (9, 1, 200, 64, True), (256, 16, 512, 128, True)]
 
 
 def _bwd_inputs(cuda, shape, dtype):
@@ -425,6 +428,7 @@ def test_dgrad_and_flash_take_element_loads_for_unaligned_bases(cuda):
 # head width, the auto route's T, hd 20 (rows of 40 bytes: element loads)
 BWD_PATH_SHAPES = [(8, 4, 130, 96, True, "mma+cp.async"),
                    (2, 2, 2048, 96, True, "mma+cp.async"),
+                   (256, 16, 512, 128, True, "mma+cp.async"),
                    (6, 2, 70, 20, True, "mma+loads"), (4, 4, 65, 20, False, "mma+loads")]
 
 
@@ -565,3 +569,29 @@ def test_norm_takes_element_loads_for_an_unaligned_base(cuda):
     torch.testing.assert_close(tma, tref.pegrad_norm_ref(xc, gyc), rtol=1e-4, atol=0.0)
     assert torch.equal(tpn.pegrad_norm(x, gyc), tma)
     assert torch.equal(tpn.pegrad_norm(xc, gy), tma)
+
+
+@pytest.mark.cuda
+def test_flash_kernels_at_hd_128_do_not_spill(cuda):
+    """The hd-128 bf16 instantiations of the flash forward and of both
+    backward kernels (chatglm3-6b's and starcoder2-7b's head width) keep
+    every value in registers: ``-Xptxas -v`` reports no spill stores or
+    loads for any of them."""
+    import importlib.util
+    from pathlib import Path
+    from repro_torch.kernels import build
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    pieces = ("mma16flash_fwd_kernelILi128E", "mma13bwd_kv_kernelILi128E",
+              "mma12bwd_q_kernelILi128E")
+    seen = set()
+    for src in ("flash_attn_fwd", "flash_attn_bwd"):
+        build.build([src])
+        for r in smoke.ptxas_report(build.ptxas_log(src)):
+            hit = [p for p in pieces if p in r["function"]]
+            if hit:
+                assert (r["spill_stores"], r["spill_loads"]) == (0, 0), r
+                seen.update(hit)
+    assert seen == set(pieces)

@@ -123,7 +123,8 @@ def test_poisson_trainer_matches_jax_trainer(tmp_path):
 
     tm = Model(treduced(TARCHS[ARCH]), interop.params_from_numpy(params0, "cpu"),
                dtype=torch.float32, device="cpu")
-    tt = Trainer(tm, TrainConfig(dp=DPConfig(use_kernels=True, **dp),
+    tt = Trainer(tm, TrainConfig(ckpt_dir=str(tmp_path / "torch"),
+                                 dp=DPConfig(use_kernels=True, **dp),
                                  optim=OptimConfig(**optim), **common),
                  ShapeConfig("t", *shape, "train"))
     assert tt.capacity == jt.capacity == 16

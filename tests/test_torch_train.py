@@ -12,6 +12,7 @@ rtol 1e-6 (elementwise float32 arithmetic in another order); ε at 1e-12
 (the same pure-Python arithmetic); data bit-exact.
 """
 import dataclasses
+import math
 
 import jax
 import numpy as np
@@ -57,7 +58,8 @@ def test_trainer_matches_jax_trainer(tmp_path, algo):
     params0 = jax.tree.map(np.asarray, jst.params)
     jt.run(jst, install_signals=False)
 
-    tcfg = TrainConfig(dp=DPConfig(use_kernels=True, **dp),
+    tcfg = TrainConfig(ckpt_dir=str(tmp_path / "torch"),
+                       dp=DPConfig(use_kernels=True, **dp),
                        optim=OptimConfig(**optim), **common)
     tm = Model(treduced(TARCHS["phi3-mini-3.8b"]),
                interop.params_from_numpy(params0, "cpu"), dtype=torch.float32,
@@ -109,23 +111,24 @@ def test_synthetic_batches_match_jax():
         np.testing.assert_array_equal(got["tokens"], want["tokens"])
 
 
-def test_launcher_trains_on_the_cpu(capsys):
+def test_launcher_trains_on_the_cpu(tmp_path, capsys):
     tlaunch.main(["--arch", "phi3-mini-3.8b", "--reduced", "--steps", "2",
                   "--batch", "2", "--seq", "8", "--device", "cpu",
-                  "--dtype", "float32", "--set", "dp.norm_strategy=fused",
+                  "--dtype", "float32", "--set", f"ckpt_dir={tmp_path}",
+                  "--set", "dp.norm_strategy=fused",
                   "--set", "dp.use_kernels=true", "--set", "log_every=1"])
     out = capsys.readouterr().out
     assert out.count("[trainer] step") == 2
     assert "finished at step 2; privacy spent: eps=" in out
 
 
-def test_launcher_trains_poisson_materialize_on_the_cpu(capsys):
+def test_launcher_trains_poisson_materialize_on_the_cpu(tmp_path, capsys):
     """Poisson batches through the materialize kernel route (the plain
     versions on the CPU): each step's line names its realized batch and
     the capacity (25 at an expected batch of 8 of N = 1e6)."""
     tlaunch.main(["--arch", "phi3-mini-3.8b", "--reduced", "--steps", "2",
                   "--seq", "8", "--device", "cpu", "--dtype", "float32",
-                  "--set", "dp.sampling=poisson",
+                  "--set", f"ckpt_dir={tmp_path}", "--set", "dp.sampling=poisson",
                   "--set", "dp.norm_strategy=materialize",
                   "--set", "dp.use_kernels=true", "--set", "log_every=1"])
     out = capsys.readouterr().out
@@ -134,12 +137,13 @@ def test_launcher_trains_poisson_materialize_on_the_cpu(capsys):
     assert "finished at step 2; privacy spent: eps=" in out
 
 
-def test_launcher_trains_dpsgd_under_sites_remat_on_the_cpu(capsys):
+def test_launcher_trains_dpsgd_under_sites_remat_on_the_cpu(tmp_path, capsys):
     """Vanilla DP-SGD two examples at a time, under remat="sites", through
     the launcher on the CPU (``clip_reduce``'s plain version)."""
     tlaunch.main(["--arch", "phi3-mini-3.8b", "--reduced", "--steps", "2",
                   "--batch", "4", "--seq", "8", "--device", "cpu",
-                  "--dtype", "float32", "--set", "remat=sites",
+                  "--dtype", "float32", "--set", f"ckpt_dir={tmp_path}",
+                  "--set", "remat=sites",
                   "--set", "dp.algo=dpsgd", "--set", "dp.microbatch=2",
                   "--set", "dp.use_kernels=true", "--set", "log_every=1"])
     out = capsys.readouterr().out
@@ -148,9 +152,9 @@ def test_launcher_trains_dpsgd_under_sites_remat_on_the_cpu(capsys):
     assert "finished at step 2; privacy spent: eps=" in out
 
 
-@pytest.mark.parametrize("pair", ["pp_stages=2", "ckpt_every=5", "zero1=false",
-                                  "mesh.shape=4,2", "tune.seed=1",
-                                  "dp.clip_quantile=0.3", "optim.block_size=64"])
+@pytest.mark.parametrize("pair", ["pp_stages=2", "mem.auto_microbatch=true",
+                                  "zero1=false", "mesh.shape=4,2", "tune.seed=1",
+                                  "dp.clip_quantile=0.3", "compress_pod_grads=true"])
 def test_unported_overrides_raise(pair):
     """A ``--set`` key of the JAX package whose feature the port lacks
     raises; it is not accepted and then ignored."""
@@ -159,11 +163,13 @@ def test_unported_overrides_raise(pair):
                       "--device", "cpu", "--set", pair])
 
 
-def test_remat_and_dtypes_are_held():
+def test_remat_and_dtypes_are_held(tmp_path):
     """remat defaults to "block", as in the JAX package, an unknown policy
     raises and names the known ones, and the Trainer trains the model
-    under its config's policy; the model's dtype must be the config's, and
-    one type serves as both parameter and compute type."""
+    under its config's policy; the model's parameter and compute types must
+    be the config's, and float32 params computed in bf16 train (the
+    launcher builds such a model from ``param_dtype`` and
+    ``compute_dtype``)."""
     assert TrainConfig().remat == "block" == JTrainConfig().remat
     for policy in ("none", "block", "sites"):
         assert TrainConfig(remat=policy).remat == policy
@@ -181,10 +187,17 @@ def test_remat_and_dtypes_are_held():
     shape = ShapeConfig("t", 8, 2, "train")
     with pytest.raises(ValueError, match="param_dtype='bfloat16'"):
         Trainer(tm, TrainConfig(), shape)
-    with pytest.raises(NotImplementedError, match="separate parameter"):
+    with pytest.raises(ValueError, match="compute_dtype='bfloat16'"):
         Trainer(tm, TrainConfig(param_dtype="float32"), shape)
     Trainer(tm, TrainConfig(param_dtype="float32", compute_dtype="float32"),
             shape)
-    with pytest.raises(NotImplementedError, match="separate parameter"):
-        tlaunch.main(["--arch", "phi3-mini-3.8b", "--reduced", "--steps", "1",
-                      "--device", "cpu", "--set", "param_dtype=float32"])
+    split = Model(treduced(TARCHS["phi3-mini-3.8b"]), dtype=torch.bfloat16,
+                  param_dtype=torch.float32, device="cpu")
+    tr = Trainer(split, TrainConfig(param_dtype="float32", ckpt_dir=str(tmp_path)),
+                 shape)
+    state = tr.run(tr.init_state(), steps=1, install_signals=False)
+    assert state.step == 1 and math.isfinite(tr.history[-1]["loss"])
+    assert all(p.dtype == torch.float32 for p in split.parameters())
+    tlaunch.main(["--arch", "phi3-mini-3.8b", "--reduced", "--steps", "1",
+                  "--batch", "2", "--seq", "8", "--device", "cpu",
+                  "--set", "param_dtype=float32", "--set", f"ckpt_dir={tmp_path}"])
