@@ -29,11 +29,18 @@ the script exits nonzero and prints no ``ok`` line:
    (the tensor cores take p and ds in bf16), with SDPA's bf16 backward
    error on the same inputs printed beside it.  The flash backward, the
    Gram kernel and ``pegrad_norm`` also run at the ``auto`` route's shapes
-   (B 2 x T 2048);
+   (B 2 x T 2048).  Phase 11's shapes (``check_image_kernels``): the flash
+   pair non-causal at hd 32 and T 64 over 4096 x 8 heads; at every
+   distinct norm site of the CNN and the ViT, with the 16 views of each of
+   256 examples folded into T (``image_mix``), ``dense_bwd_norm``,
+   ``pegrad_norm`` and ``dense_dgrad`` (ragged d_in 27 and d_out 10 take
+   the element-load paths, the rest TMA) and ``gram_norm`` on 4 examples;
+   ``clip_reduce`` at each model's largest leaf over 256 examples;
 4. small references in float32 (TF32 off): the reduced phi3 serving
    (prefill and decode logits) and one ``dpsgd_r`` fused training step
-   (loss, per-example norms², clipped-sum gradients) on the card through
-   the kernels against the CPU through the plain versions;
+   (loss, per-example norms², clipped-sum gradients) of the reduced phi3,
+   CNN and ViT (the last two at augmult 2) on the card through the
+   kernels against the CPU through the plain versions;
 5. the serving path: phi3-mini-3.8b at full width and depth, bf16, seeded
    random weights, serving 16 greedy requests through the contiguous engine
    and the same stream through the paged engine; outputs must agree;
@@ -86,8 +93,22 @@ the script exits nonzero and prints no ``ok`` line:
    write runs, a restore into a fresh Model and Trainer and step 3 again,
    whose loss, norms² and every leaf must equal the first run's bit for
    bit.  Its files live in a temporary directory under ``build/``, removed
-   at the end; the full-depth run saves nothing.  No phase steps through
-   ``Trainer.run``, which checkpoints at its last step.
+   at the end; the full-depth run saves nothing;
+11. the image families: ``cnn-cifar10`` (a 21-conv pre-activation ResNet)
+   and ``vit-cifar10`` (8 non-causal layers at d_model 256, hd 32) at full
+   width and depth, bf16, seeded random weights, synthetic CIFAR-shaped
+   images (q = 256 / 50,000), ``dpsgd_r`` fused + kernels, 256 examples x
+   augmult 16 = 4096 rows a step, adaptive clipping, ``remat="block"``,
+   AdamW: for each a warm-up and three counted steps (the clip norm before
+   and after each, rows/s, peak), one by hand stage by stage, one
+   profiled, the norms² of one batch through the kernels against the plain
+   rules; the CNN also one counted step under ``materialize`` (then four
+   steps in turns with ``fused``) and one under ``gram`` (norms² against
+   their plain rules); each one Poisson
+   step (padded examples' norms² exactly 0) and one ``dpsgd`` step (all
+   256 examples at once, ``clip_reduce``); ε composed with the clip
+   mechanism and its split.  No phase steps through ``Trainer.run``,
+   which checkpoints at its last step.
 
 Each path counts the launches of every kernel from zero and must launch
 each kernel exactly as often as the code says it does (``path_launches``,
@@ -147,6 +168,11 @@ DPSGD_MICROBATCHES = (1, TRAIN_B)
 # reweighted examples inside its bf16 products), so two of them can differ
 # by up to the sum of their distances from float32
 CLIP_SUM_TOL = 5e-2
+# phase 11: the image families at full width and depth, train_4k's batch of
+# 256 examples x augmentation multiplicity 16 (De et al. 2022's CIFAR-10
+# setting), CIFAR-10's train split of N = 50,000 for q = B/N
+IMAGE_ARCHS = ("cnn-cifar10", "vit-cifar10")
+IMAGE_B, IMAGE_K, IMAGE_N = 256, 16, 50_000
 
 
 def request_stream(vocab: int, seed: int = 0):
@@ -231,6 +257,42 @@ def dense_mix(arch, layers):
             [("qo", d, d, 2 * layers), ("kv", d, kv, 2 * layers)])
     return attn + [("w1w3", d, f, 2 * layers), ("w2", f, d, layers),
                    ("head", d, v, 1)]
+
+
+def image_mix(arch, K=IMAGE_K):
+    """One image model's norm-site calls as dense problems, per example
+    with its ``K`` views folded into T: (name, T, di, do, calls).  The
+    CNN's conv2d sites (im2col: T = K x output positions, di = k·k·Cin,
+    do = Cout; ``iter_conv_sites``) and its head; the ViT's patch
+    embedding, its q, k, v, o, w1 and w2 (T = K x patches) and its head
+    (T = K)."""
+    calls = {}
+
+    def add(name, T, di, do, n=1):
+        key = (name, T, di, do)
+        calls[key] = calls.get(key, 0) + n
+
+    if arch.family == "cnn":
+        from repro_torch.models.cnn import iter_conv_sites
+        for label, (xs, w), gy in iter_conv_sites(arch):
+            if label == "stem":
+                kind = label
+            elif label.endswith("proj"):
+                kind = f"s{label[1]}-proj"
+            else:        # the stride-2 first conv of a stage apart
+                kind = f"s{label[1]}-{'w1s2' if gy[1] != xs[1] else 'conv'}"
+            add(kind, K * gy[1] * gy[2], w[0] * w[1] * w[2], w[3])
+        add("head", K, arch.cnn.stage_channels[-1], arch.n_classes)
+    else:
+        d, v = arch.d_model, arch.vit
+        assert arch.n_heads * arch.hd == d == arch.n_kv_heads * arch.hd
+        P = v.n_patches
+        add("patch", K * P, v.patch_size ** 2 * v.in_channels, d)
+        add("qkvo", K * P, d, d, 4 * arch.n_layers)
+        add("w1", K * P, d, arch.d_ff, arch.n_layers)
+        add("w2", K * P, arch.d_ff, d, arch.n_layers)
+        add("head", K, d, arch.n_classes)
+    return [(name, T, di, do, n) for (name, T, di, do), n in calls.items()]
 
 
 def norm_bound_ms(BG, T, di, do, dtype_name):
@@ -674,7 +736,8 @@ def check_gram(name, BG, T, di, do, masked, square, dtype, seed=0, iters=10):
 # the bf16 tensor-core kernels (mangled-name pieces) and which of them the
 # main paths run: the dgrad kernel (dense_dgrad and dense_bwd_norm's gx
 # launch), the norm kernel (pegrad_norm and dense_bwd_norm's norm launch),
-# the flash forward and backward at phi3's head width, gram_norm
+# the flash forward and backward at phi3's, chatglm3's and the ViT's head
+# widths, gram_norm
 TENSOR_CORE_KERNELS = {"dense_dgrad": ["tc12dgrad_kernel"],
                        "dense_bwd_norm": ["tc12dgrad_kernel", "tc11norm_kernel"],
                        "pegrad_norm": ["tc11norm_kernel"],
@@ -684,7 +747,10 @@ TENSOR_CORE_KERNELS = {"dense_dgrad": ["tc12dgrad_kernel"],
 MAIN_PATH_KERNELS = ("tc12dgrad_kernel", "tc11norm_kernel", "mma16flash_fwd_kernelILi96E",
                      "mma13bwd_kv_kernelILi96E", "mma12bwd_q_kernelILi96E",
                      "mma16flash_fwd_kernelILi128E", "mma13bwd_kv_kernelILi128E",
-                     "mma12bwd_q_kernelILi128E", "mma11gram_kernel")
+                     "mma12bwd_q_kernelILi128E", "mma11gram_kernel",
+                     # the ViT's head width (phase 11)
+                     "mma16flash_fwd_kernelILi32E", "mma13bwd_kv_kernelILi32E",
+                     "mma12bwd_q_kernelILi32E")
 
 
 def ptxas_report(log: str):
@@ -770,50 +836,76 @@ def kernel_counts():
             "clip_reduce": (clip_reduce, "LAUNCHES")}
 
 
+def launch_shape(arch):
+    """``path_launches``'s keywords for ``arch``'s family: the dense
+    decoder's layer count, or the image family and, for the CNN, its
+    conv2d sites."""
+    if arch.family == "cnn":
+        from repro_torch.models.cnn import iter_conv_sites
+        return dict(L=0, family="cnn", convs=len(list(iter_conv_sites(arch))))
+    return dict(L=arch.n_layers, family=arch.family)
+
+
 def path_launches(route: str, L: int, chunks: int = 1, algo: str = "dpsgd_r",
                   remat: str = "none", examples: int = 0, microbatch: int = 0,
-                  leaves: int = 0):
-    """Launches of every kernel in one step of ``algo`` on the dense decoder
-    with ``L`` layers, as the code makes them: each layer has 7 dense sites
-    (q, k, v, o, w1, w3, w2) and one attention, the model one head and one
-    embedding.
+                  leaves: int = 0, family: str = "dense", convs: int = 0):
+    """Launches of every kernel in one step of ``algo``, as the code makes
+    them.  The dense decoder with ``L`` layers: each layer has 7 dense
+    sites (q, k, v, o, w1, w3, w2) and one attention, the model one head
+    and one embedding.  The ViT (``family="vit"``, ``L`` layers): 6 dense
+    sites a layer (q, k, v, o, w1, w2) and one non-causal attention, the
+    patch embedding (a conv2d site) and the head.  The CNN
+    (``family="cnn"``): ``convs`` conv2d sites (the stem first) and the
+    head, no attention.  A norm site is a dense or conv2d site; the
+    embedding's norm is one ``gram_norm``.
 
     ``dpsgd_r`` runs two forwards and two backwards, ``dpsgd_r1f`` one
     forward and two backwards (pullbacks), each with the flash forward and
     backward at every attention.  A norm-mode backward under ``fused`` runs
     the attention site's forward once more (once in ``dpsgd_r``'s pass 1,
-    in both of ``dpsgd_r1f``'s pullbacks); its dense sites take
+    in both of ``dpsgd_r1f``'s pullbacks); its norm sites take
     ``dense_bwd_norm``, and ``dpsgd_r1f``'s second pullback takes
-    ``dense_dgrad`` at each of them instead.  ``materialize`` takes
-    ``pegrad_norm`` at every dense site; ``auto`` is at T 2048, where the
-    FLOP formulas send q, k, v, o to ``pegrad_norm`` and w1, w3, w2 and the
-    head to ``gram_norm``; the embedding's norm is one ``gram_norm``.
-    ``sgd`` is one forward and one backward; ``dpsgd`` one of each per
-    example (``examples`` of them), and one ``clip_reduce`` per parameter
-    leaf (``leaves``) per chunk of ``microbatch`` examples (0 = all).
-    Under ``block`` and ``sites`` every backward recomputes every block's
-    forward once more.  ``chunks``: grad_accum, every chunk a full step's
-    worth."""
+    ``dense_dgrad`` at each of them whose input needs a gradient (not the
+    image models' first site, whose input is the images).
+    ``materialize`` takes ``pegrad_norm`` at every norm site, ``gram``
+    ``gram_norm``; ``auto`` is the decoder at T 2048, where the FLOP
+    formulas send q, k, v, o to ``pegrad_norm`` and w1, w3, w2 and the
+    head to ``gram_norm``.  ``sgd`` is one forward and one backward;
+    ``dpsgd`` one of each per example (``examples`` of them), and one
+    ``clip_reduce`` per parameter leaf (``leaves``) per chunk of
+    ``microbatch`` examples (0 = all).  Under ``block`` and ``sites`` every
+    backward recomputes every block's forward once more, so its flash
+    forwards.  ``chunks``: grad_accum, every chunk a full step's worth."""
     n = dict.fromkeys(kernel_counts(), 0)
-    again = 0 if remat == "none" else L       # the recompute, per backward
+    if family == "dense":
+        sites, dgrads, attn, embeds = 7 * L + 1, 7 * L + 1, L, 1
+    elif family == "vit":
+        sites, dgrads, attn, embeds = 6 * L + 2, 6 * L + 1, L, 0
+    elif family == "cnn":
+        sites, dgrads, attn, embeds = convs + 1, convs, 0, 0
+    else:
+        raise ValueError(family)
+    again = 0 if remat == "none" else attn    # the recompute, per backward
     if algo == "sgd":
-        n.update(flash_attn_fwd=L + again, flash_attn_bwd=L)
+        n.update(flash_attn_fwd=attn + again, flash_attn_bwd=attn)
     elif algo == "dpsgd":
-        n.update(flash_attn_fwd=examples * (L + again),
-                 flash_attn_bwd=examples * L,
+        n.update(flash_attn_fwd=examples * (attn + again),
+                 flash_attn_bwd=examples * attn,
                  clip_reduce=leaves * (examples // (microbatch or examples)))
     elif algo in ("dpsgd_r", "dpsgd_r1f"):
         forwards, norm_pulls = (2, 1) if algo == "dpsgd_r" else (1, 2)
-        n.update(flash_attn_fwd=forwards * L + 2 * again, flash_attn_bwd=2 * L,
-                 gram_norm=1)
+        n.update(flash_attn_fwd=forwards * attn + 2 * again,
+                 flash_attn_bwd=2 * attn, gram_norm=embeds)
         if route == "fused":
-            n["flash_attn_fwd"] += norm_pulls * L
-            n["dense_bwd_norm"] = 7 * L + 1
+            n["flash_attn_fwd"] += norm_pulls * attn
+            n["dense_bwd_norm"] = sites
             if algo == "dpsgd_r1f":
-                n["dense_dgrad"] = 7 * L + 1
+                n["dense_dgrad"] = dgrads
         elif route == "materialize":
-            n.update(pegrad_norm=7 * L + 1)
-        elif route == "auto-2048":
+            n.update(pegrad_norm=sites)
+        elif route == "gram":
+            n["gram_norm"] += sites
+        elif route == "auto-2048" and family == "dense":
             n.update(pegrad_norm=4 * L, gram_norm=3 * L + 2)
         else:
             raise ValueError(route)
@@ -831,31 +923,47 @@ def read_counts():
     return {k: getattr(mod, attr) for k, (mod, attr) in kernel_counts().items()}
 
 
-def train_reference():
-    """Reduced phi3 in float32: one dpsgd_r fused clipped sum (the step
+def train_reference(name: str = "phi3-mini-3.8b", augmult: int = 1):
+    """A reduced model in float32: one dpsgd_r fused clipped sum (the step
     before its noise) on the card through the kernels against the CPU
-    through the plain versions, same weights and batch.  Losses and norms²
-    at rtol 1e-4, gradients within 1e-4 of each leaf's largest entry
-    (float32, other summation order)."""
+    through the plain versions, same weights and batch (tokens for the
+    decoder; for an image model seeded images, ``augmult`` views each).
+    Losses and norms² at rtol 1e-4, gradients within 1e-4 of each leaf's
+    largest entry (float32, other summation order)."""
+    import numpy as np
     import torch
     from repro_torch import tree
     from repro_torch.configs import get_arch, reduced
     from repro_torch.configs.base import DPConfig
     from repro_torch.core import algo
-    from repro_torch.models.transformer import Model
-    arch = reduced(get_arch("phi3-mini-3.8b"))
-    a = Model(arch, dtype=torch.float32, device="cpu", seed=0, remat="none")
-    b = Model(arch, a.params, dtype=torch.float32, device="cuda", remat="none")
-    toks = torch.randint(0, arch.vocab, (4, 65), generator=torch.Generator().manual_seed(1))
-    dp = DPConfig(algo="dpsgd_r", norm_strategy="fused", use_kernels=True)
+    from repro_torch.data.pipeline import augment_expand
+    from repro_torch.models import build_model_for
+    arch = reduced(get_arch(name))
+    a = build_model_for(arch, dtype=torch.float32, device="cpu", seed=0,
+                        remat="none")
+    b = build_model_for(arch, a.params, dtype=torch.float32, device="cuda",
+                        remat="none")
+    if arch.family in ("cnn", "vit"):
+        rng = np.random.default_rng(1)
+        batch = augment_expand(
+            {"images": rng.standard_normal((4,) + arch.image_shape(),
+                                           dtype=np.float32),
+             "labels": rng.integers(0, arch.n_classes, 4).astype(np.int32)},
+            augmult, seed=0, step=0)
+        batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    else:
+        batch = {"tokens": torch.randint(0, arch.vocab, (4, 65),
+                                         generator=torch.Generator().manual_seed(1))}
+    dp = DPConfig(algo="dpsgd_r", norm_strategy="fused", use_kernels=True,
+                  augmult=augmult)
     out = {}
     zero_counts()
     for m, dev in ((a, "cpu"), (b, "cuda")):
         m.requires_grad_(True)
         fn = algo.make_clipped_sum_fn(m.loss_fn, dp)
-        out[dev] = fn(m.params, {"tokens": toks.to(dev)})
+        out[dev] = fn(m.params, {k: v.to(dev) for k, v in batch.items()})
     counts = read_counts()
-    assert counts == path_launches("fused", arch.n_layers), counts
+    assert counts == path_launches("fused", **launch_shape(arch)), counts
     (ga, (la, na)), (gb, (lb, nb)) = out["cpu"], out["cuda"]
     torch.testing.assert_close(lb.cpu(), la, rtol=1e-4, atol=0.0)
     torch.testing.assert_close(nb.cpu(), na, rtol=1e-4, atol=0.0)
@@ -865,9 +973,10 @@ def train_reference():
         worst = max(worst, err)
         assert err <= 1e-4, err
     assert len(ga) == len(tree.leaves(a.params))
-    print(f"[reference] reduced phi3 f32 dpsgd_r fused step, cuda (kernels) vs "
-          f"cpu (plain): losses and norms² within rtol 1e-4, grads within "
-          f"{worst:.1e} of max (limit 1e-4); launches {counts}", flush=True)
+    print(f"[reference] reduced {name} f32 dpsgd_r fused step (augmult "
+          f"{augmult}), cuda (kernels) vs cpu (plain): losses and norms² within "
+          f"rtol 1e-4, grads within {worst:.1e} of max (limit 1e-4); launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
 
 
 def serve(model, prompts, max_new, paged):
@@ -1053,40 +1162,48 @@ def profile_step(run, label):
 
 
 def timed_step(trainer, state):
-    """One Trainer step on ``state`` (its batch, ``Trainer.train_step`` and
-    the metrics read back), synced at both ends, with the record
-    ``Trainer.run`` keeps; not through ``run``, which checkpoints at its
+    """One Trainer step on ``state`` (``Trainer.train_step`` on its batch
+    and the metrics read back), synced at both ends, with the record
+    ``Trainer.run`` keeps; the batch is made before the clock starts, as
+    ``Trainer.run`` makes it; not through ``run``, which checkpoints at its
     last step."""
     import torch
+    step = state.step
+    batch = trainer.make_batch(step)          # on the host, as Trainer.run
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    step = state.step
-    rec = {k: float(v) for k, v in
-           trainer.train_step(state, trainer.make_batch(step)).items()}
+    rec = {k: float(v) for k, v in trainer.train_step(state, batch).items()}
     torch.cuda.synchronize()
     ms = 1e3 * (time.perf_counter() - t0)
     rec.update(step=step, sec=ms / 1e3,
                epsilon=trainer.accountant.epsilon_at(step + 1))
     trainer.history.append(rec)
-    return dict(step_ms=ms, loss=rec["loss"],
-                realized_batch=rec["realized_batch"])
+    out = dict(step_ms=ms, loss=rec["loss"], realized_batch=rec["realized_batch"])
+    for k in ("clip_norm", "clip_norm_next", "clip_frac_below"):
+        if k in rec:
+            out[k] = rec[k]
+    return out
 
 
-def split_passes(model, state, dp, batch):
-    """The two passes of one dpsgd_r step on ``batch`` (masked or not),
-    called directly and synced at each end: (norms², per-row losses,
-    pass 1 ms, pass 2 ms)."""
+def split_passes(model, state, dp, batch, clip=None):
+    """The two passes of one dpsgd_r step on ``batch`` (masked or not, K
+    views an example), called directly and synced at each end: (norms²,
+    per-row losses, pass 1 ms, pass 2 ms).  ``clip``: the step's clip norm
+    (default ``dp.clip_norm``)."""
     import torch
     from repro_torch.core import algo, clipping
     data, mask = algo.split_mask(batch)
+    K = max(1, dp.augmult)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     nsq, losses = algo.norm_pass(model.loss_fn, state.params, data, dp, mask)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    c = clipping.clip_factors(nsq, dp.clip_norm)
+    c = clipping.clip_factors(nsq, dp.clip_norm if clip is None else clip)
+    if mask is not None:
+        c = c * algo._example_mask(mask, K)
     grads = algo.reweighted_grads(model.loss_fn, state.params, data,
-                                  c if mask is None else c * mask)
+                                  algo._expand_rows(c, K))
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     del grads
@@ -1095,22 +1212,24 @@ def split_passes(model, state, dp, batch):
 
 def counted_step(trainer, model, state, route, chunks=1):
     """One timed Trainer step with every kernel count from zero, checked
-    against ``path_launches`` (at the trainer's algorithm and the model's
-    remat policy); then its two passes again on its batch, outside the
-    counted step, for the split.  Returns the step's record and the
-    split's norms² and losses."""
+    against ``path_launches`` (at the trainer's algorithm, the model's
+    family and remat policy); then its two passes again on its batch, at
+    the clip norm the step used, outside the counted step, for the split.
+    Returns the step's record and the split's norms² and losses."""
     batch = trainer.make_batch(state.step)
+    clip = trainer.clip_norm(state)
+    clip = None if clip is None else clip.clone()
     import torch
     zero_counts()
     rec = timed_step(trainer, state)
     # the peak since the caller's last reset, up to the end of the step
     rec["peak_bytes"] = torch.cuda.max_memory_allocated()
     counts = read_counts()
-    want = path_launches(route, model.arch.n_layers, chunks,
-                         trainer.cfg.dp.algo, model.remat)
+    want = path_launches(route, chunks=chunks, algo=trainer.cfg.dp.algo,
+                         remat=model.remat, **launch_shape(model.arch))
     assert counts == want, (route, model.remat, counts, want)
     nsq, losses, rec["pass1_ms"], rec["pass2_ms"] = split_passes(
-        model, state, trainer.cfg.dp, batch)
+        model, state, trainer.cfg.dp, batch, clip)
     rec["noise_opt_ms"] = rec["step_ms"] - rec["pass1_ms"] - rec["pass2_ms"]
     rec["launches"] = counts
     return rec, batch, nsq, losses
@@ -1338,15 +1457,19 @@ def train_norm_routes(model, fused_trainer, state):
 
 def staged_step(trainer, state):
     """One dpsgd_r step by hand, stage by stage as ``Trainer.train_step``
-    makes it (without its update-norm metric): pass 1, pass 2, the noise
-    and the optimizer, each synced at its ends with the peak memory reset
-    before it, so each stage's peak says what sets the step's.  Returns
-    {stage: {"ms", "peak_bytes"}}."""
+    makes it (without its update-norm metric and the adaptive clip
+    update, so the clip norm stays): pass 1, pass 2, the noise and the
+    optimizer, each synced at its ends with the peak memory reset before
+    it, so each stage's peak says what sets the step's.  Returns {stage:
+    {"ms", "peak_bytes"}}."""
     import torch
     from repro_torch import tree
     from repro_torch.core import algo, clipping, noise
     model, dp = trainer.model, trainer.cfg.dp
+    K = max(1, dp.augmult)
     data, mask = algo.split_mask(trainer.make_batch(state.step))
+    C = trainer.clip_norm(state)
+    C = dp.clip_norm if C is None else float(C)
     out = {}
 
     def stage(name, fn):
@@ -1361,14 +1484,17 @@ def staged_step(trainer, state):
 
     nsq, _ = stage("pass 1", lambda: algo.norm_pass(
         model.loss_fn, state.params, data, dp, mask))
-    c = clipping.clip_factors(nsq, dp.clip_norm)
+    c = clipping.clip_factors(nsq, C)
+    if mask is not None:
+        c = c * algo._example_mask(mask, K)
     grads = stage("pass 2", lambda: algo.reweighted_grads(
-        model.loss_fn, state.params, data, c if mask is None else c * mask))
+        model.loss_fn, state.params, data, algo._expand_rows(c, K)))
     stage("noise", lambda: noise.add_noise_(
-        grads, trainer.noise_generator(state.step), dp.noise_multiplier,
-        dp.clip_norm, TRAIN_B))
+        grads, trainer.noise_generator(state.step), dp.noise_multiplier, C,
+        trainer.shape.global_batch))
     stage("optimizer", lambda: trainer.opt.apply(
-        grads, state.opt_state, tree.leaves(state.params), state.step))
+        grads, trainer.optimizer_state(state), tree.leaves(state.params),
+        state.step))
     state.step += 1
     return out
 
@@ -1603,6 +1729,335 @@ def train_algorithms():
     return dict(steps=recs, sigma0=errs, launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# the image families: their kernels at phase 11's shapes (phase 3), and
+# phase 11 itself
+# ---------------------------------------------------------------------------
+
+def _tc_paths(di, do):
+    """The bf16 paths a (di, do) problem takes: the gx launch, the norm
+    launch, the Gram kernel (element loads where a row is not a multiple
+    of 8 elements)."""
+    return ("wgmma+tma" if do % 8 == 0 else "wgmma+loads",
+            "wgmma+tma" if di % 8 == 0 and do % 8 == 0 else "wgmma+loads",
+            "mma+cp.async" if di % 8 == 0 and do % 8 == 0 else "mma+loads")
+
+
+def _step_sums(recs, mix, keys=("ms", "plain_ms", "bound_ms", "library_ms")):
+    """Sums over one step's calls (``mix``, in ``recs``' order) of each
+    key; the roof that holds most of the summed bound names it."""
+    out = {k: sum(n * r[k] for (*_, n), r in zip(mix, recs)) for k in keys}
+    by = {}
+    for (*_, n), r in zip(mix, recs):
+        by[r["bound_by"]] = by.get(r["bound_by"], 0.0) + n * r["bound_ms"]
+    out.update(bound_by=max(by, key=by.get), bound_ms_by_roof=by,
+               max_abs_err=max(r["max_abs_err"] for r in recs))
+    return out
+
+
+def largest_leaf(arch):
+    """(path, elements) of ``arch``'s largest parameter."""
+    from repro_torch.models import cnn, vit
+    from repro_torch.models.transformer import _map_spec
+    spec = (cnn if arch.family == "cnn" else vit).model_spec(arch)
+    sizes = []
+    _map_spec(spec, lambda p, path: sizes.append((math.prod(p.shape),
+                                                  "/".join(path))))
+    n, path = max(sizes)
+    return path, n
+
+
+def check_image_kernels():
+    """The kernels of phase 11's paths at its shapes (K 16 views of each of
+    256 examples folded into T), float32 and bf16, each against its plain
+    version, timed beside its library call and bound: the flash pair
+    non-causal at (4096 x 8 heads, T 64, hd 32); at every distinct norm
+    site of each model (``image_mix``) ``dense_bwd_norm``, ``pegrad_norm``
+    and ``dense_dgrad`` (and the fusion A/B) on all 256 examples and
+    ``gram_norm`` on 4 of them (its plain version and library call form
+    each example's T x T Grams: 4.3 GB a matrix at T 16384); and
+    ``clip_reduce`` at each model's largest leaf over 256 examples.  The
+    bf16 paths must be the ones the shapes call for (element loads only
+    where a row is not a multiple of 8 elements).  Returns the records and
+    the bf16 sums over one step's calls of each model."""
+    import torch
+    from repro_torch.configs import get_arch
+    bf16 = torch.bfloat16
+    vit_arch = get_arch("vit-cifar10")
+    H, hd, T = vit_arch.n_heads, vit_arch.hd, vit_arch.vit.n_patches
+    out = {"flash_fwd": [], "flash_bwd": [], "mix": {}, "dense": {},
+           "pegrad_norm": {}, "dense_dgrad": {}, "ab": {}, "gram": {},
+           "clip_reduce": {}, "step": {}}
+    for dtype in (torch.float32, bf16):
+        out["flash_fwd"].append(check_flash("vit", IMAGE_B * IMAGE_K, H, H, T, hd,
+                                            False, dtype))
+        out["flash_bwd"].append(check_flash_bwd("vit", IMAGE_B * IMAGE_K * H,
+                                                IMAGE_B * IMAGE_K * H, T, hd,
+                                                False, dtype, iters=5))
+    for r in out["flash_fwd"][1:] + out["flash_bwd"][1:]:
+        assert r["path"] == "mma+cp.async", r
+    for name in IMAGE_ARCHS:
+        arch = get_arch(name)
+        mix = image_mix(arch)
+        out["mix"][name] = mix
+        out["clip_reduce"][name] = []
+        for key in ("dense", "pegrad_norm", "dense_dgrad", "ab", "gram"):
+            out[key][name] = {"float32": [], "bfloat16": []}
+        for dtype in (torch.float32, bf16):
+            dt = _dtype_name(dtype)
+            for nm, t, di, do, _ in mix:
+                label = f"{name}-{nm}"
+                out["dense"][name][dt].append(check_dense_bwd_norm(
+                    label, IMAGE_B, t, di, do, 1, dtype))
+                for k, r in check_dense_halves(label, IMAGE_B, t, di, do, 1,
+                                               dtype).items():
+                    out[k][name][dt].append(r)
+                out["gram"][name][dt].append(check_gram(
+                    f"{label} x4", 4, t, di, do, False, True, dtype, iters=5))
+                gc.collect()
+                torch.cuda.empty_cache()
+            path, n = largest_leaf(arch)
+            out["clip_reduce"][name].append(
+                check_clip_reduce(f"{name}-{path}", IMAGE_B, n, dtype))
+        for (nm, t, di, do, _), d, pg, dg, gr in zip(
+                mix, out["dense"][name]["bfloat16"],
+                out["pegrad_norm"][name]["bfloat16"],
+                out["dense_dgrad"][name]["bfloat16"], out["gram"][name]["bfloat16"]):
+            gx_path, norm_path, gram_path = _tc_paths(di, do)
+            assert (d["path"], d["norm_path"], pg["path"], dg["path"], gr["path"]) \
+                == (gx_path, norm_path, norm_path, gx_path, gram_path), (name, nm)
+        out["step"][name] = {
+            k: _step_sums(out[k][name]["bfloat16"], mix)
+            for k in ("dense", "pegrad_norm", "dense_dgrad", "gram")}
+        out["step"][name]["ab"] = {k: sum(n * r[k] for (*_, n), r in zip(
+            mix, out["ab"][name]["bfloat16"])) for k in ("separate_ms", "fused_ms")}
+        st = out["step"][name]
+        print(f"[image] {name}: over one step's {sum(n for *_, n in mix)} norm-site "
+              f"calls at K {IMAGE_K}, bf16: dense_bwd_norm {st['dense']['ms']:.2f} ms "
+              f"(bound {st['dense']['bound_ms']:.3f} ms, {st['dense']['bound_by']}; "
+              f"matmul + bmm {st['dense']['library_ms']:.2f} ms; plain "
+              f"{st['dense']['plain_ms']:.2f} ms), pegrad_norm "
+              f"{st['pegrad_norm']['ms']:.2f} ms (bmm {st['pegrad_norm']['library_ms']:.2f}"
+              f" ms), dense_dgrad {st['dense_dgrad']['ms']:.2f} ms (matmul "
+              f"{st['dense_dgrad']['library_ms']:.2f} ms), separate / fused "
+              f"{st['ab']['separate_ms'] / st['ab']['fused_ms']:.3f}; gram_norm on 4 "
+              f"examples {st['gram']['ms']:.2f} ms (library "
+              f"{st['gram']['library_ms']:.2f} ms)", flush=True)
+    return out
+
+
+def image_shape_and_config(arch, **dp):
+    """Phase 11's shape (256 examples a step) and config: ``dpsgd_r`` with
+    the fused route through the kernels, K 16, adaptive clipping from C 1
+    (its defaults: quantile 0.5, rate 0.2, count noise 10), σ 1, δ 1e-5,
+    remat ``block``, AdamW at lr 1e-4; ``dp`` overrides."""
+    from repro_torch.configs.base import (DPConfig, OptimConfig, ShapeConfig,
+                                          TrainConfig)
+    shape = ShapeConfig("cifar10", 1, IMAGE_B, "train")
+    base = dict(algo="dpsgd_r", norm_strategy="fused", use_kernels=True,
+                clip_norm=1.0, noise_multiplier=1.0, delta=1e-5,
+                augmult=IMAGE_K, adaptive_clip=True)
+    base.update(dp)
+    cfg = TrainConfig(arch=arch.name, log_every=1, remat="block",
+                      ckpt_dir=str(ROOT / "build" / "chip_smoke_ckpt"),
+                      dp=DPConfig(**base),
+                      optim=OptimConfig(name="adamw", lr=1e-4, schedule="constant"))
+    return shape, cfg
+
+
+def image_trainer(model, shape, cfg):
+    """A Trainer on synthetic CIFAR-shaped images from a dataset of
+    ``IMAGE_N`` examples (q = 256 / 50,000)."""
+    from repro_torch.data.pipeline import SyntheticSource
+    from repro_torch.train import Trainer
+    return Trainer(model, cfg, shape, source=SyntheticSource(
+        model.arch.vocab, cfg.seed, dataset_size=IMAGE_N))
+
+
+def _nsq_against_plain(trainer, state, batch):
+    """The norms² of ``batch`` through the trainer's route with kernels and
+    through its plain rules on the card: (max rel err, kernel norms²)."""
+    from repro_torch.core import algo
+    data, mask = algo.split_mask(batch)
+    dp = trainer.cfg.dp
+    got, _ = algo.norm_pass(trainer.model.loss_fn, state.params, data, dp, mask)
+    want, _ = algo.norm_pass(trainer.model.loss_fn, state.params, data,
+                             dataclasses.replace(dp, use_kernels=False), mask)
+    err = ((got - want).abs() / want.abs()).max().item()
+    assert err <= NSQ_RTOL, (dp.norm_strategy, err)
+    return err, got
+
+
+def train_image(name):
+    """Phase 11 for one image model (see the module docstring).  Returns its
+    record."""
+    import numpy as np
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model_for
+    arch = get_arch(name)
+    shape, cfg = image_shape_and_config(arch)
+    rows = IMAGE_B * IMAGE_K
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model = build_model_for(arch, dtype=torch.bfloat16, device="cuda", seed=0,
+                            remat="block")
+    trainer = image_trainer(model, shape, cfg)
+    state = trainer.init_state()
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in model.parameters())
+    print(f"[image] {name} at full width and depth: {n_par} params bf16 + AdamW "
+          f"f32 state, init {time.perf_counter() - t:.1f} s; batch {IMAGE_B} "
+          f"examples x {IMAGE_K} views = {rows} rows of {arch.image_shape()}; "
+          f"q = {IMAGE_B} / {IMAGE_N}; remat block; dpsgd_r fused+kernels, "
+          f"adaptive clip from C {cfg.dp.clip_norm}", flush=True)
+    timed_step(trainer, state)                 # warm-up (allocator, cuDNN)
+    launches = dict.fromkeys(kernel_counts(), 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    steps = []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.reset_peak_memory_stats()
+        rec, *_ = counted_step(trainer, model, state, "fused")
+        add(rec["launches"])
+        rec["rows_per_s"] = rows / rec["step_ms"] * 1e3
+        steps.append(rec)
+        print(f"[image] {name} step {state.step - 1}: loss {rec['loss']:.4f}; "
+              f"clip_norm {rec['clip_norm']:.4f} -> {rec['clip_norm_next']:.4f} "
+              f"(fraction below {rec['clip_frac_below']:.3f}); {rec['step_ms']:.1f} ms "
+              f"= pass 1 {rec['pass1_ms']:.1f} + pass 2 {rec['pass2_ms']:.1f} + noise "
+              f"and optimizer {rec['noise_opt_ms']:.1f}; {rec['rows_per_s']:.0f} rows/s; "
+              f"peak {rec['peak_bytes'] / 2**30:.2f} GiB; launches "
+              f"{ {k: v for k, v in rec['launches'].items() if v} }", flush=True)
+    losses = [r["loss"] for r in steps]
+    assert all(math.isfinite(x) for x in losses), losses
+    assert steps[-1]["clip_norm_next"] != steps[0]["clip_norm"], steps
+    t = time.perf_counter()
+    trainer.make_batch(state.step)
+    batch_ms = 1e3 * (time.perf_counter() - t)
+    print(f"[image] {name} one batch made on the host ({IMAGE_B} images, {IMAGE_K} "
+          f"views each, to the card): {batch_ms:.1f} ms, outside the step times",
+          flush=True)
+    staged = staged_step(trainer, state)
+    print(f"[image] {name} one step stage by stage: {_stages_line(staged)}",
+          flush=True)
+    prof = profile_step(lambda: timed_step(trainer, state),
+                        f"fused+kernels, {name}, K {IMAGE_K}, adaptive clip,")
+    nsq_err, nsq = _nsq_against_plain(trainer, state, trainer.make_batch(state.step))
+    print(f"[image] {name} norms² of one batch, fused+kernels vs the plain rules: "
+          f"max rel err {nsq_err:.2e} (limit {NSQ_RTOL}); norms "
+          f"{np.round(nsq.sqrt().cpu().numpy()[:8], 4).tolist()}...", flush=True)
+    out = dict(params=n_par, rows=rows, steps=steps, staged=staged, profile=prof,
+               nsq_rel_err=nsq_err, batch_ms=batch_ms)
+
+    def variant(label, route, **dp):
+        tr = image_trainer(model, shape, dataclasses.replace(
+            cfg, dp=dataclasses.replace(cfg.dp, **dp)))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        rec, batch, nsq_, losses_ = counted_step(tr, model, state, route)
+        add(rec["launches"])
+        assert math.isfinite(rec["loss"]), (label, rec)
+        print(f"[image] {name} {label} step {state.step - 1}: loss {rec['loss']:.4f}; "
+              f"clip_norm {rec['clip_norm']:.4f} -> {rec['clip_norm_next']:.4f}; "
+              f"{rec['step_ms']:.1f} ms = pass 1 {rec['pass1_ms']:.1f} + pass 2 "
+              f"{rec['pass2_ms']:.1f} + noise and optimizer {rec['noise_opt_ms']:.1f}; "
+              f"peak {rec['peak_bytes'] / 2**30:.2f} GiB; launches "
+              f"{ {k: v for k, v in rec['launches'].items() if v} }", flush=True)
+        return tr, rec, batch, nsq_, losses_
+
+    if arch.family == "cnn":
+        for route in ("materialize", "gram"):
+            tr, rec, batch, *_ = variant(f"{route}+kernels", route,
+                                         norm_strategy=route)
+            rec["nsq_rel_err"], _ = _nsq_against_plain(tr, state, batch)
+            print(f"[image] {name} {route}+kernels norms² vs the plain {route} "
+                  f"rules: max rel err {rec['nsq_rel_err']:.2e} (limit {NSQ_RTOL})",
+                  flush=True)
+            out[route] = rec
+            if route == "materialize":
+                # fused against materialize in turns (mat, fused, fused, mat)
+                turns = {"materialize": [], "fused": []}
+                for r in ("materialize", "fused", "fused", "materialize"):
+                    turns[r].append(timed_step(tr if r == "materialize" else trainer,
+                                               state)["step_ms"])
+                means = {r: float(np.mean(v)) for r, v in turns.items()}
+                print(f"[image] {name} in turns: materialize "
+                      f"{means['materialize']:.1f} ms vs fused {means['fused']:.1f} ms a "
+                      f"step (materialize / fused "
+                      f"{means['materialize'] / means['fused']:.3f}; runs {turns})",
+                      flush=True)
+                out["turns"] = dict(steps_ms=turns, mean_ms=means)
+
+    # one Poisson step: the padded examples' norms² exactly 0
+    tr, rec, batch, nsq, losses = variant("poisson", "fused", sampling="poisson")
+    mask = batch["mask"].reshape(-1, IMAGE_K)[:, 0]
+    real = int(mask.sum())
+    assert rec["realized_batch"] == real and nsq.shape == mask.shape
+    assert bool(torch.all(nsq[~mask] == 0.0)) and bool(torch.all(nsq[mask] > 0.0))
+    assert bool(torch.all(torch.isfinite(losses)))
+    rec.update(capacity=tr.capacity, realized=real)
+    print(f"[poisson] {name}: realized batch {real} examples of capacity "
+          f"{tr.capacity} (x {IMAGE_K} views = {tr.capacity * IMAGE_K} rows), q "
+          f"{tr.sample_rate:.4e}; padded examples' norms² all exactly 0.0", flush=True)
+    out["poisson"] = rec
+
+    # one dpsgd step: clip_reduce on every leaf's 256 per-example gradients
+    dtr = image_trainer(model, shape, dataclasses.replace(
+        cfg, dp=dataclasses.replace(cfg.dp, algo="dpsgd", microbatch=0)))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    rec = timed_step(dtr, state)
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    counts = read_counts()
+    want = path_launches("fused", algo="dpsgd", remat=model.remat,
+                         examples=IMAGE_B, leaves=len(tree.leaves(model.params)),
+                         **launch_shape(arch))
+    assert counts == want, (counts, want)
+    assert math.isfinite(rec["loss"]), rec
+    add(counts)
+    rec["launches"] = counts
+    print(f"[image] {name} dpsgd (all {IMAGE_B} examples at once) step {state.step - 1}: "
+          f"loss {rec['loss']:.4f}; clip_norm {rec['clip_norm']:.4f} -> "
+          f"{rec['clip_norm_next']:.4f}; {rec['step_ms']:.1f} ms, peak "
+          f"{rec['peak_bytes'] / 2**30:.2f} GiB; launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    out["dpsgd"] = rec
+
+    mean = float(np.mean([r["step_ms"] for r in steps]))
+    bd = trainer.accountant.epsilon_breakdown(state.step)
+    print(f"[image] {name}: mean step {mean:.1f} ms, {rows / mean * 1e3:.0f} rows/s "
+          f"({IMAGE_B / mean * 1e3:.0f} examples/s); after {state.step} steps eps "
+          f"{bd['eps_total']:.6f} composed (grad {bd['eps_grad']:.6f}, clip "
+          f"{bd['eps_clip']:.6f}; q {trainer.sample_rate:.4e}, sigma "
+          f"{cfg.dp.noise_multiplier}, count noise {cfg.dp.clip_count_noise}, delta "
+          f"{cfg.dp.delta}); clip_norm now {float(trainer.clip_norm(state)):.4f}",
+          flush=True)
+    out.update(mean_step_ms=mean, rows_per_s=rows / mean * 1e3, epsilon=bd,
+               launches=launches)
+    return out
+
+
+def train_images():
+    """Phase 11: both image models (see the module docstring)."""
+    import torch
+    out = {}
+    for name in IMAGE_ARCHS:
+        out[name] = train_image(name)
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["launches"] = {k: sum(out[n]["launches"][k] for n in IMAGE_ARCHS)
+                       for k in kernel_counts()}
+    return out
+
+
 # phase 10: chatglm3-6b at full width and depth, batches from a memmap
 # corpus of 2^24 int32 tokens, adam8bit; the checkpoint drill at 4 layers
 GLM_ARCH, GLM_DRILL_LAYERS, CORPUS_TOKENS = "chatglm3-6b", 4, 1 << 24
@@ -1647,16 +2102,9 @@ def check_glm_kernels(arch):
         assert r["path"] == "mma+cp.async", r
     for r in dense:
         assert r["path"] == r["norm_path"] == "wgmma+tma", r
-    step = {k: sum(n * r[k] for (_, _, _, n), r in zip(mix, dense))
-            for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
     # k and v (4096 -> 256) are bound by bytes, the rest by operations: the
     # step's bound is the sum, named by the roof that holds most of it
-    by = {}
-    for (_, _, _, n), r in zip(mix, dense):
-        by[r["bound_by"]] = by.get(r["bound_by"], 0.0) + n * r["bound_ms"]
-    step["bound_by"] = max(by, key=by.get)
-    step["bound_ms_by_roof"] = by
-    step["max_abs_err"] = max(r["max_abs_err"] for r in dense)
+    step = _step_sums(dense, mix)
     print(f"[glm] dense_bwd_norm over one step's {sum(n for *_, n in mix)} calls, "
           f"bf16: kernel {step['ms']:.2f} ms, plain {step['plain_ms']:.1f} ms, "
           f"matmul + bmm {step['library_ms']:.2f} ms, bound {step['bound_ms']:.2f} "
@@ -1903,6 +2351,9 @@ def main() -> int:
                                            dtype))
         clip_recs.append(check_clip_reduce("ragged", 3, 1_000_003, dtype))
 
+    # the image families' shapes (phase 11's path)
+    image_kernels = check_image_kernels()
+
     # the auto route's shapes (B 2 x T 2048), bf16: its attention backward
     # and its three square Gram widths (w1 and w3, w2, the head)
     bwd_recs.append(check_flash_bwd("auto-2048", AUTO_B * arch.n_heads,
@@ -1972,6 +2423,8 @@ def main() -> int:
     # 4. small references
     small_reference("cuda")
     train_reference()
+    for image_arch in IMAGE_ARCHS:
+        train_reference(image_arch, augmult=2)
 
     # 5. the serving path
     print(f"[main] allocated before the serving path: "
@@ -2011,7 +2464,13 @@ def main() -> int:
     glm = train_glm_path()
     gc.collect()
     torch.cuda.empty_cache()
-    launches = {k: sum(r["launches"][k] for r in (train, routes, remat, algos, glm))
+
+    # 11. the image families at full width and depth: augmult 16, adaptive clip
+    images = train_images()
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {k: sum(r["launches"][k] for r in (train, routes, remat, algos, glm,
+                                                  images))
                 for k in train["launches"]}
     launches["flash_attn_fwd"] += serve_launches
 
@@ -2028,6 +2487,38 @@ def main() -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
             "path": rec.get("path", "wgmma+tma")}
 
+    ik = image_kernels
+
+    def image_row(kernel, model, rec=None):
+        """A kernel's numbers on phase 11's path of ``model`` (bf16), with
+        its launches there: the sum over one step's calls (``rec`` None) or
+        one call's record."""
+        mix = ik["mix"][model]
+        if rec is None:
+            key = {"dense_bwd_norm": "dense", "gram_norm": "gram"}.get(kernel, kernel)
+            rec = ik["step"][model][key]
+            ex = "4 of 256 examples" if kernel == "gram_norm" else "256 examples"
+            shape = (f"sum over one step's calls ({ex}, K {IMAGE_K}): " + " + ".join(
+                f"{n} x (T {t}, {di}, {do})" for _, t, di, do, n in mix))
+        else:
+            shape = rec["shape"]
+        return {"shape": shape, "launches": images[model]["launches"][kernel],
+                **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")}}
+
+    vit_shape = (f"({IMAGE_B * IMAGE_K} x 8 heads, T 64, hd 32) non-causal, bf16")
+    image_rows = {
+        "flash_attn_fwd": dict(cnn=None, vit=dict(image_row(
+            "flash_attn_fwd", "vit-cifar10", ik["flash_fwd"][1]), shape=vit_shape)),
+        "flash_attn_bwd": dict(cnn=None, vit=dict(image_row(
+            "flash_attn_bwd", "vit-cifar10", ik["flash_bwd"][1]), shape=vit_shape)),
+        "clip_reduce": {m.split("-")[0]: image_row("clip_reduce", m,
+                                                    ik["clip_reduce"][m][1])
+                        for m in IMAGE_ARCHS}}
+    for kernel in ("dense_bwd_norm", "pegrad_norm", "dense_dgrad", "gram_norm"):
+        image_rows[kernel] = {m.split("-")[0]: image_row(kernel, m)
+                              for m in IMAGE_ARCHS}
+
     def entry(name, source, replaces, n, rec, **extra):
         out = {"name": name, "route": "cuda",
                "source": f"src/repro_torch/kernels/csrc/{source}",
@@ -2036,6 +2527,7 @@ def main() -> int:
                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]}
         out.update(extra)
+        out.update(image_rows[name])
         return out
 
     kernels = {"kernels": [
@@ -2089,7 +2581,8 @@ def main() -> int:
          "fusion_ab_step": ab_step, "flash_attn_bwd": bwd_recs,
          "gram_norm": gram_recs, "clip_reduce": clip_recs, "serve": runs,
          "decode_breakdown_ms": breakdown, "train": train, "routes": routes,
-         "remat": remat, "algos": algos, "glm": glm, "json_line": kernels},
+         "remat": remat, "algos": algos, "glm": glm, "image_kernels": image_kernels,
+         "images": images, "json_line": kernels},
         indent=1, default=str))
     print(json.dumps(kernels))
     print(smi)

@@ -1,13 +1,13 @@
 """Configs: the port's own copy of ``repro.configs.base``.
 
-``ArchConfig`` is limited to the fields the dense decoder reads (and the MoE
-layer placement, so a layer pattern reads the same as there).  The shape,
-DP, optimizer and training configs keep the JAX package's field names, so
-``--set a.b=c`` overrides read the same in both packages, but only for what
-the port runs.  The fields of parts it has not taken over (pipeline
-stages, the device mesh and sharding, gradient compression, the memory
-planner, the launch autotuner, adaptive clipping's parameters) are left
-out, and ``--set`` on one of them raises ``NotImplementedError``
+``ArchConfig`` is limited to the fields the dense decoder and the two image
+families (``cnn``, ``vit``) read, and the MoE layer placement, so a layer
+pattern reads the same as there.  The shape, DP, optimizer and training
+configs keep the JAX package's field names, so ``--set a.b=c`` overrides
+read the same in both packages, but only for what the port runs.  The
+fields of parts it has not taken over (pipeline stages, the device mesh and
+sharding, gradient compression, the memory planner, the launch autotuner)
+are left out, and ``--set`` on one of them raises ``NotImplementedError``
 (``NOT_PORTED``).  The ``Trainer`` holds the model's parameter and compute
 types to ``param_dtype`` and ``compute_dtype``, and its remat policy to
 ``remat``.
@@ -39,9 +39,44 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class CNNConfig:
+    """The pre-activation ResNet of family ``"cnn"`` (models/cnn.py): per
+    stage ``blocks_per_stage`` residual blocks of ``kernel`` x ``kernel``
+    convolutions; normalisation per example, never BatchNorm."""
+    image_size: int = 32
+    in_channels: int = 3
+    stage_channels: Tuple[int, ...] = (16, 32, 64)   # one entry per stage
+    blocks_per_stage: int = 2
+    kernel: int = 3
+    num_classes: int = 0            # 0 = inherit ArchConfig.vocab
+
+
+@dataclass(frozen=True)
+class ViTConfig:
+    """The image frontend of family ``"vit"`` (models/vit.py): a patch
+    embedding of stride = kernel = ``patch_size``; the transformer dims are
+    the ``ArchConfig``'s."""
+    image_size: int = 32
+    in_channels: int = 3
+    patch_size: int = 4
+    num_classes: int = 0            # 0 = inherit ArchConfig.vocab
+
+    @property
+    def grid(self) -> int:
+        if self.image_size % self.patch_size:
+            raise ValueError(f"patch {self.patch_size} does not tile image "
+                             f"{self.image_size}")
+        return self.image_size // self.patch_size
+
+    @property
+    def n_patches(self) -> int:
+        return self.grid * self.grid
+
+
+@dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str             # dense | ssm | moe | hybrid | audio | vlm
+    family: str             # dense | ssm | moe | hybrid | audio | vlm | cnn | vit
     n_layers: int
     d_model: int
     n_heads: int
@@ -55,9 +90,24 @@ class ArchConfig:
     mlp_act: str = "swiglu"         # swiglu | gelu
     layer_pattern: Optional[Tuple[str, ...]] = None
     moe: MoEConfig = field(default_factory=MoEConfig)
+    cnn: CNNConfig = field(default_factory=CNNConfig)  # family == "cnn" only
+    vit: ViTConfig = field(default_factory=ViTConfig)  # family == "vit" only
     embed_stub: bool = False
     norm_eps: float = 1e-5
     source: str = ""
+
+    @property
+    def n_classes(self) -> int:
+        """Classifier width of the image families: the explicit
+        ``num_classes``, else ``vocab``."""
+        if self.family == "vit":
+            return self.vit.num_classes or self.vocab
+        return self.cnn.num_classes or self.vocab
+
+    def image_shape(self) -> Tuple[int, int, int]:
+        """(H, W, C) input geometry of the image families."""
+        c = self.vit if self.family == "vit" else self.cnn
+        return (c.image_size, c.image_size, c.in_channels)
 
     @property
     def hd(self) -> int:
@@ -104,6 +154,18 @@ SHAPES: Dict[str, ShapeConfig] = {
     "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
 }
 
+# long_500k needs sub-quadratic sequence mixing: only ssm/hybrid run it
+LONG_OK_FAMILIES = ("ssm", "hybrid")
+IMAGE_FAMILIES = ("cnn", "vit")
+
+
+def shape_applicable(arch: ArchConfig, shape: ShapeConfig) -> bool:
+    if arch.family in IMAGE_FAMILIES:
+        return shape.kind == "train"   # image models neither prefill nor decode
+    if shape.name == "long_500k":
+        return arch.family in LONG_OK_FAMILIES
+    return True
+
 
 # ---------------------------------------------------------------------------
 # Mesh / DP / optim / train configs
@@ -130,9 +192,6 @@ NOT_PORTED: Dict[str, str] = {
     "compress_pod_grads": "gradient compression",
     "zero1": "sharded optimizer state", "mesh": "the device mesh",
     "mem": "the memory planner", "tune": "the launch autotuner",
-    "dp.clip_quantile": "adaptive clipping",
-    "dp.clip_lr": "adaptive clipping",
-    "dp.clip_count_noise": "adaptive clipping",
 }
 
 
@@ -165,11 +224,22 @@ class DPConfig:
 
     ``sampling``: ``"fixed"`` or ``"poisson"`` (each example enters a step
     with probability q = B/N; the batch is padded to a fixed capacity and
-    masked).  ``augmult > 1`` and ``adaptive_clip`` raise (ROADMAP).
+    masked).
+
+    ``augmult``: K augmented views of each example (rows B·K, b-major /
+    k-minor); the per-example gradient is the mean over its views, clipped
+    once, so the example stays the privacy unit and the accounting is
+    unchanged.  K = 1 is the single-view dataflow bit for bit.
+
+    ``adaptive_clip``: quantile-adaptive clip norm (core/adaptive_clip.py):
+    each step a noisy count (std ``clip_count_noise``) of the examples with
+    norm <= C moves C geometrically (rate ``clip_lr``) toward the
+    ``clip_quantile`` quantile; the count is a second mechanism the
+    accountant composes.  ``clip_norm`` is then the initial C.
     """
     enabled: bool = True
     algo: str = "dpsgd_r"          # sgd | dpsgd | dpsgd_r | dpsgd_r1f
-    clip_norm: float = 1.0         # C
+    clip_norm: float = 1.0         # C (the initial C under adaptive_clip)
     noise_multiplier: float = 1.0  # sigma
     delta: float = 1e-5
     sampling: str = "fixed"        # fixed | poisson
@@ -178,6 +248,9 @@ class DPConfig:
     microbatch: int = 0            # dpsgd: examples per chunk (0 = batch)
     augmult: int = 1               # K augmented views per example
     adaptive_clip: bool = False    # quantile-adaptive C
+    clip_quantile: float = 0.5     # target quantile of unclipped norms
+    clip_lr: float = 0.2           # geometric update rate of C
+    clip_count_noise: float = 10.0  # std of the noisy below-C count
 
 
 @dataclass(frozen=True)

@@ -42,18 +42,31 @@ gives the update of the compacted batch.  Metrics are taken over the real
 rows only.  Without a ``"mask"`` leaf every row is real.
 
 ``grad_accum > 1`` sums the clipped sums of equal chunks of the batch (the
-mask chunked alongside) before the noise, as in the JAX package.
+mask chunked alongside, each chunk whole examples) before the noise, as in
+the JAX package.
+
+Augmentation multiplicity (``dp.augmult = K > 1``): every batch leaf
+carries B·K rows, K views of each example, b-major / k-minor
+(data/pipeline.py ``augment_expand``), and the mask is repeated over K.
+The per-example gradient is the mean over the K views, clipped once: every
+backward is seeded with ``m/K``-scaled loss cotangents, so the pulled-back
+gradient of example b is its K-averaged gradient, and the site rules fold
+the K views into their contraction axis (``norms.fold_views4``), so the
+accumulator holds ‖mean-over-K gradient‖² per example, (B,).  Losses stay
+per row (B·K,), norms² per example (B,).  K = 1 is the single-view
+dataflow bit for bit.
+
+Adaptive clipping: a batch may carry a ``"clip_norm"`` leaf, a 0-d tensor
+that overrides ``dp.clip_norm`` in every algorithm (``split_clip``, the one
+place it is resolved); ``make_noisy_grad_fn``'s ``clip_norm`` argument puts
+it there.  Under ``dp.adaptive_clip`` the step also makes the next clip
+norm (core/adaptive_clip.py) from the per-example norms², and its metrics
+carry ``clip_norm``, ``clip_frac_below`` and ``clip_norm_next``.
 
 ``expected_batch_size``: the private update's normaliser, in examples.
 Under Poisson sampling the trainer passes the expected sample size q·N
 (Algorithm 1 line 24's lot size), never the capacity or the realized
 size, which would leak the sample size.
-
-Not ported (ROADMAP queue 1): ``augmult > 1`` and adaptive clipping; each
-raises ``NotImplementedError``.  The view helpers below
-(``_example_mask``, ``_view_seed``, ``_expand_rows``) follow the JAX
-package's ``augmult`` contract, and are the identity at K = 1, the only K
-the port runs.
 
 loss_fn contract: ``loss_fn(params, batch, ctx) -> (per_example_losses,
 ctx)`` with ``per_example_losses: (B,) float32``.
@@ -66,11 +79,12 @@ import torch
 
 from repro_torch import tree
 from repro_torch.configs.base import DPConfig
-from repro_torch.core import clipping, noise, sites
+from repro_torch.core import adaptive_clip, clipping, noise, sites
 from repro_torch.core.context import DPContext
 
 F32 = torch.float32
 MASK_KEY = "mask"
+CLIP_KEY = "clip_norm"
 
 
 def _batch_size(batch) -> int:
@@ -78,12 +92,20 @@ def _batch_size(batch) -> int:
 
 
 def split_mask(batch):
-    """Split the optional ``"mask"`` leaf off a batch: (model inputs,
-    float32 (B·K,) 0/1 mask or None), so model code never sees it."""
-    if not isinstance(batch, dict) or MASK_KEY not in batch:
-        return batch, None
-    data = {k: v for k, v in batch.items() if k != MASK_KEY}
-    return data, batch[MASK_KEY].to(F32)
+    """Split the optional ``"mask"`` (and ``"clip_norm"``) leaves off a
+    batch: (model inputs, float32 (B·K,) 0/1 mask or None)."""
+    data, mask, _ = split_clip(batch)
+    return data, mask
+
+
+def split_clip(batch):
+    """(model inputs, float32 mask or None, clip-norm override or None):
+    both auxiliary leaves stripped, so model code never sees them."""
+    if not isinstance(batch, dict) or not ({MASK_KEY, CLIP_KEY} & set(batch)):
+        return batch, None, None
+    data = {k: v for k, v in batch.items() if k not in (MASK_KEY, CLIP_KEY)}
+    mask = batch.get(MASK_KEY)
+    return data, None if mask is None else mask.to(F32), batch.get(CLIP_KEY)
 
 
 def _ones_if_none(mask, R: int, device) -> torch.Tensor:
@@ -110,16 +132,6 @@ def _expand_rows(c_ex: torch.Tensor, k: int) -> torch.Tensor:
     """(B,) per-example weights -> (B·K,) row weights carrying the 1/K view
     averaging (pass-2 seeds)."""
     return c_ex if k == 1 else torch.repeat_interleave(c_ex, k) / k
-
-
-def _unported(dp: DPConfig) -> None:
-    """Raise on what the port has not taken over yet."""
-    if dp.augmult != 1:
-        raise NotImplementedError(
-            "dp.augmult > 1 is not ported yet (ROADMAP queue 1)")
-    if dp.adaptive_clip:
-        raise NotImplementedError(
-            "dp.adaptive_clip is not ported yet (ROADMAP queue 1)")
 
 
 def _metrics(losses, nsq, clip_norm, mask_rows, mask_ex):
@@ -210,10 +222,11 @@ def _dpsgd_r_sum(loss_fn, dp: DPConfig):
     K = _views(dp)
 
     def fn(params, batch):
-        data, mask = split_mask(batch)
+        data, mask, clip = split_clip(batch)
+        C = dp.clip_norm if clip is None else clip
         m = _ones_if_none(mask, _batch_size(data), tree.leaves(params)[0].device)
         nsq, losses = norm_pass(loss_fn, params, data, dp, m)     # lines 31-33
-        c = clipping.clip_factors(nsq, dp.clip_norm) * _example_mask(m, K)  # 35
+        c = clipping.clip_factors(nsq, C) * _example_mask(m, K)   # line 35
         grads = reweighted_grads(loss_fn, params, data,
                                  _expand_rows(c, K))              # lines 36-39
         return grads, (losses, nsq)
@@ -224,7 +237,8 @@ def _dpsgd_sum(loss_fn, dp: DPConfig):
     K = _views(dp)
 
     def fn(params, batch):
-        data, mask = split_mask(batch)
+        data, mask, clip = split_clip(batch)
+        C = dp.clip_norm if clip is None else clip
         leaves = _require_grad_leaves(params)
         device = leaves[0].device
         R = _batch_size(data)
@@ -253,7 +267,7 @@ def _dpsgd_sum(loss_fn, dp: DPConfig):
                     s_[i].copy_(g)
                 del grads
                 losses.append(raw.detach())
-            nsqs.append(clipping.clip_and_sum(stack, dp.clip_norm, summed,
+            nsqs.append(clipping.clip_and_sum(stack, C, summed,
                                               me[start:start + mbe],
                                               dp.use_kernels))
         return summed, (torch.cat(losses), torch.cat(nsqs))
@@ -264,7 +278,8 @@ def _dpsgd_r1f_sum(loss_fn, dp: DPConfig):
     K = _views(dp)
 
     def fn(params, batch):
-        data, mask = split_mask(batch)
+        data, mask, clip = split_clip(batch)
+        C = dp.clip_norm if clip is None else clip
         leaves = _require_grad_leaves(params)
         device = leaves[0].device
         R = _batch_size(data)
@@ -280,7 +295,7 @@ def _dpsgd_r1f_sum(loss_fn, dp: DPConfig):
                 (losses, ctx.acc), (acc0,),
                 (_view_seed(m, K).to(losses.dtype), torch.zeros_like(ctx.acc)),
                 retain_graph=True)
-            c = clipping.clip_factors(nsq, dp.clip_norm) * _example_mask(m, K)
+            c = clipping.clip_factors(nsq, C) * _example_mask(m, K)
             pull.stage = "grads"            # no norm²
             grads = _f32_grads(losses, leaves,
                                _expand_rows(c, K).to(losses.dtype))
@@ -338,29 +353,41 @@ def _chunks(batch, n: int):
 
 def make_noisy_grad_fn(loss_fn: Callable, dp: DPConfig, grad_accum: int = 1,
                        expected_batch_size: Optional[float] = None) -> Callable:
-    """Build fn(params, batch, generator) -> (grads, metrics).
+    """Build fn(params, batch, generator, clip_norm=None) -> (grads,
+    metrics).
 
-    ``expected_batch_size``: the private update's normaliser; None uses the
-    physical example count (fixed-size batches); under Poisson sampling
-    q·N.  ``generator`` draws the noise on the gradients' device."""
-    _unported(dp)
+    ``expected_batch_size``: the private update's normaliser, in examples;
+    None uses the physical example count (fixed-size batches); under
+    Poisson sampling q·N.  ``generator`` draws the noise on the gradients'
+    device: the gradients' first, then, under ``dp.adaptive_clip``, the
+    below-C count's.  ``clip_norm``: a 0-d float32 tensor overriding
+    ``dp.clip_norm`` (the trainer's adaptive clip state), put into every
+    chunk as the ``"clip_norm"`` leaf."""
     csum = make_clipped_sum_fn(loss_fn, dp)
     private = algo_is_private(dp.algo, dp.enabled)
     K = _views(dp)
 
-    def fn(params, batch, generator: torch.Generator):
+    def fn(params, batch, generator: torch.Generator, clip_norm=None):
         _, mask = split_mask(batch)
         R = _batch_size(batch)
+        if R % K:
+            raise ValueError(f"{R} rows do not hold {K} views each")
         full_mask = _ones_if_none(mask, R, tree.leaves(params)[0].device)
+        mask_ex = _example_mask(full_mask, K)
+
+        def with_clip(b):
+            return b if clip_norm is None else dict(b, **{CLIP_KEY: clip_norm})
+
         if grad_accum == 1:
-            summed, (losses, nsq) = csum(params, batch)
+            summed, (losses, nsq) = csum(params, with_clip(batch))
         else:
-            if R % grad_accum:
-                raise ValueError(f"batch {R} does not split into "
-                                 f"{grad_accum} chunks")
+            if R % grad_accum or (R // grad_accum) % K:
+                raise ValueError(f"batch {R} ({K} views an example) does not "
+                                 f"split into {grad_accum} chunks of whole "
+                                 f"examples")
             summed, parts = None, []
             for chunk in _chunks(batch, grad_accum):
-                s, ln = csum(params, chunk)
+                s, ln = csum(params, with_clip(chunk))
                 if summed is None:
                     summed = s
                 else:
@@ -370,12 +397,19 @@ def make_noisy_grad_fn(loss_fn: Callable, dp: DPConfig, grad_accum: int = 1,
             losses = torch.cat([p[0] for p in parts])
             nsq = torch.cat([p[1] for p in parts])
         if private:
+            C = dp.clip_norm if clip_norm is None else clip_norm
             denom = (float(expected_batch_size)
                      if expected_batch_size is not None else R // K)
             noise.add_noise_(summed, generator, dp.noise_multiplier,
-                             dp.clip_norm, denom)                  # lines 24/41
-            metrics = _metrics(losses, nsq, dp.clip_norm, full_mask,
-                               _example_mask(full_mask, K))
+                             float(C), denom)                       # lines 24/41
+            metrics = _metrics(losses, nsq, C, full_mask, mask_ex)
+            if dp.adaptive_clip and clip_norm is not None:
+                state, frac = adaptive_clip.update(
+                    {"clip_norm": clip_norm}, nsq, mask_ex, dp, denom,
+                    generator)
+                metrics["clip_norm"] = clip_norm.detach().clone()
+                metrics["clip_frac_below"] = frac
+                metrics["clip_norm_next"] = state["clip_norm"]
         else:
             count = torch.clamp(full_mask.sum(), min=1.0)
             for g in summed:

@@ -89,6 +89,15 @@ class DPContext:
             return p, self
         return self.site("tap", p, meta=(nexp, batch))
 
+    def conv2d(self, x, w, stride: int = 1, padding: str = "SAME"):
+        """y = conv2d(x, w) in NHWC/HWIO layout with JAX's padding rule;
+        x: (B, H, W, Cin), w: (kh, kw, Cin, Cout)."""
+        return self.site("conv2d", x, w, meta=(int(stride), str(padding)))
+
+    def bias(self, x, b):
+        """y = x + b, b: (d,) broadcast over every leading dim of x."""
+        return self.site("bias", x, b)
+
     def attention(self, q, k, v, causal: bool = True):
         """Attention as a registered site: parameter-free (norm² exactly
         zero), carrying the flash backward route of norm_strategy="fused".

@@ -153,6 +153,8 @@ def tap_nsq(gp_b: torch.Tensor) -> torch.Tensor:
 
 def bias_nsq(gy: torch.Tensor) -> torch.Tensor:
     """Bias-site rule for ``y = x + b`` (b broadcast over every leading
-    dim): n² = Σ_d (Σ_positions gy[b, ..., d])²."""
-    g = gy.float().sum(dim=tuple(range(1, gy.dim() - 1)))
-    return (g * g).sum(dim=tuple(range(1, g.dim())))
+    dim): n² = Σ_d (Σ_positions gy[b, ..., d])².  A (B, d) gy has no
+    position axis to sum (``sum(dim=())`` would sum every axis)."""
+    pos = tuple(range(1, gy.dim() - 1))
+    g = gy.float().sum(dim=pos) if pos else gy.float()
+    return (g * g).sum(dim=-1)

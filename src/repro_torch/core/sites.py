@@ -35,9 +35,9 @@ operand i needs a gradient; a grad it does not need may be None.
 ``remat="sites"`` keeps (``name_saved_operands``); ``param_operands``: the
 operands that are parameters, whose gradients a ``Pull("norms")`` skips.
 
-Registered here: ``dense``, ``embed``, ``tap`` and the parameter-free
-``attention`` site.  ``moe_dense``, ``conv2d`` and ``bias`` are not ported
-(ROADMAP).
+Registered here: ``dense``, ``embed``, ``tap``, ``conv2d`` and ``bias``
+(the image families, models/cnn.py and models/vit.py) and the
+parameter-free ``attention`` site.  ``moe_dense`` is not ported (ROADMAP).
 """
 from __future__ import annotations
 
@@ -45,6 +45,7 @@ import dataclasses
 from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import norms
 
@@ -54,7 +55,8 @@ F32 = torch.float32
 @dataclasses.dataclass(frozen=True)
 class SiteSpec:
     """Static per-site-call config.  ``meta`` carries per-call extras
-    (``tap``'s ``(nexp, batch)``, ``attention``'s ``(causal,)``);
+    (``tap``'s ``(nexp, batch)``, ``attention``'s ``(causal,)``,
+    ``conv2d``'s ``(stride, padding)``);
     ``augmult`` is the number of views per example (rows B·K, norms (B,))."""
     kind: str
     strategy: str = "auto"
@@ -423,6 +425,230 @@ def _tap_flops(operand_shapes, gy_shape):
 register_site("tap", fwd=_tap_fwd, bwd=_tap_bwd,
               nsq_rules={"direct": _tap_rule}, flops={"direct": _tap_flops},
               save_operands=(), param_operands=(0,))
+
+
+# ---------------------------------------------------------------------------
+# conv2d: im2col makes it a dense site over the output positions
+# ---------------------------------------------------------------------------
+#
+# y = conv2d(x, w), x: (B, H, W, Cin), w: (kh, kw, Cin, Cout) (NHWC/HWIO, the
+# JAX package's layouts).  The per-example weight gradient is
+# patchesᵀ_b · gy_b with patches = im2col(x): (B, P, Cin·kh·kw) over the P
+# output positions, so the site is a dense site with T = P,
+# d_in = Cin·kh·kw, d_out = Cout, and the dense rules and kernels apply to
+# the patch pair.  The patch axis is Cin-major, (Cin, kh, kw), as
+# ``jax.lax.conv_general_dilated_patches`` orders it, so the flat weight
+# ``_conv_wflat`` gives y = patches · wflat.  Padding follows JAX's
+# ``"SAME"`` rule (``_same_pads``), which at stride 2 puts the odd pixel on
+# the high side: PyTorch's symmetric ``padding=`` would shift every window.
+
+def _conv_meta(spec):
+    stride, padding = spec.meta if spec.meta else (1, "SAME")
+    return int(stride), str(padding)
+
+
+def _same_pads(size: int, k: int, s: int) -> Tuple[int, int]:
+    """JAX's SAME padding of one spatial dim: (low, high), out = ceil(in/s)."""
+    out = -(-size // s)
+    total = max((out - 1) * s + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def _conv_pads(spec, x, w):
+    """(top, bottom, left, right) padding of ``x`` for the site's meta."""
+    s, padding = _conv_meta(spec)
+    if padding == "VALID":
+        return 0, 0, 0, 0
+    if padding != "SAME":
+        raise ValueError(f"conv2d padding {padding!r}: want 'SAME' or 'VALID'")
+    return _same_pads(x.shape[1], w.shape[0], s) + _same_pads(x.shape[2],
+                                                             w.shape[1], s)
+
+
+def _padded_nchw(spec, x, w):
+    """x padded and viewed NCHW (channels-last memory: no copy but the pad)."""
+    t, b, l, r = _conv_pads(spec, x, w)
+    return F.pad(x.permute(0, 3, 1, 2), (l, r, t, b))
+
+
+def _conv2d_fwd(spec, x, w):
+    s, _ = _conv_meta(spec)
+    y = F.conv2d(_padded_nchw(spec, x, w), w.permute(3, 2, 0, 1), stride=s)
+    return y.permute(0, 2, 3, 1)
+
+
+def _conv_patches(spec, x, w):
+    """(B, H', W', Cin·kh·kw) im2col patches at ``_conv2d_fwd``'s output
+    positions, the feature axis Cin-major: (Cin, kh, kw)."""
+    s, _ = _conv_meta(spec)
+    kh, kw = w.shape[0], w.shape[1]
+    xp = _padded_nchw(spec, x, w).permute(0, 2, 3, 1)      # (B, Hp, Wp, Cin)
+    win = xp.unfold(1, kh, s).unfold(2, kw, s)             # (B,H',W',Cin,kh,kw)
+    return win.reshape(win.shape[:3] + (-1,))
+
+
+def _col2im(spec, gpat, x, w):
+    """The adjoint of ``_conv_patches``: patch gradients (B, H', W', D) ->
+    the input gradient (B, H, W, Cin), overlapping windows summed
+    (``F.fold`` is ``F.unfold``'s adjoint, and ``F.unfold`` orders the
+    patch axis (Cin, kh, kw) too)."""
+    s, _ = _conv_meta(spec)
+    t, b, l, r = _conv_pads(spec, x, w)
+    B, H, W, _ = x.shape
+    cols = gpat.reshape(B, -1, gpat.shape[-1]).transpose(1, 2)
+    full = F.fold(cols, (H + t + b, W + l + r), (w.shape[0], w.shape[1]),
+                  stride=s)
+    return full[:, :, t:t + H, l:l + W].permute(0, 2, 3, 1)
+
+
+def _conv_wflat(w):
+    kh, kw, cin, cout = w.shape
+    return w.permute(2, 0, 1, 3).reshape(cin * kh * kw, cout)
+
+
+def _conv_gw(pat, gy, w):
+    """The summed weight gradient from the patch pair, in w's layout."""
+    kh, kw, cin, cout = w.shape
+    gwf = torch.matmul(pat.reshape(-1, pat.shape[-1]).t(),
+                       gy.reshape(-1, cout))
+    return gwf.reshape(cin, kh, kw, cout).permute(1, 2, 0, 3).to(w.dtype)
+
+
+def _conv_bwd(spec, operands, gy, needs):
+    x, w = operands
+    s, _ = _conv_meta(spec)
+    xp = _padded_nchw(spec, x, w)
+    wn = w.permute(3, 2, 0, 1)
+    gyn = gy.permute(0, 3, 1, 2)
+    gx = gw = None
+    if needs[0]:
+        t, _, l, _ = _conv_pads(spec, x, w)
+        gxp = torch.nn.grad.conv2d_input(xp.shape, wn, gyn, stride=s)
+        gx = gxp[:, :, t:t + x.shape[1], l:l + x.shape[2]].permute(
+            0, 2, 3, 1).to(x.dtype)
+    if needs[1]:
+        gw = torch.nn.grad.conv2d_weight(xp, wn.shape, gyn, stride=s).permute(
+            2, 3, 1, 0).to(w.dtype)
+    return gx, gw
+
+
+def _conv_pair4(spec, operands, gy):
+    """The folded patch pair (B, 1, K·P, d_in), (B, 1, K·P, d_out): rows
+    are b-major / k-minor and G == 1, so folding the K views into the
+    position axis is a plain reshape."""
+    x, w = operands
+    pat = _conv_patches(spec, x, w)
+    B = x.shape[0] // spec.augmult
+    return (pat.reshape(B, 1, -1, pat.shape[-1]),
+            gy.reshape(B, 1, -1, gy.shape[-1]))
+
+
+def _conv_rule_materialize(spec, operands, gy):
+    return norms.dense_nsq_materialize(*_conv_pair4(spec, operands, gy))
+
+
+def _conv_rule_gram(spec, operands, gy):
+    return norms.dense_nsq_gram(*_conv_pair4(spec, operands, gy))
+
+
+def _conv_kernel_materialize(spec, operands, gy):
+    from repro_torch.kernels import ops as kops
+    return kops.pegrad_norm(*_conv_pair4(spec, operands, gy))
+
+
+def _conv_kernel_gram(spec, operands, gy):
+    from repro_torch.kernels import ops as kops
+    return kops.gram_norm(*_conv_pair4(spec, operands, gy))
+
+
+def _conv_fused_bwd(spec, operands, gy, needs, want_nsq=True):
+    """The fused strategy: with kernels, ``dense_bwd_norm`` on the folded
+    patch pair gives the patch gradient and the norm² in one call
+    (``dense_dgrad`` the patch gradient alone when no norm² is wanted),
+    then col2im gives the input gradient; without kernels, the plain
+    backward and the ``materialize`` rule."""
+    x, w = operands
+    if not spec.use_kernels:
+        nsq = _conv_rule_materialize(spec, operands, gy) if want_nsq else None
+        return _conv_bwd(spec, operands, gy, needs), nsq
+    from repro_torch.kernels import ops as kops
+    pat4, gy4 = _conv_pair4(spec, operands, gy)
+    nsq = gpat4 = None
+    if want_nsq:
+        gpat4, nsq = kops.dense_bwd_norm(pat4, gy4, _conv_wflat(w))
+    elif needs[0]:
+        gpat4 = kops.dense_dgrad(gy4, _conv_wflat(w))
+    gx = (None if gpat4 is None or not needs[0] else
+          _col2im(spec, gpat4.to(pat4.dtype), x, w).to(x.dtype))
+    gw = _conv_gw(pat4, gy4, w) if needs[1] else None
+    return (gx, gw), nsq
+
+
+def conv_norm_dims(operand_shapes, gy_shape):
+    """(B, P, d_in, d_out) of the conv site's dense problem."""
+    x_shape, w_shape = operand_shapes[0], operand_shapes[1]
+    p = 1
+    for s in gy_shape[1:-1]:
+        p *= int(s)
+    d_in = int(w_shape[0]) * int(w_shape[1]) * int(w_shape[2])
+    return int(x_shape[0]), p, d_in, int(gy_shape[-1])
+
+
+def _conv_flops(rule):
+    def flops(operand_shapes, gy_shape):
+        b, p, d_in, d_out = conv_norm_dims(operand_shapes, gy_shape)
+        return rule((b, 1, p, d_in), (b, 1, p, d_out))
+    return flops
+
+
+register_site(
+    "conv2d", fwd=_conv2d_fwd, bwd=_conv_bwd,
+    nsq_rules=dict(materialize=_conv_rule_materialize, gram=_conv_rule_gram,
+                   fused=_conv_rule_materialize),
+    kernel_route=dict(materialize=_conv_kernel_materialize,
+                      gram=_conv_kernel_gram),
+    fused_bwd={"fused": _conv_fused_bwd},
+    flops=dict(materialize=_conv_flops(norms.flops_materialize),
+               gram=_conv_flops(norms.flops_gram),
+               fused=_conv_flops(norms.flops_fused)),
+    save_operands=(0,), param_operands=(1,))
+
+
+# ---------------------------------------------------------------------------
+# bias: y = x + b, b broadcast over every non-channel dim
+# ---------------------------------------------------------------------------
+
+def _bias_fwd(spec, x, b):
+    return x + b.to(x.dtype)
+
+
+def _bias_bwd(spec, operands, gy, needs):
+    x, b = operands
+    gb = (gy.sum(dim=tuple(range(gy.dim() - 1))).to(b.dtype)
+          if needs[1] else None)
+    return (gy.to(x.dtype) if needs[0] else None), gb
+
+
+def _bias_rule(spec, operands, gy):
+    if spec.augmult > 1:
+        # the K views fold into the summed position axis: the per-example
+        # bias gradient is the sum over views and positions of the
+        # 1/K-scaled gy
+        gy = gy.reshape((gy.shape[0] // spec.augmult, -1, gy.shape[-1]))
+    return norms.bias_nsq(gy)
+
+
+def _bias_flops(operand_shapes, gy_shape):
+    n = 1
+    for s in gy_shape:
+        n *= int(s)
+    return 2 * n
+
+
+# the bias rule consumes only gy: nothing for the sites remat policy to save
+register_site("bias", fwd=_bias_fwd, bwd=_bias_bwd,
+              nsq_rules={"direct": _bias_rule}, flops={"direct": _bias_flops},
+              save_operands=(), param_operands=(1,))
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Deterministic, stateless data.  Counterpart of ``repro/data/pipeline.py``
 (``_rng``, ``SyntheticSource``, ``MemmapSource``, ``batch_for``,
-``poisson_sample_indices``, ``poisson_capacity``, ``poisson_batch_for``),
-for token streams.
+``poisson_sample_indices``, ``poisson_capacity``, ``poisson_batch_for``,
+``augment_expand``), for token streams and the image families' synthetic
+images.
 
 Every batch is a pure function of (seed, step, example index) through a
 counter-based Philox generator in numpy, so a retried step sees the same
@@ -12,7 +13,13 @@ batches of per-step fresh examples; ``poisson_batch_for`` draws each of the
 N dataset examples independently with probability q, keyed by (seed,
 step), right-pads the draw to a fixed capacity and adds a ``(per,) bool``
 ``"mask"`` of the real rows.  Example content is keyed by dataset index,
-so example i is the same tokens in every step that samples it.
+so example i is the same tokens (or image and label) in every step that
+samples it.
+
+Augmentation multiplicity (``augment_expand``) expands a sampled batch to
+K views of each example after sampling, so the example stays the privacy
+unit: view 0 is the image itself, views k >= 1 a horizontal flip and a
+pad-4 random crop drawn from their own (seed, step, row)-keyed streams.
 """
 from __future__ import annotations
 
@@ -22,12 +29,15 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.configs.base import IMAGE_FAMILIES, ArchConfig, ShapeConfig
 
 # stream tag for index-keyed (step-independent) example content
 _EXAMPLE_STREAM_STEP = 0x0DA7A5E7
 # stream of the Poisson draw
 _POISSON_STREAM = 0xB0
+# stream-space offset of the augmentation draws (augment_expand): disjoint
+# from the per-example data streams and the Poisson draw
+_AUG_STREAM_BASE = 0xA6000000
 
 
 def _rng(seed: int, step: int, stream: int) -> np.random.Generator:
@@ -67,6 +77,41 @@ class SyntheticSource:
             gi = _rng(self.seed, _EXAMPLE_STREAM_STEP, int(idx) + 1)
             out[row] = gi.integers(0, self.vocab, seq_len + 1, np.int64)
         return {"tokens": out}
+
+    # -- images (the image families), keyed as the tokens are --------------
+    def _image_example(self, step: int, stream: int, size: int,
+                       channels: int, n_classes: int):
+        gi = _rng(self.seed, step, stream)
+        label = np.int32(gi.integers(0, n_classes))
+        img = gi.standard_normal((size, size, channels)).astype(np.float32)
+        return img, label
+
+    def image_batch(self, step: int, n: int, size: int, channels: int,
+                    n_classes: int, shard: int = 0,
+                    n_shards: int = 1) -> Dict[str, np.ndarray]:
+        """``{"images": (per, size, size, channels) float32, "labels":
+        (per,) int32}``: this shard's slice of the step's global batch."""
+        if n % n_shards:
+            raise ValueError(f"batch {n} does not split into {n_shards} shards")
+        per = n // n_shards
+        lo = shard * per
+        imgs = np.empty((per, size, size, channels), np.float32)
+        labels = np.empty((per,), np.int32)
+        for i in range(per):
+            imgs[i], labels[i] = self._image_example(step, lo + i + 1, size,
+                                                     channels, n_classes)
+        return {"images": imgs, "labels": labels}
+
+    def image_examples(self, indices: np.ndarray, size: int, channels: int,
+                       n_classes: int) -> Dict[str, np.ndarray]:
+        """Images and labels by dataset index (Poisson sampling): example i
+        is the same in every step that samples it."""
+        imgs = np.empty((len(indices), size, size, channels), np.float32)
+        labels = np.empty((len(indices),), np.int32)
+        for row, idx in enumerate(indices):
+            imgs[row], labels[row] = self._image_example(
+                _EXAMPLE_STREAM_STEP, int(idx) + 1, size, channels, n_classes)
+        return {"images": imgs, "labels": labels}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,10 +169,24 @@ def make_source(spec: str, vocab: int, seed: int = 0):
 def batch_for(source, arch: ArchConfig, shape: ShapeConfig,
               step: int, shard: int = 0, n_shards: int = 1) -> Dict[str, np.ndarray]:
     """This shard's slice of the global batch for (arch, shape) at ``step``."""
+    if arch.family in IMAGE_FAMILIES:
+        size, _, channels = arch.image_shape()
+        return _image_source(source, arch).image_batch(
+            step, shape.global_batch, size, channels, arch.n_classes, shard,
+            n_shards)
     if arch.embed_stub:
         raise NotImplementedError(f"{arch.name}: embedding-input models are "
                                   f"not ported")
     return source.batch(step, shape.global_batch, shape.seq_len, shard, n_shards)
+
+
+def _image_source(source, arch: ArchConfig):
+    if not hasattr(source, "image_batch"):
+        raise ValueError(
+            f"data source {type(source).__name__} provides tokens only; "
+            f"family={arch.family!r} needs an image-capable source "
+            f"(data_source='synthetic')")
+    return source
 
 
 # ---------------------------------------------------------------------------
@@ -191,12 +250,56 @@ def poisson_batch_for(source, arch: ArchConfig,
             f"priced Poisson mechanism this step)", RuntimeWarning)
         idx = idx[:cap]
     mine = idx[lo:lo + per]                      # this shard's real rows
+    if arch.family in IMAGE_FAMILIES:
+        size, _, channels = arch.image_shape()
+        ex = _image_source(source, arch).image_examples(mine, size, channels,
+                                                        arch.n_classes)
+    else:
+        ex = source.examples(mine, shape.seq_len)
     out = {}
-    for k, v in source.examples(mine, shape.seq_len).items():
+    for k, v in ex.items():
         padded = np.zeros((per,) + v.shape[1:], v.dtype)
         padded[:len(mine)] = v
         out[k] = padded
     mask = np.zeros((per,), np.bool_)
     mask[:len(mine)] = True
     out["mask"] = mask
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Augmentation multiplicity (DPConfig.augmult = K)
+# ---------------------------------------------------------------------------
+
+def augment_expand(batch: Dict[str, np.ndarray], k: int, seed: int,
+                   step: int, pad: int = 4) -> Dict[str, np.ndarray]:
+    """A (B, ...)-leaved batch as K views of each example, (B·K, ...)
+    b-major / k-minor (view k of example b at row b·K + k), the layout the
+    algorithms and site rules reduce over.  View 0 of an ``"images"`` leaf
+    is the image; views k >= 1 a pad-``pad`` random crop and a random
+    horizontal flip from the (seed, step, b·K + k)-keyed stream.  Every
+    other leaf (labels, the Poisson ``"mask"``) is repeated over K.  An
+    all-zero padded image stays all zero in every view.  ``k <= 1`` returns
+    ``batch`` itself."""
+    if k <= 1:
+        return batch
+    return {name: (_augment_images(v, k, seed, step, pad) if name == "images"
+                   else np.repeat(v, k, axis=0))
+            for name, v in batch.items()}
+
+
+def _augment_images(imgs: np.ndarray, k: int, seed: int, step: int,
+                    pad: int) -> np.ndarray:
+    B, H, W, C = imgs.shape
+    out = np.empty((B * k, H, W, C), imgs.dtype)
+    padded = np.pad(imgs, ((0, 0), (pad, pad), (pad, pad), (0, 0)))
+    for b in range(B):
+        out[b * k] = imgs[b]                     # view 0: the image itself
+        for kk in range(1, k):
+            g = _rng(seed, step, _AUG_STREAM_BASE + b * k + kk)
+            dy, dx = (int(x) for x in g.integers(0, 2 * pad + 1, 2))
+            view = padded[b, dy:dy + H, dx:dx + W]
+            if g.integers(0, 2):
+                view = view[:, ::-1]
+            out[b * k + kk] = view
     return out

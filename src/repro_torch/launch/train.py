@@ -13,6 +13,10 @@
         --reduced --steps 3 --device cpu --dtype float32 --set remat=sites \
         --set dp.algo=dpsgd --set dp.microbatch=2 --set dp.use_kernels=true
 
+    PYTHONPATH=src python -m repro_torch.launch.train --arch vit-cifar10 \
+        --reduced --device cpu --dtype float32 --set dp.augmult=4 \
+        --set dp.adaptive_clip=true
+
     PYTHONPATH=src python -m repro_torch.launch.train --arch phi3-mini-3.8b \
         --reduced --steps 6 --device cpu --dtype float32 \
         --set ckpt_dir=/path/to/ckpts --set ckpt_every=3 \
@@ -38,10 +42,10 @@ from dataclasses import replace
 
 import torch
 
-from repro_torch.configs import (SHAPES, ShapeConfig, TrainConfig,
-                                 apply_overrides, get_arch, parse_set_args,
-                                 reduced)
-from repro_torch.models.transformer import Model
+from repro_torch.configs import (IMAGE_FAMILIES, SHAPES, ShapeConfig,
+                                 TrainConfig, apply_overrides, get_arch,
+                                 parse_set_args, reduced)
+from repro_torch.models import build_model_for
 from repro_torch.train import Trainer
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -84,25 +88,36 @@ def main(argv=None) -> None:
                             shape.kind)
     cfg = replace(cfg, arch=arch.name)
 
-    model = Model(arch, dtype=DTYPES[cfg.compute_dtype],
-                  param_dtype=DTYPES[cfg.param_dtype], device=args.device,
-                  seed=cfg.seed, remat=cfg.remat)
+    model = build_model_for(arch, dtype=DTYPES[cfg.compute_dtype],
+                            param_dtype=DTYPES[cfg.param_dtype],
+                            device=args.device, seed=cfg.seed, remat=cfg.remat)
     trainer = Trainer(model, cfg, shape)
+    if arch.family in IMAGE_FAMILIES:
+        rows = (f"{shape.global_batch} images {arch.image_shape()} x "
+                f"{cfg.dp.augmult} views")
+    else:
+        rows = f"{shape.global_batch} x {shape.seq_len}"
     print(f"[train] {arch.name}: {sum(p.numel() for p in model.parameters())} "
           f"params {cfg.param_dtype} (compute {cfg.compute_dtype}) on "
-          f"{model.device}; data {cfg.data_source}; batch {shape.global_batch} "
-          f"x {shape.seq_len}; remat {cfg.remat}; dp {cfg.dp.algo} "
-          f"norm_strategy={cfg.dp.norm_strategy} use_kernels="
-          f"{cfg.dp.use_kernels}",
-          flush=True)
+          f"{model.device}; data {cfg.data_source}; batch {rows}; remat "
+          f"{cfg.remat}; dp {cfg.dp.algo} norm_strategy={cfg.dp.norm_strategy} "
+          f"use_kernels={cfg.dp.use_kernels} adaptive_clip="
+          f"{trainer.adaptive_clip}", flush=True)
     if trainer.sampling == "poisson":
         print(f"[train] poisson sampling: q = {trainer.sample_rate:.3e}, "
               f"expected batch {shape.global_batch}, capacity "
               f"{trainer.capacity} rows", flush=True)
     state = trainer.run(trainer.restore_or_init())
     eps = trainer.accountant.epsilon_at(state.step)
+    split = ""
+    if trainer.adaptive_clip:
+        bd = trainer.accountant.epsilon_breakdown(state.step)
+        split = (f" = composed grad {bd['eps_grad']:.3f} and clip "
+                 f"{bd['eps_clip']:.3f}; clip_norm "
+                 f"{float(trainer.clip_norm(state)):.4f}")
     print(f"[train] finished at step {state.step}; privacy spent: "
-          f"eps={eps:.3f} (delta={cfg.dp.delta}, q={trainer.sample_rate:.2e})")
+          f"eps={eps:.3f}{split} (delta={cfg.dp.delta}, "
+          f"q={trainer.sample_rate:.2e})")
 
 
 if __name__ == "__main__":

@@ -18,6 +18,7 @@ prelude is not wrapped.
 from __future__ import annotations
 
 import dataclasses
+import math
 import zlib
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -106,32 +107,38 @@ def _map_spec(spec, fn, path=()):
     raise TypeError(type(spec))
 
 
-def init_params(arch: ArchConfig, seed: int, dtype: torch.dtype,
-                device: torch.device):
-    """Seeded init on ``device``, with the distributions of the JAX
-    package's ``_init_leaf``: ones for norm scales (kept float32, as there),
-    N(0, 0.02²) for the embedding, N(0, 1/fan_in) for dense weights.  Each
-    leaf draws from its own ``torch.Generator`` seeded by a crc32 of
-    (seed, its path), so a leaf's values do not depend on the others.  The bits
-    differ from JAX's threefry: tests share weights via ``interop``."""
-    pre, period, reps = group_layers(arch)
-
+def init_spec(spec, seed: int, dtype: torch.dtype, device: torch.device,
+              lead=lambda path: ()):
+    """Seeded init of a spec tree on ``device``, with the distributions of
+    the JAX package's initialisers: ones and zeros (kept float32, as
+    there), N(0, 0.02²) for an embedding, N(0, 1/fan_in) for a weight
+    (fan_in the product of all dims but the last).  ``lead(path)`` is a
+    leaf's leading stacked dims.  Each leaf draws from its own
+    ``torch.Generator`` seeded by a crc32 of (seed, its path), so a leaf's
+    values do not depend on the others.  The bits differ from JAX's
+    threefry: tests share weights via ``interop``."""
     def mk(p: P, path):
-        shape = p.shape
-        if path and path[0] == "blocks":
-            shape = (reps,) + shape
+        shape = lead(path) + p.shape
         if p.init in ("ones", "zeros"):
             fill = torch.ones if p.init == "ones" else torch.zeros
             return fill(shape, dtype=torch.float32, device=device)
         g = torch.Generator(device=device)
         # 32 bits: the CPU generator keeps only the low 32 bits of a seed
         g.manual_seed(zlib.crc32(f"{seed}:{'/'.join(path)}".encode()))
-        std = 0.02 if p.init == "embed" else (
-            1.0 / (p.shape[-2] if len(p.shape) >= 2 else p.shape[-1]) ** 0.5)
+        std = 0.02 if p.init == "embed" else 1.0 / math.prod(p.shape[:-1]) ** 0.5
         w = torch.randn(shape, generator=g, dtype=torch.float32, device=device)
         return (w.mul_(std)).to(dtype)
 
-    return _map_spec(model_spec(arch), mk)
+    return _map_spec(spec, mk)
+
+
+def init_params(arch: ArchConfig, seed: int, dtype: torch.dtype,
+                device: torch.device):
+    """``init_spec`` of the decoder's spec; every ``blocks`` leaf carries
+    the leading ``(reps,)`` axis."""
+    pre, period, reps = group_layers(arch)
+    return init_spec(model_spec(arch), seed, dtype, device,
+                     lambda path: (reps,) if path and path[0] == "blocks" else ())
 
 
 def _index(tree, r: int):
@@ -145,36 +152,32 @@ def _index(tree, r: int):
 # Model
 # ---------------------------------------------------------------------------
 
-class Model(nn.Module):
-    """Serving model of one dense ``ArchConfig``.
-
-    ``params``: a tree in the JAX layout (``interop.params_from_numpy``);
-    None draws a seeded init on the device.  ``dtype`` is the compute type
-    (activations and caches), ``param_dtype`` the type the weights are
-    held in (default ``dtype``; norm scales stay float32); each weight is
-    cast to the compute type where it is used, as the JAX package's
-    ``param_dtype`` and ``compute_dtype``.  ``device`` defaults to
-    ``cuda`` and raises without one; pass ``"cpu"`` for the plain path.
+class ParamModel(nn.Module):
+    """A model whose params are a tree in the JAX package's layout
+    (``interop.params_from_numpy``), or None for a seeded ``init(arch,
+    seed, param_dtype, device)`` on the device.  ``dtype`` is the compute
+    type (activations and caches), ``param_dtype`` the type the weights are
+    held in (default ``dtype``; norm scales and biases stay float32); each
+    weight is cast to the compute type where it is used, as the JAX
+    package's ``param_dtype`` and ``compute_dtype``.  ``device`` defaults
+    to ``cuda`` and raises without one; pass ``"cpu"`` for the plain path.
     ``remat``: the training loss's activation-checkpointing policy
     (``configs.base.REMAT_POLICIES``), ``"block"`` by default as in the JAX
-    package.
-    Every param is registered under its slash-joined tree path, frozen;
-    ``model.requires_grad_(True)`` makes them trainable (the Trainer
-    does)."""
+    package.  Every param is registered under its slash-joined tree path,
+    frozen; ``model.requires_grad_(True)`` makes them trainable (the
+    Trainer does)."""
 
-    def __init__(self, arch: ArchConfig, params=None, *,
-                 dtype: torch.dtype = torch.bfloat16, device=None,
-                 seed: int = 0, remat: str = "block",
-                 param_dtype: Optional[torch.dtype] = None):
+    def __init__(self, arch: ArchConfig, params, init, *, dtype: torch.dtype,
+                 device, seed: int, remat: str,
+                 param_dtype: Optional[torch.dtype]):
         super().__init__()
         self.arch = arch
         self.dtype = dtype
         self.param_dtype = dtype if param_dtype is None else param_dtype
         self.remat = validate_remat(remat)
         self.device = resolve_device(device)
-        model_spec(arch)          # raises early for unported layer kinds
         if params is None:
-            params = init_params(arch, seed, self.param_dtype, self.device)
+            params = init(arch, seed, self.param_dtype, self.device)
         self.params = self._register(params)
 
     def _register(self, tree, path=()):
@@ -187,6 +190,19 @@ class Model(nn.Module):
         prm = nn.Parameter(tree.to(self.device), requires_grad=False)
         self.register_parameter("/".join(path), prm)
         return prm
+
+
+class Model(ParamModel):
+    """Serving and training model of one dense ``ArchConfig`` (the
+    ``ParamModel`` contract for params, types, device and remat)."""
+
+    def __init__(self, arch: ArchConfig, params=None, *,
+                 dtype: torch.dtype = torch.bfloat16, device=None,
+                 seed: int = 0, remat: str = "block",
+                 param_dtype: Optional[torch.dtype] = None):
+        model_spec(arch)          # raises early for unported layer kinds
+        super().__init__(arch, params, init_params, dtype=dtype, device=device,
+                         seed=seed, remat=remat, param_dtype=param_dtype)
 
     # -- per-layer ----------------------------------------------------------
     def _layer(self, p, x, ctx: DPContext, pos):

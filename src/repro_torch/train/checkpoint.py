@@ -6,7 +6,10 @@ in the same ``sharded-v1`` layout, so each package restores the other's::
 
 Leaves are in the JAX package's flattening order: a ``TrainState`` is its
 step (an int32 scalar), then ``tree.leaves(params)``, then
-``tree.leaves(opt_state)``; any other tree is ``tree.leaves`` of it.  The
+``tree.leaves(opt_state)``; any other tree is ``tree.leaves`` of it.  Under
+adaptive clipping the optimizer state is ``{"opt": ..., "clip":
+{"clip_norm": C}}`` in both packages, so C, a float32 scalar, is the first
+of its leaves (dict keys sorted, as ``jax.tree`` orders them).  The
 port runs one process, so it writes one shard file per leaf; the reader
 takes the multi-shard manifests the JAX package writes on a mesh and
 reassembles each leaf from its shards.
@@ -72,12 +75,15 @@ def _host(leaf) -> Tuple[np.ndarray, str]:
 
 def _to_torch(h: np.ndarray, dtype: str) -> torch.Tensor:
     """A host array read from disk as a tensor of its manifest dtype; bf16
-    bits (2-byte void records) are reinterpreted, not converted."""
+    bits (2-byte void records) are reinterpreted, not converted.  A 0-d
+    leaf stays 0-d (``np.ascontiguousarray`` returns at least 1-d)."""
     if dtype == "bfloat16":
-        return torch.from_numpy(np.ascontiguousarray(h).view(np.int16)).view(
+        t = torch.from_numpy(np.ascontiguousarray(h).view(np.int16)).view(
             torch.bfloat16)
-    return torch.from_numpy(np.ascontiguousarray(h.astype(np.dtype(dtype),
-                                                          copy=False)))
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(h.astype(np.dtype(dtype),
+                                                           copy=False)))
+    return t.reshape(h.shape)
 
 
 def _read_leaf(directory: str, rec: dict) -> np.ndarray:

@@ -6,8 +6,16 @@ noise generator is seeded from (seed, step), the privacy accountant prices
 q = B/N, and every ``log_every`` steps (and the last) a record goes to
 ``history``.  Under ``dp.sampling="poisson"`` the batch is a Poisson sample
 padded to a step-invariant ``capacity`` with its ``"mask"``, and the noisy
-sum is normalised by the expected batch q·N.  The model trains under the
-config's ``remat`` policy, which the Trainer sets on it.
+sum is normalised by the expected batch q·N.  Under ``dp.augmult = K``
+the sampled batch is expanded to K views of each example after sampling
+(``augment_expand``): the physical rows are K times the examples, and the
+privacy unit stays the example.  Under ``dp.adaptive_clip`` the clip norm
+is state: the optimizer state is ``{"opt": ..., "clip": {"clip_norm":
+C}}``, as in the JAX package, so a checkpoint carries it, each step's
+gradient function reads C and makes the next, and the accountant composes
+the noisy below-C count beside the gradient mechanism (each logged step
+gives the total ε and the two mechanisms' own).  The model trains under
+the config's ``remat`` policy, which the Trainer sets on it.
 
 Fault tolerance, as in the JAX package:
 
@@ -48,13 +56,20 @@ import torch
 
 from repro_torch import tree
 from repro_torch.configs.base import ShapeConfig, TrainConfig
+from repro_torch.core import adaptive_clip as aclip
 from repro_torch.core.accountant import PrivacyAccountant
-from repro_torch.core.algo import make_noisy_grad_fn
-from repro_torch.data.pipeline import (batch_for, make_source,
+from repro_torch.core.algo import algo_is_private, make_noisy_grad_fn
+from repro_torch.data.pipeline import (augment_expand, batch_for, make_source,
                                        poisson_batch_for, poisson_capacity)
 from repro_torch.optim.optimizers import make_optimizer
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.state import TrainState
+
+
+def adaptive_clip_on(dp) -> bool:
+    """Adaptive clipping is live when configured and the algorithm is
+    private (plain SGD has no clip norm to adapt)."""
+    return bool(dp.adaptive_clip) and algo_is_private(dp.algo, dp.enabled)
 
 
 def physical_batch_size(train_cfg: TrainConfig, shape: ShapeConfig,
@@ -62,7 +77,8 @@ def physical_batch_size(train_cfg: TrainConfig, shape: ShapeConfig,
     """Physical (padded) examples per step.  Fixed sampling: the configured
     batch.  Poisson: a step-invariant capacity >= the expected size q·N
     (+6 binomial sigmas), rounded so that ``grad_accum`` chunks of
-    ``dp.microbatch`` examples and ``shards`` keep dividing it."""
+    ``dp.microbatch`` examples and ``shards`` keep dividing it.  Under
+    ``dp.augmult = K`` the physical rows are K times this."""
     if train_cfg.dp.sampling != "poisson":
         return shape.global_batch
     mult = math.lcm(max(1, train_cfg.grad_accum)
@@ -72,14 +88,15 @@ def physical_batch_size(train_cfg: TrainConfig, shape: ShapeConfig,
 
 
 class Trainer:
-    """``Trainer(model, train_cfg, shape)``; ``model`` is a
-    ``repro_torch.models.transformer.Model`` whose params the Trainer makes
+    """``Trainer(model, train_cfg, shape)``; ``model`` is a model of the
+    port (``models.build_model_for``) whose params the Trainer makes
     trainable and updates in place, and whose ``remat`` it sets to the
-    config's.  Its parameter and compute types must be the config's."""
+    config's.  Its parameter and compute types must be the config's.
+    ``source`` replaces the data source ``cfg.data_source`` names."""
 
     def __init__(self, model, train_cfg: TrainConfig, shape: ShapeConfig,
                  inject_failure_at: Optional[int] = None,
-                 inject_inside_step: bool = False):
+                 inject_inside_step: bool = False, source=None):
         self.model = model
         self.cfg = train_cfg
         self.shape = shape
@@ -96,8 +113,10 @@ class Trainer:
                              f"port takes 'fixed' and 'poisson'")
         model.requires_grad_(True)
         model.remat = train_cfg.remat
-        self.source = make_source(train_cfg.data_source, model.arch.vocab,
-                                  train_cfg.seed)
+        # ``source``: a data source in place of ``cfg.data_source``'s (a
+        # synthetic one of another dataset size N prices another q = B/N)
+        self.source = source or make_source(train_cfg.data_source,
+                                            model.arch.vocab, train_cfg.seed)
         self.sample_rate = shape.global_batch / self.source.dataset_size
         self.capacity = physical_batch_size(train_cfg, shape,
                                             self.source.dataset_size)
@@ -123,6 +142,11 @@ class Trainer:
             dataset_size=self.source.dataset_size,
             noise_multiplier=train_cfg.dp.noise_multiplier,
             delta=train_cfg.dp.delta, sample_rate=self.sample_rate)
+        # the noisy below-C count is a second mechanism at the same rate
+        self.adaptive_clip = adaptive_clip_on(train_cfg.dp)
+        if self.adaptive_clip:
+            self.accountant.compose(aclip.mechanism(train_cfg.dp,
+                                                    self.sample_rate))
         self._preempted = False
         self._step_times: list = []
         self.history: list = []
@@ -146,8 +170,23 @@ class Trainer:
     # -- lifecycle ---------------------------------------------------------
     def init_state(self) -> TrainState:
         params = self.model.params
-        return TrainState(step=0, params=params,
-                          opt_state=self.opt.init(tree.leaves(params)))
+        opt_state = self.opt.init(tree.leaves(params))
+        if self.adaptive_clip:
+            opt_state = {"opt": opt_state, aclip.CLIP_STATE_KEY:
+                         aclip.init_state(self.cfg.dp, self.device)}
+        return TrainState(step=0, params=params, opt_state=opt_state)
+
+    def optimizer_state(self, state: TrainState):
+        """The optimizer's own part of ``state.opt_state`` (without the
+        adaptive clip rider)."""
+        return state.opt_state["opt"] if self.adaptive_clip else state.opt_state
+
+    def clip_norm(self, state: TrainState):
+        """The step's clip norm: the adaptive state's 0-d tensor, else None
+        (``dp.clip_norm``)."""
+        if not self.adaptive_clip:
+            return None
+        return state.opt_state[aclip.CLIP_STATE_KEY]["clip_norm"]
 
     def restore_or_init(self) -> TrainState:
         """The latest checkpoint in ``ckpt_dir``, restored into the model's
@@ -164,13 +203,16 @@ class Trainer:
 
     def make_batch(self, step: int) -> Dict[str, torch.Tensor]:
         """The step's (seed, step)-keyed batch, on the model's device; under
-        Poisson sampling ``self.capacity`` rows with a ``"mask"`` leaf."""
+        Poisson sampling ``self.capacity`` examples with a ``"mask"`` leaf;
+        under ``dp.augmult = K`` each example's K views (rows b-major /
+        k-minor), made after sampling."""
         if self.sampling == "poisson":
             batch = poisson_batch_for(self.source, self.model.arch, self.shape,
                                       step, capacity=self.capacity,
                                       sample_rate=self.sample_rate)
         else:
             batch = batch_for(self.source, self.model.arch, self.shape, step)
+        batch = augment_expand(batch, self.cfg.dp.augmult, self.cfg.seed, step)
         return {k: torch.from_numpy(v).to(self.device) for k, v in batch.items()}
 
     def noise_generator(self, step: int) -> torch.Generator:
@@ -183,21 +225,25 @@ class Trainer:
         """The step's noised gradients and metrics; reads ``state`` only."""
         self._step_in_flight = state.step
         grads, metrics = self.grad_fn(state.params, batch,
-                                      self.noise_generator(state.step))
+                                      self.noise_generator(state.step),
+                                      clip_norm=self.clip_norm(state))
         metrics["update_norm"] = torch.sqrt(sum((g * g).sum() for g in grads))
         return grads, metrics
 
-    def update(self, state: TrainState, grads) -> None:
-        """The optimizer step, in place on ``state``."""
-        self.opt.apply(grads, state.opt_state, tree.leaves(state.params),
-                       state.step)
+    def update(self, state: TrainState, grads, metrics) -> None:
+        """The optimizer step and the next clip norm, in place on
+        ``state``."""
+        self.opt.apply(grads, self.optimizer_state(state),
+                       tree.leaves(state.params), state.step)
+        if self.adaptive_clip:
+            self.clip_norm(state).copy_(metrics["clip_norm_next"])
         state.step += 1
 
     def train_step(self, state: TrainState, batch) -> Dict[str, torch.Tensor]:
         """One step in place on ``state``; returns the metrics (0-d tensors,
         not yet synchronised)."""
         grads, metrics = self.gradients(state, batch)
-        self.update(state, grads)
+        self.update(state, grads, metrics)
         return metrics
 
     def _step_with_retries(self, state: TrainState, batch):
@@ -217,7 +263,7 @@ class Trainer:
                     raise
                 print(f"[trainer] step {state.step} attempt {attempt} failed: "
                       f"{e}; retrying", flush=True)
-        self.update(state, grads)
+        self.update(state, grads, metrics)
         return {k: float(v) for k, v in metrics.items()}   # waits for the step
 
     # -- loop ---------------------------------------------------------------
@@ -243,13 +289,25 @@ class Trainer:
                     eps = self.accountant.epsilon_at(step + 1)
                     rec.update(step=step, sec=dt, epsilon=eps,
                                expected_batch=self.shape.global_batch)
+                    eps_str = f"eps {eps:.3f}"
+                    if len(self.accountant.mechanisms) > 1:
+                        # each mechanism's own epsilon beside the total
+                        bd = self.accountant.epsilon_breakdown(step + 1)
+                        rec.update(bd)
+                        parts = " ".join(f"{k[4:]} {v:.3f}" for k, v in
+                                         bd.items() if k != "eps_total")
+                        eps_str = f"eps {bd['eps_total']:.3f} ({parts})"
                     self.history.append(rec)
                     realized = ""
                     if self.sampling == "poisson":
                         realized = (f"B {rec['realized_batch']:.0f} of capacity "
                                     f"{self.capacity} ")
+                    clip = ""
+                    if self.adaptive_clip:
+                        clip = (f"clip_norm {rec['clip_norm']:.4f} -> "
+                                f"{rec['clip_norm_next']:.4f} ")
                     print(f"[trainer] step {step:5d} loss {rec['loss']:.4f} "
-                          f"eps {eps:.3f} {realized}({dt * 1e3:.0f} ms)",
+                          f"{eps_str} {realized}{clip}({dt * 1e3:.0f} ms)",
                           flush=True)
                 if ((step + 1) % cfg.ckpt_every == 0 or step == steps - 1
                         or self._preempted):

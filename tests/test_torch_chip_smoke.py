@@ -283,3 +283,87 @@ def test_path_launches_count_chatglm3s_wrapper_calls(smoke, monkeypatch, tmp_pat
     trainer.train_step(state, trainer.make_batch(0))
     assert smoke.read_counts() == smoke.path_launches("fused", arch.n_layers,
                                                       remat="block")
+
+
+@pytest.mark.parametrize("name,algo,route,remat,k", [
+    ("cnn-cifar10", "dpsgd_r", "fused", "block", 2),
+    ("cnn-cifar10", "dpsgd_r", "materialize", "none", 1),
+    ("cnn-cifar10", "dpsgd_r", "gram", "block", 2),
+    ("cnn-cifar10", "dpsgd_r1f", "fused", "sites", 2),
+    ("cnn-cifar10", "dpsgd", "fused", "block", 2),
+    ("cnn-cifar10", "sgd", "fused", "block", 1),
+    ("vit-cifar10", "dpsgd_r", "fused", "block", 2),
+    ("vit-cifar10", "dpsgd_r", "materialize", "none", 2),
+    ("vit-cifar10", "dpsgd_r", "gram", "sites", 1),
+    ("vit-cifar10", "dpsgd_r1f", "fused", "block", 2),
+    ("vit-cifar10", "dpsgd", "fused", "none", 2),
+    ("vit-cifar10", "sgd", "fused", "block", 1)])
+def test_path_launches_count_the_image_wrapper_calls(smoke, monkeypatch, tmp_path,
+                                                     name, algo, route, remat, k):
+    """``path_launches`` of the image families (phase 11) against the
+    wrapper calls of one Trainer step of the reduced CNN and ViT on the
+    CPU, K views an example, adaptive clipping on: every algorithm and
+    norm route, each remat policy.  The images' first site (the stem, the
+    patch embedding) takes no ``dense_dgrad``: its input needs no
+    gradient."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import reduced
+    from repro_torch.configs.base import (DPConfig, OptimConfig, ShapeConfig,
+                                          TrainConfig)
+    from repro_torch.models import build_model_for
+    from repro_torch.train import Trainer
+    for kname, (mod, attr) in smoke.kernel_counts().items():
+        def counting(*args, _fn=getattr(mod, kname), _mod=mod, _attr=attr,
+                     **kwargs):
+            setattr(_mod, _attr, getattr(_mod, _attr) + 1)
+            return _fn(*args, **kwargs)
+        monkeypatch.setattr(mod, kname, counting)
+        monkeypatch.setattr(mod, attr, 0)
+    arch = reduced(get_arch(name))
+    model = build_model_for(arch, dtype=torch.float32, device="cpu", remat=remat)
+    cfg = TrainConfig(param_dtype="float32", compute_dtype="float32",
+                      remat=remat, ckpt_dir=str(tmp_path),
+                      optim=OptimConfig(schedule="constant"),
+                      dp=DPConfig(algo=algo, norm_strategy=route, use_kernels=True,
+                                  augmult=k, adaptive_clip=True))
+    trainer = Trainer(model, cfg, ShapeConfig("t", 1, 3, "train"))
+    state = trainer.init_state()
+    smoke.zero_counts()
+    metrics = trainer.train_step(state, trainer.make_batch(0))
+    assert smoke.read_counts() == smoke.path_launches(
+        route, algo=algo, remat=remat, examples=3,
+        leaves=len(tree.leaves(model.params)), **smoke.launch_shape(arch))
+    assert ("clip_norm_next" in metrics) == (algo != "sgd")
+
+
+def test_image_mixes_and_their_bounds(smoke):
+    """Phase 11's norm sites as dense problems (256 examples, K 16 views
+    folded into T): the CNN's 21 conv2d sites and head, the ViT's patch
+    embedding, 8 x 6 dense sites and head.  ``dense_bwd_norm``'s bound (x
+    read, gy read, w read, gx written): every CNN call and all but the
+    ViT's w1 (256 -> 1024, by operations) bound by bytes; 7.96 ms over
+    the CNN's step, 9.01 ms over the ViT's."""
+    cnn = smoke.image_mix(get_arch("cnn-cifar10"))
+    assert cnn == [("stem", 16384, 27, 16, 1), ("s0-conv", 16384, 144, 16, 6),
+                   ("s1-w1s2", 4096, 144, 32, 1), ("s1-conv", 4096, 288, 32, 5),
+                   ("s1-proj", 4096, 16, 32, 1), ("s2-w1s2", 1024, 288, 64, 1),
+                   ("s2-conv", 1024, 576, 64, 5), ("s2-proj", 1024, 32, 64, 1),
+                   ("head", 16, 64, 10, 1)]
+    vit = smoke.image_mix(get_arch("vit-cifar10"))
+    assert vit == [("patch", 1024, 48, 256, 1), ("qkvo", 1024, 256, 256, 32),
+                   ("w1", 1024, 256, 1024, 8), ("w2", 1024, 1024, 256, 8),
+                   ("head", 16, 256, 10, 1)]
+    assert sum(n for *_, n in cnn) == smoke.launch_shape(get_arch("cnn-cifar10"))[
+        "convs"] + 1
+    for mix, want in ((cnn, 7.9584), (vit, 9.0133)):
+        total = 0.0
+        for nm, T, di, do, n in mix:
+            ms, by = smoke.bound_ms(4.0 * smoke.IMAGE_B * T * di * do,
+                                    2 * smoke.IMAGE_B * T * (2 * di + do)
+                                    + 2 * di * do + 4 * smoke.IMAGE_B, "bfloat16")
+            assert by == ("operations" if (nm, mix) == ("w1", vit) else "bytes")
+            total += n * ms
+        assert total == pytest.approx(want, abs=1e-4)
+    assert smoke.largest_leaf(get_arch("cnn-cifar10"))[1] == 3 * 3 * 64 * 64
+    assert smoke.largest_leaf(get_arch("vit-cifar10"))[1] == 256 * 1024

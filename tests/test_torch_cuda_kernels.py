@@ -49,7 +49,9 @@ SHAPES = [(8, 4, 16, 8, True), (3, 1, 33, 20, True), (8, 8, 24, 96, True),
           (6, 2, 200, 16, False), (4, 2, 150, 64, True),
           # chatglm3-6b's training shape: 8 x 32 heads on 2 kv heads (rep
           # 16), T 512, hd 128
-          (256, 16, 512, 128, True)]
+          (256, 16, 512, 128, True),
+          # the ViT's: non-causal over its 64 patches at hd 32
+          (64, 64, 64, 32, False)]
 
 
 @pytest.fixture
@@ -108,7 +110,11 @@ def _randn(cuda, shape, dtype, seed=0):
 DENSE_SHAPES = [(2, 128, 128, 256, 1), (3, 37, 100, 70, 1), (4, 33, 65, 129, 2),
                 (2, 200, 300, 260, 1), (5, 9, 8, 24, 3),
                 (2, 130, 384, 512, 1), (3, 100, 200, 40, 1), (2, 70, 130, 1000, 2),
-                (3, 45, 70, 333, 1), (4, 96, 520, 136, 4), (8, 300, 1024, 768, 4)]
+                (3, 45, 70, 333, 1), (4, 96, 520, 136, 4), (8, 300, 1024, 768, 4),
+                # the image families' folded patch pairs (K views of an
+                # example in T): the CNN's stem (d_in 27) and the ViT's head
+                # (d_out 10) take the element-load paths
+                (2, 2048, 27, 16, 1), (3, 32, 256, 10, 1)]
 
 
 @pytest.mark.cuda
@@ -153,7 +159,8 @@ def test_dense_bwd_norm_zero_rows_and_determinism(cuda, dtype):
 
 # (BG, T, di, do): one tile, ragged T over several tiles, wide d; one row
 # at the auto route's T (32 x 32 tile pairs)
-GRAM_SHAPES = [(2, 16, 8, 24), (3, 70, 33, 65), (2, 130, 64, 300), (1, 2048, 64, 96)]
+GRAM_SHAPES = [(2, 16, 8, 24), (3, 70, 33, 65), (2, 130, 64, 300), (1, 2048, 64, 96),
+               (2, 2048, 27, 16), (3, 32, 256, 10)]
 
 
 @pytest.mark.cuda
@@ -196,7 +203,8 @@ BWD_BF16_TOL = 5e-3
 # (BH, KV rows, T, hd, causal)
 BWD_SHAPES = [(8, 4, 16, 8, True), (3, 1, 33, 20, True), (4, 2, 37, 96, False),
               (6, 2, 70, 96, True), (18, 2, 130, 128, True), (4, 4, 65, 80, False),
-              (9, 1, 200, 64, True), (256, 16, 512, 128, True)]
+              (9, 1, 200, 64, True), (256, 16, 512, 128, True),
+              (64, 64, 64, 32, False)]
 
 
 def _bwd_inputs(cuda, shape, dtype):
@@ -424,9 +432,11 @@ def test_dgrad_and_flash_take_element_loads_for_unaligned_bases(cuda):
     torch.testing.assert_close(lse, lse_ref, rtol=0.0, atol=2e-2)
 
 
-# (BH, KV rows, T, hd, causal, path of the bf16 launches): the training
-# head width, the auto route's T, hd 20 (rows of 40 bytes: element loads)
-BWD_PATH_SHAPES = [(8, 4, 130, 96, True, "mma+cp.async"),
+# (BH, KV rows, T, hd, causal, path of the bf16 launches): the ViT's
+# non-causal hd 32, the training head width, the auto route's T, hd 20
+# (rows of 40 bytes: element loads)
+BWD_PATH_SHAPES = [(64, 64, 64, 32, False, "mma+cp.async"),
+                   (8, 4, 130, 96, True, "mma+cp.async"),
                    (2, 2, 2048, 96, True, "mma+cp.async"),
                    (256, 16, 512, 128, True, "mma+cp.async"),
                    (6, 2, 70, 20, True, "mma+loads"), (4, 4, 65, 20, False, "mma+loads")]
@@ -526,7 +536,12 @@ NORM_PATH_SHAPES = [(3, 300, 3072, 256, "wgmma+tma"), (2, 2048, 384, 512, "wgmma
                     (2, 130, 128, 32256, "wgmma+tma"), (8, 200, 1024, 2048, "wgmma+tma"),
                     (140, 20, 64, 64, "wgmma+tma"), (3, 100, 8, 40, "wgmma+tma"),
                     (4, 96, 520, 136, "wgmma+tma"), (6, 333, 700, 517, "wgmma+loads"),
-                    (40, 70, 200, 300, "wgmma+loads")]
+                    (40, 70, 200, 300, "wgmma+loads"),
+                    # the image families' folded patch pairs: the CNN's stem
+                    # (d_in 27), a stage-0 conv (d_out 16 in a 256-wide tile)
+                    # at K 16 x 1024 positions, the ViT's head (d_out 10)
+                    (2, 16384, 27, 16, "wgmma+loads"), (3, 16384, 144, 16, "wgmma+tma"),
+                    (4, 16, 256, 10, "wgmma+loads")]
 
 
 @pytest.mark.cuda

@@ -32,7 +32,7 @@ from repro.core.accountant import compute_epsilon as j_compute_epsilon
 from repro.models.transformer import build_model
 from repro_torch import interop, tree
 from repro_torch.configs import ARCHS as TARCHS, reduced as treduced
-from repro_torch.configs.base import DPConfig
+from repro_torch.configs.base import DPConfig, MoEConfig
 from repro_torch.core import algo as talgo
 from repro_torch.core import noise
 from repro_torch.core import norms as tnorms
@@ -122,7 +122,7 @@ def test_strategy_resolution_matches_jax():
     with pytest.raises(ValueError, match="registered strategies"):
         tsites.resolve_strategy("dense", "nope", ((2, 3, 4), (4, 5)), (2, 3, 5))
     with pytest.raises(KeyError, match="registered site kinds"):
-        tsites.get_site("conv2d")
+        tsites.get_site("moe_dense")
 
 
 # ---------------------------------------------------------------------------
@@ -374,10 +374,16 @@ def test_view_helpers_match_jax():
 
 
 def test_unported_options_raise():
+    """What the port has not taken over raises and names ROADMAP: a MoE
+    arch through ``reduced`` and its MoE layers in a Model (augmult and
+    adaptive clipping are ported); an unknown algorithm raises too."""
+    moe = dataclasses.replace(TARCHS["phi3-mini-3.8b"], family="moe",
+                              moe=MoEConfig(num_experts=4))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        treduced(moe)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Model(moe, device="cpu")
     loss_fn = lambda p, b, c: (None, c)
-    for dp in (DPConfig(augmult=2), DPConfig(adaptive_clip=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            talgo.make_noisy_grad_fn(loss_fn, dp)
     with pytest.raises(ValueError, match="unknown dp.algo"):
         talgo.make_noisy_grad_fn(loss_fn, DPConfig(algo="nope"))
 

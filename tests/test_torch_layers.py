@@ -176,11 +176,17 @@ def test_put_rows_is_exact_under_collision():
 
 def test_config_copies_match():
     """The port's configs (and reduced variants) equal the JAX package's
-    on every field the port keeps."""
-    for name in ARCH_NAMES:
+    on every field the port keeps; the image families' frontends (``cnn``,
+    ``vit``, classes of their own in each package) field by field."""
+    for name in ARCH_NAMES + ["cnn-cifar10", "vit-cifar10"]:
         for j, t in ((JARCHS[name], TARCHS[name]), _cfgs(name)):
             for f in dataclasses.fields(t):
                 if f.name in ("moe", "mamba"):
                     continue
-                assert getattr(t, f.name) == getattr(j, f.name), (name, f.name)
+                got, want = getattr(t, f.name), getattr(j, f.name)
+                if f.name in ("cnn", "vit"):
+                    got, want = dataclasses.asdict(got), dataclasses.asdict(want)
+                assert got == want, (name, f.name)
             assert t.hd == j.hd and t.pattern() == j.pattern()
+            assert t.n_classes == j.n_classes
+            assert t.image_shape() == j.image_shape()

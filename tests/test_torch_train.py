@@ -154,7 +154,7 @@ def test_launcher_trains_dpsgd_under_sites_remat_on_the_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("pair", ["pp_stages=2", "mem.auto_microbatch=true",
                                   "zero1=false", "mesh.shape=4,2", "tune.seed=1",
-                                  "dp.clip_quantile=0.3", "compress_pod_grads=true"])
+                                  "pp_microbatches=2", "compress_pod_grads=true"])
 def test_unported_overrides_raise(pair):
     """A ``--set`` key of the JAX package whose feature the port lacks
     raises; it is not accepted and then ignored."""
