@@ -18,8 +18,11 @@ the script exits nonzero and prints no ``ok`` line:
    also give exact zeros for all-zero gy rows and bit-identical repeats;
    ``pegrad_norm`` and ``dense_dgrad`` equal ``dense_bwd_norm``'s two
    outputs bit for bit, and the fusion A/B times the separate pair against
-   the fused call; ``clip_reduce`` with zeroed clip factors equals the
-   compacted reduction bit for bit.  The dgrad kernel's, the norm
+   the fused call; ``clip_reduce``, fresh and added into a running sum
+   (``out=``), with zeroed clip factors equals the compacted reduction
+   bit for bit, also at phase 9's flat buffers (32 GB at B 8), its times
+   event-timed as every kernel's with ``torch.profiler``'s device times
+   beside them, small shapes' loops rotated past the L2.  The dgrad kernel's, the norm
    launch's (``pegrad_norm``), the flash pair's and the Gram kernel's
    lines also give TFLOP/s, the share of the bound and the path each shape
    took (bf16 on the tensor cores, f32 on the CUDA cores); every training
@@ -35,7 +38,11 @@ the script exits nonzero and prints no ``ok`` line:
    256 examples folded into T (``image_mix``), ``dense_bwd_norm``,
    ``pegrad_norm`` and ``dense_dgrad`` (ragged d_in 27 and d_out 10 take
    the element-load paths, the rest TMA) and ``gram_norm`` on 4 examples;
-   ``clip_reduce`` at each model's largest leaf over 256 examples;
+   ``clip_reduce`` over 256 examples at each model's largest leaf, at its
+   flat buffers' widths (``dpsgd``'s launches, one a parameter dtype a
+   microbatch: the bf16 weights and the float32 norm scales and biases
+   end to end, padded to 16-byte rows) and at all its parameters' width
+   unpadded, and at a narrow leaf (the CNN head's bias, N 10);
 4. small references in float32 (TF32 off): the reduced phi3 serving
    (prefill and decode logits) and one ``dpsgd_r`` fused training step
    (loss, per-example norms², clipped-sum gradients) of the reduced phi3,
@@ -106,7 +113,10 @@ the script exits nonzero and prints no ``ok`` line:
    steps in turns with ``fused``) and one under ``gram`` (norms² against
    their plain rules); each one Poisson
    step (padded examples' norms² exactly 0) and one ``dpsgd`` step (all
-   256 examples at once, ``clip_reduce``); ε composed with the clip
+   256 examples at once, one ``clip_reduce`` a parameter dtype into the
+   flat float32 sums),
+   then one more under ``torch.profiler`` for ``clip_reduce``'s device
+   time over the step; ε composed with the clip
    mechanism and its split.  No phase steps through ``Trainer.run``,
    which checkpoints at its last step.
 
@@ -123,6 +133,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import itertools
 import json
 import math
 import subprocess
@@ -132,6 +143,16 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+
+# clip_reduce's checks: the H100's L2 (50 MB), the copies of a small shape's
+# operands its timed loops rotate among (enough for 4 x L2, at most this
+# many), g's size above which a check keeps no second copy of g (phase 9's
+# flat buffers: 16 layers of phi3-mini, 32 GB at B 8), and the elements of g
+# its plain version takes at a time
+L2_BYTES = 50 * 2**20
+L2_COPIES = 256
+WIDE_BYTES = 16 * 2**30
+PLAIN_ELEMS = 2**27
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): bf16 tensor cores,
 # float32 outside the tensor cores, HBM3 bandwidth
@@ -532,44 +553,194 @@ def check_dense_halves(name, BG, T, di, do, E, dtype, seed=0, iters=10):
     return {"pegrad_norm": pegrad, "dense_dgrad": dgrad, "ab": ab}
 
 
+def device_ms(fn, iters: int = 10, warmup: int = 2, label: str = "",
+              floor_ms: float = 0.0):
+    """Device time of one ``fn()`` from ``torch.profiler`` over ``iters``
+    calls (``profile_ms``).  Where a call's host work outlasts its kernels
+    (small shapes), ``time_ms`` times the host's launch rate and this the
+    card.  A profile is kept only if it recorded a kernel and its time is
+    not below ``floor_ms`` (the least time the work can take, so a shorter
+    record is the profiler's and not the card's: one profile of a 3.2 ms
+    launch has given 1.5 ms).  After three profiles that fail it returns
+    None (not measured) and a ``[timer]`` line says why."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    why = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        ms, fault = profile_ms(_kernel_spans(prof), iters, floor_ms)
+        if fault is None:
+            return ms
+        why.append(fault)
+    print(f"[timer] {label}: torch.profiler's three profiles gave {'; '.join(why)}; "
+          f"device time not measured", flush=True)
+    return None
+
+
+def profile_ms(spans, iters: int, floor_ms: float = 0.0):
+    """(ms a call, None) from the (name, µs) ``spans`` of ``iters`` calls:
+    for each kernel (by name) its mean duration times its launches a call,
+    summed, so that a launch the profiler did not record (one in each of
+    the image rows' profiles) lowers no mean.  Or (None, what is wrong):
+    no kernel, or a time below ``floor_ms``."""
+    by_name = {}
+    for name, us in spans:
+        by_name.setdefault(name, []).append(us)
+    if not by_name:
+        return None, "no kernel"
+    ms = sum(sum(d) / len(d) * max(1, round(len(d) / iters))
+             for d in by_name.values()) / 1e3
+    if ms < floor_ms:
+        return None, f"{ms:.4f} ms < the bound's {floor_ms:.4f} ms"
+    return ms, None
+
+
+def _kernel_spans(prof):
+    """(name, µs) of every device activity a ``torch.profiler`` run
+    recorded."""
+    import torch
+    return [(e.name, e.time_range.end - e.time_range.start) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.time_range.end > e.time_range.start]
+
+
+def clip_bound_ms(B, N, item, accumulate=False):
+    """g read, c read, out written (and read, accumulating): bytes, at any
+    B (2·B·N FLOPs)."""
+    return bound_ms(2.0 * B * N, item * B * N + 4 * B + (8 if accumulate else 4) * N,
+                    "float32" if item == 4 else "bfloat16")
+
+
 def check_clip_reduce(name, B, N, dtype, seed=0, iters=10):
-    """clip_reduce at one shape against its plain version (float32 sums in
-    another order: within 1e-5 of max|g|·Σ|c|), with timings.  Two rows get
-    c_b = 0: the result must equal the reduction of the other rows, and a
-    repeat, bit for bit."""
+    """clip_reduce at one shape against its plain version, fresh and added
+    into a running float32 sum (``out=``): float32 sums in another order,
+    within 1e-5 of max|g|·Σ|c| (the added one: of the running sum plus the
+    plain sum, and equal to the running sum plus the fresh sum bit for
+    bit).  Some rows get c_b = 0: in both modes the result must equal the
+    reduction of the other rows, and a repeat, bit for bit.  The zeroed
+    rows are a quarter of them, spread out, or where g is above
+    ``WIDE_BYTES`` (phase 9's flat buffers) the first and the last, so that
+    the compacted batch is a view of g (none at B 1); the plain
+    version runs ``PLAIN_ELEMS`` elements of g at a time.  Times are
+    event-timed loops (``time_ms``, as every kernel's): ``ms``, ``out_ms``,
+    ``plain_ms``, ``library_ms`` (``torch.matmul``); ``device_ms``,
+    ``out_device_ms`` and ``library_device_ms`` are the card's time from
+    ``torch.profiler`` (``device_ms``; a profile shorter than the HBM bound
+    is taken again, then not measured), which at the small shapes the host's
+    launches hide from the event-timed loops.  Each loop rotates among
+    enough copies of g and of the running sum to read 4 x L2 between two
+    reads of one copy (at most ``L2_COPIES``); a shape whose copies still
+    fit in 4 x L2 is ``l2_resident`` and its share of the HBM bound is not
+    a roofline share.  Any other must not pass 105% of its bound."""
     import torch
     from repro_torch.kernels import clip_reduce, ref
     g = torch.Generator(device="cuda").manual_seed(seed)
-    grads = _randn(g, (B, N), dtype)
+    item = torch.empty((), dtype=dtype).element_size()
+    wide = B * N * item > WIDE_BYTES
+    if wide:    # no float32 copy of g
+        grads = torch.empty((B, N), dtype=dtype, device="cuda").normal_(generator=g)
+    else:
+        grads = _randn(g, (B, N), dtype)
     c = torch.rand((B,), generator=g, device="cuda")
-    c[1::4] = 0.0
-    keep = c != 0
+    if wide:
+        lo, hi = (1, B - 1) if B >= 3 else (0, B)
+        c[:lo], c[hi:] = 0.0, 0.0
+        compact = (grads[lo:hi], c[lo:hi].contiguous())
+    else:
+        c[1::4] = 0.0
+        keep = c != 0
+        compact = (grads[keep].contiguous(), c[keep].contiguous())
+    acc0 = torch.randn((N,), generator=g, device="cuda")
     out = clip_reduce.clip_reduce(grads, c)
-    again = clip_reduce.clip_reduce(grads, c)
-    compact = clip_reduce.clip_reduce(grads[keep].contiguous(), c[keep].contiguous())
-    torch.cuda.synchronize()
-    assert torch.equal(out, again) and torch.equal(out, compact), name
+    assert torch.equal(out, clip_reduce.clip_reduce(grads, c)), name
+    assert torch.equal(out, clip_reduce.clip_reduce(*compact)), name
+    added = clip_reduce.clip_reduce(grads, c, out=acc0.clone())
+    assert torch.equal(added, clip_reduce.clip_reduce(grads, c, out=acc0.clone())), name
+    assert torch.equal(added, clip_reduce.clip_reduce(*compact, out=acc0.clone())), name
     del compact
-    want = ref.clip_reduce_ref(grads, c)
-    abs_err = (out - want).abs().max().item()
-    rel = abs_err / (grads.float().abs().max().item() * c.abs().sum().item())
-    assert rel <= 1e-5, (name, rel)
-    del out, again, want
-    before = clip_reduce.LAUNCHES
-    ms = time_ms(lambda: clip_reduce.clip_reduce(grads, c), iters)
-    launches = clip_reduce.LAUNCHES - before
-    plain_ms = time_ms(lambda: ref.clip_reduce_ref(grads, c), iters)
+    cols = max(1, PLAIN_ELEMS // B)
+    g_max = abs_err = out_err = 0.0
+    for s in range(0, N, cols):
+        sl = slice(s, s + cols)
+        want = ref.clip_reduce_ref(grads[:, sl], c)
+        g_max = max(g_max, grads[:, sl].abs().max().item())
+        abs_err = max(abs_err, (out[sl] - want).abs().max().item())
+        out_err = max(out_err, (added[sl] - (acc0[sl] + want)).abs().max().item())
+        assert torch.equal(added[sl], acc0[sl] + out[sl]), name
+    del want, acc0, out
+    scale = g_max * c.abs().sum().item()
+    rel, rel_out = abs_err / scale, out_err / scale
+    assert rel <= 1e-5 and rel_out <= 1e-5, (name, rel, rel_out)
+    path = clip_reduce.clip_reduce_path(grads)
+
+    nbytes = B * N * item + 4 * N
+    copies = min(L2_COPIES, -(-4 * L2_BYTES // nbytes))
+    l2_resident = copies * nbytes < 4 * L2_BYTES
+    gs = [grads] + [grads.clone() for _ in range(copies - 1)]
+    accs = [added] + [added.clone() for _ in range(copies - 1)]
+    nxt = itertools.cycle(range(copies)).__next__   # one rotation for every loop
+    n = 3 if wide else iters
+
+    def plain(k):
+        if not wide:
+            return ref.clip_reduce_ref(gs[k], c)
+        o = torch.zeros((N,), device="cuda")
+        for s in range(0, N, cols):
+            ref.clip_reduce_ref(gs[k][:, s:s + cols], c, out=o[s:s + cols])
+        return o
+
     cg = c.to(dtype)
-    library_ms = time_ms(lambda: torch.matmul(cg, grads), iters)   # timing only
+    label = f"clip_reduce {name} {_dtype_name(dtype)}"
+    fns = {"": lambda k: clip_reduce.clip_reduce(gs[k], c),
+           "out_": lambda k: clip_reduce.clip_reduce(gs[k], c, out=accs[k]),
+           "library_": lambda k: torch.matmul(cg, gs[k])}     # timing only
+    before = clip_reduce.LAUNCHES
+    t = {f"{k}ms": time_ms(lambda: f(nxt()), n) for k, f in fns.items()}
+    b_ms, b_by = clip_bound_ms(B, N, item)
+    b_out_ms, _ = clip_bound_ms(B, N, item, accumulate=True)
+    # the least device time each call can take from HBM (matmul writes g's
+    # dtype); none where the copies fit in the L2
+    floors = {"": b_ms, "out_": b_out_ms,
+              "library_": bound_ms(2.0 * B * N, item * (B * N + B + N),
+                                   _dtype_name(dtype))[0]}
+    t.update({f"{k}device_ms": device_ms(
+        lambda: f(nxt()), n, label=f"{label} {k}",
+        floor_ms=0.0 if l2_resident else floors[k] / 1.05) for k, f in fns.items()})
+    launches = clip_reduce.LAUNCHES - before
+    t["plain_ms"] = time_ms(lambda: plain(nxt()), n)
+    del gs, accs
     dt = _dtype_name(dtype)
-    b_ms, b_by = bound_ms(2.0 * B * N, grads.element_size() * B * N + 4 * (B + N), dt)
-    rec = dict(shape=name, dtype=dt, B=B, N=N, max_abs_err=abs_err, rel_err=rel,
-               ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
-               bound_by=b_by, launches=launches)
-    print(f"[kernel] clip_reduce {name} {dt}: max_abs_err {abs_err:.2e} ({rel:.1e} "
-          f"of max|g|·Σ|c|), zeroed rows = compacted bit for bit  kernel {ms:.3f} "
-          f"ms  plain {plain_ms:.3f} ms  library {library_ms:.3f} ms  bound "
-          f"{b_ms:.4f} ms ({b_by})", flush=True)
+    shares = {k: b / t[k] for k, b in (("ms", b_ms), ("out_ms", b_out_ms),
+                                       ("device_ms", b_ms), ("out_device_ms", b_out_ms))
+              if t[k] is not None}
+    rec = dict(shape=name, dtype=dt, B=B, N=N, path=path, max_abs_err=abs_err,
+               rel_err=rel, out_rel_err=rel_out, **t, bound_ms=b_ms,
+               out_bound_ms=b_out_ms, bound_by=b_by, launches=launches,
+               copies=copies, l2_resident=l2_resident, share_of_bound=shares)
+
+    def ms_(k):
+        return "not measured" if t[k] is None else f"{t[k]:.4f} ms"
+
+    def share(k):
+        return "L2-resident" if l2_resident else (
+            f"{100 * shares[k]:.1f}% of bound" if k in shares else "-")
+
+    zeroed = f"{int((c == 0).sum())} of {B} rows zeroed"
+    print(f"[kernel] clip_reduce {name} {dt} (B {B} x N {N}, path {path}): max_abs_err "
+          f"{abs_err:.2e} ({rel:.1e} of max|g|·Σ|c|; out= {rel_out:.1e}); {zeroed}, = "
+          f"compacted bit for bit in both modes; event-timed over {copies} copies: "
+          f"kernel {ms_('ms')} ({share('ms')}), out= {ms_('out_ms')} "
+          f"({share('out_ms')}), plain {ms_('plain_ms')}, matmul {ms_('library_ms')}; "
+          f"device time: kernel {ms_('device_ms')} ({share('device_ms')}), out= "
+          f"{ms_('out_device_ms')} ({share('out_device_ms')}), matmul "
+          f"{ms_('library_device_ms')}; bound {b_ms:.4f} ms ({b_by})", flush=True)
+    assert l2_resident or max(shares.values()) <= 1.05, (name, shares)
     return rec
 
 
@@ -848,7 +1019,7 @@ def launch_shape(arch):
 
 def path_launches(route: str, L: int, chunks: int = 1, algo: str = "dpsgd_r",
                   remat: str = "none", examples: int = 0, microbatch: int = 0,
-                  leaves: int = 0, family: str = "dense", convs: int = 0):
+                  dtype_groups: int = 0, family: str = "dense", convs: int = 0):
     """Launches of every kernel in one step of ``algo``, as the code makes
     them.  The dense decoder with ``L`` layers: each layer has 7 dense
     sites (q, k, v, o, w1, w3, w2) and one attention, the model one head
@@ -872,7 +1043,8 @@ def path_launches(route: str, L: int, chunks: int = 1, algo: str = "dpsgd_r",
     formulas send q, k, v, o to ``pegrad_norm`` and w1, w3, w2 and the
     head to ``gram_norm``.  ``sgd`` is one forward and one backward;
     ``dpsgd`` one of each per example (``examples`` of them), and one
-    ``clip_reduce`` per parameter leaf (``leaves``) per chunk of
+    ``clip_reduce`` per parameter dtype (``dtype_groups``: one flat buffer
+    of per-example gradients each, ``clipping.flat_stacks``) per chunk of
     ``microbatch`` examples (0 = all).  Under ``block`` and ``sites`` every
     backward recomputes every block's forward once more, so its flash
     forwards.  ``chunks``: grad_accum, every chunk a full step's worth."""
@@ -891,7 +1063,7 @@ def path_launches(route: str, L: int, chunks: int = 1, algo: str = "dpsgd_r",
     elif algo == "dpsgd":
         n.update(flash_attn_fwd=examples * (attn + again),
                  flash_attn_bwd=examples * attn,
-                 clip_reduce=leaves * (examples // (microbatch or examples)))
+                 clip_reduce=dtype_groups * (examples // (microbatch or examples)))
     elif algo in ("dpsgd_r", "dpsgd_r1f"):
         forwards, norm_pulls = (2, 1) if algo == "dpsgd_r" else (1, 2)
         n.update(flash_attn_fwd=forwards * attn + 2 * again,
@@ -912,6 +1084,13 @@ def path_launches(route: str, L: int, chunks: int = 1, algo: str = "dpsgd_r",
     else:
         raise ValueError(algo)
     return {k: v * chunks for k, v in n.items()}
+
+
+def dtype_groups(params) -> int:
+    """The parameter dtypes of ``params``: ``dpsgd``'s flat buffers, one
+    ``clip_reduce`` launch each a microbatch."""
+    from repro_torch import tree
+    return len({p.dtype for p in tree.leaves(params)})
 
 
 def zero_counts():
@@ -1159,6 +1338,20 @@ def profile_step(run, label):
         flush=True)
     return dict(step_ms=rec["step_ms"], device_busy_ms=busy,
                 n_kernels=len(kernels), top_ms=top, kernels_ms=ours)
+
+
+def kernel_device_ms(run, piece):
+    """``run()`` under ``torch.profiler`` (device activity only): the summed
+    device time and the count of the kernels whose name holds ``piece``,
+    their names, and ``run``'s step time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        rec = run()
+        torch.cuda.synchronize()
+    hits = [(name, us) for name, us in _kernel_spans(prof) if piece in name]
+    return dict(ms=sum(us for _, us in hits) / 1e3, launches=len(hits),
+                names=sorted({name[:60] for name, _ in hits}), step_ms=rec["step_ms"])
 
 
 def timed_step(trainer, state):
@@ -1636,7 +1829,7 @@ def train_algorithms():
     model = Model(arch, dtype=torch.bfloat16, device="cuda", seed=0,
                   remat="none")
     trainer = Trainer(model, cfg, shape)
-    n_leaves = len(tree.leaves(model.params))
+    n_groups = dtype_groups(model.params)
 
     # 1. σ = 0: the clipped sums of one batch from the same parameters, in
     # bf16 through each algorithm and in float32 through dpsgd_r
@@ -1711,7 +1904,7 @@ def train_algorithms():
         want_n = path_launches("fused", arch.n_layers, algo=tr.cfg.dp.algo,
                                examples=TRAIN_B,
                                microbatch=tr.cfg.dp.microbatch,
-                               leaves=n_leaves)
+                               dtype_groups=n_groups)
         assert counts == want_n, (name, counts, want_n)
         assert math.isfinite(rec["loss"]), rec
         for k, v in counts.items():
@@ -1755,16 +1948,53 @@ def _step_sums(recs, mix, keys=("ms", "plain_ms", "bound_ms", "library_ms")):
     return out
 
 
-def largest_leaf(arch):
-    """(path, elements) of ``arch``'s largest parameter."""
+def _leaf_sizes(arch):
+    """(elements, path) of every parameter of the image model ``arch``."""
     from repro_torch.models import cnn, vit
     from repro_torch.models.transformer import _map_spec
     spec = (cnn if arch.family == "cnn" else vit).model_spec(arch)
     sizes = []
     _map_spec(spec, lambda p, path: sizes.append((math.prod(p.shape),
                                                   "/".join(path))))
-    n, path = max(sizes)
+    return sizes
+
+
+def largest_leaf(arch):
+    """(path, elements) of ``arch``'s largest parameter."""
+    n, path = max(_leaf_sizes(arch))
     return path, n
+
+
+def _meta_leaves(arch):
+    """``arch``'s parameters as meta tensors (no memory), in the model's
+    leaf order, with ``init_spec``'s types: the weights bf16, the ones and
+    zeros (norm scales, biases) float32; the decoder's blocks stacked."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.models import cnn, transformer, vit
+    if arch.family in ("cnn", "vit"):
+        spec, reps = (cnn if arch.family == "cnn" else vit).model_spec(arch), None
+    else:
+        spec, (_, _, reps) = transformer.model_spec(arch), transformer.group_layers(arch)
+
+    def mk(p, path):
+        lead = (reps,) if reps is not None and path[0] == "blocks" else ()
+        return torch.empty(lead + p.shape, device="meta", dtype=(
+            torch.float32 if p.init in ("ones", "zeros") else torch.bfloat16))
+    return tree.leaves(transformer._map_spec(spec, mk))
+
+
+def flat_groups(arch):
+    """``dpsgd``'s flat buffers of the model ``arch`` in bf16
+    (``clipping.flat_stacks``): (dtype, parameters, padded row width) for
+    each parameter dtype, in launch order.  Also the parameters of all
+    dtypes end to end."""
+    from repro_torch.core import clipping
+    leaves = _meta_leaves(arch)
+    bufs, *_ = clipping.flat_stacks(leaves, 1)
+    groups = [(b.dtype, sum(p.numel() for p in leaves if p.dtype == b.dtype),
+               b.shape[1]) for b in bufs]
+    return groups, sum(p.numel() for p in leaves)
 
 
 def check_image_kernels():
@@ -1776,7 +2006,10 @@ def check_image_kernels():
     and ``dense_dgrad`` (and the fusion A/B) on all 256 examples and
     ``gram_norm`` on 4 of them (its plain version and library call form
     each example's T x T Grams: 4.3 GB a matrix at T 16384); and
-    ``clip_reduce`` at each model's largest leaf over 256 examples.  The
+    ``clip_reduce`` over 256 examples at each model's largest leaf, at its
+    flat buffers' widths (``dpsgd``'s launches, one a parameter dtype:
+    each dtype's parameters end to end, padded; ``flat_groups``) and at the
+    width of all its parameters end to end, unpadded.  The
     bf16 paths must be the ones the shapes call for (element loads only
     where a row is not a multiple of 8 elements).  Returns the records and
     the bf16 sums over one step's calls of each model."""
@@ -1800,7 +2033,10 @@ def check_image_kernels():
         arch = get_arch(name)
         mix = image_mix(arch)
         out["mix"][name] = mix
-        out["clip_reduce"][name] = []
+        out["clip_reduce"][name] = {"leaf": {}, "flat": {}, "flat-f32": {}, "all": {}}
+        groups, n_all = flat_groups(arch)
+        widths = {dt_: n_pad for dt_, _, n_pad in groups}
+        assert sorted(widths, key=str) == [torch.bfloat16, torch.float32], groups
         for key in ("dense", "pegrad_norm", "dense_dgrad", "ab", "gram"):
             out[key][name] = {"float32": [], "bfloat16": []}
         for dtype in (torch.float32, bf16):
@@ -1817,8 +2053,22 @@ def check_image_kernels():
                 gc.collect()
                 torch.cuda.empty_cache()
             path, n = largest_leaf(arch)
-            out["clip_reduce"][name].append(
-                check_clip_reduce(f"{name}-{path}", IMAGE_B, n, dtype))
+            cr = out["clip_reduce"][name]
+            cr["leaf"][dt] = check_clip_reduce(f"{name}-{path}", IMAGE_B, n, dtype)
+            # the main path's launches: the bf16 weights' buffer in bf16, the
+            # float32 norm scales' and biases' buffer in float32
+            if dtype == bf16:
+                cr["flat"][dt] = check_clip_reduce(f"{name}-flat", IMAGE_B,
+                                                   widths[bf16], dtype, iters=5)
+            else:
+                cr["flat-f32"][dt] = check_clip_reduce(f"{name}-flat-f32", IMAGE_B,
+                                                       widths[dtype], dtype)
+            cr["all"][dt] = check_clip_reduce(f"{name}-all-unpadded", IMAGE_B, n_all,
+                                              dtype, iters=5)
+            gc.collect()
+            torch.cuda.empty_cache()
+        # dpsgd's bf16 launch takes the ring
+        assert out["clip_reduce"][name]["flat"]["bfloat16"]["path"] == "cp.async", name
         for (nm, t, di, do, _), d, pg, dg, gr in zip(
                 mix, out["dense"][name]["bfloat16"],
                 out["pegrad_norm"][name]["bfloat16"],
@@ -1893,7 +2143,6 @@ def train_image(name):
     record."""
     import numpy as np
     import torch
-    from repro_torch import tree
     from repro_torch.configs import get_arch
     from repro_torch.models import build_model_for
     arch = get_arch(name)
@@ -2007,7 +2256,8 @@ def train_image(name):
           f"{tr.sample_rate:.4e}; padded examples' norms² all exactly 0.0", flush=True)
     out["poisson"] = rec
 
-    # one dpsgd step: clip_reduce on every leaf's 256 per-example gradients
+    # one dpsgd step: clip_reduce on each dtype's flat buffer of the 256
+    # per-example gradients
     dtr = image_trainer(model, shape, dataclasses.replace(
         cfg, dp=dataclasses.replace(cfg.dp, algo="dpsgd", microbatch=0)))
     gc.collect()
@@ -2018,7 +2268,7 @@ def train_image(name):
     rec["peak_bytes"] = torch.cuda.max_memory_allocated()
     counts = read_counts()
     want = path_launches("fused", algo="dpsgd", remat=model.remat,
-                         examples=IMAGE_B, leaves=len(tree.leaves(model.params)),
+                         examples=IMAGE_B, dtype_groups=dtype_groups(model.params),
                          **launch_shape(arch))
     assert counts == want, (counts, want)
     assert math.isfinite(rec["loss"]), rec
@@ -2029,6 +2279,20 @@ def train_image(name):
           f"{rec['clip_norm_next']:.4f}; {rec['step_ms']:.1f} ms, peak "
           f"{rec['peak_bytes'] / 2**30:.2f} GiB; launches "
           f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    # one more under torch.profiler: clip_reduce's device time over the step
+    rec["clip_reduce_profile"] = kernel_device_ms(lambda: timed_step(dtr, state),
+                                                  "clip_reduce")
+    cp = rec["clip_reduce_profile"]
+    if cp["launches"] != counts["clip_reduce"]:     # a record the profiler lost
+        print(f"[timer] {name} dpsgd step: torch.profiler recorded "
+              f"{cp['launches']} of {counts['clip_reduce']} clip_reduce launches; "
+              f"device time not measured", flush=True)
+        cp["ms"] = None
+    else:
+        print(f"[image] {name} dpsgd step under torch.profiler: clip_reduce "
+              f"{cp['ms']:.4f} ms of device time in {cp['launches']} launch(es) "
+              f"({', '.join(cp['names'])}); step {cp['step_ms']:.1f} ms wall",
+              flush=True)
     out["dpsgd"] = rec
 
     mean = float(np.mean([r["step_ms"] for r in steps]))
@@ -2285,6 +2549,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # 1. device
+    t_start = time.perf_counter()
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2344,12 +2609,26 @@ def main() -> int:
             bwd_recs.append(check_flash_bwd(*shp, dtype))
         gram_recs.append(check_gram("embed", TRAIN_B, TRAIN_T, d, d, True, False, dtype))
         gram_recs.append(check_gram("square", TRAIN_B, TRAIN_T, d, d, False, True, dtype))
-        # the largest leaf's per-example gradients as vanilla DP-SGD stacks
-        # them (phase 9: the stacked w1 of 16 layers, a whole batch at once);
-        # and a ragged width (the one-column-per-thread path)
+        # a wide leaf, the stacked w1 of 16 layers at B 8 (phase 9 launched
+        # on it before dpsgd took flat buffers; kept as the wide-N row whose
+        # times earlier runs give); and a ragged width (the column loads)
         clip_recs.append(check_clip_reduce("phi3-w1-stack", TRAIN_B, L * d * f,
                                            dtype))
         clip_recs.append(check_clip_reduce("ragged", 3, 1_000_003, dtype))
+        # a narrow leaf: the CNN head's bias over 256 examples
+        clip_recs.append(check_clip_reduce("cnn-head-bias", IMAGE_B, 10, dtype))
+    # phase 9's dpsgd launches: the flat buffers of its 16 layers (one a
+    # parameter dtype: the bf16 weights in bf16, the float32 norm scales in
+    # float32), the whole batch at once and one example at a time
+    for dtype, _, n_pad in flat_groups(dataclasses.replace(arch, n_layers=L))[0]:
+        for mb in DPSGD_MICROBATCHES:
+            gc.collect()
+            torch.cuda.empty_cache()
+            tag = "" if dtype == torch.bfloat16 else "-f32"
+            clip_recs.append(check_clip_reduce(f"phi3-flat{tag}-b{mb}", mb, n_pad,
+                                               dtype))
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # the image families' shapes (phase 11's path)
     image_kernels = check_image_kernels()
@@ -2476,7 +2755,7 @@ def main() -> int:
 
     flash_rec = pick(kernel_recs, "phi3-wave")
     bwd_rec, gram_rec = pick(bwd_recs, "phi3-train"), pick(gram_recs, "embed")
-    clip_rec = pick(clip_recs, "phi3-w1-stack")
+    clip_rec = pick(clip_recs, f"phi3-flat-b{TRAIN_B}")
     mix = " + ".join(f"{n} x ({di},{do})" for _, di, do, n in train_mix)
 
     gk = glm["kernels"]
@@ -2504,7 +2783,8 @@ def main() -> int:
             shape = rec["shape"]
         return {"shape": shape, "launches": images[model]["launches"][kernel],
                 **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                       "bound_by", "library_ms")}}
+                                       "bound_by", "library_ms")},
+                **{k: rec[k] for k in ("device_ms", "library_device_ms") if k in rec}}
 
     vit_shape = (f"({IMAGE_B * IMAGE_K} x 8 heads, T 64, hd 32) non-causal, bf16")
     image_rows = {
@@ -2513,7 +2793,7 @@ def main() -> int:
         "flash_attn_bwd": dict(cnn=None, vit=dict(image_row(
             "flash_attn_bwd", "vit-cifar10", ik["flash_bwd"][1]), shape=vit_shape)),
         "clip_reduce": {m.split("-")[0]: image_row("clip_reduce", m,
-                                                    ik["clip_reduce"][m][1])
+                                                    ik["clip_reduce"][m]["flat"]["bfloat16"])
                         for m in IMAGE_ARCHS}}
     for kernel in ("dense_bwd_norm", "pegrad_norm", "dense_dgrad", "gram_norm"):
         image_rows[kernel] = {m.split("-")[0]: image_row(kernel, m)
@@ -2567,9 +2847,11 @@ def main() -> int:
               path="wgmma+tma"),
         entry("clip_reduce", "clip_reduce.cu", "src/repro/kernels/clip_reduce.py:34",
               launches["clip_reduce"], clip_rec,
-              shape=f"({TRAIN_B}, {L * d * f}) bf16, the per-example gradients "
-                    f"of the stacked w1",
-              launched_on="dpsgd's clipped sums (phase 9)"),
+              shape=f"({TRAIN_B}, {clip_rec['N']}) bf16, the flat buffer of "
+                    f"{L} layers' per-example weight gradients",
+              launched_on="dpsgd's clipped sums (phase 9)",
+              device_ms=clip_rec["device_ms"],
+              library_device_ms=clip_rec["library_device_ms"]),
     ]}
     for k in kernels["kernels"]:
         assert k["bound_by"] in ("bytes", "operations") and k["launches"] > 0, k
@@ -2584,6 +2866,8 @@ def main() -> int:
          "remat": remat, "algos": algos, "glm": glm, "image_kernels": image_kernels,
          "images": images, "json_line": kernels},
         indent=1, default=str))
+    print(f"[time] chip_smoke.py: {time.perf_counter() - t_start:.1f} s from the device "
+          f"query to the last check", flush=True)
     print(json.dumps(kernels))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -12,9 +12,11 @@ where ``grads`` is a list of float32 tensors aligned with
 * ``"sgd"``     — non-private baseline: the mean-loss gradient.
 * ``"dpsgd"``   — vanilla DP-SGD (lines 15–25): per-example gradients of
                   ``m_i · L_i`` in the parameter dtype, ``dp.microbatch``
-                  examples at a time (0 = the whole batch), stacked
-                  ``(mbe, ...)`` per leaf, then ``clipping.clip_and_sum``
-                  (``clip_reduce`` with kernels) into the float32 sum.  One
+                  examples at a time (0 = the whole batch), into one flat
+                  ``(mbe, N)`` buffer per parameter dtype
+                  (``clipping.flat_stacks``), then ``clipping.clip_and_sum``
+                  (one ``clip_reduce`` launch a buffer with kernels) into
+                  the flat float32 sums, returned as leaf views.  One
                   ``autograd.grad`` per example on its own rows, where the
                   JAX package vmaps over the microbatch: the flash kernels'
                   ``autograd.Function``s have no vmap rule.
@@ -248,11 +250,13 @@ def _dpsgd_sum(loss_fn, dp: DPConfig):
         if B % mbe:
             raise ValueError(f"dp.microbatch={dp.microbatch} does not divide "
                              f"the {B} examples of the batch")
-        summed = [torch.zeros(p.shape, dtype=F32, device=device) for p in leaves]
-        # one microbatch of per-example gradients, filled in place: a stack
-        # of a list would hold two copies at once
-        stack = [torch.empty((mbe,) + tuple(p.shape), dtype=p.dtype,
-                             device=device) for p in leaves]
+        # one microbatch of per-example gradients, filled in place (a stack
+        # of a list would hold two copies at once), one flat buffer per
+        # dtype with a view per leaf; the running sums flat alike
+        bufs, sums, stack, summed = clipping.flat_stacks(leaves, mbe)
+        # float32 temporaries of the norms no larger than a leaf's slice,
+        # as when each leaf was taken on its own
+        max_elems = min(tree.SLICE_ELEMS, max(p.numel() for p in leaves))
         losses, nsqs = [], []
         for start in range(0, B, mbe):
             for i in range(mbe):
@@ -267,9 +271,9 @@ def _dpsgd_sum(loss_fn, dp: DPConfig):
                     s_[i].copy_(g)
                 del grads
                 losses.append(raw.detach())
-            nsqs.append(clipping.clip_and_sum(stack, C, summed,
+            nsqs.append(clipping.clip_and_sum(bufs, C, sums,
                                               me[start:start + mbe],
-                                              dp.use_kernels))
+                                              dp.use_kernels, max_elems))
         return summed, (torch.cat(losses), torch.cat(nsqs))
     return fn
 

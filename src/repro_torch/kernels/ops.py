@@ -51,9 +51,10 @@ def dense_dgrad(gy4, w):
     return gx.reshape(B, G, T, wE.shape[1])
 
 
-def clip_reduce(g, c):
-    """(B, N), (B,) -> (N,) Σ_b c_b·g_b (float32)."""
-    return _cr.clip_reduce(g.contiguous(), c.float().contiguous())
+def clip_reduce(g, c, out=None):
+    """(B, N), (B,) -> (N,) Σ_b c_b·g_b (float32); with ``out`` added into
+    it in place."""
+    return _cr.clip_reduce(g.contiguous(), c.float().contiguous(), out=out)
 
 
 def gram_norm(x4, gy4, mask_ids=None, square: bool = True):

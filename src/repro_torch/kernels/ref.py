@@ -102,10 +102,12 @@ def dense_bwd_norm_ref(x, gy, w):
     return dense_dgrad_ref(gy, w).to(x.dtype), pegrad_norm_ref(x, gy)
 
 
-def clip_reduce_ref(g, c):
+def clip_reduce_ref(g, c, out=None):
     """g (B, N) per-example gradients, c (B,) clip factors -> (N,)
-    Σ_b c_b·g_b, computed in float32."""
-    return torch.matmul(c.float(), g.float())
+    Σ_b c_b·g_b, computed in float32; with ``out`` ((N,) float32) added into
+    it in place and ``out`` returned."""
+    s = torch.matmul(c.float(), g.float())
+    return s if out is None else out.add_(s)
 
 
 def gram_norm_ref(x, gy, mask_ids=None, square: bool = True):

@@ -131,6 +131,79 @@ def test_clip_and_sum_matches_jax(use_kernels):
         np.testing.assert_allclose(o.numpy(), np.asarray(w), rtol=1e-6, atol=1e-7)
 
 
+@pytest.mark.parametrize("max_elems", [None, 100, 7])
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_flat_clip_and_sum_matches_jax_leaf_by_leaf(use_kernels, max_elems):
+    """``clipping.flat_stacks``' one buffer of per-example gradients, filled
+    through its strided leaf views as ``dpsgd`` fills it, reduced by one
+    ``clip_and_sum`` (one ``clip_reduce`` into the flat running sum with
+    kernels): each leaf view of the sum equals the JAX package's
+    ``clip_and_sum`` of that leaf, and the norms² its norms², float32, rtol
+    1e-6 (summation order).  The row is padded with zero columns to a
+    multiple of ``ROW_ALIGN`` (16-byte rows in bf16), which add nothing.
+    ``max_elems`` bounds the temporaries: blocks of whole rows (100) or
+    column slices of one row (7, below the row's 88 elements)."""
+    rng = np.random.default_rng(4)
+    shapes = ((3, 5, 6), (7,), (2, 9), ())
+    B = 4
+    grads = [rng.standard_normal((B,) + s, dtype=np.float32) * 0.1 for s in shapes]
+    mask = np.array([1.0, 0.0, 1.0, 1.0], dtype=np.float32)
+    leaves = [torch.zeros(s) for s in shapes]
+    bufs, sums, stacks, summed = tclipping.flat_stacks(leaves, B)
+    n = sum(int(np.prod(s)) for s in shapes)
+    assert [tuple(b.shape) for b in bufs] == [(B, -(-n // tclipping.ROW_ALIGN)
+                                               * tclipping.ROW_ALIGN)]
+    assert not stacks[0].is_contiguous()          # strided views of the buffer
+    for st, g in zip(stacks, grads):
+        for i in range(B):
+            st[i].copy_(torch.from_numpy(np.asarray(g[i])))
+    assert bool((bufs[0][:, n:] == 0).all())
+    C = 0.5
+    want, want_nsq = jclipping.clip_and_sum([jnp.asarray(g) for g in grads], C,
+                                            mask=jnp.asarray(mask))
+    launches = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(kops, "clip_reduce",
+                   lambda *a, _f=kops.clip_reduce, **k: launches.append(1) or _f(*a, **k))
+        kw = {} if max_elems is None else dict(max_elems=max_elems)
+        nsq = tclipping.clip_and_sum(bufs, C, sums, torch.from_numpy(mask),
+                                     use_kernels, **kw)
+    assert len(launches) == (1 if use_kernels else 0)
+    np.testing.assert_allclose(nsq.numpy(), np.asarray(want_nsq), rtol=1e-6)
+    assert 0.0 < float(tclipping.clip_factors(nsq, C).min()) < 1.0
+    for o, w in zip(summed, want):
+        assert o.shape == w.shape and o.dtype == torch.float32
+        np.testing.assert_allclose(o.numpy(), np.asarray(w), rtol=1e-6, atol=1e-7)
+
+
+def test_flat_stacks_group_by_dtype():
+    """One buffer and one running sum per parameter dtype, in the order of
+    the dtypes' first leaves, each leaf's views inside its own; the flat
+    reduction over both groups equals ``clip_and_sum`` over the leaves one
+    by one (the same float32 sums, column for column)."""
+    leaves = [torch.zeros(3, 4), torch.zeros(5, dtype=torch.bfloat16),
+              torch.zeros(2, 3), torch.zeros(7, dtype=torch.bfloat16)]
+    bufs, sums, stacks, summed = tclipping.flat_stacks(leaves, 3)
+    assert [(b.dtype, b.shape[1]) for b in bufs] == [(torch.float32, 24),
+                                                    (torch.bfloat16, 16)]
+    for st, leaf, idx in zip(stacks, leaves, (0, 1, 0, 1)):
+        assert st.dtype == leaf.dtype and st.shape == (3,) + leaf.shape
+        assert st.untyped_storage().data_ptr() == bufs[idx].untyped_storage().data_ptr()
+    for sm, idx in zip(summed, (0, 1, 0, 1)):
+        assert sm.untyped_storage().data_ptr() == sums[idx].untyped_storage().data_ptr()
+    rng = np.random.default_rng(5)
+    for st in stacks:
+        st.copy_(torch.from_numpy(rng.standard_normal(tuple(st.shape))
+                                  .astype(np.float32)).to(st.dtype))
+    nsq = tclipping.clip_and_sum(bufs, 1.0, sums, use_kernels=True)
+    out = [torch.zeros(leaf.shape) for leaf in leaves]
+    want = tclipping.clip_and_sum([st.contiguous() for st in stacks], 1.0, out,
+                                  use_kernels=True)
+    torch.testing.assert_close(nsq, want, rtol=1e-6, atol=0.0)
+    for a, b in zip(summed, out):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+
+
 @pytest.mark.parametrize("microbatch,remat", [(1, "none"), (2, "block"),
                                               (4, "sites")])
 def test_dpsgd_matches_jax_and_dpsgd_r(weights, microbatch, remat):

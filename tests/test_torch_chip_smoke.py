@@ -191,7 +191,6 @@ def test_path_launches_count_the_wrapper_calls(smoke, monkeypatch, algo, route,
     plain version and counts nothing, so each is wrapped here to count
     its calls): every algorithm, under each remat policy."""
     import torch
-    from repro_torch import tree
     from repro_torch.configs import reduced
     from repro_torch.configs.base import (DPConfig, OptimConfig, ShapeConfig,
                                           TrainConfig)
@@ -216,7 +215,7 @@ def test_path_launches_count_the_wrapper_calls(smoke, monkeypatch, algo, route,
     trainer.train_step(state, trainer.make_batch(0))
     assert smoke.read_counts() == smoke.path_launches(
         route, arch.n_layers, algo=algo, remat=remat, examples=4,
-        microbatch=microbatch, leaves=len(tree.leaves(model.params)))
+        microbatch=microbatch, dtype_groups=smoke.dtype_groups(model.params))
 
 
 def test_chatglm3_mix_bounds_and_launches(smoke):
@@ -307,7 +306,6 @@ def test_path_launches_count_the_image_wrapper_calls(smoke, monkeypatch, tmp_pat
     patch embedding) takes no ``dense_dgrad``: its input needs no
     gradient."""
     import torch
-    from repro_torch import tree
     from repro_torch.configs import reduced
     from repro_torch.configs.base import (DPConfig, OptimConfig, ShapeConfig,
                                           TrainConfig)
@@ -333,7 +331,7 @@ def test_path_launches_count_the_image_wrapper_calls(smoke, monkeypatch, tmp_pat
     metrics = trainer.train_step(state, trainer.make_batch(0))
     assert smoke.read_counts() == smoke.path_launches(
         route, algo=algo, remat=remat, examples=3,
-        leaves=len(tree.leaves(model.params)), **smoke.launch_shape(arch))
+        dtype_groups=smoke.dtype_groups(model.params), **smoke.launch_shape(arch))
     assert ("clip_norm_next" in metrics) == (algo != "sgd")
 
 
@@ -367,3 +365,78 @@ def test_image_mixes_and_their_bounds(smoke):
         assert total == pytest.approx(want, abs=1e-4)
     assert smoke.largest_leaf(get_arch("cnn-cifar10"))[1] == 3 * 3 * 64 * 64
     assert smoke.largest_leaf(get_arch("vit-cifar10"))[1] == 256 * 1024
+
+
+def test_flat_widths_and_dpsgd_clip_launches(smoke):
+    """``dpsgd``'s flat buffers (``clipping.flat_stacks``): the image models'
+    parameters of each dtype end to end, padded to 16-byte rows, in the
+    order of each dtype's first leaf: the bf16 weights (CNN 270,896, ViT
+    6,306,304) and the float32 norm scales and biases (1,386 -> 1,392 and
+    21,002 -> 21,008) of 272,282 and 6,327,306 parameters; one ``clip_reduce`` per parameter dtype per microbatch: 2
+    dtypes x 4 microbatches of 2 examples = 8."""
+    import torch
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert smoke.flat_groups(get_arch("cnn-cifar10")) == (
+        [(f32, 1386, 1392), (bf16, 270896, 270896)], 272282)
+    assert smoke.flat_groups(get_arch("vit-cifar10")) == (
+        [(bf16, 6306304, 6306304), (f32, 21002, 21008)], 6327306)
+    n = smoke.path_launches("fused", 2, algo="dpsgd", examples=8, microbatch=2,
+                            dtype_groups=2)
+    assert n["clip_reduce"] == 8 and n["flash_attn_bwd"] == 16
+    assert smoke.clip_bound_ms(256, 270896, 2) == smoke.bound_ms(
+        2.0 * 256 * 270896, 2 * 256 * 270896 + 4 * 256 + 4 * 270896, "bfloat16")
+    ms, by = smoke.clip_bound_ms(256, 270896, 2)
+    assert by == "bytes" and ms == pytest.approx(0.041727, abs=1e-6)
+
+
+@pytest.mark.parametrize("name", ["phi3-mini-3.8b", "cnn-cifar10", "vit-cifar10"])
+def test_meta_leaves_match_the_built_model(smoke, name):
+    """``flat_groups`` sizes a model's flat buffers from meta tensors (no
+    memory, so phi3-mini at 16 layers costs nothing): at the reduced size
+    they have the built bf16 model's leaves, shapes and types in its order,
+    and the same flat buffers."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import reduced
+    from repro_torch.core import clipping
+    from repro_torch.models import build_model_for
+    arch = reduced(get_arch(name))
+    real = tree.leaves(build_model_for(arch, dtype=torch.bfloat16, device="cpu",
+                                       seed=0).params)
+    meta = smoke._meta_leaves(arch)
+    assert [(p.shape, p.dtype) for p in meta] == [(p.shape, p.dtype) for p in real]
+    bufs, *_ = clipping.flat_stacks(real, 1)
+    groups, n_all = smoke.flat_groups(arch)
+    assert [(b.dtype, b.shape[1]) for b in bufs] == [(dt, n) for dt, _, n in groups]
+    assert n_all == sum(p.numel() for p in real)
+
+
+def test_phase9_flat_widths(smoke):
+    """Phase 9's ``dpsgd`` launches on phi3-mini at 16 layers: the bf16
+    weights end to end (2,010,120,192 columns, just under 2^31: 32 GB at B
+    8, so its check keeps one copy of g) and the float32 norm scales
+    (101,376)."""
+    import dataclasses
+    import torch
+    arch = dataclasses.replace(get_arch("phi3-mini-3.8b"), n_layers=smoke.TRAIN_LAYERS)
+    groups, n_all = smoke.flat_groups(arch)
+    assert groups == [(torch.bfloat16, 2010120192, 2010120192),
+                      (torch.float32, 101376, 101376)]
+    assert n_all == 2010221568 < 2**31
+    assert smoke.TRAIN_B * 2010120192 * 2 > smoke.WIDE_BYTES > 2010120192 * 2
+
+
+@pytest.mark.parametrize("spans, floor, want", [
+    ([("k", 3000.0)] * 10, 2.9, (3.0, None)),
+    ([("k", 3000.0)] * 10 + [("mm", 10.0), ("mm", 30.0)] * 10, 0.0, (3.04, None)),
+    ([("k", 3000.0)] * 9 + [("mm", 20.0)] * 20, 2.9, (3.04, None)),
+    ([("k", 1500.0)] * 10, 2.9, (None, "1.5000 ms < the bound's 2.9000 ms")),
+    ([], 0.0, (None, "no kernel")),
+])
+def test_profile_ms_keeps_only_profiles_at_or_above_the_bound(smoke, spans, floor,
+                                                              want):
+    """A launch the profiler did not record lowers no mean; a profile whose
+    time is below the least the work can take is not a device time."""
+    ms, why = smoke.profile_ms(spans, 10, floor)
+    assert why == want[1]
+    assert ms == pytest.approx(want[0]) if want[0] is not None else ms is None

@@ -20,7 +20,8 @@ output's largest entry.  ``pegrad_norm`` and
 ``dense_dgrad`` are ``dense_bwd_norm``'s two launches alone and must equal
 its outputs bit for bit; ``clip_reduce`` sums in float32 in row order
 (rtol 1e-5 against the plain version's float32 product, atol 1e-5 of the
-largest |g| times Σ|c| for the cancellations).
+largest |g| times Σ|c| for the cancellations), fresh or added into a
+running sum.
 """
 import numpy as np
 import pytest
@@ -326,39 +327,94 @@ def test_dense_shims_on_the_card(cuda):
         gy.reshape(B * G, T, do), w).reshape(B, G, T, di), rtol=2e-4, atol=2e-4)
 
 
-# (B, N): aligned for the 16-byte path (f32 and bf16), ragged, one row, a
-# row count past the kernel's 8-row load group
-CLIP_SHAPES = [(8, 4096), (3, 1003), (1, 8), (13, 777), (9, 2048 + 4)]
+# (B, N): small aligned and ragged widths, one row, a row count past a
+# ring group; the image models' flat microbatch buffers, one a parameter
+# dtype (the CNN's bf16 weights, 270,896, and float32 scales and biases,
+# 1,386 padded to 1,392; the ViT's 6,306,304 at 32 examples and 21,008) and
+# all their parameters end to end, unpadded (272,282 and 6,327,306); a
+# narrow leaf (the CNN head's bias)
+CLIP_SHAPES = [(8, 4096), (3, 1003), (1, 8), (13, 777), (9, 2048 + 4),
+               (256, 270896), (256, 1392), (32, 6306304), (256, 21008),
+               (256, 272282), (32, 6327306), (256, 10)]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fresh", "out"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", CLIP_SHAPES)
-def test_clip_reduce_matches_plain(cuda, shape, dtype):
+def test_clip_reduce_matches_plain(cuda, shape, dtype, mode):
+    """A fresh sum, and one added into a running float32 sum (``out=``):
+    within the plain version's float32 product, and the added one equal to
+    the running sum plus the fresh one bit for bit (one float add a
+    column)."""
     B, N = shape
     g = _randn(cuda, (B, N), dtype, 0)
     c = torch.rand(B, generator=torch.Generator().manual_seed(1)).to(cuda)
+    acc0 = _randn(cuda, (N,), torch.float32, 2)
     before = tcr.LAUNCHES
-    out = tcr.clip_reduce(g, c)
+    fresh = tcr.clip_reduce(g, c)
+    out = fresh if mode == "fresh" else tcr.clip_reduce(g, c, out=acc0.clone())
     torch.cuda.synchronize()
-    assert tcr.LAUNCHES == before + 1 and out.dtype == torch.float32
+    assert tcr.LAUNCHES == before + (1 if mode == "fresh" else 2)
+    assert out.dtype == torch.float32 and out.shape == (N,)
     want = tref.clip_reduce_ref(g, c)
     scale = g.float().abs().max().item() * c.abs().sum().item()
+    if mode == "out":
+        assert torch.equal(out, acc0 + fresh)
+        want = want + acc0
     torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5 * scale)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fresh", "out"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("N", [4096, 1003])
-def test_clip_reduce_zero_rows_equal_compacted_and_repeat(cuda, dtype, N):
+@pytest.mark.parametrize("N", [4096, 1003, 36864, 270896])
+def test_clip_reduce_zero_rows_equal_compacted_and_repeat(cuda, dtype, N, mode):
+    """Zeroed clip factors give the compacted batch's sum bit for bit, and a
+    repeat the same bits, on both paths: 36,864 (the CNN's stage-2 conv) in
+    bf16 takes the column loads, 270,896 (its flat bf16 buffer) the
+    cp.async ring."""
     g = _randn(cuda, (10, N), dtype, 3)
     c = torch.rand(10, generator=torch.Generator().manual_seed(4)).to(cuda)
     keep = torch.tensor([1, 0, 1, 1, 0, 0, 1, 1, 1, 0], dtype=torch.bool, device=cuda)
     cm = torch.where(keep, c, torch.zeros_like(c))
-    a, b = tcr.clip_reduce(g, cm), tcr.clip_reduce(g, cm)
-    compact = tcr.clip_reduce(g[keep].contiguous(), c[keep].contiguous())
+    acc0 = _randn(cuda, (N,), torch.float32, 5)
+
+    def run(g_, c_):
+        return tcr.clip_reduce(g_, c_) if mode == "fresh" else \
+            tcr.clip_reduce(g_, c_, out=acc0.clone())
+
+    a, b = run(g, cm), run(g, cm)
+    compact = run(g[keep].contiguous(), c[keep].contiguous())
     torch.cuda.synchronize()
     assert torch.equal(a, b) and torch.equal(a, compact)
+
+
+@pytest.mark.cuda
+def test_clip_reduce_paths(cuda):
+    """The ring takes the flat buffers (16-byte rows whose chunks fill the
+    card); the column loads take narrow, ragged and unaligned rows; B 256 x
+    the CNN's stage-2 conv (36,864 bf16 columns) is narrow."""
+    def g(B, N, dtype=torch.bfloat16):
+        return torch.zeros(B, N, dtype=dtype, device=cuda)
+    assert tcr.clip_reduce_path(g(256, 270896)) == "cp.async"
+    assert tcr.clip_reduce_path(g(32, 6306304)) == "cp.async"
+    assert tcr.clip_reduce_path(g(256, 1392, torch.float32)) == "loads"
+    assert tcr.clip_reduce_path(g(8, 262144, torch.float32)) == "cp.async"
+    assert tcr.clip_reduce_path(g(256, 6327306)) == "loads"      # rows not 16-byte
+    assert tcr.clip_reduce_path(g(256, 36864)) == "loads"
+    assert tcr.clip_reduce_path(g(256, 10)) == "loads"
+    def offset(k):         # a (2, 272288) view k bf16 elements into its storage
+        return torch.rand(2 * 272288 + k, device=cuda).to(torch.bfloat16)[k:].view(2, 272288)
+
+    assert tcr.clip_reduce_path(offset(8)) == "cp.async"          # 16 bytes in: aligned
+    skew = offset(1)                                                # 2 bytes in
+    assert tcr.clip_reduce_path(skew) == "loads"
+    acc = torch.zeros(272288 + 1, device=cuda)[1:]                  # out 4 bytes off
+    assert tcr.clip_reduce_path(g(2, 272288), acc) == "loads"
+    c = torch.rand(2, device=cuda)
+    got = tcr.clip_reduce(skew, c, out=acc)
+    torch.testing.assert_close(got, tref.clip_reduce_ref(skew, c), rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.cuda
