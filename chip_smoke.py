@@ -117,8 +117,31 @@ the script exits nonzero and prints no ``ok`` line:
    flat float32 sums),
    then one more under ``torch.profiler`` for ``clip_reduce``'s device
    time over the step; ε composed with the clip
-   mechanism and its split.  No phase steps through ``Trainer.run``,
-   which checkpoints at its last step.
+   mechanism and its split.  On the CNN, each conv layer's gy in pass 1
+   through the fused route against the plain backward's (``[fold]``), with
+   the route's ``F.fold`` as the code has it and in the other type;
+12. the memory planner and the host loop: (a) the planner's estimate of
+   every training step whose peak the phases read (phase 6's, phase 8's
+   32-layer ``block``, phase 9's ``dpsgd`` at microbatch 1 and 8, phase
+   10's and phase 11's two), each taken inside its phase on its model and
+   state, beside the measured peak: every ratio within the planner's
+   ``TOLERANCE_FACTOR``; (b) on phase 6's model and shape, the planner's
+   estimates at ``grad_accum`` 1 and 2 beside a measured step each, for
+   ``dpsgd_r`` and for ``dpsgd`` with all 8 examples' gradients in one
+   buffer; under ``mem.auto_microbatch`` with the budget at the midpoint
+   of the two estimates the Trainer must split ``dpsgd``'s batch in 2,
+   and that step's measured peak, printed beside the budget and the step
+   at ``grad_accum`` 1's, must be below the latter (``dpsgd_r``'s split
+   does not pay at this shape: its float32 gradient sum, carried across
+   the chunks, outweighs the halved activations); (c) a budget below
+   every split of a B 2 batch raises before any step; (d) the host-loop engine
+   serving phase 5's request stream on phi3-mini at full size, its tok/s,
+   TTFT and host reads beside the engine's, and each request's greedy
+   stream's agreeing prefix against the engine's.  Phase 5 and (d) also
+   profile a short serve of 8 requests x 8 tokens (``[decode]``): the device's busy
+   share over the decode steps of the contiguous engine, the paged engine
+   and the host loop.  No phase steps through ``Trainer.run``, which
+   checkpoints at its last step.
 
 Each path counts the launches of every kernel from zero and must launch
 each kernel exactly as often as the code says it does (``path_launches``,
@@ -194,6 +217,11 @@ CLIP_SUM_TOL = 5e-2
 # setting), CIFAR-10's train split of N = 50,000 for q = B/N
 IMAGE_ARCHS = ("cnn-cifar10", "vit-cifar10")
 IMAGE_B, IMAGE_K, IMAGE_N = 256, 16, 50_000
+# phase 12: the planner's estimates beside the measured peaks (filled in by
+# the phases that read a peak), and the short serve the decode busy share
+# is profiled on: the first 8 requests of the stream, 8 new tokens each
+MEMORY_ROWS = []
+BUSY_REQUESTS, BUSY_NEW = 8, 8
 
 
 def request_stream(vocab: int, seed: int = 0):
@@ -1102,6 +1130,104 @@ def read_counts():
     return {k: getattr(mod, attr) for k, (mod, attr) in kernel_counts().items()}
 
 
+def memory_row(label, trainer, state, measured):
+    """The planner's estimate of ``trainer``'s step on ``state`` at its next
+    batch's shapes (``Trainer.memory_report``, a trace on fake tensors) beside
+    ``measured``, the peak its phase read; a row of phase 12(a).  The trace
+    launches no kernel and counts none."""
+    counts = read_counts()
+    t = time.perf_counter()
+    est = trainer.memory_report(state, trainer.make_batch(state.step))
+    trace_s = time.perf_counter() - t
+    assert read_counts() == counts, ("the planner's trace counted launches",
+                                     counts, read_counts())
+    row = dict(label=label, estimate_bytes=est["peak_bytes"],
+               measured_bytes=int(measured), ratio=est["peak_bytes"] / measured,
+               arg_bytes=est["arg_bytes"], transient_bytes=est["transient_bytes"],
+               per_example_grad_bytes=est["per_example_grad_bytes"],
+               peak_op=est["peak_op"], trace_s=trace_s)
+    MEMORY_ROWS.append(row)
+    print(f"[memory] {label}: estimate {row['estimate_bytes'] / 2**30:.2f} GiB "
+          f"(resident {row['arg_bytes'] / 2**30:.2f} + transient "
+          f"{row['transient_bytes'] / 2**30:.2f}, peak at {row['peak_op']}) / "
+          f"measured {row['measured_bytes'] / 2**30:.2f} GiB = {row['ratio']:.3f}; "
+          f"trace {trace_s:.1f} s", flush=True)
+    return row
+
+
+def decode_busy(kind, make_engine, method, prompts, max_new, step_ms):
+    """Serve ``prompts`` (``max_new`` greedy tokens each) on a fresh engine
+    from ``make_engine()`` under ``torch.profiler``, each call of its decode
+    ``method`` synced at both ends and marked: the device's busy share
+    (the union of kernel intervals) over the marked decode windows, and
+    the device's busy ms a decode step beside ``step_ms``, the unprofiled
+    run's ms a step (the profiler's own host work lengthens the windows,
+    not the kernels)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.serve.scheduler import Request
+    eng = make_engine()
+    inner = getattr(eng, method)
+
+    def marked(*args, **kw):
+        torch.cuda.synchronize()
+        with record_function("decode_window"):
+            inner(*args, **kw)
+            torch.cuda.synchronize()
+
+    setattr(eng, method, marked)
+    for uid, p in enumerate(prompts):
+        eng.submit(Request(uid=uid, prompt=p.astype(np.int32), max_new=max_new))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng.run()
+        torch.cuda.synchronize()
+    steps = eng.stats["decode_steps"]
+    events = prof.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    # the host's marks; the profiler also copies each mark onto the device's
+    # timeline as an annotation, which is no kernel
+    windows = sorted((e.time_range.start, e.time_range.end) for e in events
+                     if e.name == "decode_window" and e.device_type != cuda)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == cuda and e.name != "decode_window"
+                   and e.time_range.end > e.time_range.start)
+    del eng
+    gc.collect()
+    if not windows or not spans:
+        print(f"[decode] {kind}: the profiler recorded no decode window or no "
+              f"device activity; busy share not measured", flush=True)
+        return dict(engine=kind, busy_share=None)
+    total = sum(b - a for a, b in windows)
+    busy = 0.0
+    for lo, hi in windows:
+        cur_lo = cur_hi = None
+        for a, b in spans:
+            a, b = max(a, lo), min(b, hi)
+            if a >= b:
+                continue
+            if cur_hi is None or a > cur_hi:
+                if cur_hi is not None:
+                    busy += cur_hi - cur_lo
+                cur_lo, cur_hi = a, b
+            else:
+                cur_hi = max(cur_hi, b)
+        if cur_hi is not None:
+            busy += cur_hi - cur_lo
+    rec = dict(engine=kind, windows=len(windows), steps=steps,
+               decode_ms=total / 1e3, busy_ms=busy / 1e3, busy_share=busy / total,
+               busy_ms_per_step=busy / 1e3 / steps, step_ms=step_ms,
+               busy_share_unprofiled=busy / 1e3 / steps / step_ms)
+    print(f"[decode] {kind}: {len(prompts)} requests x {max_new} new tokens under "
+          f"torch.profiler: {len(windows)} decode calls over {steps} steps, "
+          f"{rec['decode_ms']:.1f} ms inside them, device busy {rec['busy_ms']:.1f} "
+          f"ms = {100 * rec['busy_share']:.1f}% (idle "
+          f"{100 * (1 - rec['busy_share']):.1f}%); {rec['busy_ms_per_step']:.2f} ms of "
+          f"device time a step against the unprofiled run's {step_ms:.2f} ms a step: "
+          f"{100 * rec['busy_share_unprofiled']:.1f}% busy", flush=True)
+    return rec
+
+
 def train_reference(name: str = "phi3-mini-3.8b", augmult: int = 1):
     """A reduced model in float32: one dpsgd_r fused clipped sum (the step
     before its noise) on the card through the kernels against the CPU
@@ -1265,7 +1391,7 @@ def main_path(arch, prompts):
                    decode_ms_per_step=1e3 * spent["decode"] / max(steps, 1),
                    prefill_ms_per_wave=1e3 * spent["prefill"] / max(waves, 1),
                    decode_steps=steps, prefill_waves=waves,
-                   flash_launches=n_launch,
+                   host_syncs=eng.stats["host_syncs"], flash_launches=n_launch,
                    max_memory_allocated=torch.cuda.max_memory_allocated(),
                    prompt_tokens=sum(len(p) for p in prompts))
         runs[kind] = (out, rec)
@@ -1284,7 +1410,14 @@ def main_path(arch, prompts):
         "paged greedy outputs differ from the contiguous engine's"
     print("[main] paged greedy outputs equal the contiguous engine's", flush=True)
     breakdown = decode_breakdown(model)
-    return [rec for _, rec in runs.values()], launches, breakdown
+    from repro_torch.serve.engine import Engine
+    busy = [decode_busy(kind, lambda paged=paged: Engine(
+                model, max_batch=MAX_BATCH, cache_len=CACHE_LEN, paged=paged,
+                block_size=BLOCK), "_decode_chunk", prompts[:BUSY_REQUESTS],
+                BUSY_NEW, runs[kind][1]["decode_ms_per_step"])
+            for kind, paged in (("contiguous", False), ("paged", True))]
+    return ([rec for _, rec in runs.values()], launches, breakdown,
+            runs["contiguous"][0], busy)
 
 
 # the port's kernels as the profiler names them (substrings of the device
@@ -1488,6 +1621,8 @@ def train_main_path():
           f"steps eps = {eps:.4f} (delta {cfg.dp.delta}, q "
           f"{trainer.sample_rate:.1e}, sigma {cfg.dp.noise_multiplier})",
           flush=True)
+    memory_row(f"phase 6: {TRAIN_LAYERS} layers, remat none, dpsgd_r fused",
+               trainer, state, peak)
 
     prof = profile_step(lambda: timed_step(trainer, state), "fused+kernels")
 
@@ -1788,6 +1923,8 @@ def train_remat():
               f"{rec['pass2_ms']:.1f} + noise and optimizer "
               f"{rec['noise_opt_ms']:.1f}; peak {rec['peak_bytes'] / 2**30:.2f} "
               f"GiB; launches {rec['launches']}", flush=True)
+    memory_row(f"phase 8: {arch.n_layers} layers, remat block, dpsgd_r fused",
+               trainer, state, steps[-1]["peak_bytes"])
     staged = staged_step(trainer, state)
     print(f"[remat] {arch.n_layers} layers, remat block, one step stage by "
           f"stage: {_stages_line(staged)}", flush=True)
@@ -1911,6 +2048,10 @@ def train_algorithms():
             launches[k] += v
         rec["launches"] = counts
         recs[name] = rec
+        if name.startswith("dpsgd mb"):
+            rec["memory"] = memory_row(f"phase 9: {TRAIN_LAYERS} layers, remat "
+                                       f"none, {name}", tr, state,
+                                       rec["peak_bytes"])
     sgd_ms = recs["sgd"]["step_ms"]
     for name, rec in recs.items():
         rec["over_sgd"] = rec["step_ms"] / sgd_ms
@@ -2138,6 +2279,59 @@ def _nsq_against_plain(trainer, state, batch):
     return err, got
 
 
+def conv_gy_gaps(trainer, state):
+    """On the CNN, pass 1's gy at every conv layer (in backward order, the
+    head's side first) through the fused route with kernels against the
+    plain backward's (the same route without kernels: cuDNN's input
+    gradient), both bf16: ||gy - gy_plain|| / ||gy_plain|| a layer, and the
+    norms²' max rel err against the plain route's; once with the route's
+    col2im (``F.fold``) in bf16 and once in float32."""
+    import torch
+    from repro_torch.core import algo, sites
+    site = sites.get_site("conv2d")
+    fused, col2im = site.fused_bwd["fused"], sites._col2im
+    data, mask = algo.split_mask(trainer.make_batch(state.step))
+    dp = trainer.cfg.dp
+
+    folds = [0]
+
+    def run(dp_, fold_dtype, on_gy):
+        def recording(spec, operands, gy, needs, want_nsq=True):
+            on_gy(gy)
+            return fused(spec, operands, gy, needs, want_nsq)
+
+        def fold(spec, gpat, x, w):
+            folds[0] += 1
+            return col2im(spec, gpat.to(fold_dtype), x, w)
+        site.fused_bwd["fused"], sites._col2im = recording, fold
+        try:
+            nsq, _ = algo.norm_pass(trainer.model.loss_fn, state.params, data,
+                                    dp_, mask)
+        finally:
+            site.fused_bwd["fused"], sites._col2im = fused, col2im
+        return nsq
+
+    plain = []
+    want = run(dataclasses.replace(dp, use_kernels=False), torch.bfloat16,
+               lambda gy: plain.append(gy.detach().clone()))
+    out = {}
+    for label, dt in (("bf16", torch.bfloat16), ("float32", torch.float32)):
+        gaps, folds[0] = [], 0
+        got = run(dp, dt, lambda gy: gaps.append(
+            ((gy.float() - plain[len(gaps)].float()).norm()
+             / plain[len(gaps)].float().norm()).item()))
+        nsq_err = ((got - want).abs() / want.abs()).max().item()
+        out[label] = dict(gy_rel_err=gaps, nsq_rel_err=nsq_err, folds=folds[0])
+        print(f"[fold] {trainer.model.arch.name} pass 1, fused+kernels vs the "
+              f"plain backward, col2im in {label} ({folds[0]} folds): norms² max "
+              f"rel err {nsq_err:.3e}; gy rel err by conv layer, head side first: "
+              + " ".join(f"{e:.2e}" for e in gaps), flush=True)
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def train_image(name):
     """Phase 11 for one image model (see the module docstring).  Returns its
     record."""
@@ -2191,6 +2385,8 @@ def train_image(name):
     print(f"[image] {name} one batch made on the host ({IMAGE_B} images, {IMAGE_K} "
           f"views each, to the card): {batch_ms:.1f} ms, outside the step times",
           flush=True)
+    memory_row(f"phase 11: {name}, {rows} rows, remat block, adaptive clip",
+               trainer, state, steps[-1]["peak_bytes"])
     staged = staged_step(trainer, state)
     print(f"[image] {name} one step stage by stage: {_stages_line(staged)}",
           flush=True)
@@ -2202,6 +2398,8 @@ def train_image(name):
           f"{np.round(nsq.sqrt().cpu().numpy()[:8], 4).tolist()}...", flush=True)
     out = dict(params=n_par, rows=rows, steps=steps, staged=staged, profile=prof,
                nsq_rel_err=nsq_err, batch_ms=batch_ms)
+    if arch.family == "cnn":
+        out["fold"] = conv_gy_gaps(trainer, state)
 
     def variant(label, route, **dp):
         tr = image_trainer(model, shape, dataclasses.replace(
@@ -2417,6 +2615,8 @@ def train_glm(corpus, ckpt_dir):
               f"and optimizer {rec['noise_opt_ms']:.1f}; peak "
               f"{rec['peak_bytes'] / 2**30:.2f} GiB; launches {rec['launches']}",
               flush=True)
+    memory_row(f"phase 10: {arch.name}, {arch.n_layers} layers, remat block, "
+               f"adam8bit", trainer, state, steps[-1]["peak_bytes"])
     staged = staged_step(trainer, state)
     print(f"[glm] one step stage by stage: {_stages_line(staged)}", flush=True)
     prof = profile_step(lambda: timed_step(trainer, state),
@@ -2536,6 +2736,220 @@ def train_glm_path():
     return dict(kernels=kernels, full=full, drill=drill, launches=full["launches"])
 
 
+def planner_split():
+    """Phase 12 (b) and (c) on phase 6's model and shape (16 layers, B 8 x
+    T 512, remat none): the planner's estimates at grad_accum 1 and 2 of
+    ``dpsgd_r`` and of ``dpsgd`` with the whole batch's per-example
+    gradients in one buffer (microbatch 0), each beside a measured step;
+    ``dpsgd`` under ``mem.auto_microbatch`` at the midpoint of its two
+    estimates, which must pick 2 and peak below the step at 1; then a
+    budget below every split of a B 2 batch, refused before any step."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import MemConfig, ShapeConfig
+    from repro_torch.launch.memory import abstract_batch, estimate_train_memory
+    from repro_torch.models.transformer import Model
+    from repro_torch.train import Trainer
+    arch = dataclasses.replace(get_arch("phi3-mini-3.8b"), n_layers=TRAIN_LAYERS)
+    shape, base = train_shape_and_config(arch, "none")
+    model = Model(arch, dtype=torch.bfloat16, device="cuda", seed=0, remat="none")
+    state = Trainer(model, base, shape).init_state()
+    timed_step(Trainer(model, base, shape), state)   # warm-up (allocator, cuBLAS)
+    out = {}
+    for algo, dp in (("dpsgd_r", {}), ("dpsgd", dict(algo="dpsgd", microbatch=0))):
+        cfg = dataclasses.replace(base, dp=dataclasses.replace(base.dp, **dp))
+        t = time.perf_counter()
+        est = {g: estimate_train_memory(model, dataclasses.replace(cfg, grad_accum=g),
+                                        abstract_batch(arch, TRAIN_B, TRAIN_T))
+               for g in (1, 2)}
+        trace_s = time.perf_counter() - t
+        budget = (est[1]["peak_bytes"] + est[2]["peak_bytes"]) // 2
+        said = io.StringIO()
+        with contextlib.redirect_stdout(said):
+            auto = Trainer(model, dataclasses.replace(
+                cfg, mem=MemConfig(hbm_budget_bytes=budget, auto_microbatch=True)),
+                shape)
+        print(said.getvalue(), end="", flush=True)
+        measured = {}
+        for g in (1, 2):
+            tr = auto if g == auto.cfg.grad_accum else Trainer(
+                model, dataclasses.replace(cfg, grad_accum=g), shape)
+            gc.collect()
+            torch.cuda.empty_cache()
+            zero_counts()
+            rep = tr.memory_report(state, tr.make_batch(state.step), measure=True)
+            counts = read_counts()
+            want = path_launches("fused", chunks=g, algo=algo, remat="none",
+                                 examples=TRAIN_B // g, dtype_groups=dtype_groups(
+                                     model.params), **launch_shape(arch))
+            assert counts == want, (algo, g, counts, want)
+            assert math.isfinite(rep["metrics"]["loss"]), rep["metrics"]
+            measured[g] = dict(estimate_bytes=rep["peak_bytes"],
+                               measured_bytes=rep["measured_peak_bytes"],
+                               ratio=rep["estimate_vs_measured"],
+                               loss=rep["metrics"]["loss"])
+        print(f"[planner] {algo}{' (microbatch 0)' if dp else ''}, {TRAIN_LAYERS} "
+              f"layers, B {TRAIN_B} x {TRAIN_T}, remat none: estimated peak "
+              f"{est[1]['peak_bytes'] / 2**30:.2f} GiB at grad_accum 1, "
+              f"{est[2]['peak_bytes'] / 2**30:.2f} at 2 (traces {trace_s:.1f} s); "
+              f"measured {measured[1]['measured_bytes'] / 2**30:.2f} and "
+              f"{measured[2]['measured_bytes'] / 2**30:.2f} GiB (estimate / "
+              f"measured {measured[1]['ratio']:.3f}, {measured[2]['ratio']:.3f}); "
+              f"budget at the midpoint {budget / 2**30:.2f} GiB -> the Trainer "
+              f"takes grad_accum {auto.cfg.grad_accum}", flush=True)
+        out[algo] = dict(estimates={g: {k: v for k, v in e.items()
+                                        if k != "peak_op"} for g, e in est.items()},
+                         budget=budget, picked=auto.cfg.grad_accum, steps=measured)
+    # the per-example gradients set dpsgd's peak, and halving the chunk
+    # halves them: the split pays there
+    d = out["dpsgd"]
+    assert d["picked"] == 2, d["picked"]
+    assert d["steps"][2]["measured_bytes"] < d["steps"][1]["measured_bytes"], d
+    print(f"[planner] dpsgd: the step the Trainer split, grad_accum 2, measured "
+          f"{d['steps'][2]['measured_bytes'] / 2**30:.2f} GiB against the budget "
+          f"{d['budget'] / 2**30:.2f} GiB and the step at grad_accum 1's "
+          f"{d['steps'][1]['measured_bytes'] / 2**30:.2f} GiB", flush=True)
+
+    # (c) a budget below every split: the resident state alone
+    small = ShapeConfig("chip_smoke_b2", TRAIN_T, 2, "train")
+    tiny = d["estimates"][1]["arg_bytes"]
+    step0 = state.step
+    zero_counts()
+    try:
+        Trainer(model, dataclasses.replace(
+            base, mem=MemConfig(hbm_budget_bytes=tiny, auto_microbatch=True)), small)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("a budget below every split built a Trainer")
+    assert "no microbatch split fits" in refused, refused
+    assert state.step == step0 and not any(read_counts().values())
+    print(f"[planner] dpsgd_r at B 2 x {TRAIN_T}, budget {tiny / 2**30:.2f} GiB (the "
+          f"resident state alone): refused before any step: {refused[:240]}...",
+          flush=True)
+    out["refused"] = refused
+    del model, auto, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def agreeing_prefix(a, b) -> int:
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                min(len(a), len(b)))
+
+
+def host_loop_path(prompts, engine_out, engine_recs):
+    """Phase 12 (d): the host-loop engine on phase 5's stream."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import Model
+    from repro_torch.serve.host_loop import HostLoopEngine
+    from repro_torch.serve.scheduler import Request
+    arch = get_arch("phi3-mini-3.8b")
+    model = Model(arch, dtype=torch.bfloat16, device="cuda", seed=0)
+
+    def serve_host_loop(ps, max_new):
+        """(outputs, engine, seconds, seconds inside decode steps): each step
+        ends in its host reads, so timing it adds no sync."""
+        eng = HostLoopEngine(model, max_batch=MAX_BATCH, cache_len=CACHE_LEN)
+        inner, spent = eng.step, [0.0]
+
+        def timed():
+            t = time.perf_counter()
+            inner()
+            spent[0] += time.perf_counter() - t
+        eng.step = timed
+        for uid, p in enumerate(ps):
+            eng.submit(Request(uid=uid, prompt=p.astype(np.int32), max_new=max_new))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.run()
+        torch.cuda.synchronize()
+        return out, eng, time.perf_counter() - t0, spent[0]
+
+    serve_host_loop(prompts[:2], 2)            # warm-up
+    out, eng, dt, decode_s = serve_host_loop(prompts, MAX_NEW)
+    n_tok = sum(len(v) for v in out.values())
+    assert sorted(out) == list(range(len(prompts)))
+    assert all(len(v) == MAX_NEW and all(0 <= x < arch.vocab for x in v)
+               for v in out.values())
+    rec = dict(engine="host-loop", requests=len(prompts), tokens=n_tok, seconds=dt,
+               tok_per_s=n_tok / dt,
+               mean_ttft_ms=1e3 * float(np.mean(list(eng.ttft.values()))),
+               host_syncs=eng.stats["host_syncs"],
+               decode_steps=eng.stats["decode_steps"],
+               decode_ms_per_step=1e3 * decode_s / max(eng.stats["decode_steps"], 1))
+    prefix = {uid: agreeing_prefix(out[uid], engine_out[uid]) for uid in sorted(out)}
+    rec["agreeing_prefix"] = prefix
+    for r in engine_recs:
+        print(f"[hostloop] engine {r['engine']}: {r['tok_per_s']:.1f} tok/s, mean "
+              f"TTFT {r['mean_ttft_ms']:.1f} ms, host reads {r['host_syncs']}, "
+              f"decode {r['decode_ms_per_step']:.2f} ms a step (phase 5)", flush=True)
+    print(f"[hostloop] host loop on the same {len(prompts)} requests: {n_tok} tokens "
+          f"in {dt:.2f} s ({rec['tok_per_s']:.1f} tok/s), mean TTFT "
+          f"{rec['mean_ttft_ms']:.1f} ms, host reads {rec['host_syncs']} over "
+          f"{rec['decode_steps']} decode steps of {rec['decode_ms_per_step']:.2f} ms",
+          flush=True)
+    full = sum(n == MAX_NEW for n in prefix.values())
+    print(f"[hostloop] greedy streams against the contiguous engine's (bf16; the "
+          f"host loop prefills one request at a time, the engine in padded "
+          f"waves): {full} of {len(prefix)} agree in all {MAX_NEW} tokens; "
+          f"agreeing prefix by request {list(prefix.values())}", flush=True)
+    del eng
+    gc.collect()
+    rec["busy"] = decode_busy("host loop", lambda: HostLoopEngine(
+        model, max_batch=MAX_BATCH, cache_len=CACHE_LEN), "step",
+        prompts[:BUSY_REQUESTS], BUSY_NEW, rec["decode_ms_per_step"])
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def memory_planner_and_host_loop(prompts, engine_out, engine_recs):
+    """Phase 12 (see the module docstring).  Returns its record."""
+    from repro_torch.launch.memory import TOLERANCE_FACTOR, within_tolerance
+    labels = [r["label"] for r in MEMORY_ROWS]
+    assert len(labels) == 7, labels
+    for r in MEMORY_ROWS:
+        print(f"[planner] {r['label']}: estimate {r['estimate_bytes'] / 2**30:.2f} "
+              f"GiB / measured {r['measured_bytes'] / 2**30:.2f} GiB = "
+              f"{r['ratio']:.3f}", flush=True)
+    bad = [(r["label"], r["ratio"]) for r in MEMORY_ROWS
+           if not within_tolerance(r["ratio"])]
+    assert not bad, (f"estimate / measured outside [1/{TOLERANCE_FACTOR}, "
+                     f"{TOLERANCE_FACTOR}]", bad)
+    split = planner_split()
+    host = host_loop_path(prompts, engine_out, engine_recs)
+    return dict(estimates=list(MEMORY_ROWS), split=split, host_loop=host)
+
+
+class _Tee:
+    """A text stream writing to every one of ``streams``."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for st in self.streams:
+            st.write(text)
+        return len(text)
+
+    def flush(self):
+        for st in self.streams:
+            st.flush()
+
+    def isatty(self):
+        return False
+
+    def fileno(self):
+        return self.streams[0].fileno()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2547,9 +2961,19 @@ def main() -> int:
     from repro_torch.models.transformer import padded_vocab
     torch.backends.cuda.matmul.allow_tf32 = False   # full-f32 references
     torch.backends.cudnn.allow_tf32 = False
+    # every line also to chiprun_out/chip_smoke.log (the tail of stdout is
+    # all a caller may get back)
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    sys.stdout = _Tee(sys.stdout, open(ROOT / "chiprun_out" / "chip_smoke.log", "w"))
 
     # 1. device
     t_start = time.perf_counter()
+    t_phase = [t_start]
+
+    def lap(label):
+        now = time.perf_counter()
+        print(f"[time] {label}: {now - t_phase[0]:.1f} s", flush=True)
+        t_phase[0] = now
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2699,21 +3123,24 @@ def main() -> int:
           f"dense_bwd_norm {ab_step['fused_ms']:.1f} ms, separate / fused "
           f"{ab_step['separate_ms'] / ab_step['fused_ms']:.4f}", flush=True)
 
+    lap("phases 1-3")
     # 4. small references
     small_reference("cuda")
     train_reference()
     for image_arch in IMAGE_ARCHS:
         train_reference(image_arch, augmult=2)
 
+    lap("phase 4")
     # 5. the serving path
     print(f"[main] allocated before the serving path: "
           f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB", flush=True)
-    runs, serve_launches, breakdown = main_path(arch, prompts)
+    runs, serve_launches, breakdown, serve_out, busy = main_path(arch, prompts)
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[train] allocated before the training path: "
           f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB", flush=True)
 
+    lap("phase 5")
     # 6. the training path
     train, model, fused_trainer, state = train_main_path()
     gc.collect()
@@ -2722,32 +3149,44 @@ def main() -> int:
           f"AdamW state): {torch.cuda.memory_allocated() / 2**30:.3f} GiB",
           flush=True)
 
+    lap("phase 6")
     # 7. the per-site norm rules and Poisson batches, on phase 6's state
     routes = train_norm_routes(model, fused_trainer, state)
     del model, fused_trainer, state
     gc.collect()
     torch.cuda.empty_cache()
 
+    lap("phase 7")
     # 8. remat at 16 layers and phi3-mini at full depth
     remat = train_remat()
     gc.collect()
     torch.cuda.empty_cache()
 
+    lap("phase 8")
     # 9. the paper's comparison: sgd, dpsgd_r, dpsgd_r1f, dpsgd
     algos = train_algorithms()
     gc.collect()
     torch.cuda.empty_cache()
 
+    lap("phase 9")
     # 10. chatglm3-6b at full width and depth from a memmap corpus, adam8bit;
     # the checkpoint drill
     glm = train_glm_path()
     gc.collect()
     torch.cuda.empty_cache()
 
+    lap("phase 10")
     # 11. the image families at full width and depth: augmult 16, adaptive clip
     images = train_images()
     gc.collect()
     torch.cuda.empty_cache()
+
+    lap("phase 11")
+    # 12. the memory planner and the host loop
+    planner = memory_planner_and_host_loop(prompts, serve_out, runs)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("phase 12")
     launches = {k: sum(r["launches"][k] for r in (train, routes, remat, algos, glm,
                                                   images))
                 for k in train["launches"]}
@@ -2862,7 +3301,8 @@ def main() -> int:
          "dense_bwd_norm": dense_recs, "dense_halves": halves,
          "fusion_ab_step": ab_step, "flash_attn_bwd": bwd_recs,
          "gram_norm": gram_recs, "clip_reduce": clip_recs, "serve": runs,
-         "decode_breakdown_ms": breakdown, "train": train, "routes": routes,
+         "decode_breakdown_ms": breakdown, "decode_busy": busy,
+         "planner": planner, "train": train, "routes": routes,
          "remat": remat, "algos": algos, "glm": glm, "image_kernels": image_kernels,
          "images": images, "json_line": kernels},
         indent=1, default=str))

@@ -7,7 +7,8 @@ from dataclasses import replace
 from typing import Dict, List
 
 from repro_torch.configs.base import (ATTN, IMAGE_FAMILIES, MAMBA, SHAPES,
-                                      ArchConfig, ShapeConfig, TrainConfig,
+                                      ArchConfig, MemConfig, ShapeConfig,
+                                      TrainConfig,
                                       apply_overrides, parse_set_args,
                                       shape_applicable)
 from repro_torch.configs.chatglm3_6b import ARCH as _chatglm3
@@ -71,5 +72,5 @@ def reduced(arch: ArchConfig) -> ArchConfig:
 
 
 __all__ = ["ARCHS", "ATTN", "IMAGE_FAMILIES", "MAMBA", "SHAPES", "ArchConfig",
-           "ShapeConfig", "TrainConfig", "apply_overrides", "get_arch",
+           "MemConfig", "ShapeConfig", "TrainConfig", "apply_overrides", "get_arch",
            "list_archs", "parse_set_args", "reduced", "shape_applicable"]

@@ -191,7 +191,7 @@ NOT_PORTED: Dict[str, str] = {
     "pp_stages": "pipeline stages", "pp_microbatches": "pipeline stages",
     "compress_pod_grads": "gradient compression",
     "zero1": "sharded optimizer state", "mesh": "the device mesh",
-    "mem": "the memory planner", "tune": "the launch autotuner",
+    "tune": "the launch autotuner",
 }
 
 
@@ -269,6 +269,28 @@ class OptimConfig:
 
 
 @dataclass(frozen=True)
+class MemConfig:
+    """Memory-capacity plan (``launch/memory.py`` is the estimator), as in
+    the JAX package.
+
+    ``hbm_budget_bytes`` — per-device memory the training step's estimated
+    peak must fit in (0 = unlimited, never raises: with no budget the
+    trainer skips the auto-microbatch search entirely).
+    ``auto_microbatch`` — let the trainer pick the largest microbatch /
+    grad_accum split whose estimated peak fits the budget, respecting the
+    Poisson capacity's lcm rounding (grad_accum x microbatch x batch-axis
+    width).  Raises at build time if even the smallest split exceeds the
+    (non-zero) budget.
+    ``compiled_check`` — have the launcher measure the steps' peak on the
+    card (``torch.cuda.max_memory_allocated``) and log it beside the
+    estimate; the JAX package compiles the step for XLA's figure instead.
+    """
+    hbm_budget_bytes: int = 0      # 0 = unlimited
+    auto_microbatch: bool = False
+    compiled_check: bool = True
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     """Top-level training configuration.  ``seed`` keys the data stream,
     init and the DP noise.  ``remat`` is the model's activation
@@ -276,7 +298,7 @@ class TrainConfig:
     the JAX package.  Checkpoints go to ``ckpt_dir`` every ``ckpt_every``
     steps and at the last (``ckpt_keep`` kept, written on a thread under
     ``ckpt_async``); a step slower than ``watchdog_factor`` times the
-    median is logged."""
+    median is logged.  ``mem`` is the memory plan (``MemConfig``)."""
     arch: str = "phi3-mini-3.8b"
     shape: str = "train_4k"
     seed: int = 0
@@ -292,6 +314,7 @@ class TrainConfig:
     grad_accum: int = 1
     dp: DPConfig = field(default_factory=DPConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
+    mem: MemConfig = field(default_factory=MemConfig)
     data_source: str = "synthetic"  # synthetic | memmap:<path>
     watchdog_factor: float = 3.0    # straggler logging threshold
 

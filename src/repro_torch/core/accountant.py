@@ -69,6 +69,16 @@ def rdp_to_eps(rdp: float, order: int, delta: float) -> float:
                - (math.log(delta) + math.log(a)) / (a - 1))
 
 
+def rdp_to_eps_classic(rdp: float, order: int, delta: float) -> float:
+    """The classic Mironov (2017) conversion, eps = rdp + log(1/δ)/(a-1).
+
+    Looser than CKS; kept so ε can be compared against published
+    TF-Privacy / Opacus numbers, which use this conversion."""
+    if delta <= 0 or delta >= 1:
+        raise ValueError(f"delta={delta} not in (0,1)")
+    return max(0.0, rdp + math.log(1.0 / delta) / (order - 1))
+
+
 def rdp_curve(sample_rate: float, noise_multiplier: float,
               orders: Sequence[int] = DEFAULT_ORDERS) -> Tuple[float, ...]:
     """Per-order RDP of ONE step of the subsampled Gaussian — the additive

@@ -83,6 +83,7 @@ from repro_torch import tree
 from repro_torch.configs.base import DPConfig
 from repro_torch.core import adaptive_clip, clipping, noise, sites
 from repro_torch.core.context import DPContext
+from repro_torch.kernels.build import is_fake
 
 F32 = torch.float32
 MASK_KEY = "mask"
@@ -148,6 +149,15 @@ def _metrics(losses, nsq, clip_norm, mask_rows, mask_ex):
             "grad_norm_max": (n * mask_ex).max(),
             "clipped_frac": ((n > clip_norm).float() * mask_ex).sum() / count_ex,
             "realized_batch": mask_ex.sum()}
+
+
+def _noise_clip(C, dp: DPConfig) -> float:
+    """The clip norm as a number, for the noise's scale.  A fake tensor
+    (``launch/memory.py``'s trace of the step) holds no value to read:
+    ``dp.clip_norm`` stands in, which sets no size."""
+    if isinstance(C, torch.Tensor) and is_fake(C):
+        return float(dp.clip_norm)
+    return float(C)
 
 
 def _require_grad_leaves(params) -> List[torch.Tensor]:
@@ -320,6 +330,14 @@ def register_algo(name: str, factory: Callable, *, private: bool = True) -> None
     _ALGOS[name] = (factory, bool(private))
 
 
+def unregister_algo(name: str) -> None:
+    _ALGOS.pop(name, None)
+
+
+def list_algos() -> list:
+    return sorted(_ALGOS)
+
+
 def algo_is_private(name: str, enabled: bool = True) -> bool:
     if not enabled:
         return False
@@ -405,7 +423,7 @@ def make_noisy_grad_fn(loss_fn: Callable, dp: DPConfig, grad_accum: int = 1,
             denom = (float(expected_batch_size)
                      if expected_batch_size is not None else R // K)
             noise.add_noise_(summed, generator, dp.noise_multiplier,
-                             float(C), denom)                       # lines 24/41
+                             _noise_clip(C, dp), denom)             # lines 24/41
             metrics = _metrics(losses, nsq, C, full_mask, mask_ex)
             if dp.adaptive_clip and clip_norm is not None:
                 state, frac = adaptive_clip.update(

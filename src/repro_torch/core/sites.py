@@ -90,7 +90,10 @@ class Pull:
 
 
 def _storage_key(t: torch.Tensor) -> int:
-    return t.untyped_storage().data_ptr()
+    """The identity of ``t``'s storage, shared by its views: the storage's
+    own handle, which real, meta and fake tensors all have (a meta or fake
+    storage has no data pointer to key by)."""
+    return t.untyped_storage()._cdata
 
 
 def name_saved_operands(site: "SiteDef", operands: tuple, saved) -> None:
@@ -146,12 +149,25 @@ def register_site(kind: str, *, fwd: Callable, bwd: Callable,
     return site
 
 
+def unregister_site(kind: str) -> None:
+    """Remove a registration (tests / plugin teardown)."""
+    _REGISTRY.pop(kind, None)
+
+
 def get_site(kind: str) -> SiteDef:
     try:
         return _REGISTRY[kind]
     except KeyError:
         raise KeyError(f"unknown site kind {kind!r}; registered site kinds: "
                        f"{sorted(_REGISTRY)}") from None
+
+
+def list_sites() -> list:
+    return sorted(_REGISTRY)
+
+
+def list_strategies(kind: str) -> list:
+    return sorted(get_site(kind).nsq_rules)
 
 
 def resolve_strategy(kind: str, strategy: str, operand_shapes, gy_shape) -> str:
@@ -175,6 +191,19 @@ def resolve_strategy(kind: str, strategy: str, operand_shapes, gy_shape) -> str:
         return best if best is not None else next(iter(rules))
     raise ValueError(f"unknown norm strategy {strategy!r} for site {kind!r}; "
                      f"registered strategies: {sorted(rules)} (or 'auto')")
+
+
+def site_flops(kind: str, strategy: str, operand_shapes, gy_shape) -> float:
+    """Analytic FLOPs of ``kind``'s ``strategy`` rule at these shapes
+    (resolving ``"auto"`` first).  Raises if the site declares no formula."""
+    site = get_site(kind)
+    strat = resolve_strategy(kind, strategy, operand_shapes, gy_shape)
+    try:
+        fn = site.flops[strat]
+    except KeyError:
+        raise KeyError(f"site {kind!r} declares no FLOP formula for rule "
+                       f"{strat!r}; declared: {sorted(site.flops)}") from None
+    return fn(operand_shapes, gy_shape)
 
 
 def _shapes(operands):

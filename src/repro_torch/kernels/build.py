@@ -16,6 +16,7 @@ compiler's output; a successful one keeps it beside the library
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -31,6 +32,22 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}     # loaded once per process
+
+
+def is_fake(t) -> bool:
+    """Whether ``t`` is a fake tensor: ``launch/memory.py``'s trace of a
+    step, shapes and dtypes on a device and no data.  A wrapper given one
+    makes every allocation its launch makes, launches nothing and counts
+    nothing."""
+    from torch._subclasses.fake_tensor import is_fake as _is_fake
+    return _is_fake(t)
+
+
+def on_device(t):
+    """The device context of a wrapper's launch on ``t``'s card; none for
+    a fake tensor, which needs no card."""
+    import torch
+    return contextlib.nullcontext() if is_fake(t) else torch.cuda.device(t.device)
 
 
 def _nvcc() -> str:

@@ -4,8 +4,9 @@ its wrapper.  Counterpart of ``repro/kernels/clip_reduce.py``
 per-example gradients.
 
 A CPU tensor takes the plain version (``ref.clip_reduce_ref``); a CUDA
-tensor launches the kernel or raises.  ``LAUNCHES`` counts wrapper calls
-that launched the kernel (and nothing else).  ``out=`` adds the sum into a
+tensor launches the kernel or raises; a fake one (``launch/memory.py``'s
+trace) makes the launch's allocations and launches nothing.  ``LAUNCHES``
+counts wrapper calls that launched the kernel (and nothing else).  ``out=`` adds the sum into a
 running float32 sum in place (vanilla DP-SGD's microbatches add into one).
 """
 from __future__ import annotations
@@ -97,12 +98,13 @@ def clip_reduce(g: torch.Tensor, c: torch.Tensor,
     B, N = g.shape
     if B > 2 ** 31 - 1:
         raise ValueError(f"clip_reduce: {B} rows do not fit an int")
-    kernel = _kernel()
     accumulate = out is not None
-    with torch.cuda.device(g.device):
+    with build.on_device(g):
         if out is None:
             out = torch.empty((N,), dtype=torch.float32, device=g.device)
-        err = kernel(g.data_ptr(), c.data_ptr(), out.data_ptr(), B, N,
+        if build.is_fake(g):        # a memory trace: the allocation only
+            return out
+        err = _kernel()(g.data_ptr(), c.data_ptr(), out.data_ptr(), B, N,
                      _DTYPES[g.dtype], int(accumulate),
                      torch.cuda.current_stream().cuda_stream)
     if err != 0:

@@ -4,7 +4,9 @@
 (the Pallas TPU kernels).
 
 A CPU tensor takes the plain version (``ref.flash_attn_fwd_ref``,
-``ref.flash_attn_bwd_ref``); a CUDA tensor launches the kernel or raises.
+``ref.flash_attn_bwd_ref``); a CUDA tensor launches the kernel or raises;
+a fake one (``launch/memory.py``'s trace) makes the launches' allocations
+and launches nothing.
 ``LAUNCHES`` and ``BWD_LAUNCHES`` count wrapper calls that launched the
 forward and the backward kernels (and nothing else), so a run can show
 that it went through them; ``fwd_path`` and ``bwd_path`` say which of
@@ -116,11 +118,12 @@ def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attn_fwd: head dim {hd} > {MAX_HD}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attn_fwd: q, k, v must be contiguous")
-    kernel = _kernel()
-    with torch.cuda.device(q.device):
+    with build.on_device(q):
         o = torch.empty_like(q)
         lse = torch.empty((BH, T), dtype=torch.float32, device=q.device)
-        err = kernel(
+        if build.is_fake(q):        # a memory trace: the allocations only
+            return o, lse
+        err = _kernel()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), BH, T, k.shape[1], hd, rep, int(causal),
             _DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream)
@@ -163,13 +166,13 @@ def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not all(t.is_contiguous() for t in (q, k, v, o, lse, do)):
         raise ValueError("flash_attn_bwd: inputs must be contiguous")
     S = k.shape[1]
-    kernel = _bwd_kernel()
-    with torch.cuda.device(q.device):
+    fake = build.is_fake(q)
+    with build.on_device(q):
         delta = (do.float() * o.float()).sum(dim=-1)
         dq = torch.empty((BH, T, hd), dtype=torch.float32, device=q.device)
         dkh = torch.empty((BH, S, hd), dtype=torch.float32, device=q.device)
         dvh = torch.empty((BH, S, hd), dtype=torch.float32, device=q.device)
-        err = kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        err = 0 if fake else _bwd_kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                      lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                      dkh.data_ptr(), dvh.data_ptr(), BH, T, S, hd, rep,
                      int(causal), _DTYPES[q.dtype],
@@ -177,7 +180,8 @@ def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"flash_attn_bwd: CUDA launch failed with "
                            f"cudaError_t {err}")
-    BWD_LAUNCHES += 1
+    if not fake:                    # a memory trace launches nothing
+        BWD_LAUNCHES += 1
     if rep > 1:
         dkh = dkh.reshape(BH // rep, rep, S, hd).sum(dim=1)
         dvh = dvh.reshape(BH // rep, rep, S, hd).sum(dim=1)

@@ -4,7 +4,9 @@ of ``repro/kernels/fused_bwd.py`` ``dense_bwd_norm`` and ``dense_dgrad``
 (the Pallas TPU kernels).
 
 A CPU tensor takes the plain version (``ref.dense_bwd_norm_ref``,
-``ref.dense_dgrad_ref``); a CUDA tensor launches the kernel or raises.
+``ref.dense_dgrad_ref``); a CUDA tensor launches the kernel or raises; a
+fake one (``launch/memory.py``'s trace) makes the launch's allocations and
+launches nothing.
 ``LAUNCHES`` and ``DGRAD_LAUNCHES`` count wrapper calls that launched
 ``dense_bwd_norm`` and ``dense_dgrad`` (and nothing else).  ``dgrad_path``
 says which of the gx launch's paths a CUDA operand pair takes.
@@ -98,12 +100,13 @@ def dense_bwd_norm(x: torch.Tensor, gy: torch.Tensor, w: torch.Tensor):
     do = gy.shape[2]
     if BG > 65535:
         raise ValueError(f"dense_bwd_norm: {BG} rows > 65535 (grid y)")
-    kernel = _kernel()
     n_tiles = -(-di // TILE) * -(-do // TILE)
-    with torch.cuda.device(x.device):
+    with build.on_device(x):
         gx = torch.empty_like(x)
         part = torch.empty((BG, n_tiles), dtype=torch.float32, device=x.device)
-        err = kernel(x.data_ptr(), gy.data_ptr(), w.data_ptr(), gx.data_ptr(),
+        if build.is_fake(x):        # a memory trace: the allocations only
+            return gx, part.sum(dim=1)
+        err = _kernel()(x.data_ptr(), gy.data_ptr(), w.data_ptr(), gx.data_ptr(),
                      part.data_ptr(), BG, T, di, do, w.shape[0], _DTYPES[x.dtype],
                      torch.cuda.current_stream().cuda_stream)
     if err != 0:
@@ -140,10 +143,11 @@ def dense_dgrad(gy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     E, di = w.shape[:2]
     if BG > 65535:
         raise ValueError(f"dense_dgrad: {BG} rows > 65535 (grid y)")
-    kernel = _dgrad_kernel()
-    with torch.cuda.device(gy.device):
+    with build.on_device(gy):
         gx = torch.empty((BG, T, di), dtype=gy.dtype, device=gy.device)
-        err = kernel(gy.data_ptr(), w.data_ptr(), gx.data_ptr(), BG, T, di, do,
+        if build.is_fake(gy):       # a memory trace: the allocation only
+            return gx
+        err = _dgrad_kernel()(gy.data_ptr(), w.data_ptr(), gx.data_ptr(), BG, T, di, do,
                      E, _DTYPES[gy.dtype], torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"dense_dgrad: CUDA launch failed with cudaError_t "

@@ -3,7 +3,8 @@ wrapper.  Counterpart of ``repro/kernels/gram_norm.py`` ``gram_norm`` (the
 Pallas TPU kernel).
 
 A CPU tensor takes the plain version (``ref.gram_norm_ref``); a CUDA tensor
-launches the kernel or raises.  ``LAUNCHES`` counts wrapper calls that
+launches the kernel or raises (a fake one, ``launch/memory.py``'s trace,
+makes the launch's allocations only).  ``LAUNCHES`` counts wrapper calls that
 launched the kernel (and nothing else); ``gram_path`` says which of the
 kernel's paths CUDA operands take.
 """
@@ -91,12 +92,13 @@ def gram_norm(x: torch.Tensor, gy: torch.Tensor,
     if BG > 65535:
         raise ValueError(f"gram_norm: {BG} rows > 65535 (grid y)")
     ids = None if mask_ids is None else mask_ids.to(torch.int32).contiguous()
-    kernel = _kernel()
     n_t = -(-T // TILE)
-    with torch.cuda.device(x.device):
+    with build.on_device(x):
         part = torch.empty((BG, n_t * (n_t + 1) // 2), dtype=torch.float32,
                            device=x.device)
-        err = kernel(x.data_ptr(), gy.data_ptr(),
+        if build.is_fake(x):        # a memory trace: the allocation only
+            return part.sum(dim=1)
+        err = _kernel()(x.data_ptr(), gy.data_ptr(),
                      None if ids is None else ids.data_ptr(), part.data_ptr(),
                      BG, T, di, gy.shape[2], int(ids is not None), int(square),
                      _DTYPES[x.dtype], torch.cuda.current_stream().cuda_stream)

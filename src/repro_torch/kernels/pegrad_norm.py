@@ -4,7 +4,8 @@ and its wrapper.  Counterpart of ``repro/kernels/pegrad_norm.py``
 the dense sites with ``use_kernels``.
 
 A CPU tensor takes the plain version (``ref.pegrad_norm_ref``); a CUDA
-tensor launches the kernel or raises.  ``LAUNCHES`` counts wrapper calls
+tensor launches the kernel or raises (a fake one, ``launch/memory.py``'s
+trace, makes the launch's allocations only).  ``LAUNCHES`` counts wrapper calls
 that launched the kernel (and nothing else).  ``norm_path`` says which of
 the norm launch's paths a CUDA operand pair takes (``dense_bwd_norm``'s
 norm launch is the same kernel and takes the same path).
@@ -79,11 +80,12 @@ def pegrad_norm(x: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
     do = gy.shape[2]
     if BG > 65535:
         raise ValueError(f"pegrad_norm: {BG} rows > 65535 (grid y)")
-    kernel = _kernel()
     n_tiles = -(-di // TILE) * -(-do // TILE)
-    with torch.cuda.device(x.device):
+    with build.on_device(x):
         part = torch.empty((BG, n_tiles), dtype=torch.float32, device=x.device)
-        err = kernel(x.data_ptr(), gy.data_ptr(), part.data_ptr(), BG, T, di,
+        if build.is_fake(x):        # a memory trace: the allocation only
+            return part.sum(dim=1)
+        err = _kernel()(x.data_ptr(), gy.data_ptr(), part.data_ptr(), BG, T, di,
                      do, _DTYPES[x.dtype], torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"pegrad_norm: CUDA launch failed with cudaError_t "

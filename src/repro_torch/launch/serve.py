@@ -5,6 +5,9 @@
 
 Same flags as ``repro.launch.serve`` plus ``--device`` (default ``cuda``)
 and ``--dtype`` (default ``bfloat16``).  Weights are a seeded random init.
+``--engine host-loop`` runs the host-loop reference engine
+(``serve/host_loop.py``) instead of the device engine (``jitted``, the
+JAX package's name for it).
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import torch
 from repro_torch.configs import get_arch, reduced
 from repro_torch.models.transformer import Model
 from repro_torch.serve.engine import Engine
+from repro_torch.serve.host_loop import HostLoopEngine
 from repro_torch.serve.ledger import (BudgetExceeded, PrivacyLedger,
                                       RequestCharge)
 from repro_torch.serve.scheduler import Request, Scheduler
@@ -44,6 +48,8 @@ def main(argv=None) -> None:
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--engine", choices=["jitted", "host-loop"],
+                    default="jitted")
     ap.add_argument("--policy", choices=list(Scheduler.POLICIES),
                     default="fifo")
     ap.add_argument("--decode-chunk", type=int, default=16,
@@ -72,17 +78,25 @@ def main(argv=None) -> None:
     model = Model(arch, dtype=DTYPES[args.dtype], device=args.device,
                   seed=args.seed)
     ledger = None
-    if args.budget_eps is not None:
-        # q=0.01, sigma=4.0 prices one request at eps ~0.0554 (delta 1e-6)
-        ledger = PrivacyLedger(
-            args.budget_eps, args.ledger_delta, policy="refuse",
-            default_charge=RequestCharge(sample_rate=0.01,
-                                         noise_multiplier=4.0))
-    engine = Engine(model, max_batch=args.max_batch, cache_len=args.cache_len,
-                    seed=args.seed, policy=args.policy,
-                    decode_chunk=args.decode_chunk, record_ttft=True,
-                    paged=args.paged, block_size=args.block_size,
-                    num_blocks=args.num_blocks, ledger=ledger)
+    if args.engine == "host-loop":
+        if args.deadline is not None or args.policy != "fifo":
+            print("[serve] WARNING: --deadline/--policy are ignored by the "
+                  "host-loop reference engine (FIFO, no eviction)")
+        engine = HostLoopEngine(model, max_batch=args.max_batch,
+                                cache_len=args.cache_len, seed=args.seed)
+    else:
+        if args.budget_eps is not None:
+            # q=0.01, sigma=4.0 prices one request at eps ~0.0554 (delta 1e-6)
+            ledger = PrivacyLedger(
+                args.budget_eps, args.ledger_delta, policy="refuse",
+                default_charge=RequestCharge(sample_rate=0.01,
+                                             noise_multiplier=4.0))
+        engine = Engine(model, max_batch=args.max_batch,
+                        cache_len=args.cache_len, seed=args.seed,
+                        policy=args.policy, decode_chunk=args.decode_chunk,
+                        record_ttft=True, paged=args.paged,
+                        block_size=args.block_size,
+                        num_blocks=args.num_blocks, ledger=ledger)
     rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()
     prompts = gen_prompts(rng, args.requests, args.prompt_len, arch.vocab)

@@ -18,6 +18,10 @@
         --set dp.adaptive_clip=true
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch phi3-mini-3.8b \
+        --reduced --steps 2 --device cpu --dtype float32 --set dp.algo=dpsgd \
+        --set mem.hbm_budget_bytes=6000000 --set mem.auto_microbatch=true
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch phi3-mini-3.8b \
         --reduced --steps 6 --device cpu --dtype float32 \
         --set ckpt_dir=/path/to/ckpts --set ckpt_every=3 \
         --set data_source=memmap:/path/to/tokens.bin --set optim.name=adam8bit
@@ -34,6 +38,14 @@ restored step N``), else starts from a seeded random init, and saves every
 memmap:<path>`` reads windows of a flat int32 token file.  Under
 ``dp.sampling=poisson`` each step's line gives its realized batch and the
 padded capacity.
+
+Every launch prints the estimated peak of one step (``launch/memory.py``)
+before the run, and a warning when it exceeds ``mem.hbm_budget_bytes``;
+under ``mem.auto_microbatch`` with a budget the Trainer first picks the
+largest microbatch that fits (``[trainer] auto_microbatch: grad_accum a ->
+b``).  With ``mem.compiled_check`` (the default) on a CUDA device the run's
+measured peak (``torch.cuda.max_memory_allocated`` over its steps) is
+printed beside the estimate after it.
 """
 from __future__ import annotations
 
@@ -107,7 +119,30 @@ def main(argv=None) -> None:
         print(f"[train] poisson sampling: q = {trainer.sample_rate:.3e}, "
               f"expected batch {shape.global_batch}, capacity "
               f"{trainer.capacity} rows", flush=True)
-    state = trainer.run(trainer.restore_or_init())
+    state = trainer.restore_or_init()
+    # the estimated peak beside the measured one, every launch, so the
+    # estimator's drift (and the remat policy's effect) stays visible
+    rep = trainer.memory_report(state, trainer.make_batch(state.step))
+    print(f"[train] memory: estimated peak {rep['peak_bytes'] / 1e9:.3f} GB "
+          f"(remat={cfg.remat}, grad_accum={trainer.cfg.grad_accum}, "
+          f"per-example side-channel "
+          f"{rep['per_example_grad_bytes'] / 1e9:.3f} GB)", flush=True)
+    budget = cfg.mem.hbm_budget_bytes
+    if budget and rep["peak_bytes"] > budget:
+        print(f"[train] WARNING estimated per-device peak "
+              f"{rep['peak_bytes'] / 1e9:.3f} GB exceeds mem.hbm_budget_bytes="
+              f"{budget / 1e9:.3f} GB (set mem.auto_microbatch=true to split "
+              f"the batch)", flush=True)
+    measure = cfg.mem.compiled_check and model.device.type == "cuda"
+    if measure:
+        torch.cuda.reset_peak_memory_stats(model.device)
+    first = state.step
+    state = trainer.run(state)
+    if measure:
+        peak = torch.cuda.max_memory_allocated(model.device)
+        print(f"[train] memory: measured peak {peak / 1e9:.3f} GB over steps "
+              f"{first}..{state.step - 1} (estimate/measured "
+              f"{rep['peak_bytes'] / max(peak, 1):.2f})", flush=True)
     eps = trainer.accountant.epsilon_at(state.step)
     split = ""
     if trainer.adaptive_clip:

@@ -39,12 +39,20 @@ Fault tolerance, as in the JAX package:
 * **Straggler watchdog**: a step slower than ``watchdog_factor`` times the
   median of the last 50 is logged.
 
-Not ported (ROADMAP queue 1): the memory planner, the launch autotuner,
-gradient compression and pipeline stages (``configs/base.py`` raises on
-their keys).
+Memory plan (``MemConfig``, ``launch/memory.py``): under
+``mem.auto_microbatch`` with a budget the Trainer picks the largest
+microbatch (smallest ``grad_accum``) whose estimated peak fits
+``mem.hbm_budget_bytes`` before it sizes the Poisson capacity, as the JAX
+Trainer does; ``memory_report`` gives the estimate and, on the card, the
+measured peak beside it.  The step itself is ``TrainStep``, the one
+function the Trainer runs and the estimator traces.
+
+Not ported (ROADMAP queue 1): the launch autotuner, gradient compression
+and pipeline stages (``configs/base.py`` raises on their keys).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import signal
 import time
@@ -87,6 +95,62 @@ def physical_batch_size(train_cfg: TrainConfig, shape: ShapeConfig,
                             shape.global_batch / dataset_size, multiple=mult)
 
 
+class TrainStep:
+    """One optimizer step of ``train_cfg`` on ``model``: the function
+    ``Trainer.train_step`` runs and ``launch/memory.py`` traces (the
+    counterpart of the JAX package's ``make_train_step``).  ``gradients``
+    makes the noised gradients and metrics and only reads the state;
+    ``update`` takes the optimizer step and the next clip norm in place.
+    ``loss_fn`` replaces ``model.loss_fn`` (the Trainer's fault injection).
+    ``expected_batch_size``: the private update's normaliser under Poisson
+    sampling (q·N), None for fixed batches."""
+
+    def __init__(self, model, train_cfg: TrainConfig,
+                 expected_batch_size: Optional[float] = None, loss_fn=None):
+        self.dp = train_cfg.dp
+        self.adaptive_clip = adaptive_clip_on(train_cfg.dp)
+        self.grad_fn = make_noisy_grad_fn(loss_fn or model.loss_fn,
+                                          train_cfg.dp,
+                                          grad_accum=train_cfg.grad_accum,
+                                          expected_batch_size=expected_batch_size)
+        self.opt = make_optimizer(train_cfg.optim)
+
+    def init_state(self, params, device) -> TrainState:
+        """Step 0: ``params`` and a fresh optimizer state beside them (with
+        the adaptive clip rider under ``dp.adaptive_clip``)."""
+        opt_state = self.opt.init(tree.leaves(params))
+        if self.adaptive_clip:
+            opt_state = {"opt": opt_state, aclip.CLIP_STATE_KEY:
+                         aclip.init_state(self.dp, device)}
+        return TrainState(step=0, params=params, opt_state=opt_state)
+
+    def optimizer_state(self, state: TrainState):
+        return state.opt_state["opt"] if self.adaptive_clip else state.opt_state
+
+    def clip_norm(self, state: TrainState):
+        if not self.adaptive_clip:
+            return None
+        return state.opt_state[aclip.CLIP_STATE_KEY]["clip_norm"]
+
+    def gradients(self, state: TrainState, batch, generator: torch.Generator):
+        grads, metrics = self.grad_fn(state.params, batch, generator,
+                                      clip_norm=self.clip_norm(state))
+        metrics["update_norm"] = torch.sqrt(sum((g * g).sum() for g in grads))
+        return grads, metrics
+
+    def update(self, state: TrainState, grads, metrics) -> None:
+        self.opt.apply(grads, self.optimizer_state(state),
+                       tree.leaves(state.params), state.step)
+        if self.adaptive_clip:
+            self.clip_norm(state).copy_(metrics["clip_norm_next"])
+        state.step += 1
+
+    def __call__(self, state: TrainState, batch, generator: torch.Generator):
+        grads, metrics = self.gradients(state, batch, generator)
+        self.update(state, grads, metrics)
+        return metrics
+
+
 class Trainer:
     """``Trainer(model, train_cfg, shape)``; ``model`` is a model of the
     port (``models.build_model_for``) whose params the Trainer makes
@@ -117,6 +181,24 @@ class Trainer:
         # synthetic one of another dataset size N prices another q = B/N)
         self.source = source or make_source(train_cfg.data_source,
                                             model.arch.vocab, train_cfg.seed)
+        # the memory plan: the largest microbatch whose estimated peak fits
+        # the budget, picked before the capacity below so that Poisson's
+        # lcm rounding sees the chosen grad_accum
+        self.mem_estimate = None
+        if train_cfg.mem.auto_microbatch and train_cfg.mem.hbm_budget_bytes > 0:
+            from repro_torch.launch.memory import pick_grad_accum
+            accum, est = pick_grad_accum(model, train_cfg, shape,
+                                         dataset_size=self.source.dataset_size)
+            if accum != train_cfg.grad_accum:
+                print(f"[trainer] auto_microbatch: grad_accum "
+                      f"{train_cfg.grad_accum} -> {accum} (estimated "
+                      f"per-device peak "
+                      f"{est['per_device_peak_bytes'] / 1e9:.3f} GB <= budget "
+                      f"{train_cfg.mem.hbm_budget_bytes / 1e9:.3f} GB)",
+                      flush=True)
+            train_cfg = dataclasses.replace(train_cfg, grad_accum=accum)
+            self.cfg = train_cfg
+            self.mem_estimate = est
         self.sample_rate = shape.global_batch / self.source.dataset_size
         self.capacity = physical_batch_size(train_cfg, shape,
                                             self.source.dataset_size)
@@ -128,12 +210,9 @@ class Trainer:
         if inject_failure_at is not None and inject_inside_step:
             loss_fn = self._injected_loss_fn(loss_fn)
         # Poisson: the lot size q·N, never the capacity or the realized draw
-        expected = (float(shape.global_batch) if self.sampling == "poisson"
-                    else None)
-        self.grad_fn = make_noisy_grad_fn(loss_fn, train_cfg.dp,
-                                          grad_accum=train_cfg.grad_accum,
-                                          expected_batch_size=expected)
-        self.opt = make_optimizer(train_cfg.optim)
+        self.expected_batch = (float(shape.global_batch)
+                               if self.sampling == "poisson" else None)
+        self.step_fn = TrainStep(model, train_cfg, self.expected_batch, loss_fn)
         self.ckpt = CheckpointManager(train_cfg.ckpt_dir,
                                       keep=train_cfg.ckpt_keep,
                                       use_async=train_cfg.ckpt_async)
@@ -143,7 +222,7 @@ class Trainer:
             noise_multiplier=train_cfg.dp.noise_multiplier,
             delta=train_cfg.dp.delta, sample_rate=self.sample_rate)
         # the noisy below-C count is a second mechanism at the same rate
-        self.adaptive_clip = adaptive_clip_on(train_cfg.dp)
+        self.adaptive_clip = self.step_fn.adaptive_clip
         if self.adaptive_clip:
             self.accountant.compose(aclip.mechanism(train_cfg.dp,
                                                     self.sample_rate))
@@ -167,26 +246,53 @@ class Trainer:
             return loss_fn(params, batch, ctx)
         return wrapped
 
+    @property
+    def opt(self):
+        """The step's optimizer."""
+        return self.step_fn.opt
+
+    @opt.setter
+    def opt(self, opt) -> None:
+        self.step_fn.opt = opt
+
+    # -- memory --------------------------------------------------------------
+    def memory_report(self, state: TrainState, batch,
+                      measure: bool = False) -> dict:
+        """The estimated peak of one step of this Trainer's config at
+        ``batch``'s shapes (``launch/memory.estimate_train_memory``, traced
+        on fake tensors: nothing here changes).  With ``measure`` on a CUDA
+        device, also one real ``train_step`` on ``state`` with the
+        allocator's peak reset before it: ``measured_peak_bytes`` (its
+        ``torch.cuda.max_memory_allocated``), ``estimate_vs_measured`` and
+        the step's ``metrics``, the counterpart of the JAX Trainer's
+        ``xla_*`` keys.  That step advances ``state`` as ``train_step``
+        does."""
+        from repro_torch.launch.memory import abstract_like, estimate_train_memory
+        est = estimate_train_memory(self.model, self.cfg, abstract_like(batch),
+                                    expected_batch_size=self.expected_batch)
+        if measure and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+            torch.cuda.reset_peak_memory_stats(self.device)
+            metrics = self.train_step(state, batch)
+            metrics = {k: float(v) for k, v in metrics.items()}   # syncs
+            peak = torch.cuda.max_memory_allocated(self.device)
+            est.update(measured_peak_bytes=int(peak), metrics=metrics,
+                       estimate_vs_measured=est["peak_bytes"] / max(peak, 1))
+        return est
+
     # -- lifecycle ---------------------------------------------------------
     def init_state(self) -> TrainState:
-        params = self.model.params
-        opt_state = self.opt.init(tree.leaves(params))
-        if self.adaptive_clip:
-            opt_state = {"opt": opt_state, aclip.CLIP_STATE_KEY:
-                         aclip.init_state(self.cfg.dp, self.device)}
-        return TrainState(step=0, params=params, opt_state=opt_state)
+        return self.step_fn.init_state(self.model.params, self.device)
 
     def optimizer_state(self, state: TrainState):
         """The optimizer's own part of ``state.opt_state`` (without the
         adaptive clip rider)."""
-        return state.opt_state["opt"] if self.adaptive_clip else state.opt_state
+        return self.step_fn.optimizer_state(state)
 
     def clip_norm(self, state: TrainState):
         """The step's clip norm: the adaptive state's 0-d tensor, else None
         (``dp.clip_norm``)."""
-        if not self.adaptive_clip:
-            return None
-        return state.opt_state[aclip.CLIP_STATE_KEY]["clip_norm"]
+        return self.step_fn.clip_norm(state)
 
     def restore_or_init(self) -> TrainState:
         """The latest checkpoint in ``ckpt_dir``, restored into the model's
@@ -224,20 +330,13 @@ class Trainer:
     def gradients(self, state: TrainState, batch):
         """The step's noised gradients and metrics; reads ``state`` only."""
         self._step_in_flight = state.step
-        grads, metrics = self.grad_fn(state.params, batch,
-                                      self.noise_generator(state.step),
-                                      clip_norm=self.clip_norm(state))
-        metrics["update_norm"] = torch.sqrt(sum((g * g).sum() for g in grads))
-        return grads, metrics
+        return self.step_fn.gradients(state, batch,
+                                      self.noise_generator(state.step))
 
     def update(self, state: TrainState, grads, metrics) -> None:
         """The optimizer step and the next clip norm, in place on
         ``state``."""
-        self.opt.apply(grads, self.optimizer_state(state),
-                       tree.leaves(state.params), state.step)
-        if self.adaptive_clip:
-            self.clip_norm(state).copy_(metrics["clip_norm_next"])
-        state.step += 1
+        self.step_fn.update(state, grads, metrics)
 
     def train_step(self, state: TrainState, batch) -> Dict[str, torch.Tensor]:
         """One step in place on ``state``; returns the metrics (0-d tensors,

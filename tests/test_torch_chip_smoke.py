@@ -218,6 +218,48 @@ def test_path_launches_count_the_wrapper_calls(smoke, monkeypatch, algo, route,
         microbatch=microbatch, dtype_groups=smoke.dtype_groups(model.params))
 
 
+@pytest.mark.parametrize("algo", ["dpsgd_r", "dpsgd"])
+def test_path_launches_count_a_split_step(smoke, monkeypatch, algo):
+    """Phase 12's split steps: ``path_launches`` with ``chunks`` =
+    grad_accum and ``dpsgd``'s examples counted a chunk, against the
+    wrapper calls of one Trainer step at grad_accum 2 (the whole chunk in
+    one ``dpsgd`` buffer)."""
+    import torch
+    from repro_torch.configs import reduced
+    from repro_torch.configs.base import (DPConfig, OptimConfig, ShapeConfig,
+                                          TrainConfig)
+    from repro_torch.models.transformer import Model
+    from repro_torch.train import Trainer
+    for name, (mod, attr) in smoke.kernel_counts().items():
+        def counting(*args, _fn=getattr(mod, name), _mod=mod, _attr=attr,
+                     **kwargs):
+            setattr(_mod, _attr, getattr(_mod, _attr) + 1)
+            return _fn(*args, **kwargs)
+        monkeypatch.setattr(mod, name, counting)
+        monkeypatch.setattr(mod, attr, 0)
+    arch = reduced(get_arch("phi3-mini-3.8b"))
+    model = Model(arch, dtype=torch.float32, device="cpu", remat="none")
+    cfg = TrainConfig(param_dtype="float32", compute_dtype="float32",
+                      remat="none", grad_accum=2,
+                      optim=OptimConfig(schedule="constant"),
+                      dp=DPConfig(algo=algo, norm_strategy="fused",
+                                  use_kernels=True, microbatch=0))
+    trainer = Trainer(model, cfg, ShapeConfig("t", 8, 4, "train"))
+    state = trainer.init_state()
+    smoke.zero_counts()
+    trainer.train_step(state, trainer.make_batch(0))
+    assert smoke.read_counts() == smoke.path_launches(
+        "fused", arch.n_layers, chunks=2, algo=algo, remat="none", examples=2,
+        dtype_groups=smoke.dtype_groups(model.params))
+
+
+def test_agreeing_prefix(smoke):
+    assert smoke.agreeing_prefix([1, 2, 3], [1, 2, 3]) == 3
+    assert smoke.agreeing_prefix([1, 2, 3], [1, 5, 3]) == 1
+    assert smoke.agreeing_prefix([4], [5]) == 0
+    assert smoke.agreeing_prefix([1, 2], [1, 2, 3]) == 2
+
+
 def test_chatglm3_mix_bounds_and_launches(smoke):
     """Phase 10's path: chatglm3-6b at 28 layers, B 8 x T 512.  Its dense
     calls split q and o (4096 -> 4096) from k and v (4096 -> 256, GQA on 2

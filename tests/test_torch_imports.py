@@ -17,6 +17,9 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torc
 for n in names:
     importlib.import_module(n)
 assert len(names) >= 15, names
+for n in ("repro_torch.launch.memory", "repro_torch.serve.host_loop",
+          "repro_torch.sim", "repro_torch.sim.dataflow", "repro_torch.sim.models"):
+    assert n in names, n
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.") or n == "repro" or n.startswith("repro."))
 assert not bad, bad

@@ -152,7 +152,7 @@ def test_launcher_trains_dpsgd_under_sites_remat_on_the_cpu(tmp_path, capsys):
     assert "finished at step 2; privacy spent: eps=" in out
 
 
-@pytest.mark.parametrize("pair", ["pp_stages=2", "mem.auto_microbatch=true",
+@pytest.mark.parametrize("pair", ["pp_stages=2",
                                   "zero1=false", "mesh.shape=4,2", "tune.seed=1",
                                   "pp_microbatches=2", "compress_pod_grads=true"])
 def test_unported_overrides_raise(pair):
@@ -161,6 +161,21 @@ def test_unported_overrides_raise(pair):
     with pytest.raises(NotImplementedError, match="not ported"):
         tlaunch.main(["--arch", "phi3-mini-3.8b", "--reduced", "--steps", "1",
                       "--device", "cpu", "--set", pair])
+
+
+def test_launcher_plans_memory_on_the_cpu(tmp_path, capsys):
+    """``--set mem.*`` is accepted (the memory planner is ported): under a
+    budget between the estimates of the whole batch and of two chunks, the
+    Trainer splits the batch, and the launcher prints the estimated peak."""
+    tlaunch.main(["--arch", "phi3-mini-3.8b", "--reduced", "--steps", "1",
+                  "--device", "cpu", "--dtype", "float32",
+                  "--set", "dp.algo=dpsgd", "--set", "mem.hbm_budget_bytes=6000000",
+                  "--set", "mem.auto_microbatch=true",
+                  "--set", f"ckpt_dir={tmp_path}"])
+    out = capsys.readouterr().out
+    assert "[trainer] auto_microbatch: grad_accum 1 -> 2" in out
+    assert "[train] memory: estimated peak" in out and "grad_accum=2" in out
+    assert "finished at step 1; privacy spent: eps=" in out
 
 
 def test_remat_and_dtypes_are_held(tmp_path):
