@@ -140,7 +140,31 @@ the script exits nonzero and prints no ``ok`` line:
    stream's agreeing prefix against the engine's.  Phase 5 and (d) also
    profile a short serve of 8 requests x 8 tokens (``[decode]``): the device's busy
    share over the decode steps of the contiguous engine, the paged engine
-   and the host loop.  No phase steps through ``Trainer.run``, which
+   and the host loop;
+13. the MoE family: (a) the kernels at its shapes (B 8 x T 512), float32
+   and bf16, each against its plain version with exact zeros for a zeroed
+   gy group and bit-identical repeats, timed beside the plain version, the
+   library (``matmul`` batched over E for gx, ``bmm`` and the Frobenius
+   sum for the norms) and the bound, with the path each takes:
+   ``dense_bwd_norm``, ``pegrad_norm`` and ``dense_dgrad`` at
+   deepseek-moe-16b's experts (512 groups of C 60, 2048 <-> 1408, E 64) and
+   router, and at grok-1-314b's experts (64 groups of C 160, 6144 <->
+   32768, E 8; plain versions 8 rows at a time), ``gram_norm`` square at
+   deepseek's expert groups, the flash forward at deepseek's serving wave
+   and grok's GQA (48 heads on 8), the backward at deepseek's training
+   shape; (b) deepseek-moe-16b at full width and depth (28 layers, 16.38B
+   params), bf16, seeded weights, serving phase 5's stream through the
+   contiguous and the paged engine (their outputs must agree), with tok/s,
+   TTFT, decode ms a step beside the bytes bound of the experts it reads
+   and the peak; (c) grok-1-314b at full width with 2 of its 64 layers,
+   4 requests x 16 tokens through the contiguous engine; (d) deepseek
+   trained at full width with 6 of its 28 layers (5 if the planner puts 6
+   above ``MOE_PLAN_LIMIT``), B 8 x T 512, ``dpsgd_r`` fused + kernels,
+   ``remat="block"``, AdamW: a warm-up and three counted steps, the
+   planner's estimate beside their peak (within 4x), the norms² of one
+   batch through ``materialize``, ``auto`` and the plain rules against the
+   fused route's (``NSQ_RTOL``), a counted step of each, and a counted
+   ``dpsgd_r1f`` step.  No phase steps through ``Trainer.run``, which
    checkpoints at its last step.
 
 Each path counts the launches of every kernel from zero and must launch
@@ -222,6 +246,12 @@ IMAGE_B, IMAGE_K, IMAGE_N = 256, 16, 50_000
 # is profiled on: the first 8 requests of the stream, 8 new tokens each
 MEMORY_ROWS = []
 BUSY_REQUESTS, BUSY_NEW = 8, 8
+# phase 13: deepseek-moe-16b served at full depth and trained at full width
+# on 6 of its 28 layers (5 where the planner puts 6 above the limit);
+# grok-1-314b at full width on 2 of its 64 layers, 4 requests x 16 tokens
+MOE_ARCH, GROK_ARCH = "deepseek-moe-16b", "grok-1-314b"
+MOE_TRAIN_LAYERS, MOE_PLAN_LIMIT = 6, 72 * 2**30
+GROK_LAYERS, GROK_REQUESTS, GROK_NEW = 2, 4, 16
 
 
 def request_stream(vocab: int, seed: int = 0):
@@ -430,11 +460,56 @@ def dense_inputs(BG, T, di, do, E, dtype, seed=0):
     return x, gy, w
 
 
-def check_dense_bwd_norm(name, BG, T, di, do, E, dtype, seed=0, iters=10):
+def by_rows(fn, rows, rowwise, whole=()):
+    """``fn(*rowwise, *whole)`` on slices of ``rows`` rows of each (BG, ...)
+    tensor of ``rowwise`` at a time, the results (a tensor or a tuple of
+    them) concatenated along dim 0; ``whole`` (an (E, ...) weight) rides
+    whole, so ``rows`` must be a multiple of E (row b of a slice keeps
+    group b % E).  ``rows`` None: one call.  For the plain versions and the
+    library calls at shapes whose float32 transients would not fit the
+    card at once."""
+    import torch
+    if rows is None:
+        return fn(*rowwise, *whole)
+    assert not whole or rows % whole[0].shape[0] == 0, (rows, whole[0].shape)
+    outs = [fn(*(a[i:i + rows] for a in rowwise), *whole)
+            for i in range(0, rowwise[0].shape[0], rows)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(o) for o in zip(*outs))
+    return torch.cat(outs)
+
+
+def gx_library(gy, w, E):
+    """The library's gx call (timing only): ``matmul`` of gy against wᵀ,
+    batched over E with each expert's B·T rows when E > 1 (gy taken
+    E-major, as the port's plain ``moe_dense`` takes it), so w is never
+    expanded over the examples.  Returns (call, its E-major gy)."""
+    import torch
+    if E == 1:
+        wt = w[0].t()
+        return (lambda: torch.matmul(gy, wt)), gy
+    BG, T, do = gy.shape
+    ge = gy.reshape(BG // E, E, T, do).transpose(0, 1).reshape(E, -1, do)
+    wt = w.mT
+    return (lambda: torch.matmul(ge, wt)), ge
+
+
+def norm_library(x, gy, rows=None):
+    """The library's norms² (timing only): ``bmm`` of xᵀ and gy per row and
+    the Frobenius sum, ``rows`` rows at a time."""
+    import torch
+    return by_rows(lambda a, b: (torch.bmm(a.mT, b).float() ** 2).sum(dim=(1, 2)),
+                   rows, (x, gy))
+
+
+def check_dense_bwd_norm(name, BG, T, di, do, E, dtype, seed=0, iters=10,
+                         rows=None):
     """dense_bwd_norm at one shape: kernel vs plain version (gx within 1e-4
     of its largest entry in f32, 1e-2 in bf16 — one bf16 rounding of the
     output; nsq within rtol 1e-4, since bf16 inputs convert to f32
-    exactly and only the summation order differs), with timings."""
+    exactly and only the summation order differs), with timings.  ``rows``:
+    the plain version and the library's norms² a slice of rows at a time
+    (``by_rows``)."""
     import torch
     from repro_torch.kernels import fused_bwd, pegrad_norm, ref
     x, gy, w = dense_inputs(BG, T, di, do, E, dtype, seed)
@@ -442,8 +517,8 @@ def check_dense_bwd_norm(name, BG, T, di, do, E, dtype, seed=0, iters=10):
     norm_path = pegrad_norm.norm_path(x, gy)
     gx, nsq = fused_bwd.dense_bwd_norm(x, gy, w)
     torch.cuda.synchronize()
-    nsq_ref = ref.dense_bwd_norm_ref(x, gy, w)[1]
-    gx_f32 = ref.dense_bwd_norm_ref(x.float(), gy.float(), w.float())[0]
+    nsq_ref = by_rows(ref.pegrad_norm_ref, rows, (x, gy))
+    gx_f32 = by_rows(ref.dense_dgrad_ref, rows, (gy.float(),), (w.float(),))
     abs_err = (gx.float() - gx_f32).abs().max().item()
     gx_err = abs_err / gx_f32.abs().max().item()
     nsq_err = ((nsq - nsq_ref).abs() / nsq_ref.abs()).max().item()
@@ -451,14 +526,15 @@ def check_dense_bwd_norm(name, BG, T, di, do, E, dtype, seed=0, iters=10):
     assert nsq_err <= 1e-4, (name, nsq_err)
     del gx, gx_f32
     ms = time_ms(lambda: fused_bwd.dense_bwd_norm(x, gy, w), iters)
-    plain_ms = time_ms(lambda: ref.dense_bwd_norm_ref(x, gy, w), iters)
-    wt = w[0].t() if E == 1 else w[torch.arange(BG, device="cuda") % E].mT
+    plain_ms = time_ms(lambda: by_rows(ref.dense_bwd_norm_ref, rows, (x, gy), (w,)),
+                       iters)
+    gx_call, ge = gx_library(gy, w, E)
 
     def library():      # timing only: the port never calls these
-        torch.matmul(gy, wt)
-        gb = torch.bmm(x.mT, gy)
-        return (gb.float() ** 2).sum(dim=(1, 2))
+        gx_call()
+        return norm_library(x, gy, rows)
     library_ms = time_ms(library, iters)
+    del ge
     dt = _dtype_name(dtype)
     item = x.element_size()
     b_ms, b_by = bound_ms(4.0 * BG * T * di * do,
@@ -479,7 +555,7 @@ def check_dense_bwd_norm(name, BG, T, di, do, E, dtype, seed=0, iters=10):
     return rec
 
 
-def check_pegrad_norm(name, x, gy, iters=10):
+def check_pegrad_norm(name, x, gy, iters=10, rows=None):
     """pegrad_norm (the norm launch alone) on x (BG, T, di), gy (BG, T, do):
     within rtol 1e-4 of its plain version (bf16 inputs convert to float32
     exactly, only the summation order differs); gy with row 1 zeroed gives
@@ -500,16 +576,15 @@ def check_pegrad_norm(name, x, gy, iters=10):
     assert za[1].item() == 0.0 and torch.equal(za[keep], nsq[keep]), name
     assert torch.equal(za, zb), name
     del gz, za, zb
-    nsq_ref = ref.pegrad_norm_ref(x, gy)
+    nsq_ref = by_rows(ref.pegrad_norm_ref, rows, (x, gy))
     nsq_abs = (nsq - nsq_ref).abs().max().item()
     nsq_err = ((nsq - nsq_ref).abs() / nsq_ref.abs()).max().item()
     assert nsq_err <= 1e-4, (name, nsq_err)
     dt = _dtype_name(x.dtype)
     ms = time_ms(lambda: pegrad_norm.pegrad_norm(x, gy), iters)
-    plain_ms = time_ms(lambda: ref.pegrad_norm_ref(x, gy), iters)
+    plain_ms = time_ms(lambda: by_rows(ref.pegrad_norm_ref, rows, (x, gy)), iters)
     # timing only: the port never calls it
-    library_ms = time_ms(lambda: (torch.bmm(x.mT, gy).float() ** 2).sum(dim=(1, 2)),
-                         iters)
+    library_ms = time_ms(lambda: norm_library(x, gy, rows), iters)
     b_ms, b_by = norm_bound_ms(BG, T, di, do, dt)
     tflops = 2.0 * BG * T * di * do / ms / 1e9
     rec = dict(shape=name, dtype=dt, BG=BG, T=T, di=di, do=do,
@@ -524,25 +599,27 @@ def check_pegrad_norm(name, x, gy, iters=10):
     return rec, nsq
 
 
-def check_dense_halves(name, BG, T, di, do, E, dtype, seed=0, iters=10):
+def check_dense_halves(name, BG, T, di, do, E, dtype, seed=0, iters=10,
+                       rows=None, ab=True):
     """pegrad_norm and dense_dgrad at one shape: each against its plain
     version (``check_pegrad_norm``; gx as in ``check_dense_bwd_norm``) and
-    both equal to dense_bwd_norm's outputs bit for bit, with timings; then
-    the fusion A/B, the separate pair (two wrapper calls) against
-    dense_bwd_norm (one call), timed in turns (pair, fused, fused, pair).
-    Returns {"pegrad_norm": rec, "dense_dgrad": rec, "ab": rec}."""
+    both equal to dense_bwd_norm's outputs bit for bit, with timings; then,
+    with ``ab``, the fusion A/B, the separate pair (two wrapper calls)
+    against dense_bwd_norm (one call), timed in turns (pair, fused, fused,
+    pair).  ``rows`` as in ``check_dense_bwd_norm``.  Returns
+    {"pegrad_norm": rec, "dense_dgrad": rec, "ab": rec or None}."""
     import torch
     from repro_torch.kernels import fused_bwd, pegrad_norm, ref
     x, gy, w = dense_inputs(BG, T, di, do, E, dtype, seed)
     path = fused_bwd.dgrad_path(gy, w)
-    pegrad, nsq = check_pegrad_norm(name, x, gy, iters)
+    pegrad, nsq = check_pegrad_norm(name, x, gy, iters, rows)
     pegrad["E"] = E
     gx = fused_bwd.dense_dgrad(gy, w)
     fgx, fnsq = fused_bwd.dense_bwd_norm(x, gy, w)
     torch.cuda.synchronize()
     assert torch.equal(nsq, fnsq) and torch.equal(gx, fgx), name
     del fgx, fnsq
-    gx_f32 = ref.dense_dgrad_ref(gy.float(), w.float())
+    gx_f32 = by_rows(ref.dense_dgrad_ref, rows, (gy.float(),), (w.float(),))
     gx_abs = (gx.float() - gx_f32).abs().max().item()
     gx_err = gx_abs / gx_f32.abs().max().item()
     assert gx_err <= (1e-4 if dtype == torch.float32 else 1e-2), (name, gx_err)
@@ -550,14 +627,24 @@ def check_dense_halves(name, BG, T, di, do, E, dtype, seed=0, iters=10):
     dt = _dtype_name(dtype)
     flops = 2.0 * BG * T * di * do
     base = dict(shape=name, dtype=dt, BG=BG, T=T, di=di, do=do, E=E)
-    wt = w.mT if E == 1 else w[torch.arange(BG, device="cuda") % E].mT
+    gx_call, ge = gx_library(gy, w, E)
     b_ms, b_by = dgrad_bound_ms(BG, T, di, do, E, dt)
     dgrad = dict(base, max_abs_err=gx_abs, rel_err=gx_err,
                  ms=time_ms(lambda: fused_bwd.dense_dgrad(gy, w), iters),
-                 plain_ms=time_ms(lambda: ref.dense_dgrad_ref(gy, w), iters),
-                 library_ms=time_ms(lambda: torch.matmul(gy, wt), iters),
+                 plain_ms=time_ms(lambda: by_rows(ref.dense_dgrad_ref, rows, (gy,),
+                                                  (w,)), iters),
+                 library_ms=time_ms(gx_call, iters),
                  bound_ms=b_ms, bound_by=b_by, path=path)
+    del ge
     dgrad.update(tflops=flops / dgrad["ms"] / 1e9, bound_share=b_ms / dgrad["ms"])
+    r = dgrad
+    print(f"[kernel] dense_dgrad {name} {dt}: max_abs_err {r['max_abs_err']:.2e} "
+          f"({r['rel_err']:.1e} rel)  kernel {r['ms']:.3f} ms  plain "
+          f"{r['plain_ms']:.3f} ms  library {r['library_ms']:.3f} ms  bound "
+          f"{r['bound_ms']:.4f} ms ({r['bound_by']})  {r['tflops']:.1f} TFLOP/s, "
+          f"{100 * r['bound_share']:.1f}% of bound, path {r['path']}", flush=True)
+    if not ab:
+        return {"pegrad_norm": pegrad, "dense_dgrad": dgrad, "ab": None}
     sep = lambda: (fused_bwd.dense_dgrad(gy, w), pegrad_norm.pegrad_norm(x, gy))
     fused = lambda: fused_bwd.dense_bwd_norm(x, gy, w)
     before = fused_bwd.DGRAD_LAUNCHES
@@ -567,12 +654,6 @@ def check_dense_halves(name, BG, T, di, do, E, dtype, seed=0, iters=10):
     ab = dict(base, separate_ms=sep_ms, fused_ms=fused_ms,
               separate_over_fused=sep_ms / fused_ms, runs_ms=runs,
               dgrad_launches=fused_bwd.DGRAD_LAUNCHES - before)
-    r = dgrad
-    print(f"[kernel] dense_dgrad {name} {dt}: max_abs_err {r['max_abs_err']:.2e} "
-          f"({r['rel_err']:.1e} rel)  kernel {r['ms']:.3f} ms  plain "
-          f"{r['plain_ms']:.3f} ms  library {r['library_ms']:.3f} ms  bound "
-          f"{r['bound_ms']:.4f} ms ({r['bound_by']})  {r['tflops']:.1f} TFLOP/s, "
-          f"{100 * r['bound_share']:.1f}% of bound, path {r['path']}", flush=True)
     print(f"[fusion] {name} {dt}: pegrad_norm and dense_dgrad = dense_bwd_norm's "
           f"outputs bit for bit; dense_dgrad + pegrad_norm {sep_ms:.3f} ms, "
           f"dense_bwd_norm {fused_ms:.3f} ms, separate / fused "
@@ -1035,23 +1116,59 @@ def kernel_counts():
             "clip_reduce": (clip_reduce, "LAUNCHES")}
 
 
-def launch_shape(arch):
+def norm_sites(arch, B=TRAIN_B, T=TRAIN_T):
+    """Every norm site call of one decoder forward at B x T, one per weight
+    matrix (the embedding apart): (kind, operand shapes, gy shape) of the
+    ``dense`` sites (x (B, T, d_in)) and the ``moe_dense`` sites (x (B, E,
+    C, d_in), C the capacity at T), in layer order, the head last."""
+    from repro_torch import tree
+    from repro_torch.models.moe import capacity
+    from repro_torch.models.transformer import group_layers, model_spec
+    spec = model_spec(arch)
+    pre, _, reps = group_layers(arch)
+    layers = list(spec["prelude"]) + list(spec.get("blocks", ())) * reps
+    out = []
+    for p in tree.leaves(layers) + [spec["head"]]:
+        if len(p.shape) == 2:
+            out.append(("dense", ((B, T, p.shape[0]), p.shape), (B, T, p.shape[1])))
+        elif len(p.shape) == 3:
+            E, di, do = p.shape
+            C = capacity(arch.moe, T)
+            out.append(("moe_dense", ((B, E, C, di), p.shape), (B, E, C, do)))
+    return out
+
+
+def launch_shape(arch, B=TRAIN_B, T=TRAIN_T):
     """``path_launches``'s keywords for ``arch``'s family: the dense
-    decoder's layer count, or the image family and, for the CNN, its
-    conv2d sites."""
+    decoder's layer count; the MoE decoder's, its norm sites and the
+    kernels ``auto`` resolves them to at B x T; or the image family and,
+    for the CNN, its conv2d sites."""
     if arch.family == "cnn":
         from repro_torch.models.cnn import iter_conv_sites
         return dict(L=0, family="cnn", convs=len(list(iter_conv_sites(arch))))
+    if arch.family == "moe":
+        from repro_torch.core.sites import resolve_strategy
+        picks = [resolve_strategy(k, "auto", ops, gy)
+                 for k, ops, gy in norm_sites(arch, B, T)]
+        return dict(L=arch.n_layers, family="moe", sites=len(picks),
+                    auto_norms=(picks.count("materialize"), picks.count("gram")))
     return dict(L=arch.n_layers, family=arch.family)
 
 
 def path_launches(route: str, L: int, chunks: int = 1, algo: str = "dpsgd_r",
                   remat: str = "none", examples: int = 0, microbatch: int = 0,
-                  dtype_groups: int = 0, family: str = "dense", convs: int = 0):
+                  dtype_groups: int = 0, family: str = "dense", convs: int = 0,
+                  sites: int = 0, auto_norms=(0, 0)):
     """Launches of every kernel in one step of ``algo``, as the code makes
     them.  The dense decoder with ``L`` layers: each layer has 7 dense
     sites (q, k, v, o, w1, w3, w2) and one attention, the model one head
-    and one embedding.  The ViT (``family="vit"``, ``L`` layers): 6 dense
+    and one embedding.  The MoE decoder (``family="moe"``, ``L`` layers):
+    one attention a layer, the embedding, and ``sites`` norm sites
+    (``norm_sites``: a dense layer's 7; an MoE layer's q, k, v, o, the
+    router, the experts' w1, w3, w2 (``moe_dense``) and the shared
+    experts' w1, w3, w2; the head), ``auto`` sending ``auto_norms`` =
+    (materialize, gram) of them to ``pegrad_norm`` and ``gram_norm``.  The
+    ViT (``family="vit"``, ``L`` layers): 6 dense
     sites a layer (q, k, v, o, w1, w2) and one non-causal attention, the
     patch embedding (a conv2d site) and the head.  The CNN
     (``family="cnn"``): ``convs`` conv2d sites (the stem first) and the
@@ -1083,6 +1200,8 @@ def path_launches(route: str, L: int, chunks: int = 1, algo: str = "dpsgd_r",
         sites, dgrads, attn, embeds = 6 * L + 2, 6 * L + 1, L, 0
     elif family == "cnn":
         sites, dgrads, attn, embeds = convs + 1, convs, 0, 0
+    elif family == "moe":
+        sites, dgrads, attn, embeds = sites, sites, L, 1
     else:
         raise ValueError(family)
     again = 0 if remat == "none" else attn    # the recompute, per backward
@@ -1107,6 +1226,9 @@ def path_launches(route: str, L: int, chunks: int = 1, algo: str = "dpsgd_r",
             n["gram_norm"] += sites
         elif route == "auto-2048" and family == "dense":
             n.update(pegrad_norm=4 * L, gram_norm=3 * L + 2)
+        elif route == "auto" and family == "moe":
+            n["pegrad_norm"] = auto_norms[0]
+            n["gram_norm"] += auto_norms[1]
         else:
             raise ValueError(route)
     else:
@@ -1552,7 +1674,9 @@ def counted_step(trainer, model, state, route, chunks=1):
     rec["peak_bytes"] = torch.cuda.max_memory_allocated()
     counts = read_counts()
     want = path_launches(route, chunks=chunks, algo=trainer.cfg.dp.algo,
-                         remat=model.remat, **launch_shape(model.arch))
+                         remat=model.remat,
+                         **launch_shape(model.arch, trainer.shape.global_batch,
+                                        trainer.shape.seq_len))
     assert counts == want, (route, model.remat, counts, want)
     nsq, losses, rec["pass1_ms"], rec["pass2_ms"] = split_passes(
         model, state, trainer.cfg.dp, batch, clip)
@@ -2928,6 +3052,362 @@ def memory_planner_and_host_loop(prompts, engine_out, engine_recs):
     return dict(estimates=list(MEMORY_ROWS), split=split, host_loop=host)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the MoE family (deepseek-moe-16b and grok-1-314b)
+# ---------------------------------------------------------------------------
+
+def moe_kernel_shapes():
+    """Phase 13 (a)'s shapes at B 8 x T 512: (name, BG, T, di, do, E, rows,
+    iters).  deepseek's experts at C 60 (a ragged T): w1 and w3 (2048 ->
+    1408) and w2 (1408 -> 2048) over its 8 x 64 (example, expert) groups;
+    its router, a dense (8, 512, 2048 -> 64); grok's experts at C 160 over
+    8 x 8 groups, 6144 <-> 32768, whose plain versions and library norms²
+    go 8 rows at a time (``by_rows``: a (64, 6144, 32768) float32 product
+    would not fit) and are timed over 2 calls."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.moe import capacity
+    ds, gk = get_arch(MOE_ARCH), get_arch(GROK_ARCH)
+    B, T = TRAIN_B, TRAIN_T
+    cd, cg = capacity(ds.moe, T), capacity(gk.moe, T)
+    Ed, Eg = ds.moe.num_experts, gk.moe.num_experts
+    d, fe = ds.d_model, ds.moe.d_expert
+    g, ge = gk.d_model, gk.moe.d_expert
+    return [("ds-w1w3", B * Ed, cd, d, fe, Ed, None, 10),
+            ("ds-w2", B * Ed, cd, fe, d, Ed, None, 10),
+            ("ds-router", B, T, d, Ed, 1, None, 10),
+            ("grok-w1w3", B * Eg, cg, g, ge, Eg, Eg, 2),
+            ("grok-w2", B * Eg, cg, ge, g, Eg, Eg, 2)]
+
+
+def check_group_contracts(name, BG, T, di, do, E, dtype):
+    """At an MoE shape, gy zeroed over example 1's E (example, expert)
+    groups (rows E to 2E-1): ``dense_bwd_norm``'s gx rows and norms²,
+    ``dense_dgrad``'s gx and square ``gram_norm``'s norms² are exactly zero
+    there and keep every other row's bits of the unzeroed call; two
+    launches of each give the same bits."""
+    import torch
+    from repro_torch.kernels import fused_bwd, gram_norm
+    x, gy, w = dense_inputs(BG, T, di, do, E, dtype)
+    gz = gy.clone()
+    gz[E:2 * E] = 0
+    zero = torch.zeros(BG, dtype=torch.bool, device="cuda")
+    zero[E:2 * E] = True
+    runs = {"dense_bwd_norm": lambda g: fused_bwd.dense_bwd_norm(x, g, w),
+            "dense_dgrad": lambda g: (fused_bwd.dense_dgrad(g, w),),
+            "gram_norm": lambda g: (gram_norm.gram_norm(x, g, None, square=True),)}
+    for kernel, run in runs.items():
+        full, a, b = run(gy), run(gz), run(gz)
+        torch.cuda.synchronize()
+        for f, p, q in zip(full, a, b):
+            assert torch.equal(p, q), (name, kernel, "repeat")
+            assert torch.all(p[zero] == 0), (name, kernel, "zero groups")
+            assert torch.equal(p[~zero], f[~zero]), (name, kernel, "other rows")
+        del full, a, b
+    print(f"[moe] {name} {_dtype_name(dtype)}: example 1's {E} zeroed gy groups "
+          f"give exact zeros in dense_bwd_norm (gx, norms²), dense_dgrad and "
+          f"gram_norm, the other rows' bits unchanged; repeats bit-identical",
+          flush=True)
+
+
+def check_moe_kernels():
+    """Phase 13 (a): the kernels at the MoE paths' shapes, float32 and
+    bf16, each against its plain version (``check_dense_bwd_norm``,
+    ``check_dense_halves``: a zeroed gy group gives an exact 0.0 and
+    repeats are bit-identical), with times, bounds, plain and library
+    times and the path each shape takes; at deepseek's and grok's w1
+    shapes one example's zeroed groups through every grouped kernel
+    (``check_group_contracts``); ``gram_norm`` square at
+    deepseek's expert groups (``auto``'s pick there, no id mask); the
+    flash forward at deepseek's serving wave (16 heads of 128) and at
+    grok's GQA (48 heads on 8), the backward at deepseek's training
+    shape."""
+    import torch
+    from repro_torch.configs import get_arch
+    ds, gk = get_arch(MOE_ARCH), get_arch(GROK_ARCH)
+    out = {"dense_bwd_norm": [], "pegrad_norm": [], "dense_dgrad": [],
+           "gram_norm": [], "flash_attn_fwd": [], "flash_attn_bwd": []}
+    for dtype in (torch.float32, torch.bfloat16):
+        for nm, BG, T, di, do, E, rows, iters in moe_kernel_shapes():
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["dense_bwd_norm"].append(check_dense_bwd_norm(
+                nm, BG, T, di, do, E, dtype, iters=iters, rows=rows))
+            halves = check_dense_halves(nm, BG, T, di, do, E, dtype, iters=iters,
+                                        rows=rows, ab=False)
+            out["pegrad_norm"].append(dict(halves["pegrad_norm"], E=E))
+            out["dense_dgrad"].append(halves["dense_dgrad"])
+        nm, BG, T, di, do, E, _, _ = moe_kernel_shapes()[0]
+        out["gram_norm"].append(check_gram("ds-w1w3", BG, T, di, do, False, True,
+                                           dtype))
+        for nm, BG, T, di, do, E, _, _ in moe_kernel_shapes()[::3]:
+            gc.collect()
+            torch.cuda.empty_cache()
+            check_group_contracts(nm, BG, T, di, do, E, dtype)
+    gc.collect()
+    torch.cuda.empty_cache()
+    bf = torch.bfloat16
+    out["flash_attn_fwd"] += [
+        check_flash("ds-wave", MAX_BATCH, ds.n_heads, ds.n_kv_heads,
+                    first_wave_t(request_stream(ds.vocab)), ds.hd, True, bf),
+        check_flash("grok-gqa", GROK_REQUESTS, gk.n_heads, gk.n_kv_heads,
+                    first_wave_t(request_stream(gk.vocab)[:GROK_REQUESTS]), gk.hd,
+                    True, bf)]
+    out["flash_attn_bwd"].append(check_flash_bwd(
+        "ds-train", TRAIN_B * ds.n_heads, TRAIN_B * ds.n_kv_heads, TRAIN_T, ds.hd,
+        True, bf))
+    for kernel, recs in out.items():
+        for r in recs:
+            norm = f", norm path {r['norm_path']}" if "norm_path" in r else ""
+            print(f"[moe] {kernel} {r['shape']} {r['dtype']}: path {r['path']}"
+                  f"{norm}; kernel / library {r['ms'] / r['library_ms']:.2f}, "
+                  f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound", flush=True)
+    return out
+
+
+def moe_decode_bound(arch):
+    """Bytes one decode step must read of the weights: every expert of
+    every MoE layer (decode computes all E at C 1), and all weights but the
+    embedding; each over HBM bandwidth, in ms."""
+    from repro_torch import tree
+    from repro_torch.models.transformer import group_layers, model_spec
+    spec = model_spec(arch)
+    pre, _, reps = group_layers(arch)
+    layers = list(spec["prelude"]) + list(spec.get("blocks", ())) * reps
+    sizes = lambda ps: sum(math.prod(p.shape) for p in ps)
+    experts = sizes(p for layer in layers if "moe" in layer
+                    for k, p in layer["moe"].items() if k.startswith("we"))
+    weights = sizes(tree.leaves(layers)) + sizes([spec["head"]])
+    return dict(expert_bytes=2 * experts, weight_bytes=2 * weights,
+                expert_bound_ms=1e3 * 2 * experts / PEAK_BYTES,
+                weight_bound_ms=1e3 * 2 * weights / PEAK_BYTES)
+
+
+def moe_serve(name, prompts, max_new, engines):
+    """Phase 13 (b) and (c): ``name`` at full width (grok at
+    ``GROK_LAYERS`` of its layers), bf16, seeded weights, serving
+    ``prompts`` greedily (``max_new`` tokens each) through each of
+    ``engines`` ("contiguous", "paged"), every flash launch counted; their
+    outputs must agree; deepseek's contiguous engine then serves a short
+    stream under ``torch.profiler`` for the decode's device busy share
+    (``decode_busy``).  Returns {engine: record}."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attn
+    from repro_torch.models.transformer import Model
+    arch = get_arch(name)
+    if name == GROK_ARCH:
+        arch = dataclasses.replace(arch, n_layers=GROK_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model = Model(arch, dtype=torch.bfloat16, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in model.parameters())
+    m = arch.moe
+    print(f"[moe] {arch.name}: {arch.n_layers} layers, d_model {arch.d_model}, "
+          f"{arch.n_heads} heads (kv {arch.n_kv_heads}) x hd {arch.hd}, {m.num_experts} "
+          f"experts top {m.top_k} of d {m.d_expert}, {m.num_shared_experts} shared, "
+          f"vocab {arch.vocab}; {n_par / 1e9:.3f}B params bf16, init "
+          f"{time.perf_counter() - t:.1f} s, init peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    serve(model, prompts[:2], 2, paged=False)        # warm-up
+    gc.collect()
+    bound = moe_decode_bound(arch)
+    runs = {}
+    for kind in engines:
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        out, eng, dt, spent = serve(model, prompts, max_new, kind == "paged")
+        counts = read_counts()
+        waves = eng.stats["prefill_waves"]
+        assert sorted(out) == list(range(len(prompts))), kind
+        for uid, toks in out.items():
+            assert len(toks) == max_new and all(0 <= x < arch.vocab for x in toks), \
+                (kind, uid)
+        assert counts["flash_attn_fwd"] >= arch.n_layers * waves, (kind, counts)
+        assert sum(counts.values()) == counts["flash_attn_fwd"], counts
+        n_tok = sum(len(v) for v in out.values())
+        steps = eng.stats["decode_steps"]
+        rec = dict(arch=arch.name, n_layers=arch.n_layers, params=n_par, engine=kind,
+                   requests=len(prompts), tokens=n_tok, seconds=dt,
+                   tok_per_s=n_tok / dt,
+                   mean_ttft_ms=1e3 * float(np.mean(list(eng.ttft.values()))),
+                   decode_ms_per_step=1e3 * spent["decode"] / max(steps, 1),
+                   prefill_ms_per_wave=1e3 * spent["prefill"] / max(waves, 1),
+                   decode_steps=steps, prefill_waves=waves,
+                   flash_launches=counts["flash_attn_fwd"],
+                   max_memory_allocated=torch.cuda.max_memory_allocated(), **bound)
+        runs[kind] = (out, rec)
+        print(f"[moe] {arch.name} {kind}: {n_tok} tokens in {dt:.2f} s "
+              f"({rec['tok_per_s']:.1f} tok/s), mean TTFT {rec['mean_ttft_ms']:.1f} ms, "
+              f"decode {rec['decode_ms_per_step']:.2f} ms/step over {steps} steps "
+              f"(bound: experts {bound['expert_bytes'] / 1e9:.1f} GB = "
+              f"{bound['expert_bound_ms']:.2f} ms, all weights "
+              f"{bound['weight_bytes'] / 1e9:.1f} GB = {bound['weight_bound_ms']:.2f} "
+              f"ms at 3.35 TB/s), {waves} prefill waves of "
+              f"{rec['prefill_ms_per_wave']:.1f} ms, flash launches "
+              f"{counts['flash_attn_fwd']}, peak "
+              f"{rec['max_memory_allocated'] / 2**30:.2f} GiB", flush=True)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    outs = [o for o, _ in runs.values()]
+    assert all(o == outs[0] for o in outs), f"{arch.name}: engines' greedy outputs differ"
+    if len(runs) > 1:
+        print(f"[moe] {arch.name}: paged greedy outputs equal the contiguous "
+              f"engine's", flush=True)
+    if name == MOE_ARCH:
+        # the device's busy share over the decode steps (the host's share
+        # is the rest)
+        from repro_torch.serve.engine import Engine
+        runs["contiguous"][1]["decode_busy"] = decode_busy(
+            f"{arch.name} contiguous", lambda: Engine(
+                model, max_batch=MAX_BATCH, cache_len=CACHE_LEN, block_size=BLOCK),
+            "_decode_chunk", prompts[:BUSY_REQUESTS], BUSY_NEW,
+            runs["contiguous"][1]["decode_ms_per_step"])
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: rec for k, (_, rec) in runs.items()}
+
+
+def moe_train():
+    """Phase 13 (d): deepseek-moe-16b at full width with ``MOE_TRAIN_LAYERS``
+    layers (5 if the planner puts 6 above ``MOE_PLAN_LIMIT``), B 8 x T 512,
+    ``dpsgd_r`` fused + kernels, ``remat="block"``, AdamW: a warm-up and
+    ``TRAIN_STEPS`` counted steps, the planner's estimate beside their
+    peak; the norms² of one batch through ``materialize``, ``auto`` and
+    the plain rules against the fused route's; one counted step of each
+    kernel route and one of the plain rules; one counted ``dpsgd_r1f``
+    step; one fused step under ``torch.profiler`` (``profile_step``)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.memory import within_tolerance
+    from repro_torch.models.transformer import Model
+    from repro_torch.train import Trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    layers, plan = MOE_TRAIN_LAYERS, []
+    while True:
+        arch = dataclasses.replace(get_arch(MOE_ARCH), n_layers=layers)
+        shape, cfg = train_shape_and_config(arch, "block")
+        model = Model(arch, dtype=torch.bfloat16, device="cuda", seed=0,
+                      remat="block")
+        trainer = Trainer(model, cfg, shape)
+        est = trainer.memory_report(None, trainer.make_batch(0))["peak_bytes"]
+        plan.append((layers, est))
+        print(f"[moe-train] {arch.name} at {layers} layers: the planner estimates "
+              f"{est / 2**30:.2f} GiB (limit {MOE_PLAN_LIMIT / 2**30:.0f} GiB)",
+              flush=True)
+        if est <= MOE_PLAN_LIMIT or layers == MOE_TRAIN_LAYERS - 1:
+            break
+        del model, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        layers -= 1
+    torch.cuda.reset_peak_memory_stats()
+    state = trainer.init_state()
+    n_par = sum(p.numel() for p in model.parameters())
+    print(f"[moe-train] {arch.name} at full width, {layers} layers (layer 0 dense, "
+          f"{layers - 1} MoE): {n_par / 1e9:.3f}B params bf16 + AdamW f32 state; "
+          f"batch {TRAIN_B} x {TRAIN_T}; launch shape {launch_shape(arch)}", flush=True)
+    timed_step(trainer, state)                    # warm-up
+    steps, launches = [], dict.fromkeys(kernel_counts(), 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    for _ in range(TRAIN_STEPS):
+        rec, *_ = counted_step(trainer, model, state, "fused")
+        steps.append(rec)
+        add(rec["launches"])
+        print(f"[moe-train] dpsgd_r fused+kernels step {state.step - 1}: loss "
+              f"{rec['loss']:.4f}; {rec['step_ms']:.1f} ms = pass 1 "
+              f"{rec['pass1_ms']:.1f} + pass 2 {rec['pass2_ms']:.1f} + noise and "
+              f"optimizer {rec['noise_opt_ms']:.1f}; launches "
+              f"{ {k: v for k, v in rec['launches'].items() if v} }", flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    assert all(math.isfinite(r["loss"]) for r in steps), steps
+    row = memory_row(f"phase 13: {arch.name} {layers} layers, remat block, dpsgd_r "
+                     f"fused", trainer, state, peak)
+    assert within_tolerance(row["ratio"]), row
+    prof = profile_step(lambda: timed_step(trainer, state), "MoE fused+kernels")
+
+    # the norms² of one batch through every route, against the fused one's
+    def trainer_for(**dp):
+        return Trainer(model, dataclasses.replace(
+            cfg, dp=dataclasses.replace(cfg.dp, **dp)), shape)
+    batch = trainer.make_batch(state.step)
+    nsq_f, *_ = split_passes(model, state, cfg.dp, batch)
+    routes, others = {}, {"materialize": dict(norm_strategy="materialize"),
+                          "auto": dict(norm_strategy="auto"),
+                          "plain": dict(use_kernels=False)}
+    split = {}
+    for label, dp in others.items():       # all on the same params and batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        nsq, _, p1, p2 = split_passes(model, state, trainer_for(**dp).cfg.dp, batch)
+        err = ((nsq - nsq_f).abs() / nsq_f.abs()).max().item()
+        assert err <= NSQ_RTOL, (label, err)
+        split[label] = (err, p1, p2)
+    for label, dp in others.items():       # then a step of each
+        tr = trainer_for(**dp)
+        err, p1, p2 = split[label]
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        if label == "plain":
+            rec = timed_step(tr, state)
+        else:
+            rec, *_ = counted_step(tr, model, state, label)
+            add(rec["launches"])
+        rec.update(nsq_rel_err=err, pass1_ms=p1, pass2_ms=p2,
+                   peak_bytes=torch.cuda.max_memory_allocated())
+        routes[label] = rec
+        print(f"[moe-train] {label}: norms² vs fused max rel err {err:.2e} (limit "
+              f"{NSQ_RTOL}); step {rec['step_ms']:.1f} ms (pass 1 {p1:.1f}, pass 2 "
+              f"{p2:.1f}), peak {rec['peak_bytes'] / 2**30:.2f} GiB"
+              + (f", launches { {k: v for k, v in rec['launches'].items() if v} }"
+                 if "launches" in rec else ""), flush=True)
+    r1f = trainer_for(algo="dpsgd_r1f")
+    timed_step(r1f, state)                        # warm-up: the second pullback
+    rec, *_ = counted_step(r1f, model, state, "fused")
+    add(rec["launches"])
+    routes["dpsgd_r1f"] = rec
+    print(f"[moe-train] dpsgd_r1f fused+kernels step: {rec['step_ms']:.1f} ms, loss "
+          f"{rec['loss']:.4f}; launches "
+          f"{ {k: v for k, v in rec['launches'].items() if v} }", flush=True)
+    out = dict(arch=arch.name, n_layers=layers, params=n_par, plan=plan, steps=steps,
+               mean_step_ms=float(np.mean([r["step_ms"] for r in steps])),
+               peak_bytes=peak, memory=row, routes=routes, launches=launches,
+               nsq_fused=nsq_f.tolist(), profile=prof)
+    del model, trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_path():
+    """Phase 13 (see the module docstring).  Returns its record."""
+    from repro_torch.configs import get_arch
+    kernels = check_moe_kernels()
+    ds_prompts = request_stream(get_arch(MOE_ARCH).vocab)
+    serve_ds = moe_serve(MOE_ARCH, ds_prompts, MAX_NEW, ("contiguous", "paged"))
+    serve_grok = moe_serve(GROK_ARCH, request_stream(get_arch(GROK_ARCH).vocab)
+                           [:GROK_REQUESTS], GROK_NEW, ("contiguous",))
+    train = moe_train()
+    launches = dict(train["launches"])
+    for recs in (serve_ds, serve_grok):
+        for r in recs.values():
+            launches["flash_attn_fwd"] += r["flash_launches"]
+    return dict(kernels=kernels, serve=serve_ds, grok=serve_grok, train=train,
+                launches=launches)
+
+
 class _Tee:
     """A text stream writing to every one of ``streams``."""
 
@@ -3187,8 +3667,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lap("phase 12")
+    # 13. the MoE family: its kernel shapes, deepseek-moe-16b served at full
+    # depth and trained at full width, grok-1-314b served at 2 layers
+    moe = moe_path()
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("phase 13")
     launches = {k: sum(r["launches"][k] for r in (train, routes, remat, algos, glm,
-                                                  images))
+                                                  images, moe))
                 for k in train["launches"]}
     launches["flash_attn_fwd"] += serve_launches
 
@@ -3237,6 +3723,14 @@ def main() -> int:
     for kernel in ("dense_bwd_norm", "pegrad_norm", "dense_dgrad", "gram_norm"):
         image_rows[kernel] = {m.split("-")[0]: image_row(kernel, m)
                               for m in IMAGE_ARCHS}
+    # phase 13's shapes (bf16) and launches on the deepseek training path
+    for kernel, recs in moe["kernels"].items():
+        image_rows[kernel]["moe"] = dict(
+            launches=moe["train"]["launches"][kernel],
+            shapes=[{k: r.get(k) for k in (
+                "shape", "BG", "BH", "T", "di", "do", "E", "hd", "rep", "max_abs_err",
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "path",
+                "norm_path")} for r in recs if r["dtype"] == "bfloat16"])
 
     def entry(name, source, replaces, n, rec, **extra):
         out = {"name": name, "route": "cuda",
@@ -3304,7 +3798,7 @@ def main() -> int:
          "decode_breakdown_ms": breakdown, "decode_busy": busy,
          "planner": planner, "train": train, "routes": routes,
          "remat": remat, "algos": algos, "glm": glm, "image_kernels": image_kernels,
-         "images": images, "json_line": kernels},
+         "images": images, "moe": moe, "json_line": kernels},
         indent=1, default=str))
     print(f"[time] chip_smoke.py: {time.perf_counter() - t_start:.1f} s from the device "
           f"query to the last check", flush=True)

@@ -1,6 +1,6 @@
 """Config registry of the port: ``get_arch(id)``, ``list_archs()``,
-``reduced(arch)`` for the dense decoder and the two image families, the
-input ``SHAPES`` and the ``--set`` override helpers."""
+``reduced(arch)`` for the dense and MoE decoders and the two image
+families, the input ``SHAPES`` and the ``--set`` override helpers."""
 from __future__ import annotations
 
 from dataclasses import replace
@@ -13,14 +13,16 @@ from repro_torch.configs.base import (ATTN, IMAGE_FAMILIES, MAMBA, SHAPES,
                                       shape_applicable)
 from repro_torch.configs.chatglm3_6b import ARCH as _chatglm3
 from repro_torch.configs.cnn_cifar10 import ARCH as _cnn_cifar10
+from repro_torch.configs.deepseek_moe_16b import ARCH as _dsmoe
+from repro_torch.configs.grok_1_314b import ARCH as _grok1
 from repro_torch.configs.phi3_mini_3_8b import ARCH as _phi3
 from repro_torch.configs.stablelm_3b import ARCH as _stablelm
 from repro_torch.configs.starcoder2_7b import ARCH as _starcoder2
 from repro_torch.configs.vit_cifar10 import ARCH as _vit_cifar10
 
 ARCHS: Dict[str, ArchConfig] = {
-    a.name: a for a in (_phi3, _stablelm, _starcoder2, _chatglm3,
-                        _cnn_cifar10, _vit_cifar10)}
+    a.name: a for a in (_phi3, _stablelm, _starcoder2, _chatglm3, _grok1,
+                        _dsmoe, _cnn_cifar10, _vit_cifar10)}
 
 
 def get_arch(name: str) -> ArchConfig:
@@ -35,9 +37,10 @@ def list_archs() -> List[str]:
 
 def reduced(arch: ArchConfig) -> ArchConfig:
     """Tiny same-family variant for CPU tests: same layer pattern and
-    feature set (GQA ratio, partial rotary, MLP flavour), small dims; the
-    CNN keeps its stage structure at small channel counts and image size.
-    Matches ``repro.configs.reduced`` for the families the port runs."""
+    feature set (GQA ratio, partial rotary, MLP flavour, MoE topology),
+    small dims; the CNN keeps its stage structure at small channel counts
+    and image size.  Matches ``repro.configs.reduced`` for the families the
+    port runs."""
     if arch.family == "cnn":
         return replace(
             arch, name=arch.name + "-reduced",
@@ -50,7 +53,7 @@ def reduced(arch: ArchConfig) -> ArchConfig:
             arch, name=arch.name + "-reduced", n_layers=2, d_model=64,
             n_heads=4, n_kv_heads=4, head_dim=16, d_ff=128,
             vit=replace(arch.vit, image_size=8, patch_size=2))
-    if arch.family != "dense":
+    if arch.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"{arch.name}: the {arch.family} family is not ported yet "
             f"(ROADMAP queue 1)")
@@ -58,6 +61,13 @@ def reduced(arch: ArchConfig) -> ArchConfig:
     n_heads = 4
     ratio = max(arch.n_heads // max(arch.n_kv_heads, 1), 1)
     n_kv = max(n_heads // min(ratio, n_heads), 1)
+    moe = arch.moe
+    if moe.enabled:
+        moe = replace(moe, num_experts=4, top_k=min(moe.top_k, 2),
+                      d_expert=64,
+                      d_shared=32 * moe.num_shared_experts,
+                      d_ff_dense=128 if moe.d_ff_dense else 0,
+                      moe_skip_first=min(moe.moe_skip_first, 1))
     return replace(
         arch,
         name=arch.name + "-reduced",
@@ -68,6 +78,7 @@ def reduced(arch: ArchConfig) -> ArchConfig:
         head_dim=16,
         d_ff=128,
         vocab=256,
+        moe=moe,
     )
 
 

@@ -1,8 +1,8 @@
 """Configs: the port's own copy of ``repro.configs.base``.
 
-``ArchConfig`` is limited to the fields the dense decoder and the two image
-families (``cnn``, ``vit``) read, and the MoE layer placement, so a layer
-pattern reads the same as there.  The shape, DP, optimizer and training
+``ArchConfig`` is limited to the fields the dense and MoE decoders and the
+two image families (``cnn``, ``vit``) read, so a layer pattern reads the
+same as there.  The shape, DP, optimizer and training
 configs keep the JAX package's field names, so ``--set a.b=c`` overrides
 read the same in both packages, but only for what the port runs.  The
 fields of parts it has not taken over (pipeline stages, the device mesh and
@@ -26,8 +26,15 @@ MAMBA = "mamba"
 
 @dataclass(frozen=True)
 class MoEConfig:
-    """Which layers are MoE (the port raises on them; see transformer.py)."""
+    """The routed-expert FFN of family ``"moe"`` (models/moe.py) and which
+    layers carry it."""
     num_experts: int = 0            # routed experts (0 = dense FFN)
+    top_k: int = 2
+    num_shared_experts: int = 0     # DeepSeek-style always-on experts
+    capacity_factor: float = 1.25
+    d_expert: int = 0               # per-expert FFN hidden dim
+    d_shared: int = 0               # shared-expert FFN hidden dim (total)
+    # which layers are MoE: every `moe_period` layers, starting at `moe_offset`
     moe_period: int = 1
     moe_offset: int = 0
     moe_skip_first: int = 0         # first N layers stay dense

@@ -79,6 +79,11 @@ class DPContext:
         """y = x @ w, w: (d_in, d_out), x: (..., d_in) with batch dim 0."""
         return self.site("dense", x, w)
 
+    def moe_dense(self, x, w):
+        """Per-expert dense: y[b, e] = x[b, e] @ w[e]; x: (B, E, C, d_in)
+        dispatch buffers, w: (E, d_in, d_out)."""
+        return self.site("moe_dense", x, w)
+
     def embed(self, ids, table):
         return self.site("embed", ids, table)
 

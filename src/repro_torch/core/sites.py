@@ -35,9 +35,10 @@ operand i needs a gradient; a grad it does not need may be None.
 ``remat="sites"`` keeps (``name_saved_operands``); ``param_operands``: the
 operands that are parameters, whose gradients a ``Pull("norms")`` skips.
 
-Registered here: ``dense``, ``embed``, ``tap``, ``conv2d`` and ``bias``
-(the image families, models/cnn.py and models/vit.py) and the
-parameter-free ``attention`` site.  ``moe_dense`` is not ported (ROADMAP).
+Registered here: ``dense``, ``moe_dense`` (the experts of models/moe.py),
+``embed``, ``tap``, ``conv2d`` and ``bias`` (the image families,
+models/cnn.py and models/vit.py) and the parameter-free ``attention``
+site: every site of the JAX package.
 """
 from __future__ import annotations
 
@@ -322,12 +323,14 @@ def _dense_kernel_gram(spec, operands, gy):
     return kops.gram_norm(*_dense_pair4(spec, operands, gy))
 
 
-def _dense_fused_bwd(spec, operands, gy, needs, want_nsq=True):
-    """The fused strategy: with kernels, ``dense_bwd_norm`` gives the dgrad
-    rows and the norm² in one call, and ``dense_dgrad`` the dgrad rows
-    alone when no norm² is wanted; without kernels, the plain dgrad and the
-    ``materialize`` rule.  The summed weight gradient stays outside the
-    kernel, computed only when ``w`` needs it."""
+def _fused_bwd(spec, operands, gy, needs, want_nsq, gx_fn, gw_fn):
+    """The fused strategy of a site ``y = x·w`` whose plain gradients are
+    ``gx_fn(gy, w, x)`` and ``gw_fn(x, gy, w)``: with kernels,
+    ``dense_bwd_norm`` gives the dgrad rows and the norm² in one call, and
+    ``dense_dgrad`` the dgrad rows alone when no norm² is wanted; without
+    kernels, the plain dgrad and the ``materialize`` rule.  The summed
+    weight gradient stays outside the kernel, computed only when ``w``
+    needs it."""
     x, w = operands
     nsq = None
     if spec.use_kernels:
@@ -341,10 +344,14 @@ def _dense_fused_bwd(spec, operands, gy, needs, want_nsq=True):
         gx = (None if gx4 is None else norms.unfold_views4(
             gx4, spec.augmult).reshape(x.shape).to(x.dtype))
     else:
-        gx = _dense_gx(gy, w, x) if needs[0] else None
+        gx = gx_fn(gy, w, x) if needs[0] else None
         if want_nsq:
             nsq = _dense_rule_materialize(spec, operands, gy)
-    return (gx, _dense_gw(x, gy, w) if needs[1] else None), nsq
+    return (gx, gw_fn(x, gy, w) if needs[1] else None), nsq
+
+
+def _dense_fused_bwd(spec, operands, gy, needs, want_nsq=True):
+    return _fused_bwd(spec, operands, gy, needs, want_nsq, _dense_gx, _dense_gw)
 
 
 def _dense_flops(rule):
@@ -352,17 +359,72 @@ def _dense_flops(rule):
                                          _canon4_shape(gy_shape))
 
 
-register_site(
-    "dense", fwd=_dense_fwd, bwd=_dense_bwd,
-    nsq_rules=dict(materialize=_dense_rule_materialize, gram=_dense_rule_gram,
-                   fused=_dense_rule_materialize),
-    kernel_route=dict(materialize=_dense_kernel_materialize,
-                      gram=_dense_kernel_gram),
-    fused_bwd={"fused": _dense_fused_bwd},
-    flops=dict(materialize=_dense_flops(norms.flops_materialize),
-               gram=_dense_flops(norms.flops_gram),
-               fused=_dense_flops(norms.flops_fused)),
-    save_operands=(0,), param_operands=(1,))
+# the dense rules, kernel routes and FLOP formulas, shared by ``moe_dense``
+_DENSE_RULES = dict(materialize=_dense_rule_materialize, gram=_dense_rule_gram,
+                    fused=_dense_rule_materialize)
+_DENSE_KERNELS = dict(materialize=_dense_kernel_materialize,
+                      gram=_dense_kernel_gram)
+_DENSE_FLOPS = dict(materialize=_dense_flops(norms.flops_materialize),
+                    gram=_dense_flops(norms.flops_gram),
+                    fused=_dense_flops(norms.flops_fused))
+
+register_site("dense", fwd=_dense_fwd, bwd=_dense_bwd, nsq_rules=_DENSE_RULES,
+              kernel_route=_DENSE_KERNELS,
+              fused_bwd={"fused": _dense_fused_bwd},
+              flops=_DENSE_FLOPS, save_operands=(0,), param_operands=(1,))
+
+
+# ---------------------------------------------------------------------------
+# moe_dense: y[b, e] = x[b, e] @ w[e], the experts of models/moe.py
+# ---------------------------------------------------------------------------
+#
+# x: (B, E, C, d_in) per-example dispatch buffers, w: (E, d_in, d_out).
+# Each (example, expert) pair is one group of the dense rules' (B, G, T, d)
+# layout (G = E, T = C), so the dense rules and kernels apply unchanged; the
+# kernels' row b·E + e reads w[(b·E + e) % E] = w[e].  The plain products
+# are one batched product over E with B·C rows each: w is never expanded
+# over B.
+
+def _expert_rows(a):
+    """(B, E, C, d) -> (E, B·C, d)."""
+    B, E, C, d = a.shape
+    return a.transpose(0, 1).reshape(E, B * C, d)
+
+
+def _from_expert_rows(a, B):
+    """(E, B·C, d) -> (B, E, C, d), a view."""
+    E, BC, d = a.shape
+    return a.reshape(E, B, BC // B, d).transpose(0, 1)
+
+
+def _moe_dense_fwd(spec, x, w):
+    return _from_expert_rows(torch.bmm(_expert_rows(x), w), x.shape[0])
+
+
+def _moe_dense_gx(gy, w, x):
+    return _from_expert_rows(torch.bmm(_expert_rows(gy), w.mT),
+                             x.shape[0]).to(x.dtype)
+
+
+def _moe_dense_gw(x, gy, w):
+    return torch.bmm(_expert_rows(x).mT, _expert_rows(gy)).to(w.dtype)
+
+
+def _moe_dense_bwd(spec, operands, gy, needs):
+    x, w = operands
+    return (_moe_dense_gx(gy, w, x) if needs[0] else None,
+            _moe_dense_gw(x, gy, w) if needs[1] else None)
+
+
+def _moe_dense_fused_bwd(spec, operands, gy, needs, want_nsq=True):
+    return _fused_bwd(spec, operands, gy, needs, want_nsq, _moe_dense_gx,
+                      _moe_dense_gw)
+
+
+register_site("moe_dense", fwd=_moe_dense_fwd, bwd=_moe_dense_bwd,
+              nsq_rules=_DENSE_RULES, kernel_route=_DENSE_KERNELS,
+              fused_bwd={"fused": _moe_dense_fused_bwd},
+              flops=_DENSE_FLOPS, save_operands=(0,), param_operands=(1,))
 
 
 # ---------------------------------------------------------------------------

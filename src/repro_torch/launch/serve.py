@@ -3,8 +3,10 @@
   python -m repro_torch.launch.serve --arch phi3-mini-3.8b \
       --requests 8 --max-new 16 --cache-len 128 --policy shortest-prompt
 
-Same flags as ``repro.launch.serve`` plus ``--device`` (default ``cuda``)
-and ``--dtype`` (default ``bfloat16``).  Weights are a seeded random init.
+Same flags as ``repro.launch.serve`` plus ``--device`` (default ``cuda``),
+``--dtype`` (default ``bfloat16``) and ``--set moe.<field>=<value>`` (an
+MoE arch's expert config, e.g. ``--set moe.capacity_factor=2.0``).  Weights
+are a seeded random init.
 ``--engine host-loop`` runs the host-loop reference engine
 (``serve/host_loop.py``) instead of the device engine (``jitted``, the
 JAX package's name for it).
@@ -17,7 +19,8 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import get_arch, reduced
+from repro_torch.configs import (apply_overrides, get_arch, parse_set_args,
+                                 reduced)
 from repro_torch.models.transformer import Model
 from repro_torch.serve.engine import Engine
 from repro_torch.serve.host_loop import HostLoopEngine
@@ -70,11 +73,21 @@ def main(argv=None) -> None:
     ap.add_argument("--ledger-delta", type=float, default=1e-6)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="bfloat16")
+    ap.add_argument("--set", action="append", default=[],
+                    help="arch overrides, e.g. --set moe.top_k=1")
     args = ap.parse_args(argv)
 
     arch = get_arch(args.arch)
     if args.reduced:
         arch = reduced(arch)
+    sets = parse_set_args(args.set)
+    bad = sorted(k for k in sets if not k.startswith("moe."))
+    if bad:
+        raise ValueError(f"--set {bad}: the serving launcher takes moe.* "
+                         f"keys only")
+    arch = apply_overrides(arch, sets)
+    if arch.moe.enabled:
+        print(f"[serve] {arch.moe}", flush=True)
     model = Model(arch, dtype=DTYPES[args.dtype], device=args.device,
                   seed=args.seed)
     ledger = None

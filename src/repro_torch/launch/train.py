@@ -80,7 +80,11 @@ def main(argv=None) -> None:
     cfg = TrainConfig()
     if args.dtype:
         cfg = replace(cfg, param_dtype=args.dtype, compute_dtype=args.dtype)
-    cfg = apply_overrides(cfg, parse_set_args(args.set))
+    sets = parse_set_args(args.set)
+    # moe.* keys override the arch's MoEConfig, the rest the TrainConfig
+    arch_sets = {k: v for k, v in sets.items() if k.startswith("moe.")}
+    cfg = apply_overrides(cfg, {k: v for k, v in sets.items()
+                                if k not in arch_sets})
     for key in ("param_dtype", "compute_dtype"):
         if getattr(cfg, key) not in DTYPES:
             raise ValueError(f"{key}={getattr(cfg, key)!r}; the launcher "
@@ -91,6 +95,7 @@ def main(argv=None) -> None:
     arch = get_arch(args.arch)
     if args.reduced:
         arch = reduced(arch)
+    arch = apply_overrides(arch, arch_sets)
     shape = SHAPES[cfg.shape]
     if args.batch or args.seq or args.reduced:
         shape = ShapeConfig(shape.name,
@@ -115,6 +120,8 @@ def main(argv=None) -> None:
           f"{cfg.remat}; dp {cfg.dp.algo} norm_strategy={cfg.dp.norm_strategy} "
           f"use_kernels={cfg.dp.use_kernels} adaptive_clip="
           f"{trainer.adaptive_clip}", flush=True)
+    if arch.moe.enabled:
+        print(f"[train] {arch.moe}", flush=True)
     if trainer.sampling == "poisson":
         print(f"[train] poisson sampling: q = {trainer.sample_rate:.3e}, "
               f"expected batch {shape.global_batch}, capacity "

@@ -56,8 +56,9 @@ class _Recompute:
 
 
 class _Region:
-    """One call of a block function ``fn(x, acc, saved) -> (x, acc)`` under
-    a checkpoint: autograd's saved tensors go through
+    """One call of a block function ``fn(*args, saved) -> outputs`` (the
+    activations, the norm accumulator and, in the decoder, the running MoE
+    aux total) under a checkpoint: autograd's saved tensors go through
     ``saved_tensors_hooks``; the region keeps the ones that live in a
     storage the sites recorded in ``saved`` (``keep_site_operands``, the
     ``"sites"`` policy) and replaces every other one by a placeholder.  The
@@ -127,17 +128,19 @@ class _Region:
 
 
 def remat_wrap(fn, remat: str):
-    """Wrap a block function ``fn(x, acc, saved=None) -> (x, acc)`` in the
-    configured activation-checkpointing policy; returns ``g(x, acc)``.
-    ``"none"`` stores everything, ``"block"`` stores only the block's
-    inputs, ``"sites"`` also keeps exactly the site operands the DP norm
-    rules consume (``sites.name_saved_operands``) and recomputes the rest.
-    ``acc`` is the norm² accumulator (None in ``off`` mode); ``fn`` rebuilds
-    its ``DPContext`` around it and ``saved``.  Unknown policies raise."""
+    """Wrap a block function ``fn(x, acc, *rest, saved=None) -> (x, acc,
+    *rest)`` in the configured activation-checkpointing policy; returns
+    ``g(x, acc, *rest)``.  ``"none"`` stores everything, ``"block"`` stores
+    only the block's inputs, ``"sites"`` also keeps exactly the site
+    operands the DP norm rules consume (``sites.name_saved_operands``) and
+    recomputes the rest.  ``acc`` is the norm² accumulator (None in ``off``
+    mode); ``fn`` rebuilds its ``DPContext`` around it and ``saved``.
+    ``rest``: further tensors carried through the block (the decoder's
+    (B,) MoE aux total).  Unknown policies raise."""
     if validate_remat(remat) == "none":
         return fn
     keep = remat == "sites"
-    return lambda x, acc: _Region(fn, (x, acc), keep).forward()
+    return lambda *args: _Region(fn, args, keep).forward()
 
 
 # ---------------------------------------------------------------------------

@@ -9,11 +9,14 @@ package scans that axis with ``lax.scan``; here a Python loop indexes it.
 KV caches are ``{"prelude": [(k, v), ...], "blocks": ((k, v), ...)}`` with
 the same leading ``(reps,)`` axis on block leaves.
 
-The port covers attention-only dense decoders.  Mamba and MoE layers raise
-``NotImplementedError`` (ROADMAP queue 1).  Training puts each block (one
-period of the repeated layers) under the model's ``remat`` policy
-(``layers.remat_wrap``), as the JAX package wraps its scanned block; the
-prelude is not wrapped.
+The port covers attention decoders with dense or MoE FFNs (models/moe.py);
+Mamba layers raise ``NotImplementedError`` (ROADMAP queue 1).  An MoE
+layer also gives a per-example load-balance aux loss, which the training
+loss adds at ``AUX_LOSS_WEIGHT``.  Training puts each block (one period of
+the repeated layers) under the model's ``remat`` policy
+(``layers.remat_wrap``), as the JAX package wraps its scanned block, with
+the running aux total carried through it beside the activations and the
+norm accumulator; the prelude is not wrapped.
 """
 from __future__ import annotations
 
@@ -29,8 +32,10 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ATTN, ArchConfig, validate_remat
 from repro_torch.core.context import DPContext
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import P
 
+AUX_LOSS_WEIGHT = 0.01
 VOCAB_PAD = 256
 
 
@@ -66,22 +71,21 @@ def layer_spec(arch: ArchConfig, sig: Tuple[str, bool]) -> Dict[str, Any]:
         raise NotImplementedError(
             f"{arch.name}: {kind} layers are not ported yet (ROADMAP queue 1, "
             f"Mamba serving path)")
-    if is_moe:
-        raise NotImplementedError(
-            f"{arch.name}: MoE layers are not ported yet (ROADMAP queue 1, "
-            f"MoE serving path)")
     d = arch.d_model
     spec: Dict[str, Any] = {"ln1": P((d,), "ones"), "attn": L.attn_spec(arch)}
     if arch.d_ff > 0:
         spec["ln2"] = P((d,), "ones")
-        spec["mlp"] = L.mlp_spec(arch, arch.ff_dense())
+        if is_moe:
+            spec["moe"] = moe_lib.moe_spec(arch)
+        else:
+            spec["mlp"] = L.mlp_spec(arch, arch.ff_dense())
     return spec
 
 
 def model_spec(arch: ArchConfig) -> Dict[str, Any]:
     if arch.embed_stub:
         raise NotImplementedError(f"{arch.name}: embedding-input models are "
-                                  f"not ported")
+                                  f"not ported yet (ROADMAP queue 1)")
     pre, period, reps = group_layers(arch)
     spec: Dict[str, Any] = {
         "embed": P((padded_vocab(arch.vocab), arch.d_model), "embed"),
@@ -108,12 +112,13 @@ def _map_spec(spec, fn, path=()):
 
 
 def init_spec(spec, seed: int, dtype: torch.dtype, device: torch.device,
-              lead=lambda path: ()):
+              lead=lambda path: (), fan_in=lambda shape: math.prod(shape[:-1])):
     """Seeded init of a spec tree on ``device``, with the distributions of
     the JAX package's initialisers: ones and zeros (kept float32, as
-    there), N(0, 0.02²) for an embedding, N(0, 1/fan_in) for a weight
-    (fan_in the product of all dims but the last).  ``lead(path)`` is a
-    leaf's leading stacked dims.  Each leaf draws from its own
+    there), N(0, 0.02²) for an embedding, N(0, 1/fan_in) for a weight,
+    ``fan_in(shape)`` of its spec shape (by default the product of all dims
+    but the last, the image models' rule).  ``lead(path)`` is a leaf's
+    leading stacked dims.  Each leaf draws from its own
     ``torch.Generator`` seeded by a crc32 of (seed, its path), so a leaf's
     values do not depend on the others.  The bits differ from JAX's
     threefry: tests share weights via ``interop``."""
@@ -125,7 +130,7 @@ def init_spec(spec, seed: int, dtype: torch.dtype, device: torch.device,
         g = torch.Generator(device=device)
         # 32 bits: the CPU generator keeps only the low 32 bits of a seed
         g.manual_seed(zlib.crc32(f"{seed}:{'/'.join(path)}".encode()))
-        std = 0.02 if p.init == "embed" else 1.0 / math.prod(p.shape[:-1]) ** 0.5
+        std = 0.02 if p.init == "embed" else 1.0 / fan_in(p.shape) ** 0.5
         w = torch.randn(shape, generator=g, dtype=torch.float32, device=device)
         return (w.mul_(std)).to(dtype)
 
@@ -135,10 +140,13 @@ def init_spec(spec, seed: int, dtype: torch.dtype, device: torch.device,
 def init_params(arch: ArchConfig, seed: int, dtype: torch.dtype,
                 device: torch.device):
     """``init_spec`` of the decoder's spec; every ``blocks`` leaf carries
-    the leading ``(reps,)`` axis."""
+    the leading ``(reps,)`` axis.  fan_in is a weight's second-to-last dim,
+    as in the JAX transformer: d_in of a dense (d_in, d_out) and of an
+    expert stack (E, d_in, d_out) alike."""
     pre, period, reps = group_layers(arch)
     return init_spec(model_spec(arch), seed, dtype, device,
-                     lambda path: (reps,) if path and path[0] == "blocks" else ())
+                     lambda path: (reps,) if path and path[0] == "blocks" else (),
+                     lambda shape: shape[-2])
 
 
 def _index(tree, r: int):
@@ -193,8 +201,9 @@ class ParamModel(nn.Module):
 
 
 class Model(ParamModel):
-    """Serving and training model of one dense ``ArchConfig`` (the
-    ``ParamModel`` contract for params, types, device and remat)."""
+    """Serving and training model of one decoder ``ArchConfig``, dense or
+    MoE (the ``ParamModel`` contract for params, types, device and
+    remat)."""
 
     def __init__(self, arch: ArchConfig, params=None, *,
                  dtype: torch.dtype = torch.bfloat16, device=None,
@@ -205,17 +214,25 @@ class Model(ParamModel):
                          seed=seed, remat=remat, param_dtype=param_dtype)
 
     # -- per-layer ----------------------------------------------------------
+    def _ffn(self, p, h, ctx: DPContext):
+        """The layer's FFN, dense or MoE: (y, ctx, aux (B,) or None)."""
+        if "moe" in p:
+            return moe_lib.moe_apply(p["moe"], h, ctx, self.arch)
+        return L.mlp_apply(p["mlp"], h, ctx, self.arch) + (None,)
+
     def _layer(self, p, x, ctx: DPContext, pos):
-        """Full-sequence layer (train / prefill): (x, ctx, kv)."""
+        """Full-sequence layer (train / prefill): (x, ctx, kv, aux), aux
+        None for a dense FFN."""
         arch = self.arch
         h, ctx = L.rmsnorm(x, p["ln1"], ctx, arch.norm_eps)
         y, ctx, kv = L.attn_apply(p["attn"], h, ctx, arch, pos)
         x = x + y
+        aux = None
         if arch.d_ff > 0:
             h, ctx = L.rmsnorm(x, p["ln2"], ctx, arch.norm_eps)
-            y, ctx = L.mlp_apply(p["mlp"], h, ctx, arch)
+            y, ctx, aux = self._ffn(p, h, ctx)
             x = x + y
-        return x, ctx, kv
+        return x, ctx, kv, aux
 
     def _layer_decode(self, p, x, kv, pos, tables=None):
         arch = self.arch
@@ -228,7 +245,7 @@ class Model(ParamModel):
         x = x + y
         if arch.d_ff > 0:
             h, _ = L.rmsnorm(x, p["ln2"], off, arch.norm_eps)
-            x = x + L.mlp_apply(p["mlp"], h, off, arch)[0]
+            x = x + self._ffn(p, h, off)[0]     # MoE at T 1: capacity 1
         return x, kv
 
     def _layers(self, params=None):
@@ -254,34 +271,43 @@ class Model(ParamModel):
 
     # -- training -------------------------------------------------------------
     def loss_fn(self, params, batch, ctx: DPContext):
-        """Per-example losses and the context: ``((B,) float32, ctx)``.
-        ``params``: a tree in this model's layout (``self.params``, or the
-        same tree detached); batch: ``{"tokens": (B, T+1) int}``."""
+        """Per-example losses and the context: ``((B,) float32, ctx)``,
+        each loss the cross-entropy plus ``AUX_LOSS_WEIGHT`` times the
+        example's MoE aux losses summed over layers.  ``params``: a tree in
+        this model's layout (``self.params``, or the same tree detached);
+        batch: ``{"tokens": (B, T+1) int}``."""
         toks = batch["tokens"]
         inputs, labels = toks[:, :-1], toks[:, 1:]
         B, T = labels.shape
         x, ctx = self._embed_in(params, inputs, ctx)
         pos = torch.arange(T, device=x.device)[None].expand(B, T)
+        aux = torch.zeros((B,), dtype=torch.float32, device=x.device)
         pre, period, reps = group_layers(self.arch)
         for i in range(pre):
-            x, ctx, _ = self._layer(params["prelude"][i], x, ctx, pos)
+            x, ctx, _, a = self._layer(params["prelude"][i], x, ctx, pos)
+            if a is not None:
+                aux = aux + a
         for r in range(reps):
             block = self._block_fn([_index(params["blocks"][j], r)
                                     for j in range(period)], ctx, pos)
-            x, acc = L.remat_wrap(block, self.remat)(x, ctx.acc)
+            x, acc, aux = L.remat_wrap(block, self.remat)(x, ctx.acc, aux)
             ctx = dataclasses.replace(ctx, acc=acc)
         logits, ctx = self._head(params, x, ctx)
-        return per_example_xent(logits, labels, self.arch.vocab), ctx
+        losses = per_example_xent(logits, labels, self.arch.vocab)
+        return losses + AUX_LOSS_WEIGHT * aux, ctx
 
     def _block_fn(self, layer_params, ctx: DPContext, pos):
-        """One period of blocks as ``fn(x, acc, saved=None) -> (x, acc)``:
-        tensors in and out, the ``DPContext`` rebuilt inside around the
-        accumulator, so a checkpoint boundary sees it."""
-        def block(x, acc, saved=None):
+        """One period of blocks as ``fn(x, acc, aux, saved=None) -> (x,
+        acc, aux)``: tensors in and out, the ``DPContext`` rebuilt inside
+        around the accumulator, so a checkpoint boundary sees it; ``aux``
+        the running (B,) aux total."""
+        def block(x, acc, aux, saved=None):
             c = dataclasses.replace(ctx, acc=acc, saved=saved)
             for p in layer_params:
-                x, c, _ = self._layer(p, x, c, pos)
-            return x, c.acc
+                x, c, _, a = self._layer(p, x, c, pos)
+                if a is not None:
+                    aux = aux + a
+            return x, c.acc, aux
         return block
 
     # -- caches -------------------------------------------------------------
@@ -325,7 +351,7 @@ class Model(ParamModel):
         pre_c: List[Any] = []
         blk_c: Dict[int, List[Any]] = {}
         for p, addr in self._layers():
-            x, _, kv = self._layer(p, x, off, pos)
+            x, _, kv, _ = self._layer(p, x, off, pos)
             if addr[0] == "prelude":
                 pre_c.append(kv)
             else:

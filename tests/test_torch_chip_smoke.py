@@ -253,6 +253,53 @@ def test_path_launches_count_a_split_step(smoke, monkeypatch, algo):
         dtype_groups=smoke.dtype_groups(model.params))
 
 
+@pytest.mark.parametrize("algo,route,remat,microbatch", [
+    ("dpsgd_r", "fused", "block", 0), ("dpsgd_r", "materialize", "none", 0),
+    ("dpsgd_r", "gram", "sites", 0), ("dpsgd_r", "auto", "block", 0),
+    ("dpsgd_r1f", "fused", "sites", 0), ("dpsgd", "fused", "none", 2),
+    ("sgd", "fused", "block", 0)])
+def test_path_launches_count_the_moe_wrapper_calls(smoke, monkeypatch, algo, route,
+                                                   remat, microbatch):
+    """Phase 13's path: ``path_launches`` of the MoE decoder (1 dense + 2
+    MoE layers of the reduced deepseek-moe-16b: 7 + 2 x 11 + 1 = 30 norm
+    sites, the experts' ``moe_dense`` among them) against the wrapper
+    calls of one Trainer step on the CPU, every route and algorithm; at
+    the card's B 8 x T 512, 6 layers make 63 sites, ``auto`` sending the
+    5 routers to ``pegrad_norm`` and the other 58 to ``gram_norm``."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import reduced
+    from repro_torch.configs.base import (DPConfig, OptimConfig, ShapeConfig,
+                                          TrainConfig)
+    from repro_torch.models.transformer import Model
+    from repro_torch.train import Trainer
+    for name, (mod, attr) in smoke.kernel_counts().items():
+        def counting(*args, _fn=getattr(mod, name), _mod=mod, _attr=attr,
+                     **kwargs):
+            setattr(_mod, _attr, getattr(_mod, _attr) + 1)
+            return _fn(*args, **kwargs)
+        monkeypatch.setattr(mod, name, counting)
+        monkeypatch.setattr(mod, attr, 0)
+    arch = dataclasses.replace(reduced(get_arch("deepseek-moe-16b")), n_layers=3)
+    model = Model(arch, dtype=torch.float32, device="cpu", remat=remat)
+    cfg = TrainConfig(param_dtype="float32", compute_dtype="float32",
+                      remat=remat, optim=OptimConfig(schedule="constant"),
+                      dp=DPConfig(algo=algo, norm_strategy=route,
+                                  use_kernels=True, microbatch=microbatch))
+    trainer = Trainer(model, cfg, ShapeConfig("t", 8, 4, "train"))
+    state = trainer.init_state()
+    smoke.zero_counts()
+    trainer.train_step(state, trainer.make_batch(0))
+    shape = smoke.launch_shape(arch, 4, 8)
+    assert shape["sites"] == 30
+    assert smoke.read_counts() == smoke.path_launches(
+        route, algo=algo, remat=remat, examples=4, microbatch=microbatch,
+        dtype_groups=smoke.dtype_groups(model.params), **shape)
+    full = dataclasses.replace(get_arch("deepseek-moe-16b"), n_layers=6)
+    assert smoke.launch_shape(full) == dict(L=6, family="moe", sites=63,
+                                            auto_norms=(5, 58))
+
+
 def test_agreeing_prefix(smoke):
     assert smoke.agreeing_prefix([1, 2, 3], [1, 2, 3]) == 3
     assert smoke.agreeing_prefix([1, 2, 3], [1, 5, 3]) == 1

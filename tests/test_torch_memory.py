@@ -171,8 +171,9 @@ def test_sim_matches_jax():
     for batch in (1, 2, 8, 64, 1024):
         assert tdf.pegrad_spill_bytes(batch, 1234) == \
             jdf.pegrad_spill_bytes(batch, 1234)
-    # the presets' GEMM tables: the port's archs where it has them, the JAX
-    # package's (read attribute by attribute) for the families it has not
+    # the presets' GEMM tables: the port's archs where it has them
+    # (deepseek-moe-16b among them), the JAX package's (read attribute by
+    # attribute) for the families it has not
     for name in (PHI3, "cnn-cifar10", "vit-cifar10", "deepseek-moe-16b",
                  "mamba2-1.3b"):
         tarch = treduced(TARCHS[name]) if name in TARCHS else jreduced(JARCHS[name])
@@ -186,7 +187,8 @@ def test_sim_matches_jax():
 # ---------------------------------------------------------------------------
 
 CROSS_CELLS = [(PHI3, "dpsgd_r", "block"), (PHI3, "dpsgd", "none"),
-               ("cnn-cifar10", "dpsgd_r1f", "sites")]
+               ("cnn-cifar10", "dpsgd_r1f", "sites"),
+               ("deepseek-moe-16b", "dpsgd_r", "sites")]
 
 
 @pytest.mark.parametrize("name,algo,remat", CROSS_CELLS)

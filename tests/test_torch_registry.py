@@ -6,9 +6,9 @@
 shim, and a third-party site and algorithm registered in the test that
 round-trip through all three private algorithms like the builtins.
 
-``moe_dense`` is the one registered site of the JAX package the port does
-not have yet (ROADMAP queue 1, MoE); every other listing is equal, and
-every FLOP formula gives the JAX package's number at the same shapes.
+Every registered site of the JAX package is in the port (``moe_dense``
+too); every listing is equal, and every FLOP formula gives the JAX
+package's number at the same shapes.
 Pins: per-example norms² against per-example autograd at rtol 1e-5 (the
 reference's), the three algorithms' masked updates at rtol 1e-4 / atol
 1e-8 (the reference's), a registered alias of ``dpsgd_r`` bit for bit.
@@ -28,7 +28,7 @@ from repro_torch.core import algo as talgo
 from repro_torch.core import sites as tsites
 from repro_torch.core.context import DPContext
 
-NOT_PORTED_SITES = {"moe_dense"}     # MoE: ROADMAP queue 1
+NOT_PORTED_SITES = set()
 
 # per site: (operand shapes, gy shape) cases, as the site's rules take them
 SHAPES = {
@@ -37,6 +37,10 @@ SHAPES = {
               (((1, 4, 512), (512, 512)), (1, 4, 512)),
               (((8, 512, 3072), (3072, 8192)), (8, 512, 8192)),
               (((2, 2048, 3072), (3072, 32256)), (2, 2048, 32256))],
+    # the reduced MoE (B 2, E 4, C 10, d 64) and deepseek-moe-16b's experts
+    # at B 8 x T 512 (C 60)
+    "moe_dense": [(((2, 4, 10, 64), (4, 64, 64)), (2, 4, 10, 64)),
+                  (((8, 64, 60, 2048), (64, 2048, 1408)), (8, 64, 60, 1408))],
     "embed": [(((2, 16), (256, 64)), (2, 16, 64)),
               (((8, 512), (32064, 3072)), (8, 512, 3072))],
     "tap": [(((3,),), (2, 3)), (((64,),), (8, 1, 64))],
