@@ -114,9 +114,8 @@ the script exits nonzero and prints no ``ok`` line:
    their plain rules); each one Poisson
    step (padded examples' norms² exactly 0) and one ``dpsgd`` step (all
    256 examples at once, one ``clip_reduce`` a parameter dtype into the
-   flat float32 sums),
-   then one more under ``torch.profiler`` for ``clip_reduce``'s device
-   time over the step; ε composed with the clip
+   flat float32 sums) under ``torch.profiler`` for ``clip_reduce``'s
+   device time over the step; ε composed with the clip
    mechanism and its split.  On the CNN, each conv layer's gy in pass 1
    through the fused route against the plain backward's (``[fold]``), with
    the route's ``F.fold`` as the code has it and in the other type;
@@ -164,7 +163,45 @@ the script exits nonzero and prints no ``ok`` line:
    planner's estimate beside their peak (within 4x), the norms² of one
    batch through ``materialize``, ``auto`` and the plain rules against the
    fused route's (``NSQ_RTOL``), a counted step of each, and a counted
-   ``dpsgd_r1f`` step.  No phase steps through ``Trainer.run``, which
+   ``dpsgd_r1f`` step;
+14. the SSM family: (a) the kernels at its shapes, bf16, each against its
+   plain version with times, bounds, plain and library times and paths:
+   ``dense_bwd_norm`` and ``pegrad_norm`` (a zeroed gy row exact, repeats
+   bit-identical) at every distinct norm site of the training paths:
+   mamba2-1.3b's in_proj (2048 -> 8512), out_proj (4096 -> 2048) and head
+   (2048 -> 50432) at B 8 x T 4096; the cut of jamba-1.5-large-398b at B 8
+   x T 512: q and o (8192 -> 8192), k and v (-> 1024), the dense FFN
+   (8192 <-> 24576), in_proj (8192 -> 35072), out_proj (16384 -> 8192),
+   the router (-> 16), the experts (8 x 16 groups of C 80, 8192 <-> 24576)
+   and the head (-> 65536) (plain versions a slice of rows at a time where
+   they would not fit); one example's zeroed rows or groups through
+   ``dense_bwd_norm``, ``dense_dgrad`` and ``gram_norm`` at mamba2's
+   in_proj and jamba's experts; ``gram_norm`` at both embeddings; the
+   flash forward at jamba's serving wave (64 heads on 8, hd 128) and its
+   training shape, the backward there; (b) mamba2-1.3b at full width and
+   depth (48 layers, 1.447B params), bf16, seeded weights, serving phase
+   5's stream through the contiguous engine (equal-length waves,
+   unpadded: a recurrent state would absorb pad tokens; the JAX engine's
+   schedule, each wave decoding to the next completion) and the host loop,
+   whose greedy streams must be equal; ``paged=True`` must raise; tok/s,
+   TTFT, decode ms a step beside the bytes bound of its weights and SSM
+   state, the peak; decode after a T-token prefill against the last row
+   of a (T+1)-token prefill within ``CHAIN_TOL``; (c) jamba's layers 4-5
+   at full width (attention with its dense FFN, Mamba with the 16-expert
+   MoE; 11.93B params), 4 requests x 16 tokens through the contiguous
+   engine, its decode beside the expert bytes it reads; (d) mamba2-1.3b
+   trained at full width and depth, B 8 x T 4096 (B 4 if the planner puts
+   B 8 above ``MOE_PLAN_LIMIT``), ``dpsgd_r`` fused + kernels,
+   ``remat="block"`` (the SSD scan's per-chunk checkpoint inside each
+   block), AdamW: a warm-up and three counted steps, the planner's
+   estimate beside their peak, one profiled step, the norms² of one batch
+   through ``materialize``, ``auto`` and the plain rules against fused
+   (``NSQ_RTOL``), the first two's pass 1 counted (``pass1_launches``);
+   (e) the jamba cut's two passes of one counted fused step at B 8 x T
+   512, beside the planner's estimate of the whole SGD step, which does
+   not fit the card (float32 gradient sums and momentum of 11.93B
+   params), and its norms² against pass 1 through the plain rules
+   (``NSQ_RTOL``).  No phase steps through ``Trainer.run``, which
    checkpoints at its last step.
 
 Each path counts the launches of every kernel from zero and must launch
@@ -206,6 +243,9 @@ PLAIN_ELEMS = 2**27
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
 F32_TOL = dict(rtol=2e-4, atol=2e-5)     # as tests/test_kernels.py
+# time_ms: the longest a timed loop runs, ms (a slow call's iterations are
+# cut to fit it, at least 2)
+LOOP_MS = 300.0
 BF16_ATOL = 2e-2                          # bf16 vs the plain version in f32
 # the main path's traffic: 16 greedy requests, prompts of 64-1024 tokens,
 # 64 new tokens each, through 8 slots of a 2048-position cache
@@ -252,6 +292,14 @@ BUSY_REQUESTS, BUSY_NEW = 8, 8
 MOE_ARCH, GROK_ARCH = "deepseek-moe-16b", "grok-1-314b"
 MOE_TRAIN_LAYERS, MOE_PLAN_LIMIT = 6, 72 * 2**30
 GROK_LAYERS, GROK_REQUESTS, GROK_NEW = 2, 4, 16
+# phase 14: mamba2-1.3b served and trained at full width and depth (train_4k's
+# length, T 4096); jamba-1.5-large-398b at full width on its layers 4-5,
+# served (4 requests x 16 tokens) and one step's passes at B 8 x T 512.
+# CHAIN_TOL: decode after a prefill against the last row of a prefill one
+# token longer, a share of the largest logit: two bf16 paths through 48
+# layers that round in other places
+MAMBA2_ARCH, JAMBA_ARCH, SSM_T = "mamba2-1.3b", "jamba-1.5-large-398b", 4096
+CHAIN_TOL = 5e-2
 
 
 def request_stream(vocab: int, seed: int = 0):
@@ -263,8 +311,20 @@ def request_stream(vocab: int, seed: int = 0):
 
 
 def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """``fn``'s mean ms over ``iters`` calls after ``warmup``, by CUDA
+    events.  A slow call runs fewer times: from the first warm-up call's
+    time, the timed calls are cut to fit ``LOOP_MS`` (at least 2), and a
+    call over ``LOOP_MS`` / 4 gets no second warm-up."""
     import torch
-    for _ in range(warmup):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    first = start.elapsed_time(end)
+    iters = max(2, min(iters, int(LOOP_MS / max(first, 1e-3))))
+    for _ in range(warmup - 1 if first <= LOOP_MS / 4 else 0):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -1103,6 +1163,10 @@ def small_reference(device_b: str = "cuda"):
           f"vs cpu: max |dlogits| {worst:.3e} (rtol/atol 1e-4)", flush=True)
 
 
+# the decoder families whose launches are counted from their norm sites
+SITE_FAMILIES = ("moe", "ssm", "hybrid")
+
+
 def kernel_counts():
     """Launch counts of every kernel wrapper: name -> (module, attribute)."""
     from repro_torch.kernels import (clip_reduce, flash_attn, fused_bwd,
@@ -1118,17 +1182,20 @@ def kernel_counts():
 
 def norm_sites(arch, B=TRAIN_B, T=TRAIN_T):
     """Every norm site call of one decoder forward at B x T, one per weight
-    matrix (the embedding apart): (kind, operand shapes, gy shape) of the
-    ``dense`` sites (x (B, T, d_in)) and the ``moe_dense`` sites (x (B, E,
-    C, d_in), C the capacity at T), in layer order, the head last."""
-    from repro_torch import tree
+    matrix (the embedding apart; a Mamba layer's (K, C) conv weight is a
+    tap): (kind, operand shapes, gy shape) of the ``dense`` sites (x (B, T,
+    d_in)) and the ``moe_dense`` sites (x (B, E, C, d_in), C the capacity
+    at T), in layer order, the head last."""
     from repro_torch.models.moe import capacity
     from repro_torch.models.transformer import group_layers, model_spec
     spec = model_spec(arch)
     pre, _, reps = group_layers(arch)
     layers = list(spec["prelude"]) + list(spec.get("blocks", ())) * reps
+    weights = [p for layer in layers for part, sub in layer.items()
+               if isinstance(sub, dict) for name, p in sub.items()
+               if (part, name) != ("mamba", "conv_w")]
     out = []
-    for p in tree.leaves(layers) + [spec["head"]]:
+    for p in weights + [spec["head"]]:
         if len(p.shape) == 2:
             out.append(("dense", ((B, T, p.shape[0]), p.shape), (B, T, p.shape[1])))
         elif len(p.shape) == 3:
@@ -1140,25 +1207,30 @@ def norm_sites(arch, B=TRAIN_B, T=TRAIN_T):
 
 def launch_shape(arch, B=TRAIN_B, T=TRAIN_T):
     """``path_launches``'s keywords for ``arch``'s family: the dense
-    decoder's layer count; the MoE decoder's, its norm sites and the
-    kernels ``auto`` resolves them to at B x T; or the image family and,
-    for the CNN, its conv2d sites."""
+    decoder's layer count; the MoE, SSM and hybrid decoders', their norm
+    sites and the kernels ``auto`` resolves them to at B x T (and, SSM and
+    hybrid, their attention layers); or the image family and, for the
+    CNN, its conv2d sites."""
     if arch.family == "cnn":
         from repro_torch.models.cnn import iter_conv_sites
         return dict(L=0, family="cnn", convs=len(list(iter_conv_sites(arch))))
-    if arch.family == "moe":
+    if arch.family in SITE_FAMILIES:
+        from repro_torch.configs.base import ATTN
         from repro_torch.core.sites import resolve_strategy
         picks = [resolve_strategy(k, "auto", ops, gy)
                  for k, ops, gy in norm_sites(arch, B, T)]
-        return dict(L=arch.n_layers, family="moe", sites=len(picks),
-                    auto_norms=(picks.count("materialize"), picks.count("gram")))
+        out = dict(L=arch.n_layers, family=arch.family, sites=len(picks),
+                   auto_norms=(picks.count("materialize"), picks.count("gram")))
+        if arch.family != "moe":
+            out["attn"] = arch.pattern().count(ATTN)
+        return out
     return dict(L=arch.n_layers, family=arch.family)
 
 
 def path_launches(route: str, L: int, chunks: int = 1, algo: str = "dpsgd_r",
                   remat: str = "none", examples: int = 0, microbatch: int = 0,
                   dtype_groups: int = 0, family: str = "dense", convs: int = 0,
-                  sites: int = 0, auto_norms=(0, 0)):
+                  sites: int = 0, auto_norms=(0, 0), attn=None):
     """Launches of every kernel in one step of ``algo``, as the code makes
     them.  The dense decoder with ``L`` layers: each layer has 7 dense
     sites (q, k, v, o, w1, w3, w2) and one attention, the model one head
@@ -1168,6 +1240,10 @@ def path_launches(route: str, L: int, chunks: int = 1, algo: str = "dpsgd_r",
     router, the experts' w1, w3, w2 (``moe_dense``) and the shared
     experts' w1, w3, w2; the head), ``auto`` sending ``auto_norms`` =
     (materialize, gram) of them to ``pegrad_norm`` and ``gram_norm``.  The
+    SSM and hybrid decoders (``family="ssm"``, ``"hybrid"``) count as the
+    MoE one does, with ``attn`` attention layers (none in the SSM): a Mamba
+    layer's norm sites are its in and out projections (its conv weight and
+    four vectors are taps, and its SSD scan is plain PyTorch).  The
     ViT (``family="vit"``, ``L`` layers): 6 dense
     sites a layer (q, k, v, o, w1, w2) and one non-causal attention, the
     patch embedding (a conv2d site) and the head.  The CNN
@@ -1200,8 +1276,8 @@ def path_launches(route: str, L: int, chunks: int = 1, algo: str = "dpsgd_r",
         sites, dgrads, attn, embeds = 6 * L + 2, 6 * L + 1, L, 0
     elif family == "cnn":
         sites, dgrads, attn, embeds = convs + 1, convs, 0, 0
-    elif family == "moe":
-        sites, dgrads, attn, embeds = sites, sites, L, 1
+    elif family in SITE_FAMILIES:
+        sites, dgrads, attn, embeds = sites, sites, L if attn is None else attn, 1
     else:
         raise ValueError(family)
     again = 0 if remat == "none" else attn    # the recompute, per backward
@@ -1226,7 +1302,7 @@ def path_launches(route: str, L: int, chunks: int = 1, algo: str = "dpsgd_r",
             n["gram_norm"] += sites
         elif route == "auto-2048" and family == "dense":
             n.update(pegrad_norm=4 * L, gram_norm=3 * L + 2)
-        elif route == "auto" and family == "moe":
+        elif route == "auto" and family in SITE_FAMILIES:
             n["pegrad_norm"] = auto_norms[0]
             n["gram_norm"] += auto_norms[1]
         else:
@@ -1234,6 +1310,15 @@ def path_launches(route: str, L: int, chunks: int = 1, algo: str = "dpsgd_r",
     else:
         raise ValueError(algo)
     return {k: v * chunks for k, v in n.items()}
+
+
+def pass1_launches(route: str, **shape):
+    """Launches of ``dpsgd_r``'s pass 1 alone (``algo.norm_pass``): the
+    step's (``path_launches``) less pass 2's, which is one forward and one
+    backward, as ``sgd``'s step."""
+    step = path_launches(route, algo="dpsgd_r", **shape)
+    two = path_launches(route, algo="sgd", **shape)
+    return {k: step[k] - two[k] for k in step}
 
 
 def dtype_groups(params) -> int:
@@ -1252,17 +1337,19 @@ def read_counts():
     return {k: getattr(mod, attr) for k, (mod, attr) in kernel_counts().items()}
 
 
-def memory_row(label, trainer, state, measured):
+def memory_row(label, trainer, state, measured, est=None, trace_s=None):
     """The planner's estimate of ``trainer``'s step on ``state`` at its next
     batch's shapes (``Trainer.memory_report``, a trace on fake tensors) beside
     ``measured``, the peak its phase read; a row of phase 12(a).  The trace
-    launches no kernel and counts none."""
-    counts = read_counts()
-    t = time.perf_counter()
-    est = trainer.memory_report(state, trainer.make_batch(state.step))
-    trace_s = time.perf_counter() - t
-    assert read_counts() == counts, ("the planner's trace counted launches",
-                                     counts, read_counts())
+    launches no kernel and counts none.  ``est``: the report of a trace of
+    the same step taken before (and its ``trace_s``), used as it is."""
+    if est is None:
+        counts = read_counts()
+        t = time.perf_counter()
+        est = trainer.memory_report(state, trainer.make_batch(state.step))
+        trace_s = time.perf_counter() - t
+        assert read_counts() == counts, ("the planner's trace counted launches",
+                                         counts, read_counts())
     row = dict(label=label, estimate_bytes=est["peak_bytes"],
                measured_bytes=int(measured), ratio=est["peak_bytes"] / measured,
                arg_bytes=est["arg_bytes"], transient_bytes=est["transient_bytes"],
@@ -1552,13 +1639,16 @@ PROFILE_KERNELS = {"flash_attn_fwd": ("flash_fwd_kernel",),
 
 
 def profile_step(run, label):
-    """One more training step under ``torch.profiler``: the device time of
-    every kernel by name, each of the port's kernels' share of the step's
-    wall time (``PROFILE_KERNELS``), and the device's busy share (busy =
-    the union of kernel intervals on the timeline)."""
+    """One more training step under ``torch.profiler`` (device activity
+    only: no number here reads the host's op records, and for a step of
+    tens of thousands of launches they cost the profiler tens of seconds
+    to gather): the device
+    time of every kernel by name, each of the port's kernels' share of the
+    step's wall time (``PROFILE_KERNELS``), and the device's busy share
+    (busy = the union of kernel intervals on the timeline)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         rec = run()
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA
@@ -1658,12 +1748,13 @@ def split_passes(model, state, dp, batch, clip=None):
     return nsq, losses, 1e3 * (t1 - t0), 1e3 * (t2 - t1)
 
 
-def counted_step(trainer, model, state, route, chunks=1):
+def counted_step(trainer, model, state, route, chunks=1, split=True):
     """One timed Trainer step with every kernel count from zero, checked
     against ``path_launches`` (at the trainer's algorithm, the model's
-    family and remat policy); then its two passes again on its batch, at
-    the clip norm the step used, outside the counted step, for the split.
-    Returns the step's record and the split's norms² and losses."""
+    family and remat policy); then, with ``split``, its two passes again on
+    its batch, at the clip norm the step used, outside the counted step,
+    for the split.  Returns the step's record and the split's norms² and
+    losses (None without the split)."""
     batch = trainer.make_batch(state.step)
     clip = trainer.clip_norm(state)
     clip = None if clip is None else clip.clone()
@@ -1678,10 +1769,12 @@ def counted_step(trainer, model, state, route, chunks=1):
                          **launch_shape(model.arch, trainer.shape.global_batch,
                                         trainer.shape.seq_len))
     assert counts == want, (route, model.remat, counts, want)
+    rec["launches"] = counts
+    if not split:
+        return rec, batch, None, None
     nsq, losses, rec["pass1_ms"], rec["pass2_ms"] = split_passes(
         model, state, trainer.cfg.dp, batch, clip)
     rec["noise_opt_ms"] = rec["step_ms"] - rec["pass1_ms"] - rec["pass2_ms"]
-    rec["launches"] = counts
     return rec, batch, nsq, losses
 
 
@@ -2578,15 +2671,18 @@ def train_image(name):
           f"{tr.sample_rate:.4e}; padded examples' norms² all exactly 0.0", flush=True)
     out["poisson"] = rec
 
-    # one dpsgd step: clip_reduce on each dtype's flat buffer of the 256
-    # per-example gradients
+    # one dpsgd step under torch.profiler: clip_reduce on each dtype's flat
+    # buffer of the 256 per-example gradients, its device time over the step
     dtr = image_trainer(model, shape, dataclasses.replace(
         cfg, dp=dataclasses.replace(cfg.dp, algo="dpsgd", microbatch=0)))
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
-    rec = timed_step(dtr, state)
+    box = []
+    cp = kernel_device_ms(lambda: box.append(timed_step(dtr, state)) or box[0],
+                          "clip_reduce")
+    rec = box[0]
     rec["peak_bytes"] = torch.cuda.max_memory_allocated()
     counts = read_counts()
     want = path_launches("fused", algo="dpsgd", remat=model.remat,
@@ -2598,22 +2694,18 @@ def train_image(name):
     rec["launches"] = counts
     print(f"[image] {name} dpsgd (all {IMAGE_B} examples at once) step {state.step - 1}: "
           f"loss {rec['loss']:.4f}; clip_norm {rec['clip_norm']:.4f} -> "
-          f"{rec['clip_norm_next']:.4f}; {rec['step_ms']:.1f} ms, peak "
-          f"{rec['peak_bytes'] / 2**30:.2f} GiB; launches "
+          f"{rec['clip_norm_next']:.4f}; {rec['step_ms']:.1f} ms under torch.profiler, "
+          f"peak {rec['peak_bytes'] / 2**30:.2f} GiB; launches "
           f"{ {k: v for k, v in counts.items() if v} }", flush=True)
-    # one more under torch.profiler: clip_reduce's device time over the step
-    rec["clip_reduce_profile"] = kernel_device_ms(lambda: timed_step(dtr, state),
-                                                  "clip_reduce")
-    cp = rec["clip_reduce_profile"]
+    rec["clip_reduce_profile"] = cp
     if cp["launches"] != counts["clip_reduce"]:     # a record the profiler lost
         print(f"[timer] {name} dpsgd step: torch.profiler recorded "
               f"{cp['launches']} of {counts['clip_reduce']} clip_reduce launches; "
               f"device time not measured", flush=True)
         cp["ms"] = None
     else:
-        print(f"[image] {name} dpsgd step under torch.profiler: clip_reduce "
-              f"{cp['ms']:.4f} ms of device time in {cp['launches']} launch(es) "
-              f"({', '.join(cp['names'])}); step {cp['step_ms']:.1f} ms wall",
+        print(f"[image] {name} dpsgd step: clip_reduce {cp['ms']:.4f} ms of device "
+              f"time in {cp['launches']} launch(es) ({', '.join(cp['names'])})",
               flush=True)
     out["dpsgd"] = rec
 
@@ -2873,7 +2965,6 @@ def planner_split():
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.configs.base import MemConfig, ShapeConfig
-    from repro_torch.launch.memory import abstract_batch, estimate_train_memory
     from repro_torch.models.transformer import Model
     from repro_torch.train import Trainer
     arch = dataclasses.replace(get_arch("phi3-mini-3.8b"), n_layers=TRAIN_LAYERS)
@@ -2884,22 +2975,12 @@ def planner_split():
     out = {}
     for algo, dp in (("dpsgd_r", {}), ("dpsgd", dict(algo="dpsgd", microbatch=0))):
         cfg = dataclasses.replace(base, dp=dataclasses.replace(base.dp, **dp))
+        # each split's estimate and measured step (one trace each), then the
+        # Trainer that picks between them at the midpoint budget
         t = time.perf_counter()
-        est = {g: estimate_train_memory(model, dataclasses.replace(cfg, grad_accum=g),
-                                        abstract_batch(arch, TRAIN_B, TRAIN_T))
-               for g in (1, 2)}
-        trace_s = time.perf_counter() - t
-        budget = (est[1]["peak_bytes"] + est[2]["peak_bytes"]) // 2
-        said = io.StringIO()
-        with contextlib.redirect_stdout(said):
-            auto = Trainer(model, dataclasses.replace(
-                cfg, mem=MemConfig(hbm_budget_bytes=budget, auto_microbatch=True)),
-                shape)
-        print(said.getvalue(), end="", flush=True)
-        measured = {}
+        est, measured = {}, {}
         for g in (1, 2):
-            tr = auto if g == auto.cfg.grad_accum else Trainer(
-                model, dataclasses.replace(cfg, grad_accum=g), shape)
+            tr = Trainer(model, dataclasses.replace(cfg, grad_accum=g), shape)
             gc.collect()
             torch.cuda.empty_cache()
             zero_counts()
@@ -2910,28 +2991,38 @@ def planner_split():
                                      model.params), **launch_shape(arch))
             assert counts == want, (algo, g, counts, want)
             assert math.isfinite(rep["metrics"]["loss"]), rep["metrics"]
+            est[g] = {k: v for k, v in rep.items() if k not in (
+                "peak_op", "measured_peak_bytes", "estimate_vs_measured", "metrics")}
             measured[g] = dict(estimate_bytes=rep["peak_bytes"],
                                measured_bytes=rep["measured_peak_bytes"],
                                ratio=rep["estimate_vs_measured"],
                                loss=rep["metrics"]["loss"])
+        trace_s = time.perf_counter() - t
+        budget = (est[1]["peak_bytes"] + est[2]["peak_bytes"]) // 2
+        said = io.StringIO()
+        with contextlib.redirect_stdout(said):
+            auto = Trainer(model, dataclasses.replace(
+                cfg, mem=MemConfig(hbm_budget_bytes=budget, auto_microbatch=True)),
+                shape)
+        print(said.getvalue(), end="", flush=True)
         print(f"[planner] {algo}{' (microbatch 0)' if dp else ''}, {TRAIN_LAYERS} "
               f"layers, B {TRAIN_B} x {TRAIN_T}, remat none: estimated peak "
               f"{est[1]['peak_bytes'] / 2**30:.2f} GiB at grad_accum 1, "
-              f"{est[2]['peak_bytes'] / 2**30:.2f} at 2 (traces {trace_s:.1f} s); "
+              f"{est[2]['peak_bytes'] / 2**30:.2f} at 2 (traces and steps "
+              f"{trace_s:.1f} s); "
               f"measured {measured[1]['measured_bytes'] / 2**30:.2f} and "
               f"{measured[2]['measured_bytes'] / 2**30:.2f} GiB (estimate / "
               f"measured {measured[1]['ratio']:.3f}, {measured[2]['ratio']:.3f}); "
               f"budget at the midpoint {budget / 2**30:.2f} GiB -> the Trainer "
               f"takes grad_accum {auto.cfg.grad_accum}", flush=True)
-        out[algo] = dict(estimates={g: {k: v for k, v in e.items()
-                                        if k != "peak_op"} for g, e in est.items()},
-                         budget=budget, picked=auto.cfg.grad_accum, steps=measured)
+        out[algo] = dict(estimates=est, budget=budget, picked=auto.cfg.grad_accum,
+                         steps=measured)
     # the per-example gradients set dpsgd's peak, and halving the chunk
     # halves them: the split pays there
     d = out["dpsgd"]
     assert d["picked"] == 2, d["picked"]
     assert d["steps"][2]["measured_bytes"] < d["steps"][1]["measured_bytes"], d
-    print(f"[planner] dpsgd: the step the Trainer split, grad_accum 2, measured "
+    print(f"[planner] dpsgd: the split the Trainer takes, grad_accum 2, measured "
           f"{d['steps'][2]['measured_bytes'] / 2**30:.2f} GiB against the budget "
           f"{d['budget'] / 2**30:.2f} GiB and the step at grad_accum 1's "
           f"{d['steps'][1]['measured_bytes'] / 2**30:.2f} GiB", flush=True)
@@ -3182,22 +3273,20 @@ def moe_decode_bound(arch):
                 weight_bound_ms=1e3 * 2 * weights / PEAK_BYTES)
 
 
-def moe_serve(name, prompts, max_new, engines):
-    """Phase 13 (b) and (c): ``name`` at full width (grok at
-    ``GROK_LAYERS`` of its layers), bf16, seeded weights, serving
-    ``prompts`` greedily (``max_new`` tokens each) through each of
-    ``engines`` ("contiguous", "paged"), every flash launch counted; their
-    outputs must agree; deepseek's contiguous engine then serves a short
-    stream under ``torch.profiler`` for the decode's device busy share
-    (``decode_busy``).  Returns {engine: record}."""
+def moe_serve(arch, prompts, max_new, engines, tag="moe"):
+    """Phase 13 (b) and (c), phase 14 (c): ``arch`` (grok at
+    ``GROK_LAYERS`` of its layers, jamba's two-layer cut), bf16, seeded
+    weights, serving ``prompts`` greedily (``max_new`` tokens each) through
+    each of ``engines`` ("contiguous", "paged"), every flash launch
+    counted; their outputs must agree; deepseek's contiguous engine then
+    serves a short stream under ``torch.profiler`` for the decode's device
+    busy share (``decode_busy``).  Lines start with ``[tag]``.  Returns
+    {engine: record}."""
     import numpy as np
     import torch
-    from repro_torch.configs import get_arch
-    from repro_torch.kernels import flash_attn
+    from repro_torch.configs.base import ATTN
     from repro_torch.models.transformer import Model
-    arch = get_arch(name)
-    if name == GROK_ARCH:
-        arch = dataclasses.replace(arch, n_layers=GROK_LAYERS)
+    n_attn = arch.pattern().count(ATTN)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3206,7 +3295,7 @@ def moe_serve(name, prompts, max_new, engines):
     torch.cuda.synchronize()
     n_par = sum(p.numel() for p in model.parameters())
     m = arch.moe
-    print(f"[moe] {arch.name}: {arch.n_layers} layers, d_model {arch.d_model}, "
+    print(f"[{tag}] {arch.name}: {arch.n_layers} layers, d_model {arch.d_model}, "
           f"{arch.n_heads} heads (kv {arch.n_kv_heads}) x hd {arch.hd}, {m.num_experts} "
           f"experts top {m.top_k} of d {m.d_expert}, {m.num_shared_experts} shared, "
           f"vocab {arch.vocab}; {n_par / 1e9:.3f}B params bf16, init "
@@ -3226,7 +3315,7 @@ def moe_serve(name, prompts, max_new, engines):
         for uid, toks in out.items():
             assert len(toks) == max_new and all(0 <= x < arch.vocab for x in toks), \
                 (kind, uid)
-        assert counts["flash_attn_fwd"] >= arch.n_layers * waves, (kind, counts)
+        assert counts["flash_attn_fwd"] >= n_attn * waves, (kind, counts)
         assert sum(counts.values()) == counts["flash_attn_fwd"], counts
         n_tok = sum(len(v) for v in out.values())
         steps = eng.stats["decode_steps"]
@@ -3240,7 +3329,7 @@ def moe_serve(name, prompts, max_new, engines):
                    flash_launches=counts["flash_attn_fwd"],
                    max_memory_allocated=torch.cuda.max_memory_allocated(), **bound)
         runs[kind] = (out, rec)
-        print(f"[moe] {arch.name} {kind}: {n_tok} tokens in {dt:.2f} s "
+        print(f"[{tag}] {arch.name} {kind}: {n_tok} tokens in {dt:.2f} s "
               f"({rec['tok_per_s']:.1f} tok/s), mean TTFT {rec['mean_ttft_ms']:.1f} ms, "
               f"decode {rec['decode_ms_per_step']:.2f} ms/step over {steps} steps "
               f"(bound: experts {bound['expert_bytes'] / 1e9:.1f} GB = "
@@ -3256,9 +3345,9 @@ def moe_serve(name, prompts, max_new, engines):
     outs = [o for o, _ in runs.values()]
     assert all(o == outs[0] for o in outs), f"{arch.name}: engines' greedy outputs differ"
     if len(runs) > 1:
-        print(f"[moe] {arch.name}: paged greedy outputs equal the contiguous "
+        print(f"[{tag}] {arch.name}: paged greedy outputs equal the contiguous "
               f"engine's", flush=True)
-    if name == MOE_ARCH:
+    if arch.name == MOE_ARCH:
         # the device's busy share over the decode steps (the host's share
         # is the rest)
         from repro_torch.serve.engine import Engine
@@ -3396,9 +3485,11 @@ def moe_path():
     from repro_torch.configs import get_arch
     kernels = check_moe_kernels()
     ds_prompts = request_stream(get_arch(MOE_ARCH).vocab)
-    serve_ds = moe_serve(MOE_ARCH, ds_prompts, MAX_NEW, ("contiguous", "paged"))
-    serve_grok = moe_serve(GROK_ARCH, request_stream(get_arch(GROK_ARCH).vocab)
-                           [:GROK_REQUESTS], GROK_NEW, ("contiguous",))
+    serve_ds = moe_serve(get_arch(MOE_ARCH), ds_prompts, MAX_NEW,
+                         ("contiguous", "paged"))
+    grok = dataclasses.replace(get_arch(GROK_ARCH), n_layers=GROK_LAYERS)
+    serve_grok = moe_serve(grok, request_stream(grok.vocab)[:GROK_REQUESTS], GROK_NEW,
+                           ("contiguous",))
     train = moe_train()
     launches = dict(train["launches"])
     for recs in (serve_ds, serve_grok):
@@ -3406,6 +3497,465 @@ def moe_path():
             launches["flash_attn_fwd"] += r["flash_launches"]
     return dict(kernels=kernels, serve=serve_ds, grok=serve_grok, train=train,
                 launches=launches)
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the SSM family (mamba2-1.3b and the jamba hybrid)
+# ---------------------------------------------------------------------------
+
+def jamba_cut():
+    """jamba-1.5-large-398b at full width on its layers 4-5: the attention
+    layer with its dense FFN, then a Mamba layer with the 16-expert MoE
+    (``moe_period`` 2 and ``moe_offset`` 1 as published)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ATTN, MAMBA
+    return dataclasses.replace(get_arch(JAMBA_ARCH), n_layers=2,
+                               layer_pattern=(ATTN, MAMBA))
+
+
+def ssm_kernel_shapes():
+    """Phase 14 (a)'s dense shapes, one for each distinct norm site of its
+    training paths (``norm_sites``; checked here): (name, BG, T, di, do, E,
+    rows, iters).  mamba2-1.3b at B 8 x T 4096: in_proj (2048 -> 8512),
+    out_proj (4096 -> 2048) and the head (2048 -> 50432).  jamba's cut at B
+    8 x T 512: q and o (8192 -> 8192), k and v (8192 -> 1024), the dense
+    FFN's w1 and w3 (8192 -> 24576) and w2, the Mamba layer's in_proj
+    (8192 -> 35072) and out_proj (16384 -> 8192), the router (8192 -> 16),
+    the experts at C 80 over 8 x 16 (example, expert) groups, 8192 <->
+    24576, and the head (8192 -> 65536).  The plain versions go a slice of
+    rows at a time (``by_rows``) where the float32 weight over 8 rows would
+    pass 8 GB (2 rows), and over the experts one example's groups."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.mamba2 import mamba_dims
+    from repro_torch.models.moe import capacity
+    from repro_torch.models.transformer import padded_vocab
+    m2, cut = get_arch(MAMBA2_ARCH), jamba_cut()
+    di2, H2, G2, N2, _, _ = mamba_dims(m2)
+    dij, Hj, Gj, Nj, _, _ = mamba_dims(cut)
+    E, C = cut.moe.num_experts, capacity(cut.moe, TRAIN_T)
+    d, dj = m2.d_model, cut.d_model
+    B = TRAIN_B
+    m2_sites = [("in_proj", d, 2 * di2 + 2 * G2 * N2 + H2), ("out_proj", di2, d),
+                ("head", d, padded_vocab(m2.vocab))]
+    cut_sites = [("qo", dj, cut.n_heads * cut.hd), ("kv", dj, cut.n_kv_heads * cut.hd),
+                 ("ffn-w1w3", dj, cut.d_ff), ("ffn-w2", cut.d_ff, dj),
+                 ("in_proj", dj, 2 * dij + 2 * Gj * Nj + Hj), ("out_proj", dij, dj),
+                 ("router", dj, E), ("head", dj, padded_vocab(cut.vocab))]
+    out = []
+    for tag, T, sites in (("m2", SSM_T, m2_sites), ("jamba", TRAIN_T, cut_sites)):
+        for nm, di, do in sites:
+            rows = 2 if 4 * B * di * do > 8 * 2**30 else None
+            out.append((f"{tag}-{nm}", B, T, di, do, 1, rows, 5))
+    out += [("jamba-w1w3", B * E, C, dj, cut.moe.d_expert, E, E, 2),
+            ("jamba-w2", B * E, C, cut.moe.d_expert, dj, E, E, 2)]
+    for tag, arch, T in (("m2", m2, SSM_T), ("jamba", cut, TRAIN_T)):
+        want = {(ops[1][-2], ops[1][-1], ops[1][0] if kind == "moe_dense" else 1)
+                for kind, ops, _ in norm_sites(arch, B, T)}
+        got = {(di, do, e) for nm, _, _, di, do, e, _, _ in out
+               if nm.startswith(tag + "-")}
+        assert got == want, (tag, got ^ want)
+    return out
+
+
+def check_ssm_kernels():
+    """Phase 14 (a): the kernels at the SSM paths' shapes, bf16, each
+    against its plain version with times, bounds, plain and library times
+    and the path each takes: ``dense_bwd_norm`` and ``pegrad_norm`` (a
+    zeroed gy row exact, repeats bit-identical) at every
+    ``ssm_kernel_shapes`` shape; one example's zeroed rows or groups
+    through ``dense_bwd_norm``, ``dense_dgrad`` and ``gram_norm`` at
+    mamba2's in_proj and jamba's experts (``check_group_contracts``);
+    ``gram_norm`` at mamba2's embedding (B 8 x T 4096, masked) and the
+    cut's (B 8 x T 512); the flash forward at jamba's serving wave (64
+    heads on 8, hd 128) and at its training shape, the backward there."""
+    import torch
+    from repro_torch.configs import get_arch
+    bf = torch.bfloat16
+    m2, jb = get_arch(MAMBA2_ARCH), get_arch(JAMBA_ARCH)
+    out = {"dense_bwd_norm": [], "pegrad_norm": [], "gram_norm": [],
+           "flash_attn_fwd": [], "flash_attn_bwd": []}
+    for nm, BG, T, di, do, E, rows, iters in ssm_kernel_shapes():
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["dense_bwd_norm"].append(check_dense_bwd_norm(
+            nm, BG, T, di, do, E, bf, iters=iters, rows=rows))
+        x, gy, _ = dense_inputs(BG, T, di, do, E, bf)
+        rec, _ = check_pegrad_norm(nm, x, gy, iters, rows)
+        out["pegrad_norm"].append(dict(rec, E=E))
+        del x, gy
+        if nm in ("m2-in_proj", "jamba-w1w3"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            check_group_contracts(nm, BG, T, di, do, E, bf)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["gram_norm"].append(check_gram("m2-embed", TRAIN_B, SSM_T, m2.d_model,
+                                       m2.d_model, True, False, bf, iters=5))
+    out["gram_norm"].append(check_gram("jamba-embed", TRAIN_B, TRAIN_T, jb.d_model,
+                                       jb.d_model, True, False, bf, iters=5))
+    wave_t = len(request_stream(jb.vocab)[0])        # an equal-length wave of one
+    out["flash_attn_fwd"].append(check_flash("jamba-wave", 1, jb.n_heads,
+                                             jb.n_kv_heads, wave_t, jb.hd, True, bf))
+    out["flash_attn_fwd"].append(check_flash("jamba-train", TRAIN_B, jb.n_heads,
+                                             jb.n_kv_heads, TRAIN_T, jb.hd, True, bf))
+    out["flash_attn_bwd"].append(check_flash_bwd(
+        "jamba-train", TRAIN_B * jb.n_heads, TRAIN_B * jb.n_kv_heads, TRAIN_T, jb.hd,
+        True, bf))
+    for kernel, recs in out.items():
+        for r in recs:
+            norm = f", norm path {r['norm_path']}" if "norm_path" in r else ""
+            print(f"[ssm] {kernel} {r['shape']} {r['dtype']}: path {r['path']}"
+                  f"{norm}; kernel / library {r['ms'] / r['library_ms']:.2f}, "
+                  f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound", flush=True)
+    return out
+
+
+def ssm_decode_bound(arch, B=MAX_BATCH):
+    """Bytes one decode step must move: every weight but the embedding
+    read once (bf16), and every Mamba layer's conv window (bf16) and SSM
+    state (float32) of ``B`` slots read and written; over HBM bandwidth,
+    in ms."""
+    from repro_torch import tree
+    from repro_torch.models.mamba2 import mamba_dims
+    from repro_torch.models.transformer import group_layers, model_spec
+    spec = model_spec(arch)
+    pre, _, reps = group_layers(arch)
+    layers = list(spec["prelude"]) + list(spec.get("blocks", ())) * reps
+    weights = sum(math.prod(p.shape) for p in tree.leaves(layers) + [spec["head"]])
+    d_in, H, G, N, K, Pd = mamba_dims(arch)
+    per_layer = B * ((K - 1) * (d_in + 2 * G * N) * 2 + H * Pd * N * 4)
+    state = 2 * per_layer * sum(1 for layer in layers if "mamba" in layer)
+    nbytes = 2 * weights + state
+    return dict(weight_bytes=2 * weights, state_bytes=state,
+                bound_ms=1e3 * nbytes / PEAK_BYTES)
+
+
+def ssm_serve(prompts):
+    """Phase 14 (b): mamba2-1.3b at full width and depth (48 layers), bf16,
+    seeded weights, serving ``prompts`` greedily through the contiguous
+    engine (equal-length waves, unpadded) and the host loop: their streams
+    must be equal; ``paged=True`` must raise; decode ms a step beside its
+    bytes bound; then the chaining check: decode after a T-token prefill
+    against the last logits of a (T+1)-token prefill, within
+    ``CHAIN_TOL`` of their largest entry.  Launches no kernel (no
+    attention).  Returns its record."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import Model
+    from repro_torch.serve.engine import Engine
+    from repro_torch.serve.host_loop import HostLoopEngine
+    from repro_torch.serve.scheduler import Request
+    arch = get_arch(MAMBA2_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model = Model(arch, dtype=torch.bfloat16, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in model.parameters())
+    m = arch.mamba
+    print(f"[ssm] {arch.name}: {arch.n_layers} Mamba2 layers, d_model {arch.d_model}, "
+          f"d_inner {m.d_inner(arch.d_model)}, {m.n_heads(arch.d_model)} heads of "
+          f"{m.head_dim}, d_state {m.d_state}, {m.n_groups} group, chunk {m.chunk}, "
+          f"vocab {arch.vocab}; {n_par / 1e9:.3f}B params bf16, init "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    try:
+        Engine(model, max_batch=MAX_BATCH, cache_len=CACHE_LEN, paged=True,
+               block_size=BLOCK)
+        raise AssertionError("paged=True did not raise on an SSM model")
+    except ValueError as e:
+        print(f"[ssm] paged=True raises: {e}", flush=True)
+    serve(model, prompts[:2], 2, paged=False)        # warm-up
+    gc.collect()
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    out, eng, dt, spent = serve(model, prompts, MAX_NEW, False)
+    counts = read_counts()
+    assert sum(counts.values()) == 0, counts
+    assert eng.has_mamba and eng.sched.same_length_waves
+    waves, steps = eng.stats["prefill_waves"], eng.stats["decode_steps"]
+    assert waves == len({len(p) for p in prompts}), waves
+    n_tok = sum(len(v) for v in out.values())
+    assert sorted(out) == list(range(len(prompts))) and all(
+        len(v) == MAX_NEW and all(0 <= x < arch.vocab for x in v) for v in out.values())
+    bound = ssm_decode_bound(arch)
+    rec = dict(arch=arch.name, params=n_par, requests=len(prompts), tokens=n_tok,
+               seconds=dt, tok_per_s=n_tok / dt,
+               mean_ttft_ms=1e3 * float(np.mean(list(eng.ttft.values()))),
+               decode_ms_per_step=1e3 * spent["decode"] / max(steps, 1),
+               prefill_ms_per_wave=1e3 * spent["prefill"] / max(waves, 1),
+               decode_steps=steps, prefill_waves=waves,
+               max_memory_allocated=torch.cuda.max_memory_allocated(), **bound)
+    print(f"[ssm] {arch.name} contiguous: {n_tok} tokens in {dt:.2f} s "
+          f"({rec['tok_per_s']:.1f} tok/s), mean TTFT {rec['mean_ttft_ms']:.1f} ms, "
+          f"decode {rec['decode_ms_per_step']:.2f} ms/step over {steps} steps (bound: "
+          f"weights {bound['weight_bytes'] / 1e9:.2f} GB + state "
+          f"{bound['state_bytes'] / 1e9:.2f} GB read and written = "
+          f"{bound['bound_ms']:.2f} ms at 3.35 TB/s), {waves} equal-length prefill "
+          f"waves of {rec['prefill_ms_per_wave']:.1f} ms, peak "
+          f"{rec['max_memory_allocated'] / 2**30:.2f} GiB", flush=True)
+    del eng
+    gc.collect()
+    host = HostLoopEngine(model, max_batch=MAX_BATCH, cache_len=CACHE_LEN)
+    for uid, p in enumerate(prompts):
+        host.submit(Request(uid=uid, prompt=p.astype(np.int32), max_new=MAX_NEW))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host_out = host.run()
+    host_s = time.perf_counter() - t0
+    assert host_out == out, "the host loop's greedy streams differ from the engine's"
+    rec.update(host_loop_tok_per_s=n_tok / host_s, host_loop_seconds=host_s,
+               host_loop_host_syncs=host.stats["host_syncs"],
+               host_loop_mean_ttft_ms=1e3 * float(np.mean(list(host.ttft.values()))))
+    print(f"[ssm] {arch.name} host loop: {n_tok} tokens in {host_s:.2f} s "
+          f"({rec['host_loop_tok_per_s']:.1f} tok/s), mean TTFT "
+          f"{rec['host_loop_mean_ttft_ms']:.1f} ms, {host.stats['host_syncs']} host "
+          f"reads; greedy streams equal to the engine's", flush=True)
+    del host
+    gc.collect()
+    # chaining: decode after a T-token prefill = the last row of T+1 tokens
+    toks = torch.as_tensor(prompts[0][None].astype(np.int64), device=model.device)
+    T = toks.shape[1] - 1
+    _, cache = model.prefill(toks[:, :T], T)
+    step, _ = model.decode_step(cache, toks[:, T:], torch.tensor([T], device=model.device))
+    full, _ = model.prefill(toks, T + 1)
+    a, b = step.float()[..., :arch.vocab], full.float()[..., :arch.vocab]
+    chain = ((a - b).abs().max() / b.abs().max()).item()
+    same = bool(a.argmax() == b.argmax())
+    print(f"[ssm] chaining at T {T}: decode after the prefill vs the last row of a "
+          f"{T + 1}-token prefill, max |dlogits| {chain:.2e} of the largest (limit "
+          f"{CHAIN_TOL}), argmax {'equal' if same else 'differs'}", flush=True)
+    assert chain <= CHAIN_TOL, chain
+    rec.update(chain_rel_err=chain, chain_argmax_equal=same, chain_T=T)
+    del model, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def nsq_only(model, state, dp, batch):
+    """Pass 1 of ``dpsgd_r`` on ``batch`` (the norms² alone), synced; and
+    its ms."""
+    import torch
+    from repro_torch.core import algo
+    data, mask = algo.split_mask(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nsq, _ = algo.norm_pass(model.loss_fn, state.params, data, dp, mask)
+    torch.cuda.synchronize()
+    return nsq, 1e3 * (time.perf_counter() - t0)
+
+
+def ssm_train():
+    """Phase 14 (d): mamba2-1.3b at full width and depth (48 layers), B 8 x
+    T 4096 (B 4 if the planner puts B 8 above ``MOE_PLAN_LIMIT``),
+    ``dpsgd_r`` fused + kernels, ``remat="block"``, AdamW: a warm-up and
+    ``TRAIN_STEPS`` counted steps, the planner's estimate beside their
+    peak (one trace, before the steps); the first step split into its
+    passes, whose norms² the ``materialize``, ``auto`` and plain rules'
+    (pass 1 on the same batch and params; the first two counted against
+    ``pass1_launches``) are held to; the last step under
+    ``torch.profiler``."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.memory import within_tolerance
+    from repro_torch.models.transformer import Model
+    from repro_torch.train import Trainer
+    arch = get_arch(MAMBA2_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = Model(arch, dtype=torch.bfloat16, device="cuda", seed=0, remat="block")
+    _, cfg = train_shape_and_config(arch, "block")
+    plan = []
+    for B in (TRAIN_B, TRAIN_B // 2):
+        shape = ShapeConfig("chip_smoke", SSM_T, B, "train")
+        trainer = Trainer(model, cfg, shape)
+        t = time.perf_counter()
+        est = trainer.memory_report(None, trainer.make_batch(0))
+        plan.append((B, est["peak_bytes"], time.perf_counter() - t))
+        print(f"[ssm-train] {arch.name} at B {B} x T {SSM_T}: the planner estimates "
+              f"{plan[-1][1] / 2**30:.2f} GiB (limit {MOE_PLAN_LIMIT / 2**30:.0f} GiB; "
+              f"trace {plan[-1][2]:.1f} s)", flush=True)
+        if plan[-1][1] <= MOE_PLAN_LIMIT:
+            break
+    torch.cuda.reset_peak_memory_stats()
+    state = trainer.init_state()
+    n_par = sum(p.numel() for p in model.parameters())
+    print(f"[ssm-train] {arch.name} at full width and depth: {n_par / 1e9:.3f}B params "
+          f"bf16 + AdamW f32 state; batch {shape.global_batch} x {SSM_T}; launch shape "
+          f"{launch_shape(arch, shape.global_batch, SSM_T)}", flush=True)
+    timed_step(trainer, state)                    # warm-up
+    steps, launches = [], dict.fromkeys(kernel_counts(), 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    def trainer_for(**dp):
+        return Trainer(model, dataclasses.replace(
+            cfg, dp=dataclasses.replace(cfg.dp, **dp)), shape)
+
+    routes, prof = {}, None
+    for i in range(TRAIN_STEPS):
+        if i < TRAIN_STEPS - 1:
+            rec, batch, nsq, _ = counted_step(trainer, model, state, "fused",
+                                              split=i == 0)
+        else:                                     # the last one profiled
+            box = []
+            prof = profile_step(lambda: box.append(counted_step(
+                trainer, model, state, "fused", split=False)[0]) or box[0],
+                "mamba2 fused+kernels")
+            rec = box[0]
+        steps.append(rec)
+        add(rec["launches"])
+        split = (f" = pass 1 {rec['pass1_ms']:.1f} + pass 2 {rec['pass2_ms']:.1f} + "
+                 f"noise and optimizer {rec['noise_opt_ms']:.1f}" if i == 0 else
+                 " (under torch.profiler)" if prof is not None else "")
+        print(f"[ssm-train] dpsgd_r fused+kernels step {state.step - 1}: loss "
+              f"{rec['loss']:.4f}; {rec['step_ms']:.1f} ms{split}; "
+              f"{shape.global_batch * SSM_T / rec['step_ms'] * 1e3:.0f} tok/s; launches "
+              f"{ {k: v for k, v in rec['launches'].items() if v} }", flush=True)
+        if i > 0:
+            continue
+        # the split's norms² (the step's batch, its updated params) against
+        # every other route's on the same batch and params
+        nsq_f = nsq
+        for label, dp in (("materialize", dict(norm_strategy="materialize")),
+                          ("auto", dict(norm_strategy="auto")),
+                          ("plain", dict(use_kernels=False))):
+            gc.collect()
+            torch.cuda.empty_cache()
+            zero_counts()
+            nsq, p1 = nsq_only(model, state, trainer_for(**dp).cfg.dp, batch)
+            counts = read_counts()
+            if label != "plain":
+                want = pass1_launches(label, remat=model.remat, **launch_shape(
+                    arch, shape.global_batch, SSM_T))
+                assert counts == want, (label, counts, want)
+                add(counts)
+            err = ((nsq - nsq_f).abs() / nsq_f.abs()).max().item()
+            assert err <= NSQ_RTOL, (label, err)
+            routes[label] = dict(nsq_rel_err=err, pass1_ms=p1, launches=counts)
+            print(f"[ssm-train] {label}: norms² vs fused max rel err {err:.2e} (limit "
+                  f"{NSQ_RTOL}); pass 1 {p1:.1f} ms (fused {rec['pass1_ms']:.1f}); "
+                  f"launches { {k: v for k, v in counts.items() if v} }", flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    assert all(math.isfinite(r["loss"]) for r in steps), steps
+    row = memory_row(f"phase 14: {arch.name} 48 layers, B {shape.global_batch} x T "
+                     f"{SSM_T}, remat block, dpsgd_r fused", trainer, state, peak,
+                     est=est, trace_s=plan[-1][2])
+    assert within_tolerance(row["ratio"]), row
+    out = dict(arch=arch.name, n_layers=arch.n_layers, params=n_par, plan=plan,
+               batch=shape.global_batch, T=SSM_T, steps=steps,
+               mean_step_ms=float(np.mean([r["step_ms"] for r in steps])),
+               peak_bytes=peak, memory=row, routes=routes, launches=launches,
+               nsq_fused=nsq_f.tolist(), profile=prof)
+    del model, trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def hybrid_train():
+    """Phase 14 (e): jamba's two-layer cut at full width (11.93B params),
+    B 8 x T 512, ``dpsgd_r`` fused + kernels, ``remat="block"``: one
+    counted step's two passes (pass 1's norms², pass 2's clipped-sum
+    gradients in float32; no warm-up: phase 14 (a) ran the kernels at these
+    shapes), the planner's estimate of the whole Trainer step beside it;
+    then pass 1 through the plain rules, whose norms² the fused ones are
+    held to within ``NSQ_RTOL``.
+    The whole step does not fit the card: pass 2's float32 sums
+    (47.7 GB) beside the bf16 params (23.9 GB), and then SGD's float32
+    momentum (47.7 GB; AdamW's state is three times that).  The noise and
+    the optimizer launch no kernel of the port, so the passes make every
+    launch ``path_launches`` counts."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the cut's bf16 params (22.2 GiB, drawn in float32 a leaf at a time)
+    # and pass 2's float32 sums (44.4 GiB, a stacked expert weight's one 12
+    # GiB block) leave ~12 GiB of the card: segments that grow keep the
+    # free memory in one piece
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        return _hybrid_passes()
+    finally:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+
+
+def _hybrid_passes():
+    import types
+    import torch
+    from repro_torch.configs.base import OptimConfig
+    from repro_torch.models.transformer import Model
+    from repro_torch.train import Trainer
+    arch = jamba_cut()
+    print(f"[ssm-train] before the cut's model: allocated "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, reserved "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB", flush=True)
+    model = Model(arch, dtype=torch.bfloat16, device="cuda", seed=0, remat="block")
+    torch.cuda.empty_cache()                  # the float32 draws' pages
+    shape, cfg = train_shape_and_config(arch, "block")
+    cfg = dataclasses.replace(cfg, optim=OptimConfig(name="sgd", lr=1e-4,
+                                                     schedule="constant"))
+    trainer = Trainer(model, cfg, shape)      # makes the params trainable
+    est = trainer.memory_report(None, trainer.make_batch(0))["peak_bytes"]
+    n_par = sum(p.numel() for p in model.parameters())
+    print(f"[ssm-train] {arch.name} layers 4-5 at full width: {n_par / 1e9:.3f}B params "
+          f"bf16; the planner puts a whole SGD step at B {TRAIN_B} x {TRAIN_T} at "
+          f"{est / 2**30:.2f} GiB (the card holds "
+          f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.1f} GiB): its "
+          f"two passes run alone; launch shape {launch_shape(arch)}", flush=True)
+    state = types.SimpleNamespace(params=model.params)
+    batch = trainer.make_batch(0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    nsq, losses, p1, p2 = split_passes(model, state, cfg.dp, batch)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = path_launches("fused", algo="dpsgd_r", remat="block", **launch_shape(arch))
+    assert counts == want, (counts, want)
+    assert torch.isfinite(nsq).all() and torch.isfinite(losses).all()
+    print(f"[ssm-train] {arch.name} cut, dpsgd_r fused+kernels passes: pass 1 {p1:.1f} "
+          f"ms + pass 2 {p2:.1f} ms, loss {losses.mean().item():.4f}, norms² "
+          f"{nsq.min().item():.3e}..{nsq.max().item():.3e}, peak {peak / 2**30:.2f} "
+          f"GiB; launches { {k: v for k, v in counts.items() if v} }", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    plain, plain_ms = nsq_only(model, state, dataclasses.replace(cfg.dp, use_kernels=False),
+                               batch)
+    err = ((nsq - plain).abs() / plain.abs()).max().item()
+    assert err <= NSQ_RTOL, err
+    print(f"[ssm-train] {arch.name} cut: norms² fused+kernels vs the plain rules "
+          f"(pass 1 {plain_ms:.1f} ms) max rel err {err:.2e} (limit {NSQ_RTOL})",
+          flush=True)
+    return dict(arch=arch.name, n_layers=2, params=n_par, batch=TRAIN_B,
+                plan_whole_step_bytes=est, pass1_ms=p1, pass2_ms=p2, peak_bytes=peak,
+                launches=counts, loss=losses.mean().item(), plain_pass1_ms=plain_ms,
+                nsq_rel_err=err)
+
+
+def ssm_path():
+    """Phase 14 (see the module docstring).  Returns its record."""
+    from repro_torch.configs import get_arch
+    kernels = check_ssm_kernels()
+    serve_m2 = ssm_serve(request_stream(get_arch(MAMBA2_ARCH).vocab))
+    cut = jamba_cut()
+    serve_cut = moe_serve(cut, request_stream(cut.vocab)[:GROK_REQUESTS], GROK_NEW,
+                          ("contiguous",), tag="ssm")
+    train = ssm_train()
+    hybrid = hybrid_train()
+    launches = {k: train["launches"][k] + hybrid["launches"][k] for k in train["launches"]}
+    launches["flash_attn_fwd"] += serve_cut["contiguous"]["flash_launches"]
+    return dict(kernels=kernels, serve=serve_m2, jamba=serve_cut, train=train,
+                hybrid=hybrid, launches=launches)
 
 
 class _Tee:
@@ -3673,8 +4223,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lap("phase 13")
+    # 14. the SSM family: its kernel shapes, mamba2-1.3b served and trained at
+    # full width and depth, jamba's two-layer cut served and its passes
+    ssm = ssm_path()
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("phase 14")
     launches = {k: sum(r["launches"][k] for r in (train, routes, remat, algos, glm,
-                                                  images, moe))
+                                                  images, moe, ssm))
                 for k in train["launches"]}
     launches["flash_attn_fwd"] += serve_launches
 
@@ -3731,6 +4287,15 @@ def main() -> int:
                 "shape", "BG", "BH", "T", "di", "do", "E", "hd", "rep", "max_abs_err",
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "path",
                 "norm_path")} for r in recs if r["dtype"] == "bfloat16"])
+
+    # phase 14's shapes (bf16) and launches on its paths
+    for kernel, recs in ssm["kernels"].items():
+        image_rows[kernel]["ssm"] = dict(
+            launches=ssm["launches"][kernel],
+            shapes=[{k: r.get(k) for k in (
+                "shape", "BG", "BH", "T", "di", "do", "E", "hd", "max_abs_err", "ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms", "path", "norm_path")}
+                for r in recs])
 
     def entry(name, source, replaces, n, rec, **extra):
         out = {"name": name, "route": "cuda",
@@ -3798,7 +4363,7 @@ def main() -> int:
          "decode_breakdown_ms": breakdown, "decode_busy": busy,
          "planner": planner, "train": train, "routes": routes,
          "remat": remat, "algos": algos, "glm": glm, "image_kernels": image_kernels,
-         "images": images, "moe": moe, "json_line": kernels},
+         "images": images, "moe": moe, "ssm": ssm, "json_line": kernels},
         indent=1, default=str))
     print(f"[time] chip_smoke.py: {time.perf_counter() - t_start:.1f} s from the device "
           f"query to the last check", flush=True)

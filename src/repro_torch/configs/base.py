@@ -1,8 +1,9 @@
 """Configs: the port's own copy of ``repro.configs.base``.
 
-``ArchConfig`` is limited to the fields the dense and MoE decoders and the
-two image families (``cnn``, ``vit``) read, so a layer pattern reads the
-same as there.  The shape, DP, optimizer and training
+``ArchConfig`` is limited to the fields the dense, MoE, SSM and hybrid
+decoders and the two image families (``cnn``, ``vit``) read, so a layer
+pattern reads the same as there (``use_fsdp``, a sharding option, is left
+out).  The shape, DP, optimizer and training
 configs keep the JAX package's field names, so ``--set a.b=c`` overrides
 read the same in both packages, but only for what the port runs.  The
 fields of parts it has not taken over (pipeline stages, the device mesh and
@@ -81,6 +82,24 @@ class ViTConfig:
 
 
 @dataclass(frozen=True)
+class MambaConfig:
+    """The Mamba2 mixer of families ``"ssm"`` and ``"hybrid"``
+    (models/mamba2.py)."""
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    n_groups: int = 1
+    chunk: int = 256                # SSD chunk length
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
+
+
+@dataclass(frozen=True)
 class ArchConfig:
     name: str
     family: str             # dense | ssm | moe | hybrid | audio | vlm | cnn | vit
@@ -95,8 +114,12 @@ class ArchConfig:
     rotary_pct: float = 1.0         # partial rotary (stablelm 0.25, chatglm 0.5)
     qk_norm: bool = False
     mlp_act: str = "swiglu"         # swiglu | gelu
+    # read only by the GEMM tables (sim/models.py): the decoder keeps its
+    # own head, as the JAX transformer does
+    tie_embeddings: bool = False
     layer_pattern: Optional[Tuple[str, ...]] = None
     moe: MoEConfig = field(default_factory=MoEConfig)
+    mamba: MambaConfig = field(default_factory=MambaConfig)
     cnn: CNNConfig = field(default_factory=CNNConfig)  # family == "cnn" only
     vit: ViTConfig = field(default_factory=ViTConfig)  # family == "vit" only
     embed_stub: bool = False

@@ -12,7 +12,9 @@ and cast to the activations' (the compute) type where they are used
 (``cast``), so the kernels see the compute type and autograd returns each
 weight's gradient in its parameter type; norm scales stay float32.
 ``remat_wrap`` puts a block function under an activation-checkpointing
-policy.
+policy; ``inner_remat`` says whether the finer checkpoints inside a block
+(the SSD scan's chunks, models/mamba2.py) are on.  ``gated_rmsnorm`` is the
+Mamba2 mixer's output norm.
 """
 from __future__ import annotations
 
@@ -143,6 +145,21 @@ def remat_wrap(fn, remat: str):
     return lambda *args: _Region(fn, args, keep).forward()
 
 
+def inner_remat(remat: str) -> bool:
+    """Whether the fine-grained inner checkpoints (the SSD scan's chunks)
+    are active: any checkpointing policy keeps them, since they are what
+    bounds the O(Q²) score blocks, and only ``"none"`` (store everything)
+    drops them."""
+    return validate_remat(remat) != "none"
+
+
+def largest_divisor_leq(n: int, cap: int) -> int:
+    for b in range(min(cap, n), 0, -1):
+        if n % b == 0:
+            return b
+    return 1
+
+
 # ---------------------------------------------------------------------------
 # Norms and RoPE
 # ---------------------------------------------------------------------------
@@ -158,6 +175,15 @@ def rmsnorm(x, scale, ctx: DPContext, eps: float = 1e-5):
     is tapped for per-example norms.  Returns (y, ctx)."""
     s, ctx = ctx.tap(scale, x.dim() - 1 - scale.dim(), x.shape[0])
     return _rms(x, s, eps), ctx
+
+
+def gated_rmsnorm(y, z, scale, ctx: DPContext, eps: float = 1e-5):
+    """Mamba2's output norm, rmsnorm(y * silu(z)) * scale, in float32;
+    scale (d,) is tapped for per-example norms.  Returns (out, ctx)."""
+    g = y.float() * F.silu(z.float())
+    s, ctx = ctx.tap(scale, 1, y.shape[0])
+    out = g * torch.rsqrt(torch.mean(g * g, dim=-1, keepdim=True) + eps)
+    return (out * s.float()).to(y.dtype), ctx
 
 
 def rope(x, pos, theta: float, pct: float):

@@ -6,14 +6,18 @@ Params keep the JAX package's nesting and layouts: ``{"embed",
 "prelude": [layer, ...], "blocks": (layer, ...), "final_norm", "head"}``,
 where every ``blocks`` leaf carries a leading ``(reps,)`` axis.  The JAX
 package scans that axis with ``lax.scan``; here a Python loop indexes it.
-KV caches are ``{"prelude": [(k, v), ...], "blocks": ((k, v), ...)}`` with
-the same leading ``(reps,)`` axis on block leaves.
+Caches are ``{"prelude": [c, ...], "blocks": (c, ...)}`` with the same
+leading ``(reps,)`` axis on block leaves, ``c`` an attention layer's (k, v)
+or a Mamba layer's (conv window, SSM state).
 
-The port covers attention decoders with dense or MoE FFNs (models/moe.py);
-Mamba layers raise ``NotImplementedError`` (ROADMAP queue 1).  An MoE
-layer also gives a per-example load-balance aux loss, which the training
-loss adds at ``AUX_LOSS_WEIGHT``.  Training puts each block (one period of
-the repeated layers) under the model's ``remat`` policy
+A layer is attention or Mamba2 (models/mamba2.py) with a dense or MoE FFN
+(models/moe.py), as the layer pattern says, so the dense, MoE, SSM and
+hybrid decoders are one ``Model``.  An MoE layer also gives a per-example
+load-balance aux loss, which the training loss adds at
+``AUX_LOSS_WEIGHT``.  Mamba layers keep an O(1) recurrent state a slot:
+there is nothing to page, so the paged cache and paged decode raise for
+them.  Training puts each block (one period of the repeated layers) under
+the model's ``remat`` policy
 (``layers.remat_wrap``), as the JAX package wraps its scanned block, with
 the running aux total carried through it beside the activations and the
 norm accumulator; the prelude is not wrapped.
@@ -29,9 +33,10 @@ import torch
 import torch.nn as nn
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ATTN, ArchConfig, validate_remat
+from repro_torch.configs.base import ATTN, MAMBA, ArchConfig, validate_remat
 from repro_torch.core.context import DPContext
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import P
 
@@ -67,12 +72,12 @@ def group_layers(arch: ArchConfig) -> Tuple[int, int, int]:
 
 def layer_spec(arch: ArchConfig, sig: Tuple[str, bool]) -> Dict[str, Any]:
     kind, is_moe = sig
-    if kind != ATTN:
-        raise NotImplementedError(
-            f"{arch.name}: {kind} layers are not ported yet (ROADMAP queue 1, "
-            f"Mamba serving path)")
     d = arch.d_model
-    spec: Dict[str, Any] = {"ln1": P((d,), "ones"), "attn": L.attn_spec(arch)}
+    spec: Dict[str, Any] = {"ln1": P((d,), "ones")}
+    if kind == ATTN:
+        spec["attn"] = L.attn_spec(arch)
+    else:
+        spec["mamba"] = mamba2.mamba_spec(arch)
     if arch.d_ff > 0:
         spec["ln2"] = P((d,), "ones")
         if is_moe:
@@ -114,10 +119,12 @@ def _map_spec(spec, fn, path=()):
 def init_spec(spec, seed: int, dtype: torch.dtype, device: torch.device,
               lead=lambda path: (), fan_in=lambda shape: math.prod(shape[:-1])):
     """Seeded init of a spec tree on ``device``, with the distributions of
-    the JAX package's initialisers: ones and zeros (kept float32, as
-    there), N(0, 0.02²) for an embedding, N(0, 1/fan_in) for a weight,
-    ``fan_in(shape)`` of its spec shape (by default the product of all dims
-    but the last, the image models' rule).  ``lead(path)`` is a leaf's
+    the JAX package's initialisers: ones and zeros, Mamba's ``mamba_dt``
+    (the inverse softplus of exp U(ln 1e-3, ln 1e-1)) and ``mamba_alog``
+    (ln U(1, 16)), all four kept float32 as there; N(0, 0.02²) for an
+    embedding, N(0, 1/fan_in) for a weight, ``fan_in(shape)`` of its spec
+    shape (by default the product of all dims but the last, the image
+    models' rule).  ``lead(path)`` is a leaf's
     leading stacked dims.  Each leaf draws from its own
     ``torch.Generator`` seeded by a crc32 of (seed, its path), so a leaf's
     values do not depend on the others.  The bits differ from JAX's
@@ -130,6 +137,12 @@ def init_spec(spec, seed: int, dtype: torch.dtype, device: torch.device,
         g = torch.Generator(device=device)
         # 32 bits: the CPU generator keeps only the low 32 bits of a seed
         g.manual_seed(zlib.crc32(f"{seed}:{'/'.join(path)}".encode()))
+        if p.init in ("mamba_dt", "mamba_alog"):
+            u = torch.rand(shape, generator=g, dtype=torch.float32, device=device)
+            if p.init == "mamba_alog":
+                return torch.log(1.0 + 15.0 * u)
+            dt = torch.exp(math.log(1e-3) + u * (math.log(1e-1) - math.log(1e-3)))
+            return dt + torch.log(-torch.expm1(-dt))        # inverse softplus
         std = 0.02 if p.init == "embed" else 1.0 / fan_in(p.shape) ** 0.5
         w = torch.randn(shape, generator=g, dtype=torch.float32, device=device)
         return (w.mul_(std)).to(dtype)
@@ -201,9 +214,9 @@ class ParamModel(nn.Module):
 
 
 class Model(ParamModel):
-    """Serving and training model of one decoder ``ArchConfig``, dense or
-    MoE (the ``ParamModel`` contract for params, types, device and
-    remat)."""
+    """Serving and training model of one decoder ``ArchConfig``: dense,
+    MoE, SSM or hybrid (the ``ParamModel`` contract for params, types,
+    device and remat)."""
 
     def __init__(self, arch: ArchConfig, params=None, *,
                  dtype: torch.dtype = torch.bfloat16, device=None,
@@ -221,11 +234,16 @@ class Model(ParamModel):
         return L.mlp_apply(p["mlp"], h, ctx, self.arch) + (None,)
 
     def _layer(self, p, x, ctx: DPContext, pos):
-        """Full-sequence layer (train / prefill): (x, ctx, kv, aux), aux
-        None for a dense FFN."""
+        """Full-sequence layer (train / prefill): (x, ctx, cache, aux), the
+        cache (k, v) or a Mamba layer's (conv window, SSM state), aux None
+        for a dense FFN."""
         arch = self.arch
         h, ctx = L.rmsnorm(x, p["ln1"], ctx, arch.norm_eps)
-        y, ctx, kv = L.attn_apply(p["attn"], h, ctx, arch, pos)
+        if "attn" in p:
+            y, ctx, kv = L.attn_apply(p["attn"], h, ctx, arch, pos)
+        else:
+            y, ctx, kv = mamba2.mamba_apply(p["mamba"], h, ctx, arch,
+                                            want_cache=True, remat=self.remat)
         x = x + y
         aux = None
         if arch.d_ff > 0:
@@ -238,7 +256,11 @@ class Model(ParamModel):
         arch = self.arch
         off = DPContext.off()
         h, _ = L.rmsnorm(x, p["ln1"], off, arch.norm_eps)
-        if tables is None:
+        if "mamba" in p:                 # the new state written in place
+            y, new = mamba2.mamba_decode(p["mamba"], h, kv[0], kv[1], arch)
+            for dst, src in zip(kv, new):
+                dst.copy_(src)
+        elif tables is None:
             y, kv = L.attn_decode(p["attn"], h, kv, pos, arch)
         else:
             y, kv = L.attn_decode_paged(p["attn"], h, kv, tables, pos, arch)
@@ -311,23 +333,46 @@ class Model(ParamModel):
         return block
 
     # -- caches -------------------------------------------------------------
-    def _cache_tree(self, shape) -> Dict[str, Any]:
-        pre, period, reps = group_layers(self.arch)
-        z = lambda *lead: torch.zeros(lead + shape, dtype=self.dtype,
-                                      device=self.device)
-        return {"prelude": [(z(), z()) for _ in range(pre)],
-                "blocks": (tuple((z(reps), z(reps)) for _ in range(period))
-                           if reps > 0 else None)}
+    def _cache_tree(self, leaves) -> Dict[str, Any]:
+        """Zeros of ``leaves(kind)``, a layer's ((shape, dtype), ...), for
+        every layer; block leaves lead with (reps,)."""
+        arch = self.arch
+        pre, period, reps = group_layers(arch)
+
+        def layer(kind, *lead):
+            return tuple(torch.zeros(lead + shape, dtype=dtype, device=self.device)
+                         for shape, dtype in leaves(kind))
+        return {"prelude": [layer(layer_sig(arch, i)[0]) for i in range(pre)],
+                "blocks": (tuple(layer(layer_sig(arch, pre + j)[0], reps)
+                                 for j in range(period)) if reps > 0 else None)}
 
     def init_cache(self, B: int, S: int):
-        """Contiguous KV cache: (k, v) of (B, S, KV, hd) per layer."""
-        return self._cache_tree((B, S, self.arch.n_kv_heads, self.arch.hd))
+        """Contiguous cache: (k, v) of (B, S, KV, hd) per attention layer;
+        (conv window (B, K-1, C) in the compute type, SSM state (B, H, P,
+        N) float32) per Mamba layer."""
+        arch = self.arch
+        kv = (B, S, arch.n_kv_heads, arch.hd)
+
+        def leaves(kind):
+            if kind == ATTN:
+                return ((kv, self.dtype),) * 2
+            d_in, H, G, N, K, Pd = mamba2.mamba_dims(arch)
+            return (((B, K - 1, d_in + 2 * G * N), self.dtype),
+                    ((B, H, Pd, N), torch.float32))
+        return self._cache_tree(leaves)
+
+    def _no_mamba(self, what: str):
+        if MAMBA in self.arch.pattern():
+            raise ValueError(f"{self.arch.name}: {what}")
 
     def init_paged_cache(self, num_blocks: int, block_size: int):
         """Block-paged KV pools: (k, v) of (num_blocks, block_size, KV, hd)
-        per layer, one table shared across the stack."""
-        return self._cache_tree((num_blocks, block_size, self.arch.n_kv_heads,
-                                 self.arch.hd))
+        per layer, one table shared across the stack.  Raises for an
+        architecture with Mamba layers: their state is O(1) a slot."""
+        self._no_mamba("paged KV cache requires an attention-only architecture "
+                       "(SSM state is O(1) per slot — nothing to page)")
+        shape = (num_blocks, block_size, self.arch.n_kv_heads, self.arch.hd)
+        return self._cache_tree(lambda kind: ((shape, self.dtype),) * 2)
 
     @staticmethod
     def _layer_cache(cache, addr):
@@ -340,10 +385,20 @@ class Model(ParamModel):
     @torch.no_grad()
     def prefill(self, tokens, cache_len: int, lengths=None):
         """Full-prompt forward.  tokens: (B, T) int.  Returns (logits at
-        the last position (B, 1, Vpad), cache padded to ``cache_len``).
-        ``lengths``: optional (B,) true lengths of right-padded prompts;
-        logits are then taken at ``lengths - 1`` (exact: padded positions
-        are causally masked)."""
+        the last position (B, 1, Vpad), cache), the attention leaves padded
+        to ``cache_len`` positions, the Mamba states as the prompt leaves
+        them.  ``lengths``: optional (B,) true lengths of right-padded
+        prompts; logits are then taken at ``lengths - 1`` (exact for
+        attention: padded positions are causally masked; a Mamba state
+        absorbs pad tokens, so SSM and hybrid callers pass equal-length
+        prompts)."""
+        def pad(a):     # (B, T, KV, hd) -> (B, cache_len, KV, hd)
+            if cache_len == T:
+                return a.contiguous()
+            out = a.new_zeros(a.shape[:-3] + (cache_len,) + a.shape[-2:])
+            out[..., :T, :, :] = a
+            return out
+
         off = DPContext.off()
         x, _ = self._embed_in(self.params, tokens, off)
         B, T = x.shape[0], x.shape[1]
@@ -351,28 +406,21 @@ class Model(ParamModel):
         pre_c: List[Any] = []
         blk_c: Dict[int, List[Any]] = {}
         for p, addr in self._layers():
-            x, _, kv, _ = self._layer(p, x, off, pos)
+            x, _, c, _ = self._layer(p, x, off, pos)
+            if "attn" in p:
+                c = tuple(pad(a) for a in c)
             if addr[0] == "prelude":
-                pre_c.append(kv)
+                pre_c.append(c)
             else:
-                blk_c.setdefault(addr[1], []).append(kv)
+                blk_c.setdefault(addr[1], []).append(c)
         if lengths is None:
             x_last = x[:, -1:]
         else:
             idx = (lengths.long() - 1).to(x.device)
             x_last = x[torch.arange(B, device=x.device), idx][:, None]
         logits, _ = self._head(self.params, x_last, off)
-
-        def pad(a):     # (..., T, KV, hd) -> (..., cache_len, KV, hd)
-            if cache_len == T:
-                return a.contiguous()
-            out = a.new_zeros(a.shape[:-3] + (cache_len,) + a.shape[-2:])
-            out[..., :T, :, :] = a
-            return out
-
-        cache = {"prelude": [(pad(k), pad(v)) for k, v in pre_c],
-                 "blocks": (tuple((pad(torch.stack([k for k, _ in blk_c[j]])),
-                                   pad(torch.stack([v for _, v in blk_c[j]])))
+        cache = {"prelude": pre_c,
+                 "blocks": (tuple(tuple(torch.stack(leaf) for leaf in zip(*blk_c[j]))
                                   for j in sorted(blk_c))
                             if blk_c else None)}
         return logits, cache
@@ -395,7 +443,9 @@ class Model(ParamModel):
     def decode_step_paged(self, cache, tokens, pos, tables):
         """One-token decode through block tables (B, nb), sentinel =
         num_blocks.  Same contract as ``decode_step``; greedy outputs equal
-        the contiguous path's."""
+        the contiguous path's.  Raises for an architecture with Mamba
+        layers."""
+        self._no_mamba("paged decode supports attention layers only")
         return self._decode(cache, tokens, pos, tables)
 
 

@@ -11,7 +11,10 @@ completions from the scheduler's bookkeeping (``scheduler.py``), fetching
 the output buffer once per completion event.
 
 Admission is a batched prefill wave of the queued requests that fit the
-free slots, right-padded to a shared length.  ``paged=True`` replaces the
+free slots, right-padded to a shared length.  An architecture with Mamba
+layers admits equal-length waves only, unpadded: a recurrent state would
+absorb pad tokens (``has_mamba``, the scheduler's ``same_length_waves``).
+``paged=True`` replaces the
 per-slot cache slabs with a shared block pool and per-slot block tables
 (``paging.py``); greedy outputs equal the contiguous engine's.  ``ledger``
 attaches a per-user privacy-budget ledger (``ledger.py``).
@@ -34,6 +37,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.configs.base import MAMBA
 from repro_torch.serve.ledger import BudgetExceeded, PrivacyLedger, RequestCharge
 from repro_torch.serve.paging import BlockPool, blocks_for
 from repro_torch.serve.sampling import mask_padded_vocab, sample_tokens
@@ -78,10 +82,14 @@ class Engine:
         self.prefill_chunk = max(1, prefill_chunk)
         self.record_ttft = record_ttft
         self.clock = clock
+        self.has_mamba = MAMBA in model.arch.pattern()
         self.paged = paged
         self.ledger = ledger
         self.pool: Optional[BlockPool] = None
         if paged:
+            if self.has_mamba:
+                raise ValueError("paged=True requires an attention-only "
+                                 "architecture (SSM state is O(1) per slot)")
             if cache_len % block_size != 0:
                 raise ValueError(f"cache_len ({cache_len}) must be a "
                                  f"multiple of block_size ({block_size})")
@@ -91,7 +99,7 @@ class Engine:
             self.pool = BlockPool(num_blocks, block_size,
                                   prefix_sharing=prefix_sharing)
         self.sched = Scheduler(max_batch, cache_len, policy=policy,
-                               clock=clock)
+                               same_length_waves=self.has_mamba, clock=clock)
         dev = self.device
         z = lambda dt: torch.zeros((max_batch,), dtype=dt, device=dev)
         self.dev = {
@@ -139,13 +147,18 @@ class Engine:
                               self.gen)
         slots_t = self._idx(slots)
         cache = d["cache"]
-        pairs = list(zip(cache["prelude"], c1["prelude"]))
+        # (batch axis, slot cache, wave cache): prelude leaves carry the
+        # batch at axis 0, stacked block leaves after the (reps,) axis
+        pairs = [(0, cb, cw) for cb, cw in zip(cache["prelude"], c1["prelude"])]
         if cache["blocks"] is not None:
-            pairs += list(zip(cache["blocks"], c1["blocks"]))
+            pairs += [(1, cb, cw) for cb, cw in zip(cache["blocks"], c1["blocks"])]
         if wave_tables is None:
-            for cb, cw in pairs:           # leaves (..., B, S, KV, hd)
+            # the dim after the batch is an attention leaf's positions (the
+            # wave's Tpad of the slot's S) or a Mamba state's own (whole)
+            for axis, cb, cw in pairs:
                 for dst, src in zip(cb, cw):
-                    dst[..., slots_t, :Tpad, :, :] = src.to(dst.dtype)
+                    idx = (slice(None),) * axis + (slots_t, slice(0, src.shape[axis + 1]))
+                    dst[idx] = src.to(dst.dtype)
         else:
             # scatter whole blocks through the wave's tables; sentinel
             # entries (past a short request's chain) are dropped here on
@@ -159,7 +172,7 @@ class Engine:
             rows, cols = np.nonzero(wt != self.pool.sentinel)
             dst_b, rows_t, cols_t = (self._idx(wt[rows, cols]),
                                      self._idx(rows), self._idx(cols))
-            for cb, cw in pairs:
+            for _, cb, cw in pairs:
                 for dst, src in zip(cb, cw):
                     lead = src.shape[:-4]            # () or (reps,)
                     src = src.reshape(lead + (src.shape[-4], nbw, bs)
@@ -356,7 +369,11 @@ class Engine:
 
     def _dispatch_prefill(self, wave) -> None:
         Ls = [len(r.prompt) for _, r in wave]
-        if self.paged:
+        if self.has_mamba:
+            # an equal-length wave, unpadded: pad tokens would enter the
+            # recurrent state
+            Tpad = Ls[0]
+        elif self.paged:
             # Tpad must be a block_size multiple so the wave cache reshapes
             # into whole blocks for the table scatter
             bs = self.pool.block_size

@@ -86,7 +86,10 @@ class HostLoopEngine:
                                    device=self.device)
             logits, cache1 = self.model.prefill(toks, self.S)
             # the single-request cache into this slot: prelude leaves have
-            # the batch at axis 0, stacked block leaves after the (reps,) axis
+            # the batch at axis 0, stacked block leaves after the (reps,)
+            # axis; attention leaves come padded to cache_len and a Mamba
+            # layer's (conv window, SSM state) whole, so every leaf of the
+            # slot is written
             for cb, c1 in zip(self.cache["prelude"], cache1["prelude"]):
                 for dst, src in zip(cb, c1):
                     dst[slot] = src[0]

@@ -208,9 +208,9 @@ def layers_for_arch(arch, seq_len: int) -> List[LayerGEMMs]:
                     layers.append(dense(m.d_shared, d, t))
             else:
                 layers += _ffn_layers(arch, t, arch.ff_dense())
-    # the port's ArchConfig has no tied embeddings (every ported model has
-    # its own head); the JAX package's may
-    if not getattr(arch, "tie_embeddings", False) and not arch.embed_stub:
+    # a tied embedding (mamba2-1.3b's) prices no head GEMM here, though the
+    # decoder keeps its own head as the JAX transformer does
+    if not arch.tie_embeddings and not arch.embed_stub:
         layers.append(dense(d, arch.vocab, t))       # LM head
     return layers
 

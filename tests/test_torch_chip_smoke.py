@@ -529,3 +529,100 @@ def test_profile_ms_keeps_only_profiles_at_or_above_the_bound(smoke, spans, floo
     ms, why = smoke.profile_ms(spans, 10, floor)
     assert why == want[1]
     assert ms == pytest.approx(want[0]) if want[0] is not None else ms is None
+
+
+def _ssm_arch(name):
+    """mamba2-reduced (2 Mamba layers), or jamba's two-layer cut at reduced
+    width (attention with its dense FFN, Mamba with the MoE FFN)."""
+    import dataclasses
+    from repro_torch.configs import reduced
+    from repro_torch.configs.base import ATTN, MAMBA
+    if name == "mamba2-1.3b":
+        return reduced(get_arch(name))
+    return dataclasses.replace(reduced(get_arch("jamba-1.5-large-398b")), n_layers=2,
+                               layer_pattern=(ATTN, MAMBA))
+
+
+def _count_wrapper_calls(smoke, monkeypatch):
+    """Every kernel wrapper adds one to its count per call, as its launch
+    does on the card."""
+    for kname, (mod, attr) in smoke.kernel_counts().items():
+        def counting(*args, _fn=getattr(mod, kname), _mod=mod, _attr=attr,
+                     **kwargs):
+            setattr(_mod, _attr, getattr(_mod, _attr) + 1)
+            return _fn(*args, **kwargs)
+        monkeypatch.setattr(mod, kname, counting)
+        monkeypatch.setattr(mod, attr, 0)
+
+
+@pytest.mark.parametrize("name,algo,route,remat,microbatch", [
+    ("mamba2-1.3b", "dpsgd_r", "fused", "block", 0),
+    ("mamba2-1.3b", "dpsgd_r", "auto", "none", 0),
+    ("mamba2-1.3b", "dpsgd_r1f", "fused", "sites", 0),
+    ("jamba-cut", "dpsgd_r", "fused", "block", 0),
+    ("jamba-cut", "dpsgd_r", "materialize", "sites", 0),
+    ("jamba-cut", "dpsgd_r", "gram", "none", 0),
+    ("jamba-cut", "dpsgd_r", "auto", "block", 0),
+    ("jamba-cut", "dpsgd", "fused", "block", 2)])
+def test_path_launches_count_the_ssm_wrapper_calls(smoke, monkeypatch, name, algo,
+                                                   route, remat, microbatch):
+    """Phase 14's paths: ``path_launches`` of the SSM and hybrid decoders
+    against the wrapper calls of one Trainer step on the CPU.  A Mamba
+    layer's norm sites are its in and out projections, not its (K, C) conv
+    weight (a tap): mamba2-reduced has 2 x 2 + 1 = 5 and no attention, the
+    hybrid cut 7 + (2 + 4) + 1 = 14 (the MoE's router and three expert
+    weights) and one attention.  At the card's shapes, mamba2-1.3b's 48
+    layers make 97 sites, the full-width cut 14."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import (ATTN, MAMBA, DPConfig, OptimConfig,
+                                          ShapeConfig, TrainConfig)
+    from repro_torch.models.transformer import Model
+    from repro_torch.train import Trainer
+    _count_wrapper_calls(smoke, monkeypatch)
+    arch = _ssm_arch(name)
+    model = Model(arch, dtype=torch.float32, device="cpu", remat=remat)
+    cfg = TrainConfig(param_dtype="float32", compute_dtype="float32",
+                      remat=remat, optim=OptimConfig(schedule="constant"),
+                      dp=DPConfig(algo=algo, norm_strategy=route,
+                                  use_kernels=True, microbatch=microbatch))
+    trainer = Trainer(model, cfg, ShapeConfig("t", 8, 4, "train"))
+    state = trainer.init_state()
+    smoke.zero_counts()
+    trainer.train_step(state, trainer.make_batch(0))
+    shape = smoke.launch_shape(arch, 4, 8)
+    assert (shape["sites"], shape["attn"]) == ((5, 0) if name == "mamba2-1.3b"
+                                               else (14, 1))
+    assert smoke.read_counts() == smoke.path_launches(
+        route, algo=algo, remat=remat, examples=4, microbatch=microbatch,
+        dtype_groups=smoke.dtype_groups(model.params), **shape)
+    full = smoke.launch_shape(get_arch("mamba2-1.3b"), smoke.TRAIN_B, 4096)
+    assert (full["sites"], full["attn"]) == (97, 0)
+    cut = dataclasses.replace(get_arch("jamba-1.5-large-398b"), n_layers=2,
+                              layer_pattern=(ATTN, MAMBA))
+    assert (smoke.launch_shape(cut)["sites"], smoke.launch_shape(cut)["attn"]) == (14, 1)
+
+
+@pytest.mark.parametrize("name,route", [("mamba2-1.3b", "materialize"),
+                                        ("mamba2-1.3b", "auto"),
+                                        ("jamba-cut", "fused"),
+                                        ("jamba-cut", "auto")])
+def test_pass1_launches_count_the_norm_pass(smoke, monkeypatch, name, route):
+    """Phase 14 counts pass 1 alone (``algo.norm_pass``) for mamba2's
+    ``materialize`` and ``auto`` norms²: ``pass1_launches`` against the
+    wrapper calls of one norm pass on the CPU, under ``remat="block"``."""
+    import torch
+    from repro_torch.configs.base import DPConfig
+    from repro_torch.core import algo
+    from repro_torch.models.transformer import Model
+    _count_wrapper_calls(smoke, monkeypatch)
+    arch = _ssm_arch(name)
+    model = Model(arch, dtype=torch.float32, device="cpu", remat="block")
+    dp = DPConfig(norm_strategy=route, use_kernels=True)
+    toks = torch.randint(0, arch.vocab, (4, 8), generator=torch.Generator().manual_seed(0))
+    smoke.zero_counts()
+    nsq, _ = algo.norm_pass(model.loss_fn, model.params, {"tokens": toks}, dp, None)
+    assert nsq.shape == (4,) and bool(torch.all(nsq > 0))
+    want = smoke.pass1_launches(route, remat="block", **smoke.launch_shape(arch, 4, 8))
+    assert smoke.read_counts() == want
+    assert sum(want.values()) > 0

@@ -374,16 +374,17 @@ def test_view_helpers_match_jax():
 
 
 def test_unported_options_raise():
-    """What the port has not taken over raises and names ROADMAP: a hybrid
-    arch through ``reduced`` and its Mamba layers in a Model (MoE, augmult
-    and adaptive clipping are ported); an unknown algorithm raises too."""
+    """What the port has not taken over raises and names ROADMAP: an
+    embedding-input arch through ``reduced`` and in a Model (MoE, Mamba,
+    augmult and adaptive clipping are ported: a hybrid arch builds, and
+    only its paged cache raises); an unknown algorithm raises too."""
     hybrid = dataclasses.replace(TARCHS["phi3-mini-3.8b"], family="hybrid",
                                  layer_pattern=(MAMBA, ATTN),
                                  moe=MoEConfig(num_experts=4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        treduced(hybrid)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(hybrid, device="cpu")
+    model = Model(treduced(hybrid), dtype=torch.float32, device="cpu")
+    assert "mamba" in model.params["blocks"][0] and "attn" in model.params["blocks"][1]
+    with pytest.raises(ValueError, match="attention-only"):
+        model.init_paged_cache(4, 16)
     audio = dataclasses.replace(TARCHS["phi3-mini-3.8b"], family="audio",
                                 embed_stub=True)
     for make in (treduced, lambda a: Model(a, device="cpu")):

@@ -176,15 +176,15 @@ def test_put_rows_is_exact_under_collision():
 
 def test_config_copies_match():
     """The port's configs (and reduced variants) equal the JAX package's
-    on every field the port keeps; the MoE config and the image families'
-    frontends (``moe``, ``cnn``, ``vit``, classes of their own in each
-    package) field by field."""
-    for name in ARCH_NAMES + ["deepseek-moe-16b", "grok-1-314b", "cnn-cifar10",
-                              "vit-cifar10"]:
+    on every field the port keeps; the MoE and Mamba configs and the image
+    families' frontends (``moe``, ``mamba``, ``cnn``, ``vit``, classes of
+    their own in each package) field by field."""
+    for name in ARCH_NAMES + ["deepseek-moe-16b", "grok-1-314b", "mamba2-1.3b",
+                              "jamba-1.5-large-398b", "cnn-cifar10", "vit-cifar10"]:
         for j, t in ((JARCHS[name], TARCHS[name]), _cfgs(name)):
             for f in dataclasses.fields(t):
                 got, want = getattr(t, f.name), getattr(j, f.name)
-                if f.name in ("moe", "cnn", "vit"):
+                if f.name in ("moe", "mamba", "cnn", "vit"):
                     got, want = dataclasses.asdict(got), dataclasses.asdict(want)
                 assert got == want, (name, f.name)
             assert t.hd == j.hd and t.pattern() == j.pattern()

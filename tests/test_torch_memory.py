@@ -171,12 +171,11 @@ def test_sim_matches_jax():
     for batch in (1, 2, 8, 64, 1024):
         assert tdf.pegrad_spill_bytes(batch, 1234) == \
             jdf.pegrad_spill_bytes(batch, 1234)
-    # the presets' GEMM tables: the port's archs where it has them
-    # (deepseek-moe-16b among them), the JAX package's (read attribute by
-    # attribute) for the families it has not
+    # the presets' GEMM tables, from the port's registry: the SSM and
+    # hybrid families too (mamba2's tied embeddings leave out the head)
     for name in (PHI3, "cnn-cifar10", "vit-cifar10", "deepseek-moe-16b",
-                 "mamba2-1.3b"):
-        tarch = treduced(TARCHS[name]) if name in TARCHS else jreduced(JARCHS[name])
+                 "mamba2-1.3b", "jamba-1.5-large-398b"):
+        tarch = treduced(TARCHS[name])
         got = tsm.layers_for_arch(tarch, seq_len=32)
         want = jsm.layers_for_arch(jreduced(JARCHS[name]), seq_len=32)
         assert [_fields(x) for x in got] == [_fields(x) for x in want], name
