@@ -179,8 +179,9 @@ the script exits nonzero and prints no ``ok`` line:
    in_proj and jamba's experts; ``gram_norm`` at both embeddings; the
    flash forward at jamba's serving wave (64 heads on 8, hd 128) and its
    training shape, the backward there; (b) mamba2-1.3b at full width and
-   depth (48 layers, 1.447B params), bf16, seeded weights, serving phase
-   5's stream through the contiguous engine (equal-length waves,
+   depth (48 layers, 1.447B params), bf16, seeded weights, serving the
+   first ``SSM_REQUESTS`` of phase 5's stream through the contiguous
+   engine (equal-length waves,
    unpadded: a recurrent state would absorb pad tokens; the JAX engine's
    schedule, each wave decoding to the next completion) and the host loop,
    whose greedy streams must be equal; ``paged=True`` must raise; tok/s,
@@ -193,15 +194,53 @@ the script exits nonzero and prints no ``ok`` line:
    trained at full width and depth, B 8 x T 4096 (B 4 if the planner puts
    B 8 above ``MOE_PLAN_LIMIT``), ``dpsgd_r`` fused + kernels,
    ``remat="block"`` (the SSD scan's per-chunk checkpoint inside each
-   block), AdamW: a warm-up and three counted steps, the planner's
-   estimate beside their peak, one profiled step, the norms² of one batch
-   through ``materialize``, ``auto`` and the plain rules against fused
+   block), AdamW: a warm-up and ``SSM_STEPS`` counted steps (the last
+   profiled), the planner's estimate beside their peak, the norms² of one
+   batch through ``materialize``, ``auto`` and the plain rules against fused
    (``NSQ_RTOL``), the first two's pass 1 counted (``pass1_launches``);
    (e) the jamba cut's two passes of one counted fused step at B 8 x T
    512, beside the planner's estimate of the whole SGD step, which does
    not fit the card (float32 gradient sums and momentum of 11.93B
    params), and its norms² against pass 1 through the plain rules
-   (``NSQ_RTOL``).  No phase steps through ``Trainer.run``, which
+   (``NSQ_RTOL``);
+15. the embedding-input models, fed precomputed (B, T, d) embeddings (no
+   embedding table, so no embedding site): (a) the kernels at their
+   shapes, bf16, each against its plain version with times, bounds, plain
+   and library times and paths (``embed_kernel_shapes``):
+   ``dense_bwd_norm`` and ``pegrad_norm`` (a zeroed gy row exact, repeats
+   bit-identical) at every distinct norm site of musicgen-medium at B 8 x
+   T 1500 and of chameleon-34b at B 8 x T 512 (plain versions a slice of
+   rows at a time where they would not fit), ``dense_dgrad`` at
+   musicgen's, ``gram_norm`` square at every shape ``auto`` sends to it
+   (chameleon's q/o, k/v, MLP and head), one example's zeroed rows through
+   ``dense_bwd_norm``, ``dense_dgrad`` and ``gram_norm`` at musicgen's w1
+   and at those, the flash forward at the serving prefills (musicgen's 8 x
+   500 and 8 x 564, chameleon's 4 x 1008 and 4 x 1024), the flash pair at
+   musicgen's 24 heads of hd 64 (T 1500) and chameleon's 64 heads on 8 at
+   hd 128; (b) musicgen-medium
+   at full width and depth (48 layers, 1.362B params), bf16, seeded
+   weights: a prefill of 8 prompts of 500 embeddings, 64 decode steps each
+   fed the next embedding through the contiguous cache and through the
+   paged cache (their logits must agree), the last step's logits against
+   one prefill over all 564 positions (``CHAIN_TOL``), a right-padded
+   prefill with ``lengths`` against unpadded prefills of its rows (1e-3);
+   prefill ms, TTFT, decode ms a step beside the weights' bytes bound,
+   the peak; (c) chameleon-34b at full width and depth (48 layers, 33.76B
+   params, qk-norm), init's peak within the params + ``INIT_SLACK``, 4
+   prompts of 1008 positions and 16 decode steps with the same chaining
+   check; (d) musicgen-medium trained at full width and depth, B 8 x T
+   1500, ``dpsgd_r`` fused + kernels, ``remat="block"``, AdamW: the
+   planner's estimate beside the peak of a warm-up and three counted
+   steps, one profiled step, the norms² of one batch through
+   ``materialize``, ``auto`` and the plain rules against fused
+   (``NSQ_RTOL``; the first two's pass 1 counted), one counted Poisson
+   step (padded rows' norms² exactly 0.0) and one counted ``dpsgd_r1f``
+   step; (e) chameleon-34b trained at full width on ``CH_TRAIN_LAYERS``
+   of its 48 layers (fewer while the planner puts the step above
+   ``MOE_PLAN_LIMIT``), B 8 x T 512: a warm-up and two counted steps
+   beside the planner's estimate, the norms² of one batch through the
+   plain rules and ``auto`` (every site to ``gram_norm``, counted)
+   against fused.  No phase steps through ``Trainer.run``, which
    checkpoints at its last step.
 
 Each path counts the launches of every kernel from zero and must launch
@@ -215,6 +254,7 @@ Measurements also go to ``chip_smoke.json`` in the output directory.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import itertools
@@ -300,6 +340,24 @@ GROK_LAYERS, GROK_REQUESTS, GROK_NEW = 2, 4, 16
 # layers that round in other places
 MAMBA2_ARCH, JAMBA_ARCH, SSM_T = "mamba2-1.3b", "jamba-1.5-large-398b", 4096
 CHAIN_TOL = 5e-2
+# the run's time: mamba2's serve takes the stream's first SSM_REQUESTS
+# requests (on the JAX engine's schedule each distinct length is a wave
+# decoding to its next completion: the whole stream took ~1008 steps of ~63
+# ms), its training SSM_STEPS counted steps of ~13 s (the last profiled)
+SSM_REQUESTS, SSM_STEPS = 4, 2
+# phase 15: the embedding-input models.  musicgen-medium (arXiv:2306.05284)
+# at full width and depth, served to 8 prompts of 500 precomputed frame
+# embeddings (10 s of audio at EnCodec's 50 Hz) and 64 decode steps, and
+# trained at B 8 x T 1500 (30 s of audio, MusicGen's training crops);
+# chameleon-34b (arXiv:2405.09818) served at full width and depth to 4
+# prompts of 1008 positions and 16 decode steps, and trained at full width
+# on 6 of its 48 layers (down to 4 while the planner puts the step above
+# MOE_PLAN_LIMIT).  INIT_SLACK: seeded init's peak above the params' bytes
+MUSICGEN_ARCH, CHAMELEON_ARCH = "musicgen-medium", "chameleon-34b"
+MG_T, MG_PROMPT, MG_NEW = 1500, 500, 64
+CH_REQUESTS, CH_PROMPT, CH_NEW = 4, 1008, 16
+CH_TRAIN_LAYERS, CH_MIN_LAYERS = 6, 4
+INIT_SLACK = 2 * 2**30
 
 
 def request_stream(vocab: int, seed: int = 0):
@@ -335,6 +393,21 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def stopwatch(prefix):
+    """``lap(label)``: prints ``[time] <prefix> <label>: <s>``, the seconds
+    since the last lap (or since this call), and keeps them in
+    ``lap.secs``."""
+    last = [time.perf_counter()]
+
+    def lap(label):
+        now = time.perf_counter()
+        lap.secs[label] = now - last[0]
+        last[0] = now
+        print(f"[time] {prefix} {label}: {lap.secs[label]:.1f} s", flush=True)
+    lap.secs = {}
+    return lap
 
 
 def bound_ms(flops, nbytes, dtype_name):
@@ -770,13 +843,22 @@ def profile_ms(spans, iters: int, floor_ms: float = 0.0):
     return ms, None
 
 
+def _device_events(prof):
+    """(name, start µs, end µs) of every device activity a ``torch.profiler``
+    run recorded, read from its raw kineto records: ``prof.events()`` first
+    parses every record into a ``FunctionEvent``, which took ~50 s after an
+    image ``dpsgd`` step of some 10^5 launches."""
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.name(), e.start_ns() / 1e3, (e.start_ns() + e.duration_ns()) / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda and e.duration_ns() > 0]
+
+
 def _kernel_spans(prof):
     """(name, µs) of every device activity a ``torch.profiler`` run
     recorded."""
-    import torch
-    return [(e.name, e.time_range.end - e.time_range.start) for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.time_range.end > e.time_range.start]
+    return [(name, end - start) for name, start, end in _device_events(prof)]
 
 
 def clip_bound_ms(B, N, item, accumulate=False):
@@ -1076,7 +1158,7 @@ def check_gram(name, BG, T, di, do, masked, square, dtype, seed=0, iters=10):
 # the bf16 tensor-core kernels (mangled-name pieces) and which of them the
 # main paths run: the dgrad kernel (dense_dgrad and dense_bwd_norm's gx
 # launch), the norm kernel (pegrad_norm and dense_bwd_norm's norm launch),
-# the flash forward and backward at phi3's, chatglm3's and the ViT's head
+# the flash forward and backward at phi3's, chatglm3's, the ViT's and musicgen's head
 # widths, gram_norm
 TENSOR_CORE_KERNELS = {"dense_dgrad": ["tc12dgrad_kernel"],
                        "dense_bwd_norm": ["tc12dgrad_kernel", "tc11norm_kernel"],
@@ -1090,7 +1172,10 @@ MAIN_PATH_KERNELS = ("tc12dgrad_kernel", "tc11norm_kernel", "mma16flash_fwd_kern
                      "mma12bwd_q_kernelILi128E", "mma11gram_kernel",
                      # the ViT's head width (phase 11)
                      "mma16flash_fwd_kernelILi32E", "mma13bwd_kv_kernelILi32E",
-                     "mma12bwd_q_kernelILi32E")
+                     "mma12bwd_q_kernelILi32E",
+                     # musicgen-medium's (phase 15)
+                     "mma16flash_fwd_kernelILi64E", "mma13bwd_kv_kernelILi64E",
+                     "mma12bwd_q_kernelILi64E")
 
 
 def ptxas_report(log: str):
@@ -1163,8 +1248,10 @@ def small_reference(device_b: str = "cuda"):
           f"vs cpu: max |dlogits| {worst:.3e} (rtol/atol 1e-4)", flush=True)
 
 
-# the decoder families whose launches are counted from their norm sites
-SITE_FAMILIES = ("moe", "ssm", "hybrid")
+# the decoder families whose launches are counted from their norm sites; the
+# embedding-input ones (embed_stub) among them, which have no embedding site
+EMBED_STUB_FAMILIES = ("audio", "vlm")
+SITE_FAMILIES = ("moe", "ssm", "hybrid") + EMBED_STUB_FAMILIES
 
 
 def kernel_counts():
@@ -1207,10 +1294,11 @@ def norm_sites(arch, B=TRAIN_B, T=TRAIN_T):
 
 def launch_shape(arch, B=TRAIN_B, T=TRAIN_T):
     """``path_launches``'s keywords for ``arch``'s family: the dense
-    decoder's layer count; the MoE, SSM and hybrid decoders', their norm
-    sites and the kernels ``auto`` resolves them to at B x T (and, SSM and
-    hybrid, their attention layers); or the image family and, for the
-    CNN, its conv2d sites."""
+    decoder's layer count; the MoE, SSM, hybrid and embedding-input
+    decoders', their norm sites and the kernels ``auto`` resolves them to
+    at B x T (and, but for MoE, their attention layers; an embedding-input
+    arch, no embedding); or the image family and, for the CNN, its conv2d
+    sites."""
     if arch.family == "cnn":
         from repro_torch.models.cnn import iter_conv_sites
         return dict(L=0, family="cnn", convs=len(list(iter_conv_sites(arch))))
@@ -1223,6 +1311,8 @@ def launch_shape(arch, B=TRAIN_B, T=TRAIN_T):
                    auto_norms=(picks.count("materialize"), picks.count("gram")))
         if arch.family != "moe":
             out["attn"] = arch.pattern().count(ATTN)
+        if arch.embed_stub:
+            out["embeds"] = 0
         return out
     return dict(L=arch.n_layers, family=arch.family)
 
@@ -1230,7 +1320,7 @@ def launch_shape(arch, B=TRAIN_B, T=TRAIN_T):
 def path_launches(route: str, L: int, chunks: int = 1, algo: str = "dpsgd_r",
                   remat: str = "none", examples: int = 0, microbatch: int = 0,
                   dtype_groups: int = 0, family: str = "dense", convs: int = 0,
-                  sites: int = 0, auto_norms=(0, 0), attn=None):
+                  sites: int = 0, auto_norms=(0, 0), attn=None, embeds: int = 1):
     """Launches of every kernel in one step of ``algo``, as the code makes
     them.  The dense decoder with ``L`` layers: each layer has 7 dense
     sites (q, k, v, o, w1, w3, w2) and one attention, the model one head
@@ -1244,6 +1334,9 @@ def path_launches(route: str, L: int, chunks: int = 1, algo: str = "dpsgd_r",
     MoE one does, with ``attn`` attention layers (none in the SSM): a Mamba
     layer's norm sites are its in and out projections (its conv weight and
     four vectors are taps, and its SSD scan is plain PyTorch).  The
+    embedding-input decoders (``family="audio"``, ``"vlm"``) count as the
+    SSM one does with ``embeds=0``: their inputs are precomputed
+    embeddings, so no embedding site and no embedding ``gram_norm``.  The
     ViT (``family="vit"``, ``L`` layers): 6 dense
     sites a layer (q, k, v, o, w1, w2) and one non-causal attention, the
     patch embedding (a conv2d site) and the head.  The CNN
@@ -1277,7 +1370,7 @@ def path_launches(route: str, L: int, chunks: int = 1, algo: str = "dpsgd_r",
     elif family == "cnn":
         sites, dgrads, attn, embeds = convs + 1, convs, 0, 0
     elif family in SITE_FAMILIES:
-        sites, dgrads, attn, embeds = sites, sites, L if attn is None else attn, 1
+        sites, dgrads, attn = sites, sites, L if attn is None else attn
     else:
         raise ValueError(family)
     again = 0 if remat == "none" else attn    # the recompute, per backward
@@ -1646,18 +1739,15 @@ def profile_step(run, label):
     time of every kernel by name, each of the port's kernels' share of the
     step's wall time (``PROFILE_KERNELS``), and the device's busy share
     (busy = the union of kernel intervals on the timeline)."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         rec = run()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.time_range.end > e.time_range.start]
+    kernels = _device_events(prof)
     if not kernels:
         print("[profile] the profiler recorded no device activity: device "
               "time and idle share not measured", flush=True)
         return dict(step_ms=rec["step_ms"], device_busy_ms=None)
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    spans = sorted((start, end) for _, start, end in kernels)
     busy, (lo, hi) = 0.0, spans[0]
     for a, b in spans[1:]:
         if a > hi:
@@ -1666,9 +1756,8 @@ def profile_step(run, label):
             hi = max(hi, b)
     busy = (busy + hi - lo) / 1e3                         # us -> ms
     by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end
-                                                      - e.time_range.start) / 1e3
+    for name, start, end in kernels:
+        by_name[name] = by_name.get(name, 0.0) + (end - start) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     ours = {k: sum(ms for nm, ms in by_name.items() if any(p in nm for p in pieces))
             for k, pieces in PROFILE_KERNELS.items()}
@@ -2559,6 +2648,7 @@ def train_image(name):
     arch = get_arch(name)
     shape, cfg = image_shape_and_config(arch)
     rows = IMAGE_B * IMAGE_K
+    lap = stopwatch(f"phase 11 {name}")
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
     model = build_model_for(arch, dtype=torch.bfloat16, device="cuda", seed=0,
@@ -2615,8 +2705,10 @@ def train_image(name):
           f"{np.round(nsq.sqrt().cpu().numpy()[:8], 4).tolist()}...", flush=True)
     out = dict(params=n_par, rows=rows, steps=steps, staged=staged, profile=prof,
                nsq_rel_err=nsq_err, batch_ms=batch_ms)
+    lap("steps, planner, stages, profile, plain norms²")
     if arch.family == "cnn":
         out["fold"] = conv_gy_gaps(trainer, state)
+        lap("fold")
 
     def variant(label, route, **dp):
         tr = image_trainer(model, shape, dataclasses.replace(
@@ -2658,6 +2750,8 @@ def train_image(name):
                       flush=True)
                 out["turns"] = dict(steps_ms=turns, mean_ms=means)
 
+    if arch.family == "cnn":
+        lap("materialize and gram")
     # one Poisson step: the padded examples' norms² exactly 0
     tr, rec, batch, nsq, losses = variant("poisson", "fused", sampling="poisson")
     mask = batch["mask"].reshape(-1, IMAGE_K)[:, 0]
@@ -2670,6 +2764,7 @@ def train_image(name):
           f"{tr.capacity} (x {IMAGE_K} views = {tr.capacity * IMAGE_K} rows), q "
           f"{tr.sample_rate:.4e}; padded examples' norms² all exactly 0.0", flush=True)
     out["poisson"] = rec
+    lap("poisson")
 
     # one dpsgd step under torch.profiler: clip_reduce on each dtype's flat
     # buffer of the 256 per-example gradients, its device time over the step
@@ -2708,6 +2803,7 @@ def train_image(name):
               f"time in {cp['launches']} launch(es) ({', '.join(cp['names'])})",
               flush=True)
     out["dpsgd"] = rec
+    lap("dpsgd")
 
     mean = float(np.mean([r["step_ms"] for r in steps]))
     bd = trainer.accountant.epsilon_breakdown(state.step)
@@ -3138,8 +3234,11 @@ def memory_planner_and_host_loop(prompts, engine_out, engine_recs):
            if not within_tolerance(r["ratio"])]
     assert not bad, (f"estimate / measured outside [1/{TOLERANCE_FACTOR}, "
                      f"{TOLERANCE_FACTOR}]", bad)
+    lap = stopwatch("phase 12")
     split = planner_split()
+    lap("(b)-(c) splits")
     host = host_loop_path(prompts, engine_out, engine_recs)
+    lap("(d) host loop")
     return dict(estimates=list(MEMORY_ROWS), split=split, host_loop=host)
 
 
@@ -3483,14 +3582,18 @@ def moe_train():
 def moe_path():
     """Phase 13 (see the module docstring).  Returns its record."""
     from repro_torch.configs import get_arch
+    lap = stopwatch("phase 13")
     kernels = check_moe_kernels()
+    lap("(a) kernels")
     ds_prompts = request_stream(get_arch(MOE_ARCH).vocab)
     serve_ds = moe_serve(get_arch(MOE_ARCH), ds_prompts, MAX_NEW,
                          ("contiguous", "paged"))
     grok = dataclasses.replace(get_arch(GROK_ARCH), n_layers=GROK_LAYERS)
     serve_grok = moe_serve(grok, request_stream(grok.vocab)[:GROK_REQUESTS], GROK_NEW,
                            ("contiguous",))
+    lap("(b)-(c) serving")
     train = moe_train()
+    lap("(d) training")
     launches = dict(train["launches"])
     for recs in (serve_ds, serve_grok):
         for r in recs.values():
@@ -3751,7 +3854,7 @@ def ssm_train():
     """Phase 14 (d): mamba2-1.3b at full width and depth (48 layers), B 8 x
     T 4096 (B 4 if the planner puts B 8 above ``MOE_PLAN_LIMIT``),
     ``dpsgd_r`` fused + kernels, ``remat="block"``, AdamW: a warm-up and
-    ``TRAIN_STEPS`` counted steps, the planner's estimate beside their
+    ``SSM_STEPS`` counted steps, the planner's estimate beside their
     peak (one trace, before the steps); the first step split into its
     passes, whose norms² the ``materialize``, ``auto`` and plain rules'
     (pass 1 on the same batch and params; the first two counted against
@@ -3799,8 +3902,8 @@ def ssm_train():
             cfg, dp=dataclasses.replace(cfg.dp, **dp)), shape)
 
     routes, prof = {}, None
-    for i in range(TRAIN_STEPS):
-        if i < TRAIN_STEPS - 1:
+    for i in range(SSM_STEPS):
+        if i < SSM_STEPS - 1:
             rec, batch, nsq, _ = counted_step(trainer, model, state, "fused",
                                               split=i == 0)
         else:                                     # the last one profiled
@@ -3859,6 +3962,23 @@ def ssm_train():
     return out
 
 
+@contextlib.contextmanager
+def expandable_segments():
+    """The caching allocator's segments grow in place while inside, so a
+    phase filling the card keeps its free memory in one piece; the
+    default again on leaving, every cached block released."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        yield
+    finally:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+
+
 def hybrid_train():
     """Phase 14 (e): jamba's two-layer cut at full width (11.93B params),
     B 8 x T 512, ``dpsgd_r`` fused + kernels, ``remat="block"``: one
@@ -3872,20 +3992,11 @@ def hybrid_train():
     momentum (47.7 GB; AdamW's state is three times that).  The noise and
     the optimizer launch no kernel of the port, so the passes make every
     launch ``path_launches`` counts."""
-    import torch
-    gc.collect()
-    torch.cuda.empty_cache()
-    # the cut's bf16 params (22.2 GiB, drawn in float32 a leaf at a time)
-    # and pass 2's float32 sums (44.4 GiB, a stacked expert weight's one 12
-    # GiB block) leave ~12 GiB of the card: segments that grow keep the
-    # free memory in one piece
-    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
-    try:
+    # the cut's bf16 params (22.2 GiB) and pass 2's float32 sums (44.4 GiB,
+    # a stacked expert weight's one 12 GiB block) leave ~12 GiB of the
+    # card: segments that grow keep the free memory in one piece
+    with expandable_segments():
         return _hybrid_passes()
-    finally:
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
 
 
 def _hybrid_passes():
@@ -3945,17 +4056,556 @@ def _hybrid_passes():
 def ssm_path():
     """Phase 14 (see the module docstring).  Returns its record."""
     from repro_torch.configs import get_arch
+    lap = stopwatch("phase 14")
     kernels = check_ssm_kernels()
-    serve_m2 = ssm_serve(request_stream(get_arch(MAMBA2_ARCH).vocab))
+    lap("(a) kernels")
+    serve_m2 = ssm_serve(request_stream(get_arch(MAMBA2_ARCH).vocab)[:SSM_REQUESTS])
+    lap("(b) mamba2 serving")
     cut = jamba_cut()
     serve_cut = moe_serve(cut, request_stream(cut.vocab)[:GROK_REQUESTS], GROK_NEW,
                           ("contiguous",), tag="ssm")
+    lap("(c) jamba serving")
     train = ssm_train()
+    lap("(d) mamba2 training")
     hybrid = hybrid_train()
+    lap("(e) jamba passes")
     launches = {k: train["launches"][k] + hybrid["launches"][k] for k in train["launches"]}
     launches["flash_attn_fwd"] += serve_cut["contiguous"]["flash_launches"]
     return dict(kernels=kernels, serve=serve_m2, jamba=serve_cut, train=train,
                 hybrid=hybrid, launches=launches)
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the embedding-input models (musicgen-medium and chameleon-34b)
+# ---------------------------------------------------------------------------
+
+def embed_kernel_shapes():
+    """Phase 15 (a)'s dense shapes, one for each distinct norm site of its
+    training paths (``norm_sites``; checked here): (name, BG, T, di, do,
+    rows, iters, gram), ``gram`` where ``auto`` sends the site to
+    ``gram_norm`` (``resolve_strategy``, as ``launch_shape`` counts it;
+    checked here too).  musicgen-medium at B 8 x T 1500: q, k, v and o
+    (1536 -> 1536), w1 (1536 -> 6144), w2 (6144 -> 1536) and the head (1536
+    -> 2048), none to ``gram_norm``; chameleon-34b at B 8 x T 512: q and o
+    (8192 -> 8192), k and v (8192 -> 1024), w1 and w3 (8192 -> 22016), w2
+    and the head (8192 -> 65536), every one to ``gram_norm``.  The plain
+    versions go a slice of rows at a time where the float32 weight over 8
+    rows would pass 8 GB (2 rows)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.sites import resolve_strategy
+    from repro_torch.models.transformer import padded_vocab
+    out = []
+    for tag, name, T, grams in (("mg", MUSICGEN_ARCH, MG_T, 0),
+                                ("ch", CHAMELEON_ARCH, TRAIN_T, 5)):
+        arch = get_arch(name)
+        d, q, kv = arch.d_model, arch.n_heads * arch.hd, arch.n_kv_heads * arch.hd
+        sites = [("qkvo", d, q)] if kv == q else [("qo", d, q), ("kv", d, kv)]
+        sites += [("w1w3" if arch.mlp_act == "swiglu" else "w1", d, arch.d_ff),
+                  ("w2", arch.d_ff, d), ("head", d, padded_vocab(arch.vocab))]
+        picks = {tuple(ops[1]): resolve_strategy(k, "auto", ops, gy)
+                 for k, ops, gy in norm_sites(arch, TRAIN_B, T)}
+        for nm, di, do in sites:
+            rows = 2 if 4 * TRAIN_B * di * do > 8 * 2**30 else None
+            out.append((f"{tag}-{nm}", TRAIN_B, T, di, do, rows, 5,
+                        picks.get((di, do)) == "gram"))
+        got = [(di, do, gram) for nm, _, _, di, do, _, _, gram in out
+               if nm.startswith(tag + "-")]
+        assert {(di, do) for di, do, _ in got} == set(picks), (tag, got, picks)
+        assert sum(gram for *_, gram in got) == grams, (tag, got)
+    return out
+
+
+def check_embed_kernels():
+    """Phase 15 (a): the kernels at the embedding-input models' shapes,
+    bf16, each against its plain version with times, bounds, plain and
+    library times and the path each takes: ``dense_bwd_norm`` and
+    ``pegrad_norm`` (a zeroed gy row exact, repeats bit-identical) at every
+    ``embed_kernel_shapes`` shape, and ``dense_dgrad`` at musicgen's
+    (``dpsgd_r1f``'s second pullback there); ``gram_norm`` square at every
+    shape ``auto`` sends to it (chameleon's q/o, k/v, MLP and head); one
+    example's zeroed rows through ``dense_bwd_norm``, ``dense_dgrad`` and
+    ``gram_norm`` at musicgen's w1 and at each of those
+    (``check_group_contracts``); the flash forward at the serving
+    prefills (musicgen's 8 x 500 and 8 x 564, chameleon's 4 x 1008 and 4 x
+    1024) and the flash pair at the training shapes (musicgen's 24 heads of
+    hd 64 at T 1500, chameleon's 64 heads on 8 at hd 128, T 512), causal."""
+    import torch
+    from repro_torch.configs import get_arch
+    bf = torch.bfloat16
+    out = {k: [] for k in ("dense_bwd_norm", "pegrad_norm", "dense_dgrad", "gram_norm",
+                           "flash_attn_fwd", "flash_attn_bwd")}
+    for nm, BG, T, di, do, rows, iters, gram in embed_kernel_shapes():
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["dense_bwd_norm"].append(check_dense_bwd_norm(
+            nm, BG, T, di, do, 1, bf, iters=iters, rows=rows))
+        if nm.startswith("mg-"):
+            halves = check_dense_halves(nm, BG, T, di, do, 1, bf, iters=iters,
+                                        rows=rows, ab=False)
+            out["pegrad_norm"].append(halves["pegrad_norm"])
+            out["dense_dgrad"].append(halves["dense_dgrad"])
+        else:
+            x, gy, _ = dense_inputs(BG, T, di, do, 1, bf)
+            rec, _ = check_pegrad_norm(nm, x, gy, iters, rows)
+            out["pegrad_norm"].append(dict(rec, E=1))
+            del x, gy
+        if gram:
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["gram_norm"].append(check_gram(nm, BG, T, di, do, False, True, bf,
+                                               iters=iters))
+        if gram or nm == "mg-w1":
+            gc.collect()
+            torch.cuda.empty_cache()
+            check_group_contracts(nm, BG, T, di, do, 1, bf)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for nm, name, B, T in (("mg-prefill", MUSICGEN_ARCH, TRAIN_B, MG_PROMPT),
+                           ("mg-chain", MUSICGEN_ARCH, TRAIN_B, MG_PROMPT + MG_NEW),
+                           ("ch-prefill", CHAMELEON_ARCH, CH_REQUESTS, CH_PROMPT),
+                           ("ch-chain", CHAMELEON_ARCH, CH_REQUESTS, CH_PROMPT + CH_NEW)):
+        arch = get_arch(name)
+        out["flash_attn_fwd"].append(check_flash(nm, B, arch.n_heads, arch.n_kv_heads,
+                                                 T, arch.hd, True, bf))
+    for nm, name, T in (("mg-train", MUSICGEN_ARCH, MG_T),
+                        ("ch-train", CHAMELEON_ARCH, TRAIN_T)):
+        arch = get_arch(name)
+        out["flash_attn_fwd"].append(check_flash(nm, TRAIN_B, arch.n_heads,
+                                                 arch.n_kv_heads, T, arch.hd, True, bf))
+        out["flash_attn_bwd"].append(check_flash_bwd(
+            nm, TRAIN_B * arch.n_heads, TRAIN_B * arch.n_kv_heads, T, arch.hd, True, bf,
+            iters=5))
+    for kernel, recs in out.items():
+        for r in recs:
+            norm = f", norm path {r['norm_path']}" if "norm_path" in r else ""
+            print(f"[embed] {kernel} {r['shape']} {r['dtype']}: path {r['path']}"
+                  f"{norm}; kernel / library {r['ms'] / r['library_ms']:.2f}, "
+                  f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound", flush=True)
+    # every training shape takes the TMA-fed (dense) or cp.async-fed
+    # (attention backward, Gram) tensor-core path
+    for kernel, recs in out.items():
+        for r in recs:
+            want = "mma+cp.async" if kernel in ("flash_attn_bwd", "gram_norm") else (
+                "wgmma+tma" if kernel != "flash_attn_fwd" else r["path"])
+            assert r["path"] == want and r.get("norm_path", want) == want, (kernel, r)
+    return out
+
+
+def embed_inputs(arch, B, T, seed=1):
+    """(B, T, d) precomputed embeddings drawn on the card from ``seed``,
+    standard normal as the synthetic source's, bf16."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((B, T, arch.d_model), generator=g, device="cuda").to(torch.bfloat16)
+
+
+def paged_from(cache, block_size):
+    """A paged pool holding a contiguous cache's rows: slot b's positions in
+    blocks b·nb .. b·nb + nb - 1 (nb = cache_len / block_size), so the
+    tables ``arange(B·nb).reshape(B, nb)`` read it back as it was."""
+    def pool(leaves):
+        return tuple(a.reshape(a.shape[:-4] + (-1, block_size) + a.shape[-2:]).clone()
+                     for a in leaves)
+    return {"prelude": [pool(c) for c in cache["prelude"]],
+            "blocks": (None if cache["blocks"] is None
+                       else tuple(pool(c) for c in cache["blocks"]))}
+
+
+def embed_serve(name, B, prompt_t, new, paged, ragged):
+    """Phase 15 (b) and (c): ``name`` at full width and depth, bf16, seeded
+    weights (init's peak held to the parameters' bytes + ``INIT_SLACK``),
+    fed precomputed embeddings (``embed_inputs``): a prefill of B prompts
+    of ``prompt_t`` positions, then ``new`` decode steps each fed the next
+    embedding through the contiguous cache and, with ``paged``, through the
+    paged cache (their logits must agree); the chaining check (the last
+    decode step's logits against the last position of one prefill over
+    all positions, within ``CHAIN_TOL``); with ``ragged``, a right-padded
+    prefill of 4 rows with ``lengths`` against unpadded prefills of the
+    same rows (1e-3, as the paged check: the same kernels on the same
+    rows).  Prefill ms, TTFT (to the first token on the
+    host), decode ms a step beside the weights' bytes bound and the peak.
+    Every prefill launches the flash forward at each layer, nothing else
+    a kernel.  Returns its record."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import Model
+    arch = get_arch(name)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model = Model(arch, dtype=torch.bfloat16, device="cuda", seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    n_par = sum(p.numel() for p in model.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    init_peak = torch.cuda.max_memory_allocated() - base
+    print(f"[embed] {arch.name}: {arch.n_layers} layers, d_model {arch.d_model}, "
+          f"{arch.n_heads} heads (kv {arch.n_kv_heads}) x hd {arch.hd}, d_ff "
+          f"{arch.d_ff} {arch.mlp_act}, qk_norm {arch.qk_norm}, vocab {arch.vocab}, no "
+          f"embedding table; {n_par / 1e9:.3f}B params, {w_bytes / 2**30:.2f} GiB; init "
+          f"{init_s:.1f} s, its peak {init_peak / 2**30:.2f} GiB (limit: the params + "
+          f"{INIT_SLACK / 2**30:.0f} GiB)", flush=True)
+    assert init_peak <= w_bytes + INIT_SLACK, (init_peak, w_bytes)
+    S = prompt_t + new
+    cache_len = -(-S // BLOCK) * BLOCK
+    emb = embed_inputs(arch, B, S)
+    model.prefill(emb[:, :prompt_t], cache_len)        # warm-up at the shape
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(emb[:, :prompt_t], cache_len)
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    logits[..., :arch.vocab].argmax(-1).cpu()
+    ttft_ms = 1e3 * (time.perf_counter() - t0)
+    prefills = 1
+    pool = paged_from(cache, BLOCK) if paged else None
+
+    def decode(step, cache, *tables):
+        out = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(new):
+            pos = torch.full((B,), prompt_t + i, dtype=torch.int64, device="cuda")
+            lg, cache = step(cache, emb[:, prompt_t + i:prompt_t + i + 1], pos, *tables)
+            out.append(lg[..., :arch.vocab])
+        torch.cuda.synchronize()
+        return torch.cat(out, 1), 1e3 * (time.perf_counter() - t0) / new
+
+    def device_work(step, cache, *tables, n=4):
+        """The device ms and launches of a decode step: its first ``n``
+        steps again under the profiler (they rewrite the same cache
+        entries with the same values)."""
+        def replay():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(n):
+                pos = torch.full((B,), prompt_t + i, dtype=torch.int64, device="cuda")
+                step(cache, emb[:, prompt_t + i:prompt_t + i + 1], pos, *tables)
+            torch.cuda.synchronize()
+            return dict(step_ms=1e3 * (time.perf_counter() - t0) / n)
+        got = kernel_device_ms(replay, "")
+        return got["ms"] / n, got["launches"] / n
+
+    steps, decode_ms = decode(model.decode_step, cache)
+    dev_ms, dev_launches = device_work(model.decode_step, cache)
+    kv_bytes = sum(a.numel() * a.element_size() for a in tree.leaves(cache))
+    del cache
+    rec = dict(arch=arch.name, params=n_par, weight_bytes=w_bytes, init_s=init_s,
+               init_peak_bytes=init_peak, batch=B, prompt_t=prompt_t, new=new,
+               prefill_ms=prefill_ms, ttft_ms=ttft_ms, decode_ms_per_step=decode_ms,
+               decode_device_ms=dev_ms, decode_launches=dev_launches,
+               bound_ms=1e3 * w_bytes / PEAK_BYTES, kv_cache_bytes=kv_bytes)
+    if paged:
+        nb = cache_len // BLOCK
+        tables = torch.arange(B * nb, device="cuda").reshape(B, nb)
+        psteps, rec["paged_decode_ms_per_step"] = decode(model.decode_step_paged, pool,
+                                                         tables)
+        rec["paged_device_ms"], rec["paged_launches"] = device_work(
+            model.decode_step_paged, pool, tables)
+        del pool
+        gap = _rel_err(psteps, steps)
+        rec.update(paged_rel_err=gap, paged_bit_equal=bool(torch.equal(psteps, steps)))
+        same = "bit-identical" if rec["paged_bit_equal"] else "not bit-identical"
+        print(f"[embed] {arch.name} paged decode: {rec['paged_decode_ms_per_step']:.2f} "
+              f"ms/step ({rec['paged_device_ms']:.2f} ms of device work in "
+              f"{rec['paged_launches']:.0f} launches); its {new} steps' logits vs "
+              f"the contiguous cache's max |d| "
+              f"{gap:.2e} of the largest ({same}; limit 1e-3)", flush=True)
+        assert gap <= 1e-3, gap
+    gc.collect()
+    full, _ = model.prefill(emb, S)
+    prefills += 1
+    chain = _rel_err(steps[:, -1], full[:, 0, :arch.vocab])
+    rec.update(chain_rel_err=chain, chain_argmax_equal=bool(torch.equal(
+        steps[:, -1].argmax(-1), full[:, 0, :arch.vocab].argmax(-1))))
+    print(f"[embed] {arch.name} chaining: decode step {S - 1} after a {prompt_t}-position "
+          f"prefill vs the last row of a {S}-position prefill, max |dlogits| "
+          f"{chain:.2e} of the largest (limit {CHAIN_TOL}), argmax "
+          f"{'equal in every row' if rec['chain_argmax_equal'] else 'differs'}",
+          flush=True)
+    assert chain <= CHAIN_TOL, chain
+    del full
+    if ragged:
+        lengths = torch.tensor([prompt_t, prompt_t * 7 // 8, prompt_t * 5 // 8,
+                                prompt_t // 2], device="cuda")
+        rows = emb[:4, :prompt_t]
+        padded, _ = model.prefill(rows, prompt_t, lengths=lengths)
+        alone = torch.cat([model.prefill(rows[i:i + 1, :n], n)[0]
+                           for i, n in enumerate(lengths.tolist())])
+        prefills += 1 + len(lengths)
+        rag = _rel_err(padded[..., :arch.vocab], alone[..., :arch.vocab])
+        rec.update(ragged_rel_err=rag, ragged_lengths=lengths.tolist(),
+                   ragged_bit_equal=bool(torch.equal(padded[..., :arch.vocab],
+                                                     alone[..., :arch.vocab])))
+        same = "bit-identical" if rec["ragged_bit_equal"] else "not bit-identical"
+        print(f"[embed] {arch.name} ragged prefill: lengths {lengths.tolist()} right-padded "
+              f"to {prompt_t} vs each row alone, max |dlogits| {rag:.2e} of the largest "
+              f"({same}; limit 1e-3)", flush=True)
+        assert rag <= 1e-3, rag
+    counts = read_counts()
+    want = dict.fromkeys(counts, 0)
+    want["flash_attn_fwd"] = prefills * arch.n_layers
+    assert counts == want, (counts, want)
+    rec.update(flash_launches=counts["flash_attn_fwd"],
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    print(f"[embed] {arch.name} serving {B} x {prompt_t} precomputed embeddings: "
+          f"prefill {prefill_ms:.1f} ms, TTFT {ttft_ms:.1f} ms, decode {decode_ms:.2f} "
+          f"ms/step over {new} steps ({dev_ms:.2f} ms of device work in "
+          f"{dev_launches:.0f} launches; {B * 1e3 / decode_ms:.1f} positions/s; bound: "
+          f"weights {w_bytes / 1e9:.2f} GB at 3.35 TB/s = {rec['bound_ms']:.2f} ms, the "
+          f"KV cache {kv_bytes / 1e9:.2f} GB besides), peak "
+          f"{rec['max_memory_allocated'] / 2**30:.2f} GiB; flash_attn_fwd launches "
+          f"{counts['flash_attn_fwd']}", flush=True)
+    del model, emb, steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def musicgen_train():
+    """Phase 15 (d): musicgen-medium at full width and depth (48 layers),
+    B 8 x T 1500 precomputed embeddings, ``dpsgd_r`` fused + kernels,
+    ``remat="block"``, AdamW: the planner's estimate (one trace, before
+    the steps), a warm-up and ``TRAIN_STEPS`` counted steps (the first
+    split into its passes) beside it, one profiled step; the norms² of the
+    split's batch through ``materialize``, ``auto`` and the plain rules
+    (pass 1 on the same batch and params; the first two counted against
+    ``pass1_launches``) against fused's within ``NSQ_RTOL``; one counted
+    Poisson step (padded rows' norms² exactly 0.0) and one counted
+    ``dpsgd_r1f`` step (``dense_dgrad``)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.memory import within_tolerance
+    from repro_torch.models.transformer import Model
+    from repro_torch.train import Trainer
+    arch = get_arch(MUSICGEN_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = Model(arch, dtype=torch.bfloat16, device="cuda", seed=0, remat="block")
+    _, cfg = train_shape_and_config(arch, "block")
+    shape = ShapeConfig("chip_smoke", MG_T, TRAIN_B, "train")
+    trainer = Trainer(model, cfg, shape)
+    t = time.perf_counter()
+    est = trainer.memory_report(None, trainer.make_batch(0))
+    trace_s = time.perf_counter() - t
+    torch.cuda.reset_peak_memory_stats()
+    state = trainer.init_state()
+    n_par = sum(p.numel() for p in model.parameters())
+    lshape = launch_shape(arch, TRAIN_B, MG_T)
+    print(f"[embed-train] {arch.name} at full width and depth: {n_par / 1e9:.3f}B params "
+          f"bf16 + AdamW f32 state; batch {TRAIN_B} x {MG_T} embeddings of "
+          f"{arch.d_model}; the planner estimates {est['peak_bytes'] / 2**30:.2f} GiB "
+          f"(trace {trace_s:.1f} s); launch shape {lshape}", flush=True)
+    timed_step(trainer, state)                    # warm-up
+    steps, launches = [], dict.fromkeys(kernel_counts(), 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    def trainer_for(**dp):
+        return Trainer(model, dataclasses.replace(
+            cfg, dp=dataclasses.replace(cfg.dp, **dp)), shape)
+
+    for i in range(TRAIN_STEPS):
+        rec, b, _, _ = counted_step(trainer, model, state, "fused", split=i == 0)
+        if i == 0:
+            batch = b
+        steps.append(rec)
+        add(rec["launches"])
+        split = (f" = pass 1 {rec['pass1_ms']:.1f} + pass 2 {rec['pass2_ms']:.1f} + "
+                 f"noise and optimizer {rec['noise_opt_ms']:.1f}" if i == 0 else "")
+        print(f"[embed-train] dpsgd_r fused+kernels step {state.step - 1}: loss "
+              f"{rec['loss']:.4f}; {rec['step_ms']:.1f} ms{split}; "
+              f"{TRAIN_B * MG_T / rec['step_ms'] * 1e3:.0f} positions/s; launches "
+              f"{ {k: v for k, v in rec['launches'].items() if v} }", flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    assert all(math.isfinite(r["loss"]) for r in steps), steps
+    row = memory_row(f"phase 15: {arch.name} {arch.n_layers} layers, B {TRAIN_B} x T "
+                     f"{MG_T}, remat block, dpsgd_r fused", trainer, state, peak, est=est,
+                     trace_s=trace_s)
+    assert within_tolerance(row["ratio"]), row
+    prof = profile_step(lambda: timed_step(trainer, state), "musicgen fused+kernels")
+    # every route's pass 1 on the split's batch at the same params
+    nsq_f, _ = nsq_only(model, state, cfg.dp, batch)
+    routes = {}
+    for label, dp in (("materialize", dict(norm_strategy="materialize")),
+                      ("auto", dict(norm_strategy="auto")),
+                      ("plain", dict(use_kernels=False))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        zero_counts()
+        nsq, p1 = nsq_only(model, state, trainer_for(**dp).cfg.dp, batch)
+        counts = read_counts()
+        if label != "plain":
+            want = pass1_launches(label, remat=model.remat, **lshape)
+            assert counts == want, (label, counts, want)
+            add(counts)
+        err = ((nsq - nsq_f).abs() / nsq_f.abs()).max().item()
+        assert err <= NSQ_RTOL, (label, err)
+        routes[label] = dict(nsq_rel_err=err, pass1_ms=p1, launches=counts)
+        print(f"[embed-train] {label}: norms² vs fused max rel err {err:.2e} (limit "
+              f"{NSQ_RTOL}); pass 1 {p1:.1f} ms (fused {steps[0]['pass1_ms']:.1f}); "
+              f"launches { {k: v for k, v in counts.items() if v} }", flush=True)
+    # one Poisson step: expected 8 of N = 1e6, padded with all-zero rows
+    poisson = trainer_for(sampling="poisson")
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec, pbatch, _, _ = counted_step(poisson, model, state, "fused", split=False)
+    add(rec["launches"])
+    mask = pbatch["mask"]
+    nsq, _ = nsq_only(model, state, poisson.cfg.dp, pbatch)
+    real = int(mask.sum())
+    assert rec["realized_batch"] == real, (rec["realized_batch"], real)
+    assert bool(torch.all(nsq[~mask] == 0.0)) and bool(torch.all(nsq[mask] > 0.0)), nsq
+    assert not pbatch["embeds"][~mask].any() and not pbatch["labels"][~mask].any()
+    eps = poisson.history[-1]["epsilon"]
+    routes["poisson"] = dict(rec, capacity=poisson.capacity, nsq_real=nsq[mask].tolist(),
+                             epsilon=eps)
+    print(f"[embed-train] poisson step {state.step - 1}: realized batch {real} of "
+          f"capacity {poisson.capacity} (all-zero embeds and labels padded); padded "
+          f"rows' norms² all exactly 0.0; loss {rec['loss']:.4f}; {rec['step_ms']:.1f} "
+          f"ms; eps {eps:.6f}", flush=True)
+    r1f = trainer_for(algo="dpsgd_r1f")
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec, *_ = counted_step(r1f, model, state, "fused", split=False)
+    add(rec["launches"])
+    routes["dpsgd_r1f"] = rec
+    print(f"[embed-train] dpsgd_r1f fused+kernels step (its first): {rec['step_ms']:.1f} "
+          f"ms, loss {rec['loss']:.4f}; launches "
+          f"{ {k: v for k, v in rec['launches'].items() if v} }", flush=True)
+    out = dict(arch=arch.name, n_layers=arch.n_layers, params=n_par, batch=TRAIN_B,
+               T=MG_T, steps=steps,
+               mean_step_ms=float(np.mean([r["step_ms"] for r in steps])),
+               peak_bytes=peak, memory=row, routes=routes, launches=launches,
+               nsq_fused=nsq_f.tolist(), profile=prof)
+    del model, trainer, state, batch, pbatch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def chameleon_train():
+    """Phase 15 (e): chameleon-34b at full width on ``CH_TRAIN_LAYERS`` of
+    its 48 layers (one fewer at a time, down to ``CH_MIN_LAYERS``, while
+    the planner puts the step above ``MOE_PLAN_LIMIT``), B 8 x T 512
+    precomputed embeddings, ``dpsgd_r`` fused + kernels, ``remat="block"``,
+    AdamW: a warm-up and two counted steps (the first split into its
+    passes) beside the planner's estimate; the norms² of the split's batch
+    through the plain rules (the q and k norm taps among them) and through
+    ``auto`` (every site to ``gram_norm`` at T 512; counted against
+    ``pass1_launches``) against fused's within ``NSQ_RTOL``."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.memory import within_tolerance
+    from repro_torch.models.transformer import Model
+    from repro_torch.train import Trainer
+    layers, plan = CH_TRAIN_LAYERS, []
+    while True:
+        arch = dataclasses.replace(get_arch(CHAMELEON_ARCH), n_layers=layers)
+        shape, cfg = train_shape_and_config(arch, "block")
+        model = Model(arch, dtype=torch.bfloat16, device="cuda", seed=0, remat="block")
+        trainer = Trainer(model, cfg, shape)
+        t = time.perf_counter()
+        est = trainer.memory_report(None, trainer.make_batch(0))
+        plan.append((layers, est["peak_bytes"], time.perf_counter() - t))
+        print(f"[embed-train] {arch.name} at {layers} layers: the planner estimates "
+              f"{est['peak_bytes'] / 2**30:.2f} GiB (limit {MOE_PLAN_LIMIT / 2**30:.0f} "
+              f"GiB; trace {plan[-1][2]:.1f} s)", flush=True)
+        if est["peak_bytes"] <= MOE_PLAN_LIMIT or layers == CH_MIN_LAYERS:
+            break
+        del model, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        layers -= 1
+    torch.cuda.reset_peak_memory_stats()
+    state = trainer.init_state()
+    n_par = sum(p.numel() for p in model.parameters())
+    lshape = launch_shape(arch, TRAIN_B, TRAIN_T)
+    print(f"[embed-train] {arch.name} at full width, {layers} of 48 layers: "
+          f"{n_par / 1e9:.3f}B params bf16 + AdamW f32 state; batch {TRAIN_B} x "
+          f"{TRAIN_T} embeddings of {arch.d_model}; launch shape {lshape}", flush=True)
+    timed_step(trainer, state)                    # warm-up
+    steps, launches = [], dict.fromkeys(kernel_counts(), 0)
+    for i in range(2):
+        rec, b, _, _ = counted_step(trainer, model, state, "fused", split=i == 0)
+        if i == 0:
+            batch = b
+        steps.append(rec)
+        for k, v in rec["launches"].items():
+            launches[k] += v
+        split = (f" = pass 1 {rec['pass1_ms']:.1f} + pass 2 {rec['pass2_ms']:.1f} + "
+                 f"noise and optimizer {rec['noise_opt_ms']:.1f}" if i == 0 else "")
+        print(f"[embed-train] dpsgd_r fused+kernels step {state.step - 1}: loss "
+              f"{rec['loss']:.4f}; {rec['step_ms']:.1f} ms{split}; launches "
+              f"{ {k: v for k, v in rec['launches'].items() if v} }", flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    assert all(math.isfinite(r["loss"]) for r in steps), steps
+    row = memory_row(f"phase 15: {arch.name} {layers} layers, B {TRAIN_B} x T {TRAIN_T}, "
+                     f"remat block, dpsgd_r fused", trainer, state, peak, est=est,
+                     trace_s=plan[-1][2])
+    assert within_tolerance(row["ratio"]), row
+    # every route's pass 1 on the split's batch at the same params
+    nsq_f, _ = nsq_only(model, state, cfg.dp, batch)
+    routes = {}
+    for label, dp in (("plain", dict(use_kernels=False)),
+                      ("auto", dict(norm_strategy="auto"))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        zero_counts()
+        nsq, p1 = nsq_only(model, state, dataclasses.replace(cfg.dp, **dp), batch)
+        counts = read_counts()
+        if label == "auto":
+            want = pass1_launches(label, remat=model.remat, **lshape)
+            assert counts == want, (counts, want)
+            for k, v in counts.items():
+                launches[k] += v
+        err = ((nsq - nsq_f).abs() / nsq_f.abs()).max().item()
+        assert err <= NSQ_RTOL, (label, err)
+        routes[label] = dict(nsq_rel_err=err, pass1_ms=p1, launches=counts)
+        print(f"[embed-train] {arch.name} cut, {label}: norms² vs fused max rel err "
+              f"{err:.2e} (limit {NSQ_RTOL}); pass 1 {p1:.1f} ms (fused "
+              f"{steps[0]['pass1_ms']:.1f}); launches "
+              f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    out = dict(arch=arch.name, n_layers=layers, params=n_par, plan=plan, batch=TRAIN_B,
+               T=TRAIN_T, steps=steps, peak_bytes=peak, memory=row, routes=routes,
+               launches=launches, nsq_fused=nsq_f.tolist())
+    del model, trainer, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def embed_path():
+    """Phase 15 (see the module docstring).  Returns its record."""
+    lap = stopwatch("phase 15")
+    kernels = check_embed_kernels()
+    lap("(a) kernels")
+    mg = embed_serve(MUSICGEN_ARCH, TRAIN_B, MG_PROMPT, MG_NEW, paged=True, ragged=True)
+    lap("(b) musicgen serving")
+    with expandable_segments():
+        ch = embed_serve(CHAMELEON_ARCH, CH_REQUESTS, CH_PROMPT, CH_NEW, paged=False,
+                         ragged=False)
+    lap("(c) chameleon serving")
+    train = musicgen_train()
+    lap("(d) musicgen training")
+    with expandable_segments():
+        cut = chameleon_train()
+    lap("(e) chameleon training")
+    launches = {k: train["launches"][k] + cut["launches"][k] for k in train["launches"]}
+    launches["flash_attn_fwd"] += mg["flash_launches"] + ch["flash_launches"]
+    return dict(kernels=kernels, musicgen=mg, chameleon=ch, train=train, cut=cut,
+                launches=launches, seconds=lap.secs)
+
 
 
 class _Tee:
@@ -4229,8 +4879,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lap("phase 14")
+    # 15. the embedding-input models: their kernel shapes, musicgen-medium
+    # served and trained at full width and depth, chameleon-34b served at
+    # full depth and trained at full width on a cut of its layers
+    embed = embed_path()
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("phase 15")
     launches = {k: sum(r["launches"][k] for r in (train, routes, remat, algos, glm,
-                                                  images, moe, ssm))
+                                                  images, moe, ssm, embed))
                 for k in train["launches"]}
     launches["flash_attn_fwd"] += serve_launches
 
@@ -4288,14 +4945,15 @@ def main() -> int:
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "path",
                 "norm_path")} for r in recs if r["dtype"] == "bfloat16"])
 
-    # phase 14's shapes (bf16) and launches on its paths
-    for kernel, recs in ssm["kernels"].items():
-        image_rows[kernel]["ssm"] = dict(
-            launches=ssm["launches"][kernel],
-            shapes=[{k: r.get(k) for k in (
-                "shape", "BG", "BH", "T", "di", "do", "E", "hd", "max_abs_err", "ms",
-                "plain_ms", "bound_ms", "bound_by", "library_ms", "path", "norm_path")}
-                for r in recs])
+    # phase 14's and phase 15's shapes (bf16) and launches on their paths
+    for key, rec in (("ssm", ssm), ("embed", embed)):
+        for kernel, recs in rec["kernels"].items():
+            image_rows[kernel][key] = dict(
+                launches=rec["launches"][kernel],
+                shapes=[{k: r.get(k) for k in (
+                    "shape", "BG", "BH", "T", "di", "do", "E", "hd", "max_abs_err", "ms",
+                    "plain_ms", "bound_ms", "bound_by", "library_ms", "path",
+                    "norm_path")} for r in recs])
 
     def entry(name, source, replaces, n, rec, **extra):
         out = {"name": name, "route": "cuda",
@@ -4363,7 +5021,8 @@ def main() -> int:
          "decode_breakdown_ms": breakdown, "decode_busy": busy,
          "planner": planner, "train": train, "routes": routes,
          "remat": remat, "algos": algos, "glm": glm, "image_kernels": image_kernels,
-         "images": images, "moe": moe, "ssm": ssm, "json_line": kernels},
+         "images": images, "moe": moe, "ssm": ssm, "embed": embed,
+         "json_line": kernels},
         indent=1, default=str))
     print(f"[time] chip_smoke.py: {time.perf_counter() - t_start:.1f} s from the device "
           f"query to the last check", flush=True)

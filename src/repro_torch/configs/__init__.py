@@ -1,6 +1,7 @@
 """Config registry of the port: ``get_arch(id)``, ``list_archs()``,
-``reduced(arch)`` for the dense, MoE, SSM and hybrid decoders and the two
-image families, the input ``SHAPES`` and the ``--set`` override helpers."""
+``reduced(arch)`` for every family (the decoders, the embedding-input
+audio and VLM backbones and the two image families), the input ``SHAPES``
+and the ``--set`` override helpers."""
 from __future__ import annotations
 
 from dataclasses import replace
@@ -11,20 +12,23 @@ from repro_torch.configs.base import (ATTN, IMAGE_FAMILIES, MAMBA, SHAPES,
                                       ShapeConfig, TrainConfig,
                                       apply_overrides, parse_set_args,
                                       shape_applicable)
+from repro_torch.configs.chameleon_34b import ARCH as _chameleon
 from repro_torch.configs.chatglm3_6b import ARCH as _chatglm3
 from repro_torch.configs.cnn_cifar10 import ARCH as _cnn_cifar10
 from repro_torch.configs.deepseek_moe_16b import ARCH as _dsmoe
 from repro_torch.configs.grok_1_314b import ARCH as _grok1
 from repro_torch.configs.jamba_1_5_large_398b import ARCH as _jamba
 from repro_torch.configs.mamba2_1_3b import ARCH as _mamba2
+from repro_torch.configs.musicgen_medium import ARCH as _musicgen
 from repro_torch.configs.phi3_mini_3_8b import ARCH as _phi3
 from repro_torch.configs.stablelm_3b import ARCH as _stablelm
 from repro_torch.configs.starcoder2_7b import ARCH as _starcoder2
 from repro_torch.configs.vit_cifar10 import ARCH as _vit_cifar10
 
 ARCHS: Dict[str, ArchConfig] = {
-    a.name: a for a in (_phi3, _stablelm, _starcoder2, _chatglm3, _mamba2,
-                        _grok1, _dsmoe, _jamba, _cnn_cifar10, _vit_cifar10)}
+    a.name: a for a in (_phi3, _stablelm, _starcoder2, _chatglm3, _musicgen,
+                        _mamba2, _chameleon, _grok1, _dsmoe, _jamba,
+                        _cnn_cifar10, _vit_cifar10)}
 
 
 def get_arch(name: str) -> ArchConfig:
@@ -42,7 +46,8 @@ def reduced(arch: ArchConfig) -> ArchConfig:
     feature set (GQA ratio, partial rotary, MLP flavour, MoE topology, the
     hybrid interleave: one pattern period), small dims; the CNN keeps its
     stage structure at small channel counts and image size.  Matches
-    ``repro.configs.reduced`` for the families the port runs."""
+    ``repro.configs.reduced`` (``use_fsdp`` apart, which the port's
+    ``ArchConfig`` leaves out)."""
     if arch.family == "cnn":
         return replace(
             arch, name=arch.name + "-reduced",
@@ -55,10 +60,6 @@ def reduced(arch: ArchConfig) -> ArchConfig:
             arch, name=arch.name + "-reduced", n_layers=2, d_model=64,
             n_heads=4, n_kv_heads=4, head_dim=16, d_ff=128,
             vit=replace(arch.vit, image_size=8, patch_size=2))
-    if arch.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{arch.name}: the {arch.family} family is not ported yet "
-            f"(ROADMAP queue 1)")
     n_layers = len(arch.layer_pattern) if arch.layer_pattern else 2
     n_heads = 4 if arch.n_heads else 0          # 0: attention-free
     ratio = max(arch.n_heads // max(arch.n_kv_heads, 1), 1) if arch.n_heads else 1

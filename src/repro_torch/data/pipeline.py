@@ -1,8 +1,8 @@
 """Deterministic, stateless data.  Counterpart of ``repro/data/pipeline.py``
 (``_rng``, ``SyntheticSource``, ``MemmapSource``, ``batch_for``,
 ``poisson_sample_indices``, ``poisson_capacity``, ``poisson_batch_for``,
-``augment_expand``), for token streams and the image families' synthetic
-images.
+``augment_expand``), for token streams, the embedding-input models'
+synthetic embeddings and the image families' synthetic images.
 
 Every batch is a pure function of (seed, step, example index) through a
 counter-based Philox generator in numpy, so a retried step sees the same
@@ -13,8 +13,11 @@ batches of per-step fresh examples; ``poisson_batch_for`` draws each of the
 N dataset examples independently with probability q, keyed by (seed,
 step), right-pads the draw to a fixed capacity and adds a ``(per,) bool``
 ``"mask"`` of the real rows.  Example content is keyed by dataset index,
-so example i is the same tokens (or image and label) in every step that
-samples it.
+so example i is the same tokens (embeddings and labels, or image and
+label) in every step that samples it.  An embedding-input arch
+(``embed_stub``) gets ``{"embeds": (n, T, d) float32, "labels": (n, T)
+int32}``: each example's labels are its token stream shifted, and its
+embeddings the next ``standard_normal`` draws of the same stream.
 
 Augmentation multiplicity (``augment_expand``) expands a sampled batch to
 K views of each example after sampling, so the example stays the privacy
@@ -50,33 +53,44 @@ def _rng(seed: int, step: int, stream: int) -> np.random.Generator:
 
 @dataclasses.dataclass(frozen=True)
 class SyntheticSource:
-    """Deterministic synthetic token stream."""
+    """Deterministic synthetic token and embedding streams."""
     vocab: int
     seed: int = 0
     dataset_size: int = 1_000_000   # nominal N for the privacy accountant
 
+    def _examples(self, step: int, streams, seq_len: int,
+                  embed_dim: int) -> Dict[str, np.ndarray]:
+        """One example a stream of (seed, ``step``, stream): its seq_len + 1
+        tokens, and with ``embed_dim`` then its (seq_len, embed_dim)
+        embeddings from the same stream, the labels its tokens shifted."""
+        toks = np.empty((len(streams), seq_len + 1), np.int32)
+        emb = np.empty((len(streams), seq_len, embed_dim), np.float32)
+        for row, stream in enumerate(streams):
+            gi = _rng(self.seed, step, stream)
+            toks[row] = gi.integers(0, self.vocab, seq_len + 1, np.int64)
+            if embed_dim:
+                emb[row] = gi.standard_normal((seq_len, embed_dim))
+        if embed_dim:
+            return {"embeds": emb, "labels": toks[:, 1:]}
+        return {"tokens": toks}
+
     def batch(self, step: int, n: int, seq_len: int, shard: int = 0,
-              n_shards: int = 1) -> Dict[str, np.ndarray]:
-        """``{"tokens": (n // n_shards, seq_len + 1) int32}``: this shard's
-        slice of the step's global batch, one Philox stream per example."""
+              n_shards: int = 1, embed_dim: int = 0) -> Dict[str, np.ndarray]:
+        """``{"tokens": (n // n_shards, seq_len + 1) int32}``, or with
+        ``embed_dim`` ``{"embeds", "labels"}``: this shard's slice of the
+        step's global batch, one Philox stream per example."""
         if n % n_shards:
             raise ValueError(f"batch {n} does not split into {n_shards} shards")
         per = n // n_shards
         lo = shard * per
-        out = np.empty((per, seq_len + 1), np.int32)
-        for i in range(per):
-            gi = _rng(self.seed, step, lo + i + 1)
-            out[i] = gi.integers(0, self.vocab, seq_len + 1, np.int64)
-        return {"tokens": out}
+        return self._examples(step, range(lo + 1, lo + per + 1), seq_len, embed_dim)
 
-    def examples(self, indices: np.ndarray, seq_len: int) -> Dict[str, np.ndarray]:
-        """``{"tokens": (len(indices), seq_len + 1) int32}`` by dataset
-        index: example i is the same tokens whichever step samples it."""
-        out = np.empty((len(indices), seq_len + 1), np.int32)
-        for row, idx in enumerate(indices):
-            gi = _rng(self.seed, _EXAMPLE_STREAM_STEP, int(idx) + 1)
-            out[row] = gi.integers(0, self.vocab, seq_len + 1, np.int64)
-        return {"tokens": out}
+    def examples(self, indices: np.ndarray, seq_len: int,
+                 embed_dim: int = 0) -> Dict[str, np.ndarray]:
+        """``batch``'s leaves by dataset index: example i is the same
+        whichever step samples it."""
+        return self._examples(_EXAMPLE_STREAM_STEP, [int(i) + 1 for i in indices],
+                              seq_len, embed_dim)
 
     # -- images (the image families), keyed as the tokens are --------------
     def _image_example(self, step: int, stream: int, size: int,
@@ -142,19 +156,28 @@ class MemmapSource:
         return {"tokens": np.clip(out, 0, self.vocab - 1)}
 
     def batch(self, step: int, n: int, seq_len: int, shard: int = 0,
-              n_shards: int = 1) -> Dict[str, np.ndarray]:
-        """This shard's slice of the step's windows, as ``SyntheticSource``."""
+              n_shards: int = 1, embed_dim: int = 0) -> Dict[str, np.ndarray]:
+        """This shard's slice of the step's windows, as ``SyntheticSource``;
+        tokens only (an ``embed_dim`` raises)."""
+        _tokens_only(embed_dim)
         if n % n_shards:
             raise ValueError(f"batch {n} does not split into {n_shards} shards")
         per = n // n_shards
         lo = shard * per
         return self._windows(step, range(lo + 1, lo + per + 1), seq_len)
 
-    def examples(self, indices: np.ndarray, seq_len: int) -> Dict[str, np.ndarray]:
+    def examples(self, indices: np.ndarray, seq_len: int,
+                 embed_dim: int = 0) -> Dict[str, np.ndarray]:
         """Windows by dataset index: index i is the same window whichever
         step samples it."""
+        _tokens_only(embed_dim)
         return self._windows(_EXAMPLE_STREAM_STEP,
                              [int(i) + 1 for i in indices], seq_len)
+
+
+def _tokens_only(embed_dim: int) -> None:
+    if embed_dim:
+        raise ValueError("memmap source provides tokens only")
 
 
 def make_source(spec: str, vocab: int, seed: int = 0):
@@ -174,10 +197,8 @@ def batch_for(source, arch: ArchConfig, shape: ShapeConfig,
         return _image_source(source, arch).image_batch(
             step, shape.global_batch, size, channels, arch.n_classes, shard,
             n_shards)
-    if arch.embed_stub:
-        raise NotImplementedError(f"{arch.name}: embedding-input models are "
-                                  f"not ported")
-    return source.batch(step, shape.global_batch, shape.seq_len, shard, n_shards)
+    return source.batch(step, shape.global_batch, shape.seq_len, shard, n_shards,
+                        arch.d_model if arch.embed_stub else 0)
 
 
 def _image_source(source, arch: ArchConfig):
@@ -227,13 +248,11 @@ def poisson_batch_for(source, arch: ArchConfig,
 
     The expected size is ``shape.global_batch`` (q = B/N unless
     ``sample_rate`` is given); the physical row count is ``capacity``,
-    right-padded with all-zero rows.  Returns ``"tokens"`` and ``"mask"``,
-    (per,) bool flags of the real rows.  A draw larger than the capacity
-    (z = 6: astronomically rare) is cut to its lowest indices with a
-    ``RuntimeWarning``: that step then deviates from the priced mechanism."""
-    if arch.embed_stub:
-        raise NotImplementedError(f"{arch.name}: embedding-input models are "
-                                  f"not ported")
+    right-padded with all-zero rows.  Returns the model inputs (as
+    ``batch_for``'s) and ``"mask"``, (per,) bool flags of the real rows.  A
+    draw larger than the capacity (z = 6: astronomically rare) is cut to
+    its lowest indices with a ``RuntimeWarning``: that step then deviates
+    from the priced mechanism."""
     N = source.dataset_size
     q = sample_rate if sample_rate is not None else shape.global_batch / N
     cap = capacity if capacity is not None else poisson_capacity(
@@ -255,7 +274,8 @@ def poisson_batch_for(source, arch: ArchConfig,
         ex = _image_source(source, arch).image_examples(mine, size, channels,
                                                         arch.n_classes)
     else:
-        ex = source.examples(mine, shape.seq_len)
+        ex = source.examples(mine, shape.seq_len,
+                             arch.d_model if arch.embed_stub else 0)
     out = {}
     for k, v in ex.items():
         padded = np.zeros((per,) + v.shape[1:], v.dtype)

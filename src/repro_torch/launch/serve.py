@@ -6,7 +6,8 @@
 Same flags as ``repro.launch.serve`` plus ``--device`` (default ``cuda``),
 ``--dtype`` (default ``bfloat16``) and ``--set moe.<field>=<value>`` (an
 MoE arch's expert config, e.g. ``--set moe.capacity_factor=2.0``).  Weights
-are a seeded random init.
+are a seeded random init.  Token-input archs only, as the JAX launcher: an
+embedding-input arch (musicgen-medium, chameleon-34b) raises.
 ``--engine host-loop`` runs the host-loop reference engine
 (``serve/host_loop.py``) instead of the device engine (``jitted``, the
 JAX package's name for it).
@@ -22,7 +23,7 @@ import torch
 from repro_torch.configs import (apply_overrides, get_arch, parse_set_args,
                                  reduced)
 from repro_torch.models.transformer import Model
-from repro_torch.serve.engine import Engine
+from repro_torch.serve.engine import Engine, require_token_input
 from repro_torch.serve.host_loop import HostLoopEngine
 from repro_torch.serve.ledger import (BudgetExceeded, PrivacyLedger,
                                       RequestCharge)
@@ -86,6 +87,7 @@ def main(argv=None) -> None:
         raise ValueError(f"--set {bad}: the serving launcher takes moe.* "
                          f"keys only")
     arch = apply_overrides(arch, sets)
+    require_token_input(arch, "serve launcher")
     if arch.moe.enabled:
         print(f"[serve] {arch.moe}", flush=True)
     model = Model(arch, dtype=DTYPES[args.dtype], device=args.device,

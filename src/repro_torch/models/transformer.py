@@ -6,6 +6,9 @@ Params keep the JAX package's nesting and layouts: ``{"embed",
 "prelude": [layer, ...], "blocks": (layer, ...), "final_norm", "head"}``,
 where every ``blocks`` leaf carries a leading ``(reps,)`` axis.  The JAX
 package scans that axis with ``lax.scan``; here a Python loop indexes it.
+An embedding-input arch (``embed_stub``: audio, VLM backbones whose
+frontend is a stub) has no ``"embed"``: training, prefill and decode take
+its precomputed (B, T, d) embeddings where a token arch takes ids.
 Caches are ``{"prelude": [c, ...], "blocks": (c, ...)}`` with the same
 leading ``(reps,)`` axis on block leaves, ``c`` an attention layer's (k, v)
 or a Mamba layer's (conv window, SSM state).
@@ -25,6 +28,7 @@ norm accumulator; the prelude is not wrapped.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 import zlib
 from typing import Any, Dict, List, Optional, Tuple
@@ -42,6 +46,8 @@ from repro_torch.models.layers import P
 
 AUX_LOSS_WEIGHT = 0.01
 VOCAB_PAD = 256
+# init_spec: the most entries drawn at once (a 1 GiB float32 temporary)
+DRAW_ELEMS = 1 << 28
 
 
 def padded_vocab(v: int) -> int:
@@ -88,14 +94,13 @@ def layer_spec(arch: ArchConfig, sig: Tuple[str, bool]) -> Dict[str, Any]:
 
 
 def model_spec(arch: ArchConfig) -> Dict[str, Any]:
-    if arch.embed_stub:
-        raise NotImplementedError(f"{arch.name}: embedding-input models are "
-                                  f"not ported yet (ROADMAP queue 1)")
+    """The decoder's param spec; an embedding-input arch (``embed_stub``)
+    has no ``"embed"`` table: its inputs are precomputed embeddings."""
     pre, period, reps = group_layers(arch)
-    spec: Dict[str, Any] = {
-        "embed": P((padded_vocab(arch.vocab), arch.d_model), "embed"),
-        "prelude": [layer_spec(arch, layer_sig(arch, i)) for i in range(pre)],
-    }
+    spec: Dict[str, Any] = {}
+    if not arch.embed_stub:
+        spec["embed"] = P((padded_vocab(arch.vocab), arch.d_model), "embed")
+    spec["prelude"] = [layer_spec(arch, layer_sig(arch, i)) for i in range(pre)]
     if reps > 0:
         spec["blocks"] = tuple(layer_spec(arch, layer_sig(arch, pre + j))
                                for j in range(period))
@@ -124,19 +129,21 @@ def init_spec(spec, seed: int, dtype: torch.dtype, device: torch.device,
     (ln U(1, 16)), all four kept float32 as there; N(0, 0.02²) for an
     embedding, N(0, 1/fan_in) for a weight, ``fan_in(shape)`` of its spec
     shape (by default the product of all dims but the last, the image
-    models' rule).  ``lead(path)`` is a leaf's
-    leading stacked dims.  Each leaf draws from its own
-    ``torch.Generator`` seeded by a crc32 of (seed, its path), so a leaf's
-    values do not depend on the others.  The bits differ from JAX's
-    threefry: tests share weights via ``interop``."""
-    def mk(p: P, path):
-        shape = lead(path) + p.shape
-        if p.init in ("ones", "zeros"):
-            fill = torch.ones if p.init == "ones" else torch.zeros
-            return fill(shape, dtype=torch.float32, device=device)
+    models' rule).  ``lead(path)`` is a leaf's leading stacked dims.  A
+    leaf is drawn one slice of its stacked dims at a time, and a slice of
+    over ``DRAW_ELEMS`` entries a block along its first dim at a time (an
+    expert stack's (E, d_in, d_out): experts), in float32 and cast into its
+    place, so the float32 temporary is at most 1 GiB or one row of the
+    slice, never the whole stack.  Each draw has its own
+    ``torch.Generator`` seeded by a crc32 of (seed, its path, the slice's
+    index and first row; an unstacked leaf of at most ``DRAW_ELEMS``: seed
+    and path), so its values do not depend on the other leaves or slices.
+    The bits differ from JAX's threefry: tests share weights via
+    ``interop``."""
+    def draw(p: P, shape, key: str):
         g = torch.Generator(device=device)
         # 32 bits: the CPU generator keeps only the low 32 bits of a seed
-        g.manual_seed(zlib.crc32(f"{seed}:{'/'.join(path)}".encode()))
+        g.manual_seed(zlib.crc32(key.encode()))
         if p.init in ("mamba_dt", "mamba_alog"):
             u = torch.rand(shape, generator=g, dtype=torch.float32, device=device)
             if p.init == "mamba_alog":
@@ -145,7 +152,29 @@ def init_spec(spec, seed: int, dtype: torch.dtype, device: torch.device,
             return dt + torch.log(-torch.expm1(-dt))        # inverse softplus
         std = 0.02 if p.init == "embed" else 1.0 / fan_in(p.shape) ** 0.5
         w = torch.randn(shape, generator=g, dtype=torch.float32, device=device)
-        return (w.mul_(std)).to(dtype)
+        return w.mul_(std)
+
+    def mk(p: P, path):
+        shape = lead(path) + p.shape
+        if p.init in ("ones", "zeros"):
+            fill = torch.ones if p.init == "ones" else torch.zeros
+            return fill(shape, dtype=torch.float32, device=device)
+        small = p.init in ("mamba_dt", "mamba_alog")        # kept float32
+        out = torch.empty(shape, dtype=torch.float32 if small else dtype,
+                          device=device)
+        n = len(lead(path))
+        piece = shape[n:]
+        rows = max(1, DRAW_ELEMS // max(1, math.prod(piece[1:])))
+        base = f"{seed}:{'/'.join(path)}"
+        for idx in itertools.product(*map(range, shape[:n])):
+            key = f"{base}:{','.join(map(str, idx))}" if n else base
+            if math.prod(piece) <= DRAW_ELEMS:
+                out[idx] = draw(p, piece, key)
+                continue
+            for r in range(0, piece[0], rows):        # rows at a time
+                out[idx][r:r + rows] = draw(p, (min(rows, piece[0] - r),) + piece[1:],
+                                            f"{key}:rows{r}")
+        return out
 
     return _map_spec(spec, mk)
 
@@ -222,7 +251,6 @@ class Model(ParamModel):
                  dtype: torch.dtype = torch.bfloat16, device=None,
                  seed: int = 0, remat: str = "block",
                  param_dtype: Optional[torch.dtype] = None):
-        model_spec(arch)          # raises early for unported layer kinds
         super().__init__(arch, params, init_params, dtype=dtype, device=device,
                          seed=seed, remat=remat, param_dtype=param_dtype)
 
@@ -285,10 +313,15 @@ class Model(ParamModel):
         x, ctx = L.rmsnorm(x, params["final_norm"], ctx, self.arch.norm_eps)
         return ctx.dense(x, L.cast(params["head"], x))
 
-    def _embed_in(self, params, tokens, ctx: DPContext):
-        # the rows are gathered in the parameter type and cast, as the JAX
-        # package does (its embedding site sees the parameter type)
-        x, ctx = ctx.embed(tokens, params["embed"])
+    def _embed_in(self, params, inputs, ctx: DPContext):
+        """(B, T, d) activations in the compute type: an embedding-input
+        arch's precomputed embeddings cast (no site), else the token ids'
+        rows gathered through the embedding site in the parameter type and
+        cast, as the JAX package does (its embedding site sees the
+        parameter type)."""
+        if self.arch.embed_stub:
+            return inputs.to(self.dtype), ctx
+        x, ctx = ctx.embed(inputs, params["embed"])
         return x.to(self.dtype), ctx
 
     # -- training -------------------------------------------------------------
@@ -297,9 +330,13 @@ class Model(ParamModel):
         each loss the cross-entropy plus ``AUX_LOSS_WEIGHT`` times the
         example's MoE aux losses summed over layers.  ``params``: a tree in
         this model's layout (``self.params``, or the same tree detached);
-        batch: ``{"tokens": (B, T+1) int}``."""
-        toks = batch["tokens"]
-        inputs, labels = toks[:, :-1], toks[:, 1:]
+        batch: ``{"tokens": (B, T+1) int}``, or for an embedding-input arch
+        ``{"embeds": (B, T, d) float, "labels": (B, T) int}``."""
+        if self.arch.embed_stub:
+            inputs, labels = batch["embeds"], batch["labels"]
+        else:
+            toks = batch["tokens"]
+            inputs, labels = toks[:, :-1], toks[:, 1:]
         B, T = labels.shape
         x, ctx = self._embed_in(params, inputs, ctx)
         pos = torch.arange(T, device=x.device)[None].expand(B, T)
@@ -384,7 +421,8 @@ class Model(ParamModel):
     # -- serving ------------------------------------------------------------
     @torch.no_grad()
     def prefill(self, tokens, cache_len: int, lengths=None):
-        """Full-prompt forward.  tokens: (B, T) int.  Returns (logits at
+        """Full-prompt forward.  tokens: (B, T) int, or for an
+        embedding-input arch its (B, T, d) embeddings.  Returns (logits at
         the last position (B, 1, Vpad), cache), the attention leaves padded
         to ``cache_len`` positions, the Mamba states as the prompt leaves
         them.  ``lengths``: optional (B,) true lengths of right-padded
@@ -435,8 +473,9 @@ class Model(ParamModel):
 
     @torch.no_grad()
     def decode_step(self, cache, tokens, pos):
-        """One-token decode. tokens: (B, 1); pos: (B,) write positions.
-        Writes the cache in place; returns (logits (B,1,Vpad), cache)."""
+        """One-token decode. tokens: (B, 1), or for an embedding-input arch
+        (B, 1, d) embeddings; pos: (B,) write positions.  Writes the cache
+        in place; returns (logits (B,1,Vpad), cache)."""
         return self._decode(cache, tokens, pos, None)
 
     @torch.no_grad()

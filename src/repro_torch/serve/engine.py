@@ -17,7 +17,10 @@ absorb pad tokens (``has_mamba``, the scheduler's ``same_length_waves``).
 ``paged=True`` replaces the
 per-slot cache slabs with a shared block pool and per-slot block tables
 (``paging.py``); greedy outputs equal the contiguous engine's.  ``ledger``
-attaches a per-user privacy-budget ledger (``ledger.py``).
+attaches a per-user privacy-budget ledger (``ledger.py``).  The engines
+serve token ids only, as the JAX engine does: an embedding-input arch
+(``embed_stub``) is refused at construction (``require_token_input``) and
+serves through ``Model.prefill`` and ``decode_step`` fed its embeddings.
 
 Differences from the JAX engine: cache and state writes are IN PLACE (the
 JAX version donates its buffers to each jitted call instead); a wave
@@ -26,8 +29,7 @@ prefills only its own rows, so the JAX version's dropped padding rows
 a slot's cache past its prompt keeps what an earlier occupant left there,
 which the causal mask removes exactly as it removes the zeros the JAX
 engine writes (the paged pool reuses blocks unzeroed in both packages).
-The host-loop reference engine (``repro/serve/host_loop.py``) is not
-ported.
+The host-loop reference engine is ``host_loop.py``.
 """
 from __future__ import annotations
 
@@ -52,6 +54,15 @@ def _round_up(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
 
 
+def require_token_input(arch, what: str) -> None:
+    """Raise for an embedding-input arch: ``what`` drives token-input archs
+    (the JAX engine and launcher take token ids only)."""
+    if arch.embed_stub:
+        raise ValueError(f"{arch.name}: {what} drives token-input archs (an "
+                         f"embedding-input model serves through Model.prefill "
+                         f"and decode_step fed its embeddings)")
+
+
 class StepBudgetExceeded(RuntimeError):
     """``run(max_steps=...)`` overran its budget.  ``results`` carries
     every output completed before the overrun."""
@@ -72,6 +83,7 @@ class Engine:
                  block_size: int = 16, num_blocks: Optional[int] = None,
                  prefix_sharing: bool = True,
                  ledger: Optional[PrivacyLedger] = None):
+        require_token_input(model.arch, "the engine")
         self.model = model
         self.device = model.device
         self.B = max_batch

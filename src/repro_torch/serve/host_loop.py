@@ -33,7 +33,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.serve.engine import StepBudgetExceeded
+from repro_torch.serve.engine import StepBudgetExceeded, require_token_input
 from repro_torch.serve.scheduler import Request
 
 
@@ -43,6 +43,7 @@ class HostLoopEngine:
 
     def __init__(self, model, max_batch: int = 4, cache_len: int = 128,
                  seed: int = 0):
+        require_token_input(model.arch, "the host loop")
         self.model = model
         self.device = model.device
         self.B = max_batch

@@ -626,3 +626,49 @@ def test_pass1_launches_count_the_norm_pass(smoke, monkeypatch, name, route):
     want = smoke.pass1_launches(route, remat="block", **smoke.launch_shape(arch, 4, 8))
     assert smoke.read_counts() == want
     assert sum(want.values()) > 0
+
+
+@pytest.mark.parametrize("name,algo,route,remat", [
+    ("musicgen-medium", "dpsgd_r", "fused", "block"),
+    ("musicgen-medium", "dpsgd_r", "auto", "none"),
+    ("musicgen-medium", "dpsgd_r1f", "fused", "block"),
+    ("chameleon-34b", "dpsgd_r", "fused", "sites"),
+    ("chameleon-34b", "dpsgd_r", "materialize", "block"),
+    ("chameleon-34b", "dpsgd_r", "gram", "none")])
+def test_path_launches_count_the_embed_model_wrapper_calls(smoke, monkeypatch, name,
+                                                           algo, route, remat):
+    """Phase 15's paths: ``path_launches`` of the embedding-input decoders
+    (no embedding site, so no embedding ``gram_norm``: the fused route
+    launches none) against the wrapper calls of one Trainer step on the
+    CPU.  musicgen-reduced has 2 x 6 + 1 = 13 norm sites (its gelu MLP has
+    no w3), chameleon-reduced 2 x 7 + 1 = 15.  At the card's shapes
+    musicgen's 48 layers at B 8 x T 1500 make 289 sites, all sent to
+    ``pegrad_norm`` by ``auto``, and chameleon's 6-layer cut at B 8 x T
+    512 makes 43, all sent to ``gram_norm``."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import reduced
+    from repro_torch.configs.base import DPConfig, OptimConfig, ShapeConfig, TrainConfig
+    from repro_torch.models.transformer import Model
+    from repro_torch.train import Trainer
+    _count_wrapper_calls(smoke, monkeypatch)
+    arch = reduced(get_arch(name))
+    model = Model(arch, dtype=torch.float32, device="cpu", remat=remat)
+    cfg = TrainConfig(param_dtype="float32", compute_dtype="float32", remat=remat,
+                      optim=OptimConfig(schedule="constant"),
+                      dp=DPConfig(algo=algo, norm_strategy=route, use_kernels=True))
+    trainer = Trainer(model, cfg, ShapeConfig("t", 8, 4, "train"))
+    state = trainer.init_state()
+    smoke.zero_counts()
+    trainer.train_step(state, trainer.make_batch(0))
+    shape = smoke.launch_shape(arch, 4, 8)
+    assert (shape["sites"], shape["attn"], shape["embeds"]) == (
+        (13, 2, 0) if name == "musicgen-medium" else (15, 2, 0))
+    want = smoke.path_launches(route, algo=algo, remat=remat, **shape)
+    assert smoke.read_counts() == want
+    if route == "fused":
+        assert want["gram_norm"] == 0 and want["dense_bwd_norm"] == shape["sites"]
+    full = smoke.launch_shape(get_arch("musicgen-medium"), smoke.TRAIN_B, 1500)
+    assert (full["sites"], full["auto_norms"]) == (289, (289, 0))
+    cut = smoke.launch_shape(dataclasses.replace(get_arch("chameleon-34b"), n_layers=6))
+    assert (cut["sites"], cut["auto_norms"], cut["embeds"]) == (43, (0, 43), 0)

@@ -374,10 +374,10 @@ def test_view_helpers_match_jax():
 
 
 def test_unported_options_raise():
-    """What the port has not taken over raises and names ROADMAP: an
-    embedding-input arch through ``reduced`` and in a Model (MoE, Mamba,
-    augmult and adaptive clipping are ported: a hybrid arch builds, and
-    only its paged cache raises); an unknown algorithm raises too."""
+    """What the port has not taken over raises: an unknown algorithm.
+    MoE, Mamba, augmult, adaptive clipping and the embedding-input models
+    are ported: a hybrid arch builds, and only its paged cache raises; an
+    embedding-input arch reduces and builds with no embedding table."""
     hybrid = dataclasses.replace(TARCHS["phi3-mini-3.8b"], family="hybrid",
                                  layer_pattern=(MAMBA, ATTN),
                                  moe=MoEConfig(num_experts=4))
@@ -387,9 +387,8 @@ def test_unported_options_raise():
         model.init_paged_cache(4, 16)
     audio = dataclasses.replace(TARCHS["phi3-mini-3.8b"], family="audio",
                                 embed_stub=True)
-    for make in (treduced, lambda a: Model(a, device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make(audio)
+    model = Model(treduced(audio), dtype=torch.float32, device="cpu")
+    assert "embed" not in model.params and "head" in model.params
     loss_fn = lambda p, b, c: (None, c)
     with pytest.raises(ValueError, match="unknown dp.algo"):
         talgo.make_noisy_grad_fn(loss_fn, DPConfig(algo="nope"))

@@ -134,18 +134,18 @@ def test_seeded_init_is_deterministic():
 
 
 def test_unported_layers_and_missing_cuda_raise(monkeypatch):
-    """An embedding-input arch is not ported and raises; Mamba layers are
-    (a hybrid pattern builds, its paged decode raises); no CUDA device and
-    no ``device="cpu"`` raises."""
+    """Mamba layers and embedding-input archs are ported (a hybrid pattern
+    builds, its paged decode raises; an ``embed_stub`` arch builds with no
+    embedding table); no CUDA device and no ``device="cpu"`` raises."""
     import dataclasses
     hybrid = dataclasses.replace(treduced(TARCHS["phi3-mini-3.8b"]),
                                  layer_pattern=(MAMBA, ATTN))
     model = Model(hybrid, dtype=torch.float32, device="cpu")
     with pytest.raises(ValueError, match="attention layers only"):
         model.decode_step_paged(None, None, None, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(dataclasses.replace(hybrid, embed_stub=True), dtype=torch.float32,
-              device="cpu")
+    stub = Model(dataclasses.replace(hybrid, embed_stub=True), dtype=torch.float32,
+                 device="cpu")
+    assert "embed" not in stub.params and "embed" in model.params
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device(None)
