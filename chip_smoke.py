@@ -241,7 +241,26 @@ the script exits nonzero and prints no ``ok`` line:
    beside the planner's estimate, the norms² of one batch through the
    plain rules and ``auto`` (every site to ``gram_norm``, counted)
    against fused.  No phase steps through ``Trainer.run``, which
-   checkpoints at its last step.
+   checkpoints at its last step;
+16. distribution: (a) phi3-mini at full width on ``PP_LAYERS`` of its 32
+   layers, ``remat="block"``, ``dpsgd_r`` fused + kernels, B 8 x T 512,
+   the blocks on the pipeline schedule (``pp_stages`` ``PP_STAGES``, M
+   one a stage) against the sequential blocks on the same params and
+   batch at σ = 0: norms² and losses within ``NSQ_RTOL``, clipped sums
+   within ``CLIP_SUM_TOL``; then counted steps in turns on one AdamW state
+   (launches against ``path_launches`` with M), their ms and peaks side by
+   side; (b) the training launcher under ``torch.distributed.run`` in a
+   world of 1 on NCCL: phi3-mini at full width on ``DIST_LAYERS`` layers,
+   ZeRO-1, the int8 compression rider, ``pp_stages`` 2, σ 0, AdamW,
+   ``DIST_STEPS`` steps, its checkpoints in a temporary directory; (c)
+   the same in 2 ranks sharing the card over gloo, each on half the
+   batch: every rank's fingerprint equal to (b)'s, each step's loss and
+   ``grad_norm_mean`` equal on both ranks and within ``NSQ_RTOL`` of
+   (b)'s, each ZeRO-1 first moment of a shardable param in 2 shard files,
+   and both checkpoints restored whole by the port's reader: params and
+   first moments within ``CLIP_SUM_TOL`` of each leaf's max.  A world's
+   nonzero exit or its ``DIST_TIMEOUT`` raises; the temporary directories
+   are removed.
 
 Each path counts the launches of every kernel from zero and must launch
 each kernel exactly as often as the code says it does (``path_launches``,
@@ -284,8 +303,8 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
 F32_TOL = dict(rtol=2e-4, atol=2e-5)     # as tests/test_kernels.py
 # time_ms: the longest a timed loop runs, ms (a slow call's iterations are
-# cut to fit it, at least 2)
-LOOP_MS = 300.0
+# cut to fit it, at least 1 after the warm-up call)
+LOOP_MS = 150.0
 BF16_ATOL = 2e-2                          # bf16 vs the plain version in f32
 # the main path's traffic: 16 greedy requests, prompts of 64-1024 tokens,
 # 64 new tokens each, through 8 slots of a 2048-position cache
@@ -358,6 +377,14 @@ MG_T, MG_PROMPT, MG_NEW = 1500, 500, 64
 CH_REQUESTS, CH_PROMPT, CH_NEW = 4, 1008, 16
 CH_TRAIN_LAYERS, CH_MIN_LAYERS = 6, 4
 INIT_SLACK = 2 * 2**30
+# phase 16: distribution.  (a) the pipeline schedule in one process:
+# phi3-mini at full width on PP_LAYERS of its 32 layers, pp_stages
+# PP_STAGES (M one a stage) against the sequential blocks on the same
+# params; (b), (c) the launcher under torch.distributed.run at full width
+# on DIST_LAYERS layers, DIST_STEPS steps: a world of 1 on NCCL, then 2
+# ranks sharing the card over gloo; DIST_TIMEOUT bounds each world (s)
+PP_LAYERS, PP_STAGES = 8, 4
+DIST_LAYERS, DIST_STEPS, DIST_TIMEOUT = 2, 2, 600
 
 
 def request_stream(vocab: int, seed: int = 0):
@@ -371,7 +398,7 @@ def request_stream(vocab: int, seed: int = 0):
 def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     """``fn``'s mean ms over ``iters`` calls after ``warmup``, by CUDA
     events.  A slow call runs fewer times: from the first warm-up call's
-    time, the timed calls are cut to fit ``LOOP_MS`` (at least 2), and a
+    time, the timed calls are cut to fit ``LOOP_MS`` (at least 1), and a
     call over ``LOOP_MS`` / 4 gets no second warm-up."""
     import torch
     start = torch.cuda.Event(enable_timing=True)
@@ -381,7 +408,7 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     first = start.elapsed_time(end)
-    iters = max(2, min(iters, int(LOOP_MS / max(first, 1e-3))))
+    iters = max(1, min(iters, int(LOOP_MS / max(first, 1e-3))))
     for _ in range(warmup - 1 if first <= LOOP_MS / 4 else 0):
         fn()
     torch.cuda.synchronize()
@@ -1320,7 +1347,8 @@ def launch_shape(arch, B=TRAIN_B, T=TRAIN_T):
 def path_launches(route: str, L: int, chunks: int = 1, algo: str = "dpsgd_r",
                   remat: str = "none", examples: int = 0, microbatch: int = 0,
                   dtype_groups: int = 0, family: str = "dense", convs: int = 0,
-                  sites: int = 0, auto_norms=(0, 0), attn=None, embeds: int = 1):
+                  sites: int = 0, auto_norms=(0, 0), attn=None, embeds: int = 1,
+                  microbatches: int = 1):
     """Launches of every kernel in one step of ``algo``, as the code makes
     them.  The dense decoder with ``L`` layers: each layer has 7 dense
     sites (q, k, v, o, w1, w3, w2) and one attention, the model one head
@@ -1361,10 +1389,18 @@ def path_launches(route: str, L: int, chunks: int = 1, algo: str = "dpsgd_r",
     of per-example gradients each, ``clipping.flat_stacks``) per chunk of
     ``microbatch`` examples (0 = all).  Under ``block`` and ``sites`` every
     backward recomputes every block's forward once more, so its flash
-    forwards.  ``chunks``: grad_accum, every chunk a full step's worth."""
+    forwards.  ``chunks``: grad_accum, every chunk a full step's worth.
+    ``microbatches``: the pipeline schedule's M (the dense decoder with
+    ``pp_stages`` > 1): every block runs once a microbatch, so its sites
+    and attention launch M times a pass; the embedding and the head, outside
+    the stages, once."""
     n = dict.fromkeys(kernel_counts(), 0)
+    if microbatches != 1 and family != "dense":
+        raise ValueError(f"microbatches are counted for the dense decoder, "
+                         f"not {family!r}")
     if family == "dense":
-        sites, dgrads, attn, embeds = 7 * L + 1, 7 * L + 1, L, 1
+        M = microbatches
+        sites, dgrads, attn, embeds = 7 * L * M + 1, 7 * L * M + 1, L * M, 1
     elif family == "vit":
         sites, dgrads, attn, embeds = 6 * L + 2, 6 * L + 1, L, 0
     elif family == "cnn":
@@ -4608,6 +4644,260 @@ def embed_path():
 
 
 
+def pipeline_ab():
+    """Phase 16 (a): the pipelined block stack against the sequential one
+    on the same params (two ``Model``s over one set of tensors) and batch:
+    σ = 0 norms², losses and clipped sums, then counted steps in turns
+    (sequential, pipelined, pipelined, sequential) on one AdamW state, each
+    with its peak."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core import algo
+    from repro_torch.models.transformer import Model
+    from repro_torch.train import Trainer, TrainState
+    arch = dataclasses.replace(get_arch("phi3-mini-3.8b"), n_layers=PP_LAYERS)
+    shape, cfg = train_shape_and_config(arch, "block")
+    cfg = dataclasses.replace(cfg, dp=dataclasses.replace(cfg.dp, noise_multiplier=0.0))
+    pipe = Model(arch, dtype=torch.bfloat16, device="cuda", seed=0, remat="block",
+                 pp_stages=PP_STAGES)
+    seq = Model(arch, pipe.params, dtype=torch.bfloat16, device="cuda", remat="block")
+    M = algo.stage_microbatches(TRAIN_B, PP_STAGES, pipe.pp_microbatches)
+    trainers = {"sequential": Trainer(seq, cfg, shape), "pipelined": Trainer(pipe, cfg, shape)}
+    batch = trainers["sequential"].make_batch(0)
+    out = {}
+    for key, tr in trainers.items():
+        nsq, losses = algo.norm_pass(tr.model.loss_fn, tr.model.params, batch, cfg.dp)
+        grads, _ = algo.make_noisy_grad_fn(tr.model.loss_fn, cfg.dp)(
+            tr.model.params, batch, tr.noise_generator(0))
+        out[key] = (nsq, losses, grads)
+    (nsq_s, loss_s, g_s), (nsq_p, loss_p, g_p) = out["sequential"], out["pipelined"]
+    nsq_err = ((nsq_p - nsq_s).abs() / nsq_s.abs()).max().item()
+    loss_err = ((loss_p - loss_s).abs() / loss_s.abs()).max().item()
+    sum_err = leaf_gap(g_p, g_s)
+    del out, g_s, g_p
+    assert nsq_err <= NSQ_RTOL and loss_err <= NSQ_RTOL, (nsq_err, loss_err)
+    assert sum_err <= CLIP_SUM_TOL, sum_err
+    print(f"[pipeline] phi3-mini-3.8b at full width, {PP_LAYERS} layers, B {TRAIN_B} x "
+          f"T {TRAIN_T}, bf16, dpsgd_r fused + kernels, remat block: pp_stages "
+          f"{PP_STAGES} (M {M}) against 1 on the same params and batch at sigma 0: "
+          f"norms² max rel err {nsq_err:.2e}, losses {loss_err:.2e} (limit {NSQ_RTOL}); "
+          f"clipped sums {sum_err:.2e} of each leaf's max (limit {CLIP_SUM_TOL})",
+          flush=True)
+
+    state = trainers["sequential"].init_state()
+    states = {"sequential": state,
+              "pipelined": TrainState(state.step, pipe.params, state.opt_state)}
+    for key, tr in trainers.items():
+        timed_step(tr, states[key])                      # warm-up
+    steps = {k: [] for k in trainers}
+    launches = dict.fromkeys(kernel_counts(), 0)
+    for key in ("sequential", "pipelined", "pipelined", "sequential"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        rec = timed_step(trainers[key], states[key])
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+        counts = read_counts()
+        want = path_launches("fused", PP_LAYERS, remat="block",
+                             microbatches=M if key == "pipelined" else 1)
+        assert counts == want, (key, counts, want)
+        rec["launches"] = counts
+        launches = {k: launches[k] + counts[k] for k in launches}
+        steps[key].append(rec)
+    ms = {k: [r["step_ms"] for r in v] for k, v in steps.items()}
+    peak = {k: max(r["peak_bytes"] for r in v) for k, v in steps.items()}
+    print(f"[pipeline] step ms sequential {ms['sequential']} | pipelined "
+          f"{ms['pipelined']} (pipelined / sequential "
+          f"{sum(ms['pipelined']) / sum(ms['sequential']):.3f}); peak "
+          f"{peak['sequential'] / 2**30:.2f} | {peak['pipelined'] / 2**30:.2f} GiB; "
+          f"launches a pipelined step {steps['pipelined'][0]['launches']}", flush=True)
+    return dict(layers=PP_LAYERS, stages=PP_STAGES, microbatches=M,
+                nsq_rel_err=nsq_err, loss_rel_err=loss_err, clip_sum_err=sum_err,
+                steps=steps, peak_bytes=peak, launches=launches)
+
+
+def leaf_gap(got, want) -> float:
+    """The largest gap between two lists of tensors, leaf by leaf, as a
+    share of each reference leaf's largest entry."""
+    worst = 0.0
+    for a, b in zip(got, want, strict=True):
+        scale = float(b.abs().max()) or 1.0
+        worst = max(worst, float((a.float() - b.float()).abs().max()) / scale)
+    return worst
+
+
+LAUNCH_LINES = {
+    "backend": r"\[train\] backend (\w+): rank (\d+) of (\d+) on ([\w:]+)",
+    "fingerprint": r"\[train\] init fingerprint (0x[0-9a-f]+) \((\d+) process",
+    "step": r"\[trainer\] step\s+(\d+) loss (\S+) grad_norm_mean (\S+) .*?\((\d+) ms\)",
+    "estimate": r"\[train\] memory: estimated peak (\S+) GB.*?per device (\S+) GB",
+    "measured": r"\[train\] memory: measured peak (\S+) GB",
+}
+
+
+def parse_launcher(text: str) -> dict:
+    """What the training launcher's ranks printed: each pattern's matches
+    in order, and the step records by step index, one a rank.  A rank's
+    line reaches the pipe in one write and its newline in another, so
+    another rank's line may follow a line's last token directly: no
+    pattern's last field runs on into a ``[``."""
+    import re
+    out = {k: re.findall(p, text) for k, p in LAUNCH_LINES.items()}
+    steps: dict = {}
+    for step, loss, gnorm, ms in out["step"]:
+        steps.setdefault(int(step), []).append(
+            dict(loss=float(loss), grad_norm_mean=float(gnorm), ms=int(ms)))
+    out["steps"] = steps
+    return out
+
+
+def launcher_cmd(nproc: int, ckpt_dir: str):
+    """``torch.distributed.run`` of the training launcher for phase 16 (b)
+    and (c): phi3-mini at full width on DIST_LAYERS layers, B 8 x T 512,
+    ZeRO-1, the compression rider, pp_stages 2, σ 0, AdamW, dpsgd_r fused
+    + kernels, one data axis over ``nproc`` ranks."""
+    sets = ["zero1=true", "compress_pod_grads=true", "pp_stages=2",
+            "dp.noise_multiplier=0", "optim.name=adamw", "optim.lr=1e-4",
+            "optim.schedule=constant", "dp.norm_strategy=fused",
+            "dp.use_kernels=true", "log_every=1", f"ckpt_dir={ckpt_dir}"]
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", str(nproc), "-m", "repro_torch.launch.train",
+            "--arch", "phi3-mini-3.8b", "--layers", str(DIST_LAYERS),
+            "--batch", str(TRAIN_B), "--seq", str(TRAIN_T), "--steps",
+            str(DIST_STEPS), "--mesh", str(nproc), "--axes", "data",
+            *[x for kv in sets for x in ("--set", kv)]]
+
+
+def run_launcher(nproc: int, ckpt_dir: str) -> dict:
+    """One launcher world on the card; its output to
+    ``chiprun_out/chip_smoke_dist<nproc>.log``.  A nonzero exit (a rank's
+    failure, a collective's timeout) or the wall-clock limit raises."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t = time.perf_counter()
+    r = subprocess.run(launcher_cmd(nproc, ckpt_dir), env=env, cwd=ROOT,
+                       capture_output=True, text=True, timeout=DIST_TIMEOUT)
+    secs = time.perf_counter() - t
+    (ROOT / "chiprun_out" / f"chip_smoke_dist{nproc}.log").write_text(
+        r.stdout + "\n--- stderr\n" + r.stderr)
+    if r.returncode != 0:
+        raise RuntimeError(f"the launcher's world of {nproc} exited "
+                           f"{r.returncode}:\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    return dict(parse_launcher(r.stdout), seconds=secs)
+
+
+def zero1_moment_shards(manifest: dict, n_params: int):
+    """The shard files of each AdamW first moment in a launcher checkpoint
+    (leaves: the step, the params, the compression residuals, then the
+    optimizer's m, master, v)."""
+    return [len(rec["shards"]) for rec in
+            manifest["leaves"][1 + 2 * n_params:1 + 3 * n_params]]
+
+
+def zero1_expected_shards(arch, width: int):
+    """The shards ZeRO-1 cuts each param's moment into on a ``width``-wide
+    data axis: ``width`` where ``state_shardings`` puts a dim on ``data``."""
+    import types
+    from repro_torch.dist import sharding
+    from repro_torch.models.transformer import abstract_params, logical_axes
+    mesh = types.SimpleNamespace(axis_names=("data",), shape=(width,))
+    return [width if "data" in sharding.spec_for_param(ax, p.shape, mesh, fsdp=True)
+            else 1 for _, p, ax in sharding._paired(abstract_params(arch),
+                                                     logical_axes(arch))]
+
+
+def restore_launcher_ckpt(arch, ckpt_dir: str):
+    """A launcher run's last checkpoint restored whole on the host by the
+    port's reader: (params, first moments), leaf lists."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs.base import OptimConfig
+    from repro_torch.models.transformer import abstract_params
+    from repro_torch.optim import make_optimizer
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.state import TrainState
+    params = tree.tree_map(lambda m: torch.empty(m.shape, dtype=m.dtype),
+                           abstract_params(arch))
+    leaves = tree.leaves(params)
+    opt = {"opt": make_optimizer(OptimConfig(name="adamw")).init(leaves),
+           "grad_err": [torch.empty(p.shape) for p in leaves]}
+    state = CheckpointManager(ckpt_dir).restore(TrainState(0, params, opt))
+    assert state.step == DIST_STEPS, state.step
+    return tree.leaves(state.params), state.opt_state["opt"]["m"]
+
+
+def dist_path():
+    """Phase 16: (a) ``pipeline_ab``; (b) the launcher in a world of 1 on
+    NCCL and (c) in 2 ranks sharing the card over gloo, each rank its half
+    of the batch: equal fingerprints, step metrics, params and first
+    moments, the moments of (c) in 2 shard files each."""
+    import json
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import get_arch
+    t0 = time.perf_counter()
+    pipe = pipeline_ab()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    print(f"[time] phase 16 (a) pipeline: {t1 - t0:.1f} s", flush=True)
+    arch = dataclasses.replace(get_arch("phi3-mini-3.8b"), n_layers=DIST_LAYERS)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        runs, ckpt = {}, {}
+        for nproc in (1, 2):
+            ckpt[nproc] = str(Path(tmp) / f"world{nproc}")
+            runs[nproc] = run_launcher(nproc, ckpt[nproc])
+            print(f"[time] phase 16 ({'b' if nproc == 1 else 'c'}) world of {nproc}: "
+                  f"{runs[nproc]['seconds']:.1f} s", flush=True)
+        one, two = runs[1], runs[2]
+        assert [b[0] for b in one["backend"]] == ["nccl"], one["backend"]
+        assert sorted(b[0] for b in two["backend"]) == ["gloo", "gloo"], two["backend"]
+        assert {b[3] for b in two["backend"]} == {"cuda:0"}, two["backend"]
+        fps = [f for f, _ in one["fingerprint"] + two["fingerprint"]]
+        assert len(fps) == 3 and len(set(fps)) == 1, fps
+        for step in range(DIST_STEPS):
+            (a,), (b, c) = one["steps"][step], two["steps"][step]
+            assert (b["loss"], b["grad_norm_mean"]) == (c["loss"], c["grad_norm_mean"])
+            for k in ("loss", "grad_norm_mean"):
+                assert abs(b[k] - a[k]) <= NSQ_RTOL * abs(a[k]), (step, k, a, b)
+        n = len(zero1_expected_shards(arch, 2))
+        manifests = {k: json.loads((Path(d) / f"step_{DIST_STEPS}" / "manifest.json")
+                                   .read_text()) for k, d in ckpt.items()}
+        assert zero1_moment_shards(manifests[2], n) == zero1_expected_shards(arch, 2)
+        assert zero1_moment_shards(manifests[1], n) == [1] * n
+        assert sum(x == 2 for x in zero1_expected_shards(arch, 2)) > 0
+        t2 = time.perf_counter()
+        p1, m1 = restore_launcher_ckpt(arch, ckpt[1])
+        p2, m2 = restore_launcher_ckpt(arch, ckpt[2])
+        param_gap, moment_gap = leaf_gap(p2, p1), leaf_gap(m2, m1)
+        del p1, m1, p2, m2
+        assert param_gap <= CLIP_SUM_TOL and moment_gap <= CLIP_SUM_TOL, (
+            param_gap, moment_gap)
+        restore_s = time.perf_counter() - t2
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    assert not Path(tmp).exists()
+    print(f"[dist] phi3-mini-3.8b at full width, {DIST_LAYERS} layers, B {TRAIN_B} x "
+          f"T {TRAIN_T}, ZeRO-1 + int8 compression + pp_stages 2, sigma 0, AdamW, "
+          f"{DIST_STEPS} steps: world 1 (nccl) {one['seconds']:.1f} s, steps "
+          f"{[s[0]['ms'] for s in one['steps'].values()]} ms, peak "
+          f"{one['measured']} GB; world 2 (gloo, both ranks on cuda:0) "
+          f"{two['seconds']:.1f} s, steps {[[r['ms'] for r in s] for s in two['steps'].values()]} "
+          f"ms, peaks {two['measured']} GB; fingerprint {fps[0]} on all 3 ranks; "
+          f"losses {[s[0]['loss'] for s in one['steps'].values()]} | "
+          f"{[s[0]['loss'] for s in two['steps'].values()]}; checkpoints restored "
+          f"whole ({restore_s:.1f} s): params {param_gap:.2e}, first moments "
+          f"{moment_gap:.2e} of each leaf's max (limit {CLIP_SUM_TOL}); the "
+          f"2-rank checkpoint holds {sum(x == 2 for x in zero1_expected_shards(arch, 2))} "
+          f"of {n} moments in 2 shard files; temporary directories removed", flush=True)
+    return dict(pipeline=pipe, launches=pipe["launches"], worlds={
+        k: {key: v[key] for key in ("backend", "fingerprint", "steps", "estimate",
+                                     "measured", "seconds")} for k, v in runs.items()},
+        param_gap=param_gap, moment_gap=moment_gap, restore_s=restore_s)
+
+
 class _Tee:
     """A text stream writing to every one of ``streams``."""
 
@@ -4886,8 +5176,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lap("phase 15")
+    # 16. distribution: the pipeline schedule in one process, then the
+    # launcher in a world of 1 (NCCL) and of 2 ranks sharing the card (gloo)
+    dist = dist_path()
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("phase 16")
     launches = {k: sum(r["launches"][k] for r in (train, routes, remat, algos, glm,
-                                                  images, moe, ssm, embed))
+                                                  images, moe, ssm, embed, dist))
                 for k in train["launches"]}
     launches["flash_attn_fwd"] += serve_launches
 
@@ -5021,7 +5317,7 @@ def main() -> int:
          "decode_breakdown_ms": breakdown, "decode_busy": busy,
          "planner": planner, "train": train, "routes": routes,
          "remat": remat, "algos": algos, "glm": glm, "image_kernels": image_kernels,
-         "images": images, "moe": moe, "ssm": ssm, "embed": embed,
+         "images": images, "moe": moe, "ssm": ssm, "embed": embed, "dist": dist,
          "json_line": kernels},
         indent=1, default=str))
     print(f"[time] chip_smoke.py: {time.perf_counter() - t_start:.1f} s from the device "

@@ -9,6 +9,7 @@ from typing import Dict, List
 
 from repro_torch.configs.base import (ATTN, IMAGE_FAMILIES, MAMBA, SHAPES,
                                       ArchConfig, MambaConfig, MemConfig,
+                                      MeshConfig,
                                       ShapeConfig, TrainConfig,
                                       apply_overrides, parse_set_args,
                                       shape_applicable)
@@ -46,8 +47,7 @@ def reduced(arch: ArchConfig) -> ArchConfig:
     feature set (GQA ratio, partial rotary, MLP flavour, MoE topology, the
     hybrid interleave: one pattern period), small dims; the CNN keeps its
     stage structure at small channel counts and image size.  Matches
-    ``repro.configs.reduced`` (``use_fsdp`` apart, which the port's
-    ``ArchConfig`` leaves out)."""
+    ``repro.configs.reduced``, which also turns ``use_fsdp`` off."""
     if arch.family == "cnn":
         return replace(
             arch, name=arch.name + "-reduced",
@@ -83,10 +83,11 @@ def reduced(arch: ArchConfig) -> ArchConfig:
         vocab=256,
         moe=moe,
         mamba=replace(arch.mamba, d_state=16, head_dim=16, chunk=16),
+        use_fsdp=False,
     )
 
 
 __all__ = ["ARCHS", "ATTN", "IMAGE_FAMILIES", "MAMBA", "SHAPES", "ArchConfig",
-           "MambaConfig", "MemConfig", "ShapeConfig", "TrainConfig",
+           "MambaConfig", "MemConfig", "MeshConfig", "ShapeConfig", "TrainConfig",
            "apply_overrides", "get_arch", "list_archs", "parse_set_args",
            "reduced", "shape_applicable"]

@@ -2,13 +2,11 @@
 
 ``ArchConfig`` is limited to the fields the dense, MoE, SSM and hybrid
 decoders and the two image families (``cnn``, ``vit``) read, so a layer
-pattern reads the same as there (``use_fsdp``, a sharding option, is left
-out).  The shape, DP, optimizer and training
-configs keep the JAX package's field names, so ``--set a.b=c`` overrides
-read the same in both packages, but only for what the port runs.  The
-fields of parts it has not taken over (pipeline stages, the device mesh and
-sharding, gradient compression, the memory planner, the launch autotuner)
-are left out, and ``--set`` on one of them raises ``NotImplementedError``
+pattern reads the same as there.  The shape, DP, optimizer, mesh and
+training configs keep the JAX package's field names, so ``--set a.b=c``
+overrides read the same in both packages, but only for what the port runs.
+The fields of the one part it has not taken over (the launch autotuner) are
+left out, and ``--set`` on one of them raises ``NotImplementedError``
 (``NOT_PORTED``).  The ``Trainer`` holds the model's parameter and compute
 types to ``param_dtype`` and ``compute_dtype``, and its remat policy to
 ``remat``.
@@ -123,6 +121,8 @@ class ArchConfig:
     cnn: CNNConfig = field(default_factory=CNNConfig)  # family == "cnn" only
     vit: ViTConfig = field(default_factory=ViTConfig)  # family == "vit" only
     embed_stub: bool = False
+    # shard params over the data axis too (FSDP; dist/sharding.py)
+    use_fsdp: bool = False
     norm_eps: float = 1e-5
     source: str = ""
 
@@ -217,12 +217,22 @@ def validate_remat(remat: str) -> str:
 
 # --set keys of the JAX package's configs that the port leaves out: the key
 # (or its first part) -> the feature, named in the error
-NOT_PORTED: Dict[str, str] = {
-    "pp_stages": "pipeline stages", "pp_microbatches": "pipeline stages",
-    "compress_pod_grads": "gradient compression",
-    "zero1": "sharded optimizer state", "mesh": "the device mesh",
-    "tune": "the launch autotuner",
-}
+NOT_PORTED: Dict[str, str] = {"tune": "the launch autotuner"}
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """A device mesh: one size an axis, the axes named from ``data``,
+    ``pod``, ``model`` and ``stage`` (dist/sharding.py)."""
+    shape: Tuple[int, ...] = (16, 16)
+    axes: Tuple[str, ...] = ("data", "model")
+
+    @property
+    def n_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
 
 
 @dataclass(frozen=True)
@@ -328,7 +338,15 @@ class TrainConfig:
     the JAX package.  Checkpoints go to ``ckpt_dir`` every ``ckpt_every``
     steps and at the last (``ckpt_keep`` kept, written on a thread under
     ``ckpt_async``); a step slower than ``watchdog_factor`` times the
-    median is logged.  ``mem`` is the memory plan (``MemConfig``)."""
+    median is logged.  ``mem`` is the memory plan (``MemConfig``).
+
+    Distribution, as in the JAX package: ``pp_stages`` contiguous pipeline
+    stages of the repeated blocks, ``pp_microbatches`` microbatches a call
+    (0: one a stage; models/transformer.py); ``compress_pod_grads`` sends
+    the noised gradient through the int8 error-feedback codec
+    (dist/compress.py), its residual riding in the optimizer state;
+    ``zero1`` shards the param-shaped optimizer state over the ``data``
+    axis; ``mesh`` is the device mesh the launcher builds."""
     arch: str = "phi3-mini-3.8b"
     shape: str = "train_4k"
     seed: int = 0
@@ -342,14 +360,25 @@ class TrainConfig:
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
     grad_accum: int = 1
+    pp_stages: int = 1
+    pp_microbatches: int = 0
+    compress_pod_grads: bool = False  # int8 + error feedback after noise
+    zero1: bool = True             # shard opt state over the data axis
     dp: DPConfig = field(default_factory=DPConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     mem: MemConfig = field(default_factory=MemConfig)
     data_source: str = "synthetic"  # synthetic | memmap:<path>
     watchdog_factor: float = 3.0    # straggler logging threshold
 
     def __post_init__(self):
         validate_remat(self.remat)
+        if self.pp_stages < 1:
+            raise ValueError(f"pp_stages must be >= 1, got {self.pp_stages}")
+        if self.pp_microbatches < 0:
+            raise ValueError(
+                f"pp_microbatches must be >= 0 (0 = one per stage), got "
+                f"{self.pp_microbatches}")
 
 
 # ---------------------------------------------------------------------------

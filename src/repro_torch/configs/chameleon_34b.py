@@ -18,5 +18,6 @@ ARCH = ArchConfig(
     mlp_act="swiglu",
     qk_norm=True,
     embed_stub=True,
+    use_fsdp=True,
     source="arXiv:2405.09818",
 )

@@ -13,5 +13,6 @@ ARCH = ArchConfig(
     vocab=131072,
     mlp_act="swiglu",
     moe=MoEConfig(num_experts=8, top_k=2, d_expert=32768, capacity_factor=1.25),
+    use_fsdp=True,
     source="hf:xai-org/grok-1",
 )

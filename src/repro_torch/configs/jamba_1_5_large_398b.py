@@ -18,5 +18,6 @@ ARCH = ArchConfig(
                   capacity_factor=1.25, moe_period=2, moe_offset=1),
     mamba=MambaConfig(d_state=128, d_conv=4, expand=2, head_dim=64, n_groups=8,
                       chunk=128),
+    use_fsdp=True,
     source="arXiv:2403.19887",
 )

@@ -70,6 +70,15 @@ Under Poisson sampling the trainer passes the expected sample size q·N
 (Algorithm 1 line 24's lot size), never the capacity or the realized
 size, which would leak the sample size.
 
+Data parallel (an active ``dist.runtime.layout``): each rank's batch is
+its shard of the global one.  Its clipped sum is all-reduced over the
+batch axes once a step, after ``grad_accum``'s chunks and before the
+noise; the per-example losses, norms² and mask are all-gathered, so the
+metrics, ``clipped_frac``, the normaliser (the global example count) and
+the adaptive clip's below-C count are those of one process on the global
+batch.  Every rank draws the noise from a generator seeded alike, so
+every rank adds the same noise and holds the same update.
+
 loss_fn contract: ``loss_fn(params, batch, ctx) -> (per_example_losses,
 ctx)`` with ``per_example_losses: (B,) float32``.
 """
@@ -83,6 +92,7 @@ from repro_torch import tree
 from repro_torch.configs.base import DPConfig
 from repro_torch.core import adaptive_clip, clipping, noise, sites
 from repro_torch.core.context import DPContext
+from repro_torch.dist import runtime
 from repro_torch.kernels.build import is_fake
 
 F32 = torch.float32
@@ -135,6 +145,22 @@ def _expand_rows(c_ex: torch.Tensor, k: int) -> torch.Tensor:
     """(B,) per-example weights -> (B·K,) row weights carrying the 1/K view
     averaging (pass-2 seeds)."""
     return c_ex if k == 1 else torch.repeat_interleave(c_ex, k) / k
+
+
+def stage_microbatches(n_examples: int, n_stages: int,
+                       requested: int = 0) -> int:
+    """The microbatches a call of the pipelined block stack
+    (models/transformer.py ``_blocks_pipelined``) cuts its batch into.  A
+    microbatch is a contiguous run of examples, never of rows, so the K
+    views of an example travel together and the (B,) accumulator's chunks
+    stay aligned with the activations'.  The request (0: one a stage) is
+    clamped to the largest divisor of ``n_examples`` not above it;
+    ``dpsgd``'s one-example calls get 1."""
+    want = max(1, requested or n_stages)
+    m = max(1, min(want, n_examples))
+    while n_examples % m:
+        m -= 1
+    return m
 
 
 def _metrics(losses, nsq, clip_norm, mask_rows, mask_ex):
@@ -418,6 +444,16 @@ def make_noisy_grad_fn(loss_fn: Callable, dp: DPConfig, grad_accum: int = 1,
                 parts.append(ln)
             losses = torch.cat([p[0] for p in parts])
             nsq = torch.cat([p[1] for p in parts])
+        if runtime.active() is not None:
+            # data parallel: this rank's clipped sum joins the others'
+            # before the noise, and the metrics, the normaliser and the
+            # adaptive clip read the global per-example vectors
+            group = runtime.batch_group()
+            runtime.all_reduce_(summed, group)
+            losses, nsq, full_mask = (runtime.all_gather(t, group)
+                                      for t in (losses, nsq, full_mask))
+            mask_ex = _example_mask(full_mask, K)
+            R = full_mask.shape[0]
         if private:
             C = dp.clip_norm if clip_norm is None else clip_norm
             denom = (float(expected_batch_size)

@@ -242,18 +242,21 @@ def estimate_train_memory(model, train_cfg, batch_abs,
     ``batch_abs`` is a tree of meta tensors (``abstract_batch``,
     ``abstract_like``); the step traced is the Trainer's own
     (``train/trainer.py`` ``TrainStep``) under the config's remat policy,
-    so remat, algorithm, grad_accum and microbatch all shape the estimate.
+    so remat, algorithm, grad_accum, microbatch and the pipeline schedule
+    all shape the estimate.  The trace is of one process on the whole batch
+    (no collective; ``per_device_peak_bytes`` divides it over a mesh).
     ``device`` (default the model's) is the fake tensors' device.  The
     model, its params, its remat policy, every generator and the kernels'
     launch counts are as they were afterwards."""
     from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.dist import runtime
     from repro_torch.train.trainer import TrainStep
     device = model.device if device is None else torch.device(device)
     step = TrainStep(model, train_cfg, expected_batch_size)
     remat = model.remat
     model.remat = train_cfg.remat
     try:
-        with FakeTensorMode():
+        with runtime.suspended(), FakeTensorMode():
             params = tree.tree_map(
                 lambda p: torch.empty(p.shape, dtype=p.dtype,
                                       device=device).requires_grad_(True),
@@ -290,6 +293,8 @@ def estimate_train_memory(model, train_cfg, batch_abs,
         "algo": train_cfg.dp.algo if train_cfg.dp.enabled else "sgd",
         "grad_accum": int(train_cfg.grad_accum),
         "batch_size": int(B),
+        "pp_stages": int(getattr(model, "pp_stages", 1)),
+        "pp_microbatches": int(getattr(model, "pp_microbatches", 0)),
         "peak_op": str(peak_op),
     })
     return out

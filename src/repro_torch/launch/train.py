@@ -1,4 +1,5 @@
-"""Training launcher of the port: one process, one device.
+"""Training launcher of the port: one process, or one process a device of
+a data-parallel world.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch phi3-mini-3.8b \
         --reduced --steps 3 --device cpu --dtype float32 \
@@ -26,9 +27,18 @@
         --set ckpt_dir=/path/to/ckpts --set ckpt_every=3 \
         --set data_source=memmap:/path/to/tokens.bin --set optim.name=adam8bit
 
+    # data parallel, two processes (one a card, or both on the CPU):
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc_per_node 2 -m repro_torch.launch.train --arch phi3-mini-3.8b \
+        --reduced --steps 3 --device cpu --dtype float32 --mesh 2 --axes data \
+        --set zero1=true --set compress_pod_grads=true --set pp_stages=2
+
 The JAX launcher's flags ``--arch``, ``--reduced``, ``--steps``, ``--batch``,
-``--seq`` and ``--set`` (``--set shape=...`` picks the input shape), plus
-``--device`` (default ``cuda``) and ``--dtype`` as in ``launch/serve.py``.
+``--seq``, ``--set``, ``--mesh``/``--axes`` and ``--coordinator``/
+``--num-processes``/``--process-id`` (``--set shape=...`` picks the input
+shape), plus ``--device`` (default ``cuda``) and ``--dtype`` as in
+``launch/serve.py``, and ``--layers`` (the arch cut to its first N layers
+at full width, for a run on one card).
 ``--dtype`` sets ``param_dtype`` and ``compute_dtype`` before the ``--set``
 overrides (default: the config's, ``bfloat16``); ``--set param_dtype=float32
 --set compute_dtype=bfloat16`` holds float32 weights and computes in bf16.
@@ -39,28 +49,124 @@ memmap:<path>`` reads windows of a flat int32 token file.  Under
 ``dp.sampling=poisson`` each step's line gives its realized batch and the
 padded capacity.
 
+Distribution.  Under ``torch.distributed.run`` (its ``RANK``/
+``WORLD_SIZE``/``LOCAL_RANK`` environment) or with ``--coordinator``
+(``tcp://`` address), ``--num-processes`` and ``--process-id``, the
+launcher joins the process group; with ``--mesh`` alone it makes a group of
+one.  Rank r runs on ``cuda:LOCAL_RANK % device_count`` (or the CPU under
+``--device cpu``).  The backend follows from that, and the first line
+prints it: ``nccl`` when each rank has a card of its own, ``gloo`` when
+ranks share a card (NCCL refuses two ranks on one device) or run on the
+CPU.  The mesh is ``--mesh``/``--axes``, else the ``mesh.*`` keys when one
+is set, else one ``data`` axis over a world of more than one process.  The
+batch shards over its batch axes (``dist.sharding.batch_pspec``): each rank
+trains on its slice, the clipped sum is all-reduced before the noise and
+every rank adds the same noise, so the run has the DP-SGD semantics of one
+process on the global batch.  A fresh run prints the init fingerprint that
+every process agreed on.  Not ported, and refused by name (ROADMAP queue
+1): a ``model`` axis above 1 (tensor parallelism), a ``stage`` axis above
+1 (pipeline stages across processes; ``pp_stages`` runs the schedule in
+each process) and a ``use_fsdp`` arch on a ``data`` axis above 1.
+
 Every launch prints the estimated peak of one step (``launch/memory.py``)
-before the run, and a warning when it exceeds ``mem.hbm_budget_bytes``;
-under ``mem.auto_microbatch`` with a budget the Trainer first picks the
-largest microbatch that fits (``[trainer] auto_microbatch: grad_accum a ->
-b``).  With ``mem.compiled_check`` (the default) on a CUDA device the run's
-measured peak (``torch.cuda.max_memory_allocated`` over its steps) is
-printed beside the estimate after it.
+before the run, and, on a mesh, the per-device share of it over the batch
+and stage axes (``per_device_peak_bytes``), with a warning when that
+exceeds ``mem.hbm_budget_bytes``; under ``mem.auto_microbatch`` with a
+budget the Trainer first picks the largest microbatch that fits
+(``[trainer] auto_microbatch: grad_accum a -> b``).  With
+``mem.compiled_check`` (the default) on a CUDA device the run's measured
+peak (``torch.cuda.max_memory_allocated`` over its steps) is printed beside
+the estimate after it.
 """
 from __future__ import annotations
 
 import argparse
+import datetime
+import os
 from dataclasses import replace
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import (IMAGE_FAMILIES, SHAPES, ShapeConfig,
                                  TrainConfig, apply_overrides, get_arch,
                                  parse_set_args, reduced)
+from repro_torch.dist import runtime, sharding
 from repro_torch.models import build_model_for
 from repro_torch.train import Trainer
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# a collective that a rank never reaches fails the run after this long
+GROUP_TIMEOUT = datetime.timedelta(seconds=300)
+
+
+def join_world(args, mesh_keys: bool = False):
+    """Join the process group the arguments or ``torch.distributed.run``'s
+    environment describe, on the backend the devices call for.  Returns
+    (device, backend or None, rank, world); one process without ``--mesh``
+    or a ``mesh.*`` key (``mesh_keys``) joins nothing."""
+    env = os.environ
+    if args.coordinator:
+        rank, world = args.process_id, args.num_processes
+        local, local_world = rank, world
+        init = f"tcp://{args.coordinator}"
+    elif "RANK" in env and "WORLD_SIZE" in env:
+        rank, world = int(env["RANK"]), int(env["WORLD_SIZE"])
+        local = int(env.get("LOCAL_RANK", rank))
+        local_world = int(env.get("LOCAL_WORLD_SIZE", world))
+        init = "env://"
+    elif args.mesh or mesh_keys:
+        rank, world, local, local_world = 0, 1, 0, 1
+        init = None
+    else:
+        return args.device, None, 0, 1
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("repro_torch: no CUDA device available; pass "
+                               "--device cpu to run the plain PyTorch path")
+        device = torch.device("cuda", local % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    # NCCL refuses two ranks on one device: ranks sharing a card take gloo
+    shared = local_world > torch.cuda.device_count() if device.type == "cuda" else True
+    backend = "gloo" if shared else "nccl"
+    if init is None:                  # --mesh in one process: a group of one
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1, timeout=GROUP_TIMEOUT)
+        return device, backend, 0, 1
+    dist.init_process_group(backend, init_method=init, rank=rank,
+                            world_size=world, timeout=GROUP_TIMEOUT)
+    return device, backend, rank, world
+
+
+def make_run_mesh(args, cfg, mesh_keys: bool, world: int):
+    """The run's mesh: ``--mesh``/``--axes``, else ``cfg.mesh`` when a
+    ``mesh.*`` key was set, else one data axis over a world of more than
+    one process (None in one process)."""
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh
+    if args.mesh:
+        return make_mesh([int(x) for x in args.mesh.split(",")],
+                         args.axes.split(","))
+    if mesh_keys:
+        return sharding.mesh_from_config(cfg.mesh)
+    return make_host_mesh() if world > 1 else None
+
+
+def refuse_unported(mesh, arch) -> None:
+    """Raise, naming ROADMAP, on a mesh the port does not run."""
+    for axis, what in ((sharding.MODEL_AXIS, "tensor parallelism"),
+                       (sharding.STAGE_AXIS, "pipeline stages across processes")):
+        size = sharding._axis_size(mesh, axis)
+        if size > 1:
+            raise NotImplementedError(
+                f"a {size}-wide {axis!r} mesh axis ({what}) is not ported yet "
+                f"(ROADMAP queue 1)")
+    data = sharding._axis_size(mesh, "data")
+    if arch.use_fsdp and data > 1:
+        raise NotImplementedError(
+            f"{arch.name} shards its params over the data axis (use_fsdp): "
+            f"FSDP on a {data}-wide data axis is not ported yet (ROADMAP "
+            f"queue 1)")
 
 
 def main(argv=None) -> None:
@@ -75,7 +181,26 @@ def main(argv=None) -> None:
                     help="config overrides, e.g. --set dp.clip_norm=0.5")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--dtype", choices=sorted(DTYPES), default=None)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the arch to its first N layers (full width)")
+    ap.add_argument("--mesh", default=None, help="e.g. 2 or 2,1")
+    ap.add_argument("--axes", default="data,model")
+    ap.add_argument("--coordinator", default=None, help="host:port of rank 0")
+    ap.add_argument("--num-processes", type=int, default=None)
+    ap.add_argument("--process-id", type=int, default=None)
     args = ap.parse_args(argv)
+    device, backend, rank, world = join_world(
+        args, any(p.startswith("mesh.") for p in args.set))
+    try:
+        _train(args, device, backend, rank, world)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _train(args, device, backend, rank, world) -> None:
+    print(f"[train] backend {backend or 'none (one process)'}: rank {rank} of "
+          f"{world} on {device}", flush=True)
 
     cfg = TrainConfig()
     if args.dtype:
@@ -95,6 +220,8 @@ def main(argv=None) -> None:
     arch = get_arch(args.arch)
     if args.reduced:
         arch = reduced(arch)
+    if args.layers:
+        arch = replace(arch, n_layers=args.layers)
     arch = apply_overrides(arch, arch_sets)
     shape = SHAPES[cfg.shape]
     if args.batch or args.seq or args.reduced:
@@ -104,11 +231,25 @@ def main(argv=None) -> None:
                                            shape.global_batch),
                             shape.kind)
     cfg = replace(cfg, arch=arch.name)
+    mesh = None
+    if backend is not None:
+        mesh = make_run_mesh(args, cfg, any(k.startswith("mesh.") for k in sets),
+                             world)
+    if mesh is not None:
+        refuse_unported(mesh, arch)
 
     model = build_model_for(arch, dtype=DTYPES[cfg.compute_dtype],
                             param_dtype=DTYPES[cfg.param_dtype],
-                            device=args.device, seed=cfg.seed, remat=cfg.remat)
-    trainer = Trainer(model, cfg, shape)
+                            device=device, seed=cfg.seed, remat=cfg.remat,
+                            pp_stages=cfg.pp_stages,
+                            pp_microbatches=cfg.pp_microbatches)
+    trainer = Trainer(model, cfg, shape, mesh=mesh)
+    bax = None if mesh is None else sharding.batch_pspec(mesh, trainer.capacity)
+    with runtime.layout(mesh, bax):
+        _run(trainer, model, cfg, shape, arch, mesh, bax, world)
+
+
+def _run(trainer, model, cfg, shape, arch, mesh, bax, world) -> None:
     if arch.family in IMAGE_FAMILIES:
         rows = (f"{shape.global_batch} images {arch.image_shape()} x "
                 f"{cfg.dp.augmult} views")
@@ -120,24 +261,49 @@ def main(argv=None) -> None:
           f"{cfg.remat}; dp {cfg.dp.algo} norm_strategy={cfg.dp.norm_strategy} "
           f"use_kernels={cfg.dp.use_kernels} adaptive_clip="
           f"{trainer.adaptive_clip}", flush=True)
+    if mesh is not None or cfg.pp_stages > 1:
+        axes = ("none" if mesh is None else
+                dict(zip(sharding._axis_names(mesh), sharding._mesh_shape(mesh))))
+        print(f"[train] mesh {axes}; batch over {bax}; zero1={cfg.zero1} "
+              f"compress_pod_grads={cfg.compress_pod_grads} pp_stages="
+              f"{cfg.pp_stages} pp_microbatches={cfg.pp_microbatches}",
+              flush=True)
     if arch.moe.enabled:
         print(f"[train] {arch.moe}", flush=True)
     if trainer.sampling == "poisson":
         print(f"[train] poisson sampling: q = {trainer.sample_rate:.3e}, "
               f"expected batch {shape.global_batch}, capacity "
               f"{trainer.capacity} rows", flush=True)
+    fresh = trainer.ckpt.latest_step() is None
     state = trainer.restore_or_init()
+    if fresh:
+        # every process fingerprints its init; a mismatch (seed or config
+        # drift between ranks) raises before any step
+        fp = runtime.verify_init_consistency(state.params)
+        print(f"[train] init fingerprint {fp:#010x} ({world} process(es) "
+              f"agree)", flush=True)
     # the estimated peak beside the measured one, every launch, so the
-    # estimator's drift (and the remat policy's effect) stays visible
-    rep = trainer.memory_report(state, trainer.make_batch(state.step))
+    # estimator's drift (and the remat policy's effect) stays visible; the
+    # estimate is of the global batch in one process, shared out below
+    from repro_torch.launch.memory import per_device_peak_bytes
+    rep = trainer.memory_report(state, {k: torch.from_numpy(v) for k, v in
+                                        trainer.global_batch(state.step).items()})
+    per_dev = rep["peak_bytes"]
+    share = ""
+    if mesh is not None:
+        width = sharding.batch_axis_width(mesh)
+        per_dev = per_device_peak_bytes(rep, width,
+                                        stages=sharding.stage_axis_width(mesh))
+        share = (f"; per device {per_dev / 1e9:.3f} GB over a {width}-wide "
+                 f"batch axis")
     print(f"[train] memory: estimated peak {rep['peak_bytes'] / 1e9:.3f} GB "
           f"(remat={cfg.remat}, grad_accum={trainer.cfg.grad_accum}, "
           f"per-example side-channel "
-          f"{rep['per_example_grad_bytes'] / 1e9:.3f} GB)", flush=True)
+          f"{rep['per_example_grad_bytes'] / 1e9:.3f} GB){share}", flush=True)
     budget = cfg.mem.hbm_budget_bytes
-    if budget and rep["peak_bytes"] > budget:
+    if budget and per_dev > budget:
         print(f"[train] WARNING estimated per-device peak "
-              f"{rep['peak_bytes'] / 1e9:.3f} GB exceeds mem.hbm_budget_bytes="
+              f"{per_dev / 1e9:.3f} GB exceeds mem.hbm_budget_bytes="
               f"{budget / 1e9:.3f} GB (set mem.auto_microbatch=true to split "
               f"the batch)", flush=True)
     measure = cfg.mem.compiled_check and model.device.type == "cuda"

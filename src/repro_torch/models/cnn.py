@@ -30,7 +30,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.context import DPContext
 from repro_torch.models import layers as L
 from repro_torch.models.layers import P
-from repro_torch.models.transformer import ParamModel, init_spec
+from repro_torch.models.transformer import (ParamModel, abstract_spec,
+                                             init_spec, spec_axes)
 
 
 def _block_spec(k: int, cin: int, cout: int, downsample: bool) -> Dict[str, Any]:
@@ -61,7 +62,7 @@ def model_spec(arch: ArchConfig) -> Dict[str, Any]:
             cin = cout
         spec["stages"].append(blocks)
     spec["final_norm"] = P((cin,), "ones")
-    spec["head"] = {"w": P((cin, arch.n_classes)),
+    spec["head"] = {"w": P((cin, arch.n_classes), axes=("embed", "vocab")),
                     "b": P((arch.n_classes,), "zeros")}
     return spec
 
@@ -98,6 +99,16 @@ def init_params(arch: ArchConfig, seed: int, dtype: torch.dtype,
     return init_spec(model_spec(arch), seed, dtype, device)
 
 
+def abstract_params(arch: ArchConfig, dtype: torch.dtype = torch.bfloat16):
+    """The params as meta tensors (nothing allocated)."""
+    return abstract_spec(model_spec(arch), dtype)
+
+
+def logical_axes(arch: ArchConfig):
+    """Logical-axis tuples parallel to ``abstract_params``."""
+    return spec_axes(model_spec(arch))
+
+
 def image_xent(logits, labels):
     """(B, n_classes) logits, (B,) labels -> (B,) float32 cross-entropy."""
     logp = torch.log_softmax(logits.float(), dim=-1)
@@ -116,6 +127,12 @@ class CNNModel(ParamModel):
             raise ValueError(f"{arch.name}: family {arch.family!r}, want 'cnn'")
         super().__init__(arch, params, init_params, dtype=dtype, device=device,
                          seed=seed, remat=remat, param_dtype=param_dtype)
+
+    def abstract_params(self):
+        return abstract_params(self.arch, self.param_dtype)
+
+    def logical_axes(self):
+        return logical_axes(self.arch)
 
     def _block(self, bp, x, ctx: DPContext, stride: int):
         eps = self.arch.norm_eps

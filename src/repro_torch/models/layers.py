@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -40,9 +40,18 @@ def cast(w, x):
 
 @dataclasses.dataclass(frozen=True)
 class P:
-    """Param spec: shape and init rule (fan_in | embed | ones | zeros)."""
+    """Param spec: shape, init rule (fan_in | embed | ones | zeros |
+    mamba_dt | mamba_alog) and logical axis names, one a dim or None
+    (``dist/sharding.py`` maps them onto the mesh; default all None)."""
     shape: Tuple[int, ...]
     init: str = "fan_in"
+    axes: Optional[Tuple[Optional[str], ...]] = None
+
+    def __post_init__(self):
+        if self.axes is None:
+            object.__setattr__(self, "axes", (None,) * len(self.shape))
+        if len(self.axes) != len(self.shape):
+            raise ValueError(f"axes {self.axes} for shape {self.shape}")
 
 
 # ---------------------------------------------------------------------------
@@ -153,6 +162,25 @@ def inner_remat(remat: str) -> bool:
     return validate_remat(remat) != "none"
 
 
+def pipeline_shift(buf, inject):
+    """One clock tick of the shifted-buffer pipeline schedule: stage s
+    takes stage s-1's output of the previous tick, stage 0 the tick's
+    injected microbatch, and the last stage's previous output falls off
+    (the caller collects it first; ``transformer._blocks_pipelined``).
+    ``buf``: a list of S stage slots (the schedule's; a slot is any value,
+    None for a bubble), or a tensor or a dict or tuple of tensors, each
+    stage-major (S, ...), shifted leaf by leaf with ``inject`` alike.
+    Autograd's transpose of the tensor form carries per-example
+    cotangents, the norm² partials, back across the stages."""
+    if isinstance(buf, list):
+        return [inject] + buf[:-1]
+    if isinstance(buf, dict):
+        return {k: pipeline_shift(buf[k], inject[k]) for k in buf}
+    if isinstance(buf, tuple):
+        return tuple(pipeline_shift(b, i) for b, i in zip(buf, inject))
+    return torch.cat([inject[None], buf[:-1]], dim=0)
+
+
 def largest_divisor_leq(n: int, cap: int) -> int:
     for b in range(min(cap, n), 0, -1):
         if n % b == 0:
@@ -212,10 +240,10 @@ def rope(x, pos, theta: float, pct: float):
 def attn_spec(cfg) -> dict:
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     spec = {
-        "wq": P((d, H * hd)),
-        "wk": P((d, KV * hd)),
-        "wv": P((d, KV * hd)),
-        "wo": P((H * hd, d)),
+        "wq": P((d, H * hd), axes=("embed", "heads")),
+        "wk": P((d, KV * hd), axes=("embed", "kv")),
+        "wv": P((d, KV * hd), axes=("embed", "kv")),
+        "wo": P((H * hd, d), axes=("heads", "embed")),
     }
     if cfg.qk_norm:
         spec["q_norm"] = P((hd,), "ones")
@@ -342,8 +370,11 @@ def attn_decode_paged(p, x, cache_kv, tables, pos, cfg):
 def mlp_spec(cfg, d_ff: int) -> dict:
     d = cfg.d_model
     if cfg.mlp_act == "swiglu":
-        return {"w1": P((d, d_ff)), "w3": P((d, d_ff)), "w2": P((d_ff, d))}
-    return {"w1": P((d, d_ff)), "w2": P((d_ff, d))}
+        return {"w1": P((d, d_ff), axes=("embed", "mlp")),
+                "w3": P((d, d_ff), axes=("embed", "mlp")),
+                "w2": P((d_ff, d), axes=("mlp", "embed"))}
+    return {"w1": P((d, d_ff), axes=("embed", "mlp")),
+            "w2": P((d_ff, d), axes=("mlp", "embed"))}
 
 
 def mlp_apply(p, x, ctx: DPContext, cfg):

@@ -51,13 +51,13 @@ def mamba_spec(cfg) -> dict:
     d_in, H, G, N, K, Pdim = mamba_dims(cfg)
     conv_ch = d_in + 2 * G * N
     return {
-        "in_proj": P((d, 2 * d_in + 2 * G * N + H)),
-        "conv_w": P((K, conv_ch)),
+        "in_proj": P((d, 2 * d_in + 2 * G * N + H), axes=("embed", "mlp")),
+        "conv_w": P((K, conv_ch), axes=(None, "mlp")),
         "dt_bias": P((H,), "mamba_dt"),
         "A_log": P((H,), "mamba_alog"),
         "D": P((H,), "ones"),
         "norm": P((d_in,), "ones"),
-        "out_proj": P((d_in, d)),
+        "out_proj": P((d_in, d), axes=("mlp", "embed")),
     }
 
 

@@ -38,16 +38,20 @@ def moe_spec(cfg) -> dict:
     d, m = cfg.d_model, cfg.moe
     swiglu = cfg.mlp_act == "swiglu"
     spec = {
-        "router": P((d, m.num_experts)),
-        "we1": P((m.num_experts, d, m.d_expert)),
-        "we2": P((m.num_experts, m.d_expert, d)),
+        "router": P((d, m.num_experts), axes=("embed", "expert")),
+        "we1": P((m.num_experts, d, m.d_expert),
+                 axes=("expert", "embed", "mlp")),
+        "we2": P((m.num_experts, m.d_expert, d),
+                 axes=("expert", "mlp", "embed")),
     }
     if swiglu:
-        spec["we3"] = P((m.num_experts, d, m.d_expert))
+        spec["we3"] = P((m.num_experts, d, m.d_expert),
+                        axes=("expert", "embed", "mlp"))
     if m.num_shared_experts > 0:
-        spec.update({"ws1": P((d, m.d_shared)), "ws2": P((m.d_shared, d))})
+        spec.update({"ws1": P((d, m.d_shared), axes=("embed", "mlp")),
+                     "ws2": P((m.d_shared, d), axes=("mlp", "embed"))})
         if swiglu:
-            spec["ws3"] = P((d, m.d_shared))
+            spec["ws3"] = P((d, m.d_shared), axes=("embed", "mlp"))
     return spec
 
 

@@ -38,6 +38,7 @@ import torch.nn as nn
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ATTN, MAMBA, ArchConfig, validate_remat
+from repro_torch.core.algo import stage_microbatches
 from repro_torch.core.context import DPContext
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2
@@ -99,13 +100,15 @@ def model_spec(arch: ArchConfig) -> Dict[str, Any]:
     pre, period, reps = group_layers(arch)
     spec: Dict[str, Any] = {}
     if not arch.embed_stub:
-        spec["embed"] = P((padded_vocab(arch.vocab), arch.d_model), "embed")
+        spec["embed"] = P((padded_vocab(arch.vocab), arch.d_model), "embed",
+                          ("vocab", "embed"))
     spec["prelude"] = [layer_spec(arch, layer_sig(arch, i)) for i in range(pre)]
     if reps > 0:
         spec["blocks"] = tuple(layer_spec(arch, layer_sig(arch, pre + j))
                                for j in range(period))
     spec["final_norm"] = P((arch.d_model,), "ones")
-    spec["head"] = P((arch.d_model, padded_vocab(arch.vocab)))
+    spec["head"] = P((arch.d_model, padded_vocab(arch.vocab)),
+                     axes=("embed", "vocab"))
     return spec
 
 
@@ -179,16 +182,50 @@ def init_spec(spec, seed: int, dtype: torch.dtype, device: torch.device,
     return _map_spec(spec, mk)
 
 
+SMALL_INITS = ("ones", "zeros", "mamba_dt", "mamba_alog")    # kept float32
+
+
+def abstract_spec(spec, dtype: torch.dtype, lead=lambda path: ()):
+    """Meta tensors (shapes and types, no storage) of a spec tree's params,
+    the small inits float32 as ``init_spec`` makes them; ``lead(path)`` as
+    there."""
+    return _map_spec(spec, lambda p, path: torch.empty(
+        lead(path) + p.shape, device="meta",
+        dtype=torch.float32 if p.init in SMALL_INITS else dtype))
+
+
+def spec_axes(spec, lead=lambda path: ()):
+    """The logical axes of a spec tree's params, ``lead(path)`` the names of
+    a leaf's leading stacked dims."""
+    return _map_spec(spec, lambda p, path: lead(path) + p.axes)
+
+
+def _blocks_lead(arch: ArchConfig):
+    reps = group_layers(arch)[2]
+    return lambda path: (reps,) if path and path[0] == "blocks" else ()
+
+
+def abstract_params(arch: ArchConfig, dtype: torch.dtype = torch.bfloat16):
+    """The decoder's params as meta tensors (nothing allocated), the
+    ``blocks`` leaves with their leading ``(reps,)`` axis."""
+    return abstract_spec(model_spec(arch), dtype, _blocks_lead(arch))
+
+
+def logical_axes(arch: ArchConfig):
+    """Logical-axis tuples parallel to ``abstract_params``; a ``blocks``
+    leaf's stacked dim is ``"layers"``."""
+    return spec_axes(model_spec(arch), lambda path: ("layers",)
+                     if path and path[0] == "blocks" else ())
+
+
 def init_params(arch: ArchConfig, seed: int, dtype: torch.dtype,
                 device: torch.device):
     """``init_spec`` of the decoder's spec; every ``blocks`` leaf carries
     the leading ``(reps,)`` axis.  fan_in is a weight's second-to-last dim,
     as in the JAX transformer: d_in of a dense (d_in, d_out) and of an
     expert stack (E, d_in, d_out) alike."""
-    pre, period, reps = group_layers(arch)
     return init_spec(model_spec(arch), seed, dtype, device,
-                     lambda path: (reps,) if path and path[0] == "blocks" else (),
-                     lambda shape: shape[-2])
+                     _blocks_lead(arch), lambda shape: shape[-2])
 
 
 def _index(tree, r: int):
@@ -245,14 +282,38 @@ class ParamModel(nn.Module):
 class Model(ParamModel):
     """Serving and training model of one decoder ``ArchConfig``: dense,
     MoE, SSM or hybrid (the ``ParamModel`` contract for params, types,
-    device and remat)."""
+    device and remat).
+
+    ``pp_stages`` > 1 slices the repeated blocks into that many contiguous
+    stages, run on a microbatch-interleaved schedule in the training
+    forward (``_blocks_pipelined``); it must divide the block count.
+    ``pp_microbatches``: the microbatches a call, 0 for one a stage
+    (``core.algo.stage_microbatches`` clamps it to a divisor of the
+    examples).  Prefill and decode always run the blocks in sequence."""
 
     def __init__(self, arch: ArchConfig, params=None, *,
                  dtype: torch.dtype = torch.bfloat16, device=None,
                  seed: int = 0, remat: str = "block",
-                 param_dtype: Optional[torch.dtype] = None):
+                 param_dtype: Optional[torch.dtype] = None,
+                 pp_stages: int = 1, pp_microbatches: int = 0):
+        pre, period, reps = group_layers(arch)
+        if pp_stages > 1 and (reps == 0 or reps % pp_stages):
+            raise ValueError(
+                f"pp_stages={pp_stages} must divide the scanned block count "
+                f"(arch {arch.name!r} groups as {reps} x {period}-layer "
+                f"blocks + {pre} prelude); pick a divisor of {reps}")
+        if pp_microbatches < 0:
+            raise ValueError(
+                f"pp_microbatches must be >= 0, got {pp_microbatches}")
+        self.pp_stages, self.pp_microbatches = pp_stages, pp_microbatches
         super().__init__(arch, params, init_params, dtype=dtype, device=device,
                          seed=seed, remat=remat, param_dtype=param_dtype)
+
+    def abstract_params(self):
+        return abstract_params(self.arch, self.param_dtype)
+
+    def logical_axes(self):
+        return logical_axes(self.arch)
 
     # -- per-layer ----------------------------------------------------------
     def _ffn(self, p, h, ctx: DPContext):
@@ -346,14 +407,68 @@ class Model(ParamModel):
             x, ctx, _, a = self._layer(params["prelude"][i], x, ctx, pos)
             if a is not None:
                 aux = aux + a
-        for r in range(reps):
-            block = self._block_fn([_index(params["blocks"][j], r)
-                                    for j in range(period)], ctx, pos)
-            x, acc, aux = L.remat_wrap(block, self.remat)(x, ctx.acc, aux)
-            ctx = dataclasses.replace(ctx, acc=acc)
+        if self.pp_stages > 1:
+            x, acc, aux = self._blocks_pipelined(params, x, ctx, aux, pos)
+        else:
+            x, acc, aux = self._blocks(params, range(reps), (x, ctx.acc, aux),
+                                       ctx, pos)
+        ctx = dataclasses.replace(ctx, acc=acc)
         logits, ctx = self._head(params, x, ctx)
         losses = per_example_xent(logits, labels, self.arch.vocab)
         return losses + AUX_LOSS_WEIGHT * aux, ctx
+
+    def _blocks(self, params, reps, carry, ctx: DPContext, pos):
+        """Blocks ``reps`` (indices of the stacked axis) in order on
+        ``carry`` = (x, acc, aux), each under the remat policy."""
+        for r in reps:
+            block = self._block_fn([_index(bp, r) for bp in params["blocks"]],
+                                   ctx, pos)
+            carry = L.remat_wrap(block, self.remat)(*carry)
+        return carry
+
+    def _blocks_pipelined(self, params, x, ctx: DPContext, aux, pos):
+        """The repeated blocks on the shifted-buffer pipeline schedule of
+        the JAX package's ``_blocks_pipelined``: the (reps, ...) block
+        params are viewed stage-major, stage s owning blocks [s·reps/S,
+        (s+1)·reps/S), and the batch is cut into M example-aligned
+        microbatches (``stage_microbatches``).  The schedule runs M + S − 1
+        ticks over a buffer of S stage slots: each tick shifts it by one
+        stage (``layers.pipeline_shift``: stage 0 takes the next
+        microbatch, the last stage's output is collected), then runs every
+        stage on its slot.  The (B,) norm² accumulator and the aux total
+        ride the buffer with their microbatch, so the accumulator's
+        cotangent, where every site adds its norm², flows back across the
+        stages to its examples.
+
+        The stage bodies run one after another in Python (the kernels'
+        ``autograd.Function``s have no vmap rule), and a bubble slot, which
+        holds no microbatch during the warm-up and drain ticks, is skipped
+        rather than run on zeros: its outputs are discarded in the
+        reference.  Every batch op of the stack is per example, so each
+        microbatch's losses and norms² are those of the sequential loop on
+        its rows.  Returns (x, acc, aux)."""
+        S = self.pp_stages
+        reps = group_layers(self.arch)[2]
+        per = reps // S
+        rows = x.shape[0]
+        n_ex = rows if ctx.acc is None else ctx.acc.shape[0]
+        M = stage_microbatches(n_ex, S, self.pp_microbatches)
+
+        def chunks(a, n):
+            return [None] * M if a is None else list(a.split(n))
+        mbs = list(zip(chunks(x, rows // M), chunks(ctx.acc, n_ex // M),
+                       chunks(aux, rows // M), chunks(pos, rows // M)))
+        buf, outs = [None] * S, []
+        for t in range(M + S - 1):
+            buf = L.pipeline_shift(buf, mbs[t] if t < M else None)
+            buf = [None if slot is None else
+                   self._blocks(params, range(s * per, (s + 1) * per),
+                                slot[:3], ctx, slot[3]) + (slot[3],)
+                   for s, slot in enumerate(buf)]
+            if buf[-1] is not None:
+                outs.append(buf[-1])
+        acc = None if ctx.acc is None else torch.cat([o[1] for o in outs])
+        return torch.cat([o[0] for o in outs]), acc, torch.cat([o[2] for o in outs])
 
     def _block_fn(self, layer_params, ctx: DPContext, pos):
         """One period of blocks as ``fn(x, acc, aux, saved=None) -> (x,

@@ -29,7 +29,8 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 from repro_torch.models.cnn import image_xent
 from repro_torch.models.layers import P
-from repro_torch.models.transformer import ParamModel, init_spec
+from repro_torch.models.transformer import (ParamModel, abstract_spec,
+                                             init_spec, spec_axes)
 
 
 def model_spec(arch: ArchConfig) -> Dict[str, Any]:
@@ -37,18 +38,31 @@ def model_spec(arch: ArchConfig) -> Dict[str, Any]:
     block = {"ln1": P((d,), "ones"), "attn": L.attn_spec(arch),
              "ln2": P((d,), "ones"), "mlp": L.mlp_spec(arch, arch.d_ff)}
     return {
-        "patch": {"w": P((p, p, v.in_channels, d)), "b": P((d,), "zeros")},
+        "patch": {"w": P((p, p, v.in_channels, d),
+                         axes=(None, None, None, "embed")),
+                  "b": P((d,), "zeros")},
         # zero-init (the patch embedding breaks the symmetry); a tap site
-        "pos": P((v.n_patches, d), "zeros"),
+        "pos": P((v.n_patches, d), "zeros", (None, "embed")),
         "blocks": [dict(block) for _ in range(arch.n_layers)],
         "final_norm": P((d,), "ones"),
-        "head": {"w": P((d, arch.n_classes)), "b": P((arch.n_classes,), "zeros")},
+        "head": {"w": P((d, arch.n_classes), axes=("embed", "vocab")),
+                 "b": P((arch.n_classes,), "zeros")},
     }
 
 
 def init_params(arch: ArchConfig, seed: int, dtype: torch.dtype,
                 device: torch.device):
     return init_spec(model_spec(arch), seed, dtype, device)
+
+
+def abstract_params(arch: ArchConfig, dtype: torch.dtype = torch.bfloat16):
+    """The params as meta tensors (nothing allocated)."""
+    return abstract_spec(model_spec(arch), dtype)
+
+
+def logical_axes(arch: ArchConfig):
+    """Logical-axis tuples parallel to ``abstract_params``."""
+    return spec_axes(model_spec(arch))
 
 
 class ViTModel(ParamModel):
@@ -63,6 +77,12 @@ class ViTModel(ParamModel):
             raise ValueError(f"{arch.name}: family {arch.family!r}, want 'vit'")
         super().__init__(arch, params, init_params, dtype=dtype, device=device,
                          seed=seed, remat=remat, param_dtype=param_dtype)
+
+    def abstract_params(self):
+        return abstract_params(self.arch, self.param_dtype)
+
+    def logical_axes(self):
+        return logical_axes(self.arch)
 
     def _attn(self, p, x, ctx: DPContext):
         arch = self.arch

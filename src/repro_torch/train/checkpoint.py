@@ -9,10 +9,23 @@ step (an int32 scalar), then ``tree.leaves(params)``, then
 ``tree.leaves(opt_state)``; any other tree is ``tree.leaves`` of it.  Under
 adaptive clipping the optimizer state is ``{"opt": ..., "clip":
 {"clip_norm": C}}`` in both packages, so C, a float32 scalar, is the first
-of its leaves (dict keys sorted, as ``jax.tree`` orders them).  The
-port runs one process, so it writes one shard file per leaf; the reader
-takes the multi-shard manifests the JAX package writes on a mesh and
-reassembles each leaf from its shards.
+of its leaves (dict keys sorted, as ``jax.tree`` orders them).
+
+Multi-process, as in the reference: ``save`` and ``restore`` take
+``shards``, each leaf's layout on this rank (``TrainStep.ckpt_shards``):
+None for a whole leaf, which rank 0 writes as one shard file, or ``(dim,
+index, count, writes)`` for a ZeRO-1 slice, slice ``index`` of ``count``
+equal slices of the global leaf along ``dim``, which this rank writes when
+``writes`` (its first replica).  Every rank derives the same manifest of
+global shapes and shard bounds; rank 0 makes the shared tmp directory, a
+barrier lets every rank write its shards, and after a second barrier rank
+0 writes the manifest and renames; a third lets no rank return before the
+checkpoint is in place.  A multi-process save writes on the
+calling thread: its barriers are collectives, which must run in one order
+on every rank.  ``restore`` assembles each leaf's slice (or the whole
+leaf) from whatever shards the manifest lists, so a 2-rank ZeRO-1
+checkpoint restores into one process and the reverse, and the JAX
+package's reader restores it.
 
 bf16 leaves go to disk as their raw bits in a 2-byte void dtype, with the
 manifest dtype ``"bfloat16"``, which is how ``np.load`` returns the JAX
@@ -73,6 +86,16 @@ def _host(leaf) -> Tuple[np.ndarray, str]:
     return h, str(h.dtype)
 
 
+def _meta(leaf) -> Tuple[Tuple[int, ...], str]:
+    """A leaf's shape and manifest dtype, as ``_host`` gives them, without
+    the copy."""
+    if not isinstance(leaf, torch.Tensor):
+        return (), "int32"
+    if leaf.dtype == torch.bfloat16:
+        return tuple(leaf.shape), "bfloat16"
+    return tuple(leaf.shape), str(torch.empty((), dtype=leaf.dtype).numpy().dtype)
+
+
 def _to_torch(h: np.ndarray, dtype: str) -> torch.Tensor:
     """A host array read from disk as a tensor of its manifest dtype; bf16
     bits (2-byte void records) are reinterpreted, not converted.  A 0-d
@@ -86,9 +109,12 @@ def _to_torch(h: np.ndarray, dtype: str) -> torch.Tensor:
     return t.reshape(h.shape)
 
 
-def _read_leaf(directory: str, rec: dict) -> np.ndarray:
-    """The whole leaf, reassembled from its shard files."""
+def _read_leaf(directory: str, rec: dict, lo=None, hi=None) -> np.ndarray:
+    """The region [lo, hi) of a leaf (default the whole), reassembled from
+    the shard files that overlap it."""
     shape = tuple(rec["shape"])
+    lo = [0] * len(shape) if lo is None else list(lo)
+    hi = list(shape) if hi is None else list(hi)
     shards = rec["shards"]
 
     def load(fname):
@@ -98,16 +124,50 @@ def _read_leaf(directory: str, rec: dict) -> np.ndarray:
                                   f"(incomplete multi-process save?)")
         return np.load(path, mmap_mode="c")
 
-    if len(shards) == 1 and list(shards[0]["start"]) == [0] * len(shape) \
-            and tuple(shards[0]["stop"]) == shape:
-        return load(shards[0]["file"])
+    for sm in shards:          # one file holds the region: read it in place
+        if list(sm["start"]) == lo and list(sm["stop"]) == hi:
+            return load(sm["file"])
     out = None
     for sm in shards:
+        a = [max(x, s) for x, s in zip(lo, sm["start"])]
+        b = [min(x, e) for x, e in zip(hi, sm["stop"])]
+        if any(x >= y for x, y in zip(a, b)):
+            continue
         data = load(sm["file"])
         if out is None:
-            out = np.empty(shape, dtype=data.dtype)
-        out[tuple(slice(a, b) for a, b in zip(sm["start"], sm["stop"]))] = data
+            out = np.empty([y - x for x, y in zip(lo, hi)], dtype=data.dtype)
+        src = tuple(slice(x - s, y - s) for x, y, s in zip(a, b, sm["start"]))
+        dst = tuple(slice(x - l, y - l) for x, y, l in zip(a, b, lo))
+        out[dst] = data[src]
+    if out is None:
+        raise CheckpointError(f"no shard of {rec['shape']} covers {lo}..{hi}")
     return out
+
+
+def _bounds(shape, shard):
+    """(global shape, starts, stops) of the region a leaf of local
+    ``shape`` holds under its ``shards`` entry (all of it when None)."""
+    if shard is None:
+        return tuple(shape), [0] * len(shape), list(shape)
+    d, index, count = shard[:3]
+    glob = list(shape)
+    glob[d] *= count
+    lo, hi = [0] * len(shape), list(glob)
+    lo[d], hi[d] = index * shape[d], (index + 1) * shape[d]
+    return tuple(glob), lo, hi
+
+
+def _rank_world() -> Tuple[int, int]:
+    import torch.distributed as dist
+    if dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
 
 
 def _rebuild(like, values):
@@ -138,22 +198,39 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
 
     # -- save -------------------------------------------------------------
-    def save(self, state, step: int, extra: Optional[dict] = None) -> None:
-        """Host-copy every leaf of ``state``, then write them (on a thread
-        when ``use_async``).  The caller may change ``state`` once this
-        returns."""
+    def save(self, state, step: int, extra: Optional[dict] = None,
+             shards: Optional[list] = None) -> None:
+        """Host-copy every leaf of ``state`` this rank writes, then write
+        them (on a thread when ``use_async`` in one process).  ``shards``:
+        each leaf's layout (the module docstring), None for all whole.  The
+        caller may change ``state`` once this returns."""
         self.wait()   # serializes writes AND re-raises a pending failure
+        rank, world = _rank_world()
+        leaves = flatten(state)
         payload, leaf_recs = [], []
-        for i, leaf in enumerate(flatten(state)):
-            h, dtype = _host(leaf)
-            fname = f"{i}.0.npy"
-            payload.append((fname, h))
-            leaf_recs.append({"shape": list(h.shape), "dtype": dtype,
-                              "shards": [{"file": fname, "start": [0] * h.ndim,
-                                          "stop": list(h.shape)}]})
+        for i, (leaf, shard) in enumerate(zip(leaves, shards or [None] * len(leaves))):
+            shape, dtype = _meta(leaf)
+            glob, lo, hi = _bounds(shape, shard)
+            if shard is None:
+                recs = [(0, [0] * len(shape), list(glob))]
+                mine, writes = 0, rank == 0
+            else:
+                d, mine, count, writes = shard
+                recs = []
+                for k in range(count):
+                    a, b = list(lo), list(hi)
+                    a[d], b[d] = k * shape[d], (k + 1) * shape[d]
+                    recs.append((k, a, b))
+            if writes:
+                payload.append((f"{i}.{mine}.npy", _host(leaf)[0]))
+            leaf_recs.append({"shape": list(glob), "dtype": dtype, "shards": [
+                {"file": f"{i}.{k}.npy", "start": a, "stop": b} for k, a, b in recs]})
         manifest = {"format": FORMAT, "step": step, "n_leaves": len(leaf_recs),
                     "time": time.time(), "leaves": leaf_recs, **(extra or {})}
-        if self.use_async:
+        if world > 1:
+            self._write_guarded(payload, manifest, step)
+            self.wait()
+        elif self.use_async:
             self._thread = threading.Thread(
                 target=self._write_guarded, args=(payload, manifest, step),
                 daemon=True)
@@ -175,15 +252,21 @@ class CheckpointManager:
     def _write(self, payload, manifest, step: int) -> None:
         tmp = os.path.join(self.dir, f".tmp_step_{step}")
         final = os.path.join(self.dir, f"step_{step}")
-        shutil.rmtree(tmp, ignore_errors=True)
-        os.makedirs(tmp)
+        rank = _rank_world()[0]
+        if rank == 0:
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+        _barrier()
         for fname, arr in payload:
             np.save(os.path.join(tmp, fname), arr)
-        with open(os.path.join(tmp, "manifest.json"), "w") as f:
-            json.dump(manifest, f)
-        shutil.rmtree(final, ignore_errors=True)
-        os.replace(tmp, final)
-        self._gc()
+        _barrier()
+        if rank == 0:
+            with open(os.path.join(tmp, "manifest.json"), "w") as f:
+                json.dump(manifest, f)
+            shutil.rmtree(final, ignore_errors=True)
+            os.replace(tmp, final)
+            self._gc()
+        _barrier()      # every rank returns once the checkpoint is in place
 
     def wait(self) -> None:
         """Block until the write in flight (if any) ends; raise if it, or
@@ -220,11 +303,14 @@ class CheckpointManager:
         s = self.steps()
         return s[-1] if s else None
 
-    def restore(self, like, step: Optional[int] = None):
+    def restore(self, like, step: Optional[int] = None,
+                shards: Optional[list] = None):
         """Restore checkpoint ``step`` (default the latest) into ``like``: a
         ``TrainState`` or tree whose tensor leaves receive the values in
-        place.  Returns ``like``'s structure with those tensors and the
-        step (an int leaf) as read."""
+        place, each its region under ``shards`` (this rank's ZeRO-1 slice;
+        default every leaf whole), whatever shards the checkpoint was
+        written in.  Returns ``like``'s structure with those tensors and
+        the step (an int leaf) as read."""
         self.wait()
         if step is None:
             step = self.latest_step()
@@ -243,14 +329,16 @@ class CheckpointManager:
                 f"another optimizer); restore with the writing config or "
                 f"discard the checkpoint")
         out = []
-        for i, (leaf, rec) in enumerate(zip(leaves, manifest["leaves"])):
+        for i, (leaf, rec, shard) in enumerate(zip(
+                leaves, manifest["leaves"], shards or [None] * len(leaves))):
             shape = tuple(rec["shape"])
-            want = tuple(leaf.shape) if isinstance(leaf, torch.Tensor) else ()
+            local = tuple(leaf.shape) if isinstance(leaf, torch.Tensor) else ()
+            want, lo, hi = _bounds(local, shard)
             if shape != want:
                 raise CheckpointError(
                     f"checkpoint leaf {i}: on-disk shape {shape} != target "
                     f"shape {want} (dtype on disk: {rec['dtype']})")
-            src = _to_torch(_read_leaf(d, rec), rec["dtype"])
+            src = _to_torch(_read_leaf(d, rec, lo, hi), rec["dtype"])
             if isinstance(leaf, torch.Tensor):
                 with torch.no_grad():
                     leaf.copy_(src)

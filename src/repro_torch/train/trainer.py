@@ -47,8 +47,26 @@ Trainer does; ``memory_report`` gives the estimate and, on the card, the
 measured peak beside it.  The step itself is ``TrainStep``, the one
 function the Trainer runs and the estimator traces.
 
-Not ported (ROADMAP queue 1): the launch autotuner, gradient compression
-and pipeline stages (``configs/base.py`` raises on their keys).
+Distribution (``mesh``, dist/): the launcher activates the data-parallel
+layout (``dist.runtime.layout``) and gives the Trainer its mesh.  Each rank
+makes the global (seed, step)-keyed batch and takes its contiguous,
+example-aligned slice of rows (the K views of an example stay on one
+rank); a Poisson capacity is rounded to a multiple of the batch-axis width
+(``physical_batch_size``).  The gradient function all-reduces the clipped
+sum (core/algo.py), so every rank holds the same noised gradient.  Under
+``zero1`` the optimizer-state leaves that ``dist.sharding.state_shardings``
+places on the ``data`` axis are held as this rank's slice: the optimizer
+updates the matching slice of each param, and the slices are all-gathered
+into the whole param.  ``adam8bit``'s int8 blocks and scales stay whole,
+as the reference leaves them replicated.  ``compress_pod_grads`` sends the
+noised gradient through the int8 error-feedback codec
+(``dist.compress``) before the optimizer, its residual riding in the
+optimizer state as ``{"opt": ..., "grad_err": [...]}``, whole on every
+rank (the codec's blocks span the flattened leaf).  Checkpoints are
+written by every rank, each its own shards (train/checkpoint.py).
+
+Not ported (ROADMAP queue 1): the launch autotuner (``configs/base.py``
+raises on its keys).
 """
 from __future__ import annotations
 
@@ -69,6 +87,7 @@ from repro_torch.core.accountant import PrivacyAccountant
 from repro_torch.core.algo import algo_is_private, make_noisy_grad_fn
 from repro_torch.data.pipeline import (augment_expand, batch_for, make_source,
                                        poisson_batch_for, poisson_capacity)
+from repro_torch.dist import compress, runtime, sharding
 from repro_torch.optim.optimizers import make_optimizer
 from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.state import TrainState
@@ -100,37 +119,122 @@ class TrainStep:
     ``Trainer.train_step`` runs and ``launch/memory.py`` traces (the
     counterpart of the JAX package's ``make_train_step``).  ``gradients``
     makes the noised gradients and metrics and only reads the state;
-    ``update`` takes the optimizer step and the next clip norm in place.
-    ``loss_fn`` replaces ``model.loss_fn`` (the Trainer's fault injection).
+    ``update`` compresses them (``compress_pod_grads``), takes the
+    optimizer step and the next clip norm in place.  ``loss_fn`` replaces
+    ``model.loss_fn`` (the Trainer's fault injection).
     ``expected_batch_size``: the private update's normaliser under Poisson
-    sampling (q·N), None for fixed batches."""
+    sampling (q·N), None for fixed batches.  ``mesh``: the device mesh,
+    whose ``data`` axis ZeRO-1 shards the optimizer state over (None: one
+    process, nothing sharded)."""
 
     def __init__(self, model, train_cfg: TrainConfig,
-                 expected_batch_size: Optional[float] = None, loss_fn=None):
+                 expected_batch_size: Optional[float] = None, loss_fn=None,
+                 mesh=None):
+        self.model = model
         self.dp = train_cfg.dp
         self.adaptive_clip = adaptive_clip_on(train_cfg.dp)
+        self.compress = train_cfg.compress_pod_grads
         self.grad_fn = make_noisy_grad_fn(loss_fn or model.loss_fn,
                                           train_cfg.dp,
                                           grad_accum=train_cfg.grad_accum,
                                           expected_batch_size=expected_batch_size)
         self.opt = make_optimizer(train_cfg.optim)
+        self.mesh = mesh if train_cfg.zero1 else None
+        # ZeRO-1: per param leaf, (dim, index, count) of this rank's slice
+        # of its optimizer state, or None (whole); set by init_state
+        self.shards: Optional[list] = None
+        self.data_group = None
+
+    def _leaf_shards(self, n: int) -> list:
+        return self.shards or [None] * n
+
+    def _zero1_shards(self, leaves):
+        """The ZeRO-1 slice of each param leaf's optimizer state: where
+        ``state_shardings`` places the optimizer's state of a leaf on the
+        ``data`` axis (every param-shaped state leaf of it alike), this
+        rank's slice of that dim, else None."""
+        none = [None] * len(leaves)
+        if self.mesh is None:
+            return none
+        index, count, self.data_group = runtime.axis_shard(self.mesh, "data")
+        if count == 1:
+            return none
+        meta = [torch.empty(p.shape, dtype=p.dtype, device="meta") for p in leaves]
+        specs = sharding.state_shardings(
+            self.mesh, self.model,
+            TrainState(step=0, params=None, opt_state=self.opt.init(meta)))
+        dims = list(none)
+        for part in specs.opt_state.values():
+            if isinstance(part, list) and len(part) == len(leaves):
+                for i, spec in enumerate(part):
+                    if isinstance(spec, sharding.PartitionSpec) and "data" in spec:
+                        dims[i] = spec.index("data")
+        return [None if d is None else (d, index, count) for d in dims]
+
+    @staticmethod
+    def _slice(t, shard):
+        """The view of ``t`` a ZeRO-1 ``shard`` owns (``t`` when None)."""
+        if shard is None:
+            return t
+        d, index, count = shard
+        n = t.shape[d] // count
+        return t.narrow(d, index * n, n)
 
     def init_state(self, params, device) -> TrainState:
-        """Step 0: ``params`` and a fresh optimizer state beside them (with
-        the adaptive clip rider under ``dp.adaptive_clip``)."""
-        opt_state = self.opt.init(tree.leaves(params))
+        """Step 0: ``params`` and a fresh optimizer state beside them (this
+        rank's ZeRO-1 slices; the compression and adaptive clip riders
+        under their options)."""
+        leaves = tree.leaves(params)
+        self.shards = self._zero1_shards(leaves)
+        opt_state = self.opt.init([self._slice(p, sh)
+                                   for p, sh in zip(leaves, self.shards)])
+        riders = {}
+        if self.compress:
+            riders["grad_err"] = compress.init_error_state(leaves)
         if self.adaptive_clip:
-            opt_state = {"opt": opt_state, aclip.CLIP_STATE_KEY:
-                         aclip.init_state(self.dp, device)}
+            riders[aclip.CLIP_STATE_KEY] = aclip.init_state(self.dp, device)
+        if riders:
+            opt_state = {"opt": opt_state, **riders}
         return TrainState(step=0, params=params, opt_state=opt_state)
 
     def optimizer_state(self, state: TrainState):
-        return state.opt_state["opt"] if self.adaptive_clip else state.opt_state
+        if self.adaptive_clip or self.compress:
+            return state.opt_state["opt"]
+        return state.opt_state
 
     def clip_norm(self, state: TrainState):
         if not self.adaptive_clip:
             return None
         return state.opt_state[aclip.CLIP_STATE_KEY]["clip_norm"]
+
+    def ckpt_shards(self, state: TrainState) -> list:
+        """Each leaf's layout for ``CheckpointManager``, aligned with
+        ``checkpoint.flatten(state)``: ``(dim, index, count, writes)`` for
+        this rank's ZeRO-1 slice (``writes``: the rank is the slice's
+        first replica, the one that writes it), None for a whole leaf."""
+        shards = self._leaf_shards(len(tree.leaves(state.params)))
+        writes = self.data_group is not None and all(
+            self.mesh.get_local_rank(a) == 0
+            for a in sharding._axis_names(self.mesh)
+            if a != "data" and sharding._axis_size(self.mesh, a) > 1)
+
+        def walk(t, shard=None):
+            if isinstance(t, dict):
+                return [x for k in sorted(t) for x in walk(t[k])]
+            if isinstance(t, list) and len(t) == len(shards):
+                return [x for v, sh in zip(t, shards) for x in walk(v, sh)]
+            if isinstance(t, (list, tuple)):
+                return [x for v in t for x in walk(v)]
+            return [] if t is None else [None if shard is None
+                                         else shard + (writes,)]
+
+        opt = state.opt_state
+        if self.adaptive_clip or self.compress:     # the riders are whole
+            opt_part = [x for k in sorted(opt) for x in (
+                walk(opt[k]) if k == "opt" else [None] * len(tree.leaves(opt[k])))]
+        else:
+            opt_part = walk(opt)
+        return [None] * (1 + len(tree.leaves(state.params))) + opt_part
 
     def gradients(self, state: TrainState, batch, generator: torch.Generator):
         grads, metrics = self.grad_fn(state.params, batch, generator,
@@ -139,8 +243,24 @@ class TrainStep:
         return grads, metrics
 
     def update(self, state: TrainState, grads, metrics) -> None:
-        self.opt.apply(grads, self.optimizer_state(state),
-                       tree.leaves(state.params), state.step)
+        if self.compress:
+            err = state.opt_state["grad_err"]
+            grads, new_err = compress.compress_grads(grads, err)
+            for e, n in zip(err, new_err):
+                e.copy_(n)
+            metrics["update_norm"] = torch.sqrt(sum((g * g).sum() for g in grads))
+        leaves = tree.leaves(state.params)
+        shards = self._leaf_shards(len(leaves))
+        self.opt.apply([self._slice(g, sh) for g, sh in zip(grads, shards)],
+                       self.optimizer_state(state),
+                       [self._slice(p, sh) for p, sh in zip(leaves, shards)],
+                       state.step)
+        with torch.no_grad():
+            for p, sh in zip(leaves, shards):
+                if sh is not None:          # the updated slices, whole again
+                    d = sh[0]
+                    part = self._slice(p, sh).movedim(d, 0)
+                    p.copy_(runtime.all_gather(part, self.data_group).movedim(0, d))
         if self.adaptive_clip:
             self.clip_norm(state).copy_(metrics["clip_norm_next"])
         state.step += 1
@@ -156,11 +276,15 @@ class Trainer:
     port (``models.build_model_for``) whose params the Trainer makes
     trainable and updates in place, and whose ``remat`` it sets to the
     config's.  Its parameter and compute types must be the config's.
-    ``source`` replaces the data source ``cfg.data_source`` names."""
+    ``source`` replaces the data source ``cfg.data_source`` names.
+    ``mesh``: the device mesh of a data-parallel run (the launcher's), whose
+    batch-axis width the Poisson capacity is rounded to and whose ``data``
+    axis ZeRO-1 shards over; the batch is sliced under the active
+    ``dist.runtime.layout``."""
 
     def __init__(self, model, train_cfg: TrainConfig, shape: ShapeConfig,
                  inject_failure_at: Optional[int] = None,
-                 inject_inside_step: bool = False, source=None):
+                 inject_inside_step: bool = False, source=None, mesh=None):
         self.model = model
         self.cfg = train_cfg
         self.shape = shape
@@ -181,6 +305,8 @@ class Trainer:
         # synthetic one of another dataset size N prices another q = B/N)
         self.source = source or make_source(train_cfg.data_source,
                                             model.arch.vocab, train_cfg.seed)
+        # the mesh's batch-axis width: a Poisson capacity stays divisible
+        self.batch_multiple = 1 if mesh is None else sharding.batch_axis_width(mesh)
         # the memory plan: the largest microbatch whose estimated peak fits
         # the budget, picked before the capacity below so that Poisson's
         # lcm rounding sees the chosen grad_accum
@@ -188,7 +314,8 @@ class Trainer:
         if train_cfg.mem.auto_microbatch and train_cfg.mem.hbm_budget_bytes > 0:
             from repro_torch.launch.memory import pick_grad_accum
             accum, est = pick_grad_accum(model, train_cfg, shape,
-                                         dataset_size=self.source.dataset_size)
+                                         dataset_size=self.source.dataset_size,
+                                         shards=self.batch_multiple)
             if accum != train_cfg.grad_accum:
                 print(f"[trainer] auto_microbatch: grad_accum "
                       f"{train_cfg.grad_accum} -> {accum} (estimated "
@@ -201,7 +328,8 @@ class Trainer:
             self.mem_estimate = est
         self.sample_rate = shape.global_batch / self.source.dataset_size
         self.capacity = physical_batch_size(train_cfg, shape,
-                                            self.source.dataset_size)
+                                            self.source.dataset_size,
+                                            shards=self.batch_multiple)
         self.inject_failure_at = inject_failure_at
         self.inject_inside_step = inject_inside_step
         self._injected = False
@@ -212,7 +340,8 @@ class Trainer:
         # Poisson: the lot size q·N, never the capacity or the realized draw
         self.expected_batch = (float(shape.global_batch)
                                if self.sampling == "poisson" else None)
-        self.step_fn = TrainStep(model, train_cfg, self.expected_batch, loss_fn)
+        self.step_fn = TrainStep(model, train_cfg, self.expected_batch, loss_fn,
+                                 mesh=mesh)
         self.ckpt = CheckpointManager(train_cfg.ckpt_dir,
                                       keep=train_cfg.ckpt_keep,
                                       use_async=train_cfg.ckpt_async)
@@ -299,7 +428,7 @@ class Trainer:
         params and a fresh optimizer state in place, or the init."""
         state = self.init_state()
         if self.ckpt.latest_step() is not None:
-            state = self.ckpt.restore(state)
+            state = self.ckpt.restore(state, shards=self.step_fn.ckpt_shards(state))
             print(f"[trainer] restored step {state.step} from "
                   f"{self.cfg.ckpt_dir}", flush=True)
         return state
@@ -307,19 +436,28 @@ class Trainer:
     def _handle_preempt(self, signum, frame):
         self._preempted = True
 
-    def make_batch(self, step: int) -> Dict[str, torch.Tensor]:
-        """The step's (seed, step)-keyed batch, on the model's device; under
-        Poisson sampling ``self.capacity`` examples with a ``"mask"`` leaf;
-        under ``dp.augmult = K`` each example's K views (rows b-major /
-        k-minor), made after sampling."""
+    def global_batch(self, step: int) -> Dict[str, np.ndarray]:
+        """The step's (seed, step)-keyed batch of every rank, on the host;
+        under Poisson sampling ``self.capacity`` examples with a ``"mask"``
+        leaf; under ``dp.augmult = K`` each example's K views (rows b-major
+        / k-minor), made after sampling."""
         if self.sampling == "poisson":
             batch = poisson_batch_for(self.source, self.model.arch, self.shape,
                                       step, capacity=self.capacity,
                                       sample_rate=self.sample_rate)
         else:
             batch = batch_for(self.source, self.model.arch, self.shape, step)
-        batch = augment_expand(batch, self.cfg.dp.augmult, self.cfg.seed, step)
-        return {k: torch.from_numpy(v).to(self.device) for k, v in batch.items()}
+        return augment_expand(batch, self.cfg.dp.augmult, self.cfg.seed, step)
+
+    def make_batch(self, step: int) -> Dict[str, torch.Tensor]:
+        """This rank's slice of ``global_batch`` on the model's device:
+        under an active layout the rank's contiguous run of examples (with
+        their K views), else the whole batch."""
+        batch = self.global_batch(step)
+        index, count = runtime.batch_shard()
+        rows = len(next(iter(batch.values()))) // count
+        return {k: torch.from_numpy(v[index * rows:(index + 1) * rows]).to(
+            self.device) for k, v in batch.items()}
 
     def noise_generator(self, step: int) -> torch.Generator:
         g = torch.Generator(device=self.device)
@@ -405,12 +543,15 @@ class Trainer:
                     if self.adaptive_clip:
                         clip = (f"clip_norm {rec['clip_norm']:.4f} -> "
                                 f"{rec['clip_norm_next']:.4f} ")
-                    print(f"[trainer] step {step:5d} loss {rec['loss']:.4f} "
-                          f"{eps_str} {realized}{clip}({dt * 1e3:.0f} ms)",
+                    gnorm = (f"grad_norm_mean {rec['grad_norm_mean']:.6g} "
+                             if "grad_norm_mean" in rec else "")
+                    print(f"[trainer] step {step:5d} loss {rec['loss']:.6g} "
+                          f"{gnorm}{eps_str} {realized}{clip}({dt * 1e3:.0f} ms)",
                           flush=True)
                 if ((step + 1) % cfg.ckpt_every == 0 or step == steps - 1
                         or self._preempted):
-                    self.ckpt.save(state, step + 1)
+                    self.ckpt.save(state, step + 1,
+                                   shards=self.step_fn.ckpt_shards(state))
                 if self._preempted:
                     print(f"[trainer] preempted at step {step}; checkpoint "
                           f"saved, exiting", flush=True)

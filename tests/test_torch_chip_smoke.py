@@ -672,3 +672,85 @@ def test_path_launches_count_the_embed_model_wrapper_calls(smoke, monkeypatch, n
     assert (full["sites"], full["auto_norms"]) == (289, (289, 0))
     cut = smoke.launch_shape(dataclasses.replace(get_arch("chameleon-34b"), n_layers=6))
     assert (cut["sites"], cut["auto_norms"], cut["embeds"]) == (43, (0, 43), 0)
+
+
+@pytest.mark.parametrize("algo,remat,mb", [
+    ("dpsgd_r", "block", 0), ("dpsgd_r", "block", 4), ("dpsgd_r1f", "none", 2),
+    ("sgd", "sites", 4)])
+def test_path_launches_count_the_pipelined_wrapper_calls(smoke, monkeypatch, algo,
+                                                         remat, mb):
+    """Phase 16 (a): ``path_launches`` with the pipeline's M microbatches
+    (every block site and attention M times a pass, the embedding and the
+    head once) against the wrapper calls of one Trainer step of the reduced
+    phi3 at pp_stages 2 on the CPU."""
+    import torch
+    from repro_torch.configs import reduced
+    from repro_torch.configs.base import (DPConfig, OptimConfig, ShapeConfig,
+                                          TrainConfig)
+    from repro_torch.core.algo import stage_microbatches
+    from repro_torch.models.transformer import Model
+    from repro_torch.train import Trainer
+    _count_wrapper_calls(smoke, monkeypatch)
+    arch = reduced(get_arch("phi3-mini-3.8b"))
+    model = Model(arch, dtype=torch.float32, device="cpu", remat=remat,
+                  pp_stages=2, pp_microbatches=mb)
+    cfg = TrainConfig(param_dtype="float32", compute_dtype="float32",
+                      remat=remat, optim=OptimConfig(schedule="constant"),
+                      dp=DPConfig(algo=algo, norm_strategy="fused", use_kernels=True))
+    trainer = Trainer(model, cfg, ShapeConfig("t", 8, 4, "train"))
+    state = trainer.init_state()
+    smoke.zero_counts()
+    trainer.train_step(state, trainer.make_batch(0))
+    M = stage_microbatches(4, 2, mb)
+    assert M == (mb or 2)
+    assert smoke.read_counts() == smoke.path_launches(
+        "fused", arch.n_layers, algo=algo, remat=remat, microbatches=M)
+    with pytest.raises(ValueError, match="dense decoder"):
+        smoke.path_launches("fused", 2, family="vit", microbatches=2)
+
+
+def test_parse_launcher_reads_interleaved_ranks(smoke):
+    """Two ranks' lines, interleaved mid-line as their prints land: the
+    backend, the fingerprints, each step's records (one a rank) and the
+    memory lines."""
+    text = (
+        "[train] backend gloo: rank 0 of 2 on cuda:0"
+        "[train] backend gloo: rank 1 of 2 on cuda:0\n\n"
+        "[train] init fingerprint 0x1234abcd (2 process(es) agree)\n"
+        "[train] init fingerprint 0x1234abcd (2 process(es) agree)\n"
+        "[train] memory: estimated peak 9.500 GB (remat=block, grad_accum=1, "
+        "per-example side-channel 0.000 GB); per device 7.250 GB over a 2-wide "
+        "batch axis\n"
+        "[trainer] step     0 loss 10.4321 grad_norm_mean 3.5 eps inf (812 ms)"
+        "[trainer] step     0 loss 10.4321 grad_norm_mean 3.5 eps inf (790 ms)\n\n"
+        "[trainer] step     1 loss 10.1 grad_norm_mean 3.25 eps inf (640 ms)\n"
+        "[trainer] step     1 loss 10.1 grad_norm_mean 3.25 eps inf (655 ms)\n"
+        "[train] memory: measured peak 11.000 GB over steps 0..1 (estimate/measured 0.86)\n")
+    got = smoke.parse_launcher(text)
+    assert got["backend"] == [("gloo", "0", "2", "cuda:0"), ("gloo", "1", "2", "cuda:0")]
+    assert [f for f, _ in got["fingerprint"]] == ["0x1234abcd"] * 2
+    assert got["steps"][0] == [dict(loss=10.4321, grad_norm_mean=3.5, ms=812),
+                               dict(loss=10.4321, grad_norm_mean=3.5, ms=790)]
+    assert [r["ms"] for r in got["steps"][1]] == [640, 655]
+    assert got["estimate"] == [("9.500", "7.250")] and got["measured"] == ["11.000"]
+
+
+def test_leaf_gap_and_zero1_shards(smoke):
+    """The leaf-by-leaf comparison of two restored checkpoints (a share of
+    each reference leaf's max), and the ZeRO-1 shard files phase 16 (c)
+    expects of phi3-mini at 2 layers on a 2-wide data axis: 2 for every
+    weight matrix, 1 for the norm scales."""
+    import dataclasses
+    import torch
+    want = [torch.tensor([1.0, -4.0]), torch.zeros(3), torch.tensor([[2.0]])]
+    got = [torch.tensor([1.0, -3.0]), torch.zeros(3), torch.tensor([[2.5]])]
+    assert smoke.leaf_gap(got, want) == pytest.approx(0.25)
+    assert smoke.leaf_gap(want, want) == 0.0
+    arch = dataclasses.replace(get_arch("phi3-mini-3.8b"), n_layers=smoke.DIST_LAYERS)
+    shards = smoke.zero1_expected_shards(arch, 2)
+    # blocks (wk, wo, wq, wv, ln1, ln2, w1, w2, w3), embed, final_norm, head
+    assert shards == [2, 2, 2, 2, 1, 1, 2, 2, 2, 2, 1, 2]
+    manifest = {"leaves": [{"shards": [0]}] * (1 + 2 * 12)
+                + [{"shards": [0] * k} for k in shards] + [{"shards": [0]}] * 24}
+    assert smoke.zero1_moment_shards(manifest, 12) == shards
+    assert smoke.launcher_cmd(2, "/x")[3:6] == ["--standalone", "--nproc_per_node", "2"]

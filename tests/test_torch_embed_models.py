@@ -112,7 +112,7 @@ def _jax_clipped_sum(name):
 @pytest.mark.parametrize("name", NAMES)
 def test_configs_and_reduced_match_jax(name):
     """Every field the port's ArchConfig has equals the reference's, full
-    and reduced (``use_fsdp``, a sharding option, is left out); the model
+    and reduced (``use_fsdp``, the FSDP sharding option, among them); the model
     has no embedding table, and its spec is the reference's without one."""
     def same(t, j, path=""):
         if not dataclasses.is_dataclass(t):

@@ -31,7 +31,7 @@ from repro.train import Trainer as JTrainer
 from repro_torch import interop
 from repro_torch.configs import ARCHS as TARCHS, reduced as treduced
 from repro_torch.configs.base import (DPConfig, OptimConfig, ShapeConfig,
-                                      TrainConfig)
+                                      TrainConfig, apply_overrides)
 from repro_torch.core.accountant import PrivacyAccountant
 from repro_torch.data.pipeline import SyntheticSource
 from repro_torch.launch import train as tlaunch
@@ -155,12 +155,36 @@ def test_launcher_trains_dpsgd_under_sites_remat_on_the_cpu(tmp_path, capsys):
 @pytest.mark.parametrize("pair", ["pp_stages=2",
                                   "zero1=false", "mesh.shape=4,2", "tune.seed=1",
                                   "pp_microbatches=2", "compress_pod_grads=true"])
-def test_unported_overrides_raise(pair):
-    """A ``--set`` key of the JAX package whose feature the port lacks
-    raises; it is not accepted and then ignored."""
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tlaunch.main(["--arch", "phi3-mini-3.8b", "--reduced", "--steps", "1",
-                      "--device", "cpu", "--set", pair])
+def test_unported_overrides_raise(pair, tmp_path, capsys):
+    """A ``--set`` key of the JAX package whose feature the port lacks (the
+    launch autotuner's ``tune.*``) raises; it is not accepted and then
+    ignored.  The distribution keys are ported: each is applied to the
+    config and validated, and the launcher takes it."""
+    run = ["--arch", "phi3-mini-3.8b", "--reduced", "--steps", "1",
+           "--batch", "2", "--seq", "8", "--device", "cpu", "--dtype",
+           "float32", "--set", f"ckpt_dir={tmp_path}", "--set", pair]
+    key, val = pair.split("=")
+    if key == "tune.seed":
+        with pytest.raises(NotImplementedError, match="not ported"):
+            tlaunch.main(run)
+        return
+    cfg = apply_overrides(TrainConfig(), {key: val})
+    got = cfg.mesh.shape if key == "mesh.shape" else getattr(cfg, key)
+    assert got == {"pp_stages": 2, "zero1": False, "mesh.shape": (4, 2),
+                   "pp_microbatches": 2, "compress_pod_grads": True}[key]
+    if key == "mesh.shape":       # 8 devices: not the world of one process
+        with pytest.raises(ValueError, match="does not match the 1 processes"):
+            tlaunch.main(run)
+        return
+    if key in ("pp_stages", "pp_microbatches"):
+        with pytest.raises(ValueError, match=f"{key} must be >= "):
+            apply_overrides(TrainConfig(), {key: "-1"})
+    if key == "pp_stages":        # the reduced phi3 has 2 blocks: 3 does not divide
+        with pytest.raises(ValueError, match="pick a divisor of 2"):
+            tlaunch.main(run[:-1] + ["pp_stages=3"])
+    tlaunch.main(run)
+    out = capsys.readouterr().out
+    assert "finished at step 1; privacy spent: eps=" in out
 
 
 def test_launcher_plans_memory_on_the_cpu(tmp_path, capsys):
