@@ -260,7 +260,31 @@ the script exits nonzero and prints no ``ok`` line:
    and both checkpoints restored whole by the port's reader: params and
    first moments within ``CLIP_SUM_TOL`` of each leaf's max.  A world's
    nonzero exit or its ``DIST_TIMEOUT`` raises; the temporary directories
-   are removed.
+   are removed;
+17. the launch tools (``launch/roofline.py``, ``costs.py``, ``autotune.py``):
+   (a) ``[roofline]``: phase 6's step counted by one fake-tensor trace on
+   the card's device, taken in phase 6 (the planner's row and the cost
+   counter in one run): dot FLOPs by dtype, elementwise FLOPs, bytes, the
+   trace's seconds, the ratio to 6·N·D, the H100's roofline terms and
+   bottleneck, and beside phase 6's measured step the ``mfu`` and the
+   compute term's share; its kernel records must equal this script's
+   per-launch FLOP formulas (without the causal and symmetric-tile
+   halvings) times ``path_launches`` to ``KERNEL_FLOPS_RTOL``; (b)
+   ``[autotune]``: a solve on the card, phi3-mini at full width on
+   ``TUNE_LAYERS`` layers, B 8 x T 512, ``dpsgd_r``, AdamW, the incumbent
+   phase 6's route, a 72 GiB budget, kernel plans admitted, the seeded GA
+   (``TUNE_POP`` x ``TUNE_GENS``), the ``TUNE_TOPK`` best predictions and
+   the default measured: space, evals, traces, cache hits, the search's
+   and the measurement's seconds, each measured plan's predicted and
+   measured time and peak and its H100 terms, and the Spearman of
+   predicted against measured; the winner no slower than the default,
+   every measured peak within the planner's ``TOLERANCE_FACTOR`` of its
+   estimate, no more traces than evaluations, and the kernels launched
+   exactly as often as the measured plans' steps make them
+   (``autotune_launches``); (c) the training launcher
+   with ``--autotune`` at ``LAUNCH_TUNE_LAYERS`` layers for two steps (its
+   output in ``chiprun_out/chip_smoke_autotune.log``): its autotune line,
+   two step lines and the ``privacy spent`` line.
 
 Each path counts the launches of every kernel from zero and must launch
 each kernel exactly as often as the code says it does (``path_launches``,
@@ -385,6 +409,25 @@ INIT_SLACK = 2 * 2**30
 # ranks sharing the card over gloo; DIST_TIMEOUT bounds each world (s)
 PP_LAYERS, PP_STAGES = 8, 4
 DIST_LAYERS, DIST_STEPS, DIST_TIMEOUT = 2, 2, 600
+# phase 17: the launch tools.  (b) a solve on the card: phi3-mini at full
+# width on TUNE_LAYERS of its 32 layers (pipeline stages 1 and 2 divide
+# them), B 8 x T 512, the GA's TUNE_POP x TUNE_GENS, the TUNE_TOPK best
+# predictions and the default measured TUNE_ITERS steps each, the planner's
+# budget TUNE_BUDGET; (c) the launcher's --autotune at LAUNCH_TUNE_LAYERS
+# layers, its GA LAUNCH_TUNE_POP x LAUNCH_TUNE_GENS, the LAUNCH_TUNE_TOPK
+# best and the default measured LAUNCH_TUNE_ITERS steps each,
+# LAUNCH_TUNE_TIMEOUT bounding it (s).  Cut for the run's time (4 layers
+# and the GA 8 x 3, then 4 x 2, took 120-190 s; the launcher's GA 4 x 2
+# went to 4 x 1.  At 2 x 1, the top 1 measured 1 step, the launcher took
+# as long: its time is its start and its models, not its GA).
+# KERNEL_FLOPS_RTOL: the cost records' kernel FLOPs against this script's
+# formulas
+TUNE_LAYERS, TUNE_POP, TUNE_GENS, TUNE_TOPK, TUNE_ITERS = 2, 4, 2, 3, 3
+TUNE_BUDGET = 72 * 2**30
+LAUNCH_TUNE_LAYERS, LAUNCH_TUNE_POP, LAUNCH_TUNE_GENS = 2, 4, 1
+LAUNCH_TUNE_TOPK, LAUNCH_TUNE_ITERS = 2, 2
+LAUNCH_TUNE_TIMEOUT = 600
+KERNEL_FLOPS_RTOL = 1e-9
 
 
 def request_stream(vocab: int, seed: int = 0):
@@ -446,11 +489,16 @@ def bound_ms(flops, nbytes, dtype_name):
                                        else "bytes")
 
 
+def flash_fwd_flops(BH, T, S, hd, causal):
+    """The forward's two products, QK^T and PV (halved when causal)."""
+    return 4.0 * BH * T * S * hd * (0.5 if causal else 1.0)
+
+
 def flash_bound_ms(BH, T, S, hd, rep, causal, dtype_name):
     """The forward: QK^T and PV (halved when causal); q, k, v read, o and
     lse written."""
     item = 2 if dtype_name == "bfloat16" else 4
-    flops = 4.0 * BH * T * S * hd * (0.5 if causal else 1.0)
+    flops = flash_fwd_flops(BH, T, S, hd, causal)
     nbytes = item * (2 * BH * T * hd + 2 * (BH // rep) * S * hd) + 4 * BH * T
     return bound_ms(flops, nbytes, dtype_name)
 
@@ -470,9 +518,11 @@ def flash_bwd_bound_ms(BH, KV, T, hd, causal, dtype_name):
     return bound_ms(flash_bwd_flops(BH, T, hd, causal), nbytes, dtype_name)
 
 
-def gram_flops(BG, T, di, do, square):
-    """The s <= t tile pairs of C = gy·gyᵀ (and A = x·xᵀ when square)."""
-    return 1.0 * BG * T * (T + 1) * (do + (di if square else 0))
+def gram_flops(BG, T, di, do, square, tiles=True):
+    """The s <= t tile pairs of C = gy·gyᵀ (and A = x·xᵀ when square);
+    every pair (the plain version's products) without ``tiles``."""
+    pairs = T * (T + 1) if tiles else 2 * T * T
+    return 1.0 * BG * pairs * (do + (di if square else 0))
 
 
 def gram_bound_ms(BG, T, di, do, masked, square, dtype_name):
@@ -534,18 +584,24 @@ def image_mix(arch, K=IMAGE_K):
     return [(name, T, di, do, n) for (name, T, di, do), n in calls.items()]
 
 
+def dense_flops(BG, T, di, do):
+    """One dense launch's product: the norm launch's x_bᵀ gy_b, or the gx
+    launch's gy · wᵀ: 2·BG·T·di·do."""
+    return 2.0 * BG * T * di * do
+
+
 def norm_bound_ms(BG, T, di, do, dtype_name):
     """The norm launch, ‖x_bᵀ gy_b‖² per row: 2·BG·T·di·do FLOPs; x and gy
     read, one float32 a row written."""
     item = 2 if dtype_name == "bfloat16" else 4
-    return bound_ms(2.0 * BG * T * di * do, item * BG * T * (di + do) + 4 * BG,
+    return bound_ms(dense_flops(BG, T, di, do), item * BG * T * (di + do) + 4 * BG,
                     dtype_name)
 
 
 def dgrad_bound_ms(BG, T, di, do, E, dtype_name):
     """gx = gy · wᵀ: 2·BG·T·di·do FLOPs; gy and w read, gx written."""
     item = 2 if dtype_name == "bfloat16" else 4
-    return bound_ms(2.0 * BG * T * di * do,
+    return bound_ms(dense_flops(BG, T, di, do),
                     item * (BG * T * (do + di) + E * di * do), dtype_name)
 
 
@@ -1381,13 +1437,15 @@ def path_launches(route: str, L: int, chunks: int = 1, algo: str = "dpsgd_r",
     ``dense_dgrad`` at each of them whose input needs a gradient (not the
     image models' first site, whose input is the images).
     ``materialize`` takes ``pegrad_norm`` at every norm site, ``gram``
-    ``gram_norm``; ``auto`` is the decoder at T 2048, where the FLOP
+    ``gram_norm``; ``auto-2048`` is the decoder at T 2048, where the FLOP
     formulas send q, k, v, o to ``pegrad_norm`` and w1, w3, w2 and the
-    head to ``gram_norm``.  ``sgd`` is one forward and one backward;
-    ``dpsgd`` one of each per example (``examples`` of them), and one
-    ``clip_reduce`` per parameter dtype (``dtype_groups``: one flat buffer
-    of per-example gradients each, ``clipping.flat_stacks``) per chunk of
-    ``microbatch`` examples (0 = all).  Under ``block`` and ``sites`` every
+    head to ``gram_norm``; ``auto`` takes the caller's ``auto_norms``
+    (``plan_launches`` counts the dense decoder's at any T).  ``sgd`` is
+    one forward and one backward; ``dpsgd`` one of each per example
+    (``examples`` of them), and one ``clip_reduce`` per parameter dtype
+    (``dtype_groups``: one flat buffer of per-example gradients each,
+    ``clipping.flat_stacks``) per chunk of ``microbatch`` examples (0 =
+    all).  Under ``block`` and ``sites`` every
     backward recomputes every block's forward once more, so its flash
     forwards.  ``chunks``: grad_accum, every chunk a full step's worth.
     ``microbatches``: the pipeline schedule's M (the dense decoder with
@@ -1431,7 +1489,7 @@ def path_launches(route: str, L: int, chunks: int = 1, algo: str = "dpsgd_r",
             n["gram_norm"] += sites
         elif route == "auto-2048" and family == "dense":
             n.update(pegrad_norm=4 * L, gram_norm=3 * L + 2)
-        elif route == "auto" and family in SITE_FAMILIES:
+        elif route == "auto" and (family in SITE_FAMILIES or family == "dense"):
             n["pegrad_norm"] = auto_norms[0]
             n["gram_norm"] += auto_norms[1]
         else:
@@ -1963,8 +2021,17 @@ def train_main_path():
           f"steps eps = {eps:.4f} (delta {cfg.dp.delta}, q "
           f"{trainer.sample_rate:.1e}, sigma {cfg.dp.noise_multiplier})",
           flush=True)
+    # one fake-tensor trace of the step feeds the planner's row and phase
+    # 17 (a)'s costs (launch/costs.py's counter beside the live bytes)
+    from repro_torch.launch.memory import abstract_like, estimate_train_memory
+    counts = read_counts()
+    t = time.perf_counter()
+    est = estimate_train_memory(model, cfg, abstract_like(trainer.make_batch(state.step)),
+                                costs=True)
+    trace_s = time.perf_counter() - t
+    assert read_counts() == counts, ("the trace counted launches", counts, read_counts())
     memory_row(f"phase 6: {TRAIN_LAYERS} layers, remat none, dpsgd_r fused",
-               trainer, state, peak)
+               trainer, state, peak, est=est, trace_s=trace_s)
 
     prof = profile_step(lambda: timed_step(trainer, state), "fused+kernels")
 
@@ -1995,7 +2062,8 @@ def train_main_path():
     rec = dict(arch=arch.name, n_layers=arch.n_layers, params=n_par,
                batch=TRAIN_B, seq=TRAIN_T, steps=steps, peak_bytes=peak,
                epsilon=eps, plain=plain_rec, nsq_rel_err=nsq_err, sgd=sgd_rec,
-               dp_over_sgd=ratio, launches=launches, profile=prof)
+               dp_over_sgd=ratio, launches=launches, profile=prof,
+               costs=est["costs"], costs_trace_s=trace_s)
     return rec, model, trainer, state
 
 
@@ -4898,6 +4966,282 @@ def dist_path():
         param_gap=param_gap, moment_gap=moment_gap, restore_s=restore_s)
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the launch tools (launch/roofline.py, costs.py, autotune.py)
+# ---------------------------------------------------------------------------
+
+def kernel_record_flops(arch, layers, B, T, launches):
+    """The FLOPs each kernel's cost records should hold over ``launches``
+    (``path_launches`` of a dense-decoder step at B x T with ``layers``
+    layers): this script's per-launch formulas with the causal and the
+    symmetric-tile halvings removed (a record is the plain version's work)
+    times the launches.  The flash pair at B·H heads (4·BH·T²·hd forward,
+    10·BH·T²·hd backward), ``gram_norm`` at the embedding rule (2·B·T²·d),
+    ``dense_bwd_norm`` its two products and ``pegrad_norm`` and
+    ``dense_dgrad`` one each, over ``dense_mix``'s calls (a launch count
+    that is a whole number of passes over them)."""
+    BH, hd = B * arch.n_heads, arch.hd
+    mix = dense_mix(arch, layers)
+    calls = sum(n for *_, n in mix)
+    one_pass = sum(n * dense_flops(B, T, di, do) for _, di, do, n in mix)
+
+    def dense(n, products):
+        assert n % calls == 0, (n, calls)
+        return products * one_pass * n // calls
+
+    return {"flash_attn_fwd": launches["flash_attn_fwd"]
+            * flash_fwd_flops(BH, T, T, hd, causal=False),
+            "flash_attn_bwd": launches["flash_attn_bwd"]
+            * flash_bwd_flops(BH, T, hd, causal=False),
+            "gram_norm": launches["gram_norm"]
+            * gram_flops(B, T, 0, arch.d_model, square=False, tiles=False),
+            "dense_bwd_norm": dense(launches["dense_bwd_norm"], 2),
+            "pegrad_norm": dense(launches["pegrad_norm"], 1),
+            "dense_dgrad": dense(launches["dense_dgrad"], 1),
+            "clip_reduce": 0.0}
+
+
+def plan_launches(arch, plan: dict, B=TRAIN_B, T=TRAIN_T):
+    """``path_launches`` of one ``dpsgd_r`` step of the dense decoder under
+    an autotune plan (``LaunchPlan.as_dict``): its grad_accum chunks, remat
+    policy and pipeline microbatches (the scorer's models take the default
+    one a stage), ``auto`` resolved site by site at the chunk's shapes (a
+    block's sites M times a pass, the head once).  Without kernels only
+    the flash pair launches (``ops.flash_attention`` at every attention),
+    and ``fused`` pass 1's attention backward is the plain one."""
+    from repro_torch.core.algo import stage_microbatches
+    from repro_torch.core.sites import resolve_strategy
+    chunks, route = plan["grad_accum"], plan["norm_strategy"]
+    chunk = B // chunks
+    M = stage_microbatches(chunk, plan["pp_stages"]) if plan["pp_stages"] > 1 else 1
+    kw = dict(chunks=chunks, remat=plan["remat"], microbatches=M)
+    if not plan["use_kernels"]:
+        n = path_launches("materialize", arch.n_layers, **kw)
+        n.update(pegrad_norm=0, gram_norm=0)
+        if route == "fused":
+            n["flash_attn_bwd"] //= 2
+        return n
+    if route == "auto":
+        picks = [resolve_strategy(k, "auto", ops, gy)
+                 for k, ops, gy in norm_sites(arch, chunk // M, T)]
+        blocks, head = picks[:-1], picks[-1:]
+        kw["auto_norms"] = tuple(M * blocks.count(r) + head.count(r)
+                                 for r in ("materialize", "gram"))
+    return path_launches(route, arch.n_layers, **kw)
+
+
+def autotune_launches(arch, measured, iters: int, B=TRAIN_B, T=TRAIN_T):
+    """The launches a solve's measurement makes: each measured plan's
+    ``plan_launches`` times its warm-up and ``iters`` timed steps
+    (``autotune.measure_plan``); the search's fake-tensor traces launch
+    nothing."""
+    total = dict.fromkeys(kernel_counts(), 0)
+    for rec in measured:
+        for k, v in plan_launches(arch, rec["plan"], B, T).items():
+            total[k] += (max(1, iters) + 1) * v
+    return total
+
+
+def check_kernel_records(costs, want) -> float:
+    """The largest relative gap between the cost records' kernel FLOPs and
+    ``want`` (``kernel_record_flops``); a kernel without launches has no
+    record.  Raises above ``KERNEL_FLOPS_RTOL``."""
+    got = {k: v["dot_flops"] for k, v in costs["kernels"].items()}
+    assert set(got) == {k for k, v in want.items() if v}, (got, want)
+    worst = max(abs(got[k] - want[k]) / want[k] for k in got)
+    assert worst <= KERNEL_FLOPS_RTOL, (worst, got, want)
+    return worst
+
+
+def roofline_phase(train):
+    """Phase 17 (a): the costs of phase 6's step (one fake-tensor trace on
+    the card's device, taken in phase 6) and its roofline beside phase 6's
+    measured step."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import roofline
+    arch = dataclasses.replace(get_arch("phi3-mini-3.8b"), n_layers=TRAIN_LAYERS)
+    costs, trace_s = train["costs"], train["costs_trace_s"]
+    launches = path_launches("fused", TRAIN_LAYERS)
+    gap = check_kernel_records(costs, kernel_record_flops(arch, TRAIN_LAYERS, TRAIN_B,
+                                                         TRAIN_T, launches))
+    step_s = sum(r["step_ms"] for r in train["steps"]) / len(train["steps"]) / 1e3
+    shape = ShapeConfig("chip_smoke", TRAIN_T, TRAIN_B, "train")
+    mf = roofline.model_flops(arch, shape, train["params"])
+    terms = roofline.roofline_terms(costs["total_flops"], costs["total_bytes"], 0.0, 1)
+    mfu = mf / (step_s * roofline.PEAK_FLOPS)
+    dots = {k: f"{v / 1e12:.3f}" for k, v in costs["dot_flops_by_dtype"].items()}
+    print(f"[roofline] phase 6's step (phi3-mini-3.8b, {TRAIN_LAYERS} layers, B {TRAIN_B} x "
+          f"T {TRAIN_T}, dpsgd_r fused + kernels, remat none, bf16), one fake-tensor "
+          f"trace of {trace_s:.1f} s: dot TFLOP by dtype {dots}, elementwise "
+          f"{costs['elementwise_flops'] / 1e12:.4f} TFLOP, bytes {costs['total_bytes'] / 1e9:.2f} "
+          f"GB (products {costs['dot_bytes'] / 1e9:.2f}, moves {costs['move_bytes'] / 1e9:.2f}), "
+          f"{len(costs['gemms'])} distinct GEMMs; traced / model FLOPs (6·N·D, N "
+          f"{train['params'] / 1e9:.3f}B) {costs['total_flops'] / mf:.3f}", flush=True)
+    print(f"[roofline] H100 terms (bf16 {roofline.PEAK_FLOPS:.3g} FLOP/s, HBM "
+          f"{roofline.HBM_BW:.3g} B/s): compute {1e3 * terms['compute_s']:.1f} ms, memory "
+          f"{1e3 * terms['memory_s']:.1f} ms, collective {1e3 * terms['collective_s']:.1f} ms; "
+          f"bottleneck {terms['bottleneck']}; phase 6's measured step {1e3 * step_s:.1f} ms: "
+          f"mfu {mfu:.4f}, the traced compute term {terms['compute_s'] / step_s:.4f} of it, "
+          f"the larger term {max(terms['compute_s'], terms['memory_s']) / step_s:.4f}; the "
+          f"kernel records' FLOPs at most {gap:.1e} from this script's formulas x launches "
+          f"{ {k: v['calls'] for k, v in costs['kernels'].items()} }", flush=True)
+    return dict(trace_s=trace_s, costs={k: v for k, v in costs.items() if k != "gemms"},
+                gemms=len(costs["gemms"]), model_flops=mf, terms=terms, step_s=step_s,
+                mfu=mfu, compute_share=terms["compute_s"] / step_s, kernel_flops_gap=gap)
+
+
+def _plan_text(p) -> str:
+    return (f"accum {p['grad_accum']} remat {p['remat']} {p['norm_strategy']}"
+            f"{'+kernels' if p['use_kernels'] else ''} pp {p['pp_stages']}"
+            f"{' mb ' + str(p['microbatch']) if p['microbatch'] else ''}")
+
+
+def autotune_phase():
+    """Phase 17 (b): a solve on the card at phi3-mini's full width on
+    ``TUNE_LAYERS`` layers; the winner no slower than the default, every
+    measured peak within the planner's tolerance of its estimate, the
+    traces no more than the evaluations."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import MemConfig, TuneConfig
+    from repro_torch.launch import autotune, roofline
+    from repro_torch.launch.memory import within_tolerance
+    arch = dataclasses.replace(get_arch("phi3-mini-3.8b"), n_layers=TUNE_LAYERS)
+    shape, cfg = train_shape_and_config(arch, "none")
+    cfg = dataclasses.replace(
+        cfg, mem=MemConfig(hbm_budget_bytes=TUNE_BUDGET),
+        tune=TuneConfig(seed=0, method="ga", population=TUNE_POP,
+                        generations=TUNE_GENS, topk=TUNE_TOPK,
+                        measure_iters=TUNE_ITERS, include_kernels=True))
+    scorer = autotune.PlanScorer(arch, cfg, shape, device="cuda")
+    zero_counts()
+    report = autotune.solve(arch, cfg, shape, mesh_shapes=[(1, 1)], scorer=scorer)
+    launches = read_counts()
+    print(f"[autotune] phi3-mini-3.8b at full width, {TUNE_LAYERS} layers, B {TRAIN_B} x "
+          f"T {TRAIN_T}, dpsgd_r, AdamW, bf16, budget {TUNE_BUDGET / 2**30:.0f} GiB; "
+          f"{report.method} (seed {report.seed}, population {TUNE_POP}, {TUNE_GENS} "
+          f"generations): space {report.space_size}, {report.evals} evals, "
+          f"{report.traces} traces, {report.cache_hits} cache hits; search "
+          f"{report.search_s:.1f} s, measurement {report.measure_s:.1f} s", flush=True)
+    rows = []
+    for rec in report.measured:
+        plan = autotune.LaunchPlan(**{**rec["plan"],
+                                      "mesh_shape": tuple(rec["plan"]["mesh_shape"])})
+        costs = scorer.costs_of(plan)
+        terms = roofline.roofline_terms(costs["total_flops"], costs["total_bytes"], 0.0, 1)
+        ratio = rec["pred_peak_bytes"] / rec["measured_peak_bytes"]
+        rows.append(dict(rec, terms=terms, peak_ratio=ratio))
+        print(f"[autotune] {_plan_text(rec['plan'])}: predicted "
+              f"{1e3 * rec['pred_seconds']:.2f} ms, measured {1e3 * rec['seconds']:.1f} ms; "
+              f"peak predicted {rec['pred_peak_bytes'] / 2**30:.2f} GiB, measured "
+              f"{rec['measured_peak_bytes'] / 2**30:.2f} GiB ({ratio:.3f}); H100 terms "
+              f"compute {1e3 * terms['compute_s']:.1f} ms, memory "
+              f"{1e3 * terms['memory_s']:.1f} ms ({terms['bottleneck']})", flush=True)
+        assert within_tolerance(ratio), (rec, ratio)
+    by_plan = {json.dumps(r["plan"], sort_keys=True): r for r in rows}
+    default = by_plan[json.dumps(report.default_plan.as_dict(), sort_keys=True)]
+    winner = by_plan[json.dumps(report.plan.as_dict(), sort_keys=True)]
+    assert winner["seconds"] <= default["seconds"], (winner, default)
+    assert report.traces <= report.evals, report
+    want = autotune_launches(arch, report.measured, TUNE_ITERS)
+    assert launches == want, (launches, want)
+    for k in ("flash_attn_fwd", "flash_attn_bwd", "dense_bwd_norm", "gram_norm"):
+        assert launches[k] > 0, (k, launches)   # the default's route ran its kernels
+    print(f"[autotune] winner {_plan_text(winner['plan'])} {1e3 * winner['seconds']:.1f} ms "
+          f"against the default's {1e3 * default['seconds']:.1f} ms; Spearman of predicted "
+          f"and measured over {len(rows)} plans: "
+          f"{'none' if report.rank_correlation is None else f'{report.rank_correlation:.3f}'}"
+          f"; launches "
+          f"{launches}", flush=True)
+    out = report.as_dict()
+    out.update(measured=rows, launches=launches)
+    del scorer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+TUNE_LINES = {
+    "autotune": r"\[train\] autotune \((\w+), seed=(\d+)\): searched (\d+) plans, "
+                r"(\d+) traces \((\d+) cache hits\); winner (LaunchPlan\(.*?pp_stages=\d+\))",
+    "correlation": r"\[train\] autotune predicted-vs-measured rank correlation: "
+                   r"(\S+) over (\d+) measured plans",
+    "step": r"\[trainer\] step\s+(\d+) loss (\S+) ",
+    "privacy": r"\[train\] finished at step (\d+); privacy spent: eps=(\S+) ",
+}
+
+
+def parse_autotune_launch(text: str) -> dict:
+    """What the launcher printed under ``--autotune``: each pattern's
+    matches in order."""
+    import re
+    return {k: re.findall(p, text) for k, p in TUNE_LINES.items()}
+
+
+def launch_tune_cmd(ckpt_dir: str):
+    """Phase 17 (c): the training launcher with ``--autotune`` at phi3-mini's
+    full width on ``LAUNCH_TUNE_LAYERS`` layers, B 8 x T 512, two steps."""
+    sets = ["dp.norm_strategy=fused", "dp.use_kernels=true", "tune.method=ga",
+            f"tune.population={LAUNCH_TUNE_POP}",
+            f"tune.generations={LAUNCH_TUNE_GENS}", f"tune.topk={LAUNCH_TUNE_TOPK}",
+            f"tune.measure_iters={LAUNCH_TUNE_ITERS}", "tune.include_kernels=true",
+            "log_every=1",
+            f"ckpt_dir={ckpt_dir}"]
+    return [sys.executable, "-m", "repro_torch.launch.train", "--arch", "phi3-mini-3.8b",
+            "--layers", str(LAUNCH_TUNE_LAYERS), "--batch", str(TRAIN_B), "--seq",
+            str(TRAIN_T), "--steps", "2", "--autotune",
+            *[x for kv in sets for x in ("--set", kv)]]
+
+
+def launcher_autotune():
+    """Phase 17 (c): the launcher's ``--autotune`` on the card; its output
+    to ``chiprun_out/chip_smoke_autotune.log``.  Its autotune line, two step
+    lines and the ``privacy spent`` line must come; a nonzero exit or the
+    time limit raises."""
+    import os
+    import shutil
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tune_", dir=ROOT / "build")
+    try:
+        t = time.perf_counter()
+        r = subprocess.run(launch_tune_cmd(tmp), env=env, cwd=ROOT, capture_output=True,
+                           text=True, timeout=LAUNCH_TUNE_TIMEOUT)
+        secs = time.perf_counter() - t
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    (ROOT / "chiprun_out" / "chip_smoke_autotune.log").write_text(
+        r.stdout + "\n--- stderr\n" + r.stderr)
+    if r.returncode != 0:
+        raise RuntimeError(f"the launcher's --autotune exited {r.returncode}:\n"
+                           f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    got = parse_autotune_launch(r.stdout)
+    assert len(got["autotune"]) == 1 and len(got["step"]) == 2 \
+        and len(got["privacy"]) == 1, got
+    (method, seed, size, traces, hits, winner), = got["autotune"]
+    print(f"[autotune] the launcher (phi3-mini-3.8b, {LAUNCH_TUNE_LAYERS} layers, B "
+          f"{TRAIN_B} x T {TRAIN_T}, 2 steps) in {secs:.1f} s: {method} seed {seed}, "
+          f"{size} plans, {traces} traces ({hits} cache hits); winner {winner}; "
+          f"correlation {got['correlation']}; losses {[x[1] for x in got['step']]}; "
+          f"eps {got['privacy'][0][1]}", flush=True)
+    return dict(got, seconds=secs)
+
+
+def launch_tools_path(train):
+    """Phase 17: (a) ``roofline_phase``, (b) ``autotune_phase``, (c)
+    ``launcher_autotune``."""
+    lap = stopwatch("phase 17")
+    roof = roofline_phase(train)
+    lap("(a) roofline")
+    tune = autotune_phase()
+    lap("(b) autotune")
+    launcher = launcher_autotune()
+    lap("(c) launcher")
+    return dict(roofline=roof, autotune=tune, launcher=launcher,
+                launches=tune["launches"], seconds=dict(lap.secs))
+
+
 class _Tee:
     """A text stream writing to every one of ``streams``."""
 
@@ -5182,8 +5526,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lap("phase 16")
+    # 17. the launch tools: phase 6's roofline, a solve on the card, the
+    # launcher's --autotune
+    tools = launch_tools_path(train)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("phase 17")
     launches = {k: sum(r["launches"][k] for r in (train, routes, remat, algos, glm,
-                                                  images, moe, ssm, embed, dist))
+                                                  images, moe, ssm, embed, dist, tools))
                 for k in train["launches"]}
     launches["flash_attn_fwd"] += serve_launches
 
@@ -5318,7 +5668,7 @@ def main() -> int:
          "planner": planner, "train": train, "routes": routes,
          "remat": remat, "algos": algos, "glm": glm, "image_kernels": image_kernels,
          "images": images, "moe": moe, "ssm": ssm, "embed": embed, "dist": dist,
-         "json_line": kernels},
+         "tools": tools, "json_line": kernels},
         indent=1, default=str))
     print(f"[time] chip_smoke.py: {time.perf_counter() - t_start:.1f} s from the device "
           f"query to the last check", flush=True)

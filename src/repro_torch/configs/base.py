@@ -5,11 +5,11 @@ decoders and the two image families (``cnn``, ``vit``) read, so a layer
 pattern reads the same as there.  The shape, DP, optimizer, mesh and
 training configs keep the JAX package's field names, so ``--set a.b=c``
 overrides read the same in both packages, but only for what the port runs.
-The fields of the one part it has not taken over (the launch autotuner) are
-left out, and ``--set`` on one of them raises ``NotImplementedError``
-(``NOT_PORTED``).  The ``Trainer`` holds the model's parameter and compute
-types to ``param_dtype`` and ``compute_dtype``, and its remat policy to
-``remat``.
+``TuneConfig`` is the launch autotuner's (launch/autotune.py), as in the
+JAX package.  A key of a part the port has not taken over would be listed
+in ``NOT_PORTED`` and raise ``NotImplementedError`` on ``--set`` (none is
+now).  The ``Trainer`` holds the model's parameter and compute types to
+``param_dtype`` and ``compute_dtype``, and its remat policy to ``remat``.
 """
 from __future__ import annotations
 
@@ -207,6 +207,13 @@ def shape_applicable(arch: ArchConfig, shape: ShapeConfig) -> bool:
 REMAT_POLICIES: Tuple[str, ...] = ("none", "block", "sites")
 
 
+# each family's remat policies (launch/autotune.py's remat gene), as in the
+# JAX package: every family implements the same three
+FAMILY_REMAT_POLICIES: Dict[str, Tuple[str, ...]] = {
+    family: REMAT_POLICIES for family in (
+        "dense", "ssm", "moe", "hybrid", "audio", "vlm", "cnn", "vit")}
+
+
 def validate_remat(remat: str) -> str:
     """Raise on a policy the port does not implement, listing the known
     ones; never a silent fall-through to no checkpointing."""
@@ -217,7 +224,7 @@ def validate_remat(remat: str) -> str:
 
 # --set keys of the JAX package's configs that the port leaves out: the key
 # (or its first part) -> the feature, named in the error
-NOT_PORTED: Dict[str, str] = {"tune": "the launch autotuner"}
+NOT_PORTED: Dict[str, str] = {}
 
 
 @dataclass(frozen=True)
@@ -331,6 +338,37 @@ class MemConfig:
 
 
 @dataclass(frozen=True)
+class TuneConfig:
+    """The launch autotuner (launch/autotune.py ``solve``), as in the JAX
+    package: it searches the launch-plan space (grad_accum x microbatch x
+    remat x norm strategy x kernels x mesh shape x grad compression x
+    pipeline stages) for the fastest *feasible* plan: step seconds from the
+    ``sim/dataflow`` cycle model over the traced step's GEMMs, subject to
+    the ``launch/memory`` peak estimate fitting ``MemConfig.hbm_budget_bytes``
+    and the divisibility rules.  The top-``topk`` predicted plans and the
+    hand-picked default are then measured, and the fastest measured plan
+    whose measured peak does not exceed the default's (or the budget) wins.
+
+    Determinism: the GA draws every random number from one
+    ``random.Random(seed)``, candidate orderings are sorted and the
+    estimators are pure functions of the plan, so one seed on one config
+    gives one winning plan.  ``method``: ``"auto"`` enumerates up to
+    ``exhaustive_limit`` candidates and takes the GA above it; ``"ga"``,
+    ``"beam"`` or ``"exhaustive"`` force a backend.  ``include_kernels``
+    admits ``use_kernels=True`` plans (the CUDA kernel routes on the card;
+    on the CPU their plain versions)."""
+    seed: int = 0
+    method: str = "auto"           # auto | ga | beam | exhaustive
+    population: int = 32           # GA population size
+    generations: int = 12          # GA generations
+    beam_width: int = 8            # beam-search width
+    exhaustive_limit: int = 128    # auto: enumerate spaces up to this size
+    topk: int = 4                  # plans to measure
+    measure_iters: int = 5         # best-of-N timing per measured plan
+    include_kernels: bool = False  # admit kernel-route plans
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     """Top-level training configuration.  ``seed`` keys the data stream,
     init and the DP noise.  ``remat`` is the model's activation
@@ -346,7 +384,8 @@ class TrainConfig:
     the noised gradient through the int8 error-feedback codec
     (dist/compress.py), its residual riding in the optimizer state;
     ``zero1`` shards the param-shaped optimizer state over the ``data``
-    axis; ``mesh`` is the device mesh the launcher builds."""
+    axis; ``mesh`` is the device mesh the launcher builds.  ``tune`` keys
+    the launch autotuner (``TuneConfig``; ``tune.seed`` its GA)."""
     arch: str = "phi3-mini-3.8b"
     shape: str = "train_4k"
     seed: int = 0
@@ -368,6 +407,7 @@ class TrainConfig:
     optim: OptimConfig = field(default_factory=OptimConfig)
     mesh: MeshConfig = field(default_factory=MeshConfig)
     mem: MemConfig = field(default_factory=MemConfig)
+    tune: TuneConfig = field(default_factory=TuneConfig)
     data_source: str = "synthetic"  # synthetic | memmap:<path>
     watchdog_factor: float = 3.0    # straggler logging threshold
 

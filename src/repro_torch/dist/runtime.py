@@ -20,6 +20,16 @@ Collectives take CUDA tensors on NCCL and on gloo; gloo gets a host copy
 dtype crosses any backend bit for bit.  Only ``all_reduce``,
 ``all_gather`` and ``all_gather_object`` are used: gloo has no
 reduce-scatter.
+
+Cost traces (launch/costs.py): while a ``CostCounter`` is active,
+``all_reduce_`` and ``all_gather`` append ``{"kind", "bytes", "group"}``
+to its collective records (``bytes``: the result's size on one rank).
+While a counter is active, a layout over a mesh with no process group (an
+object of the mesh's axis names and shape) is a trace of one rank's step:
+its batch group is a ``TracedGroup`` of the batch axes' size, whose
+collectives record and return what a real group's would in shape, moving
+nothing.  Outside a trace such a layout raises, as a step that would
+skip its collectives must not run.
 """
 from __future__ import annotations
 
@@ -43,6 +53,16 @@ class _Layout(threading.local):
 
 
 _ACTIVE = _Layout()
+# the active cost counters' collective record lists (launch/costs.py)
+COLLECTIVE_SINKS: list = []
+
+
+class TracedGroup:
+    """The batch group of a layout with no process group: ``size`` ranks,
+    collectives recorded and not run (a cost trace of one rank's step)."""
+
+    def __init__(self, size: int):
+        self.size = size
 
 
 @contextlib.contextmanager
@@ -51,7 +71,8 @@ def layout(mesh, batch_axes):
     is sharded over ``batch_axes`` of ``mesh``, one contiguous slice a
     rank.  A falsy ``batch_axes`` (batch not shardable) is a no-op, so
     ``layout(mesh, batch_pspec(mesh, B))`` is always safe.  The batch axes
-    must span the whole world or be one axis of the mesh."""
+    must span the whole world or be one axis of the mesh; a mesh with no
+    process group is taken only inside a cost trace."""
     if not batch_axes:
         yield
         return
@@ -94,6 +115,13 @@ def batch_group():
     if state is None:
         return None
     mesh, bax = state
+    if not dist.is_initialized():
+        if COLLECTIVE_SINKS:
+            return TracedGroup(_n_shards(mesh, bax))
+        raise RuntimeError(
+            f"a layout over {_sh._axis_names(mesh)} with no process group: "
+            f"join one (torch.distributed.init_process_group) before the "
+            f"step; only a cost trace (launch/costs.py) runs without one")
     if _n_shards(mesh, bax) == dist.get_world_size():
         return dist.group.WORLD
     if len(bax) == 1:
@@ -132,7 +160,15 @@ def axis_shard(mesh, name: str) -> Tuple[int, int, object]:
 # ---------------------------------------------------------------------------
 
 def _group_size(group) -> int:
+    if isinstance(group, TracedGroup):
+        return group.size
     return dist.get_world_size(group) if dist.is_initialized() else 1
+
+
+def _record(kind: str, nbytes: int, n: int) -> None:
+    if COLLECTIVE_SINKS:
+        COLLECTIVE_SINKS[-1].append({"kind": kind, "bytes": int(nbytes),
+                                     "group": int(n)})
 
 
 def _staged(t: torch.Tensor, group) -> torch.Tensor:
@@ -145,7 +181,12 @@ def _staged(t: torch.Tensor, group) -> torch.Tensor:
 
 def all_reduce_(tensors: List[torch.Tensor], group=None) -> None:
     """Sum each tensor over ``group``'s ranks, in place."""
-    if _group_size(group) == 1:
+    n = _group_size(group)
+    if n == 1:
+        return
+    for t in tensors:
+        _record("all-reduce", t.numel() * t.element_size(), n)
+    if isinstance(group, TracedGroup):
         return
     for t in tensors:
         h = _staged(t, group)
@@ -157,8 +198,12 @@ def all_reduce_(tensors: List[torch.Tensor], group=None) -> None:
 def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
     """Every rank's ``t`` (one shape on every rank) concatenated along dim
     0 in rank order, on ``t``'s device; the bytes cross unchanged."""
-    if _group_size(group) == 1:
+    n = _group_size(group)
+    if n == 1:
         return t
+    _record("all-gather", n * t.numel() * t.element_size(), n)
+    if isinstance(group, TracedGroup):
+        return torch.cat([t] * n)
     h = _staged(t, group)
     flat = h.reshape(-1).view(torch.uint8)
     outs = [torch.empty_like(flat) for _ in range(dist.get_world_size(group))]

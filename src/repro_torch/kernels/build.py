@@ -13,11 +13,16 @@ use and an unchanged one is loaded as built.  Sources
 build in parallel, one ``nvcc`` each.  A failed build raises with the
 compiler's output; a successful one keeps it beside the library
 (``ptxas_log``: registers and spills per kernel).
+
+``counted(plain)`` decorates each kernel wrapper: while a cost trace runs
+(``launch/costs.py``), the call records the work of ``plain``, the
+function the kernel computes, whichever branch the wrapper takes.
 """
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -32,6 +37,25 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}     # loaded once per process
+# the active cost counters (launch/costs.py ``CostCounter``), innermost last
+COST_SINKS: list = []
+
+
+def counted(plain):
+    """Decorator of a kernel wrapper: inside a cost trace, a call records
+    ``plain(*args, **kwargs)``'s work (its plain version, taking the
+    wrapper's arguments) with the innermost ``CostCounter``, and nothing
+    the wrapper runs inside is counted again.  Outside one, the wrapper
+    runs as it is."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            if not COST_SINKS:
+                return fn(*args, **kwargs)
+            with COST_SINKS[-1].kernel(fn.__name__, plain, args, kwargs):
+                return fn(*args, **kwargs)
+        return wrapper
+    return wrap
 
 
 def is_fake(t) -> bool:

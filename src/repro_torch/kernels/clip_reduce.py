@@ -5,7 +5,9 @@ per-example gradients.
 
 A CPU tensor takes the plain version (``ref.clip_reduce_ref``); a CUDA
 tensor launches the kernel or raises; a fake one (``launch/memory.py``'s
-trace) makes the launch's allocations and launches nothing.  ``LAUNCHES``
+trace) makes the launch's allocations and launches nothing; under a cost
+trace (``launch/costs.py``) a call records the work of its plain version,
+whichever branch runs (``build.counted``).  ``LAUNCHES``
 counts wrapper calls that launched the kernel (and nothing else).  ``out=`` adds the sum into a
 running float32 sum in place (vanilla DP-SGD's microbatches add into one).
 """
@@ -76,6 +78,7 @@ def clip_reduce_path(g: torch.Tensor, out: torch.Tensor = None) -> str:
     return PATHS[p]
 
 
+@build.counted(ref.clip_reduce_ref)
 def clip_reduce(g: torch.Tensor, c: torch.Tensor,
                 out: torch.Tensor = None) -> torch.Tensor:
     """g: (B, N) per-example gradients, c: (B,) clip factors -> (N,) float32

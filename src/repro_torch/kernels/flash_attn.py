@@ -6,7 +6,9 @@
 A CPU tensor takes the plain version (``ref.flash_attn_fwd_ref``,
 ``ref.flash_attn_bwd_ref``); a CUDA tensor launches the kernel or raises;
 a fake one (``launch/memory.py``'s trace) makes the launches' allocations
-and launches nothing.
+and launches nothing; under a cost trace (``launch/costs.py``) a call
+records the work of its plain version, whichever branch runs
+(``build.counted``).
 ``LAUNCHES`` and ``BWD_LAUNCHES`` count wrapper calls that launched the
 forward and the backward kernels (and nothing else), so a run can show
 that it went through them; ``fwd_path`` and ``bwd_path`` say which of
@@ -100,6 +102,8 @@ def _check(q, k, v, rep: int):
         raise ValueError("flash_attn_fwd: q, k, v on different devices")
 
 
+@build.counted(lambda q, k, v, causal=True, rep=1:
+               ref.flash_attn_fwd_ref(q, k, v, causal, rep))
 def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    causal: bool = True, rep: int = 1):
     """q: (BH, T, hd); k/v: (BH // rep, S, hd), query row b reading kv row
@@ -134,6 +138,8 @@ def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o, lse
 
 
+@build.counted(lambda q, k, v, o, lse, do, causal=True, rep=1:
+               ref.flash_attn_bwd_ref(q, k, v, o, lse, do, causal, rep))
 def flash_attn_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, *,
                    causal: bool = True, rep: int = 1):

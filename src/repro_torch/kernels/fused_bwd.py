@@ -6,7 +6,9 @@ of ``repro/kernels/fused_bwd.py`` ``dense_bwd_norm`` and ``dense_dgrad``
 A CPU tensor takes the plain version (``ref.dense_bwd_norm_ref``,
 ``ref.dense_dgrad_ref``); a CUDA tensor launches the kernel or raises; a
 fake one (``launch/memory.py``'s trace) makes the launch's allocations and
-launches nothing.
+launches nothing;
+under a cost trace (``launch/costs.py``) a call records the work of its
+plain version, whichever branch runs (``build.counted``).
 ``LAUNCHES`` and ``DGRAD_LAUNCHES`` count wrapper calls that launched
 ``dense_bwd_norm`` and ``dense_dgrad`` (and nothing else).  ``dgrad_path``
 says which of the gx launch's paths a CUDA operand pair takes.
@@ -81,6 +83,7 @@ def _check(x, gy, w):
         raise ValueError("dense_bwd_norm: x, gy, w on different devices")
 
 
+@build.counted(ref.dense_bwd_norm_ref)
 def dense_bwd_norm(x: torch.Tensor, gy: torch.Tensor, w: torch.Tensor):
     """x: (BG, T, di), gy: (BG, T, do), w: (E, di, do), row b using group
     ``b % E``.  Returns (gx (BG, T, di) in x's dtype, nsq (BG,) float32):
@@ -117,6 +120,7 @@ def dense_bwd_norm(x: torch.Tensor, gy: torch.Tensor, w: torch.Tensor):
     return gx, part.sum(dim=1)
 
 
+@build.counted(ref.dense_dgrad_ref)
 def dense_dgrad(gy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """gy: (BG, T, do), w: (E, di, do), row b using group ``b % E`` ->
     gx (BG, T, di) = ``gy_b @ w[b % E]ᵀ`` in gy's dtype: ``dense_bwd_norm``'s

@@ -4,7 +4,9 @@ Pallas TPU kernel).
 
 A CPU tensor takes the plain version (``ref.gram_norm_ref``); a CUDA tensor
 launches the kernel or raises (a fake one, ``launch/memory.py``'s trace,
-makes the launch's allocations only).  ``LAUNCHES`` counts wrapper calls that
+makes the launch's allocations only); under a cost trace
+(``launch/costs.py``) a call records the work of its plain version,
+whichever branch runs (``build.counted``).  ``LAUNCHES`` counts wrapper calls that
 launched the kernel (and nothing else); ``gram_path`` says which of the
 kernel's paths CUDA operands take.
 """
@@ -70,6 +72,7 @@ def _check(x, gy, mask_ids):
             raise ValueError("gram_norm: ids must be integers on x's device")
 
 
+@build.counted(ref.gram_norm_ref)
 def gram_norm(x: torch.Tensor, gy: torch.Tensor,
               mask_ids: torch.Tensor | None = None,
               square: bool = True) -> torch.Tensor:

@@ -5,7 +5,9 @@ the dense sites with ``use_kernels``.
 
 A CPU tensor takes the plain version (``ref.pegrad_norm_ref``); a CUDA
 tensor launches the kernel or raises (a fake one, ``launch/memory.py``'s
-trace, makes the launch's allocations only).  ``LAUNCHES`` counts wrapper calls
+trace, makes the launch's allocations only); under a cost trace
+(``launch/costs.py``) a call records the work of its plain version,
+whichever branch runs (``build.counted``).  ``LAUNCHES`` counts wrapper calls
 that launched the kernel (and nothing else).  ``norm_path`` says which of
 the norm launch's paths a CUDA operand pair takes (``dense_bwd_norm``'s
 norm launch is the same kernel and takes the same path).
@@ -62,6 +64,7 @@ def _check(x, gy):
         raise ValueError("pegrad_norm: x, gy on different devices")
 
 
+@build.counted(ref.pegrad_norm_ref)
 def pegrad_norm(x: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
     """x: (BG, T, di), gy: (BG, T, do) -> (BG,) float32
     ``‖x_bᵀ gy_b‖²_F``, without forming x_bᵀ gy_b in device memory."""

@@ -46,6 +46,7 @@ it as a sizing signal with that tolerance, never as an exact byte count.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Callable, Optional, Tuple
@@ -228,7 +229,7 @@ def per_example_grad_bytes(dp, batch_size: int, grad_accum: int,
 
 def estimate_train_memory(model, train_cfg, batch_abs,
                           expected_batch_size: Optional[float] = None,
-                          device=None) -> dict:
+                          device=None, costs: bool = False) -> dict:
     """Estimate the resident-memory footprint of one optimizer step.
 
     Returns the ``PeakEstimate`` fields plus the phase breakdown::
@@ -245,9 +246,11 @@ def estimate_train_memory(model, train_cfg, batch_abs,
     so remat, algorithm, grad_accum, microbatch and the pipeline schedule
     all shape the estimate.  The trace is of one process on the whole batch
     (no collective; ``per_device_peak_bytes`` divides it over a mesh).
-    ``device`` (default the model's) is the fake tensors' device.  The
-    model, its params, its remat policy, every generator and the kernels'
-    launch counts are as they were afterwards."""
+    ``device`` (default the model's) is the fake tensors' device.  With
+    ``costs``, the same trace also counts the step's work
+    (``launch/costs.py`` ``CostCounter``) into ``"costs"`` (``Costs.as_dict``
+    and ``io_bytes``).  The model, its params, its remat policy, every
+    generator and the kernels' launch counts are as they were afterwards."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from repro_torch.dist import runtime
     from repro_torch.train.trainer import TrainStep
@@ -265,11 +268,16 @@ def estimate_train_memory(model, train_cfg, batch_abs,
             batch = tree.tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
                                                         device=device),
                                   batch_abs)
+            counter = None
+            if costs:
+                from repro_torch.launch.costs import CostCounter
+                counter = CostCounter()
             # the noise draw's bytes from a generator of the trace's own:
             # no real generator is read or advanced
-            est, peak_op = traced_peak_bytes(
-                lambda: step(state, batch, torch.Generator()),
-                [state.params, state.opt_state, batch])
+            with counter or contextlib.nullcontext():
+                est, peak_op = traced_peak_bytes(
+                    lambda: step(state, batch, torch.Generator()),
+                    [state.params, state.opt_state, batch])
             params_bytes = _tree_bytes(params)
             opt_bytes = _tree_bytes(state.opt_state)
             batch_bytes = _tree_bytes(batch)
@@ -297,6 +305,9 @@ def estimate_train_memory(model, train_cfg, batch_abs,
         "pp_microbatches": int(getattr(model, "pp_microbatches", 0)),
         "peak_op": str(peak_op),
     })
+    if counter is not None:
+        out["costs"] = dict(counter.costs.as_dict(),
+                            io_bytes=float(est.arg_bytes + est.out_bytes))
     return out
 
 

@@ -23,6 +23,11 @@ a data-parallel world.
         --set mem.hbm_budget_bytes=6000000 --set mem.auto_microbatch=true
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch phi3-mini-3.8b \
+        --reduced --steps 2 --device cpu --dtype float32 --autotune \
+        --set dp.norm_strategy=fused --set tune.method=ga \
+        --set tune.population=4 --set tune.generations=2 --set tune.topk=2
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch phi3-mini-3.8b \
         --reduced --steps 6 --device cpu --dtype float32 \
         --set ckpt_dir=/path/to/ckpts --set ckpt_every=3 \
         --set data_source=memmap:/path/to/tokens.bin --set optim.name=adam8bit
@@ -34,9 +39,9 @@ a data-parallel world.
         --set zero1=true --set compress_pod_grads=true --set pp_stages=2
 
 The JAX launcher's flags ``--arch``, ``--reduced``, ``--steps``, ``--batch``,
-``--seq``, ``--set``, ``--mesh``/``--axes`` and ``--coordinator``/
-``--num-processes``/``--process-id`` (``--set shape=...`` picks the input
-shape), plus ``--device`` (default ``cuda``) and ``--dtype`` as in
+``--seq``, ``--set``, ``--mesh``/``--axes``, ``--autotune`` and
+``--coordinator``/``--num-processes``/``--process-id`` (``--set
+shape=...`` picks the input shape), plus ``--device`` (default ``cuda``) and ``--dtype`` as in
 ``launch/serve.py``, and ``--layers`` (the arch cut to its first N layers
 at full width, for a run on one card).
 ``--dtype`` sets ``param_dtype`` and ``compute_dtype`` before the ``--set``
@@ -68,6 +73,16 @@ every process agreed on.  Not ported, and refused by name (ROADMAP queue
 1 (pipeline stages across processes; ``pp_stages`` runs the schedule in
 each process) and a ``use_fsdp`` arch on a ``data`` axis above 1.
 
+``--autotune`` solves for the fastest feasible launch plan first
+(``launch/autotune.py``; ``--set tune.*`` sets the search): it searches the
+plan space on fake-tensor traces of the step, measures the top plans and
+the default on the run's device, prints the method, seed, space size,
+traces, cache hits and winner, then the predicted-against-measured rank
+correlation, and trains with the winner.  On the card the measured plans
+launch their kernels there; one that cannot build or launch raises.  In a
+world of more than one process rank 0 solves and broadcasts its winner,
+and every rank prints the plan it trains with.
+
 Every launch prints the estimated peak of one step (``launch/memory.py``)
 before the run, and, on a mesh, the per-device share of it over the batch
 and stage axes (``per_device_peak_bytes``), with a warning when that
@@ -82,6 +97,7 @@ from __future__ import annotations
 
 import argparse
 import datetime
+import gc
 import os
 from dataclasses import replace
 
@@ -98,6 +114,8 @@ from repro_torch.train import Trainer
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # a collective that a rank never reaches fails the run after this long
 GROUP_TIMEOUT = datetime.timedelta(seconds=300)
+# ranks above 0 wait this long for rank 0's autotune solve
+SOLVE_TIMEOUT = datetime.timedelta(seconds=3600)
 
 
 def join_world(args, mesh_keys: bool = False):
@@ -152,21 +170,71 @@ def make_run_mesh(args, cfg, mesh_keys: bool, world: int):
     return make_host_mesh() if world > 1 else None
 
 
-def refuse_unported(mesh, arch) -> None:
-    """Raise, naming ROADMAP, on a mesh the port does not run."""
+def unported_mesh_reason(arch, sizes: dict) -> str:
+    """Why the port cannot run ``arch`` on a mesh of these axis sizes
+    (``{"model": 1, "data": 2}``; an absent axis is 1), naming ROADMAP; ""
+    when it can.  The launch autotuner gives it as a plan's reason."""
     for axis, what in ((sharding.MODEL_AXIS, "tensor parallelism"),
                        (sharding.STAGE_AXIS, "pipeline stages across processes")):
-        size = sharding._axis_size(mesh, axis)
+        size = sizes.get(axis, 1)
         if size > 1:
-            raise NotImplementedError(
-                f"a {size}-wide {axis!r} mesh axis ({what}) is not ported yet "
-                f"(ROADMAP queue 1)")
-    data = sharding._axis_size(mesh, "data")
+            return (f"a {size}-wide {axis!r} mesh axis ({what}) is not ported "
+                    f"yet (ROADMAP queue 1)")
+    data = sizes.get("data", 1)
     if arch.use_fsdp and data > 1:
-        raise NotImplementedError(
-            f"{arch.name} shards its params over the data axis (use_fsdp): "
-            f"FSDP on a {data}-wide data axis is not ported yet (ROADMAP "
-            f"queue 1)")
+        return (f"{arch.name} shards its params over the data axis (use_fsdp): "
+                f"FSDP on a {data}-wide data axis is not ported yet (ROADMAP "
+                f"queue 1)")
+    return ""
+
+
+def refuse_unported(mesh, arch) -> None:
+    """Raise, naming ROADMAP, on a mesh the port does not run."""
+    reason = unported_mesh_reason(arch, {
+        a: sharding._axis_size(mesh, a)
+        for a in (sharding.MODEL_AXIS, sharding.STAGE_AXIS, "data")})
+    if reason:
+        raise NotImplementedError(reason)
+
+
+def autotune_plan(arch, cfg, shape, mesh, device, rank: int, world: int):
+    """The launch plan every rank trains with.  Rank 0 solves (searches,
+    then measures the top plans and the default in its own process, on the
+    global batch) and prints the reference's two lines; in a world of more
+    than one process it broadcasts its winner, so the replicas never train
+    with different plans (one with the compression rider, one without).
+    The other ranks wait for it on a gloo group of ``SOLVE_TIMEOUT``:
+    the solve outlasts the run's ``GROUP_TIMEOUT``."""
+    from repro_torch.launch.autotune import solve
+    group = (dist.new_group(backend="gloo", timeout=SOLVE_TIMEOUT)
+             if world > 1 else None)
+    plan = None
+    if rank == 0:
+        mesh_shape = ((1, 1) if mesh is None else
+                      (sharding.batch_axis_width(mesh),
+                       sharding._axis_size(mesh, sharding.MODEL_AXIS)))
+        report = solve(arch, cfg, shape, mesh_shapes=[mesh_shape],
+                       device=device)
+        plan = report.plan
+        print(f"[train] autotune ({report.method}, seed={report.seed}): "
+              f"searched {report.space_size} plans, {report.traces} traces "
+              f"({report.cache_hits} cache hits); winner {plan}", flush=True)
+        if report.rank_correlation is not None:
+            print(f"[train] autotune predicted-vs-measured rank "
+                  f"correlation: {report.rank_correlation:.3f} over "
+                  f"{len(report.measured)} measured plans", flush=True)
+        del report
+        gc.collect()                  # the solve's models and their cache
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    if group is not None:
+        box = [plan]
+        dist.broadcast_object_list(box, src=0, group=group)
+        plan = box[0]
+        print(f"[train] rank {rank} of {world} trains the autotune winner "
+              f"{plan}", flush=True)
+        dist.destroy_process_group(group)
+    return plan
 
 
 def main(argv=None) -> None:
@@ -188,6 +256,10 @@ def main(argv=None) -> None:
     ap.add_argument("--coordinator", default=None, help="host:port of rank 0")
     ap.add_argument("--num-processes", type=int, default=None)
     ap.add_argument("--process-id", type=int, default=None)
+    ap.add_argument("--autotune", action="store_true",
+                    help="solve for the fastest feasible launch plan "
+                         "(launch/autotune.py) before launching; knobs via "
+                         "--set tune.seed=... etc.")
     args = ap.parse_args(argv)
     device, backend, rank, world = join_world(
         args, any(p.startswith("mesh.") for p in args.set))
@@ -238,12 +310,17 @@ def _train(args, device, backend, rank, world) -> None:
     if mesh is not None:
         refuse_unported(mesh, arch)
 
+    plan = None
+    if args.autotune:
+        plan = autotune_plan(arch, cfg, shape, mesh, device, rank, world)
+        cfg = plan.apply(cfg)
+
     model = build_model_for(arch, dtype=DTYPES[cfg.compute_dtype],
                             param_dtype=DTYPES[cfg.param_dtype],
                             device=device, seed=cfg.seed, remat=cfg.remat,
                             pp_stages=cfg.pp_stages,
                             pp_microbatches=cfg.pp_microbatches)
-    trainer = Trainer(model, cfg, shape, mesh=mesh)
+    trainer = Trainer(model, cfg, shape, mesh=mesh, plan=plan)
     bax = None if mesh is None else sharding.batch_pspec(mesh, trainer.capacity)
     with runtime.layout(mesh, bax):
         _run(trainer, model, cfg, shape, arch, mesh, bax, world)

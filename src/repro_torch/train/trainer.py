@@ -65,8 +65,11 @@ optimizer state as ``{"opt": ..., "grad_err": [...]}``, whole on every
 rank (the codec's blocks span the flattened leaf).  Checkpoints are
 written by every rank, each its own shards (train/checkpoint.py).
 
-Not ported (ROADMAP queue 1): the launch autotuner (``configs/base.py``
-raises on its keys).
+Launch plans (``plan``, launch/autotune.py): a solved ``LaunchPlan`` is
+applied onto the config up front and takes the place of the
+auto-microbatch search (the one-dimensional case of the plan space), as in
+the JAX Trainer.  The Trainer sets the remat policy on the model, so the
+model must only have been built for the plan's ``pp_stages``.
 """
 from __future__ import annotations
 
@@ -280,11 +283,23 @@ class Trainer:
     ``mesh``: the device mesh of a data-parallel run (the launcher's), whose
     batch-axis width the Poisson capacity is rounded to and whose ``data``
     axis ZeRO-1 shards over; the batch is sliced under the active
-    ``dist.runtime.layout``."""
+    ``dist.runtime.layout``.  ``plan``: a solved launch plan
+    (launch/autotune.py ``LaunchPlan``), applied onto the config; it skips
+    the auto-microbatch search."""
 
     def __init__(self, model, train_cfg: TrainConfig, shape: ShapeConfig,
                  inject_failure_at: Optional[int] = None,
-                 inject_inside_step: bool = False, source=None, mesh=None):
+                 inject_inside_step: bool = False, source=None, mesh=None,
+                 plan=None):
+        self.plan = plan
+        if plan is not None:
+            stages = getattr(model, "pp_stages", 1)
+            if stages != plan.pp_stages:
+                raise ValueError(
+                    f"model was built with pp_stages={stages} but the launch "
+                    f"plan says pp_stages={plan.pp_stages}; rebuild the model "
+                    f"with the plan's stages")
+            train_cfg = plan.apply(train_cfg)
         self.model = model
         self.cfg = train_cfg
         self.shape = shape
@@ -311,7 +326,8 @@ class Trainer:
         # the budget, picked before the capacity below so that Poisson's
         # lcm rounding sees the chosen grad_accum
         self.mem_estimate = None
-        if train_cfg.mem.auto_microbatch and train_cfg.mem.hbm_budget_bytes > 0:
+        if plan is None and train_cfg.mem.auto_microbatch and \
+                train_cfg.mem.hbm_budget_bytes > 0:
             from repro_torch.launch.memory import pick_grad_accum
             accum, est = pick_grad_accum(model, train_cfg, shape,
                                          dataset_size=self.source.dataset_size,

@@ -754,3 +754,98 @@ def test_leaf_gap_and_zero1_shards(smoke):
                 + [{"shards": [0] * k} for k in shards] + [{"shards": [0]}] * 24}
     assert smoke.zero1_moment_shards(manifest, 12) == shards
     assert smoke.launcher_cmd(2, "/x")[3:6] == ["--standalone", "--nproc_per_node", "2"]
+
+
+@pytest.mark.parametrize("route,algo", [("fused", "dpsgd_r"), ("materialize", "dpsgd_r"),
+                                        ("fused", "dpsgd_r1f")])
+def test_kernel_records_equal_the_formulas_times_launches(smoke, route, algo):
+    """Phase 17 (a)'s gate on the CPU: a traced step's kernel cost records
+    (the wrappers' plain versions' work) equal this script's per-launch
+    FLOP formulas without the causal and symmetric-tile halvings, times
+    ``path_launches``; a perturbed count fails the check.  Phase 6's
+    16-layer mix holds 15.66 TFLOP of dense products a pass (its 113
+    calls), twice that in ``dense_bwd_norm``'s records."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import reduced
+    from repro_torch.configs.base import DPConfig, TrainConfig
+    from repro_torch.launch.memory import abstract_batch, estimate_train_memory
+    from repro_torch.models import build_model_for
+    arch = reduced(get_arch("phi3-mini-3.8b"))
+    B, T, L = 2, 24, arch.n_layers
+    cfg = TrainConfig(param_dtype="float32", compute_dtype="float32", remat="none",
+                      dp=DPConfig(algo=algo, norm_strategy=route, use_kernels=True))
+    model = build_model_for(arch, dtype=torch.float32, param_dtype=torch.float32,
+                            device="cpu", seed=0, remat="none")
+    costs = estimate_train_memory(model, cfg, abstract_batch(arch, B, T), costs=True)["costs"]
+    launches = smoke.path_launches(route, L, algo=algo)
+    want = smoke.kernel_record_flops(arch, L, B, T, launches)
+    assert smoke.check_kernel_records(costs, want) <= smoke.KERNEL_FLOPS_RTOL
+    assert {k: v["calls"] for k, v in costs["kernels"].items()} == \
+        {k: v for k, v in launches.items() if v}
+    with pytest.raises(AssertionError):
+        smoke.check_kernel_records(costs, dict(want, flash_attn_fwd=want["flash_attn_fwd"]
+                                               * (1 + 1e-6)))
+    phi3 = dataclasses.replace(get_arch("phi3-mini-3.8b"), n_layers=smoke.TRAIN_LAYERS)
+    one = smoke.kernel_record_flops(phi3, smoke.TRAIN_LAYERS, smoke.TRAIN_B, smoke.TRAIN_T,
+                                    smoke.path_launches("fused", smoke.TRAIN_LAYERS))
+    assert one["dense_bwd_norm"] == 2 * 2.0 * 4096 * 1_911_029_760
+
+
+def test_parse_autotune_launch_reads_the_launcher(smoke):
+    text = ("[train] backend none (one process): rank 0 of 1 on cuda\n"
+            "[train] autotune (ga, seed=0): searched 192 plans, 5 traces (10 cache "
+            "hits); winner LaunchPlan(grad_accum=1, microbatch=0, remat='block', "
+            "norm_strategy='fused', use_kernels=True, mesh_shape=(1, 1), "
+            "compress_grads=False, pp_stages=1)\n"
+            "[train] autotune predicted-vs-measured rank correlation: -0.500 over 3 "
+            "measured plans\n"
+            "[trainer] step     0 loss 10.87840 grad_norm_mean 12.372 eps 0.1 (1649 ms)\n"
+            "[trainer] step     1 loss 10.87220 grad_norm_mean 12.1 eps 0.3 (116 ms)\n"
+            "[train] finished at step 2; privacy spent: eps=0.320 (delta=1e-05, q=8e-06)\n")
+    got = smoke.parse_autotune_launch(text)
+    (method, seed, size, traces, hits, winner), = got["autotune"]
+    assert (method, seed, size, traces, hits) == ("ga", "0", "192", "5", "10")
+    assert winner.endswith("pp_stages=1)") and "mesh_shape=(1, 1)" in winner
+    assert got["correlation"] == [("-0.500", "3")]
+    assert [s[1] for s in got["step"]] == ["10.87840", "10.87220"]
+    assert got["privacy"] == [("2", "0.320")]
+    cmd = smoke.launch_tune_cmd("/tmp/x")
+    assert "--autotune" in cmd and "tune.include_kernels=true" in cmd
+    assert cmd[cmd.index("--layers") + 1] == str(smoke.LAUNCH_TUNE_LAYERS)
+
+
+@pytest.mark.parametrize("plan", [
+    dict(grad_accum=1, remat="none", norm_strategy="fused", use_kernels=True, pp_stages=1),
+    dict(grad_accum=2, remat="none", norm_strategy="auto", use_kernels=True, pp_stages=2),
+    dict(grad_accum=1, remat="block", norm_strategy="gram", use_kernels=True, pp_stages=2),
+    dict(grad_accum=2, remat="sites", norm_strategy="materialize", use_kernels=True,
+         pp_stages=1),
+    dict(grad_accum=1, remat="block", norm_strategy="fused", use_kernels=False, pp_stages=1),
+    dict(grad_accum=1, remat="none", norm_strategy="auto", use_kernels=False, pp_stages=2)],
+    ids=lambda p: "-".join(str(v) for v in p.values()))
+def test_autotune_launches_count_the_measured_plans(smoke, monkeypatch, plan):
+    """Phase 17 (b)'s count: ``autotune_launches`` (each measured plan's
+    ``plan_launches`` times its warm-up and timed steps) against the
+    wrapper calls ``autotune.measure_plan`` makes for that plan with the
+    reduced phi3 on the CPU, kernel and plain plans, with grad_accum chunks,
+    remat and pipeline stages.  (Here the counting stand-ins count the
+    scorer's fake-tensor trace too, so the counts start after it; on the
+    card a wrapper's fake branch launches nothing.)"""
+    from repro_torch.configs import reduced
+    from repro_torch.configs.base import DPConfig, ShapeConfig, TrainConfig
+    from repro_torch.launch import autotune
+    _count_wrapper_calls(smoke, monkeypatch)
+    arch = reduced(get_arch("phi3-mini-3.8b"))
+    B, T, iters = 8, 16, 1
+    cfg = TrainConfig(param_dtype="float32", compute_dtype="float32",
+                      dp=DPConfig(algo="dpsgd_r"))
+    scorer = autotune.PlanScorer(arch, cfg, ShapeConfig("t", T, B, "train"), device="cpu")
+    lp = autotune.LaunchPlan(mesh_shape=(1, 1), **plan)
+    assert scorer.score(lp).feasible
+    smoke.zero_counts()
+    rec = autotune.measure_plan(scorer, lp, iters=iters)
+    want = smoke.autotune_launches(arch, [rec], iters, B, T)
+    assert smoke.read_counts() == want
+    assert want["flash_attn_fwd"] > 0 and (want["gram_norm"] > 0) == plan["use_kernels"]

@@ -21,7 +21,8 @@ for n in ("repro_torch.launch.memory", "repro_torch.serve.host_loop",
           "repro_torch.sim", "repro_torch.sim.dataflow", "repro_torch.sim.models",
           "repro_torch.dist", "repro_torch.dist.sharding",
           "repro_torch.dist.runtime", "repro_torch.dist.compress",
-          "repro_torch.launch.mesh"):
+          "repro_torch.launch.mesh", "repro_torch.launch.roofline",
+          "repro_torch.launch.costs", "repro_torch.launch.autotune"):
     assert n in names, n
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.") or n == "repro" or n.startswith("repro."))

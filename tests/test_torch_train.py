@@ -156,22 +156,23 @@ def test_launcher_trains_dpsgd_under_sites_remat_on_the_cpu(tmp_path, capsys):
                                   "zero1=false", "mesh.shape=4,2", "tune.seed=1",
                                   "pp_microbatches=2", "compress_pod_grads=true"])
 def test_unported_overrides_raise(pair, tmp_path, capsys):
-    """A ``--set`` key of the JAX package whose feature the port lacks (the
-    launch autotuner's ``tune.*``) raises; it is not accepted and then
-    ignored.  The distribution keys are ported: each is applied to the
-    config and validated, and the launcher takes it."""
+    """The keys of once-unported features are ported now: the distribution
+    keys and the launch autotuner's ``tune.*``.  Each is applied to the
+    config and validated, and the launcher takes it (``NOT_PORTED``, the
+    mechanism that refuses a key by name, is empty)."""
     run = ["--arch", "phi3-mini-3.8b", "--reduced", "--steps", "1",
            "--batch", "2", "--seq", "8", "--device", "cpu", "--dtype",
            "float32", "--set", f"ckpt_dir={tmp_path}", "--set", pair]
     key, val = pair.split("=")
-    if key == "tune.seed":
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tlaunch.main(run)
-        return
     cfg = apply_overrides(TrainConfig(), {key: val})
-    got = cfg.mesh.shape if key == "mesh.shape" else getattr(cfg, key)
+    got = (cfg.mesh.shape if key == "mesh.shape" else cfg.tune.seed
+           if key == "tune.seed" else getattr(cfg, key))
     assert got == {"pp_stages": 2, "zero1": False, "mesh.shape": (4, 2),
-                   "pp_microbatches": 2, "compress_pod_grads": True}[key]
+                   "pp_microbatches": 2, "compress_pod_grads": True,
+                   "tune.seed": 1}[key]
+    if key == "tune.seed":
+        with pytest.raises(ValueError, match="invalid literal"):
+            apply_overrides(TrainConfig(), {key: "x"})
     if key == "mesh.shape":       # 8 devices: not the world of one process
         with pytest.raises(ValueError, match="does not match the 1 processes"):
             tlaunch.main(run)
