@@ -124,7 +124,8 @@ the script exits nonzero and prints no ``ok`` line:
    32-layer ``block``, phase 9's ``dpsgd`` at microbatch 1 and 8, phase
    10's and phase 11's two), each taken inside its phase on its model and
    state, beside the measured peak: every ratio within the planner's
-   ``TOLERANCE_FACTOR``; (b) on phase 6's model and shape, the planner's
+   ``TOLERANCE_FACTOR``; (b) at phase 6's shape on ``PLANNER_LAYERS``
+   layers of phi3-mini, the planner's
    estimates at ``grad_accum`` 1 and 2 beside a measured step each, for
    ``dpsgd_r`` and for ``dpsgd`` with all 8 examples' gradients in one
    buffer; under ``mem.auto_microbatch`` with the budget at the midpoint
@@ -191,7 +192,8 @@ the script exits nonzero and prints no ``ok`` line:
    at full width (attention with its dense FFN, Mamba with the 16-expert
    MoE; 11.93B params), 4 requests x 16 tokens through the contiguous
    engine, its decode beside the expert bytes it reads; (d) mamba2-1.3b
-   trained at full width and depth, B 8 x T 4096 (B 4 if the planner puts
+   trained at full width on ``SSM_TRAIN_LAYERS`` of its 48 layers, B 8 x
+   T 4096 (B 4 if the planner puts
    B 8 above ``MOE_PLAN_LIMIT``), ``dpsgd_r`` fused + kernels,
    ``remat="block"`` (the SSD scan's per-chunk checkpoint inside each
    block), AdamW: a warm-up and ``SSM_STEPS`` counted steps (the last
@@ -228,8 +230,8 @@ the script exits nonzero and prints no ``ok`` line:
    the peak; (c) chameleon-34b at full width and depth (48 layers, 33.76B
    params, qk-norm), init's peak within the params + ``INIT_SLACK``, 4
    prompts of 1008 positions and 16 decode steps with the same chaining
-   check; (d) musicgen-medium trained at full width and depth, B 8 x T
-   1500, ``dpsgd_r`` fused + kernels, ``remat="block"``, AdamW: the
+   check; (d) musicgen-medium trained at full width on
+   ``MG_TRAIN_LAYERS`` of its 48 layers, B 8 x T 1500, ``dpsgd_r`` fused + kernels, ``remat="block"``, AdamW: the
    planner's estimate beside the peak of a warm-up and three counted
    steps, one profiled step, the norms² of one batch through
    ``materialize``, ``auto`` and the plain rules against fused
@@ -257,10 +259,10 @@ the script exits nonzero and prints no ``ok`` line:
    batch: every rank's fingerprint equal to (b)'s, each step's loss and
    ``grad_norm_mean`` equal on both ranks and within ``NSQ_RTOL`` of
    (b)'s, each ZeRO-1 first moment of a shardable param in 2 shard files,
-   and both checkpoints restored whole by the port's reader: params and
-   first moments within ``CLIP_SUM_TOL`` of each leaf's max.  A world's
-   nonzero exit or its ``DIST_TIMEOUT`` raises; the temporary directories
-   are removed;
+   and both checkpoints restored whole by the port's reader, a leaf at a
+   time: params and first moments within ``CLIP_SUM_TOL`` of each leaf's
+   max.  A world's nonzero exit or its ``DIST_TIMEOUT`` raises; the
+   temporary directories are removed;
 17. the launch tools (``launch/roofline.py``, ``costs.py``, ``autotune.py``):
    (a) ``[roofline]``: phase 6's step counted by one fake-tensor trace on
    the card's device, taken in phase 6 (the planner's row and the cost
@@ -284,7 +286,21 @@ the script exits nonzero and prints no ``ok`` line:
    (``autotune_launches``); (c) the training launcher
    with ``--autotune`` at ``LAUNCH_TUNE_LAYERS`` layers for two steps (its
    output in ``chiprun_out/chip_smoke_autotune.log``): its autotune line,
-   two step lines and the ``privacy spent`` line.
+   two step lines and the ``privacy spent`` line;
+18. FSDP: chameleon-34b at full width on ``FSDP_LAYERS`` of its 48 layers
+   through the launcher, B 8 x T 512 embeddings, ``dpsgd_r`` fused +
+   kernels, ``remat="none"``, σ 0, ``FSDP_OPTIM``, ZeRO-1, ``FSDP_STEPS``
+   steps: a world of 1 on NCCL and, side by side with it, 2 ranks sharing
+   the card over gloo, each holding its half of every param
+   ``param_shardings`` puts on ``data``; the checks of 16 (b)-(c) (``compare_worlds``,
+   the losses to the 6 digits the launcher prints, the 2-rank
+   checkpoint's params and momenta in 2 shard files), each rank's
+   resident param and optimizer-state bytes half of world 1's within
+   ``BYTES_RTOL``, and each rank's launches ``path_launches`` of its half
+   batch.
+
+A ``[disk]`` line sums the launchers' checkpoints, most of what the run
+writes to the disk (each removed after its phase).
 
 Each path counts the launches of every kernel from zero and must launch
 each kernel exactly as often as the code says it does (``path_launches``,
@@ -335,6 +351,10 @@ BF16_ATOL = 2e-2                          # bf16 vs the plain version in f32
 N_REQUESTS, MAX_NEW, MAX_BATCH, CACHE_LEN, BLOCK = 16, 64, 8, 2048, 16
 # the training path: 16 layers, 8 examples of 512 tokens, 3 timed steps
 TRAIN_LAYERS, TRAIN_B, TRAIN_T, TRAIN_STEPS = 16, 8, 512, 3
+# phase 12 (b)-(c)'s splits: phi3-mini at full width on PLANNER_LAYERS
+# layers (cut for the run's time: the splits took 76.5 s at phase 6's 16
+# on an H100 80GB HBM3 at 700 W)
+PLANNER_LAYERS = 4
 NSQ_RTOL = 2e-2     # bf16 kernel route vs plain route, per-example norms²
 # bf16 attention backward vs its plain version in float32, a share of each
 # output's largest entry: the tensor cores take p and ds rounded to bf16
@@ -388,6 +408,9 @@ CHAIN_TOL = 5e-2
 # decoding to its next completion: the whole stream took ~1008 steps of ~63
 # ms), its training SSM_STEPS counted steps of ~13 s (the last profiled)
 SSM_REQUESTS, SSM_STEPS = 4, 2
+# cut for the run's time: mamba2 trains SSM_TRAIN_LAYERS of its 48
+# layers (phase 14 (d) took 114.5 s at 48 on an H100 80GB HBM3 at 700 W)
+SSM_TRAIN_LAYERS = 8
 # phase 15: the embedding-input models.  musicgen-medium (arXiv:2306.05284)
 # at full width and depth, served to 8 prompts of 500 precomputed frame
 # embeddings (10 s of audio at EnCodec's 50 Hz) and 64 decode steps, and
@@ -400,6 +423,9 @@ MUSICGEN_ARCH, CHAMELEON_ARCH = "musicgen-medium", "chameleon-34b"
 MG_T, MG_PROMPT, MG_NEW = 1500, 500, 64
 CH_REQUESTS, CH_PROMPT, CH_NEW = 4, 1008, 16
 CH_TRAIN_LAYERS, CH_MIN_LAYERS = 6, 4
+# musicgen trains MG_TRAIN_LAYERS of its 48 layers (cut for the run's time,
+# phase 15 (d) took 44.8 s at 48 on an H100 80GB HBM3 at 700 W)
+MG_TRAIN_LAYERS = 12
 INIT_SLACK = 2 * 2**30
 # phase 16: distribution.  (a) the pipeline schedule in one process:
 # phi3-mini at full width on PP_LAYERS of its 32 layers, pp_stages
@@ -409,6 +435,21 @@ INIT_SLACK = 2 * 2**30
 # ranks sharing the card over gloo; DIST_TIMEOUT bounds each world (s)
 PP_LAYERS, PP_STAGES = 8, 4
 DIST_LAYERS, DIST_STEPS, DIST_TIMEOUT = 2, 2, 600
+# phase 18: FSDP.  chameleon-34b (arXiv:2405.09818) at full width on
+# FSDP_LAYERS of its 48 layers through the launcher, FSDP_STEPS steps: a
+# world of 1 on NCCL (FSDP a no-op), then 2 ranks sharing the card over
+# gloo, each holding half of every sharded param; FSDP_TIMEOUT bounds each
+# world (s); BYTES_RTOL: a rank's resident bytes against half of world 1's.
+# Cut for the disk: the card's host takes at most 45 GiB (48.3 GB) of
+# writes a run, deleted files included, and the launchers' checkpoints are
+# most of them (the [disk] line).  On an H100 80GB HBM3 at 700 W, phases
+# 16 and 17 (c) wrote 21.23 GB of them and phase 18's two SGD checkpoints
+# 14.74 GB; two AdamW ones (14 bytes a param: bf16 params, float32 m,
+# master and v) would be 34.4 GB at 1 layer, 53.2 GB at 2.  So 1 layer,
+# not 2, and SGD with momentum (one float32 state a param), not AdamW
+FSDP_LAYERS, FSDP_STEPS, FSDP_TIMEOUT = 1, 2, 300
+FSDP_OPTIM = "sgd"
+BYTES_RTOL = 1e-2
 # phase 17: the launch tools.  (b) a solve on the card: phi3-mini at full
 # width on TUNE_LAYERS of its 32 layers (pipeline stages 1 and 2 divide
 # them), B 8 x T 512, the GA's TUNE_POP x TUNE_GENS, the TUNE_TOPK best
@@ -1337,19 +1378,6 @@ EMBED_STUB_FAMILIES = ("audio", "vlm")
 SITE_FAMILIES = ("moe", "ssm", "hybrid") + EMBED_STUB_FAMILIES
 
 
-def kernel_counts():
-    """Launch counts of every kernel wrapper: name -> (module, attribute)."""
-    from repro_torch.kernels import (clip_reduce, flash_attn, fused_bwd,
-                                     gram_norm, pegrad_norm)
-    return {"flash_attn_fwd": (flash_attn, "LAUNCHES"),
-            "flash_attn_bwd": (flash_attn, "BWD_LAUNCHES"),
-            "dense_bwd_norm": (fused_bwd, "LAUNCHES"),
-            "gram_norm": (gram_norm, "LAUNCHES"),
-            "pegrad_norm": (pegrad_norm, "LAUNCHES"),
-            "dense_dgrad": (fused_bwd, "DGRAD_LAUNCHES"),
-            "clip_reduce": (clip_reduce, "LAUNCHES")}
-
-
 def norm_sites(arch, B=TRAIN_B, T=TRAIN_T):
     """Every norm site call of one decoder forward at B x T, one per weight
     matrix (the embedding apart; a Mamba layer's (K, C) conv weight is a
@@ -1452,7 +1480,7 @@ def path_launches(route: str, L: int, chunks: int = 1, algo: str = "dpsgd_r",
     ``pp_stages`` > 1): every block runs once a microbatch, so its sites
     and attention launch M times a pass; the embedding and the head, outside
     the stages, once."""
-    n = dict.fromkeys(kernel_counts(), 0)
+    n = dict.fromkeys(read_counts(), 0)
     if microbatches != 1 and family != "dense":
         raise ValueError(f"microbatches are counted for the dense decoder, "
                          f"not {family!r}")
@@ -1516,12 +1544,15 @@ def dtype_groups(params) -> int:
 
 
 def zero_counts():
-    for mod, attr in kernel_counts().values():
-        setattr(mod, attr, 0)
+    """Every kernel wrapper's launch count set to 0."""
+    from repro_torch import kernels
+    kernels.reset_launch_counts()
 
 
 def read_counts():
-    return {k: getattr(mod, attr) for k, (mod, attr) in kernel_counts().items()}
+    """Every kernel wrapper's launch count (``kernels.launch_counts``)."""
+    from repro_torch import kernels
+    return kernels.launch_counts()
 
 
 def memory_row(label, trainer, state, measured, est=None, trace_s=None):
@@ -2081,7 +2112,7 @@ def train_norm_routes(model, fused_trainer, state):
         return Trainer(model, dataclasses.replace(
             base, dp=dataclasses.replace(base.dp, **dp)), shape_)
 
-    out, launches = {}, dict.fromkeys(kernel_counts(), 0)
+    out, launches = {}, dict.fromkeys(read_counts(), 0)
 
     def add(counts):
         for k, v in counts.items():
@@ -2249,7 +2280,7 @@ def train_remat():
     from repro_torch.core import algo
     from repro_torch.models.transformer import Model
     from repro_torch.train import Trainer
-    out, launches = {}, dict.fromkeys(kernel_counts(), 0)
+    out, launches = {}, dict.fromkeys(read_counts(), 0)
 
     def add(counts):
         for k, v in counts.items():
@@ -2436,7 +2467,7 @@ def train_algorithms():
             ("dpsgd_r1f", dict(algo="dpsgd_r1f"))]
     runs += [(f"dpsgd mb{mb}", dict(algo="dpsgd", microbatch=mb))
              for mb in DPSGD_MICROBATCHES]
-    recs, launches = {}, dict.fromkeys(kernel_counts(), 0)
+    recs, launches = {}, dict.fromkeys(read_counts(), 0)
     for name, dp in runs:
         tr = Trainer(model, dataclasses.replace(
             cfg, dp=dataclasses.replace(cfg.dp, **dp)), shape)
@@ -2767,7 +2798,7 @@ def train_image(name):
           f"q = {IMAGE_B} / {IMAGE_N}; remat block; dpsgd_r fused+kernels, "
           f"adaptive clip from C {cfg.dp.clip_norm}", flush=True)
     timed_step(trainer, state)                 # warm-up (allocator, cuDNN)
-    launches = dict.fromkeys(kernel_counts(), 0)
+    launches = dict.fromkeys(read_counts(), 0)
 
     def add(counts):
         for k, v in counts.items():
@@ -2932,7 +2963,7 @@ def train_images():
         gc.collect()
         torch.cuda.empty_cache()
     out["launches"] = {k: sum(out[n]["launches"][k] for n in IMAGE_ARCHS)
-                       for k in kernel_counts()}
+                       for k in read_counts()}
     return out
 
 
@@ -3153,8 +3184,8 @@ def train_glm_path():
 
 
 def planner_split():
-    """Phase 12 (b) and (c) on phase 6's model and shape (16 layers, B 8 x
-    T 512, remat none): the planner's estimates at grad_accum 1 and 2 of
+    """Phase 12 (b) and (c) at phase 6's shape on ``PLANNER_LAYERS`` layers
+    (B 8 x T 512, remat none): the planner's estimates at grad_accum 1 and 2 of
     ``dpsgd_r`` and of ``dpsgd`` with the whole batch's per-example
     gradients in one buffer (microbatch 0), each beside a measured step;
     ``dpsgd`` under ``mem.auto_microbatch`` at the midpoint of its two
@@ -3167,7 +3198,7 @@ def planner_split():
     from repro_torch.configs.base import MemConfig, ShapeConfig
     from repro_torch.models.transformer import Model
     from repro_torch.train import Trainer
-    arch = dataclasses.replace(get_arch("phi3-mini-3.8b"), n_layers=TRAIN_LAYERS)
+    arch = dataclasses.replace(get_arch("phi3-mini-3.8b"), n_layers=PLANNER_LAYERS)
     shape, base = train_shape_and_config(arch, "none")
     model = Model(arch, dtype=torch.bfloat16, device="cuda", seed=0, remat="none")
     state = Trainer(model, base, shape).init_state()
@@ -3205,7 +3236,7 @@ def planner_split():
                 cfg, mem=MemConfig(hbm_budget_bytes=budget, auto_microbatch=True)),
                 shape)
         print(said.getvalue(), end="", flush=True)
-        print(f"[planner] {algo}{' (microbatch 0)' if dp else ''}, {TRAIN_LAYERS} "
+        print(f"[planner] {algo}{' (microbatch 0)' if dp else ''}, {PLANNER_LAYERS} "
               f"layers, B {TRAIN_B} x {TRAIN_T}, remat none: estimated peak "
               f"{est[1]['peak_bytes'] / 2**30:.2f} GiB at grad_accum 1, "
               f"{est[2]['peak_bytes'] / 2**30:.2f} at 2 (traces and steps "
@@ -3607,7 +3638,7 @@ def moe_train():
           f"{layers - 1} MoE): {n_par / 1e9:.3f}B params bf16 + AdamW f32 state; "
           f"batch {TRAIN_B} x {TRAIN_T}; launch shape {launch_shape(arch)}", flush=True)
     timed_step(trainer, state)                    # warm-up
-    steps, launches = [], dict.fromkeys(kernel_counts(), 0)
+    steps, launches = [], dict.fromkeys(read_counts(), 0)
 
     def add(counts):
         for k, v in counts.items():
@@ -3955,8 +3986,9 @@ def nsq_only(model, state, dp, batch):
 
 
 def ssm_train():
-    """Phase 14 (d): mamba2-1.3b at full width and depth (48 layers), B 8 x
-    T 4096 (B 4 if the planner puts B 8 above ``MOE_PLAN_LIMIT``),
+    """Phase 14 (d): mamba2-1.3b at full width on ``SSM_TRAIN_LAYERS`` of
+    its 48 layers, B 8 x T 4096 (B 4 if the planner puts B 8 above
+    ``MOE_PLAN_LIMIT``),
     ``dpsgd_r`` fused + kernels, ``remat="block"``, AdamW: a warm-up and
     ``SSM_STEPS`` counted steps, the planner's estimate beside their
     peak (one trace, before the steps); the first step split into its
@@ -3971,7 +4003,7 @@ def ssm_train():
     from repro_torch.launch.memory import within_tolerance
     from repro_torch.models.transformer import Model
     from repro_torch.train import Trainer
-    arch = get_arch(MAMBA2_ARCH)
+    arch = dataclasses.replace(get_arch(MAMBA2_ARCH), n_layers=SSM_TRAIN_LAYERS)
     gc.collect()
     torch.cuda.empty_cache()
     model = Model(arch, dtype=torch.bfloat16, device="cuda", seed=0, remat="block")
@@ -3991,11 +4023,12 @@ def ssm_train():
     torch.cuda.reset_peak_memory_stats()
     state = trainer.init_state()
     n_par = sum(p.numel() for p in model.parameters())
-    print(f"[ssm-train] {arch.name} at full width and depth: {n_par / 1e9:.3f}B params "
+    print(f"[ssm-train] {arch.name} at full width, {arch.n_layers} of 48 layers: "
+          f"{n_par / 1e9:.3f}B params "
           f"bf16 + AdamW f32 state; batch {shape.global_batch} x {SSM_T}; launch shape "
           f"{launch_shape(arch, shape.global_batch, SSM_T)}", flush=True)
     timed_step(trainer, state)                    # warm-up
-    steps, launches = [], dict.fromkeys(kernel_counts(), 0)
+    steps, launches = [], dict.fromkeys(read_counts(), 0)
 
     def add(counts):
         for k, v in counts.items():
@@ -4051,7 +4084,7 @@ def ssm_train():
                   f"launches { {k: v for k, v in counts.items() if v} }", flush=True)
     peak = torch.cuda.max_memory_allocated()
     assert all(math.isfinite(r["loss"]) for r in steps), steps
-    row = memory_row(f"phase 14: {arch.name} 48 layers, B {shape.global_batch} x T "
+    row = memory_row(f"phase 14: {arch.name} {arch.n_layers} layers, B {shape.global_batch} x T "
                      f"{SSM_T}, remat block, dpsgd_r fused", trainer, state, peak,
                      est=est, trace_s=plan[-1][2])
     assert within_tolerance(row["ratio"]), row
@@ -4473,7 +4506,8 @@ def embed_serve(name, B, prompt_t, new, paged, ragged):
 
 
 def musicgen_train():
-    """Phase 15 (d): musicgen-medium at full width and depth (48 layers),
+    """Phase 15 (d): musicgen-medium at full width on ``MG_TRAIN_LAYERS``
+    of its 48 layers,
     B 8 x T 1500 precomputed embeddings, ``dpsgd_r`` fused + kernels,
     ``remat="block"``, AdamW: the planner's estimate (one trace, before
     the steps), a warm-up and ``TRAIN_STEPS`` counted steps (the first
@@ -4490,7 +4524,7 @@ def musicgen_train():
     from repro_torch.launch.memory import within_tolerance
     from repro_torch.models.transformer import Model
     from repro_torch.train import Trainer
-    arch = get_arch(MUSICGEN_ARCH)
+    arch = dataclasses.replace(get_arch(MUSICGEN_ARCH), n_layers=MG_TRAIN_LAYERS)
     gc.collect()
     torch.cuda.empty_cache()
     model = Model(arch, dtype=torch.bfloat16, device="cuda", seed=0, remat="block")
@@ -4504,12 +4538,13 @@ def musicgen_train():
     state = trainer.init_state()
     n_par = sum(p.numel() for p in model.parameters())
     lshape = launch_shape(arch, TRAIN_B, MG_T)
-    print(f"[embed-train] {arch.name} at full width and depth: {n_par / 1e9:.3f}B params "
+    print(f"[embed-train] {arch.name} at full width, {arch.n_layers} of 48 layers: "
+          f"{n_par / 1e9:.3f}B params "
           f"bf16 + AdamW f32 state; batch {TRAIN_B} x {MG_T} embeddings of "
           f"{arch.d_model}; the planner estimates {est['peak_bytes'] / 2**30:.2f} GiB "
           f"(trace {trace_s:.1f} s); launch shape {lshape}", flush=True)
     timed_step(trainer, state)                    # warm-up
-    steps, launches = [], dict.fromkeys(kernel_counts(), 0)
+    steps, launches = [], dict.fromkeys(read_counts(), 0)
 
     def add(counts):
         for k, v in counts.items():
@@ -4639,7 +4674,7 @@ def chameleon_train():
           f"{n_par / 1e9:.3f}B params bf16 + AdamW f32 state; batch {TRAIN_B} x "
           f"{TRAIN_T} embeddings of {arch.d_model}; launch shape {lshape}", flush=True)
     timed_step(trainer, state)                    # warm-up
-    steps, launches = [], dict.fromkeys(kernel_counts(), 0)
+    steps, launches = [], dict.fromkeys(read_counts(), 0)
     for i in range(2):
         rec, b, _, _ = counted_step(trainer, model, state, "fused", split=i == 0)
         if i == 0:
@@ -4758,7 +4793,7 @@ def pipeline_ab():
     for key, tr in trainers.items():
         timed_step(tr, states[key])                      # warm-up
     steps = {k: [] for k in trainers}
-    launches = dict.fromkeys(kernel_counts(), 0)
+    launches = dict.fromkeys(read_counts(), 0)
     for key in ("sequential", "pipelined", "pipelined", "sequential"):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -4800,6 +4835,9 @@ LAUNCH_LINES = {
     "step": r"\[trainer\] step\s+(\d+) loss (\S+) grad_norm_mean (\S+) .*?\((\d+) ms\)",
     "estimate": r"\[train\] memory: estimated peak (\S+) GB.*?per device (\S+) GB",
     "measured": r"\[train\] memory: measured peak (\S+) GB",
+    "resident": r"\[train\] resident on this rank: params (\d+) B, optimizer state (\d+) B",
+    "launches": (r"\[train\] steps \d+\.\.\d+: kernel launches (\{[^}]*\}); "
+                 r"collectives (\{[^}]*\}) B in (\d+) calls"),
 }
 
 
@@ -4819,52 +4857,61 @@ def parse_launcher(text: str) -> dict:
     return out
 
 
-def launcher_cmd(nproc: int, ckpt_dir: str):
-    """``torch.distributed.run`` of the training launcher for phase 16 (b)
-    and (c): phi3-mini at full width on DIST_LAYERS layers, B 8 x T 512,
-    ZeRO-1, the compression rider, pp_stages 2, σ 0, AdamW, dpsgd_r fused
-    + kernels, one data axis over ``nproc`` ranks."""
-    sets = ["zero1=true", "compress_pod_grads=true", "pp_stages=2",
-            "dp.noise_multiplier=0", "optim.name=adamw", "optim.lr=1e-4",
-            "optim.schedule=constant", "dp.norm_strategy=fused",
-            "dp.use_kernels=true", "log_every=1", f"ckpt_dir={ckpt_dir}"]
+def launcher_cmd(nproc: int, ckpt_dir: str, arch: str, layers: int, steps: int,
+                 sets) -> list:
+    """``torch.distributed.run`` of the training launcher: ``arch`` at full
+    width on ``layers`` layers, B 8 x T 512, ``steps`` steps, one data axis
+    over ``nproc`` ranks, the ``--set`` keys ``sets``, a step line each
+    step and checkpoints in ``ckpt_dir``."""
+    sets = [*sets, "log_every=1", f"ckpt_dir={ckpt_dir}"]
     return [sys.executable, "-m", "torch.distributed.run", "--standalone",
             "--nproc_per_node", str(nproc), "-m", "repro_torch.launch.train",
-            "--arch", "phi3-mini-3.8b", "--layers", str(DIST_LAYERS),
-            "--batch", str(TRAIN_B), "--seq", str(TRAIN_T), "--steps",
-            str(DIST_STEPS), "--mesh", str(nproc), "--axes", "data",
-            *[x for kv in sets for x in ("--set", kv)]]
+            "--arch", arch, "--layers", str(layers), "--batch", str(TRAIN_B),
+            "--seq", str(TRAIN_T), "--steps", str(steps), "--mesh", str(nproc),
+            "--axes", "data", *[x for kv in sets for x in ("--set", kv)]]
 
 
-def run_launcher(nproc: int, ckpt_dir: str) -> dict:
-    """One launcher world on the card; its output to
-    ``chiprun_out/chip_smoke_dist<nproc>.log``.  A nonzero exit (a rank's
-    failure, a collective's timeout) or the wall-clock limit raises."""
+def start_launcher(cmd):
+    """A launcher world (``cmd``) started in the background: (the process,
+    its start time)."""
     import os
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    t = time.perf_counter()
-    r = subprocess.run(launcher_cmd(nproc, ckpt_dir), env=env, cwd=ROOT,
-                       capture_output=True, text=True, timeout=DIST_TIMEOUT)
+    return (subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True),
+            time.perf_counter())
+
+
+def launcher_result(started, nproc: int, log: str, timeout: float) -> dict:
+    """Wait for a world ``start_launcher`` started; its output to
+    ``chiprun_out/chip_smoke_<log><nproc>.log``.  A nonzero exit (a rank's
+    failure, a collective's timeout) or the wall-clock limit raises (the
+    world is killed)."""
+    proc, t = started
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
     secs = time.perf_counter() - t
-    (ROOT / "chiprun_out" / f"chip_smoke_dist{nproc}.log").write_text(
-        r.stdout + "\n--- stderr\n" + r.stderr)
-    if r.returncode != 0:
+    (ROOT / "chiprun_out" / f"chip_smoke_{log}{nproc}.log").write_text(
+        out + "\n--- stderr\n" + err)
+    if proc.returncode != 0:
         raise RuntimeError(f"the launcher's world of {nproc} exited "
-                           f"{r.returncode}:\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
-    return dict(parse_launcher(r.stdout), seconds=secs)
+                           f"{proc.returncode}:\n{out[-3000:]}\n{err[-3000:]}")
+    return dict(parse_launcher(out), seconds=secs)
 
 
-def zero1_moment_shards(manifest: dict, n_params: int):
-    """The shard files of each AdamW first moment in a launcher checkpoint
-    (leaves: the step, the params, the compression residuals, then the
-    optimizer's m, master, v)."""
-    return [len(rec["shards"]) for rec in
-            manifest["leaves"][1 + 2 * n_params:1 + 3 * n_params]]
+def ckpt_shard_counts(manifest: dict, leaves) -> list:
+    """The shard files of each of ``leaves`` (manifest indices) in a
+    launcher checkpoint."""
+    return [len(manifest["leaves"][i]["shards"]) for i in leaves]
 
 
 def zero1_expected_shards(arch, width: int):
-    """The shards ZeRO-1 cuts each param's moment into on a ``width``-wide
-    data axis: ``width`` where ``state_shardings`` puts a dim on ``data``."""
+    """The shards ZeRO-1 (and FSDP, the same slices) cuts each param's
+    optimizer state into on a ``width``-wide data axis: ``width`` where
+    ``state_shardings`` puts a dim on ``data``."""
     import types
     from repro_torch.dist import sharding
     from repro_torch.models.transformer import abstract_params, logical_axes
@@ -4874,34 +4921,134 @@ def zero1_expected_shards(arch, width: int):
                                                      logical_axes(arch))]
 
 
-def restore_launcher_ckpt(arch, ckpt_dir: str):
-    """A launcher run's last checkpoint restored whole on the host by the
-    port's reader: (params, first moments), leaf lists."""
-    import torch
-    from repro_torch import tree
-    from repro_torch.configs.base import OptimConfig
-    from repro_torch.models.transformer import abstract_params
-    from repro_torch.optim import make_optimizer
-    from repro_torch.train.checkpoint import CheckpointManager
-    from repro_torch.train.state import TrainState
-    params = tree.tree_map(lambda m: torch.empty(m.shape, dtype=m.dtype),
-                           abstract_params(arch))
-    leaves = tree.leaves(params)
-    opt = {"opt": make_optimizer(OptimConfig(name="adamw")).init(leaves),
-           "grad_err": [torch.empty(p.shape) for p in leaves]}
-    state = CheckpointManager(ckpt_dir).restore(TrainState(0, params, opt))
-    assert state.step == DIST_STEPS, state.step
-    return tree.leaves(state.params), state.opt_state["opt"]["m"]
+def ckpt_leaf_gaps(dirs, leaves, step: int, device: str = "cuda"):
+    """The largest gap of each checkpoint in ``dirs[1:]`` from ``dirs[0]``'s
+    over the leaves ``leaves`` (manifest indices), each restored whole by
+    the port's reader and compared on the card, as a share of the
+    reference leaf's largest entry; one leaf at a time."""
+    from repro_torch.train import checkpoint as ck
+    recs = [json.loads((Path(d) / f"step_{step}" / "manifest.json").read_text())
+            for d in dirs]
+    gaps = [0.0] * (len(dirs) - 1)
+    for i in leaves:
+        got = [ck._to_torch(ck._read_leaf(str(Path(d) / f"step_{step}"),
+                                          r["leaves"][i]), r["leaves"][i]["dtype"])
+               .to(device) for d, r in zip(dirs, recs)]
+        for k, g in enumerate(got[1:]):
+            gaps[k] = max(gaps[k], leaf_gap([g], [got[0]]))
+        del got
+    return gaps
+
+
+def printed_unit(x: float) -> float:
+    """One unit of the 6th significant digit, the last the launcher prints
+    a step's loss with (``:.6g``)."""
+    return 10.0 ** (math.floor(math.log10(abs(x))) - 5)
+
+
+def dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def compare_worlds(cmd, arch, *, steps: int, params, moments, sharded, log: str,
+                   timeout: float, side_by_side: bool, loss_tol) -> dict:
+    """The launcher (``cmd(nproc, ckpt_dir)``) in a world of 1 on NCCL and of
+    2 ranks sharing the card over gloo, each rank its half of the batch,
+    side by side on the card or one after the other; each world's output to
+    ``chiprun_out/chip_smoke_<log><nproc>.log``.  Checks: the backends; one
+    fingerprint on world 2's ranks (and world 1's, unless ``arch`` is FSDP-
+    sharded there: a slice records no bytes); each step's loss and
+    ``grad_norm_mean`` equal on both ranks, the loss within
+    ``loss_tol(loss)`` of world 1's and ``grad_norm_mean`` within
+    ``NSQ_RTOL``; the leaves of ``sharded`` (ranges of manifest indices) in
+    ``zero1_expected_shards`` files in the 2-rank checkpoint, in 1 in world
+    1's; ``params`` and ``moments`` (ranges) restored whole one leaf at a
+    time within ``CLIP_SUM_TOL`` of each leaf's max of world 1's.  The
+    temporary directories are removed."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{log}_")
+    ckpt = {n: str(Path(tmp) / f"world{n}") for n in (1, 2)}
+    started, runs = {}, {}
+    try:
+        for n in (1, 2):
+            started[n] = start_launcher(cmd(n, ckpt[n]))
+            if not side_by_side:
+                runs[n] = launcher_result(started[n], n, log, timeout)
+        for n in (1, 2):
+            if side_by_side:
+                runs[n] = launcher_result(started[n], n, log, timeout)
+            runs[n]["ckpt_bytes"] = dir_bytes(ckpt[n])
+        one, two = runs[1], runs[2]
+        assert [b[0] for b in one["backend"]] == ["nccl"], one["backend"]
+        assert sorted(b[0] for b in two["backend"]) == ["gloo", "gloo"], two["backend"]
+        assert {b[3] for b in two["backend"]} == {"cuda:0"}, two["backend"]
+        fps = {f for f, _ in two["fingerprint"]}
+        if not arch.use_fsdp:
+            fps |= {f for f, _ in one["fingerprint"]}
+        assert len(fps) == 1 and len(one["fingerprint"]) == 1 \
+            and len(two["fingerprint"]) == 2, (one["fingerprint"], two["fingerprint"])
+        for step in range(steps):
+            (a,), (b, c) = one["steps"][step], two["steps"][step]
+            assert (b["loss"], b["grad_norm_mean"]) == (c["loss"], c["grad_norm_mean"])
+            assert abs(b["loss"] - a["loss"]) <= loss_tol(a["loss"]), (step, a, b)
+            assert abs(b["grad_norm_mean"] - a["grad_norm_mean"]) <= \
+                NSQ_RTOL * abs(a["grad_norm_mean"]), (step, a, b)
+        manifests = {n: json.loads((Path(d) / f"step_{steps}" / "manifest.json")
+                                   .read_text()) for n, d in ckpt.items()}
+        want = zero1_expected_shards(arch, 2)
+        assert 2 in want, want
+        for leaves in sharded:
+            assert ckpt_shard_counts(manifests[2], leaves) == want
+            assert ckpt_shard_counts(manifests[1], leaves) == [1] * len(want)
+        t = time.perf_counter()
+        dirs = [ckpt[1], ckpt[2]]
+        (param_gap,) = ckpt_leaf_gaps(dirs, params, steps)
+        (moment_gap,) = ckpt_leaf_gaps(dirs, moments, steps)
+        assert param_gap <= CLIP_SUM_TOL and moment_gap <= CLIP_SUM_TOL, (
+            param_gap, moment_gap)
+        restore_s = time.perf_counter() - t
+    finally:
+        for proc, _ in started.values():        # a world left by a failure
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        shutil.rmtree(tmp, ignore_errors=True)
+    assert not Path(tmp).exists()
+    return dict(runs=runs, fingerprint=fps.pop(), param_gap=param_gap,
+                moment_gap=moment_gap, restore_s=restore_s,
+                sharded_leaves=sum(x == 2 for x in want), n_params=len(want))
+
+
+def _world_steps(run) -> list:
+    return [[r["ms"] for r in s] for s in run["steps"].values()]
+
+
+def _world_losses(run) -> list:
+    return [s[0]["loss"] for s in run["steps"].values()]
+
+
+DIST_SETS = ("zero1=true", "compress_pod_grads=true", "pp_stages=2",
+             "dp.noise_multiplier=0", "optim.name=adamw", "optim.lr=1e-4",
+             "optim.schedule=constant", "dp.norm_strategy=fused",
+             "dp.use_kernels=true")
+
+
+def dist_cmd(nproc: int, ckpt_dir: str) -> list:
+    """Phase 16 (b)-(c)'s launcher: phi3-mini at full width on DIST_LAYERS
+    layers, ZeRO-1, the compression rider, pp_stages 2, σ 0, AdamW,
+    dpsgd_r fused + kernels."""
+    return launcher_cmd(nproc, ckpt_dir, "phi3-mini-3.8b", DIST_LAYERS,
+                        DIST_STEPS, DIST_SETS)
 
 
 def dist_path():
-    """Phase 16: (a) ``pipeline_ab``; (b) the launcher in a world of 1 on
-    NCCL and (c) in 2 ranks sharing the card over gloo, each rank its half
-    of the batch: equal fingerprints, step metrics, params and first
-    moments, the moments of (c) in 2 shard files each."""
-    import json
-    import shutil
-    import tempfile
+    """Phase 16: (a) ``pipeline_ab``; (b) the launcher (``dist_cmd``) in a
+    world of 1 on NCCL and (c) in 2 ranks sharing the card over gloo, one
+    after the other (``compare_worlds``): one fingerprint on all 3 ranks,
+    losses within ``NSQ_RTOL`` (the int8 rider rounds each rank's share of
+    the gradient), the first moments of (c) in 2 shard files each, params
+    and first moments within ``CLIP_SUM_TOL``."""
     import torch
     from repro_torch.configs import get_arch
     t0 = time.perf_counter()
@@ -4911,59 +5058,134 @@ def dist_path():
     t1 = time.perf_counter()
     print(f"[time] phase 16 (a) pipeline: {t1 - t0:.1f} s", flush=True)
     arch = dataclasses.replace(get_arch("phi3-mini-3.8b"), n_layers=DIST_LAYERS)
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
-    try:
-        runs, ckpt = {}, {}
-        for nproc in (1, 2):
-            ckpt[nproc] = str(Path(tmp) / f"world{nproc}")
-            runs[nproc] = run_launcher(nproc, ckpt[nproc])
-            print(f"[time] phase 16 ({'b' if nproc == 1 else 'c'}) world of {nproc}: "
-                  f"{runs[nproc]['seconds']:.1f} s", flush=True)
-        one, two = runs[1], runs[2]
-        assert [b[0] for b in one["backend"]] == ["nccl"], one["backend"]
-        assert sorted(b[0] for b in two["backend"]) == ["gloo", "gloo"], two["backend"]
-        assert {b[3] for b in two["backend"]} == {"cuda:0"}, two["backend"]
-        fps = [f for f, _ in one["fingerprint"] + two["fingerprint"]]
-        assert len(fps) == 3 and len(set(fps)) == 1, fps
-        for step in range(DIST_STEPS):
-            (a,), (b, c) = one["steps"][step], two["steps"][step]
-            assert (b["loss"], b["grad_norm_mean"]) == (c["loss"], c["grad_norm_mean"])
-            for k in ("loss", "grad_norm_mean"):
-                assert abs(b[k] - a[k]) <= NSQ_RTOL * abs(a[k]), (step, k, a, b)
-        n = len(zero1_expected_shards(arch, 2))
-        manifests = {k: json.loads((Path(d) / f"step_{DIST_STEPS}" / "manifest.json")
-                                   .read_text()) for k, d in ckpt.items()}
-        assert zero1_moment_shards(manifests[2], n) == zero1_expected_shards(arch, 2)
-        assert zero1_moment_shards(manifests[1], n) == [1] * n
-        assert sum(x == 2 for x in zero1_expected_shards(arch, 2)) > 0
-        t2 = time.perf_counter()
-        p1, m1 = restore_launcher_ckpt(arch, ckpt[1])
-        p2, m2 = restore_launcher_ckpt(arch, ckpt[2])
-        param_gap, moment_gap = leaf_gap(p2, p1), leaf_gap(m2, m1)
-        del p1, m1, p2, m2
-        assert param_gap <= CLIP_SUM_TOL and moment_gap <= CLIP_SUM_TOL, (
-            param_gap, moment_gap)
-        restore_s = time.perf_counter() - t2
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    assert not Path(tmp).exists()
+    n = len(zero1_expected_shards(arch, 2))
+    # leaves: the step, the params, the compression residuals, then the
+    # optimizer's m, master, v
+    first_moments = range(1 + 2 * n, 1 + 3 * n)
+    got = compare_worlds(dist_cmd, arch, steps=DIST_STEPS, params=range(1, 1 + n),
+                         moments=first_moments, sharded=[first_moments], log="dist",
+                         timeout=DIST_TIMEOUT, side_by_side=False,
+                         loss_tol=lambda x: NSQ_RTOL * abs(x))
+    one, two = got["runs"][1], got["runs"][2]
+    for k, run in got["runs"].items():
+        print(f"[time] phase 16 ({'b' if k == 1 else 'c'}) world of {k}: "
+              f"{run['seconds']:.1f} s; its checkpoint {run['ckpt_bytes'] / 1e9:.2f} GB "
+              f"on disk", flush=True)
     print(f"[dist] phi3-mini-3.8b at full width, {DIST_LAYERS} layers, B {TRAIN_B} x "
           f"T {TRAIN_T}, ZeRO-1 + int8 compression + pp_stages 2, sigma 0, AdamW, "
           f"{DIST_STEPS} steps: world 1 (nccl) {one['seconds']:.1f} s, steps "
-          f"{[s[0]['ms'] for s in one['steps'].values()]} ms, peak "
-          f"{one['measured']} GB; world 2 (gloo, both ranks on cuda:0) "
-          f"{two['seconds']:.1f} s, steps {[[r['ms'] for r in s] for s in two['steps'].values()]} "
-          f"ms, peaks {two['measured']} GB; fingerprint {fps[0]} on all 3 ranks; "
-          f"losses {[s[0]['loss'] for s in one['steps'].values()]} | "
-          f"{[s[0]['loss'] for s in two['steps'].values()]}; checkpoints restored "
-          f"whole ({restore_s:.1f} s): params {param_gap:.2e}, first moments "
-          f"{moment_gap:.2e} of each leaf's max (limit {CLIP_SUM_TOL}); the "
-          f"2-rank checkpoint holds {sum(x == 2 for x in zero1_expected_shards(arch, 2))} "
-          f"of {n} moments in 2 shard files; temporary directories removed", flush=True)
+          f"{_world_steps(one)} ms, peak {one['measured']} GB; world 2 (gloo, both "
+          f"ranks on cuda:0) {two['seconds']:.1f} s, steps {_world_steps(two)} ms, "
+          f"peaks {two['measured']} GB; fingerprint {got['fingerprint']} on all 3 "
+          f"ranks; losses {_world_losses(one)} | {_world_losses(two)}; checkpoints "
+          f"restored whole ({got['restore_s']:.1f} s): params {got['param_gap']:.2e}, "
+          f"first moments {got['moment_gap']:.2e} of each leaf's max (limit "
+          f"{CLIP_SUM_TOL}); the 2-rank checkpoint holds {got['sharded_leaves']} of "
+          f"{n} moments in 2 shard files; temporary directories removed", flush=True)
     return dict(pipeline=pipe, launches=pipe["launches"], worlds={
         k: {key: v[key] for key in ("backend", "fingerprint", "steps", "estimate",
-                                     "measured", "seconds")} for k, v in runs.items()},
-        param_gap=param_gap, moment_gap=moment_gap, restore_s=restore_s)
+                                     "measured", "seconds", "ckpt_bytes")}
+        for k, v in got["runs"].items()},
+        param_gap=got["param_gap"], moment_gap=got["moment_gap"],
+        restore_s=got["restore_s"])
+
+
+# ---------------------------------------------------------------------------
+# phase 18: FSDP (a use_fsdp arch's params sharded over the data axis)
+# ---------------------------------------------------------------------------
+
+FSDP_SETS = ("zero1=true", "remat=none", "dp.noise_multiplier=0",
+             f"optim.name={FSDP_OPTIM}", "optim.lr=1e-4", "optim.schedule=constant",
+             "dp.norm_strategy=fused", "dp.use_kernels=true")
+
+
+def fsdp_cmd(nproc: int, ckpt_dir: str) -> list:
+    """Phase 18's launcher: chameleon-34b at full width on FSDP_LAYERS
+    layers, B 8 x T 512 embeddings, ``dpsgd_r`` fused + kernels,
+    ``remat="none"``, σ 0, ``FSDP_OPTIM`` at a constant 1e-4, ZeRO-1 (FSDP
+    live above 1 rank)."""
+    return launcher_cmd(nproc, ckpt_dir, CHAMELEON_ARCH, FSDP_LAYERS, FSDP_STEPS,
+                        FSDP_SETS)
+
+
+def fsdp_path():
+    """Phase 18: the launcher on chameleon-34b (``fsdp_cmd``) in a world of 1
+    on NCCL, where FSDP is a no-op, and, side by side with it on the card,
+    of 2 ranks sharing the card over gloo, each holding its half of every
+    sharded param (the step times of each world are taken beside the
+    other's).  ``compare_worlds`` checks: each step's loss and
+    ``grad_norm_mean`` equal on both ranks, the loss to the 6 digits the
+    launcher prints (one unit) and ``grad_norm_mean`` within ``NSQ_RTOL``
+    of world 1's; the 2-rank checkpoint's params and momenta in 2 shard
+    files where ``param_shardings`` puts a dim on ``data``; restored whole,
+    params and momenta (the sums of the steps' gradients) within
+    ``CLIP_SUM_TOL`` of each leaf's max of world 1's.  Here: each rank's
+    resident param and optimizer-state bytes half of world 1's within
+    ``BYTES_RTOL``; each rank's kernel launches equal to ``path_launches``
+    for its half batch.  Prints each rank's measured peak beside the
+    planner's (conservative: params and optimizer state taken as
+    replicated) estimate, each world's step ms, the gathered and reduced
+    bytes a step and the phase's seconds."""
+    from repro_torch.configs import get_arch
+    t0 = time.perf_counter()
+    arch = dataclasses.replace(get_arch(CHAMELEON_ARCH), n_layers=FSDP_LAYERS)
+    n = len(zero1_expected_shards(arch, 2))
+    # leaves: the step, the params, then the optimizer's state (SGD's momenta)
+    params, moments = range(1, 1 + n), range(1 + n, 1 + 2 * n)
+    got = compare_worlds(fsdp_cmd, arch, steps=FSDP_STEPS, params=params,
+                         moments=moments, sharded=[params, moments], log="fsdp",
+                         timeout=FSDP_TIMEOUT, side_by_side=True, loss_tol=printed_unit)
+    runs = got["runs"]
+    one, two = runs[1], runs[2]
+    for k, run in runs.items():
+        print(f"[time] phase 18 world of {k}: {run['seconds']:.1f} s; its checkpoint "
+              f"{run['ckpt_bytes'] / 1e9:.2f} GB on disk", flush=True)
+    # resident bytes: each rank half of world 1's
+    (p1, o1), = [tuple(map(int, r)) for r in one["resident"]]
+    halves = []
+    for p2, o2 in [tuple(map(int, r)) for r in two["resident"]]:
+        halves.append((p2 / p1, o2 / o1))
+        assert abs(p2 / (p1 / 2) - 1) <= BYTES_RTOL, (p2, p1)
+        assert abs(o2 / (o1 / 2) - 1) <= BYTES_RTOL, (o2, o1)
+    assert len(halves) == 2, two["resident"]
+    # launches: the formula of each rank's batch, every step
+    moved = {}
+    for nproc, run in runs.items():
+        want = path_launches("fused", remat="none", chunks=FSDP_STEPS,
+                             **launch_shape(arch, TRAIN_B // nproc, TRAIN_T))
+        assert len(run["launches"]) == nproc, run["launches"]
+        for launched, coll, _ in run["launches"]:
+            assert json.loads(launched) == want, (nproc, launched, want)
+        moved[nproc] = [json.loads(coll) for _, coll, _ in run["launches"]]
+    per_step = {k: v / FSDP_STEPS for k, v in moved[2][0].items()}
+    assert all(per_step.get(k, 0) > 0 for k in ("all-gather", "reduce-scatter"))
+    secs = time.perf_counter() - t0
+    est = {k: [(float(g), float(d)) for g, d in v["estimate"]] for k, v in runs.items()}
+    print(f"[fsdp] {arch.name} at full width, {FSDP_LAYERS} of 48 layers, B {TRAIN_B} x "
+          f"T {TRAIN_T} embeddings, dpsgd_r fused + kernels, remat none, sigma 0, "
+          f"{FSDP_OPTIM}, ZeRO-1, {FSDP_STEPS} steps, the two worlds side by side on "
+          f"the card: world 1 (nccl) {one['seconds']:.1f} s, steps {_world_steps(one)} "
+          f"ms; world 2 (gloo, both ranks on cuda:0, FSDP) {two['seconds']:.1f} s, "
+          f"steps {_world_steps(two)} ms; losses {_world_losses(one)} | "
+          f"{_world_losses(two)}; the 2-rank checkpoint holds {got['sharded_leaves']} "
+          f"of {n} params and their momenta in 2 shard files", flush=True)
+    print(f"[fsdp] resident a rank: params {[r[0] for r in two['resident']]} B, "
+          f"optimizer state {[r[1] for r in two['resident']]} B against world 1's "
+          f"{p1} B, {o1} B (ratios {halves}, want 0.5 within {BYTES_RTOL:.0%}); "
+          f"measured peaks world 1 {one['measured']} GB, world 2 {two['measured']} GB "
+          f"beside the planner's (estimated peak, per device) {est[1]} | {est[2]} GB; "
+          f"a step of world 2 moves {per_step} B a rank (all-gather: every sharded "
+          f"leaf's whole bytes once a pass, and the losses, norms and mask; "
+          f"reduce-scatter: the sharded leaves' whole gradients once; all-reduce: "
+          f"the norm scales' gradients and update_norm); launches a rank "
+          f"{json.loads(two['launches'][0][0])} = path_launches; checkpoints restored "
+          f"whole ({got['restore_s']:.1f} s): params {got['param_gap']:.2e}, momenta "
+          f"{got['moment_gap']:.2e} of each leaf's max (limit {CLIP_SUM_TOL})", flush=True)
+    return dict(worlds={k: {key: v[key] for key in (
+        "backend", "fingerprint", "steps", "estimate", "measured", "resident",
+        "launches", "seconds", "ckpt_bytes")} for k, v in runs.items()}, halves=halves,
+        moved_per_step=per_step, param_gap=got["param_gap"],
+        moment_gap=got["moment_gap"], restore_s=got["restore_s"], seconds=secs)
 
 
 # ---------------------------------------------------------------------------
@@ -5035,7 +5257,7 @@ def autotune_launches(arch, measured, iters: int, B=TRAIN_B, T=TRAIN_T):
     ``plan_launches`` times its warm-up and ``iters`` timed steps
     (``autotune.measure_plan``); the search's fake-tensor traces launch
     nothing."""
-    total = dict.fromkeys(kernel_counts(), 0)
+    total = dict.fromkeys(read_counts(), 0)
     for rec in measured:
         for k, v in plan_launches(arch, rec["plan"], B, T).items():
             total[k] += (max(1, iters) + 1) * v
@@ -5209,6 +5431,7 @@ def launcher_autotune():
         r = subprocess.run(launch_tune_cmd(tmp), env=env, cwd=ROOT, capture_output=True,
                            text=True, timeout=LAUNCH_TUNE_TIMEOUT)
         secs = time.perf_counter() - t
+        ckpt_bytes = dir_bytes(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     (ROOT / "chiprun_out" / "chip_smoke_autotune.log").write_text(
@@ -5224,8 +5447,9 @@ def launcher_autotune():
           f"{TRAIN_B} x T {TRAIN_T}, 2 steps) in {secs:.1f} s: {method} seed {seed}, "
           f"{size} plans, {traces} traces ({hits} cache hits); winner {winner}; "
           f"correlation {got['correlation']}; losses {[x[1] for x in got['step']]}; "
-          f"eps {got['privacy'][0][1]}", flush=True)
-    return dict(got, seconds=secs)
+          f"eps {got['privacy'][0][1]}; its checkpoint {ckpt_bytes / 1e9:.2f} GB on "
+          f"disk", flush=True)
+    return dict(got, seconds=secs, ckpt_bytes=ckpt_bytes)
 
 
 def launch_tools_path(train):
@@ -5532,9 +5756,24 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lap("phase 17")
+    # 18. FSDP: chameleon-34b through the launcher in a world of 1 (NCCL)
+    # and of 2 ranks sharing the card (gloo), each holding half its params
+    fsdp = fsdp_path()
+    lap("phase 18")
+    ckpts = {**{f"16 ({'b' if k == 1 else 'c'})": w["ckpt_bytes"]
+                for k, w in dist["worlds"].items()},
+             "17 (c)": tools["launcher"]["ckpt_bytes"],
+             **{f"18 world {k}": w["ckpt_bytes"] for k, w in fsdp["worlds"].items()}}
+    print(f"[disk] the launchers' checkpoints, written and removed: "
+          f"{ {k: round(v / 1e9, 2) for k, v in ckpts.items()} } GB, "
+          f"{sum(ckpts.values()) / 1e9:.2f} GB in all", flush=True)
     launches = {k: sum(r["launches"][k] for r in (train, routes, remat, algos, glm,
                                                   images, moe, ssm, embed, dist, tools))
                 for k in train["launches"]}
+    for world in fsdp["worlds"].values():         # every rank's steps
+        for got, _, _ in world["launches"]:
+            for k, v in json.loads(got).items():
+                launches[k] += v
     launches["flash_attn_fwd"] += serve_launches
 
     flash_rec = pick(kernel_recs, "phi3-wave")
@@ -5668,7 +5907,7 @@ def main() -> int:
          "planner": planner, "train": train, "routes": routes,
          "remat": remat, "algos": algos, "glm": glm, "image_kernels": image_kernels,
          "images": images, "moe": moe, "ssm": ssm, "embed": embed, "dist": dist,
-         "tools": tools, "json_line": kernels},
+         "tools": tools, "fsdp": fsdp, "json_line": kernels},
         indent=1, default=str))
     print(f"[time] chip_smoke.py: {time.perf_counter() - t_start:.1f} s from the device "
           f"query to the last check", flush=True)

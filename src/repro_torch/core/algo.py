@@ -79,6 +79,17 @@ the adaptive clip's below-C count are those of one process on the global
 batch.  Every rank draws the noise from a generator seeded alike, so
 every rank adds the same noise and holds the same update.
 
+FSDP (params carrying ``fsdp_shard``, dist/runtime.py): the gather's
+backward has already summed a slice's pass-2 gradient over the ranks, so
+the all-reduce skips those leaves (a second sum would double them);
+``dpsgd`` differentiates whole leaves gathered once a step, clips and sums
+them locally, and its whole sums are reduced here once and cut to the
+slice.  A slice's noise is drawn for the slice alone
+(``noise.shard_generator``); the adaptive clip's count noise stays on the
+step's generator, so every rank gets the same next clip norm.  In
+``dpsgd_r1f`` the first pullback reaches only the accumulator, so the
+gather's backward runs in the second alone.
+
 loss_fn contract: ``loss_fn(params, batch, ctx) -> (per_example_losses,
 ctx)`` with ``per_example_losses: (B,) float32``.
 """
@@ -278,6 +289,14 @@ def _dpsgd_sum(loss_fn, dp: DPConfig):
         data, mask, clip = split_clip(batch)
         C = dp.clip_norm if clip is None else clip
         leaves = _require_grad_leaves(params)
+        # FSDP: each example's gradient must be whole before its clip, so
+        # the slices are gathered once, outside autograd, and the whole
+        # leaves differentiated (no collective in their backward)
+        whole = {id(p): runtime.fsdp_whole(p).requires_grad_() for p in leaves
+                 if runtime.fsdp_shard_of(p) is not None}
+        if whole:
+            params = tree.tree_map(lambda p: whole.get(id(p), p), params)
+            leaves = tree.leaves(params)
         device = leaves[0].device
         R = _batch_size(data)
         B = R // K                         # examples (privacy units)
@@ -418,9 +437,11 @@ def make_noisy_grad_fn(loss_fn: Callable, dp: DPConfig, grad_accum: int = 1,
     def fn(params, batch, generator: torch.Generator, clip_norm=None):
         _, mask = split_mask(batch)
         R = _batch_size(batch)
+        leaves = tree.leaves(params)
+        fsdp = [runtime.fsdp_shard_of(p) for p in leaves]
         if R % K:
             raise ValueError(f"{R} rows do not hold {K} views each")
-        full_mask = _ones_if_none(mask, R, tree.leaves(params)[0].device)
+        full_mask = _ones_if_none(mask, R, leaves[0].device)
         mask_ex = _example_mask(full_mask, K)
 
         def with_clip(b):
@@ -449,7 +470,14 @@ def make_noisy_grad_fn(loss_fn: Callable, dp: DPConfig, grad_accum: int = 1,
             # before the noise, and the metrics, the normaliser and the
             # adaptive clip read the global per-example vectors
             group = runtime.batch_group()
-            runtime.all_reduce_(summed, group)
+            # an FSDP slice's gradient is summed already (the gather's
+            # backward); dpsgd's whole leaves are summed here and cut
+            reduced = [sh is not None and g.shape == p.shape
+                       for g, p, sh in zip(summed, leaves, fsdp)]
+            runtime.all_reduce_([g for g, r in zip(summed, reduced) if not r],
+                                group)
+            summed = [g if sh is None or r else sh.of(g)
+                      for g, sh, r in zip(summed, fsdp, reduced)]
             losses, nsq, full_mask = (runtime.all_gather(t, group)
                                       for t in (losses, nsq, full_mask))
             mask_ex = _example_mask(full_mask, K)
@@ -458,8 +486,12 @@ def make_noisy_grad_fn(loss_fn: Callable, dp: DPConfig, grad_accum: int = 1,
             C = dp.clip_norm if clip_norm is None else clip_norm
             denom = (float(expected_batch_size)
                      if expected_batch_size is not None else R // K)
+            local = [i for i, sh in enumerate(fsdp) if sh is not None]
+            shard_gen = (noise.shard_generator(generator, fsdp[local[0]].index)
+                         if local else None)
             noise.add_noise_(summed, generator, dp.noise_multiplier,
-                             _noise_clip(C, dp), denom)             # lines 24/41
+                             _noise_clip(C, dp), denom, shard_gen,
+                             local)                                 # lines 24/41
             metrics = _metrics(losses, nsq, C, full_mask, mask_ex)
             if dp.adaptive_clip and clip_norm is not None:
                 state, frac = adaptive_clip.update(

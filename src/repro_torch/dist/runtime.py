@@ -18,24 +18,41 @@ code runs in one process (tests, the chip smoke run) and data-parallel.
 Collectives take CUDA tensors on NCCL and on gloo; gloo gets a host copy
 (which is what it would stage itself), and gathers move raw bytes, so any
 dtype crosses any backend bit for bit.  Only ``all_reduce``,
-``all_gather`` and ``all_gather_object`` are used: gloo has no
-reduce-scatter.
+``all_gather`` (over gloo: ``broadcast``), ``all_gather_object`` and
+point-to-point sends are used: gloo has no reduce-scatter.
 
-Cost traces (launch/costs.py): while a ``CostCounter`` is active,
-``all_reduce_`` and ``all_gather`` append ``{"kind", "bytes", "group"}``
-to its collective records (``bytes``: the result's size on one rank).
-While a counter is active, a layout over a mesh with no process group (an
-object of the mesh's axis names and shape) is a trace of one rank's step:
-its batch group is a ``TracedGroup`` of the batch axes' size, whose
+FSDP (a ``use_fsdp`` arch on a ``data`` axis above 1): each rank holds one
+slice of every param that ``sharding.fsdp_shards`` places on ``data``,
+the param carrying its ``sharding.Shard`` as ``fsdp_shard``.
+``fsdp_gather`` makes the whole leaf from the slices just before a layer
+uses it, through ``_Gather``, a ``torch.autograd.Function`` whose
+backward sums the whole-leaf gradient over the batch group into this
+rank's slice (``reduce_slice``, a reduce-scatter made of point-to-point
+sends, since gloo has none): pass 2's gradient of a slice is the sum over
+every rank's examples.  Over gloo a gather is one broadcast from each
+rank (gloo's ``all_gather`` moves a few times fewer bytes a second), and
+CUDA tensors cross the host in pinned memory.  ``dpsgd`` needs each
+example's whole gradient before its clip, so it gathers whole leaves once
+a step outside autograd (``fsdp_whole``): their local gradient is the
+whole one, with no collective, and the clipped sum is reduced once
+(core/algo.py).
+
+Metering: inside ``metered()`` (the launcher's byte count, a
+``CostCounter``), ``all_reduce_``, ``all_gather`` and ``reduce_slice``
+append ``{"kind", "bytes", "group"}`` to its records (``bytes``: the
+result's size on one rank; a reduce-scatter's, the summed leaf's).  A
+meter changes nothing else.  Cost traces (launch/costs.py): inside
+``traced()``, and only there, a layout over a mesh with no process group
+(an object of the mesh's axis names and shape) is a trace of one rank's
+step: its batch group is a ``TracedGroup`` of the batch axes' size, whose
 collectives record and return what a real group's would in shape, moving
-nothing.  Outside a trace such a layout raises, as a step that would
-skip its collectives must not run.
+nothing.  Anywhere else such a layout raises, as a step that would skip
+its collectives must not run.
 """
 from __future__ import annotations
 
 import contextlib
 import math
-import threading
 import zlib
 from typing import Callable, List, Optional, Tuple
 
@@ -46,14 +63,19 @@ from repro_torch import tree
 from repro_torch.dist import sharding as _sh
 
 
-class _Layout(threading.local):
+class _Layout:
+    """The ambient layout, process-wide: the autograd engine runs a CUDA
+    backward, and the remat recompute inside it, on a thread of its own,
+    which must see the layout its forward ran under (FSDP's gathers)."""
+
     def __init__(self):
         self.mesh = None
         self.batch_axes: Optional[Tuple[str, ...]] = None
+        self.traces = 0           # cost traces in progress (``traced``)
 
 
 _ACTIVE = _Layout()
-# the active cost counters' collective record lists (launch/costs.py)
+# the active meters' collective record lists, innermost last (``metered``)
 COLLECTIVE_SINKS: list = []
 
 
@@ -86,6 +108,31 @@ def layout(mesh, batch_axes):
 
 
 @contextlib.contextmanager
+def metered(records: Optional[list] = None):
+    """Record every collective run inside into ``records`` (a new list if
+    None), which it yields.  Nothing else changes: a layout with no process
+    group still raises."""
+    records = [] if records is None else records
+    COLLECTIVE_SINKS.append(records)
+    try:
+        yield records
+    finally:
+        del COLLECTIVE_SINKS[[r is records for r in COLLECTIVE_SINKS].index(True)]
+
+
+@contextlib.contextmanager
+def traced():
+    """A cost trace of one rank's step on fake tensors (launch/costs.py):
+    inside it a layout over a mesh with no process group runs on
+    ``TracedGroup``s, its collectives recorded and not run."""
+    _ACTIVE.traces += 1
+    try:
+        yield
+    finally:
+        _ACTIVE.traces -= 1
+
+
+@contextlib.contextmanager
 def suspended():
     """No layout inside: the code runs as one process (the memory
     planner's trace of a step, which launches no collective)."""
@@ -108,28 +155,46 @@ def _n_shards(mesh, bax) -> int:
     return math.prod(_sh._axis_size(mesh, a) for a in bax)
 
 
+def _group_of(mesh, axes):
+    """The process group of ``axes`` of ``mesh``: the world when they span
+    it, else the one axis's group; a ``TracedGroup`` for a mesh with no
+    process group inside a cost trace."""
+    if not dist.is_initialized() or not hasattr(mesh, "get_group"):
+        if _ACTIVE.traces:
+            return TracedGroup(_n_shards(mesh, axes))
+        raise RuntimeError(
+            f"a layout over {_sh._axis_names(mesh)} with no process group: "
+            f"join one (torch.distributed.init_process_group) before the "
+            f"step; only a cost trace (launch/costs.py) runs without one")
+    if _n_shards(mesh, axes) == dist.get_world_size():
+        return dist.group.WORLD
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    raise NotImplementedError(
+        f"batch axes {axes} span part of the mesh {_sh._axis_names(mesh)}: "
+        f"only a batch over the whole world or one axis is ported "
+        f"(ROADMAP queue 1)")
+
+
 def batch_group():
     """The process group of the active layout's batch axes (None outside
     a layout): the world when they span it, else the one axis's group."""
     state = active()
     if state is None:
         return None
-    mesh, bax = state
-    if not dist.is_initialized():
-        if COLLECTIVE_SINKS:
-            return TracedGroup(_n_shards(mesh, bax))
+    return _group_of(*state)
+
+
+def fsdp_group():
+    """The process group of the active layout's ``data`` axis, which FSDP
+    shards params over.  Raises outside a layout: a sliced param cannot be
+    gathered there."""
+    state = active()
+    if state is None:
         raise RuntimeError(
-            f"a layout over {_sh._axis_names(mesh)} with no process group: "
-            f"join one (torch.distributed.init_process_group) before the "
-            f"step; only a cost trace (launch/costs.py) runs without one")
-    if _n_shards(mesh, bax) == dist.get_world_size():
-        return dist.group.WORLD
-    if len(bax) == 1:
-        return mesh.get_group(bax[0])
-    raise NotImplementedError(
-        f"batch axes {bax} span part of the mesh {_sh._axis_names(mesh)}: "
-        f"only a batch over the whole world or one axis is ported "
-        f"(ROADMAP queue 1)")
+            "an FSDP-sharded param outside a data-parallel layout: its slices "
+            "can only be gathered inside dist.runtime.layout(mesh, ...)")
+    return _group_of(state[0], ("data",))
 
 
 def batch_shard() -> Tuple[int, int]:
@@ -173,10 +238,18 @@ def _record(kind: str, nbytes: int, n: int) -> None:
 
 def _staged(t: torch.Tensor, group) -> torch.Tensor:
     """``t`` as the group's backend takes it: a contiguous tensor, on the
-    host for gloo."""
+    host for gloo (in pinned memory, which crosses the link several times
+    faster, from blocks the caching host allocator reuses)."""
     if t.is_cuda and dist.get_backend(group) == "gloo":
-        return t.to("cpu").contiguous()
+        return torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t)
     return t.contiguous()
+
+
+def _like(h: torch.Tensor, shape=None) -> torch.Tensor:
+    """An empty buffer beside a staged tensor: on its device, pinned when
+    it is."""
+    return torch.empty(h.shape if shape is None else shape, dtype=h.dtype,
+                       device=h.device, pin_memory=h.is_pinned())
 
 
 def all_reduce_(tensors: List[torch.Tensor], group=None) -> None:
@@ -195,20 +268,119 @@ def all_reduce_(tensors: List[torch.Tensor], group=None) -> None:
             t.copy_(h)
 
 
-def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
-    """Every rank's ``t`` (one shape on every rank) concatenated along dim
-    0 in rank order, on ``t``'s device; the bytes cross unchanged."""
+def all_gather(t: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
+    """Every rank's ``t`` (one shape on every rank) concatenated along
+    ``dim`` in rank order, on ``t``'s device; the bytes cross unchanged."""
     n = _group_size(group)
     if n == 1:
         return t
     _record("all-gather", n * t.numel() * t.element_size(), n)
     if isinstance(group, TracedGroup):
-        return torch.cat([t] * n)
+        return torch.cat([t] * n, dim=dim)
     h = _staged(t, group)
     flat = h.reshape(-1).view(torch.uint8)
-    outs = [torch.empty_like(flat) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(outs, flat, group=group)
-    return torch.cat([o.view(t.dtype).reshape(t.shape) for o in outs]).to(t.device)
+    out = _like(flat, (n, flat.numel()))
+    if dist.get_backend(group) == "gloo":
+        # one broadcast from each rank into its row: gloo's all_gather
+        # moves a few times fewer bytes a second between processes
+        me = dist.get_rank(group)
+        out[me].copy_(flat)
+        for k in range(n):
+            dist.broadcast(out[k], group=group,
+                           src=dist.get_global_rank(group, k))
+    else:
+        dist.all_gather(list(out.unbind(0)), flat, group=group)
+    whole = out.to(t.device).view(t.dtype).reshape((n,) + tuple(t.shape))
+    return torch.cat(whole.unbind(0), dim=dim)
+
+
+def reduce_slice(g: torch.Tensor, shard, group, lead: int = 0) -> torch.Tensor:
+    """This rank's ``shard`` (``sharding.Shard``) of the sum of the whole
+    leaf ``g`` over ``group``'s ranks, as a new tensor on ``g``'s device;
+    ``g`` is left as it was.  ``lead``: leading dims of the stacked leaf
+    indexed away.  A reduce-scatter: each rank sends every other rank that
+    rank's slice of its ``g`` and adds the slices it receives to its own,
+    in rank order, on ``g``'s device (gloo has no reduce-scatter; point to
+    point, each rank moves (n-1)/n of the leaf each way, where an
+    all-reduce moves twice that and sums on the host).  Recorded as a
+    ``reduce-scatter`` of ``g``'s bytes."""
+    n = _group_size(group)
+    if n > 1:
+        _record("reduce-scatter", g.numel() * g.element_size(), n)
+    if n == 1 or isinstance(group, TracedGroup):
+        return shard.of(g, lead).clone()
+    d, me = shard.dim - lead, dist.get_rank(group)
+    parts = [g.narrow(d, k * shard.part, shard.part) for k in range(n)]
+    ops, got = [], {}
+    for k in range(n):
+        if k != me:
+            peer = dist.get_global_rank(group, k)
+            send = _staged(parts[k], group)
+            got[k] = _like(send)
+            ops += [dist.P2POp(dist.isend, send, peer, group),
+                    dist.P2POp(dist.irecv, got[k], peer, group)]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    out = parts[me].clone(memory_format=torch.contiguous_format)
+    for k in sorted(got):
+        out += got[k].to(g.device)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# FSDP
+# ---------------------------------------------------------------------------
+
+def fsdp_shard_of(t) -> Optional["_sh.Shard"]:
+    """The ``sharding.Shard`` an FSDP-sharded param carries, else None."""
+    return getattr(t, "fsdp_shard", None)
+
+
+class _Gather(torch.autograd.Function):
+    """This rank's slice -> the whole leaf (``all_gather`` along the
+    shard's dim over the ``data`` group).  Backward: the whole-leaf
+    gradient summed over the batch group into this rank's slice
+    (``reduce_slice``), so a slice's gradient sums every rank's examples."""
+
+    @staticmethod
+    def forward(ctx, part, shard, lead, group):
+        ctx.shard, ctx.lead, ctx.reduce_group = shard, lead, batch_group()
+        return all_gather(part, group, shard.dim - lead)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (reduce_slice(g, ctx.shard, ctx.reduce_group, ctx.lead),
+                None, None, None)
+
+
+def fsdp_gather(part: torch.Tensor, shard, lead: int = 0) -> torch.Tensor:
+    """The whole leaf of an FSDP slice, differentiable (``_Gather``):
+    ``part`` is this rank's ``shard`` of a leaf, ``lead`` leading dims of
+    the stacked leaf indexed away.  A leaf that is already whole (a trace
+    of the whole-param step, ``dpsgd``'s gathered leaves) is returned as
+    it is; a slice outside a layout raises (``fsdp_group``)."""
+    d = shard.dim - lead
+    if part.shape[d] == shard.size:
+        return part
+    if part.shape[d] != shard.part:
+        raise ValueError(f"FSDP slice of {part.shape[d]} along dim {d}; the "
+                         f"shard is {shard.part} of {shard.size}")
+    group = fsdp_group()
+    if _group_size(group) != shard.count:
+        raise RuntimeError(f"FSDP slices of {shard.count} ranks gathered over "
+                           f"a group of {_group_size(group)}")
+    return _Gather.apply(part, shard, lead, group)
+
+
+def fsdp_whole(p: torch.Tensor) -> torch.Tensor:
+    """An FSDP-sharded param's whole leaf, outside autograd (``dpsgd``'s
+    per-example mode: the caller differentiates the whole leaf, so each
+    example's gradient is whole and local); any other param as it is."""
+    shard = fsdp_shard_of(p)
+    if shard is None:
+        return p
+    with torch.no_grad():
+        return fsdp_gather(p.detach(), shard)
 
 
 def batch_local(fn: Callable, n_batch_args: int,
@@ -281,16 +453,24 @@ def init_fingerprint(params) -> int:
     on the same params: leaves in the order of their key paths' ``str``,
     each the crc32 of its ``keystr``, shape and dtype record chained with
     its raw bytes (bf16 as its 2-byte words), and each leaf's crc chained
-    into the total.  Every rank holds whole params (ZeRO-1 shards only the
-    optimizer state), so every leaf contributes its bytes."""
+    into the total.  An FSDP slice (a leaf with ``fsdp_shard``) records its
+    whole leaf's shape and no bytes, the reference's rule for a leaf that
+    is not fully addressable: the bytes live on other ranks, and the
+    structure this check exists to catch is visible without them."""
     total = 0
     for path, leaf in sorted(_key_paths(params), key=lambda kv: _path_str(kv[0])):
         dtype = str(leaf.dtype).removeprefix("torch.")
-        rec = f"{_keystr(path)}:{tuple(leaf.shape)}:{dtype}"
-        h = leaf.detach().to("cpu").contiguous()
-        if h.dtype == torch.bfloat16:
-            h = h.view(torch.int16)
-        c = zlib.crc32(h.numpy().tobytes(), zlib.crc32(rec.encode()))
+        shard = fsdp_shard_of(leaf)
+        shape = list(leaf.shape)
+        if shard is not None:
+            shape[shard.dim] = shard.size
+        rec = f"{_keystr(path)}:{tuple(shape)}:{dtype}"
+        c = zlib.crc32(rec.encode())
+        if shard is None:
+            h = leaf.detach().to("cpu").contiguous()
+            if h.dtype == torch.bfloat16:
+                h = h.view(torch.int16)
+            c = zlib.crc32(h.numpy().tobytes(), c)
         total = zlib.crc32(c.to_bytes(4, "little"), total)
     return total & 0xFFFFFFFF
 

@@ -26,14 +26,17 @@ names and sizes: they run on a ``DeviceMesh`` (``mesh_dim_names``,
 ``shape``) or on any object with ``axis_names`` and ``devices.shape`` or
 ``shape`` (a fake mesh in tests), and never touch a device.
 
-The port places only what its runtime runs: the batch axes and ZeRO-1's
-``data`` sharding of the optimizer state (train/trainer.py).  The
-``model`` and ``stage`` axes and FSDP are refused by the launcher
-(ROADMAP queue 1); their rules are here so that placements agree with the
-reference's.
+The port places only what its runtime runs: the batch axes, ZeRO-1's
+``data`` sharding of the optimizer state (train/trainer.py) and FSDP's
+``data`` sharding of a ``use_fsdp`` arch's params (``fsdp_shards``: each
+rank holds one slice of such a leaf, gathered a layer at a time in the
+forward; models/transformer.py, dist/runtime.py).  The ``model`` and
+``stage`` axes are refused by the launcher (ROADMAP queue 1); their rules
+are here so that placements agree with the reference's.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence, Tuple
 
 from repro_torch import tree
@@ -196,6 +199,55 @@ def param_shardings(mesh, model, fsdp: Optional[bool] = None):
     return _zip_spec_tree(
         model.abstract_params(), model.logical_axes(),
         lambda leaf, ax: spec_for_param(ax, leaf.shape, mesh, fsdp=fsdp))
+
+
+@dataclasses.dataclass(frozen=True)
+class Shard:
+    """This rank's slice of an FSDP-sharded param: slice ``index`` of
+    ``count`` equal slices along ``dim`` of the whole leaf, whose extent
+    along ``dim`` is ``size``.  Not a tuple, so a tree of them keeps its
+    tuples as containers (``tree.tree_map``)."""
+    dim: int
+    index: int
+    count: int
+    size: int
+
+    @property
+    def part(self) -> int:
+        """The slice's extent along ``dim``."""
+        return self.size // self.count
+
+    def of(self, whole, lead: int = 0):
+        """This rank's view of a whole leaf; ``lead`` leading dims (a
+        stacked leaf's layer dim) already indexed away."""
+        return whole.narrow(self.dim - lead, self.index * self.part, self.part)
+
+
+def fsdp_shards(mesh, model, index: Optional[int] = None):
+    """The FSDP layout of ``model``'s params on ``mesh``: a tree parallel
+    to ``model.abstract_params()`` whose leaf is this rank's ``Shard`` of a
+    param that ``param_shardings`` places on the ``data`` axis (the arch's
+    ``use_fsdp``: the first named non-``layers`` dim the axis divides), or
+    None for a leaf that stays whole.  ``index``: the rank's coordinate on
+    the ``data`` axis (default this process's, from a ``DeviceMesh``; a
+    trace of one rank's step on a mesh of names and sizes passes it).
+    Every leaf is None on a ``data`` axis of 1 or for an arch without
+    ``use_fsdp``."""
+    count = _axis_size(mesh, "data")
+    if count > 1 and index is None:
+        index = mesh.get_local_rank("data")
+
+    def leaf(shaped, axes):
+        if count == 1:
+            return None
+        spec = spec_for_param(axes, shaped.shape, mesh,
+                              fsdp=bool(getattr(model.arch, "use_fsdp", False)))
+        if "data" not in spec:
+            return None
+        d = spec.index("data")
+        return Shard(d, int(index), count, int(shaped.shape[d]))
+
+    return _zip_spec_tree(model.abstract_params(), model.logical_axes(), leaf)
 
 
 def batch_shardings(mesh, abs_tree, global_batch: int):

@@ -32,9 +32,14 @@ The collective term is the gradient tree's ring all-reduce over the batch
 axis, 2(w-1)/w of the float32 gradient bytes (a quarter of it under int8
 compression), over the H100's NVLink bandwidth (``roofline.LINK_BW``).
 Meshes: the launcher runs a ``data`` axis only, so a plan whose ``model``
-axis (the last) is above 1, or a ``use_fsdp`` arch on a wider batch axis,
-is infeasible with the launcher's own reason (``launch/train.py``
-``unported_mesh_reason``).  On a CUDA model a measured plan runs its
+axis (the last) is above 1, or a ``use_fsdp`` arch's plan with
+``compress_grads`` on a wider batch axis, is infeasible with the
+launcher's own reason (``launch/train.py`` ``unported_mesh_reason``).  A
+``use_fsdp`` arch's plan on a wider batch axis trains FSDP-sharded: its
+collective term is that of the FSDP collectives one rank's step records
+(``launch/costs.py`` ``traced_rank_collectives``: the gathers a layer at
+a time, the slices' gradient reductions and the rest of the step's),
+traced once per trace key.  On a CUDA model a measured plan runs its
 kernels on the card; a kernel that fails to build or launch raises.
 """
 from __future__ import annotations
@@ -258,6 +263,7 @@ class PlanScorer:
         self.cache_hits = 0            # served from either cache
         self._scores: Dict[LaunchPlan, PlanScore] = {}
         self._traces: Dict[tuple, tuple] = {}
+        self._rank_records: Dict[tuple, list] = {}
         self._models: Dict[int, object] = {}
 
     # -- model / trace machinery ------------------------------------------
@@ -336,7 +342,8 @@ class PlanScorer:
         from repro_torch.launch.train import unported_mesh_reason
         model = int(plan.mesh_shape[-1]) if len(plan.mesh_shape) > 1 else 1
         return unported_mesh_reason(self.arch, {"model": model,
-                                                "data": plan.width})
+                                                "data": plan.width},
+                                    plan.apply(self.base_cfg))
 
     # -- the fitness function ---------------------------------------------
     def score(self, plan: LaunchPlan) -> PlanScore:
@@ -383,6 +390,25 @@ class PlanScorer:
         self._scores[plan] = s
         return s
 
+    def fsdp_records(self, plan: LaunchPlan) -> list:
+        """The collective records of one rank's step of a ``use_fsdp``
+        arch's plan on its batch axis (``costs.traced_rank_collectives``),
+        traced once per trace key and width."""
+        capacity = self._capacity(plan)
+        key = (plan.grad_accum, plan.microbatch, plan.remat,
+               plan.norm_strategy, plan.use_kernels, plan.pp_stages,
+               capacity, plan.width)
+        if key not in self._rank_records:
+            from repro_torch.launch.costs import traced_rank_collectives
+            from repro_torch.launch.memory import abstract_batch
+            cfg_p = plan.apply(self.base_cfg)
+            self._rank_records[key] = traced_rank_collectives(
+                self.model_for(plan.pp_stages), cfg_p,
+                abstract_batch(self.arch, capacity, self.shape.seq_len,
+                               augmult=cfg_p.dp.augmult),
+                plan.width, expected_batch_size=self._expected())
+        return self._rank_records[key]
+
     def costs_of(self, plan: LaunchPlan) -> dict:
         """The traced costs of a scored feasible plan's step."""
         return self._trace(plan, self._capacity(plan))[1]
@@ -396,7 +422,9 @@ class PlanScorer:
         fused strategy still avoid the per-example spill (OS+PPU); the
         plain route prices as the conventional weight-stationary array.
         The collective term is the gradient tree's ring all-reduce over the
-        batch axis, /4 under int8 compression."""
+        batch axis, /4 under int8 compression; for a ``use_fsdp`` arch on a
+        wider batch axis, the ring bytes of one rank's traced FSDP
+        collectives (``fsdp_records``)."""
         from repro_torch.sim.dataflow import DIVA, OS_PPU, WS, traced_step_time
         if plan.use_kernels and plan.norm_strategy == "fused":
             acc = DIVA
@@ -406,7 +434,10 @@ class PlanScorer:
             acc = WS
         w = plan.width
         coll = 0.0
-        if w > 1:
+        if w > 1 and self.arch.use_fsdp:
+            from repro_torch.launch.roofline import collective_bytes
+            coll = collective_bytes(self.fsdp_records(plan), w)["total"]
+        elif w > 1:
             coll = est.get("grad_bytes", 0) * 2.0 * (w - 1) / w
             if plan.compress_grads:
                 coll /= COMPRESS_FACTOR

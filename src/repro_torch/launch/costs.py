@@ -30,10 +30,11 @@ runs only what the card runs, so whatever it computes is counted.
   Nothing the wrapper runs inside (its plain version on the CPU, its fake
   branch's allocations) is counted again, so a kernel route costs the same
   on the card and on the CPU.
-* **Collectives.**  ``dist/runtime.py``'s ``all_reduce_`` and
-  ``all_gather`` append ``{"kind", "bytes", "group"}`` while a counter is
-  active, under a layout with a process group or a group-less one of the
-  mesh's shape (a trace of one rank's step); ``roofline.collective_bytes``
+* **Collectives.**  ``dist/runtime.py``'s ``all_reduce_``,
+  ``all_gather`` and FSDP's gathers and slice reductions append ``{"kind",
+  "bytes", "group"}`` while a counter is active, under a layout with a
+  process group or a group-less one of the mesh's shape (a trace of one
+  rank's step, ``traced_rank_collectives``); ``roofline.collective_bytes``
   turns them into wire bytes.
 """
 from __future__ import annotations
@@ -267,13 +268,15 @@ class CostCounter(TorchDispatchMode):
     def __enter__(self):
         if self.kernels:
             kbuild.COST_SINKS.append(self)
-            runtime.COLLECTIVE_SINKS.append(self.costs.collectives)
+            self._trace = contextlib.ExitStack()
+            self._trace.enter_context(runtime.traced())
+            self._trace.enter_context(runtime.metered(self.costs.collectives))
         return super().__enter__()
 
     def __exit__(self, *exc):
         if self.kernels:
             kbuild.COST_SINKS.remove(self)
-            runtime.COLLECTIVE_SINKS.remove(self.costs.collectives)
+            self._trace.close()
         return super().__exit__(*exc)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -348,6 +351,57 @@ def traced_costs(fn, *args, device=None) -> dict:
     d = counter.costs.as_dict()
     d["io_bytes"] = float(io)
     return d
+
+
+def traced_rank_collectives(model, train_cfg, batch_abs, width: int,
+                            expected_batch_size=None, device=None) -> List[dict]:
+    """The collective records (``{"kind", "bytes", "group"}``) of one
+    rank's ``TrainStep`` on a ``width``-wide ``data`` axis, traced on fake
+    tensors under a layout with no process group (its groups are
+    ``TracedGroup``s): the first rank's FSDP slices of ``model``'s params
+    (``dist.sharding.fsdp_shards``; whole leaves for an arch without
+    ``use_fsdp``), its ``1/width`` of ``batch_abs``'s rows, and every
+    gather, gradient reduction and all-gather that step makes.  ``device``
+    (default the model's) is the fake tensors' device.  The model, its
+    remat policy and every generator are as they were afterwards."""
+    import types
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch import tree
+    from repro_torch.dist import sharding
+    from repro_torch.train.trainer import TrainStep
+    device = model.device if device is None else torch.device(device)
+    mesh = types.SimpleNamespace(axis_names=("data",), shape=(width,))
+    shards = sharding.fsdp_shards(mesh, model, index=0)
+
+    def walk(p, sh):
+        """A fake param of ``p``'s type: the slice ``sh`` names, or whole."""
+        if isinstance(p, dict):
+            return {k: walk(v, sh[k]) for k, v in p.items()}
+        if isinstance(p, (list, tuple)):
+            out = [walk(v, s) for v, s in zip(p, sh)]
+            return tuple(out) if isinstance(p, tuple) else out
+        shape = list(p.shape)
+        if sh is not None:
+            shape[sh.dim] = sh.part
+        t = torch.empty(shape, dtype=p.dtype, device=device).requires_grad_(True)
+        if sh is not None:
+            t.fsdp_shard = sh
+        return t
+
+    saved = model.fsdp, model.remat
+    model.fsdp, model.remat = shards, train_cfg.remat
+    step = TrainStep(model, train_cfg, expected_batch_size)
+    try:
+        with runtime.traced(), runtime.metered() as records, FakeTensorMode():
+            state = step.init_state(walk(model.abstract_params(), shards), device)
+            batch = tree.tree_map(lambda t: torch.empty(
+                (t.shape[0] // width,) + tuple(t.shape[1:]), dtype=t.dtype,
+                device=device), batch_abs)
+            with runtime.layout(mesh, ("data",)):
+                step(state, batch, torch.Generator())
+    finally:
+        model.fsdp, model.remat = saved
+    return records
 
 
 # ---------------------------------------------------------------------------

@@ -245,7 +245,9 @@ def estimate_train_memory(model, train_cfg, batch_abs,
     (``train/trainer.py`` ``TrainStep``) under the config's remat policy,
     so remat, algorithm, grad_accum, microbatch and the pipeline schedule
     all shape the estimate.  The trace is of one process on the whole batch
-    (no collective; ``per_device_peak_bytes`` divides it over a mesh).
+    with whole params (no collective; ``per_device_peak_bytes`` divides it
+    over a mesh, taking params and optimizer state as replicated, so an
+    FSDP model's estimate is the reference's conservative one).
     ``device`` (default the model's) is the fake tensors' device.  With
     ``costs``, the same trace also counts the step's work
     (``launch/costs.py`` ``CostCounter``) into ``"costs"`` (``Costs.as_dict``
@@ -259,11 +261,15 @@ def estimate_train_memory(model, train_cfg, batch_abs,
     remat = model.remat
     model.remat = train_cfg.remat
     try:
+        # whole params: an FSDP model's slices are the whole leaves' shapes
+        # here, which its gathers pass through as they are
+        whole = (model.params if getattr(model, "fsdp", None) is None
+                 else model.abstract_params())
         with runtime.suspended(), FakeTensorMode():
             params = tree.tree_map(
                 lambda p: torch.empty(p.shape, dtype=p.dtype,
                                       device=device).requires_grad_(True),
-                model.params)
+                whole)
             state = step.init_state(params, device)
             batch = tree.tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
                                                         device=device),
@@ -279,14 +285,14 @@ def estimate_train_memory(model, train_cfg, batch_abs,
                     lambda: step(state, batch, torch.Generator()),
                     [state.params, state.opt_state, batch])
             params_bytes = _tree_bytes(params)
+            block_bytes = _tree_bytes(params["blocks"]) if (
+                isinstance(params, dict) and params.get("blocks") is not None) else 0
             opt_bytes = _tree_bytes(state.opt_state)
             batch_bytes = _tree_bytes(batch)
             leaves = tree.leaves(params)
     finally:
         model.remat = remat
     param_elems = sum(p.numel() for p in leaves)
-    blocks = model.params.get("blocks") if isinstance(model.params, dict) else None
-    block_bytes = _tree_bytes(blocks) if blocks is not None else 0
     B = tree.leaves(batch_abs)[0].shape[0]
     out = est.as_dict()
     out.update({
@@ -296,7 +302,7 @@ def estimate_train_memory(model, train_cfg, batch_abs,
         "grad_bytes": 4 * param_elems,          # f32 gradient tree
         "per_example_grad_bytes": per_example_grad_bytes(
             train_cfg.dp, B, train_cfg.grad_accum, param_elems),
-        "block_params_fraction": block_bytes / max(_tree_bytes(model.params), 1),
+        "block_params_fraction": block_bytes / max(params_bytes, 1),
         "remat": train_cfg.remat,
         "algo": train_cfg.dp.algo if train_cfg.dp.enabled else "sgd",
         "grad_accum": int(train_cfg.grad_accum),

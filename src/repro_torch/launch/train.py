@@ -32,6 +32,11 @@ a data-parallel world.
         --set ckpt_dir=/path/to/ckpts --set ckpt_every=3 \
         --set data_source=memmap:/path/to/tokens.bin --set optim.name=adam8bit
 
+    # FSDP: a use_fsdp arch at full width on two ranks (a card each):
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc_per_node 2 -m repro_torch.launch.train --arch chameleon-34b \
+        --layers 1 --steps 2 --mesh 2 --axes data --set zero1=true
+
     # data parallel, two processes (one a card, or both on the CPU):
     PYTHONPATH=src python -m torch.distributed.run --standalone \
         --nproc_per_node 2 -m repro_torch.launch.train --arch phi3-mini-3.8b \
@@ -68,10 +73,17 @@ batch shards over its batch axes (``dist.sharding.batch_pspec``): each rank
 trains on its slice, the clipped sum is all-reduced before the noise and
 every rank adds the same noise, so the run has the DP-SGD semantics of one
 process on the global batch.  A fresh run prints the init fingerprint that
-every process agreed on.  Not ported, and refused by name (ROADMAP queue
-1): a ``model`` axis above 1 (tensor parallelism), a ``stage`` axis above
-1 (pipeline stages across processes; ``pp_stages`` runs the schedule in
-each process) and a ``use_fsdp`` arch on a ``data`` axis above 1.
+every process agreed on.  A ``use_fsdp`` arch (chameleon-34b, grok-1-314b,
+jamba-1.5-large-398b) on a ``data`` axis above 1 is built FSDP-sharded:
+each rank draws and holds its slice of every param ``param_shardings``
+places on ``data``, gathers each layer's whole params just before the
+layer runs, and its pass-2 gradients are summed over the ranks and cut
+back to its slices (dist/runtime.py); the init fingerprint then records a
+slice's whole shape and no bytes.  Not ported, and refused by name
+(ROADMAP queue 1): a ``model`` axis above 1 (tensor parallelism), a
+``stage`` axis above 1 (pipeline stages across processes; ``pp_stages``
+runs the schedule in each process), and with FSDP ``compress_pod_grads``
+and ``adam8bit``, whose int8 blocks span the flattened whole leaf.
 
 ``--autotune`` solves for the fastest feasible launch plan first
 (``launch/autotune.py``; ``--set tune.*`` sets the search): it searches the
@@ -91,25 +103,31 @@ budget the Trainer first picks the largest microbatch that fits
 (``[trainer] auto_microbatch: grad_accum a -> b``).  With
 ``mem.compiled_check`` (the default) on a CUDA device the run's measured
 peak (``torch.cuda.max_memory_allocated`` over its steps) is printed beside
-the estimate after it.
+the estimate after it.  Each rank then prints its resident param and
+optimizer-state bytes before the run, and after it the kernel launches
+of its steps and the bytes its collectives moved (each result's size on
+one rank, by kind).
 """
 from __future__ import annotations
 
 import argparse
 import datetime
 import gc
+import json
 import os
 from dataclasses import replace
 
 import torch
 import torch.distributed as dist
 
+from repro_torch import kernels, tree
 from repro_torch.configs import (IMAGE_FAMILIES, SHAPES, ShapeConfig,
                                  TrainConfig, apply_overrides, get_arch,
                                  parse_set_args, reduced)
 from repro_torch.dist import runtime, sharding
 from repro_torch.models import build_model_for
 from repro_torch.train import Trainer
+from repro_torch.train.trainer import fsdp_refusal
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # a collective that a rank never reaches fails the run after this long
@@ -170,29 +188,29 @@ def make_run_mesh(args, cfg, mesh_keys: bool, world: int):
     return make_host_mesh() if world > 1 else None
 
 
-def unported_mesh_reason(arch, sizes: dict) -> str:
+def unported_mesh_reason(arch, sizes: dict, cfg=None) -> str:
     """Why the port cannot run ``arch`` on a mesh of these axis sizes
-    (``{"model": 1, "data": 2}``; an absent axis is 1), naming ROADMAP; ""
-    when it can.  The launch autotuner gives it as a plan's reason."""
+    (``{"model": 1, "data": 2}``; an absent axis is 1) under the training
+    config ``cfg``, naming ROADMAP; "" when it can.  The launch autotuner
+    gives it as a plan's reason."""
     for axis, what in ((sharding.MODEL_AXIS, "tensor parallelism"),
                        (sharding.STAGE_AXIS, "pipeline stages across processes")):
         size = sizes.get(axis, 1)
         if size > 1:
             return (f"a {size}-wide {axis!r} mesh axis ({what}) is not ported "
                     f"yet (ROADMAP queue 1)")
-    data = sizes.get("data", 1)
-    if arch.use_fsdp and data > 1:
-        return (f"{arch.name} shards its params over the data axis (use_fsdp): "
-                f"FSDP on a {data}-wide data axis is not ported yet (ROADMAP "
-                f"queue 1)")
+    if arch.use_fsdp and sizes.get("data", 1) > 1 and cfg is not None:
+        reason = fsdp_refusal(cfg)
+        if reason:
+            return f"{arch.name} (use_fsdp): {reason}"
     return ""
 
 
-def refuse_unported(mesh, arch) -> None:
+def refuse_unported(mesh, arch, cfg=None) -> None:
     """Raise, naming ROADMAP, on a mesh the port does not run."""
     reason = unported_mesh_reason(arch, {
         a: sharding._axis_size(mesh, a)
-        for a in (sharding.MODEL_AXIS, sharding.STAGE_AXIS, "data")})
+        for a in (sharding.MODEL_AXIS, sharding.STAGE_AXIS, "data")}, cfg)
     if reason:
         raise NotImplementedError(reason)
 
@@ -308,7 +326,7 @@ def _train(args, device, backend, rank, world) -> None:
         mesh = make_run_mesh(args, cfg, any(k.startswith("mesh.") for k in sets),
                              world)
     if mesh is not None:
-        refuse_unported(mesh, arch)
+        refuse_unported(mesh, arch, cfg)
 
     plan = None
     if args.autotune:
@@ -319,7 +337,7 @@ def _train(args, device, backend, rank, world) -> None:
                             param_dtype=DTYPES[cfg.param_dtype],
                             device=device, seed=cfg.seed, remat=cfg.remat,
                             pp_stages=cfg.pp_stages,
-                            pp_microbatches=cfg.pp_microbatches)
+                            pp_microbatches=cfg.pp_microbatches, mesh=mesh)
     trainer = Trainer(model, cfg, shape, mesh=mesh, plan=plan)
     bax = None if mesh is None else sharding.batch_pspec(mesh, trainer.capacity)
     with runtime.layout(mesh, bax):
@@ -332,8 +350,13 @@ def _run(trainer, model, cfg, shape, arch, mesh, bax, world) -> None:
                 f"{cfg.dp.augmult} views")
     else:
         rows = f"{shape.global_batch} x {shape.seq_len}"
-    print(f"[train] {arch.name}: {sum(p.numel() for p in model.parameters())} "
-          f"params {cfg.param_dtype} (compute {cfg.compute_dtype}) on "
+    held = sum(p.numel() for p in model.parameters())
+    total, fsdp = held, ""
+    if getattr(model, "fsdp", None) is not None:
+        total = sum(p.numel() for p in tree.leaves(model.abstract_params()))
+        fsdp = f" (FSDP: this rank holds {held} of them)"
+    print(f"[train] {arch.name}: {total} params{fsdp} "
+          f"{cfg.param_dtype} (compute {cfg.compute_dtype}) on "
           f"{model.device}; data {cfg.data_source}; batch {rows}; remat "
           f"{cfg.remat}; dp {cfg.dp.algo} norm_strategy={cfg.dp.norm_strategy} "
           f"use_kernels={cfg.dp.use_kernels} adaptive_clip="
@@ -383,16 +406,30 @@ def _run(trainer, model, cfg, shape, arch, mesh, bax, world) -> None:
               f"{per_dev / 1e9:.3f} GB exceeds mem.hbm_budget_bytes="
               f"{budget / 1e9:.3f} GB (set mem.auto_microbatch=true to split "
               f"the batch)", flush=True)
+    print(f"[train] resident on this rank: params "
+          f"{sum(p.numel() * p.element_size() for p in tree.leaves(state.params))} B, "
+          f"optimizer state "
+          f"{sum(t.numel() * t.element_size() for t in tree.leaves(state.opt_state))} "
+          f"B", flush=True)
     measure = cfg.mem.compiled_check and model.device.type == "cuda"
     if measure:
         torch.cuda.reset_peak_memory_stats(model.device)
     first = state.step
-    state = trainer.run(state)
+    launches = kernels.launch_counts()
+    with runtime.metered() as records:
+        state = trainer.run(state)
     if measure:
         peak = torch.cuda.max_memory_allocated(model.device)
         print(f"[train] memory: measured peak {peak / 1e9:.3f} GB over steps "
               f"{first}..{state.step - 1} (estimate/measured "
               f"{rep['peak_bytes'] / max(peak, 1):.2f})", flush=True)
+    launches = {k: v - launches[k] for k, v in kernels.launch_counts().items()}
+    moved = {}
+    for r in records:
+        moved[r["kind"]] = moved.get(r["kind"], 0) + r["bytes"]
+    print(f"[train] steps {first}..{state.step - 1}: kernel launches "
+          f"{json.dumps(launches)}; collectives {json.dumps(moved)} B in "
+          f"{len(records)} calls", flush=True)
     eps = trainer.accountant.epsilon_at(state.step)
     split = ""
     if trainer.adaptive_clip:

@@ -36,10 +36,12 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.nn as nn
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, tree
 from repro_torch.configs.base import ATTN, MAMBA, ArchConfig, validate_remat
 from repro_torch.core.algo import stage_microbatches
 from repro_torch.core.context import DPContext
+from repro_torch.dist import runtime
+from repro_torch.dist import sharding as dist_sharding
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2
 from repro_torch.models import moe as moe_lib
@@ -125,7 +127,8 @@ def _map_spec(spec, fn, path=()):
 
 
 def init_spec(spec, seed: int, dtype: torch.dtype, device: torch.device,
-              lead=lambda path: (), fan_in=lambda shape: math.prod(shape[:-1])):
+              lead=lambda path: (), fan_in=lambda shape: math.prod(shape[:-1]),
+              part=lambda path: None):
     """Seeded init of a spec tree on ``device``, with the distributions of
     the JAX package's initialisers: ones and zeros, Mamba's ``mamba_dt``
     (the inverse softplus of exp U(ln 1e-3, ln 1e-1)) and ``mamba_alog``
@@ -141,7 +144,12 @@ def init_spec(spec, seed: int, dtype: torch.dtype, device: torch.device,
     ``torch.Generator`` seeded by a crc32 of (seed, its path, the slice's
     index and first row; an unstacked leaf of at most ``DRAW_ELEMS``: seed
     and path), so its values do not depend on the other leaves or slices.
-    The bits differ from JAX's threefry: tests share weights via
+    ``part(path)``: the ``dist.sharding.Shard`` of a leaf this process
+    holds one FSDP slice of (None: the whole leaf).  Such a leaf is drawn
+    a layer slice (or a row block) at a time as above and only its part is
+    kept, skipping row blocks outside it, so the slice equals the same
+    slice of the whole leaf bit for bit and no whole stacked leaf is ever
+    held.  The bits differ from JAX's threefry: tests share weights via
     ``interop``."""
     def draw(p: P, shape, key: str):
         g = torch.Generator(device=device)
@@ -159,24 +167,41 @@ def init_spec(spec, seed: int, dtype: torch.dtype, device: torch.device,
 
     def mk(p: P, path):
         shape = lead(path) + p.shape
+        sh = part(path)
+        local = list(shape)
+        if sh is not None:
+            local[sh.dim] = sh.part
         if p.init in ("ones", "zeros"):
             fill = torch.ones if p.init == "ones" else torch.zeros
-            return fill(shape, dtype=torch.float32, device=device)
+            return fill(local, dtype=torch.float32, device=device)
         small = p.init in ("mamba_dt", "mamba_alog")        # kept float32
-        out = torch.empty(shape, dtype=torch.float32 if small else dtype,
+        out = torch.empty(local, dtype=torch.float32 if small else dtype,
                           device=device)
         n = len(lead(path))
         piece = shape[n:]
         rows = max(1, DRAW_ELEMS // max(1, math.prod(piece[1:])))
+        # this process's rows of the piece's first dim, and the dim of the
+        # piece its FSDP slice cuts when that is another one
+        lo, hi, cut = 0, piece[0], None
+        if sh is not None and sh.dim == n:
+            lo, hi = sh.index * sh.part, (sh.index + 1) * sh.part
+        elif sh is not None:
+            cut = sh.dim - n
+
+        def keep(w):
+            return w if cut is None else w.narrow(cut, sh.index * sh.part, sh.part)
         base = f"{seed}:{'/'.join(path)}"
         for idx in itertools.product(*map(range, shape[:n])):
             key = f"{base}:{','.join(map(str, idx))}" if n else base
             if math.prod(piece) <= DRAW_ELEMS:
-                out[idx] = draw(p, piece, key)
+                out[idx] = keep(draw(p, piece, key)[lo:hi])
                 continue
             for r in range(0, piece[0], rows):        # rows at a time
-                out[idx][r:r + rows] = draw(p, (min(rows, piece[0] - r),) + piece[1:],
-                                            f"{key}:rows{r}")
+                h = min(rows, piece[0] - r)
+                a, b = max(r, lo), min(r + h, hi)
+                if a < b:
+                    w = draw(p, (h,) + piece[1:], f"{key}:rows{r}")
+                    out[idx][a - lo:b - lo] = keep(w[a - r:b - r])
         return out
 
     return _map_spec(spec, mk)
@@ -219,13 +244,26 @@ def logical_axes(arch: ArchConfig):
 
 
 def init_params(arch: ArchConfig, seed: int, dtype: torch.dtype,
-                device: torch.device):
+                device: torch.device, shards=None):
     """``init_spec`` of the decoder's spec; every ``blocks`` leaf carries
     the leading ``(reps,)`` axis.  fan_in is a weight's second-to-last dim,
     as in the JAX transformer: d_in of a dense (d_in, d_out) and of an
-    expert stack (E, d_in, d_out) alike."""
+    expert stack (E, d_in, d_out) alike.  ``shards``: the FSDP layout
+    (``dist.sharding.fsdp_shards``), whose sharded leaves are drawn as
+    this process's slices only."""
     return init_spec(model_spec(arch), seed, dtype, device,
-                     _blocks_lead(arch), lambda shape: shape[-2])
+                     _blocks_lead(arch), lambda shape: shape[-2],
+                     lambda path: _at(shards, path))
+
+
+def _at(tree, path):
+    """The entry of ``tree`` at a spec path (dict keys, sequence indices as
+    str); None for a None tree."""
+    for k in path:
+        if tree is None:
+            return None
+        tree = tree[k] if isinstance(tree, dict) else tree[int(k)]
+    return tree
 
 
 def _index(tree, r: int):
@@ -233,6 +271,21 @@ def _index(tree, r: int):
     if isinstance(tree, dict):
         return {k: _index(v, r) for k, v in tree.items()}
     return tree[r]
+
+
+def gathered(params, shards, lead: int = 0):
+    """``params`` (a subtree of the model's) with every FSDP slice gathered
+    whole (``dist.runtime.fsdp_gather``), ``shards`` the parallel subtree
+    of the FSDP layout (None: nothing sharded), ``lead`` the stacked dims
+    already indexed away."""
+    if shards is None:
+        return params
+    if isinstance(params, dict):
+        return {k: gathered(v, shards[k], lead) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        out = [gathered(v, s, lead) for v, s in zip(params, shards)]
+        return tuple(out) if isinstance(params, tuple) else out
+    return runtime.fsdp_gather(params, shards, lead)
 
 
 # ---------------------------------------------------------------------------
@@ -252,31 +305,54 @@ class ParamModel(nn.Module):
     (``configs.base.REMAT_POLICIES``), ``"block"`` by default as in the JAX
     package.  Every param is registered under its slash-joined tree path,
     frozen; ``model.requires_grad_(True)`` makes them trainable (the
-    Trainer does)."""
+    Trainer does).
+
+    ``mesh``: the device mesh of a data-parallel run.  For an arch with
+    ``use_fsdp`` on a ``data`` axis above 1 the params are FSDP-sharded:
+    ``fsdp`` is the layout (``dist.sharding.fsdp_shards``), each sharded
+    param is this rank's slice (drawn alone by a seeded init, cut from
+    whole ``params`` otherwise) carrying its ``Shard`` as ``fsdp_shard``,
+    and the model gathers each layer's params just before the layer runs
+    (``gathered``).  Otherwise ``fsdp`` is None and every param whole."""
 
     def __init__(self, arch: ArchConfig, params, init, *, dtype: torch.dtype,
                  device, seed: int, remat: str,
-                 param_dtype: Optional[torch.dtype]):
+                 param_dtype: Optional[torch.dtype], mesh=None):
         super().__init__()
         self.arch = arch
         self.dtype = dtype
         self.param_dtype = dtype if param_dtype is None else param_dtype
         self.remat = validate_remat(remat)
         self.device = resolve_device(device)
+        self.fsdp = None
+        if mesh is not None and arch.use_fsdp:
+            shards = dist_sharding.fsdp_shards(mesh, self)
+            if tree.leaves(shards):           # some leaf is sharded
+                self.fsdp = shards
         if params is None:
-            params = init(arch, seed, self.param_dtype, self.device)
-        self.params = self._register(params)
+            kw = {} if self.fsdp is None else {"shards": self.fsdp}
+            params = init(arch, seed, self.param_dtype, self.device, **kw)
+        self.params = self._register(params, self.fsdp)
 
-    def _register(self, tree, path=()):
+    def _register(self, tree, shards, path=()):
         if isinstance(tree, dict):
-            return {k: self._register(v, path + (k,)) for k, v in tree.items()}
+            return {k: self._register(v, _at(shards, (k,)), path + (k,))
+                    for k, v in tree.items()}
         if isinstance(tree, (list, tuple)):
-            out = [self._register(v, path + (str(i),))
+            out = [self._register(v, _at(shards, (str(i),)), path + (str(i),))
                    for i, v in enumerate(tree)]
             return tuple(out) if isinstance(tree, tuple) else out
+        if shards is not None and tree.shape[shards.dim] == shards.size:
+            tree = shards.of(tree).clone()     # whole params given: the slice
         prm = nn.Parameter(tree.to(self.device), requires_grad=False)
+        if shards is not None:
+            prm.fsdp_shard = shards
         self.register_parameter("/".join(path), prm)
         return prm
+
+    def _shards(self, *path):
+        """The FSDP layout's subtree at ``path`` (None when unsharded)."""
+        return _at(self.fsdp, path)
 
 
 class Model(ParamModel):
@@ -295,7 +371,7 @@ class Model(ParamModel):
                  dtype: torch.dtype = torch.bfloat16, device=None,
                  seed: int = 0, remat: str = "block",
                  param_dtype: Optional[torch.dtype] = None,
-                 pp_stages: int = 1, pp_microbatches: int = 0):
+                 pp_stages: int = 1, pp_microbatches: int = 0, mesh=None):
         pre, period, reps = group_layers(arch)
         if pp_stages > 1 and (reps == 0 or reps % pp_stages):
             raise ValueError(
@@ -307,7 +383,8 @@ class Model(ParamModel):
                 f"pp_microbatches must be >= 0, got {pp_microbatches}")
         self.pp_stages, self.pp_microbatches = pp_stages, pp_microbatches
         super().__init__(arch, params, init_params, dtype=dtype, device=device,
-                         seed=seed, remat=remat, param_dtype=param_dtype)
+                         seed=seed, remat=remat, param_dtype=param_dtype,
+                         mesh=mesh)
 
     def abstract_params(self):
         return abstract_params(self.arch, self.param_dtype)
@@ -365,14 +442,30 @@ class Model(ParamModel):
         params = self.params if params is None else params
         pre, period, reps = group_layers(self.arch)
         for i in range(pre):
-            yield params["prelude"][i], ("prelude", i)
+            yield self._prelude(params, i), ("prelude", i)
         for r in range(reps):
             for j in range(period):
-                yield _index(params["blocks"][j], r), ("blocks", j, r)
+                yield (gathered(_index(params["blocks"][j], r),
+                                self._shards("blocks", str(j)), lead=1),
+                       ("blocks", j, r))
+
+    def _prelude(self, params, i: int):
+        """Prelude layer i's params, gathered whole under FSDP."""
+        return gathered(params["prelude"][i], self._shards("prelude", str(i)))
+
+    def _no_fsdp(self, what: str):
+        if self.fsdp is not None:
+            raise NotImplementedError(
+                f"{self.arch.name}: {what} of FSDP-sharded params is not "
+                f"ported (the reference serves use_fsdp archs sharded only "
+                f"in launch/dryrun.py; ROADMAP queue 1)")
 
     def _head(self, params, x, ctx: DPContext):
-        x, ctx = L.rmsnorm(x, params["final_norm"], ctx, self.arch.norm_eps)
-        return ctx.dense(x, L.cast(params["head"], x))
+        x, ctx = L.rmsnorm(x, gathered(params["final_norm"],
+                                       self._shards("final_norm")),
+                           ctx, self.arch.norm_eps)
+        head = gathered(params["head"], self._shards("head"))
+        return ctx.dense(x, L.cast(head, x))
 
     def _embed_in(self, params, inputs, ctx: DPContext):
         """(B, T, d) activations in the compute type: an embedding-input
@@ -382,7 +475,8 @@ class Model(ParamModel):
         parameter type)."""
         if self.arch.embed_stub:
             return inputs.to(self.dtype), ctx
-        x, ctx = ctx.embed(inputs, params["embed"])
+        x, ctx = ctx.embed(inputs, gathered(params["embed"],
+                                            self._shards("embed")))
         return x.to(self.dtype), ctx
 
     # -- training -------------------------------------------------------------
@@ -404,7 +498,7 @@ class Model(ParamModel):
         aux = torch.zeros((B,), dtype=torch.float32, device=x.device)
         pre, period, reps = group_layers(self.arch)
         for i in range(pre):
-            x, ctx, _, a = self._layer(params["prelude"][i], x, ctx, pos)
+            x, ctx, _, a = self._layer(self._prelude(params, i), x, ctx, pos)
             if a is not None:
                 aux = aux + a
         if self.pp_stages > 1:
@@ -474,10 +568,13 @@ class Model(ParamModel):
         """One period of blocks as ``fn(x, acc, aux, saved=None) -> (x,
         acc, aux)``: tensors in and out, the ``DPContext`` rebuilt inside
         around the accumulator, so a checkpoint boundary sees it; ``aux``
-        the running (B,) aux total."""
+        the running (B,) aux total.  Under FSDP the layers' slices are
+        gathered inside, so a remat policy gathers them again in its
+        recompute instead of keeping the whole block."""
         def block(x, acc, aux, saved=None):
             c = dataclasses.replace(ctx, acc=acc, saved=saved)
-            for p in layer_params:
+            for j, p in enumerate(layer_params):
+                p = gathered(p, self._shards("blocks", str(j)), lead=1)
                 x, c, _, a = self._layer(p, x, c, pos)
                 if a is not None:
                     aux = aux + a
@@ -579,6 +676,7 @@ class Model(ParamModel):
         return logits, cache
 
     def _decode(self, cache, tokens, pos, tables):
+        self._no_fsdp("decode")
         off = DPContext.off()
         x, _ = self._embed_in(self.params, tokens, off)
         for p, addr in self._layers():

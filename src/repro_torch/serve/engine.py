@@ -63,6 +63,13 @@ def require_token_input(arch, what: str) -> None:
                          f"and decode_step fed its embeddings)")
 
 
+def require_whole_params(model, what: str) -> None:
+    """Raise for a model whose params are FSDP-sharded: ``what`` decodes,
+    and decoding sharded params is not ported (ROADMAP queue 1)."""
+    if getattr(model, "fsdp", None) is not None:
+        model._no_fsdp(what)
+
+
 class StepBudgetExceeded(RuntimeError):
     """``run(max_steps=...)`` overran its budget.  ``results`` carries
     every output completed before the overrun."""
@@ -84,6 +91,7 @@ class Engine:
                  prefix_sharing: bool = True,
                  ledger: Optional[PrivacyLedger] = None):
         require_token_input(model.arch, "the engine")
+        require_whole_params(model, "the engine")
         self.model = model
         self.device = model.device
         self.B = max_batch

@@ -33,7 +33,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.serve.engine import StepBudgetExceeded, require_token_input
+from repro_torch.serve.engine import (StepBudgetExceeded, require_token_input,
+                                     require_whole_params)
 from repro_torch.serve.scheduler import Request
 
 
@@ -44,6 +45,7 @@ class HostLoopEngine:
     def __init__(self, model, max_batch: int = 4, cache_len: int = 128,
                  seed: int = 0):
         require_token_input(model.arch, "the host loop")
+        require_whole_params(model, "the host loop")
         self.model = model
         self.device = model.device
         self.B = max_batch

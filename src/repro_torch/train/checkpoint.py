@@ -14,7 +14,8 @@ of its leaves (dict keys sorted, as ``jax.tree`` orders them).
 Multi-process, as in the reference: ``save`` and ``restore`` take
 ``shards``, each leaf's layout on this rank (``TrainStep.ckpt_shards``):
 None for a whole leaf, which rank 0 writes as one shard file, or ``(dim,
-index, count, writes)`` for a ZeRO-1 slice, slice ``index`` of ``count``
+index, count, writes)`` for a ZeRO-1 or FSDP slice (of an optimizer-state
+leaf or of a param), slice ``index`` of ``count``
 equal slices of the global leaf along ``dim``, which this rank writes when
 ``writes`` (its first replica).  Every rank derives the same manifest of
 global shapes and shard bounds; rank 0 makes the shared tmp directory, a
@@ -23,8 +24,8 @@ barrier lets every rank write its shards, and after a second barrier rank
 checkpoint is in place.  A multi-process save writes on the
 calling thread: its barriers are collectives, which must run in one order
 on every rank.  ``restore`` assembles each leaf's slice (or the whole
-leaf) from whatever shards the manifest lists, so a 2-rank ZeRO-1
-checkpoint restores into one process and the reverse, and the JAX
+leaf) from whatever shards the manifest lists, so a 2-rank ZeRO-1 or
+FSDP checkpoint restores into one process and the reverse, and the JAX
 package's reader restores it.
 
 bf16 leaves go to disk as their raw bits in a 2-byte void dtype, with the
@@ -307,7 +308,7 @@ class CheckpointManager:
                 shards: Optional[list] = None):
         """Restore checkpoint ``step`` (default the latest) into ``like``: a
         ``TrainState`` or tree whose tensor leaves receive the values in
-        place, each its region under ``shards`` (this rank's ZeRO-1 slice;
+        place, each its region under ``shards`` (this rank's ZeRO-1 or FSDP slice;
         default every leaf whole), whatever shards the checkpoint was
         written in.  Returns ``like``'s structure with those tensors and
         the step (an int leaf) as read."""

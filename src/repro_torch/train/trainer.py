@@ -65,6 +65,15 @@ optimizer state as ``{"opt": ..., "grad_err": [...]}``, whole on every
 rank (the codec's blocks span the flattened leaf).  Checkpoints are
 written by every rank, each its own shards (train/checkpoint.py).
 
+FSDP (a ``use_fsdp`` model built on the mesh, ``Model(mesh=...)``): each
+sharded param is this rank's slice (``fsdp_shard``), which is also its
+ZeRO-1 slice (``spec_for_param(fsdp=True)`` places both), so the
+optimizer state of such a leaf is the slice's, the gradient function gives
+the slice's summed gradient, the optimizer updates the slice in place and
+nothing is gathered back.  ``update_norm`` sums the slices' squares over
+the ranks.  ``compress_pod_grads`` and ``adam8bit`` are refused with FSDP
+(``fsdp_refusal``): their int8 blocks span the flattened whole leaf.
+
 Launch plans (``plan``, launch/autotune.py): a solved ``LaunchPlan`` is
 applied onto the config up front and takes the place of the
 auto-microbatch search (the one-dimensional case of the plan space), as in
@@ -117,6 +126,21 @@ def physical_batch_size(train_cfg: TrainConfig, shape: ShapeConfig,
                             shape.global_batch / dataset_size, multiple=mult)
 
 
+def fsdp_refusal(cfg: TrainConfig) -> str:
+    """Why ``cfg`` cannot train FSDP-sharded params, naming ROADMAP; ""
+    when it can.  Both int8 codecs quantize in blocks of the flattened
+    whole leaf, so on a slice they would compute something other than the
+    reference."""
+    parts = [what for what, on in (
+        ("compress_pod_grads", cfg.compress_pod_grads),
+        ("optim.name='adam8bit'", cfg.optim.name == "adam8bit")) if on]
+    if not parts:
+        return ""
+    return (f"{' and '.join(parts)} with FSDP-sharded params is not ported: "
+            f"the int8 blocks span the flattened whole leaf, and a rank holds "
+            f"a slice of it (ROADMAP queue 1)")
+
+
 class TrainStep:
     """One optimizer step of ``train_cfg`` on ``model``: the function
     ``Trainer.train_step`` runs and ``launch/memory.py`` traces (the
@@ -127,8 +151,9 @@ class TrainStep:
     ``model.loss_fn`` (the Trainer's fault injection).
     ``expected_batch_size``: the private update's normaliser under Poisson
     sampling (q·N), None for fixed batches.  ``mesh``: the device mesh,
-    whose ``data`` axis ZeRO-1 shards the optimizer state over (None: one
-    process, nothing sharded)."""
+    whose ``data`` axis ZeRO-1 (``zero1``) shards the optimizer state over
+    (None: one process, nothing sharded).  The params' own FSDP slices
+    (``fsdp_shard``) are the model's."""
 
     def __init__(self, model, train_cfg: TrainConfig,
                  expected_batch_size: Optional[float] = None, loss_fn=None,
@@ -142,9 +167,12 @@ class TrainStep:
                                           grad_accum=train_cfg.grad_accum,
                                           expected_batch_size=expected_batch_size)
         self.opt = make_optimizer(train_cfg.optim)
-        self.mesh = mesh if train_cfg.zero1 else None
+        self.cfg = train_cfg
+        self.mesh = mesh
+        self.zero1 = train_cfg.zero1
         # ZeRO-1: per param leaf, (dim, index, count) of this rank's slice
-        # of its optimizer state, or None (whole); set by init_state
+        # of its optimizer state, or None (whole, or an FSDP slice already);
+        # set by init_state
         self.shards: Optional[list] = None
         self.data_group = None
 
@@ -157,7 +185,7 @@ class TrainStep:
         ``data`` axis (every param-shaped state leaf of it alike), this
         rank's slice of that dim, else None."""
         none = [None] * len(leaves)
-        if self.mesh is None:
+        if self.mesh is None or not self.zero1:
             return none
         index, count, self.data_group = runtime.axis_shard(self.mesh, "data")
         if count == 1:
@@ -172,7 +200,8 @@ class TrainStep:
                 for i, spec in enumerate(part):
                     if isinstance(spec, sharding.PartitionSpec) and "data" in spec:
                         dims[i] = spec.index("data")
-        return [None if d is None else (d, index, count) for d in dims]
+        return [None if d is None or runtime.fsdp_shard_of(p) is not None
+                else (d, index, count) for d, p in zip(dims, leaves)]
 
     @staticmethod
     def _slice(t, shard):
@@ -185,9 +214,13 @@ class TrainStep:
 
     def init_state(self, params, device) -> TrainState:
         """Step 0: ``params`` and a fresh optimizer state beside them (this
-        rank's ZeRO-1 slices; the compression and adaptive clip riders
-        under their options)."""
+        rank's ZeRO-1 slices, an FSDP slice's own; the compression and
+        adaptive clip riders under their options).  Raises for a config
+        FSDP-sharded params cannot train (``fsdp_refusal``)."""
         leaves = tree.leaves(params)
+        reason = fsdp_refusal(self.cfg)
+        if reason and any(runtime.fsdp_shard_of(p) is not None for p in leaves):
+            raise NotImplementedError(reason)
         self.shards = self._zero1_shards(leaves)
         opt_state = self.opt.init([self._slice(p, sh)
                                    for p, sh in zip(leaves, self.shards)])
@@ -213,10 +246,16 @@ class TrainStep:
     def ckpt_shards(self, state: TrainState) -> list:
         """Each leaf's layout for ``CheckpointManager``, aligned with
         ``checkpoint.flatten(state)``: ``(dim, index, count, writes)`` for
-        this rank's ZeRO-1 slice (``writes``: the rank is the slice's
-        first replica, the one that writes it), None for a whole leaf."""
-        shards = self._leaf_shards(len(tree.leaves(state.params)))
-        writes = self.data_group is not None and all(
+        this rank's FSDP slice of a param, and for the optimizer state of
+        that slice or this rank's ZeRO-1 slice (``writes``: the rank is the
+        slice's first replica, the one that writes it), None for a whole
+        leaf."""
+        params = tree.leaves(state.params)
+        fsdp = [runtime.fsdp_shard_of(p) for p in params]
+        fsdp = [None if sh is None else (sh.dim, sh.index, sh.count)
+                for sh in fsdp]
+        shards = [f or z for f, z in zip(fsdp, self._leaf_shards(len(params)))]
+        writes = self.mesh is not None and all(
             self.mesh.get_local_rank(a) == 0
             for a in sharding._axis_names(self.mesh)
             if a != "data" and sharding._axis_size(self.mesh, a) > 1)
@@ -237,13 +276,28 @@ class TrainStep:
                 walk(opt[k]) if k == "opt" else [None] * len(tree.leaves(opt[k])))]
         else:
             opt_part = walk(opt)
-        return [None] * (1 + len(tree.leaves(state.params))) + opt_part
+        return ([None] + [None if sh is None else sh + (writes,) for sh in fsdp]
+                + opt_part)
 
     def gradients(self, state: TrainState, batch, generator: torch.Generator):
         grads, metrics = self.grad_fn(state.params, batch, generator,
                                       clip_norm=self.clip_norm(state))
-        metrics["update_norm"] = torch.sqrt(sum((g * g).sum() for g in grads))
+        metrics["update_norm"] = self._update_norm(grads, state)
         return grads, metrics
+
+    @staticmethod
+    def _update_norm(grads, state: TrainState):
+        """‖update‖ of the whole gradient: an FSDP slice's squares are
+        summed over the ranks that hold the other slices."""
+        fsdp = [runtime.fsdp_shard_of(p) for p in tree.leaves(state.params)]
+        sq = [(g * g).sum() for g in grads]
+        total = sum(q for q, sh in zip(sq, fsdp) if sh is None)
+        part = [q for q, sh in zip(sq, fsdp) if sh is not None]
+        if part:
+            part = torch.stack(part).sum()
+            runtime.all_reduce_([part], runtime.fsdp_group())
+            total = total + part
+        return torch.sqrt(total)
 
     def update(self, state: TrainState, grads, metrics) -> None:
         if self.compress:
@@ -251,7 +305,7 @@ class TrainStep:
             grads, new_err = compress.compress_grads(grads, err)
             for e, n in zip(err, new_err):
                 e.copy_(n)
-            metrics["update_norm"] = torch.sqrt(sum((g * g).sum() for g in grads))
+            metrics["update_norm"] = self._update_norm(grads, state)
         leaves = tree.leaves(state.params)
         shards = self._leaf_shards(len(leaves))
         self.opt.apply([self._slice(g, sh) for g, sh in zip(grads, shards)],

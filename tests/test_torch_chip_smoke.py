@@ -12,6 +12,7 @@ from pathlib import Path
 import pytest
 
 from repro_torch.configs import get_arch
+from repro_torch.kernels import launch_counters
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -196,7 +197,7 @@ def test_path_launches_count_the_wrapper_calls(smoke, monkeypatch, algo, route,
                                           TrainConfig)
     from repro_torch.models.transformer import Model
     from repro_torch.train import Trainer
-    for name, (mod, attr) in smoke.kernel_counts().items():
+    for name, (mod, attr) in launch_counters().items():
         def counting(*args, _fn=getattr(mod, name), _mod=mod, _attr=attr,
                      **kwargs):
             setattr(_mod, _attr, getattr(_mod, _attr) + 1)
@@ -230,7 +231,7 @@ def test_path_launches_count_a_split_step(smoke, monkeypatch, algo):
                                           TrainConfig)
     from repro_torch.models.transformer import Model
     from repro_torch.train import Trainer
-    for name, (mod, attr) in smoke.kernel_counts().items():
+    for name, (mod, attr) in launch_counters().items():
         def counting(*args, _fn=getattr(mod, name), _mod=mod, _attr=attr,
                      **kwargs):
             setattr(_mod, _attr, getattr(_mod, _attr) + 1)
@@ -273,7 +274,7 @@ def test_path_launches_count_the_moe_wrapper_calls(smoke, monkeypatch, algo, rou
                                           TrainConfig)
     from repro_torch.models.transformer import Model
     from repro_torch.train import Trainer
-    for name, (mod, attr) in smoke.kernel_counts().items():
+    for name, (mod, attr) in launch_counters().items():
         def counting(*args, _fn=getattr(mod, name), _mod=mod, _attr=attr,
                      **kwargs):
             setattr(_mod, _attr, getattr(_mod, _attr) + 1)
@@ -332,7 +333,7 @@ def test_chatglm3_mix_bounds_and_launches(smoke):
     assert by == "bytes" and ms == pytest.approx(0.021441, abs=1e-6)
     ms, by = smoke.gram_bound_ms(8, 512, 4096, 4096, True, False, "bfloat16")
     assert by == "bytes" and ms == pytest.approx(0.010026, abs=1e-6)
-    want = dict.fromkeys(smoke.kernel_counts(), 0)
+    want = dict.fromkeys(smoke.read_counts(), 0)
     want.update(flash_attn_fwd=140, flash_attn_bwd=56, dense_bwd_norm=197,
                 gram_norm=1)
     assert smoke.path_launches("fused", arch.n_layers, remat="block") == want
@@ -349,7 +350,7 @@ def test_path_launches_count_chatglm3s_wrapper_calls(smoke, monkeypatch, tmp_pat
                                           TrainConfig)
     from repro_torch.models.transformer import Model
     from repro_torch.train import Trainer
-    for name, (mod, attr) in smoke.kernel_counts().items():
+    for name, (mod, attr) in launch_counters().items():
         def counting(*args, _fn=getattr(mod, name), _mod=mod, _attr=attr,
                      **kwargs):
             setattr(_mod, _attr, getattr(_mod, _attr) + 1)
@@ -400,7 +401,7 @@ def test_path_launches_count_the_image_wrapper_calls(smoke, monkeypatch, tmp_pat
                                           TrainConfig)
     from repro_torch.models import build_model_for
     from repro_torch.train import Trainer
-    for kname, (mod, attr) in smoke.kernel_counts().items():
+    for kname, (mod, attr) in launch_counters().items():
         def counting(*args, _fn=getattr(mod, kname), _mod=mod, _attr=attr,
                      **kwargs):
             setattr(_mod, _attr, getattr(_mod, _attr) + 1)
@@ -546,7 +547,7 @@ def _ssm_arch(name):
 def _count_wrapper_calls(smoke, monkeypatch):
     """Every kernel wrapper adds one to its count per call, as its launch
     does on the card."""
-    for kname, (mod, attr) in smoke.kernel_counts().items():
+    for kname, (mod, attr) in launch_counters().items():
         def counting(*args, _fn=getattr(mod, kname), _mod=mod, _attr=attr,
                      **kwargs):
             setattr(_mod, _attr, getattr(_mod, _attr) + 1)
@@ -752,8 +753,18 @@ def test_leaf_gap_and_zero1_shards(smoke):
     assert shards == [2, 2, 2, 2, 1, 1, 2, 2, 2, 2, 1, 2]
     manifest = {"leaves": [{"shards": [0]}] * (1 + 2 * 12)
                 + [{"shards": [0] * k} for k in shards] + [{"shards": [0]}] * 24}
-    assert smoke.zero1_moment_shards(manifest, 12) == shards
-    assert smoke.launcher_cmd(2, "/x")[3:6] == ["--standalone", "--nproc_per_node", "2"]
+    assert smoke.ckpt_shard_counts(manifest, range(25, 37)) == shards
+    assert smoke.dist_cmd(2, "/x")[3:6] == ["--standalone", "--nproc_per_node", "2"]
+    assert smoke.fsdp_cmd(1, "/x")[3:6] == ["--standalone", "--nproc_per_node", "1"]
+
+
+def test_printed_unit_is_the_launchers_last_loss_digit(smoke):
+    """Phase 18 holds the two worlds' losses to one unit of the last of the
+    6 significant digits the launcher prints (``:.6g``)."""
+    for x, unit in ((11.5838, 1e-4), (10.872, 1e-4), (6.10056, 1e-5),
+                    (0.0123456, 1e-7), (123456.0, 1.0)):
+        assert smoke.printed_unit(x) == pytest.approx(unit, rel=1e-12)
+        assert float(f"{x:.6g}") == x
 
 
 @pytest.mark.parametrize("route,algo", [("fused", "dpsgd_r"), ("materialize", "dpsgd_r"),

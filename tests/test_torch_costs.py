@@ -269,6 +269,33 @@ def test_collective_bytes_of_a_traced_data_parallel_step():
             pass
 
 
+def test_a_collective_meter_is_not_a_trace():
+    """The launcher's byte meter (``runtime.metered``) records collectives
+    and changes nothing else: a real step under a layout with no process
+    group still raises inside it; only a cost trace (``runtime.traced``)
+    runs such a layout, on ``TracedGroup``s."""
+    from repro_torch.train.trainer import TrainStep
+    ta = tconfigs.reduced(tconfigs.get_arch(PHI3))
+    model = build_model_for(ta, dtype=torch.float32, param_dtype=torch.float32,
+                            device="cpu", seed=0, remat="none")
+    step = TrainStep(model, tb.TrainConfig(param_dtype="float32",
+                                           compute_dtype="float32", remat="none"))
+    state = step.init_state(model.params, torch.device("cpu"))
+    batch = {"tokens": torch.zeros((B, T + 1), dtype=torch.int32)}
+    mesh = types.SimpleNamespace(axis_names=("data", "model"), shape=(2, 1))
+    with runtime.metered() as recs:
+        with pytest.raises(RuntimeError, match="no process group"):
+            with runtime.layout(mesh, ("data",)):
+                step(state, batch, torch.Generator())
+        assert recs == []
+        with runtime.traced(), runtime.layout(mesh, ("data",)):
+            group = runtime.batch_group()
+            assert isinstance(group, runtime.TracedGroup) and group.size == 2
+            runtime.all_reduce_([torch.ones(3)], group)
+    assert recs == [{"kind": "all-reduce", "bytes": 12, "group": 2}]
+    assert runtime.COLLECTIVE_SINKS == []
+
+
 # ---------------------------------------------------------------------------
 # whole steps against jaxpr_costs
 # ---------------------------------------------------------------------------

@@ -204,16 +204,25 @@ def test_cache_shardings_match_jax(name, spec_only):
 
 
 def test_launcher_refuses_the_unported_axes():
-    """A ``model`` or ``stage`` axis above 1, or a ``use_fsdp`` arch on a
-    ``data`` axis above 1, raises "not ported" naming ROADMAP; a data axis
-    alone, or a width-1 model axis, runs."""
+    """A ``model`` or ``stage`` axis above 1 raises "not ported" naming
+    ROADMAP; a ``use_fsdp`` arch on a ``data`` axis above 1 runs (FSDP),
+    except with ``compress_pod_grads`` or ``adam8bit``, which raise by name;
+    a data axis alone, or a width-1 model axis, runs."""
+    from repro_torch.configs.base import OptimConfig, TrainConfig
     from repro_torch.launch.train import refuse_unported
     phi3, chameleon = TARCHS["phi3-mini-3.8b"], TARCHS["chameleon-34b"]
     assert chameleon.use_fsdp and not phi3.use_fsdp
     for sizes, arch, what in (({"data": 1, "model": 2}, phi3, "tensor parallelism"),
-                              ({"stage": 2, "data": 1}, phi3, "across processes"),
-                              ({"data": 2}, chameleon, "FSDP")):
+                              ({"stage": 2, "data": 1}, phi3, "across processes")):
         with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP queue 1"):
             refuse_unported(_ShapeMesh(sizes), arch)
+    for cfg, what in ((TrainConfig(compress_pod_grads=True), "compress_pod_grads"),
+                      (TrainConfig(optim=OptimConfig(name="adam8bit")), "adam8bit")):
+        with pytest.raises(NotImplementedError, match=f"{what}.*FSDP.*ROADMAP queue 1"):
+            refuse_unported(_ShapeMesh({"data": 2}), chameleon, cfg)
+        refuse_unported(_ShapeMesh({"data": 2}), phi3, cfg)
+        refuse_unported(_ShapeMesh({"data": 1}), chameleon, cfg)
+    refuse_unported(_ShapeMesh({"data": 2}), chameleon)
+    refuse_unported(_ShapeMesh({"data": 2}), chameleon, TrainConfig(zero1=True))
     refuse_unported(_ShapeMesh({"data": 2, "model": 1}), phi3)
     refuse_unported(_ShapeMesh({"data": 1}), chameleon)

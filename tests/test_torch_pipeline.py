@@ -13,6 +13,7 @@ weights carried across with ``interop``; and the pipelined updates of
 every algorithm equal to the sequential ones under a Poisson mask and
 with ``grad_accum``.  Pins: rtol 1e-5 / atol 2e-6, the reference's.
 """
+import concurrent.futures
 import dataclasses
 
 import jax
@@ -149,22 +150,25 @@ def test_pipelined_losses_and_norms_match_jax(name):
     params = jseq.init(jax.random.PRNGKey(0))
     toks = np.random.default_rng(1).integers(0, jarch.vocab, (B, T + 1)).astype(np.int32)
     tp = interop.params_from_numpy(jax.tree.map(np.asarray, params), "cpu")
-    for mb in (2, 4):
-        jpipe = j_build_model_for(jarch, param_dtype="float32",
-                                  compute_dtype="float32", remat="none",
-                                  pp_stages=2, pp_microbatches=mb)
-        tm = Model(tarch, tp, dtype=torch.float32, device="cpu", pp_stages=2,
-                   pp_microbatches=mb)
-        want, want_nsq = _jax_losses_and_norms(jpipe)(
-            params, {"tokens": jnp.asarray(toks)})
-        got, _ = tm.loss_fn(tm.params, {"tokens": torch.from_numpy(toks)},
-                            DPContext.off())
-        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **PINS)
-        nsq, losses = algo.norm_pass(tm.loss_fn, tm.params,
-                                     {"tokens": torch.from_numpy(toks)},
-                                     DPConfig(norm_strategy="fused"))
-        np.testing.assert_allclose(losses.numpy(), np.asarray(want), **PINS)
-        np.testing.assert_allclose(nsq.numpy(), np.asarray(want_nsq), **PINS)
+    # both references compile in the background (XLA compiles without the
+    # GIL) while the port runs
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        refs = {mb: pool.submit(_jax_losses_and_norms(j_build_model_for(
+            jarch, param_dtype="float32", compute_dtype="float32", remat="none",
+            pp_stages=2, pp_microbatches=mb)), params, {"tokens": jnp.asarray(toks)})
+            for mb in (2, 4)}
+        for mb, ref in refs.items():
+            tm = Model(tarch, tp, dtype=torch.float32, device="cpu", pp_stages=2,
+                       pp_microbatches=mb)
+            got, _ = tm.loss_fn(tm.params, {"tokens": torch.from_numpy(toks)},
+                                DPContext.off())
+            nsq, losses = algo.norm_pass(tm.loss_fn, tm.params,
+                                         {"tokens": torch.from_numpy(toks)},
+                                         DPConfig(norm_strategy="fused"))
+            want, want_nsq = ref.result()
+            np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **PINS)
+            np.testing.assert_allclose(losses.numpy(), np.asarray(want), **PINS)
+            np.testing.assert_allclose(nsq.numpy(), np.asarray(want_nsq), **PINS)
 
 
 def _models(**kw):
