@@ -135,7 +135,8 @@ the script exits nonzero and prints no ``ok`` line:
    does not pay at this shape: its float32 gradient sum, carried across
    the chunks, outweighs the halved activations); (c) a budget below
    every split of a B 2 batch raises before any step; (d) the host-loop engine
-   serving phase 5's request stream on phi3-mini at full size, its tok/s,
+   serving the first ``HOST_LOOP_REQUESTS`` of phase 5's request stream on
+   phi3-mini at full size, its tok/s,
    TTFT and host reads beside the engine's, and each request's greedy
    stream's agreeing prefix against the engine's.  Phase 5 and (d) also
    profile a short serve of 8 requests x 8 tokens (``[decode]``): the device's busy
@@ -153,8 +154,9 @@ the script exits nonzero and prints no ``ok`` line:
    deepseek's expert groups, the flash forward at deepseek's serving wave
    and grok's GQA (48 heads on 8), the backward at deepseek's training
    shape; (b) deepseek-moe-16b at full width and depth (28 layers, 16.38B
-   params), bf16, seeded weights, serving phase 5's stream through the
-   contiguous and the paged engine (their outputs must agree), with tok/s,
+   params), bf16, seeded weights, serving the first ``MOE_REQUESTS`` of
+   phase 5's stream through the contiguous and the paged engine (their
+   outputs must agree), with tok/s,
    TTFT, decode ms a step beside the bytes bound of the experts it reads
    and the peak; (c) grok-1-314b at full width with 2 of its 64 layers,
    4 requests x 16 tokens through the contiguous engine; (d) deepseek
@@ -255,8 +257,8 @@ the script exits nonzero and prints no ``ok`` line:
    world of 1 on NCCL: phi3-mini at full width on ``DIST_LAYERS`` layers,
    ZeRO-1, the int8 compression rider, ``pp_stages`` 2, σ 0, AdamW,
    ``DIST_STEPS`` steps, its checkpoints in a temporary directory; (c)
-   the same in 2 ranks sharing the card over gloo, each on half the
-   batch: every rank's fingerprint equal to (b)'s, each step's loss and
+   the same, side by side with (b) (for the run's time), in 2
+   ranks sharing the card over gloo, each on half the batch: every rank's fingerprint equal to (b)'s, each step's loss and
    ``grad_norm_mean`` equal on both ranks and within ``NSQ_RTOL`` of
    (b)'s, each ZeRO-1 first moment of a shardable param in 2 shard files,
    and both checkpoints restored whole by the port's reader, a leaf at a
@@ -297,7 +299,20 @@ the script exits nonzero and prints no ``ok`` line:
    checkpoint's params and momenta in 2 shard files), each rank's
    resident param and optimizer-state bytes half of world 1's within
    ``BYTES_RTOL``, and each rank's launches ``path_launches`` of its half
-   batch.
+   batch;
+19. tensor parallelism: ``dense_bwd_norm`` at every dense site's local
+   shape on a model rank and the flash pair at its 16 heads of hd 96
+   (``[kernel]`` lines, gated to the tensor-core paths as phase 3's), then
+   phi3-mini-3.8b at full width on ``TP_LAYERS`` of its 32 layers through
+   the launcher, B 8 x T 512, ``dpsgd_r`` fused + kernels,
+   ``remat="none"``, σ 0, ``TP_OPTIM``, ``TP_STEPS`` steps: a world of 1 on
+   NCCL and, side by side with it, 2 ranks sharing the card over gloo on a
+   (1, 2) data,model mesh, each holding half of the heads, FFN and
+   vocabulary and taking the whole batch (``[tp]`` lines,
+   ``chiprun_out/chip_smoke_tp{1,2}.log``): the checks of 18 with the
+   losses and ``grad_norm_mean`` within ``NSQ_RTOL`` of world 1's, the
+   resident bytes half of world 1's once the norm scales are added back,
+   and each rank's launches ``path_launches`` of the whole batch.
 
 A ``[disk]`` line sums the launchers' checkpoints, most of what the run
 writes to the disk (each removed after its phase).
@@ -386,13 +401,21 @@ IMAGE_ARCHS = ("cnn-cifar10", "vit-cifar10")
 IMAGE_B, IMAGE_K, IMAGE_N = 256, 16, 50_000
 # phase 12: the planner's estimates beside the measured peaks (filled in by
 # the phases that read a peak), and the short serve the decode busy share
-# is profiled on: the first 8 requests of the stream, 8 new tokens each
+# is profiled on: the first 8 requests of the stream, 8 new tokens each.
+# Cut for the run's time: the host loop serves the stream's first
+# HOST_LOOP_REQUESTS requests (12 (d) took 36.6 s on all 16 on an H100
+# 80GB HBM3 at 700 W)
 MEMORY_ROWS = []
 BUSY_REQUESTS, BUSY_NEW = 8, 8
+HOST_LOOP_REQUESTS = 8
 # phase 13: deepseek-moe-16b served at full depth and trained at full width
 # on 6 of its 28 layers (5 where the planner puts 6 above the limit);
 # grok-1-314b at full width on 2 of its 64 layers, 4 requests x 16 tokens
 MOE_ARCH, GROK_ARCH = "deepseek-moe-16b", "grok-1-314b"
+# cut for the run's time: deepseek serves the stream's first
+# MOE_REQUESTS requests, one wave of the 8 slots (13 (b)-(c) took 58.9 s
+# on all 16 on an H100 80GB HBM3 at 700 W)
+MOE_REQUESTS = 8
 MOE_TRAIN_LAYERS, MOE_PLAN_LIMIT = 6, 72 * 2**30
 GROK_LAYERS, GROK_REQUESTS, GROK_NEW = 2, 4, 16
 # phase 14: mamba2-1.3b served and trained at full width and depth (train_4k's
@@ -450,6 +473,16 @@ DIST_LAYERS, DIST_STEPS, DIST_TIMEOUT = 2, 2, 600
 FSDP_LAYERS, FSDP_STEPS, FSDP_TIMEOUT = 1, 2, 300
 FSDP_OPTIM = "sgd"
 BYTES_RTOL = 1e-2
+# phase 19: tensor parallelism.  phi3-mini at full width on TP_LAYERS of
+# its 32 layers through the launcher, TP_STEPS steps: a world of 1 on NCCL,
+# then, side by side with it, 2 ranks sharing the card over gloo on a (1, 2)
+# data,model mesh, each holding half of the heads, FFN and vocabulary;
+# TP_TIMEOUT bounds each world (s).  SGD with momentum for the disk, as
+# phase 18; TP_SHAPES: the dense sites' local (d_in, d_out) on a rank
+TP_LAYERS, TP_STEPS, TP_TIMEOUT = 2, 2, 300
+TP_OPTIM = "sgd"
+TP_SHAPES = (("tp-qkv", 3072, 1536), ("tp-o", 1536, 3072), ("tp-w1w3", 3072, 4096),
+             ("tp-w2", 4096, 3072), ("tp-head", 3072, 16128))
 # phase 17: the launch tools.  (b) a solve on the card: phi3-mini at full
 # width on TUNE_LAYERS of its 32 layers (pipeline stages 1 and 2 divide
 # them), B 8 x T 512, the GA's TUNE_POP x TUNE_GENS, the TUNE_TOPK best
@@ -3288,7 +3321,8 @@ def agreeing_prefix(a, b) -> int:
 
 
 def host_loop_path(prompts, engine_out, engine_recs):
-    """Phase 12 (d): the host-loop engine on phase 5's stream."""
+    """Phase 12 (d): the host-loop engine on ``prompts``, the first of
+    phase 5's stream, against the engine's streams of the same requests."""
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
@@ -3335,7 +3369,7 @@ def host_loop_path(prompts, engine_out, engine_recs):
         print(f"[hostloop] engine {r['engine']}: {r['tok_per_s']:.1f} tok/s, mean "
               f"TTFT {r['mean_ttft_ms']:.1f} ms, host reads {r['host_syncs']}, "
               f"decode {r['decode_ms_per_step']:.2f} ms a step (phase 5)", flush=True)
-    print(f"[hostloop] host loop on the same {len(prompts)} requests: {n_tok} tokens "
+    print(f"[hostloop] host loop on the first {len(prompts)} requests: {n_tok} tokens "
           f"in {dt:.2f} s ({rec['tok_per_s']:.1f} tok/s), mean TTFT "
           f"{rec['mean_ttft_ms']:.1f} ms, host reads {rec['host_syncs']} over "
           f"{rec['decode_steps']} decode steps of {rec['decode_ms_per_step']:.2f} ms",
@@ -3372,7 +3406,7 @@ def memory_planner_and_host_loop(prompts, engine_out, engine_recs):
     lap = stopwatch("phase 12")
     split = planner_split()
     lap("(b)-(c) splits")
-    host = host_loop_path(prompts, engine_out, engine_recs)
+    host = host_loop_path(prompts[:HOST_LOOP_REQUESTS], engine_out, engine_recs)
     lap("(d) host loop")
     return dict(estimates=list(MEMORY_ROWS), split=split, host_loop=host)
 
@@ -3721,7 +3755,7 @@ def moe_path():
     kernels = check_moe_kernels()
     lap("(a) kernels")
     ds_prompts = request_stream(get_arch(MOE_ARCH).vocab)
-    serve_ds = moe_serve(get_arch(MOE_ARCH), ds_prompts, MAX_NEW,
+    serve_ds = moe_serve(get_arch(MOE_ARCH), ds_prompts[:MOE_REQUESTS], MAX_NEW,
                          ("contiguous", "paged"))
     grok = dataclasses.replace(get_arch(GROK_ARCH), n_layers=GROK_LAYERS)
     serve_grok = moe_serve(grok, request_stream(grok.vocab)[:GROK_REQUESTS], GROK_NEW,
@@ -4858,17 +4892,19 @@ def parse_launcher(text: str) -> dict:
 
 
 def launcher_cmd(nproc: int, ckpt_dir: str, arch: str, layers: int, steps: int,
-                 sets) -> list:
+                 sets, mesh=None) -> list:
     """``torch.distributed.run`` of the training launcher: ``arch`` at full
-    width on ``layers`` layers, B 8 x T 512, ``steps`` steps, one data axis
-    over ``nproc`` ranks, the ``--set`` keys ``sets``, a step line each
-    step and checkpoints in ``ckpt_dir``."""
+    width on ``layers`` layers, B 8 x T 512, ``steps`` steps, on ``mesh``
+    (``(--mesh, --axes)``; default one data axis over ``nproc`` ranks), the
+    ``--set`` keys ``sets``, a step line each step and checkpoints in
+    ``ckpt_dir``."""
+    shape, axes = (str(nproc), "data") if mesh is None else mesh
     sets = [*sets, "log_every=1", f"ckpt_dir={ckpt_dir}"]
     return [sys.executable, "-m", "torch.distributed.run", "--standalone",
             "--nproc_per_node", str(nproc), "-m", "repro_torch.launch.train",
             "--arch", arch, "--layers", str(layers), "--batch", str(TRAIN_B),
-            "--seq", str(TRAIN_T), "--steps", str(steps), "--mesh", str(nproc),
-            "--axes", "data", *[x for kv in sets for x in ("--set", kv)]]
+            "--seq", str(TRAIN_T), "--steps", str(steps), "--mesh", shape,
+            "--axes", axes, *[x for kv in sets for x in ("--set", kv)]]
 
 
 def start_launcher(cmd):
@@ -4908,15 +4944,17 @@ def ckpt_shard_counts(manifest: dict, leaves) -> list:
     return [len(manifest["leaves"][i]["shards"]) for i in leaves]
 
 
-def zero1_expected_shards(arch, width: int):
+def zero1_expected_shards(arch, width: int, axis: str = "data"):
     """The shards ZeRO-1 (and FSDP, the same slices) cuts each param's
     optimizer state into on a ``width``-wide data axis: ``width`` where
-    ``state_shardings`` puts a dim on ``data``."""
+    ``state_shardings`` puts a dim on ``data``.  ``axis="model"``: the
+    slices tensor parallelism cuts each param (and its state) into on a
+    ``width``-wide model axis."""
     import types
     from repro_torch.dist import sharding
     from repro_torch.models.transformer import abstract_params, logical_axes
-    mesh = types.SimpleNamespace(axis_names=("data",), shape=(width,))
-    return [width if "data" in sharding.spec_for_param(ax, p.shape, mesh, fsdp=True)
+    mesh = types.SimpleNamespace(axis_names=(axis,), shape=(width,))
+    return [width if axis in sharding.spec_for_param(ax, p.shape, mesh, fsdp=True)
             else 1 for _, p, ax in sharding._paired(abstract_params(arch),
                                                      logical_axes(arch))]
 
@@ -4950,21 +4988,46 @@ def dir_bytes(path) -> int:
     return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
 
 
-def compare_worlds(cmd, arch, *, steps: int, params, moments, sharded, log: str,
-                   timeout: float, side_by_side: bool, loss_tol) -> dict:
+def worlds_agree(one, two, steps: int, loss_tol, sliced: bool) -> str:
+    """The launcher's output of a world of 1 (``one``) and of 2 ranks
+    (``two``), as ``launcher_result`` reads them: world 1 on NCCL, world 2's
+    ranks on gloo, both on ``cuda:0``; one fingerprint on world 2's ranks,
+    and world 1's too unless ``sliced`` (world 2's params are slices, which
+    record no bytes); each step's loss and ``grad_norm_mean`` equal on both
+    ranks, the loss within ``loss_tol(loss)`` of world 1's and
+    ``grad_norm_mean`` within ``NSQ_RTOL``.  Returns world 2's fingerprint;
+    raises on a difference."""
+    assert [b[0] for b in one["backend"]] == ["nccl"], one["backend"]
+    assert sorted(b[0] for b in two["backend"]) == ["gloo", "gloo"], two["backend"]
+    assert {b[3] for b in two["backend"]} == {"cuda:0"}, two["backend"]
+    fps = {f for f, _ in two["fingerprint"]}
+    if not sliced:
+        fps |= {f for f, _ in one["fingerprint"]}
+    assert len(fps) == 1 and len(one["fingerprint"]) == 1 \
+        and len(two["fingerprint"]) == 2, (one["fingerprint"], two["fingerprint"])
+    for step in range(steps):
+        (a,), (b, c) = one["steps"][step], two["steps"][step]
+        assert (b["loss"], b["grad_norm_mean"]) == (c["loss"], c["grad_norm_mean"])
+        assert abs(b["loss"] - a["loss"]) <= loss_tol(a["loss"]), (step, a, b)
+        assert abs(b["grad_norm_mean"] - a["grad_norm_mean"]) <= \
+            NSQ_RTOL * abs(a["grad_norm_mean"]), (step, a, b)
+    return fps.pop()
+
+
+def compare_worlds(cmd, *, steps: int, params, moments, shards, log: str,
+                   timeout: float, side_by_side: bool, loss_tol,
+                   sliced: bool) -> dict:
     """The launcher (``cmd(nproc, ckpt_dir)``) in a world of 1 on NCCL and of
-    2 ranks sharing the card over gloo, each rank its half of the batch,
-    side by side on the card or one after the other; each world's output to
-    ``chiprun_out/chip_smoke_<log><nproc>.log``.  Checks: the backends; one
-    fingerprint on world 2's ranks (and world 1's, unless ``arch`` is FSDP-
-    sharded there: a slice records no bytes); each step's loss and
-    ``grad_norm_mean`` equal on both ranks, the loss within
-    ``loss_tol(loss)`` of world 1's and ``grad_norm_mean`` within
-    ``NSQ_RTOL``; the leaves of ``sharded`` (ranges of manifest indices) in
-    ``zero1_expected_shards`` files in the 2-rank checkpoint, in 1 in world
-    1's; ``params`` and ``moments`` (ranges) restored whole one leaf at a
-    time within ``CLIP_SUM_TOL`` of each leaf's max of world 1's.  The
-    temporary directories are removed."""
+    2 ranks sharing the card over gloo, each rank its share of the batch
+    (half of it on a 2-wide data axis; all of it, alike on both, on a
+    2-wide model axis), side by side on the card or one after the other;
+    each world's output to ``chiprun_out/chip_smoke_<log><nproc>.log``.
+    Checks: ``worlds_agree`` (``sliced``: world 2's params are FSDP or
+    model slices); the leaves of each ``(range, counts)`` of ``shards``
+    (ranges of manifest indices) in ``counts`` files each in the 2-rank
+    checkpoint, in 1 in world 1's; ``params`` and ``moments`` (ranges)
+    restored whole one leaf at a time within ``CLIP_SUM_TOL`` of each
+    leaf's max of world 1's.  The temporary directories are removed."""
     import shutil
     import tempfile
     tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{log}_")
@@ -4979,26 +5042,11 @@ def compare_worlds(cmd, arch, *, steps: int, params, moments, sharded, log: str,
             if side_by_side:
                 runs[n] = launcher_result(started[n], n, log, timeout)
             runs[n]["ckpt_bytes"] = dir_bytes(ckpt[n])
-        one, two = runs[1], runs[2]
-        assert [b[0] for b in one["backend"]] == ["nccl"], one["backend"]
-        assert sorted(b[0] for b in two["backend"]) == ["gloo", "gloo"], two["backend"]
-        assert {b[3] for b in two["backend"]} == {"cuda:0"}, two["backend"]
-        fps = {f for f, _ in two["fingerprint"]}
-        if not arch.use_fsdp:
-            fps |= {f for f, _ in one["fingerprint"]}
-        assert len(fps) == 1 and len(one["fingerprint"]) == 1 \
-            and len(two["fingerprint"]) == 2, (one["fingerprint"], two["fingerprint"])
-        for step in range(steps):
-            (a,), (b, c) = one["steps"][step], two["steps"][step]
-            assert (b["loss"], b["grad_norm_mean"]) == (c["loss"], c["grad_norm_mean"])
-            assert abs(b["loss"] - a["loss"]) <= loss_tol(a["loss"]), (step, a, b)
-            assert abs(b["grad_norm_mean"] - a["grad_norm_mean"]) <= \
-                NSQ_RTOL * abs(a["grad_norm_mean"]), (step, a, b)
+        fingerprint = worlds_agree(runs[1], runs[2], steps, loss_tol, sliced)
         manifests = {n: json.loads((Path(d) / f"step_{steps}" / "manifest.json")
                                    .read_text()) for n, d in ckpt.items()}
-        want = zero1_expected_shards(arch, 2)
-        assert 2 in want, want
-        for leaves in sharded:
+        for leaves, want in shards:
+            assert 2 in want, want
             assert ckpt_shard_counts(manifests[2], leaves) == want
             assert ckpt_shard_counts(manifests[1], leaves) == [1] * len(want)
         t = time.perf_counter()
@@ -5015,7 +5063,8 @@ def compare_worlds(cmd, arch, *, steps: int, params, moments, sharded, log: str,
                 proc.communicate()
         shutil.rmtree(tmp, ignore_errors=True)
     assert not Path(tmp).exists()
-    return dict(runs=runs, fingerprint=fps.pop(), param_gap=param_gap,
+    want = shards[0][1]
+    return dict(runs=runs, fingerprint=fingerprint, param_gap=param_gap,
                 moment_gap=moment_gap, restore_s=restore_s,
                 sharded_leaves=sum(x == 2 for x in want), n_params=len(want))
 
@@ -5044,8 +5093,8 @@ def dist_cmd(nproc: int, ckpt_dir: str) -> list:
 
 def dist_path():
     """Phase 16: (a) ``pipeline_ab``; (b) the launcher (``dist_cmd``) in a
-    world of 1 on NCCL and (c) in 2 ranks sharing the card over gloo, one
-    after the other (``compare_worlds``): one fingerprint on all 3 ranks,
+    world of 1 on NCCL and (c) in 2 ranks sharing the card over gloo, side
+    by side (``compare_worlds``): one fingerprint on all 3 ranks,
     losses within ``NSQ_RTOL`` (the int8 rider rounds each rank's share of
     the gradient), the first moments of (c) in 2 shard files each, params
     and first moments within ``CLIP_SUM_TOL``."""
@@ -5062,10 +5111,11 @@ def dist_path():
     # leaves: the step, the params, the compression residuals, then the
     # optimizer's m, master, v
     first_moments = range(1 + 2 * n, 1 + 3 * n)
-    got = compare_worlds(dist_cmd, arch, steps=DIST_STEPS, params=range(1, 1 + n),
-                         moments=first_moments, sharded=[first_moments], log="dist",
-                         timeout=DIST_TIMEOUT, side_by_side=False,
-                         loss_tol=lambda x: NSQ_RTOL * abs(x))
+    got = compare_worlds(dist_cmd, steps=DIST_STEPS, params=range(1, 1 + n),
+                         moments=first_moments,
+                         shards=[(first_moments, zero1_expected_shards(arch, 2))],
+                         log="dist", timeout=DIST_TIMEOUT, side_by_side=True,
+                         loss_tol=lambda x: NSQ_RTOL * abs(x), sliced=False)
     one, two = got["runs"][1], got["runs"][2]
     for k, run in got["runs"].items():
         print(f"[time] phase 16 ({'b' if k == 1 else 'c'}) world of {k}: "
@@ -5132,9 +5182,11 @@ def fsdp_path():
     n = len(zero1_expected_shards(arch, 2))
     # leaves: the step, the params, then the optimizer's state (SGD's momenta)
     params, moments = range(1, 1 + n), range(1 + n, 1 + 2 * n)
-    got = compare_worlds(fsdp_cmd, arch, steps=FSDP_STEPS, params=params,
-                         moments=moments, sharded=[params, moments], log="fsdp",
-                         timeout=FSDP_TIMEOUT, side_by_side=True, loss_tol=printed_unit)
+    counts = zero1_expected_shards(arch, 2)
+    got = compare_worlds(fsdp_cmd, steps=FSDP_STEPS, params=params, moments=moments,
+                         shards=[(params, counts), (moments, counts)], log="fsdp",
+                         timeout=FSDP_TIMEOUT, side_by_side=True, loss_tol=printed_unit,
+                         sliced=True)
     runs = got["runs"]
     one, two = runs[1], runs[2]
     for k, run in runs.items():
@@ -5182,6 +5234,148 @@ def fsdp_path():
           f"whole ({got['restore_s']:.1f} s): params {got['param_gap']:.2e}, momenta "
           f"{got['moment_gap']:.2e} of each leaf's max (limit {CLIP_SUM_TOL})", flush=True)
     return dict(worlds={k: {key: v[key] for key in (
+        "backend", "fingerprint", "steps", "estimate", "measured", "resident",
+        "launches", "seconds", "ckpt_bytes")} for k, v in runs.items()}, halves=halves,
+        moved_per_step=per_step, param_gap=got["param_gap"],
+        moment_gap=got["moment_gap"], restore_s=got["restore_s"], seconds=secs)
+
+
+# ---------------------------------------------------------------------------
+# phase 19: tensor parallelism (the dense decoder's params over the model axis)
+# ---------------------------------------------------------------------------
+
+TP_SETS = ("remat=none", "dp.noise_multiplier=0", f"optim.name={TP_OPTIM}",
+           "optim.lr=1e-4", "optim.schedule=constant", "dp.norm_strategy=fused",
+           "dp.use_kernels=true")
+
+
+def tp_cmd(nproc: int, ckpt_dir: str) -> list:
+    """Phase 19's launcher: phi3-mini at full width on TP_LAYERS layers, B 8
+    x T 512, ``dpsgd_r`` fused + kernels, ``remat="none"``, σ 0,
+    ``TP_OPTIM`` at a constant 1e-4; one rank on a data axis of 1, or two
+    on a (1, 2) ``data,model`` mesh."""
+    mesh = ("1", "data") if nproc == 1 else (f"1,{nproc}", "data,model")
+    return launcher_cmd(nproc, ckpt_dir, "phi3-mini-3.8b", TP_LAYERS, TP_STEPS,
+                        TP_SETS, mesh=mesh)
+
+
+def tp_kernel_checks():
+    """The kernels at the shapes a model rank of phase 19 gives them that no
+    earlier phase ran, bf16: ``dense_bwd_norm`` at every dense site's local
+    (d_in, d_out) (``TP_SHAPES``) and the flash pair at the rank's 16 heads
+    of hd 96; every one takes the tensor-core path phase 3 asks of the
+    training shapes.  (The embedding's ``gram_norm`` runs at phase 3's
+    (B, T, d) masked shape: a rank zeroes the rows of other ranks' ids.)"""
+    import torch
+    bf16 = torch.bfloat16
+    dense = [check_dense_bwd_norm(nm, TRAIN_B, TRAIN_T, di, do, 1, bf16, iters=5)
+             for nm, di, do in TP_SHAPES]
+    for r in dense:
+        assert (r["path"], r["norm_path"]) == ("wgmma+tma", "wgmma+tma"), r
+    heads = 16
+    fwd = check_flash("tp-train", TRAIN_B, heads, heads, TRAIN_T, 96, True, bf16)
+    bwd = check_flash_bwd("tp-train", TRAIN_B * heads, TRAIN_B * heads, TRAIN_T, 96,
+                          True, bf16, iters=5)
+    assert bwd["path"] == "mma+cp.async", bwd["path"]
+    return dict(dense=dense, flash_fwd=fwd, flash_bwd=bwd)
+
+
+def replicated_bytes(arch, width: int, optim: str):
+    """(param bytes, optimizer-state bytes) of the leaves every model rank
+    of a ``width``-wide model axis holds whole (the norm scales), as the
+    launcher's params (bf16 weights, float32 scales) and ``optim``'s
+    state make them."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs.base import OptimConfig
+    from repro_torch.models.transformer import abstract_params
+    from repro_torch.optim.optimizers import make_optimizer
+    counts = zero1_expected_shards(arch, width, axis="model")
+    whole = [p for p, c in zip(tree.leaves(abstract_params(arch, torch.bfloat16)),
+                               counts) if c == 1]
+    state = make_optimizer(OptimConfig(name=optim)).init(whole)
+    return (sum(p.numel() * p.element_size() for p in whole),
+            sum(t.numel() * t.element_size() for t in tree.leaves(state)))
+
+
+def tp_path():
+    """Phase 19: the kernels at a model rank's local shapes
+    (``tp_kernel_checks``), then the launcher on phi3-mini (``tp_cmd``) in a
+    world of 1 on NCCL and, side by side with it on the card, of 2 ranks
+    sharing the card over gloo on a (1, 2) data,model mesh, each holding
+    half of the heads, FFN and vocabulary and taking the whole batch.
+    ``compare_worlds`` checks: each step's loss and ``grad_norm_mean``
+    equal on both ranks and within ``NSQ_RTOL`` of world 1's (the bf16
+    row-parallel sums reorder); the 2-rank checkpoint's sliced params and
+    their momenta in 2 shard files; restored whole, params and momenta
+    within ``CLIP_SUM_TOL`` of each leaf's max of world 1's.  Here: each
+    rank's resident param and optimizer-state bytes half of world 1's
+    within ``BYTES_RTOL`` once the norm scales, which each rank holds
+    whole, are added back; each rank's kernel launches equal to
+    ``path_launches`` of the whole batch (every count is by site, not by
+    width).  Prints each world's step ms, each rank's measured peak beside
+    the planner's per-device estimate (a trace of the rank's slices), the
+    bytes moved a step by kind and the phase's seconds."""
+    from repro_torch.configs import get_arch
+    t0 = time.perf_counter()
+    kernels = tp_kernel_checks()
+    t1 = time.perf_counter()
+    arch = dataclasses.replace(get_arch("phi3-mini-3.8b"), n_layers=TP_LAYERS)
+    counts = zero1_expected_shards(arch, 2, axis="model")
+    n = len(counts)
+    # leaves: the step, the params, then the optimizer's state (SGD's momenta)
+    params, moments = range(1, 1 + n), range(1 + n, 1 + 2 * n)
+    got = compare_worlds(tp_cmd, steps=TP_STEPS, params=params, moments=moments,
+                         shards=[(params, counts), (moments, counts)], log="tp",
+                         timeout=TP_TIMEOUT, side_by_side=True,
+                         loss_tol=lambda x: NSQ_RTOL * abs(x), sliced=True)
+    runs = got["runs"]
+    one, two = runs[1], runs[2]
+    for k, run in runs.items():
+        print(f"[time] phase 19 world of {k}: {run['seconds']:.1f} s; its checkpoint "
+              f"{run['ckpt_bytes'] / 1e9:.2f} GB on disk", flush=True)
+    rp, ro = replicated_bytes(arch, 2, TP_OPTIM)
+    (p1, o1), = [tuple(map(int, r)) for r in one["resident"]]
+    halves = []
+    for p2, o2 in [tuple(map(int, r)) for r in two["resident"]]:
+        halves.append(((2 * p2 - rp) / p1, (2 * o2 - ro) / o1))
+        assert abs((2 * p2 - rp) / p1 - 1) <= BYTES_RTOL, (p2, p1, rp)
+        assert abs((2 * o2 - ro) / o1 - 1) <= BYTES_RTOL, (o2, o1, ro)
+    assert len(halves) == 2, two["resident"]
+    want = path_launches("fused", remat="none", chunks=TP_STEPS,
+                         **launch_shape(arch, TRAIN_B, TRAIN_T))
+    moved = {}
+    for nproc, run in runs.items():
+        assert len(run["launches"]) == nproc, run["launches"]
+        for launched, coll, _ in run["launches"]:
+            assert json.loads(launched) == want, (nproc, launched, want)
+        moved[nproc] = [json.loads(coll) for _, coll, _ in run["launches"]]
+    per_step = {k: v / TP_STEPS for k, v in moved[2][0].items()}
+    assert per_step.get("all-reduce", 0) > 0, per_step
+    secs = time.perf_counter() - t0
+    est = {k: [(float(g), float(d)) for g, d in v["estimate"]] for k, v in runs.items()}
+    print(f"[tp] phi3-mini-3.8b at full width, {TP_LAYERS} of 32 layers, B {TRAIN_B} x "
+          f"T {TRAIN_T}, dpsgd_r fused + kernels, remat none, sigma 0, {TP_OPTIM}, "
+          f"{TP_STEPS} steps, the two worlds side by side on the card: world 1 (nccl) "
+          f"{one['seconds']:.1f} s, steps {_world_steps(one)} ms; world 2 (gloo, both "
+          f"ranks on cuda:0, a (1, 2) data,model mesh) {two['seconds']:.1f} s, steps "
+          f"{_world_steps(two)} ms; losses {_world_losses(one)} | {_world_losses(two)}; "
+          f"the 2-rank checkpoint holds {got['sharded_leaves']} of {n} params and "
+          f"their momenta in 2 shard files", flush=True)
+    print(f"[tp] resident a rank: params {[r[0] for r in two['resident']]} B, "
+          f"optimizer state {[r[1] for r in two['resident']]} B against world 1's "
+          f"{p1} B, {o1} B; with the norm scales ({rp} B, state {ro} B) added back, "
+          f"2 x rank / world 1 {halves} (want 1 within {BYTES_RTOL:.0%}); measured "
+          f"peaks world 1 {one['measured']} GB, world 2 {two['measured']} GB beside "
+          f"the planner's (estimated peak, per device) {est[1]} | {est[2]} GB; a step "
+          f"of world 2 moves {per_step} B a rank (all-reduce: every layer's "
+          f"row-parallel outputs and its inputs' gradients, the embedding rows, the "
+          f"cross-entropy's max, sum and target, the norms², update_norm); launches a "
+          f"rank {json.loads(two['launches'][0][0])} = path_launches; checkpoints "
+          f"restored whole ({got['restore_s']:.1f} s): params {got['param_gap']:.2e}, "
+          f"momenta {got['moment_gap']:.2e} of each leaf's max (limit {CLIP_SUM_TOL}); "
+          f"kernel checks {t1 - t0:.1f} s, phase {secs:.1f} s", flush=True)
+    return dict(kernels=kernels, worlds={k: {key: v[key] for key in (
         "backend", "fingerprint", "steps", "estimate", "measured", "resident",
         "launches", "seconds", "ckpt_bytes")} for k, v in runs.items()}, halves=halves,
         moved_per_step=per_step, param_gap=got["param_gap"],
@@ -5759,19 +5953,27 @@ def main() -> int:
     # 18. FSDP: chameleon-34b through the launcher in a world of 1 (NCCL)
     # and of 2 ranks sharing the card (gloo), each holding half its params
     fsdp = fsdp_path()
+    gc.collect()
+    torch.cuda.empty_cache()
     lap("phase 18")
+    # 19. tensor parallelism: phi3-mini through the launcher in a world of 1
+    # (NCCL) and of 2 model ranks sharing the card (gloo), each holding half
+    # of its heads, FFN and vocabulary
+    tp = tp_path()
+    lap("phase 19")
     ckpts = {**{f"16 ({'b' if k == 1 else 'c'})": w["ckpt_bytes"]
                 for k, w in dist["worlds"].items()},
              "17 (c)": tools["launcher"]["ckpt_bytes"],
-             **{f"18 world {k}": w["ckpt_bytes"] for k, w in fsdp["worlds"].items()}}
+             **{f"18 world {k}": w["ckpt_bytes"] for k, w in fsdp["worlds"].items()},
+             **{f"19 world {k}": w["ckpt_bytes"] for k, w in tp["worlds"].items()}}
     print(f"[disk] the launchers' checkpoints, written and removed: "
           f"{ {k: round(v / 1e9, 2) for k, v in ckpts.items()} } GB, "
           f"{sum(ckpts.values()) / 1e9:.2f} GB in all", flush=True)
     launches = {k: sum(r["launches"][k] for r in (train, routes, remat, algos, glm,
                                                   images, moe, ssm, embed, dist, tools))
                 for k in train["launches"]}
-    for world in fsdp["worlds"].values():         # every rank's steps
-        for got, _, _ in world["launches"]:
+    for world in [*fsdp["worlds"].values(), *tp["worlds"].values()]:
+        for got, _, _ in world["launches"]:       # every rank's steps
             for k, v in json.loads(got).items():
                 launches[k] += v
     launches["flash_attn_fwd"] += serve_launches
@@ -5840,6 +6042,20 @@ def main() -> int:
                     "plain_ms", "bound_ms", "bound_by", "library_ms", "path",
                     "norm_path")} for r in recs])
 
+    # phase 19's local shapes (bf16) and launches on a model rank's path
+    tpk = tp["kernels"]
+    tp_recs = {"dense_bwd_norm": tpk["dense"], "flash_attn_fwd": [tpk["flash_fwd"]],
+               "flash_attn_bwd": [tpk["flash_bwd"]],
+               "gram_norm": [pick(gram_recs, "embed")]}
+    for kernel, recs in tp_recs.items():
+        image_rows[kernel]["tp"] = dict(
+            launches=sum(json.loads(got)[kernel] for got, _, _ in
+                         tp["worlds"][2]["launches"]),
+            shapes=[{k: r.get(k) for k in (
+                "shape", "BG", "BH", "T", "di", "do", "hd", "max_abs_err", "ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms", "path",
+                "norm_path")} for r in recs])
+
     def entry(name, source, replaces, n, rec, **extra):
         out = {"name": name, "route": "cuda",
                "source": f"src/repro_torch/kernels/csrc/{source}",
@@ -5907,7 +6123,7 @@ def main() -> int:
          "planner": planner, "train": train, "routes": routes,
          "remat": remat, "algos": algos, "glm": glm, "image_kernels": image_kernels,
          "images": images, "moe": moe, "ssm": ssm, "embed": embed, "dist": dist,
-         "tools": tools, "fsdp": fsdp, "json_line": kernels},
+         "tools": tools, "fsdp": fsdp, "tp": tp, "json_line": kernels},
         indent=1, default=str))
     print(f"[time] chip_smoke.py: {time.perf_counter() - t_start:.1f} s from the device "
           f"query to the last check", flush=True)

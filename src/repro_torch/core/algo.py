@@ -90,6 +90,19 @@ step's generator, so every rank gets the same next clip norm.  In
 ``dpsgd_r1f`` the first pullback reaches only the accumulator, so the
 gather's backward runs in the second alone.
 
+Tensor parallel (params carrying ``model_shard``, a ``model`` axis above
+1): every model rank takes the same examples, and each norm site on a
+slice gives that slice's partial norm² (the norm scales' taps count on the
+first model rank alone, core/context.py), so the (B,) norms² are summed
+over the ``model`` group right after their pullback and before the clip
+factors (``norm_pass``, ``dpsgd_r1f``): every model rank then clips alike,
+and the losses and norms² are the same on each.  A slice's clipped sum is
+its own gradient, reduced over the batch group alone; its noise comes from
+a generator keyed by the step's and the slice's ``model`` index
+(``noise.shard_generator``), alike on every data rank that holds the
+slice.  ``dpsgd`` raises: its flat per-example buffers would need their
+norms² summed over the group (ROADMAP queue 1).
+
 loss_fn contract: ``loss_fn(params, batch, ctx) -> (per_example_losses,
 ctx)`` with ``per_example_losses: (B,) float32``.
 """
@@ -224,7 +237,8 @@ def norm_pass(loss_fn: Callable, params, data, dp: DPConfig, mask=None):
     activation gradients and norms² and no weight gradient.  The loss
     cotangents are seeded with ``mask`` (float (B·K,) 0/1, default all
     ones): the pass backpropagates Σ mᵢ·Lᵢ, so every padded row's gy is an
-    exact zero at every site, and so is its norm²."""
+    exact zero at every site, and so is its norm².  Tensor parallel, the
+    ranks' partial norms² are summed over the ``model`` group."""
     device = tree.leaves(params)[0].device
     K = _views(dp)
     R = _batch_size(data)
@@ -238,6 +252,7 @@ def norm_pass(loss_fn: Callable, params, data, dp: DPConfig, mask=None):
         (nsq,) = torch.autograd.grad((losses, ctx.acc), (acc0,),
                                      (seed.to(losses.dtype),
                                       torch.zeros_like(ctx.acc)))
+    runtime.all_reduce_([nsq], runtime.model_group())
     return nsq, losses.detach()
 
 
@@ -289,6 +304,11 @@ def _dpsgd_sum(loss_fn, dp: DPConfig):
         data, mask, clip = split_clip(batch)
         C = dp.clip_norm if clip is None else clip
         leaves = _require_grad_leaves(params)
+        if any(runtime.model_shard_of(p) is not None for p in leaves):
+            raise NotImplementedError(
+                "dp.algo='dpsgd' on tensor-parallel model slices is not "
+                "ported: its flat per-example buffers would need their "
+                "norms² summed over the model group (ROADMAP queue 1)")
         # FSDP: each example's gradient must be whole before its clip, so
         # the slices are gathered once, outside autograd, and the whole
         # leaves differentiated (no collective in their backward)
@@ -354,6 +374,7 @@ def _dpsgd_r1f_sum(loss_fn, dp: DPConfig):
                 (losses, ctx.acc), (acc0,),
                 (_view_seed(m, K).to(losses.dtype), torch.zeros_like(ctx.acc)),
                 retain_graph=True)
+            runtime.all_reduce_([nsq], runtime.model_group())
             c = clipping.clip_factors(nsq, C) * _example_mask(m, K)
             pull.stage = "grads"            # no norm²
             grads = _f32_grads(losses, leaves,
@@ -486,9 +507,17 @@ def make_noisy_grad_fn(loss_fn: Callable, dp: DPConfig, grad_accum: int = 1,
             C = dp.clip_norm if clip_norm is None else clip_norm
             denom = (float(expected_batch_size)
                      if expected_batch_size is not None else R // K)
-            local = [i for i, sh in enumerate(fsdp) if sh is not None]
-            shard_gen = (noise.shard_generator(generator, fsdp[local[0]].index)
-                         if local else None)
+            # a rank's FSDP slices draw on their data index, its model
+            # slices on their model index (the two never mix in one model)
+            tp = [runtime.model_shard_of(p) for p in leaves]
+            local = [i for i, (f, t) in enumerate(zip(fsdp, tp))
+                     if f is not None or t is not None]
+            shard_gen = None
+            if local:
+                i = local[0]
+                shard_gen = (noise.shard_generator(generator, fsdp[i].index)
+                             if fsdp[i] is not None else
+                             noise.shard_generator(generator, tp[i].index, "model"))
             noise.add_noise_(summed, generator, dp.noise_multiplier,
                              _noise_clip(C, dp), denom, shard_gen,
                              local)                                 # lines 24/41

@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.core import sites
 from repro_torch.core.sites import SiteSpec
+from repro_torch.dist import runtime
 
 __all__ = ["DPContext", "SiteSpec"]
 
@@ -62,12 +63,14 @@ class DPContext:
         return DPContext(acc=acc, mode="norm", strategy=strategy,
                          use_kernels=use_kernels, augmult=augmult, pull=pull)
 
-    def site(self, kind: str, *operands, meta: tuple = ()) -> Tuple[torch.Tensor, "DPContext"]:
+    def site(self, kind: str, *operands, meta: tuple = (),
+             counted: bool = True) -> Tuple[torch.Tensor, "DPContext"]:
         """Run registered site ``kind`` on ``operands``: the plain op in
-        ``off`` mode, ``sites.SiteCall`` in ``norm`` mode."""
+        ``off`` mode, ``sites.SiteCall`` in ``norm`` mode; ``counted`` as
+        ``SiteSpec`` takes it."""
         spec = SiteSpec(kind=kind, strategy=self.strategy,
                         use_kernels=self.use_kernels, meta=tuple(meta),
-                        augmult=self.augmult)
+                        augmult=self.augmult, counted=counted)
         site = sites.get_site(kind)        # raises with registered kinds
         sites.name_saved_operands(site, operands, self.saved)
         if self.mode == "off":
@@ -89,10 +92,14 @@ class DPContext:
 
     def tap(self, p, nexp: int, batch: int):
         """Tap a small param: in norm mode (B, 1*nexp, *p.shape) so that
-        broadcasting gives exact per-example grads; in off mode p itself."""
+        broadcasting gives exact per-example grads; in off mode p itself.
+        A tapped param is whole on every model rank of a tensor-parallel
+        layout, and only the first adds its norm²
+        (``dist.runtime.counts_replicated``)."""
         if self.mode == "off":
             return p, self
-        return self.site("tap", p, meta=(nexp, batch))
+        return self.site("tap", p, meta=(nexp, batch),
+                         counted=runtime.counts_replicated())
 
     def conv2d(self, x, w, stride: int = 1, padding: str = "SAME"):
         """y = conv2d(x, w) in NHWC/HWIO layout with JAX's padding rule;

@@ -10,7 +10,10 @@ Under FSDP a rank holds one slice of a sharded leaf's gradient, and draws
 the noise of that slice only, from ``shard_generator``: keyed by the
 step's generator (seed, step) and the slice's index on the ``data`` axis,
 so the ranks' slices get independent draws and no rank draws a whole
-leaf.  Its bits differ from a world of one's by design.
+leaf.  Its bits differ from a world of one's by design.  A tensor-parallel
+model slice's noise alike, keyed by the slice's index on the ``model``
+axis: the data ranks that hold one slice add the same noise to it, so
+their replicas stay equal.
 """
 from __future__ import annotations
 
@@ -20,13 +23,16 @@ from typing import List, Optional, Sequence
 import torch
 
 
-def shard_generator(generator: torch.Generator, index: int) -> torch.Generator:
-    """The generator of the noise of this rank's FSDP slices: seeded from
-    ``generator``'s seed (the step's) and the slice index ``index``, on
-    its device; ``generator`` is not advanced."""
+def shard_generator(generator: torch.Generator, index: int,
+                    axis: str = "data") -> torch.Generator:
+    """The generator of the noise of this rank's slices: seeded from
+    ``generator``'s seed (the step's) and the slice index ``index`` on the
+    mesh axis ``axis`` (``"data"``: FSDP slices; ``"model"``: model
+    slices), on its device; ``generator`` is not advanced."""
     g = torch.Generator(device=generator.device)
+    tag = "shard" if axis == "data" else axis
     # 32 bits: the CPU generator keeps only the low 32 bits of a seed
-    g.manual_seed(zlib.crc32(f"{generator.initial_seed()}:shard{index}".encode()))
+    g.manual_seed(zlib.crc32(f"{generator.initial_seed()}:{tag}{index}".encode()))
     return g
 
 
@@ -42,7 +48,8 @@ def add_noise_(grads: List[torch.Tensor], generator: torch.Generator,
     batch size for fixed-size batches and the expected batch q·N under
     Poisson sampling: a Python number, never a function of the realized
     sample.  ``local``: the indices of the grads that are this rank's FSDP
-    slices, whose noise ``local_generator`` draws (``shard_generator``);
+    or model slices, whose noise ``local_generator`` draws
+    (``shard_generator``);
     the others' comes from ``generator``, in order."""
     std = noise_multiplier * clip_norm
     local = set(local)

@@ -58,12 +58,17 @@ class SiteSpec:
     """Static per-site-call config.  ``meta`` carries per-call extras
     (``tap``'s ``(nexp, batch)``, ``attention``'s ``(causal,)``,
     ``conv2d``'s ``(stride, padding)``);
-    ``augmult`` is the number of views per example (rows B·K, norms (B,))."""
+    ``augmult`` is the number of views per example (rows B·K, norms (B,)).
+    ``counted``: whether this rank adds the site's norm² (False on the
+    model ranks past the first for a param replicated over a ``model``
+    axis above 1, whose norm² every rank computes whole and alike; the sum
+    over the group then counts it once)."""
     kind: str
     strategy: str = "auto"
     use_kernels: bool = False
     meta: tuple = ()
     augmult: int = 1
+    counted: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -243,7 +248,7 @@ class SiteCall(torch.autograd.Function):
         if stage == "norms":
             for i in site.param_operands:
                 needs[i] = False
-        want_nsq = stage != "grads"
+        want_nsq = stage != "grads" and spec.counted
         strat = resolve_strategy(spec.kind, spec.strategy, _shapes(operands),
                                  tuple(gy.shape))
         fused = site.fused_bwd.get(strat)

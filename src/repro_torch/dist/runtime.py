@@ -37,6 +37,19 @@ a step outside autograd (``fsdp_whole``): their local gradient is the
 whole one, with no collective, and the clipped sum is reduced once
 (core/algo.py).
 
+Tensor parallelism (a ``model`` axis above 1, Megatron's layout, which
+``sharding.spec_for_param``'s placements give): each rank holds the
+contiguous slice at its ``model`` coordinate of every param placed on
+``model`` (``sharding.model_shards``; the param carries its ``Shard`` as
+``model_shard``) and the whole of the rest (the norm scales).  The layout
+activates for the ``model`` axis alone as well, so a (1, 2) mesh, whose
+batch is not sharded, runs its model collectives.  ``to_model`` is the
+identity forward and sums the gradient over the ``model`` group backward
+(before a column-parallel product); ``from_model`` sums over the group
+forward and is the identity backward (after a row-parallel product).
+Both go through ``all_reduce_``.  Every model rank holds the whole
+residual stream and its gradient, alike bit for bit.
+
 Metering: inside ``metered()`` (the launcher's byte count, a
 ``CostCounter``), ``all_reduce_``, ``all_gather`` and ``reduce_slice``
 append ``{"kind", "bytes", "group"}`` to its records (``bytes``: the
@@ -72,6 +85,7 @@ class _Layout:
         self.mesh = None
         self.batch_axes: Optional[Tuple[str, ...]] = None
         self.traces = 0           # cost traces in progress (``traced``)
+        self.suspended = 0        # ``suspended`` contexts in progress
 
 
 _ACTIVE = _Layout()
@@ -87,21 +101,32 @@ class TracedGroup:
         self.size = size
 
 
+# a group of one rank: every collective over it is the identity and records
+# nothing (the batch group of a layout whose batch is not sharded, the
+# model group outside a tensor-parallel layout)
+SOLO = TracedGroup(1)
+
+
 @contextlib.contextmanager
 def layout(mesh, batch_axes):
-    """Activate data-parallel execution: inside this context the batch dim
-    is sharded over ``batch_axes`` of ``mesh``, one contiguous slice a
-    rank.  A falsy ``batch_axes`` (batch not shardable) is a no-op, so
-    ``layout(mesh, batch_pspec(mesh, B))`` is always safe.  The batch axes
-    must span the whole world or be one axis of the mesh; a mesh with no
-    process group is taken only inside a cost trace."""
-    if not batch_axes:
+    """Activate data-parallel and tensor-parallel execution: inside this
+    context the batch dim is sharded over ``batch_axes`` of ``mesh``, one
+    contiguous slice a rank, and the model collectives run over its
+    ``model`` axis.  A falsy ``batch_axes`` (batch not shardable) on a mesh
+    with no ``model`` axis above 1 is a no-op, so ``layout(mesh,
+    batch_pspec(mesh, B))`` is always safe; with one, every rank takes the
+    whole batch.  The batch axes must span the whole world or be one axis
+    of the mesh; a mesh with no process group is taken only inside a cost
+    trace."""
+    if not batch_axes and (mesh is None
+                           or _sh._axis_size(mesh, _sh.MODEL_AXIS) == 1):
         yield
         return
     prev = (_ACTIVE.mesh, _ACTIVE.batch_axes)
-    _ACTIVE.mesh, _ACTIVE.batch_axes = mesh, tuple(batch_axes)
+    _ACTIVE.mesh, _ACTIVE.batch_axes = mesh, tuple(batch_axes or ())
     try:
         batch_group()             # refuse an unsupported layout up front
+        model_group()
         yield
     finally:
         _ACTIVE.mesh, _ACTIVE.batch_axes = prev
@@ -135,13 +160,22 @@ def traced():
 @contextlib.contextmanager
 def suspended():
     """No layout inside: the code runs as one process (the memory
-    planner's trace of a step, which launches no collective)."""
+    planner's trace of a step, which launches no collective; a
+    tensor-parallel model then runs on its slices alone, with every model
+    collective the identity)."""
     prev = (_ACTIVE.mesh, _ACTIVE.batch_axes)
     _ACTIVE.mesh, _ACTIVE.batch_axes = None, None
+    _ACTIVE.suspended += 1
     try:
         yield
     finally:
         _ACTIVE.mesh, _ACTIVE.batch_axes = prev
+        _ACTIVE.suspended -= 1
+
+
+def is_suspended() -> bool:
+    """Whether a ``suspended`` context is in progress."""
+    return _ACTIVE.suspended > 0
 
 
 def active() -> Optional[Tuple]:
@@ -178,11 +212,37 @@ def _group_of(mesh, axes):
 
 def batch_group():
     """The process group of the active layout's batch axes (None outside
-    a layout): the world when they span it, else the one axis's group."""
+    a layout): the world when they span it, else the one axis's group;
+    ``SOLO`` when the batch is not sharded (a tensor-parallel layout on a
+    ``data`` axis of 1)."""
     state = active()
     if state is None:
         return None
+    if not state[1]:
+        return SOLO
     return _group_of(*state)
+
+
+def model_group():
+    """The process group of the active layout's ``model`` axis; ``SOLO``
+    outside a layout or on a ``model`` axis of 1."""
+    state = active()
+    if state is None or _sh._axis_size(state[0], _sh.MODEL_AXIS) == 1:
+        return SOLO
+    return _group_of(state[0], (_sh.MODEL_AXIS,))
+
+
+def model_shard() -> Tuple[int, int]:
+    """(this rank's coordinate, the size) of the active layout's ``model``
+    axis; (0, 1) outside a layout or on an axis of 1 (and coordinate 0 in
+    a cost trace, whose mesh has no ranks)."""
+    state = active()
+    if state is None:
+        return 0, 1
+    size = _sh._axis_size(state[0], _sh.MODEL_AXIS)
+    if size == 1 or not hasattr(state[0], "get_local_rank"):
+        return 0, size
+    return state[0].get_local_rank(_sh.MODEL_AXIS), size
 
 
 def fsdp_group():
@@ -252,8 +312,10 @@ def _like(h: torch.Tensor, shape=None) -> torch.Tensor:
                        device=h.device, pin_memory=h.is_pinned())
 
 
-def all_reduce_(tensors: List[torch.Tensor], group=None) -> None:
-    """Sum each tensor over ``group``'s ranks, in place."""
+def all_reduce_(tensors: List[torch.Tensor], group=None,
+                op: str = "sum") -> None:
+    """Sum (``op="max"``: take the largest of) each tensor over ``group``'s
+    ranks, in place."""
     n = _group_size(group)
     if n == 1:
         return
@@ -261,9 +323,10 @@ def all_reduce_(tensors: List[torch.Tensor], group=None) -> None:
         _record("all-reduce", t.numel() * t.element_size(), n)
     if isinstance(group, TracedGroup):
         return
+    rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
     for t in tensors:
         h = _staged(t, group)
-        dist.all_reduce(h, group=group)
+        dist.all_reduce(h, op=rop, group=group)
         if h is not t:
             t.copy_(h)
 
@@ -383,6 +446,71 @@ def fsdp_whole(p: torch.Tensor) -> torch.Tensor:
         return fsdp_gather(p.detach(), shard)
 
 
+# ---------------------------------------------------------------------------
+# tensor parallelism
+# ---------------------------------------------------------------------------
+
+def model_shard_of(t) -> Optional["_sh.Shard"]:
+    """The ``sharding.Shard`` a tensor-parallel model slice carries, else
+    None."""
+    return getattr(t, "model_shard", None)
+
+
+class _ToModel(torch.autograd.Function):
+    """Identity forward; backward, the gradient summed over the ``model``
+    group (each rank's column-parallel products give a partial one)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        all_reduce_([g], ctx.group)
+        return g, None
+
+
+class _FromModel(torch.autograd.Function):
+    """Forward, the partial sums of a row-parallel product summed over the
+    ``model`` group; identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.clone(memory_format=torch.contiguous_format)
+        all_reduce_([y], group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def to_model(x: torch.Tensor) -> torch.Tensor:
+    """``x`` entering the column-parallel products of a layer: itself, with
+    its gradient summed over the ``model`` group (``_ToModel``); ``x`` as
+    it is outside a tensor-parallel layout."""
+    group = model_group()
+    return x if group is SOLO else _ToModel.apply(x, group)
+
+
+def from_model(x: torch.Tensor) -> torch.Tensor:
+    """A row-parallel product's partial sum made whole over the ``model``
+    group (``_FromModel``); ``x`` as it is outside a tensor-parallel
+    layout."""
+    group = model_group()
+    return x if group is SOLO else _FromModel.apply(x, group)
+
+
+def counts_replicated() -> bool:
+    """Whether this rank adds the norm² of a param replicated over the
+    ``model`` axis: its per-example gradient is whole and alike on every
+    model rank, so only the first of them counts it in the norm² that is
+    summed over the group (``core.algo.norm_pass``)."""
+    return model_shard()[0] == 0
+
+
 def batch_local(fn: Callable, n_batch_args: int,
                 reduce_out: bool = False) -> Callable:
     """``fn`` under the ambient layout.  Each rank holds only its batch
@@ -405,17 +533,17 @@ def batch_local(fn: Callable, n_batch_args: int,
 
 def attn_local(fn: Callable, n_kv: int) -> Callable:
     """A flash-attention call ``fn(q, k, v)`` under the ambient layout:
-    each rank holds its batch shard, so on a ``model`` axis of size 1 this
-    is ``fn``.  Splitting the heads over a wider ``model`` axis is not
-    ported (ROADMAP queue 1) and raises."""
-    state = active()
-    if state is None:
-        return fn
-    msz = _sh._axis_size(state[0], _sh.MODEL_AXIS)
-    if msz > 1:
+    each rank holds its batch shard and, on a ``model`` axis above 1, its
+    contiguous run of the heads (the column-parallel ``wq``, ``wk``, ``wv``
+    slices give q, k and v of those heads alone), so ``fn`` runs as it is on
+    the local heads.  The reference shards the heads only when the axis
+    divides the ``n_kv`` KV heads; other counts raise (replicating KV heads
+    is not ported, ROADMAP queue 1)."""
+    msz = model_shard()[1]
+    if n_kv % msz:
         raise NotImplementedError(
-            f"attention heads over a {msz}-wide model axis are not ported "
-            f"(ROADMAP queue 1)")
+            f"{n_kv} KV heads over a {msz}-wide model axis: replicating KV "
+            f"heads is not ported (ROADMAP queue 1)")
     return fn
 
 
@@ -453,14 +581,15 @@ def init_fingerprint(params) -> int:
     on the same params: leaves in the order of their key paths' ``str``,
     each the crc32 of its ``keystr``, shape and dtype record chained with
     its raw bytes (bf16 as its 2-byte words), and each leaf's crc chained
-    into the total.  An FSDP slice (a leaf with ``fsdp_shard``) records its
-    whole leaf's shape and no bytes, the reference's rule for a leaf that
-    is not fully addressable: the bytes live on other ranks, and the
-    structure this check exists to catch is visible without them."""
+    into the total.  An FSDP slice (a leaf with ``fsdp_shard``) or a model
+    slice (``model_shard``) records its whole leaf's shape and no bytes,
+    the reference's rule for a leaf that is not fully addressable: the
+    bytes live on other ranks, and the structure this check exists to
+    catch is visible without them."""
     total = 0
     for path, leaf in sorted(_key_paths(params), key=lambda kv: _path_str(kv[0])):
         dtype = str(leaf.dtype).removeprefix("torch.")
-        shard = fsdp_shard_of(leaf)
+        shard = fsdp_shard_of(leaf) or model_shard_of(leaf)
         shape = list(leaf.shape)
         if shard is not None:
             shape[shard.dim] = shard.size

@@ -27,12 +27,17 @@ names and sizes: they run on a ``DeviceMesh`` (``mesh_dim_names``,
 ``shape`` (a fake mesh in tests), and never touch a device.
 
 The port places only what its runtime runs: the batch axes, ZeRO-1's
-``data`` sharding of the optimizer state (train/trainer.py) and FSDP's
+``data`` sharding of the optimizer state (train/trainer.py), FSDP's
 ``data`` sharding of a ``use_fsdp`` arch's params (``fsdp_shards``: each
 rank holds one slice of such a leaf, gathered a layer at a time in the
-forward; models/transformer.py, dist/runtime.py).  The ``model`` and
-``stage`` axes are refused by the launcher (ROADMAP queue 1); their rules
-are here so that placements agree with the reference's.
+forward; models/transformer.py, dist/runtime.py) and the ``model`` axis's
+sharding of the dense decoders' params (``model_shards``: tensor
+parallelism, each rank holding its slice for good; the placements give
+Megatron's layout: ``wq``, ``wk``, ``wv``, ``w1``, ``w3`` and the head
+column-parallel, ``wo`` and ``w2`` row-parallel, the embedding over the
+vocabulary, the norm scales replicated).  The ``stage`` axis is refused by
+the launcher (ROADMAP queue 1); its rule is here so that placements agree
+with the reference's.
 """
 from __future__ import annotations
 
@@ -203,7 +208,8 @@ def param_shardings(mesh, model, fsdp: Optional[bool] = None):
 
 @dataclasses.dataclass(frozen=True)
 class Shard:
-    """This rank's slice of an FSDP-sharded param: slice ``index`` of
+    """This rank's slice of an FSDP-sharded param or of a tensor-parallel
+    model slice: slice ``index`` of
     ``count`` equal slices along ``dim`` of the whole leaf, whose extent
     along ``dim`` is ``size``.  Not a tuple, so a tree of them keeps its
     tuples as containers (``tree.tree_map``)."""
@@ -245,6 +251,30 @@ def fsdp_shards(mesh, model, index: Optional[int] = None):
         if "data" not in spec:
             return None
         d = spec.index("data")
+        return Shard(d, int(index), count, int(shaped.shape[d]))
+
+    return _zip_spec_tree(model.abstract_params(), model.logical_axes(), leaf)
+
+
+def model_shards(mesh, model, index: Optional[int] = None):
+    """The tensor-parallel layout of ``model``'s params on ``mesh``: a tree
+    parallel to ``model.abstract_params()`` whose leaf is this rank's
+    ``Shard`` of a param that ``param_shardings`` places on the ``model``
+    axis (the contiguous slice at the rank's coordinate, as GSPMD lays it
+    out), or None for a leaf every model rank holds whole.  ``index``: the
+    rank's coordinate on the ``model`` axis (default this process's, from
+    a ``DeviceMesh``).  Every leaf is None on a ``model`` axis of 1."""
+    count = _axis_size(mesh, MODEL_AXIS)
+    if count > 1 and index is None:
+        index = mesh.get_local_rank(MODEL_AXIS)
+
+    def leaf(shaped, axes):
+        if count == 1:
+            return None
+        spec = spec_for_param(axes, shaped.shape, mesh)
+        if MODEL_AXIS not in spec:
+            return None
+        d = spec.index(MODEL_AXIS)
         return Shard(d, int(index), count, int(shaped.shape[d]))
 
     return _zip_spec_tree(model.abstract_params(), model.logical_axes(), leaf)

@@ -31,10 +31,11 @@ clock enters only the measurement.
 The collective term is the gradient tree's ring all-reduce over the batch
 axis, 2(w-1)/w of the float32 gradient bytes (a quarter of it under int8
 compression), over the H100's NVLink bandwidth (``roofline.LINK_BW``).
-Meshes: the launcher runs a ``data`` axis only, so a plan whose ``model``
+Meshes: the measurement runs in one process, so a plan whose ``model``
 axis (the last) is above 1, or a ``use_fsdp`` arch's plan with
 ``compress_grads`` on a wider batch axis, is infeasible with the
-launcher's own reason (``launch/train.py`` ``unported_mesh_reason``).  A
+launcher's own reason (``launch/train.py`` ``unported_mesh_reason`` under
+``--autotune``).  A
 ``use_fsdp`` arch's plan on a wider batch axis trains FSDP-sharded: its
 collective term is that of the FSDP collectives one rank's step records
 (``launch/costs.py`` ``traced_rank_collectives``: the gathers a layer at
@@ -343,7 +344,7 @@ class PlanScorer:
         model = int(plan.mesh_shape[-1]) if len(plan.mesh_shape) > 1 else 1
         return unported_mesh_reason(self.arch, {"model": model,
                                                 "data": plan.width},
-                                    plan.apply(self.base_cfg))
+                                    plan.apply(self.base_cfg), autotune=True)
 
     # -- the fitness function ---------------------------------------------
     def score(self, plan: LaunchPlan) -> PlanScore:

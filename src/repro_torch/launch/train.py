@@ -32,6 +32,11 @@ a data-parallel world.
         --set ckpt_dir=/path/to/ckpts --set ckpt_every=3 \
         --set data_source=memmap:/path/to/tokens.bin --set optim.name=adam8bit
 
+    # tensor parallel: phi3-mini at full width on two model ranks:
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc_per_node 2 -m repro_torch.launch.train --arch phi3-mini-3.8b \
+        --layers 2 --steps 2 --mesh 1,2 --axes data,model
+
     # FSDP: a use_fsdp arch at full width on two ranks (a card each):
     PYTHONPATH=src python -m torch.distributed.run --standalone \
         --nproc_per_node 2 -m repro_torch.launch.train --arch chameleon-34b \
@@ -79,11 +84,18 @@ each rank draws and holds its slice of every param ``param_shardings``
 places on ``data``, gathers each layer's whole params just before the
 layer runs, and its pass-2 gradients are summed over the ranks and cut
 back to its slices (dist/runtime.py); the init fingerprint then records a
-slice's whole shape and no bytes.  Not ported, and refused by name
-(ROADMAP queue 1): a ``model`` axis above 1 (tensor parallelism), a
-``stage`` axis above 1 (pipeline stages across processes; ``pp_stages``
-runs the schedule in each process), and with FSDP ``compress_pod_grads``
-and ``adam8bit``, whose int8 blocks span the flattened whole leaf.
+slice's whole shape and no bytes.  A ``model`` axis above 1 trains the
+dense decoders tensor-parallel (``--mesh 1,2 --axes data,model``, or
+``2,2`` with ZeRO-1 over ``data``): each rank holds its slices of the
+heads, FFN and vocabulary (``models/transformer.py``), every model rank of
+a ``data`` coordinate takes the same examples, and the norms² are summed
+over the ``model`` group before the clip.  Not ported, and refused by name
+(ROADMAP queue 1): on a ``model`` axis, ``use_fsdp``, MoE, Mamba, image
+and ``qk_norm`` archs, KV heads the axis does not divide, ``pp_stages`` >
+1, ``dp.algo=dpsgd`` and ``--autotune``; a ``stage`` axis above 1
+(pipeline stages across processes; ``pp_stages`` runs the schedule in
+each process); and with FSDP or model slices ``compress_pod_grads`` and
+``adam8bit``, whose int8 blocks span the flattened whole leaf.
 
 ``--autotune`` solves for the fastest feasible launch plan first
 (``launch/autotune.py``; ``--set tune.*`` sets the search): it searches the
@@ -106,7 +118,7 @@ peak (``torch.cuda.max_memory_allocated`` over its steps) is printed beside
 the estimate after it.  Each rank then prints its resident param and
 optimizer-state bytes before the run, and after it the kernel launches
 of its steps and the bytes its collectives moved (each result's size on
-one rank, by kind).
+one rank, by kind, over the steps and a step).
 """
 from __future__ import annotations
 
@@ -126,6 +138,7 @@ from repro_torch.configs import (IMAGE_FAMILIES, SHAPES, ShapeConfig,
                                  parse_set_args, reduced)
 from repro_torch.dist import runtime, sharding
 from repro_torch.models import build_model_for
+from repro_torch.models.transformer import tp_refusal
 from repro_torch.train import Trainer
 from repro_torch.train.trainer import fsdp_refusal
 
@@ -188,29 +201,44 @@ def make_run_mesh(args, cfg, mesh_keys: bool, world: int):
     return make_host_mesh() if world > 1 else None
 
 
-def unported_mesh_reason(arch, sizes: dict, cfg=None) -> str:
+def unported_mesh_reason(arch, sizes: dict, cfg=None,
+                         autotune: bool = False) -> str:
     """Why the port cannot run ``arch`` on a mesh of these axis sizes
     (``{"model": 1, "data": 2}``; an absent axis is 1) under the training
-    config ``cfg``, naming ROADMAP; "" when it can.  The launch autotuner
-    gives it as a plan's reason."""
-    for axis, what in ((sharding.MODEL_AXIS, "tensor parallelism"),
-                       (sharding.STAGE_AXIS, "pipeline stages across processes")):
-        size = sizes.get(axis, 1)
-        if size > 1:
-            return (f"a {size}-wide {axis!r} mesh axis ({what}) is not ported "
-                    f"yet (ROADMAP queue 1)")
-    if arch.use_fsdp and sizes.get("data", 1) > 1 and cfg is not None:
+    config ``cfg`` (and ``--autotune``), naming ROADMAP; "" when it can.
+    The launch autotuner gives it as a plan's reason (``autotune``: its
+    measurement runs in one process, so a ``model`` axis above 1 is
+    refused there)."""
+    size = sizes.get(sharding.STAGE_AXIS, 1)
+    if size > 1:
+        return (f"a {size}-wide 'stage' mesh axis (pipeline stages across "
+                f"processes) is not ported yet (ROADMAP queue 1)")
+    width = sizes.get(sharding.MODEL_AXIS, 1)
+    if width > 1:
+        if autotune:
+            return (f"a {width}-wide 'model' mesh axis (tensor parallelism) is "
+                    f"not ported under --autotune: its measurement runs in one "
+                    f"process (ROADMAP queue 1)")
+        reason = tp_refusal(arch, width, 1 if cfg is None else cfg.pp_stages)
+        if reason:
+            return reason
+        if cfg is not None and cfg.dp.enabled and cfg.dp.algo == "dpsgd":
+            return (f"{arch.name} on a {width}-wide 'model' axis (tensor "
+                    f"parallelism): dp.algo='dpsgd' not ported (ROADMAP "
+                    f"queue 1)")
+    if cfg is not None and (width > 1 or arch.use_fsdp and sizes.get("data", 1) > 1):
         reason = fsdp_refusal(cfg)
         if reason:
-            return f"{arch.name} (use_fsdp): {reason}"
+            return f"{arch.name} ({'use_fsdp' if width == 1 else 'tensor parallel'}): {reason}"
     return ""
 
 
-def refuse_unported(mesh, arch, cfg=None) -> None:
+def refuse_unported(mesh, arch, cfg=None, autotune: bool = False) -> None:
     """Raise, naming ROADMAP, on a mesh the port does not run."""
     reason = unported_mesh_reason(arch, {
         a: sharding._axis_size(mesh, a)
-        for a in (sharding.MODEL_AXIS, sharding.STAGE_AXIS, "data")}, cfg)
+        for a in (sharding.MODEL_AXIS, sharding.STAGE_AXIS, "data")}, cfg,
+        autotune)
     if reason:
         raise NotImplementedError(reason)
 
@@ -326,7 +354,7 @@ def _train(args, device, backend, rank, world) -> None:
         mesh = make_run_mesh(args, cfg, any(k.startswith("mesh.") for k in sets),
                              world)
     if mesh is not None:
-        refuse_unported(mesh, arch, cfg)
+        refuse_unported(mesh, arch, cfg, args.autotune)
 
     plan = None
     if args.autotune:
@@ -351,11 +379,12 @@ def _run(trainer, model, cfg, shape, arch, mesh, bax, world) -> None:
     else:
         rows = f"{shape.global_batch} x {shape.seq_len}"
     held = sum(p.numel() for p in model.parameters())
-    total, fsdp = held, ""
-    if getattr(model, "fsdp", None) is not None:
-        total = sum(p.numel() for p in tree.leaves(model.abstract_params()))
-        fsdp = f" (FSDP: this rank holds {held} of them)"
-    print(f"[train] {arch.name}: {total} params{fsdp} "
+    total, sliced = held, ""
+    for attr, what in (("fsdp", "FSDP"), ("tp", "tensor parallel")):
+        if getattr(model, attr, None) is not None:
+            total = sum(p.numel() for p in tree.leaves(model.abstract_params()))
+            sliced = f" ({what}: this rank holds {held} of them)"
+    print(f"[train] {arch.name}: {total} params{sliced} "
           f"{cfg.param_dtype} (compute {cfg.compute_dtype}) on "
           f"{model.device}; data {cfg.data_source}; batch {rows}; remat "
           f"{cfg.remat}; dp {cfg.dp.algo} norm_strategy={cfg.dp.norm_strategy} "
@@ -427,9 +456,11 @@ def _run(trainer, model, cfg, shape, arch, mesh, bax, world) -> None:
     moved = {}
     for r in records:
         moved[r["kind"]] = moved.get(r["kind"], 0) + r["bytes"]
+    steps = max(1, state.step - first)
     print(f"[train] steps {first}..{state.step - 1}: kernel launches "
           f"{json.dumps(launches)}; collectives {json.dumps(moved)} B in "
-          f"{len(records)} calls", flush=True)
+          f"{len(records)} calls; a step "
+          f"{json.dumps({k: v // steps for k, v in moved.items()})} B", flush=True)
     eps = trainer.accountant.epsilon_at(state.step)
     split = ""
     if trainer.adaptive_clip:

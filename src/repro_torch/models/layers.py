@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import validate_remat
 from repro_torch.core import sites
 from repro_torch.core.context import DPContext
+from repro_torch.dist import runtime
 from repro_torch.kernels import ops as kops
 
 NEG = -1e30
@@ -251,11 +252,19 @@ def attn_spec(cfg) -> dict:
     return spec
 
 
+def _heads(p, cfg) -> Tuple[int, int]:
+    """(H, KV): the query and KV heads the projections ``p`` hold, all of
+    them, or a tensor-parallel rank's contiguous run of them (its
+    column slices of ``wq`` and ``wk``)."""
+    return p["wq"].shape[-1] // cfg.hd, p["wk"].shape[-1] // cfg.hd
+
+
 def _qkv(p, x, pos, cfg, ctx: DPContext):
     """Projections, optional qk-norm and rotary: q (B,T,H,hd), k/v
-    (B,T,KV,hd), and the context."""
+    (B,T,KV,hd), and the context; H and KV the heads ``p`` holds
+    (``_heads``)."""
     B, T, _ = x.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    (H, KV), hd = _heads(p, cfg), cfg.hd
     q, ctx = ctx.dense(x, cast(p["wq"], x))
     k, ctx = ctx.dense(x, cast(p["wk"], x))
     v, ctx = ctx.dense(x, cast(p["wv"], x))
@@ -277,18 +286,29 @@ def attn_apply(p, x, ctx: DPContext, cfg, pos):
     and ``ctx.strategy == "fused"``) attention goes through its registry
     site, whose backward is the flash backward kernels (``use_kernels``);
     otherwise through ``ops.flash_attention`` (forward kernel, and the
-    backward kernels when a gradient is needed)."""
+    backward kernels when a gradient is needed).
+
+    Tensor parallel (``p`` a rank's slices): ``x`` enters through
+    ``runtime.to_model`` (its gradient summed over the ``model`` group),
+    the column slices of ``wq``, ``wk``, ``wv`` give the rank's heads,
+    attention runs on them alone (``runtime.attn_local``), and the row
+    slice of ``wo`` gives a partial sum, made whole by
+    ``runtime.from_model``.  Outside a tensor-parallel layout both are
+    the identity."""
     B, T, _ = x.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    (H, KV), hd = _heads(p, cfg), cfg.hd
+    x = runtime.to_model(x)
     q, k, v, ctx = _qkv(p, x, pos, cfg, ctx)
     qg = q.reshape(B, T, KV, H // KV, hd)
-    if ctx.mode == "norm" and ctx.strategy == "fused":
-        o, ctx = ctx.attention(qg, k, v, causal=True)
-    else:
-        o = kops.flash_attention(qg, k, v, True)
+
+    def attend(qg, k, v, ctx):
+        if ctx.mode == "norm" and ctx.strategy == "fused":
+            return ctx.attention(qg, k, v, causal=True)
+        return kops.flash_attention(qg, k, v, True), ctx
+    o, ctx = runtime.attn_local(attend, cfg.n_kv_heads)(qg, k, v, ctx)
     o = o.reshape(B, T, H * hd)
     y, ctx = ctx.dense(o, cast(p["wo"], o))
-    return y, ctx, (k, v)
+    return runtime.from_model(y), ctx, (k, v)
 
 
 def _decode_attend(q, gk, gv, pos, p, cfg):
@@ -378,7 +398,11 @@ def mlp_spec(cfg, d_ff: int) -> dict:
 
 
 def mlp_apply(p, x, ctx: DPContext, cfg):
-    """Dense FFN; returns (y, ctx)."""
+    """Dense FFN; returns (y, ctx).  Tensor parallel as ``attn_apply``:
+    ``x`` through ``runtime.to_model``, the column slices of ``w1`` (and
+    ``w3``), the row slice of ``w2``, its partial sum through
+    ``runtime.from_model``."""
+    x = runtime.to_model(x)
     h1, ctx = ctx.dense(x, cast(p["w1"], x))
     if cfg.mlp_act == "swiglu":
         h3, ctx = ctx.dense(x, cast(p["w3"], x))
@@ -386,4 +410,5 @@ def mlp_apply(p, x, ctx: DPContext, cfg):
     else:
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(h1.float(), approximate="tanh").to(x.dtype)
-    return ctx.dense(h, cast(p["w2"], h))
+    y, ctx = ctx.dense(h, cast(p["w2"], h))
+    return runtime.from_model(y), ctx

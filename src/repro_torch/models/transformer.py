@@ -24,6 +24,18 @@ the model's ``remat`` policy
 (``layers.remat_wrap``), as the JAX package wraps its scanned block, with
 the running aux total carried through it beside the activations and the
 norm accumulator; the prelude is not wrapped.
+
+Tensor parallelism (``Model(mesh=...)`` on a ``model`` axis above 1, the
+dense decoders; ``tp_refusal`` names what is not ported): each rank holds
+its slices (``dist.sharding.model_shards``) and trains on the whole batch
+of its ``data`` coordinate.  Attention and the FFN are Megatron's column
+and row pairs (models/layers.py); the embedding is vocabulary-parallel
+(an id outside the rank's rows gives a zero row, then a sum over the
+group); the head gives the rank's columns of the logits, and the
+cross-entropy is vocabulary-parallel (``vocab_parallel_xent``).  Each norm
+site on a slice yields that slice's partial norm², and the norm scales'
+taps count once over the group (core/context.py), so the sum over the
+``model`` group (core/algo.py ``norm_pass``) is the exact norm².
 """
 from __future__ import annotations
 
@@ -112,6 +124,39 @@ def model_spec(arch: ArchConfig) -> Dict[str, Any]:
     spec["head"] = P((arch.d_model, padded_vocab(arch.vocab)),
                      axes=("embed", "vocab"))
     return spec
+
+
+def tp_refusal(arch: ArchConfig, width: int, pp_stages: int = 1) -> str:
+    """What of ``arch`` (and ``pp_stages``) tensor parallelism over a
+    ``width``-wide ``model`` axis does not port, naming ROADMAP; "" when it
+    runs (the dense and embedding-input decoders whose heads, KV heads, FFN
+    and padded vocabulary the axis divides, in one pipeline stage)."""
+    if width <= 1:
+        return ""
+    why = [f"pp_stages={pp_stages}"] if pp_stages > 1 else []
+    if arch.family in ("cnn", "vit"):
+        why.append(f"the image family {arch.family!r}")
+    else:
+        if arch.use_fsdp:
+            why.append("FSDP with tensor parallelism (use_fsdp)")
+        if arch.moe.enabled:
+            why.append("MoE layers (the expert axis)")
+        if MAMBA in arch.pattern():
+            why.append("Mamba layers")
+        if arch.qk_norm:
+            why.append("qk_norm (a replicated scale seen by the local heads "
+                       "alone gives a partial gradient vector)")
+        if arch.n_kv_heads % width or arch.n_heads % width:
+            why.append(f"{arch.n_heads} heads and {arch.n_kv_heads} KV heads "
+                       f"(replicating KV heads)")
+        for what, n in (("d_ff", arch.d_ff),
+                        ("padded vocab", padded_vocab(arch.vocab))):
+            if n % width:
+                why.append(f"{what} {n}")
+    if not why:
+        return ""
+    return (f"{arch.name} on a {width}-wide 'model' axis (tensor "
+            f"parallelism): {'; '.join(why)} not ported (ROADMAP queue 1)")
 
 
 def _map_spec(spec, fn, path=()):
@@ -313,7 +358,11 @@ class ParamModel(nn.Module):
     param is this rank's slice (drawn alone by a seeded init, cut from
     whole ``params`` otherwise) carrying its ``Shard`` as ``fsdp_shard``,
     and the model gathers each layer's params just before the layer runs
-    (``gathered``).  Otherwise ``fsdp`` is None and every param whole."""
+    (``gathered``).  Otherwise ``fsdp`` is None and every param whole.  On
+    a ``model`` axis above 1 the params are tensor-parallel: ``tp`` is the
+    layout (``dist.sharding.model_shards``) and each param on ``model`` is
+    this rank's slice for good, drawn or cut alike, carrying its ``Shard``
+    as ``model_shard``; otherwise ``tp`` is None."""
 
     def __init__(self, arch: ArchConfig, params, init, *, dtype: torch.dtype,
                  device, seed: int, remat: str,
@@ -324,29 +373,35 @@ class ParamModel(nn.Module):
         self.param_dtype = dtype if param_dtype is None else param_dtype
         self.remat = validate_remat(remat)
         self.device = resolve_device(device)
-        self.fsdp = None
+        self.fsdp = self.tp = None
         if mesh is not None and arch.use_fsdp:
             shards = dist_sharding.fsdp_shards(mesh, self)
             if tree.leaves(shards):           # some leaf is sharded
                 self.fsdp = shards
+        if mesh is not None:
+            shards = dist_sharding.model_shards(mesh, self)
+            if tree.leaves(shards):
+                self.tp = shards
+        shards, attr = ((self.fsdp, "fsdp_shard") if self.tp is None
+                        else (self.tp, "model_shard"))
         if params is None:
-            kw = {} if self.fsdp is None else {"shards": self.fsdp}
+            kw = {} if shards is None else {"shards": shards}
             params = init(arch, seed, self.param_dtype, self.device, **kw)
-        self.params = self._register(params, self.fsdp)
+        self.params = self._register(params, shards, attr)
 
-    def _register(self, tree, shards, path=()):
+    def _register(self, tree, shards, attr, path=()):
         if isinstance(tree, dict):
-            return {k: self._register(v, _at(shards, (k,)), path + (k,))
+            return {k: self._register(v, _at(shards, (k,)), attr, path + (k,))
                     for k, v in tree.items()}
         if isinstance(tree, (list, tuple)):
-            out = [self._register(v, _at(shards, (str(i),)), path + (str(i),))
+            out = [self._register(v, _at(shards, (str(i),)), attr, path + (str(i),))
                    for i, v in enumerate(tree)]
             return tuple(out) if isinstance(tree, tuple) else out
         if shards is not None and tree.shape[shards.dim] == shards.size:
             tree = shards.of(tree).clone()     # whole params given: the slice
         prm = nn.Parameter(tree.to(self.device), requires_grad=False)
         if shards is not None:
-            prm.fsdp_shard = shards
+            setattr(prm, attr, shards)
         self.register_parameter("/".join(path), prm)
         return prm
 
@@ -381,6 +436,11 @@ class Model(ParamModel):
         if pp_microbatches < 0:
             raise ValueError(
                 f"pp_microbatches must be >= 0, got {pp_microbatches}")
+        if mesh is not None:
+            reason = tp_refusal(arch, dist_sharding._axis_size(
+                mesh, dist_sharding.MODEL_AXIS), pp_stages)
+            if reason:
+                raise NotImplementedError(reason)
         self.pp_stages, self.pp_microbatches = pp_stages, pp_microbatches
         super().__init__(arch, params, init_params, dtype=dtype, device=device,
                          seed=seed, remat=remat, param_dtype=param_dtype,
@@ -453,18 +513,33 @@ class Model(ParamModel):
         """Prelude layer i's params, gathered whole under FSDP."""
         return gathered(params["prelude"][i], self._shards("prelude", str(i)))
 
-    def _no_fsdp(self, what: str):
+    def _whole_params(self, what: str):
+        """Raise, naming ROADMAP, for ``what`` (serving) on sliced params."""
         if self.fsdp is not None:
             raise NotImplementedError(
                 f"{self.arch.name}: {what} of FSDP-sharded params is not "
                 f"ported (the reference serves use_fsdp archs sharded only "
                 f"in launch/dryrun.py; ROADMAP queue 1)")
+        if self.tp is not None:
+            raise NotImplementedError(
+                f"{self.arch.name}: {what} of tensor-parallel model slices is "
+                f"not ported (the reference serves with no mesh; ROADMAP "
+                f"queue 1)")
+
+    def _vocab_lo(self, leaf: str) -> Optional[int]:
+        """The first vocabulary row (``embed``) or logits column (``head``)
+        of this rank's slice of ``leaf``; None when the leaf is whole."""
+        sh = _at(self.tp, (leaf,))
+        return None if sh is None else sh.index * sh.part
 
     def _head(self, params, x, ctx: DPContext):
+        """Logits: (B, T, Vpad), or a tensor-parallel rank's columns of
+        them (the final norm's output enters through ``to_model``)."""
         x, ctx = L.rmsnorm(x, gathered(params["final_norm"],
                                        self._shards("final_norm")),
                            ctx, self.arch.norm_eps)
         head = gathered(params["head"], self._shards("head"))
+        x = runtime.to_model(x)
         return ctx.dense(x, L.cast(head, x))
 
     def _embed_in(self, params, inputs, ctx: DPContext):
@@ -472,12 +547,24 @@ class Model(ParamModel):
         arch's precomputed embeddings cast (no site), else the token ids'
         rows gathered through the embedding site in the parameter type and
         cast, as the JAX package does (its embedding site sees the
-        parameter type)."""
+        parameter type).  Vocabulary-parallel (a rank's rows of the table):
+        an id outside them takes row 0 and a zero row out, so its gradient
+        row into the site is zero and the site's norm² is this slice's
+        exact partial; the rows are then summed over the ``model`` group
+        (one rank holds each id's row, so the sum is exact)."""
         if self.arch.embed_stub:
             return inputs.to(self.dtype), ctx
-        x, ctx = ctx.embed(inputs, gathered(params["embed"],
-                                            self._shards("embed")))
-        return x.to(self.dtype), ctx
+        table = gathered(params["embed"], self._shards("embed"))
+        lo = self._vocab_lo("embed")
+        if lo is None:
+            x, ctx = ctx.embed(inputs, table)
+            return x.to(self.dtype), ctx
+        ids = inputs.long() - lo
+        inside = (ids >= 0) & (ids < table.shape[0])
+        x, ctx = ctx.embed(torch.where(inside, ids, 0), table)
+        x = torch.where(inside[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                           device=x.device))
+        return runtime.from_model(x).to(self.dtype), ctx
 
     # -- training -------------------------------------------------------------
     def loss_fn(self, params, batch, ctx: DPContext):
@@ -487,6 +574,13 @@ class Model(ParamModel):
         this model's layout (``self.params``, or the same tree detached);
         batch: ``{"tokens": (B, T+1) int}``, or for an embedding-input arch
         ``{"embeds": (B, T, d) float, "labels": (B, T) int}``."""
+        width = runtime.model_shard()[1]
+        if width != self.tp_width() and not runtime.is_suspended():
+            raise RuntimeError(
+                f"{self.arch.name}: params sliced for a {self.tp_width()}-wide "
+                f"model axis under a layout of a {width}-wide one; a model "
+                f"runs inside dist.runtime.layout over the mesh it was built "
+                f"on (Model(mesh=...))")
         if self.arch.embed_stub:
             inputs, labels = batch["embeds"], batch["labels"]
         else:
@@ -508,8 +602,16 @@ class Model(ParamModel):
                                        ctx, pos)
         ctx = dataclasses.replace(ctx, acc=acc)
         logits, ctx = self._head(params, x, ctx)
-        losses = per_example_xent(logits, labels, self.arch.vocab)
+        lo = self._vocab_lo("head")
+        losses = (per_example_xent(logits, labels, self.arch.vocab) if lo is None
+                  else vocab_parallel_xent(logits, labels, self.arch.vocab, lo))
         return losses + AUX_LOSS_WEIGHT * aux, ctx
+
+    def tp_width(self) -> int:
+        """The ``model`` axis width the params are sliced for (1: whole)."""
+        if self.tp is None:
+            return 1
+        return next(sh.count for sh in tree.leaves(self.tp))
 
     def _blocks(self, params, reps, carry, ctx: DPContext, pos):
         """Blocks ``reps`` (indices of the stacked axis) in order on
@@ -642,6 +744,9 @@ class Model(ParamModel):
         attention: padded positions are causally masked; a Mamba state
         absorbs pad tokens, so SSM and hybrid callers pass equal-length
         prompts)."""
+        if self.tp is not None:
+            self._whole_params("prefill")
+
         def pad(a):     # (B, T, KV, hd) -> (B, cache_len, KV, hd)
             if cache_len == T:
                 return a.contiguous()
@@ -676,7 +781,7 @@ class Model(ParamModel):
         return logits, cache
 
     def _decode(self, cache, tokens, pos, tables):
-        self._no_fsdp("decode")
+        self._whole_params("decode")
         off = DPContext.off()
         x, _ = self._embed_in(self.params, tokens, off)
         for p, addr in self._layers():
@@ -699,6 +804,30 @@ class Model(ParamModel):
         layers."""
         self._no_mamba("paged decode supports attention layers only")
         return self._decode(cache, tokens, pos, tables)
+
+
+def vocab_parallel_xent(logits, labels, vocab: int, lo: int):
+    """``per_example_xent`` of logits split over the ``model`` group by
+    columns: ``logits`` (B, T, V/m) are this rank's columns ``lo`` onward.
+    The padded columns are masked by their global index (so the padding
+    falls in the last slices alone); the row max is taken over the group
+    (``op="max"``), the sum of exponentials and the target's logit summed
+    over it (``runtime.from_model``: each rank's gradient is its own
+    columns').  The result is alike on every rank; it equals the whole
+    row's but for the order of the exponentials' sum."""
+    lf = logits.float()
+    V = lf.shape[-1]
+    col = lo + torch.arange(V, device=lf.device)
+    if lo + V > vocab:
+        lf = torch.where(col < vocab, lf, torch.full((), -1e30, device=lf.device))
+    m = lf.detach().amax(dim=-1)
+    runtime.all_reduce_([m], runtime.model_group(), op="max")
+    sumexp = runtime.from_model(torch.exp(lf - m[..., None]).sum(dim=-1))
+    ids = labels.long() - lo
+    inside = (ids >= 0) & (ids < V)
+    picked = torch.gather(lf, -1, torch.where(inside, ids, 0)[..., None])[..., 0]
+    target = runtime.from_model(torch.where(inside, picked, 0.0))
+    return -(target - m - torch.log(sumexp)).mean(dim=-1)
 
 
 def per_example_xent(logits, labels, vocab: int):

@@ -64,10 +64,11 @@ def require_token_input(arch, what: str) -> None:
 
 
 def require_whole_params(model, what: str) -> None:
-    """Raise for a model whose params are FSDP-sharded: ``what`` decodes,
-    and decoding sharded params is not ported (ROADMAP queue 1)."""
-    if getattr(model, "fsdp", None) is not None:
-        model._no_fsdp(what)
+    """Raise for a model whose params are FSDP-sharded or tensor-parallel
+    slices: ``what`` decodes, and decoding sliced params is not ported
+    (ROADMAP queue 1)."""
+    if hasattr(model, "_whole_params"):
+        model._whole_params(what)
 
 
 class StepBudgetExceeded(RuntimeError):

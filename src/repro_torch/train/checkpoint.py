@@ -13,11 +13,13 @@ of its leaves (dict keys sorted, as ``jax.tree`` orders them).
 
 Multi-process, as in the reference: ``save`` and ``restore`` take
 ``shards``, each leaf's layout on this rank (``TrainStep.ckpt_shards``):
-None for a whole leaf, which rank 0 writes as one shard file, or ``(dim,
-index, count, writes)`` for a ZeRO-1 or FSDP slice (of an optimizer-state
-leaf or of a param), slice ``index`` of ``count``
-equal slices of the global leaf along ``dim``, which this rank writes when
-``writes`` (its first replica).  Every rank derives the same manifest of
+None for a whole leaf, which rank 0 writes as one shard file, or ``(cuts,
+writes)`` for a region of it (a ZeRO-1, FSDP or tensor-parallel slice of
+an optimizer-state leaf or of a param): ``cuts`` a ``(dim, index, count)``
+for each dim the region cuts, slice ``index`` of ``count`` equal slices of
+the global leaf along ``dim`` (a model slice's optimizer state under
+ZeRO-1 is cut along two dims), one shard file for each region, which this
+rank writes when ``writes`` (its first replica).  Every rank derives the same manifest of
 global shapes and shard bounds; rank 0 makes the shared tmp directory, a
 barrier lets every rank write its shards, and after a second barrier rank
 0 writes the manifest and renames; a third lets no rank return before the
@@ -45,6 +47,7 @@ given, in place, converting by value where the types differ.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import shutil
@@ -145,17 +148,28 @@ def _read_leaf(directory: str, rec: dict, lo=None, hi=None) -> np.ndarray:
     return out
 
 
-def _bounds(shape, shard):
+def _bounds(shape, shard, at=None):
     """(global shape, starts, stops) of the region a leaf of local
-    ``shape`` holds under its ``shards`` entry (all of it when None)."""
+    ``shape`` holds under its ``shards`` entry (all of it when None);
+    ``at``: the regions' indices along the cuts (default this rank's)."""
     if shard is None:
         return tuple(shape), [0] * len(shape), list(shape)
-    d, index, count = shard[:3]
+    cuts = shard[0]
     glob = list(shape)
-    glob[d] *= count
-    lo, hi = [0] * len(shape), list(glob)
-    lo[d], hi[d] = index * shape[d], (index + 1) * shape[d]
+    lo, hi = [0] * len(shape), list(shape)
+    for (d, index, count), k in zip(cuts, at or [c[1] for c in cuts]):
+        glob[d] *= count
+        lo[d], hi[d] = k * shape[d], (k + 1) * shape[d]
     return tuple(glob), lo, hi
+
+
+def _regions(shard):
+    """Every region's indices along the cuts of a ``shards`` entry, in
+    row-major order (a region's place is its shard file's number), and
+    this rank's place among them."""
+    cuts = shard[0]
+    at = list(itertools.product(*[range(c[2]) for c in cuts]))
+    return at, at.index(tuple(c[1] for c in cuts))
 
 
 def _rank_world() -> Tuple[int, int]:
@@ -211,17 +225,14 @@ class CheckpointManager:
         payload, leaf_recs = [], []
         for i, (leaf, shard) in enumerate(zip(leaves, shards or [None] * len(leaves))):
             shape, dtype = _meta(leaf)
-            glob, lo, hi = _bounds(shape, shard)
+            glob = _bounds(shape, shard)[0]
             if shard is None:
                 recs = [(0, [0] * len(shape), list(glob))]
                 mine, writes = 0, rank == 0
             else:
-                d, mine, count, writes = shard
-                recs = []
-                for k in range(count):
-                    a, b = list(lo), list(hi)
-                    a[d], b[d] = k * shape[d], (k + 1) * shape[d]
-                    recs.append((k, a, b))
+                at, mine = _regions(shard)
+                writes = shard[1]
+                recs = [(k, *_bounds(shape, shard, a)[1:]) for k, a in enumerate(at)]
             if writes:
                 payload.append((f"{i}.{mine}.npy", _host(leaf)[0]))
             leaf_recs.append({"shape": list(glob), "dtype": dtype, "shards": [
@@ -308,8 +319,8 @@ class CheckpointManager:
                 shards: Optional[list] = None):
         """Restore checkpoint ``step`` (default the latest) into ``like``: a
         ``TrainState`` or tree whose tensor leaves receive the values in
-        place, each its region under ``shards`` (this rank's ZeRO-1 or FSDP slice;
-        default every leaf whole), whatever shards the checkpoint was
+        place, each its region under ``shards`` (this rank's ZeRO-1, FSDP or
+        tensor-parallel slice; default every leaf whole), whatever shards the checkpoint was
         written in.  Returns ``like``'s structure with those tensors and
         the step (an int leaf) as read."""
         self.wait()

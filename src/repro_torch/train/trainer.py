@@ -74,6 +74,14 @@ nothing is gathered back.  ``update_norm`` sums the slices' squares over
 the ranks.  ``compress_pod_grads`` and ``adam8bit`` are refused with FSDP
 (``fsdp_refusal``): their int8 blocks span the flattened whole leaf.
 
+Tensor parallel (a model built on a mesh with a ``model`` axis above 1):
+each model slice (``model_shard``) is a param of its own here, with its
+own optimizer state; ZeRO-1 places that state by the whole leaf's axes
+and cuts the rank's model-local leaf along its ``data`` dim.
+``update_norm`` sums the slices' squares over the ``model`` group.  In a
+checkpoint each model rank writes its slices (and their state) from its
+first data replica; the int8 riders are refused here too.
+
 Launch plans (``plan``, launch/autotune.py): a solved ``LaunchPlan`` is
 applied onto the config up front and takes the place of the
 auto-microbatch search (the one-dimensional case of the plan space), as in
@@ -127,18 +135,33 @@ def physical_batch_size(train_cfg: TrainConfig, shape: ShapeConfig,
 
 
 def fsdp_refusal(cfg: TrainConfig) -> str:
-    """Why ``cfg`` cannot train FSDP-sharded params, naming ROADMAP; ""
-    when it can.  Both int8 codecs quantize in blocks of the flattened
-    whole leaf, so on a slice they would compute something other than the
-    reference."""
+    """Why ``cfg`` cannot train FSDP-sharded params or tensor-parallel
+    model slices, naming ROADMAP; "" when it can.  Both int8 codecs
+    quantize in blocks of the flattened whole leaf, so on a slice they
+    would compute something other than the reference."""
     parts = [what for what, on in (
         ("compress_pod_grads", cfg.compress_pod_grads),
         ("optim.name='adam8bit'", cfg.optim.name == "adam8bit")) if on]
     if not parts:
         return ""
-    return (f"{' and '.join(parts)} with FSDP-sharded params is not ported: "
-            f"the int8 blocks span the flattened whole leaf, and a rank holds "
-            f"a slice of it (ROADMAP queue 1)")
+    return (f"{' and '.join(parts)} with FSDP-sharded params or "
+            f"tensor-parallel model slices is not ported: the int8 blocks "
+            f"span the flattened whole leaf, and a rank holds a slice of it "
+            f"(ROADMAP queue 1)")
+
+
+def _sliced(p) -> bool:
+    return (runtime.fsdp_shard_of(p) is not None
+            or runtime.model_shard_of(p) is not None)
+
+
+def _whole_shape(p):
+    """A param's whole leaf's shape (a model slice's, its leaf's)."""
+    sh = runtime.model_shard_of(p)
+    shape = list(p.shape)
+    if sh is not None:
+        shape[sh.dim] = sh.size
+    return shape
 
 
 class TrainStep:
@@ -183,14 +206,17 @@ class TrainStep:
         """The ZeRO-1 slice of each param leaf's optimizer state: where
         ``state_shardings`` places the optimizer's state of a leaf on the
         ``data`` axis (every param-shaped state leaf of it alike), this
-        rank's slice of that dim, else None."""
+        rank's slice of that dim, else None.  The placements are of the
+        whole leaves (a model slice's is its leaf's), and a model slice's
+        state is cut along the same dim of the slice."""
         none = [None] * len(leaves)
         if self.mesh is None or not self.zero1:
             return none
         index, count, self.data_group = runtime.axis_shard(self.mesh, "data")
         if count == 1:
             return none
-        meta = [torch.empty(p.shape, dtype=p.dtype, device="meta") for p in leaves]
+        meta = [torch.empty(_whole_shape(p), dtype=p.dtype, device="meta")
+                for p in leaves]
         specs = sharding.state_shardings(
             self.mesh, self.model,
             TrainState(step=0, params=None, opt_state=self.opt.init(meta)))
@@ -219,7 +245,7 @@ class TrainStep:
         FSDP-sharded params cannot train (``fsdp_refusal``)."""
         leaves = tree.leaves(params)
         reason = fsdp_refusal(self.cfg)
-        if reason and any(runtime.fsdp_shard_of(p) is not None for p in leaves):
+        if reason and any(_sliced(p) for p in leaves):
             raise NotImplementedError(reason)
         self.shards = self._zero1_shards(leaves)
         opt_state = self.opt.init([self._slice(p, sh)
@@ -245,30 +271,46 @@ class TrainStep:
 
     def ckpt_shards(self, state: TrainState) -> list:
         """Each leaf's layout for ``CheckpointManager``, aligned with
-        ``checkpoint.flatten(state)``: ``(dim, index, count, writes)`` for
-        this rank's FSDP slice of a param, and for the optimizer state of
-        that slice or this rank's ZeRO-1 slice (``writes``: the rank is the
-        slice's first replica, the one that writes it), None for a whole
-        leaf."""
+        ``checkpoint.flatten(state)``: ``(cuts, writes)`` for a leaf this
+        rank holds a region of, ``cuts`` its ``(dim, index, count)`` cut
+        along each sharded dim (an FSDP slice's; a model slice's; a ZeRO-1
+        slice's of the state, beside its param's model cut) and ``writes``
+        whether the rank is the region's first replica, the one that
+        writes it (coordinate 0 on every axis above 1 that does not cut
+        it); None for a whole leaf."""
         params = tree.leaves(state.params)
-        fsdp = [runtime.fsdp_shard_of(p) for p in params]
-        fsdp = [None if sh is None else (sh.dim, sh.index, sh.count)
-                for sh in fsdp]
-        shards = [f or z for f, z in zip(fsdp, self._leaf_shards(len(params)))]
-        writes = self.mesh is not None and all(
-            self.mesh.get_local_rank(a) == 0
-            for a in sharding._axis_names(self.mesh)
-            if a != "data" and sharding._axis_size(self.mesh, a) > 1)
+
+        def cut(sh):
+            return () if sh is None else ((sh.dim, sh.index, sh.count),)
+        own = [cut(runtime.fsdp_shard_of(p)) or cut(runtime.model_shard_of(p))
+               for p in params]
+        zero1 = [() if z is None else (z,) for z in self._leaf_shards(len(params))]
+
+        def layout(cuts, axes):
+            """(cuts, writes) of a region cut over the mesh ``axes``."""
+            if not cuts:
+                return None
+            writes = all(self.mesh.get_local_rank(a) == 0
+                         for a in sharding._axis_names(self.mesh)
+                         if a not in axes and sharding._axis_size(self.mesh, a) > 1)
+            return cuts, writes
+
+        def axes_of(p):
+            if runtime.model_shard_of(p) is not None:
+                return {sharding.MODEL_AXIS}
+            return {"data"} if runtime.fsdp_shard_of(p) is not None else set()
+        param_part = [layout(c, axes_of(p)) for c, p in zip(own, params)]
+        state_part = [layout(c + z, axes_of(p) | ({"data"} if z else set()))
+                      for c, z, p in zip(own, zero1, params)]
 
         def walk(t, shard=None):
             if isinstance(t, dict):
                 return [x for k in sorted(t) for x in walk(t[k])]
-            if isinstance(t, list) and len(t) == len(shards):
-                return [x for v, sh in zip(t, shards) for x in walk(v, sh)]
+            if isinstance(t, list) and len(t) == len(params):
+                return [x for v, sh in zip(t, state_part) for x in walk(v, sh)]
             if isinstance(t, (list, tuple)):
                 return [x for v in t for x in walk(v)]
-            return [] if t is None else [None if shard is None
-                                         else shard + (writes,)]
+            return [] if t is None else [shard]
 
         opt = state.opt_state
         if self.adaptive_clip or self.compress:     # the riders are whole
@@ -276,8 +318,7 @@ class TrainStep:
                 walk(opt[k]) if k == "opt" else [None] * len(tree.leaves(opt[k])))]
         else:
             opt_part = walk(opt)
-        return ([None] + [None if sh is None else sh + (writes,) for sh in fsdp]
-                + opt_part)
+        return [None] + param_part + opt_part
 
     def gradients(self, state: TrainState, batch, generator: torch.Generator):
         grads, metrics = self.grad_fn(state.params, batch, generator,
@@ -288,15 +329,18 @@ class TrainStep:
     @staticmethod
     def _update_norm(grads, state: TrainState):
         """‖update‖ of the whole gradient: an FSDP slice's squares are
-        summed over the ranks that hold the other slices."""
-        fsdp = [runtime.fsdp_shard_of(p) for p in tree.leaves(state.params)]
+        summed over the ranks that hold the other slices (the ``data``
+        group), a model slice's over the ``model`` group."""
+        params = tree.leaves(state.params)
         sq = [(g * g).sum() for g in grads]
-        total = sum(q for q, sh in zip(sq, fsdp) if sh is None)
-        part = [q for q, sh in zip(sq, fsdp) if sh is not None]
-        if part:
-            part = torch.stack(part).sum()
-            runtime.all_reduce_([part], runtime.fsdp_group())
-            total = total + part
+        total = sum(q for q, p in zip(sq, params) if not _sliced(p))
+        for shard_of, group in ((runtime.fsdp_shard_of, runtime.fsdp_group),
+                                (runtime.model_shard_of, runtime.model_group)):
+            part = [q for q, p in zip(sq, params) if shard_of(p) is not None]
+            if part:
+                part = torch.stack(part).sum()
+                runtime.all_reduce_([part], group())
+                total = total + part
         return torch.sqrt(total)
 
     def update(self, state: TrainState, grads, metrics) -> None:

@@ -133,9 +133,10 @@ def test_static_reasons_word_for_word():
         want = js._static_infeasible(ja.LaunchPlan(**kw))
         assert ts._static_infeasible(ta.LaunchPlan(**kw)) == want, kw
     assert ts._static_infeasible(ta.LaunchPlan(grad_accum=2)) == ""
-    # a mesh the launcher does not run: its reason, word for word
+    # a mesh the autotuner does not run: the launcher's reason under
+    # --autotune, word for word
     reason = ts._static_infeasible(ta.LaunchPlan(mesh_shape=(1, 2)))
-    assert reason == tlaunch.unported_mesh_reason(TARCH, {"model": 2})
+    assert reason == tlaunch.unported_mesh_reason(TARCH, {"model": 2}, autotune=True)
     assert "'model' mesh axis (tensor parallelism) is not ported" in reason
 
 

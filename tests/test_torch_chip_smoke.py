@@ -860,3 +860,95 @@ def test_autotune_launches_count_the_measured_plans(smoke, monkeypatch, plan):
     want = smoke.autotune_launches(arch, [rec], iters, B, T)
     assert smoke.read_counts() == want
     assert want["flash_attn_fwd"] > 0 and (want["gram_norm"] > 0) == plan["use_kernels"]
+
+
+def _launcher_text(ranks, losses, fingerprints, ms=700):
+    """The launcher's lines of ``ranks`` ranks, each rank's steps at
+    ``losses`` (one per step) and its fingerprint from ``fingerprints``."""
+    backend = "nccl" if ranks == 1 else "gloo"
+    lines = [f"[train] backend {backend}: rank {r} of {ranks} on cuda:0"
+             for r in range(ranks)]
+    lines += [f"[train] init fingerprint {fp} ({ranks} process(es) agree)"
+              for fp in fingerprints]
+    for step, loss in enumerate(losses):
+        lines += [f"[trainer] step {step:5d} loss {loss:.6g} grad_norm_mean "
+                  f"{2 * loss:.6g} eps inf ({ms} ms)"] * ranks
+    return "\n".join(lines) + "\n"
+
+
+def test_worlds_agree_on_a_model_axis(smoke):
+    """``compare_worlds``' checks of the two worlds' lines, as phase 19
+    reads them: the backends, one fingerprint on world 2's ranks (world 1's
+    apart when world 2 holds slices), equal step lines on world 2's ranks
+    and losses within the tolerance of world 1's; each difference raises."""
+    one = smoke.parse_launcher(_launcher_text(1, [10.5, 10.25], ["0x00000001"]))
+    two = smoke.parse_launcher(_launcher_text(2, [10.5001, 10.2502],
+                                              ["0x0000abcd"] * 2))
+    tol = lambda x: smoke.NSQ_RTOL * abs(x)
+    assert smoke.worlds_agree(one, two, 2, tol, sliced=True) == "0x0000abcd"
+    with pytest.raises(AssertionError):                 # whole params: one fp
+        smoke.worlds_agree(one, two, 2, tol, sliced=False)
+    far = smoke.parse_launcher(_launcher_text(2, [10.5, 11.0], ["0x0000abcd"] * 2))
+    with pytest.raises(AssertionError):
+        smoke.worlds_agree(one, far, 2, tol, sliced=True)
+    split = smoke.parse_launcher(
+        _launcher_text(1, [10.5, 10.25], ["0x0000abcd"]).replace("nccl", "gloo")
+        + _launcher_text(1, [10.5, 10.3], ["0x0000abcd"]).replace("nccl", "gloo"))
+    with pytest.raises(AssertionError):                 # ranks disagree
+        smoke.worlds_agree(one, split, 2, tol, sliced=True)
+
+
+def test_tp_command_and_shards(smoke):
+    """Phase 19's launcher commands (a data axis of 1; a (1, 2) data,model
+    mesh), the model slices it expects in the checkpoint (2 files for
+    every weight matrix, 1 for the norm scales) and the norm scales' bytes
+    each rank holds whole beside its slices."""
+    import dataclasses
+    two, one = smoke.tp_cmd(2, "/x"), smoke.tp_cmd(1, "/x")
+    assert two[3:6] == ["--standalone", "--nproc_per_node", "2"]
+    at = two.index("--mesh")
+    assert two[at:at + 4] == ["--mesh", "1,2", "--axes", "data,model"]
+    at = one.index("--mesh")
+    assert one[at:at + 4] == ["--mesh", "1", "--axes", "data"]
+    assert "ckpt_dir=/x" in two and f"optim.name={smoke.TP_OPTIM}" in two
+    arch = dataclasses.replace(get_arch("phi3-mini-3.8b"), n_layers=smoke.TP_LAYERS)
+    # blocks (wk, wo, wq, wv, ln1, ln2, w1, w2, w3), embed, final_norm, head
+    assert smoke.zero1_expected_shards(arch, 2, axis="model") == \
+        [2, 2, 2, 2, 1, 1, 2, 2, 2, 2, 1, 2]
+    d, L = arch.d_model, smoke.TP_LAYERS
+    # float32 scales, SGD's float32 momentum of each
+    assert smoke.replicated_bytes(arch, 2, "sgd") == ((2 * L + 1) * d * 4,) * 2
+
+
+@pytest.mark.parametrize("algo,remat", [("dpsgd_r", "none"), ("dpsgd_r1f", "block"),
+                                        ("sgd", "none")])
+def test_path_launches_count_a_model_ranks_wrapper_calls(smoke, monkeypatch, algo,
+                                                         remat):
+    """Phase 19: ``path_launches`` of the whole batch against the wrapper
+    calls of one Trainer step of a model rank's slices (reduced phi3 cut
+    for a 2-wide model axis, its local shapes), the model collectives the
+    identity (``runtime.suspended``): the counts are by site, not width."""
+    import types
+    import torch
+    from repro_torch.configs import reduced
+    from repro_torch.configs.base import (DPConfig, OptimConfig, ShapeConfig,
+                                          TrainConfig)
+    from repro_torch.dist import runtime
+    from repro_torch.models.transformer import Model
+    from repro_torch.train import Trainer
+    _count_wrapper_calls(smoke, monkeypatch)
+    arch = reduced(get_arch("phi3-mini-3.8b"))
+    mesh = types.SimpleNamespace(axis_names=("data", "model"), shape=(1, 2),
+                                 get_local_rank=lambda axis: 1)
+    model = Model(arch, dtype=torch.float32, device="cpu", remat=remat, mesh=mesh)
+    assert model.params["head"].shape[1] * 2 == model.abstract_params()["head"].shape[1]
+    cfg = TrainConfig(param_dtype="float32", compute_dtype="float32",
+                      remat=remat, optim=OptimConfig(schedule="constant"),
+                      dp=DPConfig(algo=algo, norm_strategy="fused", use_kernels=True))
+    trainer = Trainer(model, cfg, ShapeConfig("t", 8, 4, "train"))
+    with runtime.suspended():
+        state = trainer.init_state()
+        smoke.zero_counts()
+        trainer.train_step(state, trainer.make_batch(0))
+    assert smoke.read_counts() == smoke.path_launches(
+        "fused", arch.n_layers, algo=algo, remat=remat)

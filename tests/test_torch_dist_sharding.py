@@ -204,15 +204,18 @@ def test_cache_shardings_match_jax(name, spec_only):
 
 
 def test_launcher_refuses_the_unported_axes():
-    """A ``model`` or ``stage`` axis above 1 raises "not ported" naming
-    ROADMAP; a ``use_fsdp`` arch on a ``data`` axis above 1 runs (FSDP),
-    except with ``compress_pod_grads`` or ``adam8bit``, which raise by name;
-    a data axis alone, or a width-1 model axis, runs."""
+    """A ``stage`` axis above 1 raises "not ported" naming ROADMAP, and so
+    does a ``model`` axis above 1 for what tensor parallelism does not run
+    (a ``use_fsdp`` arch); a ``use_fsdp`` arch on a ``data`` axis above 1
+    runs (FSDP), except with ``compress_pod_grads`` or ``adam8bit``, which
+    raise by name; a data axis alone, a width-1 model axis, or a dense
+    decoder on a model axis above 1 (tensor parallelism), runs."""
     from repro_torch.configs.base import OptimConfig, TrainConfig
     from repro_torch.launch.train import refuse_unported
     phi3, chameleon = TARCHS["phi3-mini-3.8b"], TARCHS["chameleon-34b"]
     assert chameleon.use_fsdp and not phi3.use_fsdp
-    for sizes, arch, what in (({"data": 1, "model": 2}, phi3, "tensor parallelism"),
+    refuse_unported(_ShapeMesh({"data": 1, "model": 2}), phi3)
+    for sizes, arch, what in (({"data": 1, "model": 2}, chameleon, "tensor parallelism"),
                               ({"stage": 2, "data": 1}, phi3, "across processes")):
         with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP queue 1"):
             refuse_unported(_ShapeMesh(sizes), arch)

@@ -24,6 +24,11 @@ for n in ("repro_torch.launch.memory", "repro_torch.serve.host_loop",
           "repro_torch.launch.mesh", "repro_torch.launch.roofline",
           "repro_torch.launch.costs", "repro_torch.launch.autotune"):
     assert n in names, n
+# the tensor-parallel pieces (the model axis's operators, its layout, the
+# vocabulary-parallel loss and the refusals) come with the modules above
+from repro_torch.dist.runtime import from_model, model_group, model_shard, to_model
+from repro_torch.dist.sharding import model_shards
+from repro_torch.models.transformer import tp_refusal, vocab_parallel_xent
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.") or n == "repro" or n.startswith("repro."))
 assert not bad, bad
