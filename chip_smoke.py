@@ -77,8 +77,8 @@ the script exits nonzero and prints no ``ok`` line:
    as in phase 6, one step by hand stage by stage (pass 1, pass 2, noise,
    optimizer, the peak reset before each) and one profiled step; then one
    step under ``sites``, timed and by hand;
-9. the paper's comparison on a fresh 16-layer model of phase 6's shape
-   and optimizer, ``remat="none"``: at σ = 0 the bf16 clipped sums of one
+9. the paper's comparison on a fresh model of phase 6's width, batch and
+   optimizer at ``ALGO_LAYERS`` layers, ``remat="none"``: at σ = 0 the bf16 clipped sums of one
    batch from the same parameters through ``dpsgd_r``, ``dpsgd_r1f``
    (fused + kernels) and ``dpsgd`` (the whole batch at once,
    ``clip_reduce``) against ``dpsgd_r``'s in float32, and the last two
@@ -153,8 +153,8 @@ the script exits nonzero and prints no ``ok`` line:
    32768, E 8; plain versions 8 rows at a time), ``gram_norm`` square at
    deepseek's expert groups, the flash forward at deepseek's serving wave
    and grok's GQA (48 heads on 8), the backward at deepseek's training
-   shape; (b) deepseek-moe-16b at full width and depth (28 layers, 16.38B
-   params), bf16, seeded weights, serving the first ``MOE_REQUESTS`` of
+   shape; (b) deepseek-moe-16b at full width on ``MOE_SERVE_LAYERS`` of its
+   28 layers, bf16, seeded weights, serving the first ``MOE_REQUESTS`` of
    phase 5's stream through the contiguous and the paged engine (their
    outputs must agree), with tok/s,
    TTFT, decode ms a step beside the bytes bound of the experts it reads
@@ -181,8 +181,8 @@ the script exits nonzero and prints no ``ok`` line:
    ``dense_bwd_norm``, ``dense_dgrad`` and ``gram_norm`` at mamba2's
    in_proj and jamba's experts; ``gram_norm`` at both embeddings; the
    flash forward at jamba's serving wave (64 heads on 8, hd 128) and its
-   training shape, the backward there; (b) mamba2-1.3b at full width and
-   depth (48 layers, 1.447B params), bf16, seeded weights, serving the
+   training shape, the backward there; (b) mamba2-1.3b at full width on
+   ``SSM_SERVE_LAYERS`` of its 48 layers, bf16, seeded weights, serving the
    first ``SSM_REQUESTS`` of phase 5's stream through the contiguous
    engine (equal-length waves,
    unpadded: a recurrent state would absorb pad tokens; the JAX engine's
@@ -222,7 +222,7 @@ the script exits nonzero and prints no ``ok`` line:
    500 and 8 x 564, chameleon's 4 x 1008 and 4 x 1024), the flash pair at
    musicgen's 24 heads of hd 64 (T 1500) and chameleon's 64 heads on 8 at
    hd 128; (b) musicgen-medium
-   at full width and depth (48 layers, 1.362B params), bf16, seeded
+   at full width on ``MG_SERVE_LAYERS`` of its 48 layers, bf16, seeded
    weights: a prefill of 8 prompts of 500 embeddings, 64 decode steps each
    fed the next embedding through the contiguous cache and through the
    paged cache (their logits must agree), the last step's logits against
@@ -257,8 +257,9 @@ the script exits nonzero and prints no ``ok`` line:
    world of 1 on NCCL: phi3-mini at full width on ``DIST_LAYERS`` layers,
    ZeRO-1, the int8 compression rider, ``pp_stages`` 2, σ 0, AdamW,
    ``DIST_STEPS`` steps, its checkpoints in a temporary directory; (c)
-   the same, side by side with (b) (for the run's time), in 2
-   ranks sharing the card over gloo, each on half the batch: every rank's fingerprint equal to (b)'s, each step's loss and
+   the same, side by side with (b) and both beside phase 19's worlds (for
+   the run's time: they start after phase 19's kernel checks and report
+   after its lines), in 2 ranks sharing the card over gloo, each on half the batch: every rank's fingerprint equal to (b)'s, each step's loss and
    ``grad_norm_mean`` equal on both ranks and within ``NSQ_RTOL`` of
    (b)'s, each ZeRO-1 first moment of a shardable param in 2 shard files,
    and both checkpoints restored whole by the port's reader, a leaf at a
@@ -286,9 +287,10 @@ the script exits nonzero and prints no ``ok`` line:
    estimate, no more traces than evaluations, and the kernels launched
    exactly as often as the measured plans' steps make them
    (``autotune_launches``); (c) the training launcher
-   with ``--autotune`` at ``LAUNCH_TUNE_LAYERS`` layers for two steps (its
-   output in ``chiprun_out/chip_smoke_autotune.log``): its autotune line,
-   two step lines and the ``privacy spent`` line;
+   with ``--autotune`` at ``LAUNCH_TUNE_LAYERS`` layers for two steps,
+   beside phase 18's worlds on the card (its output in
+   ``chiprun_out/chip_smoke_autotune.log``): its autotune line, two step
+   lines and the ``privacy spent`` line;
 18. FSDP: chameleon-34b at full width on ``FSDP_LAYERS`` of its 48 layers
    through the launcher, B 8 x T 512 embeddings, ``dpsgd_r`` fused +
    kernels, ``remat="none"``, σ 0, ``FSDP_OPTIM``, ZeRO-1, ``FSDP_STEPS``
@@ -300,19 +302,24 @@ the script exits nonzero and prints no ``ok`` line:
    resident param and optimizer-state bytes half of world 1's within
    ``BYTES_RTOL``, and each rank's launches ``path_launches`` of its half
    batch;
-19. tensor parallelism: ``dense_bwd_norm`` at every dense site's local
-   shape on a model rank and the flash pair at its 16 heads of hd 96
+19. the model and stage axes: ``dense_bwd_norm`` at every dense site's
+   local shape on a model rank and the flash pair at its 16 heads of hd 96
    (``[kernel]`` lines, gated to the tensor-core paths as phase 3's), then
    phi3-mini-3.8b at full width on ``TP_LAYERS`` of its 32 layers through
    the launcher, B 8 x T 512, ``dpsgd_r`` fused + kernels,
-   ``remat="none"``, σ 0, ``TP_OPTIM``, ``TP_STEPS`` steps: a world of 1 on
-   NCCL and, side by side with it, 2 ranks sharing the card over gloo on a
-   (1, 2) data,model mesh, each holding half of the heads, FFN and
-   vocabulary and taking the whole batch (``[tp]`` lines,
-   ``chiprun_out/chip_smoke_tp{1,2}.log``): the checks of 18 with the
-   losses and ``grad_norm_mean`` within ``NSQ_RTOL`` of world 1's, the
-   resident bytes half of world 1's once the norm scales are added back,
-   and each rank's launches ``path_launches`` of the whole batch.
+   ``remat="none"``, σ 0, ``TP_OPTIM``, ``TP_STEPS`` steps, three worlds
+   side by side: a world of 1 on NCCL, 2 ranks sharing the card over gloo
+   on a (1, 2) data,model mesh, each holding half of the heads, FFN and
+   vocabulary and taking the whole batch (``[tp]`` lines), and 2 ranks on
+   a (1, 2) data,stage mesh with ``pp_stages`` 2, each holding one layer's
+   blocks and the whole of the embedding, final norm and head (``[stage]``
+   lines; ``chiprun_out/chip_smoke_tp{1,2,stage}.log``): the checks of 18
+   with the losses and ``grad_norm_mean`` within ``NSQ_RTOL`` of world 1's,
+   the resident bytes half of world 1's once the leaves each rank holds
+   whole are added back, the model ranks' launches ``path_launches`` of the
+   whole batch, the stage ranks' ``stage_launches`` of each (their sum the
+   pipelined whole's), and the stage ranks' bytes a step by kind
+   ``stage_moved``'s.
 
 A ``[disk]`` line sums the launchers' checkpoints, most of what the run
 writes to the disk (each removed after its phase).
@@ -345,7 +352,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # clip_reduce's checks: the H100's L2 (50 MB), the copies of a small shape's
 # operands its timed loops rotate among (enough for 4 x L2, at most this
 # many), g's size above which a check keeps no second copy of g (phase 9's
-# flat buffers: 16 layers of phi3-mini, 32 GB at B 8), and the elements of g
+# flat buffers: 8 layers of phi3-mini, 16 GB at B 8), and the elements of g
 # its plain version takes at a time
 L2_BYTES = 50 * 2**20
 L2_COPIES = 256
@@ -384,6 +391,10 @@ AUTO_B, AUTO_T = 2, 2048
 # time and the whole batch at once
 REMATS = ("none", "block", "sites")
 DPSGD_MICROBATCHES = (1, TRAIN_B)
+# phase 9 runs ALGO_LAYERS of phi3-mini's 32 layers: cut for the run's time
+# (phase 9 took 52.9 s at 16 on an H100 80GB HBM3 at 700 W, 32.0 s of it
+# the two dpsgd steps' memory traces)
+ALGO_LAYERS = 8
 # phase 9: the σ = 0 clipped sums in bf16 of dpsgd_r, dpsgd_r1f and dpsgd
 # against dpsgd_r's in float32, and of the last two against dpsgd_r's in
 # bf16, a share of each leaf's largest entry.  bf16 products and
@@ -408,22 +419,25 @@ IMAGE_B, IMAGE_K, IMAGE_N = 256, 16, 50_000
 MEMORY_ROWS = []
 BUSY_REQUESTS, BUSY_NEW = 8, 8
 HOST_LOOP_REQUESTS = 8
-# phase 13: deepseek-moe-16b served at full depth and trained at full width
-# on 6 of its 28 layers (5 where the planner puts 6 above the limit);
+# phase 13: deepseek-moe-16b served and trained at full width on cuts of
+# its 28 layers: trained on 6 (5 where the planner puts 6 above the limit);
 # grok-1-314b at full width on 2 of its 64 layers, 4 requests x 16 tokens
 MOE_ARCH, GROK_ARCH = "deepseek-moe-16b", "grok-1-314b"
 # cut for the run's time: deepseek serves the stream's first
 # MOE_REQUESTS requests, one wave of the 8 slots (13 (b)-(c) took 58.9 s
 # on all 16 on an H100 80GB HBM3 at 700 W)
 MOE_REQUESTS = 8
+# and serves MOE_SERVE_LAYERS of its 28 layers (cut for the run's time: 13
+# (b)-(c) took 57.5 s at 28 on an H100 80GB HBM3 at 700 W)
+MOE_SERVE_LAYERS = 14
 MOE_TRAIN_LAYERS, MOE_PLAN_LIMIT = 6, 72 * 2**30
 GROK_LAYERS, GROK_REQUESTS, GROK_NEW = 2, 4, 16
-# phase 14: mamba2-1.3b served and trained at full width and depth (train_4k's
-# length, T 4096); jamba-1.5-large-398b at full width on its layers 4-5,
+# phase 14: mamba2-1.3b served and trained at full width on cuts of its
+# depth (trained at train_4k's length, T 4096); jamba-1.5-large-398b at full width on its layers 4-5,
 # served (4 requests x 16 tokens) and one step's passes at B 8 x T 512.
 # CHAIN_TOL: decode after a prefill against the last row of a prefill one
-# token longer, a share of the largest logit: two bf16 paths through 48
-# layers that round in other places
+# token longer, a share of the largest logit: two bf16 paths through up to
+# 48 layers that round in other places
 MAMBA2_ARCH, JAMBA_ARCH, SSM_T = "mamba2-1.3b", "jamba-1.5-large-398b", 4096
 CHAIN_TOL = 5e-2
 # the run's time: mamba2's serve takes the stream's first SSM_REQUESTS
@@ -434,8 +448,11 @@ SSM_REQUESTS, SSM_STEPS = 4, 2
 # cut for the run's time: mamba2 trains SSM_TRAIN_LAYERS of its 48
 # layers (phase 14 (d) took 114.5 s at 48 on an H100 80GB HBM3 at 700 W)
 SSM_TRAIN_LAYERS = 8
+# and serves SSM_SERVE_LAYERS of them (cut for the run's time: 14 (b) took
+# 28.0 s at 48 on an H100 80GB HBM3 at 700 W)
+SSM_SERVE_LAYERS = 24
 # phase 15: the embedding-input models.  musicgen-medium (arXiv:2306.05284)
-# at full width and depth, served to 8 prompts of 500 precomputed frame
+# at full width, served to 8 prompts of 500 precomputed frame
 # embeddings (10 s of audio at EnCodec's 50 Hz) and 64 decode steps, and
 # trained at B 8 x T 1500 (30 s of audio, MusicGen's training crops);
 # chameleon-34b (arXiv:2405.09818) served at full width and depth to 4
@@ -449,6 +466,9 @@ CH_TRAIN_LAYERS, CH_MIN_LAYERS = 6, 4
 # musicgen trains MG_TRAIN_LAYERS of its 48 layers (cut for the run's time,
 # phase 15 (d) took 44.8 s at 48 on an H100 80GB HBM3 at 700 W)
 MG_TRAIN_LAYERS = 12
+# and serves MG_SERVE_LAYERS of them (cut for the run's time: 15 (b) took
+# 33.9 s at 48 on an H100 80GB HBM3 at 700 W)
+MG_SERVE_LAYERS = 24
 INIT_SLACK = 2 * 2**30
 # phase 16: distribution.  (a) the pipeline schedule in one process:
 # phi3-mini at full width on PP_LAYERS of its 32 layers, pp_stages
@@ -1465,7 +1485,7 @@ def path_launches(route: str, L: int, chunks: int = 1, algo: str = "dpsgd_r",
                   remat: str = "none", examples: int = 0, microbatch: int = 0,
                   dtype_groups: int = 0, family: str = "dense", convs: int = 0,
                   sites: int = 0, auto_norms=(0, 0), attn=None, embeds: int = 1,
-                  microbatches: int = 1):
+                  microbatches: int = 1, head: int = 1):
     """Launches of every kernel in one step of ``algo``, as the code makes
     them.  The dense decoder with ``L`` layers: each layer has 7 dense
     sites (q, k, v, o, w1, w3, w2) and one attention, the model one head
@@ -1512,14 +1532,16 @@ def path_launches(route: str, L: int, chunks: int = 1, algo: str = "dpsgd_r",
     ``microbatches``: the pipeline schedule's M (the dense decoder with
     ``pp_stages`` > 1): every block runs once a microbatch, so its sites
     and attention launch M times a pass; the embedding and the head, outside
-    the stages, once."""
+    the stages, once.  ``embeds`` and ``head`` (the dense decoder): whether
+    the step runs the embedding and the head (a stage rank runs the first
+    on the first stage alone, the second on the last, ``stage_launches``)."""
     n = dict.fromkeys(read_counts(), 0)
     if microbatches != 1 and family != "dense":
         raise ValueError(f"microbatches are counted for the dense decoder, "
                          f"not {family!r}")
     if family == "dense":
         M = microbatches
-        sites, dgrads, attn, embeds = 7 * L * M + 1, 7 * L * M + 1, L * M, 1
+        sites, dgrads, attn = 7 * L * M + head, 7 * L * M + head, L * M
     elif family == "vit":
         sites, dgrads, attn, embeds = 6 * L + 2, 6 * L + 1, L, 0
     elif family == "cnn":
@@ -2435,7 +2457,7 @@ def train_algorithms():
     from repro_torch.core import algo
     from repro_torch.models.transformer import Model
     from repro_torch.train import Trainer
-    arch = dataclasses.replace(get_arch("phi3-mini-3.8b"), n_layers=TRAIN_LAYERS)
+    arch = dataclasses.replace(get_arch("phi3-mini-3.8b"), n_layers=ALGO_LAYERS)
     shape, cfg = train_shape_and_config(arch, "none")
     model = Model(arch, dtype=torch.bfloat16, device="cuda", seed=0,
                   remat="none")
@@ -2523,13 +2545,13 @@ def train_algorithms():
         rec["launches"] = counts
         recs[name] = rec
         if name.startswith("dpsgd mb"):
-            rec["memory"] = memory_row(f"phase 9: {TRAIN_LAYERS} layers, remat "
+            rec["memory"] = memory_row(f"phase 9: {ALGO_LAYERS} layers, remat "
                                        f"none, {name}", tr, state,
                                        rec["peak_bytes"])
     sgd_ms = recs["sgd"]["step_ms"]
     for name, rec in recs.items():
         rec["over_sgd"] = rec["step_ms"] / sgd_ms
-        print(f"[algo] {TRAIN_LAYERS} layers, {name}: step {rec['step_ms']:.1f} "
+        print(f"[algo] {ALGO_LAYERS} layers, {name}: step {rec['step_ms']:.1f} "
               f"ms ({rec['over_sgd']:.2f}x sgd), peak "
               f"{rec['peak_bytes'] / 2**30:.2f} GiB, loss {rec['loss']:.4f}; "
               f"launches { {k: v for k, v in rec['launches'].items() if v} }",
@@ -3755,8 +3777,9 @@ def moe_path():
     kernels = check_moe_kernels()
     lap("(a) kernels")
     ds_prompts = request_stream(get_arch(MOE_ARCH).vocab)
-    serve_ds = moe_serve(get_arch(MOE_ARCH), ds_prompts[:MOE_REQUESTS], MAX_NEW,
-                         ("contiguous", "paged"))
+    serve_ds = moe_serve(dataclasses.replace(get_arch(MOE_ARCH),
+                                             n_layers=MOE_SERVE_LAYERS),
+                         ds_prompts[:MOE_REQUESTS], MAX_NEW, ("contiguous", "paged"))
     grok = dataclasses.replace(get_arch(GROK_ARCH), n_layers=GROK_LAYERS)
     serve_grok = moe_serve(grok, request_stream(grok.vocab)[:GROK_REQUESTS], GROK_NEW,
                            ("contiguous",))
@@ -3903,8 +3926,8 @@ def ssm_decode_bound(arch, B=MAX_BATCH):
 
 
 def ssm_serve(prompts):
-    """Phase 14 (b): mamba2-1.3b at full width and depth (48 layers), bf16,
-    seeded weights, serving ``prompts`` greedily through the contiguous
+    """Phase 14 (b): mamba2-1.3b at full width on ``SSM_SERVE_LAYERS`` of its
+    48 layers, bf16, seeded weights, serving ``prompts`` greedily through the contiguous
     engine (equal-length waves, unpadded) and the host loop: their streams
     must be equal; ``paged=True`` must raise; decode ms a step beside its
     bytes bound; then the chaining check: decode after a T-token prefill
@@ -3918,7 +3941,7 @@ def ssm_serve(prompts):
     from repro_torch.serve.engine import Engine
     from repro_torch.serve.host_loop import HostLoopEngine
     from repro_torch.serve.scheduler import Request
-    arch = get_arch(MAMBA2_ARCH)
+    arch = dataclasses.replace(get_arch(MAMBA2_ARCH), n_layers=SSM_SERVE_LAYERS)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -4382,8 +4405,9 @@ def paged_from(cache, block_size):
                        else tuple(pool(c) for c in cache["blocks"]))}
 
 
-def embed_serve(name, B, prompt_t, new, paged, ragged):
-    """Phase 15 (b) and (c): ``name`` at full width and depth, bf16, seeded
+def embed_serve(name, B, prompt_t, new, paged, ragged, layers=None):
+    """Phase 15 (b) and (c): ``name`` at full width, on ``layers`` of its
+    layers (default all), bf16, seeded
     weights (init's peak held to the parameters' bytes + ``INIT_SLACK``),
     fed precomputed embeddings (``embed_inputs``): a prefill of B prompts
     of ``prompt_t`` positions, then ``new`` decode steps each fed the next
@@ -4402,6 +4426,7 @@ def embed_serve(name, B, prompt_t, new, paged, ragged):
     from repro_torch.configs import get_arch
     from repro_torch.models.transformer import Model
     arch = get_arch(name)
+    arch = dataclasses.replace(arch, n_layers=layers or arch.n_layers)
     gc.collect()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
@@ -4763,7 +4788,8 @@ def embed_path():
     lap = stopwatch("phase 15")
     kernels = check_embed_kernels()
     lap("(a) kernels")
-    mg = embed_serve(MUSICGEN_ARCH, TRAIN_B, MG_PROMPT, MG_NEW, paged=True, ragged=True)
+    mg = embed_serve(MUSICGEN_ARCH, TRAIN_B, MG_PROMPT, MG_NEW, paged=True, ragged=True,
+                     layers=MG_SERVE_LAYERS)
     lap("(b) musicgen serving")
     with expandable_segments():
         ch = embed_serve(CHAMELEON_ARCH, CH_REQUESTS, CH_PROMPT, CH_NEW, paged=False,
@@ -4917,9 +4943,9 @@ def start_launcher(cmd):
             time.perf_counter())
 
 
-def launcher_result(started, nproc: int, log: str, timeout: float) -> dict:
+def launcher_result(started, name, log: str, timeout: float) -> dict:
     """Wait for a world ``start_launcher`` started; its output to
-    ``chiprun_out/chip_smoke_<log><nproc>.log``.  A nonzero exit (a rank's
+    ``chiprun_out/chip_smoke_<log><name>.log``.  A nonzero exit (a rank's
     failure, a collective's timeout) or the wall-clock limit raises (the
     world is killed)."""
     proc, t = started
@@ -4930,10 +4956,10 @@ def launcher_result(started, nproc: int, log: str, timeout: float) -> dict:
             proc.kill()
             proc.communicate()
     secs = time.perf_counter() - t
-    (ROOT / "chiprun_out" / f"chip_smoke_{log}{nproc}.log").write_text(
+    (ROOT / "chiprun_out" / f"chip_smoke_{log}{name}.log").write_text(
         out + "\n--- stderr\n" + err)
     if proc.returncode != 0:
-        raise RuntimeError(f"the launcher's world of {nproc} exited "
+        raise RuntimeError(f"the launcher's world {name} exited "
                            f"{proc.returncode}:\n{out[-3000:]}\n{err[-3000:]}")
     return dict(parse_launcher(out), seconds=secs)
 
@@ -5014,59 +5040,82 @@ def worlds_agree(one, two, steps: int, loss_tol, sliced: bool) -> str:
     return fps.pop()
 
 
-def compare_worlds(cmd, *, steps: int, params, moments, shards, log: str,
-                   timeout: float, side_by_side: bool, loss_tol,
-                   sliced: bool) -> dict:
-    """The launcher (``cmd(nproc, ckpt_dir)``) in a world of 1 on NCCL and of
-    2 ranks sharing the card over gloo, each rank its share of the batch
-    (half of it on a 2-wide data axis; all of it, alike on both, on a
-    2-wide model axis), side by side on the card or one after the other;
-    each world's output to ``chiprun_out/chip_smoke_<log><nproc>.log``.
-    Checks: ``worlds_agree`` (``sliced``: world 2's params are FSDP or
-    model slices); the leaves of each ``(range, counts)`` of ``shards``
-    (ranges of manifest indices) in ``counts`` files each in the 2-rank
-    checkpoint, in 1 in world 1's; ``params`` and ``moments`` (ranges)
-    restored whole one leaf at a time within ``CLIP_SUM_TOL`` of each
-    leaf's max of world 1's.  The temporary directories are removed."""
-    import shutil
+def start_worlds(cmds, log: str) -> dict:
+    """The launcher in the named worlds ``cmds`` (name -> (ranks, the
+    command ``cmd(ckpt_dir)``)) started side by side on the card, each
+    with a checkpoint directory of its own under a temporary one."""
     import tempfile
     tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{log}_")
-    ckpt = {n: str(Path(tmp) / f"world{n}") for n in (1, 2)}
-    started, runs = {}, {}
+    ckpt = {name: str(Path(tmp) / f"world{name}") for name in cmds}
+    return dict(log=log, tmp=tmp, ckpt=ckpt, names=list(cmds),
+                started={name: start_launcher(cmd(ckpt[name]))
+                         for name, (_, cmd) in cmds.items()})
+
+
+def stop_worlds(worlds: dict) -> None:
+    """Kill what is left of ``start_worlds``' worlds (a failure's) and
+    remove their directory."""
+    import shutil
+    for proc, _ in worlds["started"].values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    shutil.rmtree(worlds["tmp"], ignore_errors=True)
+
+
+def compare_worlds(worlds, *, steps: int, params, moments, shards, timeout: float,
+                   loss_tol, sliced) -> dict:
+    """Wait for ``start_worlds``' worlds: the first a world of 1 on NCCL,
+    each other 2 ranks sharing the card over gloo, each rank its share of
+    the batch (half of it on a 2-wide data axis; all of it, alike on both,
+    on a 2-wide model or stage axis); each world's output to
+    ``chiprun_out/chip_smoke_<log><name>.log``.  Checks, for each world
+    after the first: ``worlds_agree`` with the first (``sliced``: the names
+    whose params are FSDP, model or stage slices); the leaves of each
+    ``(range, counts)`` of ``shards[name]`` (ranges of manifest indices) in
+    ``counts`` files each in its checkpoint, in 1 in the first's;
+    ``params`` and ``moments`` (ranges) restored whole one leaf at a time
+    within ``CLIP_SUM_TOL`` of each leaf's max of the first's.  The
+    temporary directories are removed.  Returns the runs, fingerprints,
+    gaps and sharded leaves by name."""
+    ckpt, tmp = worlds["ckpt"], worlds["tmp"]
+    first, *others = worlds["names"]
+    runs = {}
     try:
-        for n in (1, 2):
-            started[n] = start_launcher(cmd(n, ckpt[n]))
-            if not side_by_side:
-                runs[n] = launcher_result(started[n], n, log, timeout)
-        for n in (1, 2):
-            if side_by_side:
-                runs[n] = launcher_result(started[n], n, log, timeout)
-            runs[n]["ckpt_bytes"] = dir_bytes(ckpt[n])
-        fingerprint = worlds_agree(runs[1], runs[2], steps, loss_tol, sliced)
+        for name in worlds["names"]:
+            runs[name] = launcher_result(worlds["started"][name], name, worlds["log"],
+                                         timeout)
+            runs[name]["ckpt_bytes"] = dir_bytes(ckpt[name])
+        fingerprint = {name: worlds_agree(runs[first], runs[name], steps, loss_tol,
+                                          name in sliced) for name in others}
         manifests = {n: json.loads((Path(d) / f"step_{steps}" / "manifest.json")
                                    .read_text()) for n, d in ckpt.items()}
-        for leaves, want in shards:
-            assert 2 in want, want
-            assert ckpt_shard_counts(manifests[2], leaves) == want
-            assert ckpt_shard_counts(manifests[1], leaves) == [1] * len(want)
+        for name in others:
+            for leaves, want in shards[name]:
+                assert 2 in want, want
+                assert ckpt_shard_counts(manifests[name], leaves) == want, name
+                assert ckpt_shard_counts(manifests[first], leaves) == [1] * len(want)
         t = time.perf_counter()
-        dirs = [ckpt[1], ckpt[2]]
-        (param_gap,) = ckpt_leaf_gaps(dirs, params, steps)
-        (moment_gap,) = ckpt_leaf_gaps(dirs, moments, steps)
-        assert param_gap <= CLIP_SUM_TOL and moment_gap <= CLIP_SUM_TOL, (
-            param_gap, moment_gap)
+        dirs = [ckpt[first]] + [ckpt[n] for n in others]
+        param_gap = dict(zip(others, ckpt_leaf_gaps(dirs, params, steps)))
+        moment_gap = dict(zip(others, ckpt_leaf_gaps(dirs, moments, steps)))
+        for name in others:
+            assert param_gap[name] <= CLIP_SUM_TOL and \
+                moment_gap[name] <= CLIP_SUM_TOL, (name, param_gap, moment_gap)
         restore_s = time.perf_counter() - t
     finally:
-        for proc, _ in started.values():        # a world left by a failure
-            if proc.poll() is None:
-                proc.kill()
-                proc.communicate()
-        shutil.rmtree(tmp, ignore_errors=True)
+        stop_worlds(worlds)
     assert not Path(tmp).exists()
-    want = shards[0][1]
     return dict(runs=runs, fingerprint=fingerprint, param_gap=param_gap,
                 moment_gap=moment_gap, restore_s=restore_s,
-                sharded_leaves=sum(x == 2 for x in want), n_params=len(want))
+                sharded_leaves={n: sum(x == 2 for x in shards[n][0][1]) for n in others},
+                n_params=len(shards[others[0]][0][1]))
+
+
+def _worlds(cmd, **more):
+    """``compare_worlds``' worlds of 1 and 2 ranks of ``cmd(nproc,
+    ckpt_dir)``, and ``more`` (name -> (ranks, ``cmd(ckpt_dir)``))."""
+    return {1: (1, lambda d: cmd(1, d)), 2: (2, lambda d: cmd(2, d)), **more}
 
 
 def _world_steps(run) -> list:
@@ -5091,31 +5140,25 @@ def dist_cmd(nproc: int, ckpt_dir: str) -> list:
                         DIST_STEPS, DIST_SETS)
 
 
-def dist_path():
-    """Phase 16: (a) ``pipeline_ab``; (b) the launcher (``dist_cmd``) in a
-    world of 1 on NCCL and (c) in 2 ranks sharing the card over gloo, side
-    by side (``compare_worlds``): one fingerprint on all 3 ranks,
-    losses within ``NSQ_RTOL`` (the int8 rider rounds each rank's share of
-    the gradient), the first moments of (c) in 2 shard files each, params
-    and first moments within ``CLIP_SUM_TOL``."""
-    import torch
+def dist_path(pipe, worlds):
+    """Phase 16 (b)-(c), given (a)'s ``pipeline_ab`` record ``pipe``: the
+    launcher (``dist_cmd``) in a world of 1 on NCCL and in 2 ranks sharing
+    the card over gloo, side by side with each other and with phase 19's
+    worlds (``worlds``, ``start_worlds``' handle; ``compare_worlds``): one
+    fingerprint on all 3 ranks, losses within ``NSQ_RTOL`` (the int8 rider
+    rounds each rank's share of the gradient), the first moments of (c) in
+    2 shard files each, params and first moments within ``CLIP_SUM_TOL``."""
     from repro_torch.configs import get_arch
-    t0 = time.perf_counter()
-    pipe = pipeline_ab()
-    gc.collect()
-    torch.cuda.empty_cache()
-    t1 = time.perf_counter()
-    print(f"[time] phase 16 (a) pipeline: {t1 - t0:.1f} s", flush=True)
     arch = dataclasses.replace(get_arch("phi3-mini-3.8b"), n_layers=DIST_LAYERS)
     n = len(zero1_expected_shards(arch, 2))
     # leaves: the step, the params, the compression residuals, then the
     # optimizer's m, master, v
     first_moments = range(1 + 2 * n, 1 + 3 * n)
-    got = compare_worlds(dist_cmd, steps=DIST_STEPS, params=range(1, 1 + n),
+    got = compare_worlds(worlds, steps=DIST_STEPS, params=range(1, 1 + n),
                          moments=first_moments,
-                         shards=[(first_moments, zero1_expected_shards(arch, 2))],
-                         log="dist", timeout=DIST_TIMEOUT, side_by_side=True,
-                         loss_tol=lambda x: NSQ_RTOL * abs(x), sliced=False)
+                         shards={2: [(first_moments, zero1_expected_shards(arch, 2))]},
+                         timeout=DIST_TIMEOUT, loss_tol=lambda x: NSQ_RTOL * abs(x),
+                         sliced=())
     one, two = got["runs"][1], got["runs"][2]
     for k, run in got["runs"].items():
         print(f"[time] phase 16 ({'b' if k == 1 else 'c'}) world of {k}: "
@@ -5126,17 +5169,17 @@ def dist_path():
           f"{DIST_STEPS} steps: world 1 (nccl) {one['seconds']:.1f} s, steps "
           f"{_world_steps(one)} ms, peak {one['measured']} GB; world 2 (gloo, both "
           f"ranks on cuda:0) {two['seconds']:.1f} s, steps {_world_steps(two)} ms, "
-          f"peaks {two['measured']} GB; fingerprint {got['fingerprint']} on all 3 "
+          f"peaks {two['measured']} GB; fingerprint {got['fingerprint'][2]} on all 3 "
           f"ranks; losses {_world_losses(one)} | {_world_losses(two)}; checkpoints "
-          f"restored whole ({got['restore_s']:.1f} s): params {got['param_gap']:.2e}, "
-          f"first moments {got['moment_gap']:.2e} of each leaf's max (limit "
-          f"{CLIP_SUM_TOL}); the 2-rank checkpoint holds {got['sharded_leaves']} of "
+          f"restored whole ({got['restore_s']:.1f} s): params {got['param_gap'][2]:.2e}, "
+          f"first moments {got['moment_gap'][2]:.2e} of each leaf's max (limit "
+          f"{CLIP_SUM_TOL}); the 2-rank checkpoint holds {got['sharded_leaves'][2]} of "
           f"{n} moments in 2 shard files; temporary directories removed", flush=True)
     return dict(pipeline=pipe, launches=pipe["launches"], worlds={
         k: {key: v[key] for key in ("backend", "fingerprint", "steps", "estimate",
                                      "measured", "seconds", "ckpt_bytes")}
         for k, v in got["runs"].items()},
-        param_gap=got["param_gap"], moment_gap=got["moment_gap"],
+        param_gap=got["param_gap"][2], moment_gap=got["moment_gap"][2],
         restore_s=got["restore_s"])
 
 
@@ -5183,10 +5226,10 @@ def fsdp_path():
     # leaves: the step, the params, then the optimizer's state (SGD's momenta)
     params, moments = range(1, 1 + n), range(1 + n, 1 + 2 * n)
     counts = zero1_expected_shards(arch, 2)
-    got = compare_worlds(fsdp_cmd, steps=FSDP_STEPS, params=params, moments=moments,
-                         shards=[(params, counts), (moments, counts)], log="fsdp",
-                         timeout=FSDP_TIMEOUT, side_by_side=True, loss_tol=printed_unit,
-                         sliced=True)
+    got = compare_worlds(start_worlds(_worlds(fsdp_cmd), "fsdp"), steps=FSDP_STEPS,
+                         params=params, moments=moments,
+                         shards={2: [(params, counts), (moments, counts)]},
+                         timeout=FSDP_TIMEOUT, loss_tol=printed_unit, sliced=(2,))
     runs = got["runs"]
     one, two = runs[1], runs[2]
     for k, run in runs.items():
@@ -5219,7 +5262,7 @@ def fsdp_path():
           f"the card: world 1 (nccl) {one['seconds']:.1f} s, steps {_world_steps(one)} "
           f"ms; world 2 (gloo, both ranks on cuda:0, FSDP) {two['seconds']:.1f} s, "
           f"steps {_world_steps(two)} ms; losses {_world_losses(one)} | "
-          f"{_world_losses(two)}; the 2-rank checkpoint holds {got['sharded_leaves']} "
+          f"{_world_losses(two)}; the 2-rank checkpoint holds {got['sharded_leaves'][2]} "
           f"of {n} params and their momenta in 2 shard files", flush=True)
     print(f"[fsdp] resident a rank: params {[r[0] for r in two['resident']]} B, "
           f"optimizer state {[r[1] for r in two['resident']]} B against world 1's "
@@ -5231,13 +5274,14 @@ def fsdp_path():
           f"reduce-scatter: the sharded leaves' whole gradients once; all-reduce: "
           f"the norm scales' gradients and update_norm); launches a rank "
           f"{json.loads(two['launches'][0][0])} = path_launches; checkpoints restored "
-          f"whole ({got['restore_s']:.1f} s): params {got['param_gap']:.2e}, momenta "
-          f"{got['moment_gap']:.2e} of each leaf's max (limit {CLIP_SUM_TOL})", flush=True)
+          f"whole ({got['restore_s']:.1f} s): params {got['param_gap'][2]:.2e}, momenta "
+          f"{got['moment_gap'][2]:.2e} of each leaf's max (limit {CLIP_SUM_TOL})",
+          flush=True)
     return dict(worlds={k: {key: v[key] for key in (
         "backend", "fingerprint", "steps", "estimate", "measured", "resident",
         "launches", "seconds", "ckpt_bytes")} for k, v in runs.items()}, halves=halves,
-        moved_per_step=per_step, param_gap=got["param_gap"],
-        moment_gap=got["moment_gap"], restore_s=got["restore_s"], seconds=secs)
+        moved_per_step=per_step, param_gap=got["param_gap"][2],
+        moment_gap=got["moment_gap"][2], restore_s=got["restore_s"], seconds=secs)
 
 
 # ---------------------------------------------------------------------------
@@ -5280,17 +5324,55 @@ def tp_kernel_checks():
     return dict(dense=dense, flash_fwd=fwd, flash_bwd=bwd)
 
 
-def replicated_bytes(arch, width: int, optim: str):
-    """(param bytes, optimizer-state bytes) of the leaves every model rank
-    of a ``width``-wide model axis holds whole (the norm scales), as the
-    launcher's params (bf16 weights, float32 scales) and ``optim``'s
-    state make them."""
+def stage_cmd(ckpt_dir: str) -> list:
+    """Phase 19's stage world: ``tp_cmd``'s run on two ranks of a (1, 2)
+    ``data,stage`` mesh, ``pp_stages`` 2 (2 microbatches), each rank holding
+    the blocks of its stage."""
+    return launcher_cmd(2, ckpt_dir, "phi3-mini-3.8b", TP_LAYERS, TP_STEPS,
+                        (*TP_SETS, "pp_stages=2"), mesh=("1,2", "data,stage"))
+
+
+def stage_launches(index: int, width: int, route: str, L: int, **kw):
+    """``path_launches`` of stage rank ``index`` of a ``width``-wide stage
+    axis of the dense decoder with ``L`` layers: its ``L / width`` layers'
+    sites and attention, the embedding's ``gram_norm`` on the first rank
+    alone and the head's site on the last alone."""
+    return path_launches(route, L // width, embeds=int(index == 0),
+                         head=int(index == width - 1), **kw)
+
+
+def stage_moved(arch, B: int, T: int, element: int = 2) -> list:
+    """The bytes each stage rank of a (1, 2) ``data,stage`` mesh moves in one
+    ``dpsgd_r`` step of ``arch`` at B x T (activations of ``element``
+    bytes), by kind, as the launcher meters them (``runtime._record``: a
+    send its bytes, a broadcast and an all-reduce the result's size on one
+    rank): [the first rank's, the last's].  Sends: each of the two forwards
+    carries the activations (B, T, d) and the (B,) aux total forward, pass
+    1 also the (B,) norm accumulator, and each backward their cotangents
+    back; the last rank gives its (B,) float32 losses to the first after
+    each forward.  Broadcasts: the float32 clipped sums of the embedding
+    (from the first), the final norm and the head (from the last), on both
+    ranks.  All-reduces: the (B,) norms² and ``update_norm``'s partial
+    square over the stage group."""
+    from repro_torch.models.transformer import padded_vocab
+    d, V = arch.d_model, padded_vocab(arch.vocab)
+    sends = 2 * B * T * d * element + 4 * B + 2 * 4 * B
+    common = {"broadcast": 4 * (2 * V * d + d), "all-reduce": 4 * B + 4}
+    return [dict(common, send=sends), dict(common, send=sends + 2 * 4 * B)]
+
+
+def replicated_bytes(arch, width: int, optim: str, axis: str = "model"):
+    """(param bytes, optimizer-state bytes) of the leaves every rank of a
+    ``width``-wide ``axis`` holds whole (on a model axis the norm scales;
+    on a stage axis the embedding, final norm and head), as the launcher's
+    params (bf16 weights, float32 scales) and ``optim``'s state make
+    them."""
     import torch
     from repro_torch import tree
     from repro_torch.configs.base import OptimConfig
     from repro_torch.models.transformer import abstract_params
     from repro_torch.optim.optimizers import make_optimizer
-    counts = zero1_expected_shards(arch, width, axis="model")
+    counts = zero1_expected_shards(arch, width, axis=axis)
     whole = [p for p, c in zip(tree.leaves(abstract_params(arch, torch.bfloat16)),
                                counts) if c == 1]
     state = make_optimizer(OptimConfig(name=optim)).init(whole)
@@ -5298,70 +5380,105 @@ def replicated_bytes(arch, width: int, optim: str):
             sum(t.numel() * t.element_size() for t in tree.leaves(state)))
 
 
-def tp_path():
-    """Phase 19: the kernels at a model rank's local shapes
-    (``tp_kernel_checks``), then the launcher on phi3-mini (``tp_cmd``) in a
-    world of 1 on NCCL and, side by side with it on the card, of 2 ranks
-    sharing the card over gloo on a (1, 2) data,model mesh, each holding
-    half of the heads, FFN and vocabulary and taking the whole batch.
-    ``compare_worlds`` checks: each step's loss and ``grad_norm_mean``
-    equal on both ranks and within ``NSQ_RTOL`` of world 1's (the bf16
-    row-parallel sums reorder); the 2-rank checkpoint's sliced params and
-    their momenta in 2 shard files; restored whole, params and momenta
-    within ``CLIP_SUM_TOL`` of each leaf's max of world 1's.  Here: each
-    rank's resident param and optimizer-state bytes half of world 1's
-    within ``BYTES_RTOL`` once the norm scales, which each rank holds
-    whole, are added back; each rank's kernel launches equal to
-    ``path_launches`` of the whole batch (every count is by site, not by
-    width).  Prints each world's step ms, each rank's measured peak beside
-    the planner's per-device estimate (a trace of the rank's slices), the
-    bytes moved a step by kind and the phase's seconds."""
-    from repro_torch.configs import get_arch
-    t0 = time.perf_counter()
-    kernels = tp_kernel_checks()
-    t1 = time.perf_counter()
-    arch = dataclasses.replace(get_arch("phi3-mini-3.8b"), n_layers=TP_LAYERS)
-    counts = zero1_expected_shards(arch, 2, axis="model")
-    n = len(counts)
-    # leaves: the step, the params, then the optimizer's state (SGD's momenta)
-    params, moments = range(1, 1 + n), range(1 + n, 1 + 2 * n)
-    got = compare_worlds(tp_cmd, steps=TP_STEPS, params=params, moments=moments,
-                         shards=[(params, counts), (moments, counts)], log="tp",
-                         timeout=TP_TIMEOUT, side_by_side=True,
-                         loss_tol=lambda x: NSQ_RTOL * abs(x), sliced=True)
-    runs = got["runs"]
-    one, two = runs[1], runs[2]
-    for k, run in runs.items():
-        print(f"[time] phase 19 world of {k}: {run['seconds']:.1f} s; its checkpoint "
-              f"{run['ckpt_bytes'] / 1e9:.2f} GB on disk", flush=True)
-    rp, ro = replicated_bytes(arch, 2, TP_OPTIM)
+def halved(one, two, replicated) -> list:
+    """Each rank of world ``two``'s (2 x its resident bytes - the bytes of
+    the leaves every rank holds whole) / world ``one``'s, params and
+    optimizer state, each within ``BYTES_RTOL`` of 1."""
     (p1, o1), = [tuple(map(int, r)) for r in one["resident"]]
+    rp, ro = replicated
     halves = []
     for p2, o2 in [tuple(map(int, r)) for r in two["resident"]]:
         halves.append(((2 * p2 - rp) / p1, (2 * o2 - ro) / o1))
         assert abs((2 * p2 - rp) / p1 - 1) <= BYTES_RTOL, (p2, p1, rp)
         assert abs((2 * o2 - ro) / o1 - 1) <= BYTES_RTOL, (o2, o1, ro)
     assert len(halves) == 2, two["resident"]
+    return halves
+
+
+def tp_path(kernels):
+    """Phase 19, the model and stage axes, after the kernels at a model
+    rank's local shapes (``kernels``, ``tp_kernel_checks``' record): the
+    launcher on phi3-mini in three worlds side by side on the card (and
+    beside phase 16 (b)-(c)'s): a world of 1 on NCCL
+    (``tp_cmd``), 2 ranks sharing the card over gloo on a (1, 2) data,model
+    mesh, each holding half of the heads, FFN and vocabulary and taking the
+    whole batch, and 2 ranks on a (1, 2) data,stage mesh with ``pp_stages``
+    2 (``stage_cmd``), each holding one layer's blocks and the whole of the
+    embedding, final norm and head.  ``compare_worlds`` checks each 2-rank
+    world against world 1: each step's loss and ``grad_norm_mean`` equal on
+    both ranks and within ``NSQ_RTOL`` of world 1's (the bf16 row-parallel
+    sums reorder; the stage world's pipeline runs its blocks a microbatch
+    at a time); the checkpoint's sliced params and their momenta in 2 shard
+    files and the rest in 1; restored whole, params and momenta within
+    ``CLIP_SUM_TOL`` of each leaf's max of world 1's.  Here: each rank's
+    resident param and optimizer-state bytes half of world 1's within
+    ``BYTES_RTOL`` once the leaves each rank holds whole are added back;
+    the model ranks' kernel launches equal to ``path_launches`` of the
+    whole batch (every count is by site, not by width), the stage ranks'
+    to ``stage_launches`` of each rank, which sum to the pipelined whole's
+    ``path_launches``; the stage ranks' bytes moved a step by kind equal to
+    ``stage_moved``'s.  Prints each world's step ms, each rank's measured
+    peak beside the planner's per-device estimate (a trace of the rank's
+    slices), the bytes moved a step by kind and the phase's seconds."""
+    from repro_torch.configs import get_arch
+    t0 = time.perf_counter()
+    arch = dataclasses.replace(get_arch("phi3-mini-3.8b"), n_layers=TP_LAYERS)
+    counts = zero1_expected_shards(arch, 2, axis="model")
+    by_stage = zero1_expected_shards(arch, 2, axis="stage")
+    n = len(counts)
+    # leaves: the step, the params, then the optimizer's state (SGD's momenta)
+    params, moments = range(1, 1 + n), range(1 + n, 1 + 2 * n)
+    got = compare_worlds(start_worlds(_worlds(tp_cmd, stage=(2, stage_cmd)), "tp"),
+                         steps=TP_STEPS, params=params, moments=moments,
+                         shards={2: [(params, counts), (moments, counts)],
+                                 "stage": [(params, by_stage), (moments, by_stage)]},
+                         timeout=TP_TIMEOUT, loss_tol=lambda x: NSQ_RTOL * abs(x),
+                         sliced=(2, "stage"))
+    runs = got["runs"]
+    one, two, stage = runs[1], runs[2], runs["stage"]
+    for k, run in runs.items():
+        print(f"[time] phase 19 world {k}: {run['seconds']:.1f} s; its checkpoint "
+              f"{run['ckpt_bytes'] / 1e9:.2f} GB on disk", flush=True)
+    halves = halved(one, two, replicated_bytes(arch, 2, TP_OPTIM))
+    stage_rep = replicated_bytes(arch, 2, TP_OPTIM, axis="stage")
+    stage_halves = halved(one, stage, stage_rep)
     want = path_launches("fused", remat="none", chunks=TP_STEPS,
                          **launch_shape(arch, TRAIN_B, TRAIN_T))
     moved = {}
-    for nproc, run in runs.items():
+    for nproc, run in ((1, one), (2, two)):
         assert len(run["launches"]) == nproc, run["launches"]
         for launched, coll, _ in run["launches"]:
             assert json.loads(launched) == want, (nproc, launched, want)
         moved[nproc] = [json.loads(coll) for _, coll, _ in run["launches"]]
     per_step = {k: v / TP_STEPS for k, v in moved[2][0].items()}
     assert per_step.get("all-reduce", 0) > 0, per_step
+    # the stage ranks, in the order their lines came: each its own stage's
+    # launches, which sum to the pipelined whole's, and its bytes a step
+    kw = dict(remat="none", chunks=TP_STEPS, microbatches=2)
+    ranks = [stage_launches(i, 2, "fused", TP_LAYERS, **kw) for i in range(2)]
+    whole = path_launches("fused", TP_LAYERS, **kw)
+    assert {k: ranks[0][k] + ranks[1][k] for k in whole} == whole, (ranks, whole)
+    got_launches = [json.loads(launched) for launched, _, _ in stage["launches"]]
+    assert sorted(json.dumps(x, sort_keys=True) for x in got_launches) == \
+        sorted(json.dumps(x, sort_keys=True) for x in ranks), (
+        got_launches, ranks)
+    stage_step = [{k: v // TP_STEPS for k, v in json.loads(coll).items()}
+                  for _, coll, _ in stage["launches"]]
+    predicted = stage_moved(arch, TRAIN_B, TRAIN_T)
+    assert sorted(json.dumps(x, sort_keys=True) for x in stage_step) == \
+        sorted(json.dumps(x, sort_keys=True) for x in predicted), (
+        stage_step, predicted)
     secs = time.perf_counter() - t0
     est = {k: [(float(g), float(d)) for g, d in v["estimate"]] for k, v in runs.items()}
     print(f"[tp] phi3-mini-3.8b at full width, {TP_LAYERS} of 32 layers, B {TRAIN_B} x "
           f"T {TRAIN_T}, dpsgd_r fused + kernels, remat none, sigma 0, {TP_OPTIM}, "
-          f"{TP_STEPS} steps, the two worlds side by side on the card: world 1 (nccl) "
+          f"{TP_STEPS} steps, three worlds side by side on the card: world 1 (nccl) "
           f"{one['seconds']:.1f} s, steps {_world_steps(one)} ms; world 2 (gloo, both "
           f"ranks on cuda:0, a (1, 2) data,model mesh) {two['seconds']:.1f} s, steps "
           f"{_world_steps(two)} ms; losses {_world_losses(one)} | {_world_losses(two)}; "
-          f"the 2-rank checkpoint holds {got['sharded_leaves']} of {n} params and "
+          f"the 2-rank checkpoint holds {got['sharded_leaves'][2]} of {n} params and "
           f"their momenta in 2 shard files", flush=True)
+    (p1, o1), (rp, ro) = one["resident"][0], replicated_bytes(arch, 2, TP_OPTIM)
     print(f"[tp] resident a rank: params {[r[0] for r in two['resident']]} B, "
           f"optimizer state {[r[1] for r in two['resident']]} B against world 1's "
           f"{p1} B, {o1} B; with the norm scales ({rp} B, state {ro} B) added back, "
@@ -5372,14 +5489,39 @@ def tp_path():
           f"row-parallel outputs and its inputs' gradients, the embedding rows, the "
           f"cross-entropy's max, sum and target, the norms², update_norm); launches a "
           f"rank {json.loads(two['launches'][0][0])} = path_launches; checkpoints "
-          f"restored whole ({got['restore_s']:.1f} s): params {got['param_gap']:.2e}, "
-          f"momenta {got['moment_gap']:.2e} of each leaf's max (limit {CLIP_SUM_TOL}); "
-          f"kernel checks {t1 - t0:.1f} s, phase {secs:.1f} s", flush=True)
+          f"restored whole ({got['restore_s']:.1f} s): params {got['param_gap'][2]:.2e}, "
+          f"momenta {got['moment_gap'][2]:.2e} of each leaf's max (limit "
+          f"{CLIP_SUM_TOL}); the worlds {secs:.1f} s", flush=True)
+    print(f"[stage] phi3-mini-3.8b at full width, {TP_LAYERS} of 32 layers, B "
+          f"{TRAIN_B} x T {TRAIN_T}, the same run on 2 ranks sharing the card over "
+          f"gloo on a (1, 2) data,stage mesh, pp_stages 2, M 2, beside the other two "
+          f"worlds: {stage['seconds']:.1f} s, steps {_world_steps(stage)} ms; losses "
+          f"{_world_losses(one)} | {_world_losses(stage)}; the checkpoint holds "
+          f"{got['sharded_leaves']['stage']} of {n} params (the blocks) and their "
+          f"momenta in 2 shard files, the rest in 1", flush=True)
+    print(f"[stage] resident a rank: params {[r[0] for r in stage['resident']]} B, "
+          f"optimizer state {[r[1] for r in stage['resident']]} B against world 1's "
+          f"{one['resident'][0][0]} B, {one['resident'][0][1]} B; with the whole "
+          f"leaves (embedding, final norm, head: {stage_rep[0]} B, state "
+          f"{stage_rep[1]} B) added back, (2 x rank - whole) / world 1 "
+          f"{stage_halves} (want 1 within {BYTES_RTOL:.0%}); measured peaks "
+          f"{stage['measured']} GB beside the planner's (a trace of the rank's "
+          f"stage) {[(float(g), float(d)) for g, d in stage['estimate']]} GB; a step "
+          f"moves {stage_step} B by rank (predicted {predicted}: sends of the "
+          f"activations forward and their cotangents back, the losses, the "
+          f"broadcast float32 sums of the embedding and the head, the norms²); "
+          f"launches by rank {got_launches} = stage_launches, summing to the "
+          f"pipelined whole's {whole}; checkpoints restored whole: params "
+          f"{got['param_gap']['stage']:.2e}, momenta {got['moment_gap']['stage']:.2e} "
+          f"of each leaf's max (limit {CLIP_SUM_TOL})", flush=True)
     return dict(kernels=kernels, worlds={k: {key: v[key] for key in (
         "backend", "fingerprint", "steps", "estimate", "measured", "resident",
         "launches", "seconds", "ckpt_bytes")} for k, v in runs.items()}, halves=halves,
-        moved_per_step=per_step, param_gap=got["param_gap"],
-        moment_gap=got["moment_gap"], restore_s=got["restore_s"], seconds=secs)
+        moved_per_step=per_step, param_gap=got["param_gap"][2],
+        moment_gap=got["moment_gap"][2], restore_s=got["restore_s"],
+        stage=dict(halves=stage_halves, moved_per_step=stage_step, predicted=predicted,
+                   launches=got_launches, param_gap=got["param_gap"]["stage"],
+                   moment_gap=got["moment_gap"]["stage"]), seconds=secs)
 
 
 # ---------------------------------------------------------------------------
@@ -5610,35 +5752,44 @@ def launch_tune_cmd(ckpt_dir: str):
             *[x for kv in sets for x in ("--set", kv)]]
 
 
-def launcher_autotune():
-    """Phase 17 (c): the launcher's ``--autotune`` on the card; its output
-    to ``chiprun_out/chip_smoke_autotune.log``.  Its autotune line, two step
+def start_launcher_autotune():
+    """Phase 17 (c), started in the background (it runs beside phase 18's
+    worlds, ``launcher_autotune`` waits for it): (the process, its start
+    time, its checkpoint directory)."""
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tune_", dir=ROOT / "build")
+    return (*start_launcher(launch_tune_cmd(tmp)), tmp)
+
+
+def launcher_autotune(started):
+    """Phase 17 (c): the launcher's ``--autotune`` on the card
+    (``start_launcher_autotune``); its output to
+    ``chiprun_out/chip_smoke_autotune.log``.  Its autotune line, two step
     lines and the ``privacy spent`` line must come; a nonzero exit or the
     time limit raises."""
-    import os
     import shutil
-    import tempfile
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_tune_", dir=ROOT / "build")
+    proc, t, tmp = started
     try:
-        t = time.perf_counter()
-        r = subprocess.run(launch_tune_cmd(tmp), env=env, cwd=ROOT, capture_output=True,
-                           text=True, timeout=LAUNCH_TUNE_TIMEOUT)
+        out, err = proc.communicate(timeout=LAUNCH_TUNE_TIMEOUT)
         secs = time.perf_counter() - t
         ckpt_bytes = dir_bytes(tmp)
     finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
         shutil.rmtree(tmp, ignore_errors=True)
     (ROOT / "chiprun_out" / "chip_smoke_autotune.log").write_text(
-        r.stdout + "\n--- stderr\n" + r.stderr)
-    if r.returncode != 0:
-        raise RuntimeError(f"the launcher's --autotune exited {r.returncode}:\n"
-                           f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
-    got = parse_autotune_launch(r.stdout)
+        out + "\n--- stderr\n" + err)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the launcher's --autotune exited {proc.returncode}:\n"
+                           f"{out[-3000:]}\n{err[-3000:]}")
+    got = parse_autotune_launch(out)
     assert len(got["autotune"]) == 1 and len(got["step"]) == 2 \
         and len(got["privacy"]) == 1, got
     (method, seed, size, traces, hits, winner), = got["autotune"]
     print(f"[autotune] the launcher (phi3-mini-3.8b, {LAUNCH_TUNE_LAYERS} layers, B "
-          f"{TRAIN_B} x T {TRAIN_T}, 2 steps) in {secs:.1f} s: {method} seed {seed}, "
+          f"{TRAIN_B} x T {TRAIN_T}, 2 steps, beside phase 18's worlds) in "
+          f"{secs:.1f} s: {method} seed {seed}, "
           f"{size} plans, {traces} traces ({hits} cache hits); winner {winner}; "
           f"correlation {got['correlation']}; losses {[x[1] for x in got['step']]}; "
           f"eps {got['privacy'][0][1]}; its checkpoint {ckpt_bytes / 1e9:.2f} GB on "
@@ -5647,16 +5798,15 @@ def launcher_autotune():
 
 
 def launch_tools_path(train):
-    """Phase 17: (a) ``roofline_phase``, (b) ``autotune_phase``, (c)
-    ``launcher_autotune``."""
+    """Phase 17: (a) ``roofline_phase``, (b) ``autotune_phase``, and (c)
+    ``launcher_autotune`` started (``"started"``; the caller waits for it
+    once phase 18, which runs beside it, is done)."""
     lap = stopwatch("phase 17")
     roof = roofline_phase(train)
     lap("(a) roofline")
     tune = autotune_phase()
     lap("(b) autotune")
-    launcher = launcher_autotune()
-    lap("(c) launcher")
-    return dict(roofline=roof, autotune=tune, launcher=launcher,
+    return dict(roofline=roof, autotune=tune, started=start_launcher_autotune(),
                 launches=tune["launches"], seconds=dict(lap.secs))
 
 
@@ -5773,10 +5923,11 @@ def main() -> int:
         clip_recs.append(check_clip_reduce("ragged", 3, 1_000_003, dtype))
         # a narrow leaf: the CNN head's bias over 256 examples
         clip_recs.append(check_clip_reduce("cnn-head-bias", IMAGE_B, 10, dtype))
-    # phase 9's dpsgd launches: the flat buffers of its 16 layers (one a
-    # parameter dtype: the bf16 weights in bf16, the float32 norm scales in
-    # float32), the whole batch at once and one example at a time
-    for dtype, _, n_pad in flat_groups(dataclasses.replace(arch, n_layers=L))[0]:
+    # phase 9's dpsgd launches: the flat buffers of its ALGO_LAYERS layers
+    # (one a parameter dtype: the bf16 weights in bf16, the float32 norm
+    # scales in float32), the whole batch at once and one example at a time
+    for dtype, _, n_pad in flat_groups(dataclasses.replace(arch,
+                                                           n_layers=ALGO_LAYERS))[0]:
         for mb in DPSGD_MICROBATCHES:
             gc.collect()
             torch.cuda.empty_cache()
@@ -5919,48 +6070,66 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lap("phase 12")
-    # 13. the MoE family: its kernel shapes, deepseek-moe-16b served at full
-    # depth and trained at full width, grok-1-314b served at 2 layers
+    # 13. the MoE family: its kernel shapes, deepseek-moe-16b served and
+    # trained at full width on cuts of its layers, grok-1-314b served at 2
     moe = moe_path()
     gc.collect()
     torch.cuda.empty_cache()
     lap("phase 13")
     # 14. the SSM family: its kernel shapes, mamba2-1.3b served and trained at
-    # full width and depth, jamba's two-layer cut served and its passes
+    # full width on cuts of its layers, jamba's two-layer cut served and its
+    # passes
     ssm = ssm_path()
     gc.collect()
     torch.cuda.empty_cache()
     lap("phase 14")
     # 15. the embedding-input models: their kernel shapes, musicgen-medium
-    # served and trained at full width and depth, chameleon-34b served at
-    # full depth and trained at full width on a cut of its layers
+    # served and trained at full width on cuts of its layers, chameleon-34b
+    # served at full depth and trained at full width on a cut of its layers
     embed = embed_path()
     gc.collect()
     torch.cuda.empty_cache()
     lap("phase 15")
-    # 16. distribution: the pipeline schedule in one process, then the
-    # launcher in a world of 1 (NCCL) and of 2 ranks sharing the card (gloo)
-    dist = dist_path()
+    # 16. distribution: (a) the pipeline schedule in one process; (b)-(c)
+    # the launcher in a world of 1 (NCCL) and of 2 ranks sharing the card
+    # (gloo), which run beside phase 19's worlds
+    pipe = pipeline_ab()
     gc.collect()
     torch.cuda.empty_cache()
-    lap("phase 16")
+    lap("phase 16 (a) pipeline")
     # 17. the launch tools: phase 6's roofline, a solve on the card, the
-    # launcher's --autotune
+    # launcher's --autotune (which runs beside phase 18's worlds)
     tools = launch_tools_path(train)
     gc.collect()
     torch.cuda.empty_cache()
-    lap("phase 17")
+    lap("phase 17 (a)-(b)")
     # 18. FSDP: chameleon-34b through the launcher in a world of 1 (NCCL)
     # and of 2 ranks sharing the card (gloo), each holding half its params
-    fsdp = fsdp_path()
+    try:
+        fsdp = fsdp_path()
+    except BaseException:               # stop phase 17 (c) before leaving
+        tools["started"][0].kill()
+        tools["started"][0].communicate()
+        raise
+    tools["launcher"] = launcher_autotune(tools.pop("started"))
     gc.collect()
     torch.cuda.empty_cache()
-    lap("phase 18")
-    # 19. tensor parallelism: phi3-mini through the launcher in a world of 1
-    # (NCCL) and of 2 model ranks sharing the card (gloo), each holding half
-    # of its heads, FFN and vocabulary
-    tp = tp_path()
-    lap("phase 19")
+    lap("phases 17 (c) and 18")
+    # 19. the model and stage axes: the kernels at a model rank's shapes,
+    # then phi3-mini through the launcher in a world of 1 (NCCL), of 2 model
+    # ranks sharing the card (gloo), each holding half of its heads, FFN and
+    # vocabulary, and of 2 stage ranks (gloo), each holding one layer's
+    # blocks, beside phase 16 (b)-(c)'s worlds
+    tp_kernels = tp_kernel_checks()
+    lap("phase 19 kernels")
+    dist_worlds = start_worlds(_worlds(dist_cmd), "dist")
+    try:
+        tp = tp_path(tp_kernels)
+    except BaseException:               # stop phase 16's worlds before leaving
+        stop_worlds(dist_worlds)
+        raise
+    dist = dist_path(pipe, dist_worlds)
+    lap("phases 16 (b)-(c) and 19")
     ckpts = {**{f"16 ({'b' if k == 1 else 'c'})": w["ckpt_bytes"]
                 for k, w in dist["worlds"].items()},
              "17 (c)": tools["launcher"]["ckpt_bytes"],

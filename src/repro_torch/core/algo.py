@@ -103,6 +103,22 @@ a generator keyed by the step's and the slice's ``model`` index
 slice.  ``dpsgd`` raises: its flat per-example buffers would need their
 norms² summed over the group (ROADMAP queue 1).
 
+Pipeline stages across processes (params carrying ``stage_shard``, a
+``stage`` axis above 1): every stage rank of a ``data`` coordinate takes the
+same examples and returns the last stage rank's losses
+(models/transformer.py), and the accumulator's cotangent crosses the
+stages back, so the first stage rank's pullback holds the norms² and the
+others' zeros: they are summed over the ``stage`` group right after each
+pullback, beside the ``model`` group's sum, and every stage rank clips
+alike.  A stage slice's clipped sum is its own, reduced over the batch
+group; a leaf every stage rank holds whole (``stage_owner``) has its real
+clipped sum on its owner alone, which broadcasts it over the stage group
+before the noise, and every stage rank then adds the same noise to it from
+the step's generator.  A stage slice's noise comes from a generator keyed
+by its stage index.  ``dpsgd`` raises: its per-example backward would
+cross the pipeline once an example.  The step's sends are waited once its
+clipped sums are made (``runtime.stage_flush``).
+
 loss_fn contract: ``loss_fn(params, batch, ctx) -> (per_example_losses,
 ctx)`` with ``per_example_losses: (B,) float32``.
 """
@@ -229,6 +245,14 @@ def _f32_grads(outputs, leaves, grad_outputs=None) -> List[torch.Tensor]:
 # the two passes of DP-SGD(R)
 # ---------------------------------------------------------------------------
 
+def _sum_partials(nsq: torch.Tensor) -> None:
+    """The ranks' partial norms² made whole in place: summed over the
+    ``model`` group (a slice's partial) and the ``stage`` group (the first
+    stage rank's pullback holds them all)."""
+    runtime.all_reduce_([nsq], runtime.model_group())
+    runtime.all_reduce_([nsq], runtime.stage_group())
+
+
 def norm_pass(loss_fn: Callable, params, data, dp: DPConfig, mask=None):
     """Pass 1: (per-example norms² (B,), per-row losses (B·K,)).
 
@@ -238,7 +262,8 @@ def norm_pass(loss_fn: Callable, params, data, dp: DPConfig, mask=None):
     cotangents are seeded with ``mask`` (float (B·K,) 0/1, default all
     ones): the pass backpropagates Σ mᵢ·Lᵢ, so every padded row's gy is an
     exact zero at every site, and so is its norm².  Tensor parallel, the
-    ranks' partial norms² are summed over the ``model`` group."""
+    ranks' partial norms² are summed over the ``model`` group, and across
+    pipeline stages over the ``stage`` group."""
     device = tree.leaves(params)[0].device
     K = _views(dp)
     R = _batch_size(data)
@@ -252,7 +277,7 @@ def norm_pass(loss_fn: Callable, params, data, dp: DPConfig, mask=None):
         (nsq,) = torch.autograd.grad((losses, ctx.acc), (acc0,),
                                      (seed.to(losses.dtype),
                                       torch.zeros_like(ctx.acc)))
-    runtime.all_reduce_([nsq], runtime.model_group())
+    _sum_partials(nsq)
     return nsq, losses.detach()
 
 
@@ -309,6 +334,11 @@ def _dpsgd_sum(loss_fn, dp: DPConfig):
                 "dp.algo='dpsgd' on tensor-parallel model slices is not "
                 "ported: its flat per-example buffers would need their "
                 "norms² summed over the model group (ROADMAP queue 1)")
+        if any(runtime.stage_shard_of(p) is not None for p in leaves):
+            raise NotImplementedError(
+                "dp.algo='dpsgd' on pipeline stage slices is not ported: its "
+                "per-example backward would cross the pipeline once an "
+                "example (ROADMAP queue 1)")
         # FSDP: each example's gradient must be whole before its clip, so
         # the slices are gathered once, outside autograd, and the whole
         # leaves differentiated (no collective in their backward)
@@ -374,7 +404,7 @@ def _dpsgd_r1f_sum(loss_fn, dp: DPConfig):
                 (losses, ctx.acc), (acc0,),
                 (_view_seed(m, K).to(losses.dtype), torch.zeros_like(ctx.acc)),
                 retain_graph=True)
-            runtime.all_reduce_([nsq], runtime.model_group())
+            _sum_partials(nsq)
             c = clipping.clip_factors(nsq, C) * _example_mask(m, K)
             pull.stage = "grads"            # no norm²
             grads = _f32_grads(losses, leaves,
@@ -486,6 +516,7 @@ def make_noisy_grad_fn(loss_fn: Callable, dp: DPConfig, grad_accum: int = 1,
                 parts.append(ln)
             losses = torch.cat([p[0] for p in parts])
             nsq = torch.cat([p[1] for p in parts])
+        runtime.stage_flush()
         if runtime.active() is not None:
             # data parallel: this rank's clipped sum joins the others'
             # before the noise, and the metrics, the normaliser and the
@@ -495,10 +526,17 @@ def make_noisy_grad_fn(loss_fn: Callable, dp: DPConfig, grad_accum: int = 1,
             # backward); dpsgd's whole leaves are summed here and cut
             reduced = [sh is not None and g.shape == p.shape
                        for g, p, sh in zip(summed, leaves, fsdp)]
-            runtime.all_reduce_([g for g, r in zip(summed, reduced) if not r],
-                                group)
+            # a whole leaf another stage rank runs has zeros here, which its
+            # owner's broadcast below replaces
+            owner = [runtime.stage_owner_of(p) for p in leaves]
+            me = runtime.stage_shard()[0]
+            runtime.all_reduce_([g for g, r, o in zip(summed, reduced, owner)
+                                 if not r and o in (None, me)], group)
             summed = [g if sh is None or r else sh.of(g)
                       for g, sh, r in zip(summed, fsdp, reduced)]
+            for src in sorted({o for o in owner if o is not None}):
+                runtime.broadcast_([g for g, o in zip(summed, owner) if o == src],
+                                   src, runtime.stage_group())
             losses, nsq, full_mask = (runtime.all_gather(t, group)
                                       for t in (losses, nsq, full_mask))
             mask_ex = _example_mask(full_mask, K)
@@ -508,16 +546,14 @@ def make_noisy_grad_fn(loss_fn: Callable, dp: DPConfig, grad_accum: int = 1,
             denom = (float(expected_batch_size)
                      if expected_batch_size is not None else R // K)
             # a rank's FSDP slices draw on their data index, its model
-            # slices on their model index (the two never mix in one model)
-            tp = [runtime.model_shard_of(p) for p in leaves]
-            local = [i for i, (f, t) in enumerate(zip(fsdp, tp))
-                     if f is not None or t is not None]
+            # slices on their model index, its stage slices on their stage
+            # index (no two of them mix in one model)
+            cuts = [runtime.cut_of(p) for p in leaves]
+            local = [i for i, c in enumerate(cuts) if c is not None]
             shard_gen = None
             if local:
-                i = local[0]
-                shard_gen = (noise.shard_generator(generator, fsdp[i].index)
-                             if fsdp[i] is not None else
-                             noise.shard_generator(generator, tp[i].index, "model"))
+                sh, axis = cuts[local[0]]
+                shard_gen = noise.shard_generator(generator, sh.index, axis)
             noise.add_noise_(summed, generator, dp.noise_multiplier,
                              _noise_clip(C, dp), denom, shard_gen,
                              local)                                 # lines 24/41

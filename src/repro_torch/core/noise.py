@@ -13,7 +13,8 @@ so the ranks' slices get independent draws and no rank draws a whole
 leaf.  Its bits differ from a world of one's by design.  A tensor-parallel
 model slice's noise alike, keyed by the slice's index on the ``model``
 axis: the data ranks that hold one slice add the same noise to it, so
-their replicas stay equal.
+their replicas stay equal; a pipeline stage's blocks alike, keyed by the
+stage index.
 """
 from __future__ import annotations
 
@@ -28,7 +29,8 @@ def shard_generator(generator: torch.Generator, index: int,
     """The generator of the noise of this rank's slices: seeded from
     ``generator``'s seed (the step's) and the slice index ``index`` on the
     mesh axis ``axis`` (``"data"``: FSDP slices; ``"model"``: model
-    slices), on its device; ``generator`` is not advanced."""
+    slices; ``"stage"``: a pipeline stage's blocks), on its device;
+    ``generator`` is not advanced."""
     g = torch.Generator(device=generator.device)
     tag = "shard" if axis == "data" else axis
     # 32 bits: the CPU generator keeps only the low 32 bits of a seed

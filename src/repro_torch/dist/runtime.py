@@ -18,8 +18,9 @@ code runs in one process (tests, the chip smoke run) and data-parallel.
 Collectives take CUDA tensors on NCCL and on gloo; gloo gets a host copy
 (which is what it would stage itself), and gathers move raw bytes, so any
 dtype crosses any backend bit for bit.  Only ``all_reduce``,
-``all_gather`` (over gloo: ``broadcast``), ``all_gather_object`` and
-point-to-point sends are used: gloo has no reduce-scatter.
+``all_gather`` (over gloo: ``broadcast``), ``broadcast``,
+``all_gather_object`` and point-to-point sends are used: gloo has no
+reduce-scatter.
 
 FSDP (a ``use_fsdp`` arch on a ``data`` axis above 1): each rank holds one
 slice of every param that ``sharding.fsdp_shards`` places on ``data``,
@@ -50,17 +51,41 @@ forward and is the identity backward (after a row-parallel product).
 Both go through ``all_reduce_``.  Every model rank holds the whole
 residual stream and its gradient, alike bit for bit.
 
+Pipeline stages across processes (a ``stage`` axis above 1, the
+reference's placement, ``sharding.stage_shards``): each rank holds the
+contiguous blocks of its stages (the param carries its ``Shard`` as
+``stage_shard``) and the whole of the embedding, prelude, final norm and
+head (``stage_owner``: the stage rank whose gradient of it is the real one,
+the first for the embedding and prelude, the last for the final norm and
+head).  Every stage rank of a ``data`` coordinate takes the same examples;
+the model (models/transformer.py) moves each microbatch's (x, acc, aux)
+between stage ranks through ``StagePipe``: ``send_next`` forward sends to
+rank w+1 and backward receives the cotangents, ``recv_prev`` forward
+receives and backward sends them to w-1, and the last rank's per-example
+losses reach every stage rank through ``share_losses``, with graph edges
+to that rank's sends and to the params it does not use (``_Anchor``, whose
+gradient is zero), so that ``torch.autograd.grad`` over the losses, the
+norm accumulator or the params runs every send's and receive's backward on
+every rank.  Every message is tagged by (loss call, microbatch, direction,
+pullback) and every send is posted with ``isend`` and waited at the end of
+the step (``stage_flush``), so no order the autograd engines of two ranks
+walk the microbatches in can deadlock; a receive waits the group's timeout
+and raises when a peer is lost.  Tags need gloo: on NCCL, which ignores
+them, a stage axis raises.
+
 Metering: inside ``metered()`` (the launcher's byte count, a
-``CostCounter``), ``all_reduce_``, ``all_gather`` and ``reduce_slice``
-append ``{"kind", "bytes", "group"}`` to its records (``bytes``: the
-result's size on one rank; a reduce-scatter's, the summed leaf's).  A
+``CostCounter``), ``all_reduce_``, ``all_gather``, ``broadcast_``,
+``reduce_slice`` and the stage sends append ``{"kind", "bytes", "group"}``
+to its records (``bytes``: the result's size on one rank; a
+reduce-scatter's, the summed leaf's; a send's, the tensors it carries).  A
 meter changes nothing else.  Cost traces (launch/costs.py): inside
 ``traced()``, and only there, a layout over a mesh with no process group
 (an object of the mesh's axis names and shape) is a trace of one rank's
 step: its batch group is a ``TracedGroup`` of the batch axes' size, whose
 collectives record and return what a real group's would in shape, moving
-nothing.  Anywhere else such a layout raises, as a step that would skip
-its collectives must not run.
+nothing (a stage message records its send and is received as zeros).
+Anywhere else such a layout raises, as a step that would skip its
+collectives must not run.
 """
 from __future__ import annotations
 
@@ -79,13 +104,19 @@ from repro_torch.dist import sharding as _sh
 class _Layout:
     """The ambient layout, process-wide: the autograd engine runs a CUDA
     backward, and the remat recompute inside it, on a thread of its own,
-    which must see the layout its forward ran under (FSDP's gathers)."""
+    which must see the layout its forward ran under (FSDP's gathers, the
+    stage messages)."""
 
     def __init__(self):
         self.mesh = None
         self.batch_axes: Optional[Tuple[str, ...]] = None
         self.traces = 0           # cost traces in progress (``traced``)
         self.suspended = 0        # ``suspended`` contexts in progress
+        # the loss calls on a stage layout so far, which number their
+        # messages alike on every stage rank, and the sends posted and not
+        # yet waited (``stage_flush``), each with its buffer
+        self.stage_calls = 0
+        self.pending: list = []
 
 
 _ACTIVE = _Layout()
@@ -109,17 +140,19 @@ SOLO = TracedGroup(1)
 
 @contextlib.contextmanager
 def layout(mesh, batch_axes):
-    """Activate data-parallel and tensor-parallel execution: inside this
-    context the batch dim is sharded over ``batch_axes`` of ``mesh``, one
-    contiguous slice a rank, and the model collectives run over its
-    ``model`` axis.  A falsy ``batch_axes`` (batch not shardable) on a mesh
-    with no ``model`` axis above 1 is a no-op, so ``layout(mesh,
+    """Activate data-parallel, tensor-parallel and pipeline execution:
+    inside this context the batch dim is sharded over ``batch_axes`` of
+    ``mesh``, one contiguous slice a rank, the model collectives run over
+    its ``model`` axis and the stage messages over its ``stage`` axis.  A
+    falsy ``batch_axes`` (batch not shardable) on a mesh with no ``model``
+    or ``stage`` axis above 1 is a no-op, so ``layout(mesh,
     batch_pspec(mesh, B))`` is always safe; with one, every rank takes the
     whole batch.  The batch axes must span the whole world or be one axis
     of the mesh; a mesh with no process group is taken only inside a cost
     trace."""
-    if not batch_axes and (mesh is None
-                           or _sh._axis_size(mesh, _sh.MODEL_AXIS) == 1):
+    if not batch_axes and (mesh is None or all(
+            _sh._axis_size(mesh, a) == 1
+            for a in (_sh.MODEL_AXIS, _sh.STAGE_AXIS))):
         yield
         return
     prev = (_ACTIVE.mesh, _ACTIVE.batch_axes)
@@ -127,6 +160,13 @@ def layout(mesh, batch_axes):
     try:
         batch_group()             # refuse an unsupported layout up front
         model_group()
+        group = stage_group()
+        if not isinstance(group, TracedGroup) and \
+                dist.get_backend(group) != "gloo":
+            raise NotImplementedError(
+                f"a 'stage' axis on {dist.get_backend(group)}: pipeline "
+                f"stages across processes match their messages by tag, which "
+                f"only gloo keeps (ROADMAP queue 1)")
         yield
     finally:
         _ACTIVE.mesh, _ACTIVE.batch_axes = prev
@@ -245,6 +285,28 @@ def model_shard() -> Tuple[int, int]:
     return state[0].get_local_rank(_sh.MODEL_AXIS), size
 
 
+def stage_group():
+    """The process group of the active layout's ``stage`` axis; ``SOLO``
+    outside a layout or on a ``stage`` axis of 1."""
+    state = active()
+    if state is None or _sh._axis_size(state[0], _sh.STAGE_AXIS) == 1:
+        return SOLO
+    return _group_of(state[0], (_sh.STAGE_AXIS,))
+
+
+def stage_shard() -> Tuple[int, int]:
+    """(this rank's coordinate, the size) of the active layout's ``stage``
+    axis; (0, 1) outside a layout or on an axis of 1 (and coordinate 0 in
+    a cost trace, whose mesh has no ranks)."""
+    state = active()
+    if state is None:
+        return 0, 1
+    size = _sh._axis_size(state[0], _sh.STAGE_AXIS)
+    if size == 1 or not hasattr(state[0], "get_local_rank"):
+        return 0, size
+    return state[0].get_local_rank(_sh.STAGE_AXIS), size
+
+
 def fsdp_group():
     """The process group of the active layout's ``data`` axis, which FSDP
     shards params over.  Raises outside a layout: a sliced param cannot be
@@ -355,6 +417,24 @@ def all_gather(t: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
         dist.all_gather(list(out.unbind(0)), flat, group=group)
     whole = out.to(t.device).view(t.dtype).reshape((n,) + tuple(t.shape))
     return torch.cat(whole.unbind(0), dim=dim)
+
+
+def broadcast_(tensors: List[torch.Tensor], src: int, group) -> None:
+    """Each tensor of the rank at coordinate ``src`` of ``group`` given to
+    every rank of it, in place."""
+    n = _group_size(group)
+    if n == 1:
+        return
+    for t in tensors:
+        _record("broadcast", t.numel() * t.element_size(), n)
+    if isinstance(group, TracedGroup):
+        return
+    root = dist.get_global_rank(group, src)
+    for t in tensors:
+        h = _staged(t, group)
+        dist.broadcast(h, src=root, group=group)
+        if h is not t:
+            t.copy_(h)
 
 
 def reduce_slice(g: torch.Tensor, shard, group, lead: int = 0) -> torch.Tensor:
@@ -511,6 +591,225 @@ def counts_replicated() -> bool:
     return model_shard()[0] == 0
 
 
+# ---------------------------------------------------------------------------
+# pipeline stages across processes
+# ---------------------------------------------------------------------------
+
+def stage_shard_of(t) -> Optional["_sh.Shard"]:
+    """The ``sharding.Shard`` a stage rank's blocks slice carries, else
+    None."""
+    return getattr(t, "stage_shard", None)
+
+
+def cut_of(t) -> Optional[Tuple["_sh.Shard", str]]:
+    """(the ``sharding.Shard``, its mesh axis) of a param this rank holds a
+    slice of: an FSDP slice (``data``), a model slice or a stage slice;
+    None for a whole param."""
+    for sh, axis in ((fsdp_shard_of(t), "data"), (model_shard_of(t), _sh.MODEL_AXIS),
+                     (stage_shard_of(t), _sh.STAGE_AXIS)):
+        if sh is not None:
+            return sh, axis
+    return None
+
+
+def stage_owner_of(t) -> Optional[int]:
+    """The stage coordinate whose gradient of a param every stage rank
+    holds whole is the real one (the rank that runs it), else None."""
+    return getattr(t, "stage_owner", None)
+
+
+_FWD, _LOSS, _BWD = 0, 1, 2
+
+
+def _tag(call: int, mb: int, kind: int) -> int:
+    """A message's gloo tag: (loss call, microbatch, kind), kind
+    ``_FWD``, ``_LOSS`` or ``_BWD`` + the pullback's index."""
+    return ((call % 4096) * 1024 + mb % 1024) * 64 + kind % 64
+
+
+def _align(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def _packed(tensors) -> torch.Tensor:
+    """The tensors (None skipped) as one byte buffer, as gloo takes it (on
+    the host, pinned, for CUDA tensors)."""
+    parts = [t for t in tensors if t is not None]
+    sizes = [t.numel() * t.element_size() for t in parts]
+    cuda = parts[0].is_cuda
+    buf = torch.empty(sum(map(_align, sizes)), dtype=torch.uint8,
+                      pin_memory=cuda, device="cpu" if cuda else parts[0].device)
+    off = 0
+    for t, n in zip(parts, sizes):
+        buf[off:off + n].copy_(t.detach().reshape(-1).view(torch.uint8))
+        off += _align(n)
+    return buf
+
+
+def _unpacked(buf: torch.Tensor, specs, device) -> list:
+    """``_packed``'s tensors back on ``device`` from its buffer: ``specs``
+    their (shape, dtype), None for a skipped one."""
+    buf = buf.to(device)
+    out, off = [], 0
+    for spec in specs:
+        if spec is None:
+            out.append(None)
+            continue
+        shape, dtype = spec
+        n = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+        out.append(buf[off:off + n].view(dtype).reshape(shape))
+        off += _align(n)
+    return out
+
+
+class StagePipe:
+    """One loss call's messages between the stage ranks of one ``data``
+    coordinate, each microbatch's (x, acc, aux) tagged by the call's
+    number: ``specs`` their (shape, dtype), None for an absent one (the
+    accumulator outside a norm pass), ``rows`` the per-example losses'
+    length, ``device`` where received tensors land."""
+
+    def __init__(self, specs, rows: int, device):
+        self.group = stage_group()
+        self.index, self.size = stage_shard()
+        self.call = _ACTIVE.stage_calls
+        _ACTIVE.stage_calls += 1
+        self.specs, self.rows, self.device = specs, rows, device
+
+    @property
+    def first(self) -> bool:
+        return self.index == 0
+
+    @property
+    def last(self) -> bool:
+        return self.index == self.size - 1
+
+    def _send(self, tensors, to: int, tag: int) -> None:
+        nbytes = sum(t.numel() * t.element_size() for t in tensors
+                     if t is not None)
+        _record("send", nbytes, self.size)
+        if isinstance(self.group, TracedGroup):
+            return
+        buf = _packed(tensors)
+        _ACTIVE.pending.append((dist.isend(buf, dist.get_global_rank(self.group, to),
+                                           group=self.group, tag=tag), buf))
+
+    def _recv(self, specs, frm: int, tag: int) -> list:
+        if isinstance(self.group, TracedGroup):
+            return [None if sp is None else
+                    torch.zeros(sp[0], dtype=sp[1], device=self.device)
+                    for sp in specs]
+        n = sum(_align(math.prod(shape) * torch.empty((), dtype=dt).element_size())
+                for shape, dt in (sp for sp in specs if sp is not None))
+        cuda = torch.device(self.device).type == "cuda"
+        buf = torch.empty(n, dtype=torch.uint8, pin_memory=cuda,
+                          device="cpu" if cuda else self.device)
+        # the group's timeout: a lost peer raises here
+        dist.irecv(buf, dist.get_global_rank(self.group, frm), group=self.group,
+                   tag=tag).wait()
+        return _unpacked(buf, specs, self.device)
+
+    def send_next(self, mb: int, x, acc, aux) -> torch.Tensor:
+        """Microbatch ``mb``'s (x, acc, aux) to stage rank w+1; returns a
+        token whose backward receives their cotangents (``_SendNext``)."""
+        return _SendNext.apply(self, mb, x, acc, aux)
+
+    def recv_prev(self, mb: int, anchor) -> Tuple:
+        """Microbatch ``mb``'s (x, acc, aux) from stage rank w-1, acc None
+        when its spec is; their backward sends the cotangents back
+        (``_RecvPrev``).  ``anchor``: ``anchor(...)`` of the tensors the
+        backward must reach on this rank (None: nothing differentiable)."""
+        got = iter(_RecvPrev.apply(self, mb, anchor))
+        return tuple(None if sp is None else next(got) for sp in self.specs)
+
+    def share_losses(self, losses=None, tokens=(), anchor=None):
+        """The last stage rank's (rows,) float32 per-example losses on
+        every stage rank: the last gives ``losses`` and returns them; the
+        others return them received, through ``_Share``, whose backward
+        reaches this rank's send ``tokens`` and ``anchor``."""
+        if self.last:
+            for k in range(self.size - 1):
+                self._send([losses], k, _tag(self.call, 0, _LOSS))
+            return losses
+        return _Share.apply(self, anchor, *tokens)
+
+
+def anchor(*tensors) -> Optional[torch.Tensor]:
+    """A 0-d tensor that depends on ``tensors`` (those that require grad)
+    with zero gradient, or None when none does: a stage rank's graph edge
+    to what it does not run (``StagePipe``)."""
+    live = [t for t in tensors if t is not None and t.requires_grad]
+    return _Anchor.apply(*live) if live else None
+
+
+class _Anchor(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, *tensors):
+        ctx.like = [(t.shape, t.dtype, t.device) for t in tensors]
+        return tensors[0].new_zeros((), dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        return tuple(torch.zeros(s, dtype=d, device=v) for s, d, v in ctx.like)
+
+
+class _SendNext(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, pipe, mb, x, acc, aux):
+        ctx.pipe, ctx.mb, ctx.pulls = pipe, mb, 0
+        pipe._send([x, acc, aux], pipe.index + 1, _tag(pipe.call, mb, _FWD))
+        return x.new_zeros((), dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        pipe = ctx.pipe
+        grads = pipe._recv(pipe.specs, pipe.index + 1,
+                           _tag(pipe.call, ctx.mb, _BWD + ctx.pulls))
+        ctx.pulls += 1
+        return (None, None) + tuple(
+            g if need else None for g, need in zip(grads, ctx.needs_input_grad[2:]))
+
+
+class _RecvPrev(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, pipe, mb, anchor):
+        ctx.pipe, ctx.mb, ctx.pulls = pipe, mb, 0
+        got = pipe._recv(pipe.specs, pipe.index - 1, _tag(pipe.call, mb, _FWD))
+        return tuple(t for t in got if t is not None)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        pipe = ctx.pipe
+        it = iter(grads)
+        pipe._send([None if sp is None else next(it) for sp in pipe.specs],
+                   pipe.index - 1, _tag(pipe.call, ctx.mb, _BWD + ctx.pulls))
+        ctx.pulls += 1
+        return None, None, (torch.zeros((), device=grads[0].device)
+                            if ctx.needs_input_grad[2] else None)
+
+
+class _Share(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, pipe, anchor, *tokens):
+        ctx.n = len(tokens)
+        (losses,) = pipe._recv([((pipe.rows,), torch.float32)], pipe.size - 1,
+                               _tag(pipe.call, 0, _LOSS))
+        return losses
+
+    @staticmethod
+    def backward(ctx, g):
+        zero = torch.zeros((), device=g.device)
+        return (None, zero if ctx.needs_input_grad[1] else None) + (zero,) * ctx.n
+
+
+def stage_flush() -> None:
+    """Wait for every stage send posted so far (each rank's step ends
+    here, once its own receives are done; a lost peer raises)."""
+    while _ACTIVE.pending:
+        work, _ = _ACTIVE.pending.pop(0)
+        work.wait()
+
+
 def batch_local(fn: Callable, n_batch_args: int,
                 reduce_out: bool = False) -> Callable:
     """``fn`` under the ambient layout.  Each rank holds only its batch
@@ -581,15 +880,16 @@ def init_fingerprint(params) -> int:
     on the same params: leaves in the order of their key paths' ``str``,
     each the crc32 of its ``keystr``, shape and dtype record chained with
     its raw bytes (bf16 as its 2-byte words), and each leaf's crc chained
-    into the total.  An FSDP slice (a leaf with ``fsdp_shard``) or a model
-    slice (``model_shard``) records its whole leaf's shape and no bytes,
-    the reference's rule for a leaf that is not fully addressable: the
-    bytes live on other ranks, and the structure this check exists to
-    catch is visible without them."""
+    into the total.  An FSDP slice (a leaf with ``fsdp_shard``), a model
+    slice (``model_shard``) or a stage slice (``stage_shard``) records its
+    whole leaf's shape and no bytes, the reference's rule for a leaf that
+    is not fully addressable: the bytes live on other ranks, and the
+    structure this check exists to catch is visible without them."""
     total = 0
     for path, leaf in sorted(_key_paths(params), key=lambda kv: _path_str(kv[0])):
         dtype = str(leaf.dtype).removeprefix("torch.")
-        shard = fsdp_shard_of(leaf) or model_shard_of(leaf)
+        cut = cut_of(leaf)
+        shard = None if cut is None else cut[0]
         shape = list(leaf.shape)
         if shard is not None:
             shape[shard.dim] = shard.size

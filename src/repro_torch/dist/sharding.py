@@ -35,9 +35,10 @@ sharding of the dense decoders' params (``model_shards``: tensor
 parallelism, each rank holding its slice for good; the placements give
 Megatron's layout: ``wq``, ``wk``, ``wv``, ``w1``, ``w3`` and the head
 column-parallel, ``wo`` and ``w2`` row-parallel, the embedding over the
-vocabulary, the norm scales replicated).  The ``stage`` axis is refused by
-the launcher (ROADMAP queue 1); its rule is here so that placements agree
-with the reference's.
+vocabulary, the norm scales replicated) and the ``stage`` axis's sharding
+of the repeated blocks (``stage_shards``: pipeline stages across
+processes, each rank holding the contiguous blocks of its stages for good
+and the whole of the embedding, prelude, final norm and head).
 """
 from __future__ import annotations
 
@@ -208,8 +209,8 @@ def param_shardings(mesh, model, fsdp: Optional[bool] = None):
 
 @dataclasses.dataclass(frozen=True)
 class Shard:
-    """This rank's slice of an FSDP-sharded param or of a tensor-parallel
-    model slice: slice ``index`` of
+    """This rank's slice of an FSDP-sharded param, of a tensor-parallel
+    model slice or of a pipeline stage's blocks: slice ``index`` of
     ``count`` equal slices along ``dim`` of the whole leaf, whose extent
     along ``dim`` is ``size``.  Not a tuple, so a tree of them keeps its
     tuples as containers (``tree.tree_map``)."""
@@ -229,55 +230,62 @@ class Shard:
         return whole.narrow(self.dim - lead, self.index * self.part, self.part)
 
 
-def fsdp_shards(mesh, model, index: Optional[int] = None):
-    """The FSDP layout of ``model``'s params on ``mesh``: a tree parallel
-    to ``model.abstract_params()`` whose leaf is this rank's ``Shard`` of a
-    param that ``param_shardings`` places on the ``data`` axis (the arch's
-    ``use_fsdp``: the first named non-``layers`` dim the axis divides), or
-    None for a leaf that stays whole.  ``index``: the rank's coordinate on
-    the ``data`` axis (default this process's, from a ``DeviceMesh``; a
-    trace of one rank's step on a mesh of names and sizes passes it).
-    Every leaf is None on a ``data`` axis of 1 or for an arch without
-    ``use_fsdp``."""
-    count = _axis_size(mesh, "data")
+def _axis_shards(mesh, model, axis: str, index: Optional[int], fsdp: bool):
+    """The tree parallel to ``model.abstract_params()`` whose leaf is this
+    rank's ``Shard`` of a param that ``spec_for_param`` places on ``axis``
+    (the contiguous slice at the rank's coordinate ``index``, default this
+    process's from a ``DeviceMesh``, as GSPMD lays it out), or None for a
+    leaf every rank of the axis holds whole; every leaf None on an axis of
+    1."""
+    count = _axis_size(mesh, axis)
     if count > 1 and index is None:
-        index = mesh.get_local_rank("data")
+        index = mesh.get_local_rank(axis)
 
     def leaf(shaped, axes):
         if count == 1:
             return None
-        spec = spec_for_param(axes, shaped.shape, mesh,
-                              fsdp=bool(getattr(model.arch, "use_fsdp", False)))
-        if "data" not in spec:
+        spec = spec_for_param(axes, shaped.shape, mesh, fsdp=fsdp)
+        if axis not in spec:
             return None
-        d = spec.index("data")
+        d = spec.index(axis)
         return Shard(d, int(index), count, int(shaped.shape[d]))
 
     return _zip_spec_tree(model.abstract_params(), model.logical_axes(), leaf)
+
+
+def fsdp_shards(mesh, model, index: Optional[int] = None):
+    """The FSDP layout of ``model``'s params on ``mesh``: this rank's
+    ``Shard`` of each param that ``param_shardings`` places on the ``data``
+    axis (the arch's ``use_fsdp``: the first named non-``layers`` dim the
+    axis divides), None for a leaf that stays whole.  ``index``: the rank's
+    coordinate on the ``data`` axis (a trace of one rank's step on a mesh of
+    names and sizes passes it).  Every leaf is None on a ``data`` axis of 1
+    or for an arch without ``use_fsdp``."""
+    return _axis_shards(mesh, model, "data", index,
+                        bool(getattr(model.arch, "use_fsdp", False)))
 
 
 def model_shards(mesh, model, index: Optional[int] = None):
-    """The tensor-parallel layout of ``model``'s params on ``mesh``: a tree
-    parallel to ``model.abstract_params()`` whose leaf is this rank's
-    ``Shard`` of a param that ``param_shardings`` places on the ``model``
-    axis (the contiguous slice at the rank's coordinate, as GSPMD lays it
-    out), or None for a leaf every model rank holds whole.  ``index``: the
-    rank's coordinate on the ``model`` axis (default this process's, from
-    a ``DeviceMesh``).  Every leaf is None on a ``model`` axis of 1."""
-    count = _axis_size(mesh, MODEL_AXIS)
-    if count > 1 and index is None:
-        index = mesh.get_local_rank(MODEL_AXIS)
+    """The tensor-parallel layout of ``model``'s params on ``mesh``: this
+    rank's ``Shard`` of each param that ``param_shardings`` places on the
+    ``model`` axis, None for a leaf every model rank holds whole."""
+    return _axis_shards(mesh, model, MODEL_AXIS, index, False)
 
-    def leaf(shaped, axes):
-        if count == 1:
-            return None
-        spec = spec_for_param(axes, shaped.shape, mesh)
-        if MODEL_AXIS not in spec:
-            return None
-        d = spec.index(MODEL_AXIS)
-        return Shard(d, int(index), count, int(shaped.shape[d]))
 
-    return _zip_spec_tree(model.abstract_params(), model.logical_axes(), leaf)
+def stage_shards(mesh, model, index: Optional[int] = None):
+    """The pipeline layout of ``model``'s params on ``mesh``: this rank's
+    ``Shard`` of each ``blocks`` leaf's leading ``layers`` dim (the blocks
+    of its contiguous run of stages), None for a leaf every stage rank
+    holds whole (the embedding, prelude, final norm and head)."""
+    return _axis_shards(mesh, model, STAGE_AXIS, index, False)
+
+
+def stage_owner(key: str, width: int) -> int:
+    """The stage coordinate that runs the whole (not stage-cut) top-level
+    param ``key`` on a ``stage`` axis of ``width``, so whose gradient of it
+    is the real one: the last stage rank for the final norm and the head,
+    the first for the rest (the embedding and the prelude)."""
+    return width - 1 if key in ("final_norm", "head") else 0
 
 
 def batch_shardings(mesh, abs_tree, global_batch: int):

@@ -35,7 +35,8 @@ Meshes: the measurement runs in one process, so a plan whose ``model``
 axis (the last) is above 1, or a ``use_fsdp`` arch's plan with
 ``compress_grads`` on a wider batch axis, is infeasible with the
 launcher's own reason (``launch/train.py`` ``unported_mesh_reason`` under
-``--autotune``).  A
+``--autotune``); for the same reason the launcher refuses a ``stage``
+axis above 1 under ``--autotune`` (the plan space has no such axis).  A
 ``use_fsdp`` arch's plan on a wider batch axis trains FSDP-sharded: its
 collective term is that of the FSDP collectives one rank's step records
 (``launch/costs.py`` ``traced_rank_collectives``: the gathers a layer at

@@ -354,14 +354,22 @@ def traced_costs(fn, *args, device=None) -> dict:
 
 
 def traced_rank_collectives(model, train_cfg, batch_abs, width: int,
-                            expected_batch_size=None, device=None) -> List[dict]:
+                            expected_batch_size=None, device=None,
+                            stages: int = 1) -> List[dict]:
     """The collective records (``{"kind", "bytes", "group"}``) of one
     rank's ``TrainStep`` on a ``width``-wide ``data`` axis, traced on fake
     tensors under a layout with no process group (its groups are
     ``TracedGroup``s): the first rank's FSDP slices of ``model``'s params
     (``dist.sharding.fsdp_shards``; whole leaves for an arch without
     ``use_fsdp``), its ``1/width`` of ``batch_abs``'s rows, and every
-    gather, gradient reduction and all-gather that step makes.  ``device``
+    gather, gradient reduction and all-gather that step makes.  ``stages``
+    above 1 adds a ``stage`` axis of that width: the rank is the first
+    stage rank, holding the blocks of its stages
+    (``dist.sharding.stage_shards``; ``model`` built whole, with the run's
+    ``pp_stages``), and its records hold the sends of its microbatches'
+    activations (the received cotangents and losses are the sends of the
+    other stage ranks), the norms²'s sum over the stage group and the
+    broadcast of the clipped sums of the leaves it runs alone.  ``device``
     (default the model's) is the fake tensors' device.  The model, its
     remat policy and every generator are as they were afterwards."""
     import types
@@ -370,26 +378,38 @@ def traced_rank_collectives(model, train_cfg, batch_abs, width: int,
     from repro_torch.dist import sharding
     from repro_torch.train.trainer import TrainStep
     device = model.device if device is None else torch.device(device)
-    mesh = types.SimpleNamespace(axis_names=("data",), shape=(width,))
-    shards = sharding.fsdp_shards(mesh, model, index=0)
+    mesh = types.SimpleNamespace(axis_names=("data", sharding.STAGE_AXIS),
+                                 shape=(width, stages))
+    fsdp = sharding.fsdp_shards(mesh, model, index=0)
+    stage = sharding.stage_shards(mesh, model, index=0)
+    attr, shards = (("stage_shard", stage) if stages > 1 else
+                    ("fsdp_shard", fsdp))
 
-    def walk(p, sh):
-        """A fake param of ``p``'s type: the slice ``sh`` names, or whole."""
+    def walk(p, sh, key=None):
+        """A fake param of ``p``'s type: the slice ``sh`` names, or whole
+        (on a stage axis, owned by the stage rank that runs it)."""
         if isinstance(p, dict):
-            return {k: walk(v, sh[k]) for k, v in p.items()}
+            return {k: walk(v, sh[k], k if key is None else key)
+                    for k, v in p.items()}
         if isinstance(p, (list, tuple)):
-            out = [walk(v, s) for v, s in zip(p, sh)]
+            out = [walk(v, s, key) for v, s in zip(p, sh)]
             return tuple(out) if isinstance(p, tuple) else out
         shape = list(p.shape)
         if sh is not None:
             shape[sh.dim] = sh.part
         t = torch.empty(shape, dtype=p.dtype, device=device).requires_grad_(True)
         if sh is not None:
-            t.fsdp_shard = sh
+            setattr(t, attr, sh)
+        elif stages > 1:
+            t.stage_owner = sharding.stage_owner(key, stages)
         return t
 
-    saved = model.fsdp, model.remat
-    model.fsdp, model.remat = shards, train_cfg.remat
+    saved = model.fsdp, model.stage, model.remat
+    model.remat = train_cfg.remat
+    if stages > 1:
+        model.stage = stage
+    else:
+        model.fsdp = fsdp
     step = TrainStep(model, train_cfg, expected_batch_size)
     try:
         with runtime.traced(), runtime.metered() as records, FakeTensorMode():
@@ -397,10 +417,10 @@ def traced_rank_collectives(model, train_cfg, batch_abs, width: int,
             batch = tree.tree_map(lambda t: torch.empty(
                 (t.shape[0] // width,) + tuple(t.shape[1:]), dtype=t.dtype,
                 device=device), batch_abs)
-            with runtime.layout(mesh, ("data",)):
+            with runtime.layout(mesh, ("data",) if width > 1 else None):
                 step(state, batch, torch.Generator())
     finally:
-        model.fsdp, model.remat = saved
+        model.fsdp, model.stage, model.remat = saved
     return records
 
 

@@ -37,6 +37,11 @@ a data-parallel world.
         --nproc_per_node 2 -m repro_torch.launch.train --arch phi3-mini-3.8b \
         --layers 2 --steps 2 --mesh 1,2 --axes data,model
 
+    # pipeline stages: phi3-mini at full width on two stage ranks:
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc_per_node 2 -m repro_torch.launch.train --arch phi3-mini-3.8b \
+        --layers 2 --steps 2 --mesh 1,2 --axes data,stage --set pp_stages=2
+
     # FSDP: a use_fsdp arch at full width on two ranks (a card each):
     PYTHONPATH=src python -m torch.distributed.run --standalone \
         --nproc_per_node 2 -m repro_torch.launch.train --arch chameleon-34b \
@@ -89,13 +94,22 @@ dense decoders tensor-parallel (``--mesh 1,2 --axes data,model``, or
 ``2,2`` with ZeRO-1 over ``data``): each rank holds its slices of the
 heads, FFN and vocabulary (``models/transformer.py``), every model rank of
 a ``data`` coordinate takes the same examples, and the norms² are summed
-over the ``model`` group before the clip.  Not ported, and refused by name
-(ROADMAP queue 1): on a ``model`` axis, ``use_fsdp``, MoE, Mamba, image
-and ``qk_norm`` archs, KV heads the axis does not divide, ``pp_stages`` >
-1, ``dp.algo=dpsgd`` and ``--autotune``; a ``stage`` axis above 1
-(pipeline stages across processes; ``pp_stages`` runs the schedule in
-each process); and with FSDP or model slices ``compress_pod_grads`` and
-``adam8bit``, whose int8 blocks span the flattened whole leaf.
+over the ``model`` group before the clip.  A ``stage`` axis of width W
+above 1 runs the pipeline stages across processes (``--mesh 1,2 --axes
+data,stage --set pp_stages=2``, or ``2,2`` with ZeRO-1 over ``data``):
+``pp_stages`` must be a multiple of W, stage rank w holds the blocks of
+stages [w·S/W, (w+1)·S/W) and the whole of the embedding, prelude, final
+norm and head (models/transformer.py), each microbatch's activations,
+norm accumulator and aux total cross the ranks point to point (over gloo),
+and the norms² are summed over the ``stage`` group before the clip.  Not
+ported, and refused by name (ROADMAP queue 1): on a ``model`` axis,
+``use_fsdp``, MoE, Mamba, image and ``qk_norm`` archs, KV heads the axis
+does not divide, ``pp_stages`` > 1, ``dp.algo=dpsgd`` and ``--autotune``;
+on a ``stage`` axis, a width that does not divide ``pp_stages``, a
+``model`` axis beside it, ``use_fsdp``, Mamba and image archs,
+``dp.algo=dpsgd``, ``--autotune`` and NCCL; and with FSDP, model or stage
+slices ``compress_pod_grads`` and ``adam8bit``, whose int8 blocks span the
+flattened whole leaf.
 
 ``--autotune`` solves for the fastest feasible launch plan first
 (``launch/autotune.py``; ``--set tune.*`` sets the search): it searches the
@@ -109,7 +123,8 @@ and every rank prints the plan it trains with.
 
 Every launch prints the estimated peak of one step (``launch/memory.py``)
 before the run, and, on a mesh, the per-device share of it over the batch
-and stage axes (``per_device_peak_bytes``), with a warning when that
+axes (``per_device_peak_bytes``; the estimate traces the rank's own model
+and stage slices), with a warning when that
 exceeds ``mem.hbm_budget_bytes``; under ``mem.auto_microbatch`` with a
 budget the Trainer first picks the largest microbatch that fits
 (``[trainer] auto_microbatch: grad_accum a -> b``).  With
@@ -138,7 +153,7 @@ from repro_torch.configs import (IMAGE_FAMILIES, SHAPES, ShapeConfig,
                                  parse_set_args, reduced)
 from repro_torch.dist import runtime, sharding
 from repro_torch.models import build_model_for
-from repro_torch.models.transformer import tp_refusal
+from repro_torch.models.transformer import stage_refusal, tp_refusal
 from repro_torch.train import Trainer
 from repro_torch.train.trainer import fsdp_refusal
 
@@ -207,13 +222,23 @@ def unported_mesh_reason(arch, sizes: dict, cfg=None,
     (``{"model": 1, "data": 2}``; an absent axis is 1) under the training
     config ``cfg`` (and ``--autotune``), naming ROADMAP; "" when it can.
     The launch autotuner gives it as a plan's reason (``autotune``: its
-    measurement runs in one process, so a ``model`` axis above 1 is
-    refused there)."""
+    measurement runs in one process, so a ``model`` or ``stage`` axis above
+    1 is refused there)."""
     size = sizes.get(sharding.STAGE_AXIS, 1)
-    if size > 1:
-        return (f"a {size}-wide 'stage' mesh axis (pipeline stages across "
-                f"processes) is not ported yet (ROADMAP queue 1)")
     width = sizes.get(sharding.MODEL_AXIS, 1)
+    if size > 1:
+        if autotune:
+            return (f"a {size}-wide 'stage' mesh axis (pipeline stages across "
+                    f"processes) is not ported under --autotune: its "
+                    f"measurement runs in one process (ROADMAP queue 1)")
+        reason = stage_refusal(arch, size, 1 if cfg is None else cfg.pp_stages,
+                               width)
+        if reason:
+            return reason
+        if cfg is not None and cfg.dp.enabled and cfg.dp.algo == "dpsgd":
+            return (f"{arch.name} on a {size}-wide 'stage' axis (pipeline "
+                    f"stages across processes): dp.algo='dpsgd' not ported "
+                    f"(ROADMAP queue 1)")
     if width > 1:
         if autotune:
             return (f"a {width}-wide 'model' mesh axis (tensor parallelism) is "
@@ -226,10 +251,13 @@ def unported_mesh_reason(arch, sizes: dict, cfg=None,
             return (f"{arch.name} on a {width}-wide 'model' axis (tensor "
                     f"parallelism): dp.algo='dpsgd' not ported (ROADMAP "
                     f"queue 1)")
-    if cfg is not None and (width > 1 or arch.use_fsdp and sizes.get("data", 1) > 1):
+    if cfg is not None and (width > 1 or size > 1
+                            or arch.use_fsdp and sizes.get("data", 1) > 1):
         reason = fsdp_refusal(cfg)
         if reason:
-            return f"{arch.name} ({'use_fsdp' if width == 1 else 'tensor parallel'}): {reason}"
+            how = ("tensor parallel" if width > 1 else
+                   "pipeline stages" if size > 1 else "use_fsdp")
+            return f"{arch.name} ({how}): {reason}"
     return ""
 
 
@@ -380,7 +408,8 @@ def _run(trainer, model, cfg, shape, arch, mesh, bax, world) -> None:
         rows = f"{shape.global_batch} x {shape.seq_len}"
     held = sum(p.numel() for p in model.parameters())
     total, sliced = held, ""
-    for attr, what in (("fsdp", "FSDP"), ("tp", "tensor parallel")):
+    for attr, what in (("fsdp", "FSDP"), ("tp", "tensor parallel"),
+                       ("stage", "pipeline stage")):
         if getattr(model, attr, None) is not None:
             total = sum(p.numel() for p in tree.leaves(model.abstract_params()))
             sliced = f" ({what}: this rank holds {held} of them)"
@@ -420,9 +449,9 @@ def _run(trainer, model, cfg, shape, arch, mesh, bax, world) -> None:
     per_dev = rep["peak_bytes"]
     share = ""
     if mesh is not None:
+        # a stage rank's estimate is already a trace of its own blocks
         width = sharding.batch_axis_width(mesh)
-        per_dev = per_device_peak_bytes(rep, width,
-                                        stages=sharding.stage_axis_width(mesh))
+        per_dev = per_device_peak_bytes(rep, width)
         share = (f"; per device {per_dev / 1e9:.3f} GB over a {width}-wide "
                  f"batch axis")
     print(f"[train] memory: estimated peak {rep['peak_bytes'] / 1e9:.3f} GB "

@@ -36,6 +36,19 @@ cross-entropy is vocabulary-parallel (``vocab_parallel_xent``).  Each norm
 site on a slice yields that slice's partial norm², and the norm scales'
 taps count once over the group (core/context.py), so the sum over the
 ``model`` group (core/algo.py ``norm_pass``) is the exact norm².
+
+Pipeline stages across processes (``Model(mesh=...)`` on a ``stage`` axis
+of width W above 1, ``pp_stages`` a multiple of W; ``stage_refusal`` names
+what is not ported): stage rank w holds the blocks of stages [w·S/W,
+(w+1)·S/W) (``dist.sharding.stage_shards``) and the whole of the rest.
+The embedding and prelude run on the first stage rank, each rank runs its
+local stages on the shifted-buffer schedule with each microbatch's (x,
+acc, aux) received from rank w-1 at its first local stage and sent to w+1
+after its last (``dist.runtime.StagePipe``), and the final norm, head and
+cross-entropy run on the last, whose per-example losses every stage rank
+returns.  The accumulator's cotangent crosses the stages back with its
+microbatch, so the first stage rank's pullback holds every site's norm²
+and the others' zeros (core/algo.py sums them over the stage group).
 """
 from __future__ import annotations
 
@@ -159,6 +172,33 @@ def tp_refusal(arch: ArchConfig, width: int, pp_stages: int = 1) -> str:
             f"parallelism): {'; '.join(why)} not ported (ROADMAP queue 1)")
 
 
+def stage_refusal(arch: ArchConfig, width: int, pp_stages: int = 1,
+                  model_width: int = 1) -> str:
+    """What of ``arch`` (and ``pp_stages``, a ``model`` axis of
+    ``model_width``) pipeline stages across processes over a
+    ``width``-wide ``stage`` axis do not port, naming ROADMAP; "" when they
+    run (the dense and MoE decoders, ``pp_stages`` a multiple of the
+    width, no ``model`` axis)."""
+    if width <= 1:
+        return ""
+    why = []
+    if pp_stages % width:
+        why.append(f"pp_stages={pp_stages}, which the axis does not divide")
+    if model_width > 1:
+        why.append(f"a {model_width}-wide 'model' axis beside it")
+    if arch.family in ("cnn", "vit"):
+        why.append(f"the image family {arch.family!r}")
+    else:
+        if arch.use_fsdp:
+            why.append("FSDP with pipeline stages (use_fsdp)")
+        if MAMBA in arch.pattern():
+            why.append("Mamba layers (the SSM and hybrid families)")
+    if not why:
+        return ""
+    return (f"{arch.name} on a {width}-wide 'stage' axis (pipeline stages "
+            f"across processes): {'; '.join(why)} not ported (ROADMAP queue 1)")
+
+
 def _map_spec(spec, fn, path=()):
     """Map fn(P, path) over a spec tree (dicts/lists/tuples of P)."""
     if isinstance(spec, P):
@@ -190,12 +230,12 @@ def init_spec(spec, seed: int, dtype: torch.dtype, device: torch.device,
     index and first row; an unstacked leaf of at most ``DRAW_ELEMS``: seed
     and path), so its values do not depend on the other leaves or slices.
     ``part(path)``: the ``dist.sharding.Shard`` of a leaf this process
-    holds one FSDP slice of (None: the whole leaf).  Such a leaf is drawn
-    a layer slice (or a row block) at a time as above and only its part is
-    kept, skipping row blocks outside it, so the slice equals the same
-    slice of the whole leaf bit for bit and no whole stacked leaf is ever
-    held.  The bits differ from JAX's threefry: tests share weights via
-    ``interop``."""
+    holds one slice of (None: the whole leaf).  Such a leaf is drawn a
+    layer slice (or a row block) at a time as above and only its part is
+    kept, skipping the layer slices and row blocks outside it, so the slice
+    equals the same slice of the whole leaf bit for bit and no whole
+    stacked leaf is ever held.  The bits differ from JAX's threefry: tests
+    share weights via ``interop``."""
     def draw(p: P, shape, key: str):
         g = torch.Generator(device=device)
         # 32 bits: the CPU generator keeps only the low 32 bits of a seed
@@ -225,10 +265,15 @@ def init_spec(spec, seed: int, dtype: torch.dtype, device: torch.device,
         n = len(lead(path))
         piece = shape[n:]
         rows = max(1, DRAW_ELEMS // max(1, math.prod(piece[1:])))
-        # this process's rows of the piece's first dim, and the dim of the
-        # piece its FSDP slice cuts when that is another one
-        lo, hi, cut = 0, piece[0], None
-        if sh is not None and sh.dim == n:
+        # this process's layer slices of the stacked dims, its rows of the
+        # piece's first dim, and the dim of the piece its slice cuts when
+        # that is another one
+        stacked = [range(k) for k in shape[:n]]
+        lo, hi, cut, first = 0, piece[0], None, 0
+        if sh is not None and sh.dim < n:
+            first = sh.index * sh.part
+            stacked[sh.dim] = range(first, first + sh.part)
+        elif sh is not None and sh.dim == n:
             lo, hi = sh.index * sh.part, (sh.index + 1) * sh.part
         elif sh is not None:
             cut = sh.dim - n
@@ -236,17 +281,19 @@ def init_spec(spec, seed: int, dtype: torch.dtype, device: torch.device,
         def keep(w):
             return w if cut is None else w.narrow(cut, sh.index * sh.part, sh.part)
         base = f"{seed}:{'/'.join(path)}"
-        for idx in itertools.product(*map(range, shape[:n])):
+        for idx in itertools.product(*stacked):
             key = f"{base}:{','.join(map(str, idx))}" if n else base
+            at = tuple(i - first if sh is not None and d == sh.dim else i
+                       for d, i in enumerate(idx))
             if math.prod(piece) <= DRAW_ELEMS:
-                out[idx] = keep(draw(p, piece, key)[lo:hi])
+                out[at] = keep(draw(p, piece, key)[lo:hi])
                 continue
             for r in range(0, piece[0], rows):        # rows at a time
                 h = min(rows, piece[0] - r)
                 a, b = max(r, lo), min(r + h, hi)
                 if a < b:
                     w = draw(p, (h,) + piece[1:], f"{key}:rows{r}")
-                    out[idx][a - lo:b - lo] = keep(w[a - r:b - r])
+                    out[at][a - lo:b - lo] = keep(w[a - r:b - r])
         return out
 
     return _map_spec(spec, mk)
@@ -362,7 +409,11 @@ class ParamModel(nn.Module):
     a ``model`` axis above 1 the params are tensor-parallel: ``tp`` is the
     layout (``dist.sharding.model_shards``) and each param on ``model`` is
     this rank's slice for good, drawn or cut alike, carrying its ``Shard``
-    as ``model_shard``; otherwise ``tp`` is None."""
+    as ``model_shard``; otherwise ``tp`` is None.  On a ``stage`` axis above
+    1 ``stage`` is the layout (``dist.sharding.stage_shards``): each
+    ``blocks`` leaf is this rank's run of layers, drawn or cut alike,
+    carrying its ``Shard`` as ``stage_shard``; otherwise ``stage`` is
+    None."""
 
     def __init__(self, arch: ArchConfig, params, init, *, dtype: torch.dtype,
                  device, seed: int, remat: str,
@@ -373,17 +424,20 @@ class ParamModel(nn.Module):
         self.param_dtype = dtype if param_dtype is None else param_dtype
         self.remat = validate_remat(remat)
         self.device = resolve_device(device)
-        self.fsdp = self.tp = None
+        self.fsdp = self.tp = self.stage = None
         if mesh is not None and arch.use_fsdp:
             shards = dist_sharding.fsdp_shards(mesh, self)
             if tree.leaves(shards):           # some leaf is sharded
                 self.fsdp = shards
         if mesh is not None:
-            shards = dist_sharding.model_shards(mesh, self)
-            if tree.leaves(shards):
-                self.tp = shards
-        shards, attr = ((self.fsdp, "fsdp_shard") if self.tp is None
-                        else (self.tp, "model_shard"))
+            for name, layout in (("tp", dist_sharding.model_shards),
+                                 ("stage", dist_sharding.stage_shards)):
+                shards = layout(mesh, self)
+                if tree.leaves(shards):
+                    setattr(self, name, shards)
+        shards, attr = next(((s, a) for s, a in (
+            (self.stage, "stage_shard"), (self.tp, "model_shard"),
+            (self.fsdp, "fsdp_shard")) if s is not None), (None, None))
         if params is None:
             kw = {} if shards is None else {"shards": shards}
             params = init(arch, seed, self.param_dtype, self.device, **kw)
@@ -437,14 +491,23 @@ class Model(ParamModel):
             raise ValueError(
                 f"pp_microbatches must be >= 0, got {pp_microbatches}")
         if mesh is not None:
-            reason = tp_refusal(arch, dist_sharding._axis_size(
-                mesh, dist_sharding.MODEL_AXIS), pp_stages)
+            width = dist_sharding._axis_size(mesh, dist_sharding.MODEL_AXIS)
+            reason = (stage_refusal(arch, dist_sharding.stage_axis_width(mesh),
+                                    pp_stages, width)
+                      or tp_refusal(arch, width, pp_stages))
             if reason:
                 raise NotImplementedError(reason)
         self.pp_stages, self.pp_microbatches = pp_stages, pp_microbatches
         super().__init__(arch, params, init_params, dtype=dtype, device=device,
                          seed=seed, remat=remat, param_dtype=param_dtype,
                          mesh=mesh)
+        if self.stage is not None:
+            # the stage rank whose gradient of a whole leaf is the real one
+            width = self.stage_width()
+            for key, sub in self.params.items():
+                if key != "blocks":
+                    for p in tree.leaves(sub):
+                        p.stage_owner = dist_sharding.stage_owner(key, width)
 
     def abstract_params(self):
         return abstract_params(self.arch, self.param_dtype)
@@ -515,6 +578,10 @@ class Model(ParamModel):
 
     def _whole_params(self, what: str):
         """Raise, naming ROADMAP, for ``what`` (serving) on sliced params."""
+        if self.stage is not None:
+            raise NotImplementedError(
+                f"{self.arch.name}: {what} of pipeline stage slices is not "
+                f"ported (the reference serves with no mesh; ROADMAP queue 1)")
         if self.fsdp is not None:
             raise NotImplementedError(
                 f"{self.arch.name}: {what} of FSDP-sharded params is not "
@@ -574,38 +641,74 @@ class Model(ParamModel):
         this model's layout (``self.params``, or the same tree detached);
         batch: ``{"tokens": (B, T+1) int}``, or for an embedding-input arch
         ``{"embeds": (B, T, d) float, "labels": (B, T) int}``."""
-        width = runtime.model_shard()[1]
-        if width != self.tp_width() and not runtime.is_suspended():
-            raise RuntimeError(
-                f"{self.arch.name}: params sliced for a {self.tp_width()}-wide "
-                f"model axis under a layout of a {width}-wide one; a model "
-                f"runs inside dist.runtime.layout over the mesh it was built "
-                f"on (Model(mesh=...))")
+        for axis, (width, built) in (
+                ("model", (runtime.model_shard()[1], self.tp_width())),
+                ("stage", (runtime.stage_shard()[1], self.stage_width()))):
+            if width != built and not runtime.is_suspended():
+                raise RuntimeError(
+                    f"{self.arch.name}: params sliced for a {built}-wide "
+                    f"{axis} axis under a layout of a {width}-wide one; a model "
+                    f"runs inside dist.runtime.layout over the mesh it was "
+                    f"built on (Model(mesh=...))")
         if self.arch.embed_stub:
             inputs, labels = batch["embeds"], batch["labels"]
         else:
             toks = batch["tokens"]
             inputs, labels = toks[:, :-1], toks[:, 1:]
         B, T = labels.shape
-        x, ctx = self._embed_in(params, inputs, ctx)
-        pos = torch.arange(T, device=x.device)[None].expand(B, T)
-        aux = torch.zeros((B,), dtype=torch.float32, device=x.device)
-        pre, period, reps = group_layers(self.arch)
-        for i in range(pre):
-            x, ctx, _, a = self._layer(self._prelude(params, i), x, ctx, pos)
-            if a is not None:
-                aux = aux + a
+        dev = labels.device
+        pipe = None
+        if runtime.stage_shard()[1] > 1:
+            pipe = self._pipe(B, T, ctx, dev)
+        x = None
+        pos = torch.arange(T, device=dev)[None].expand(B, T)
+        aux = torch.zeros((B,), dtype=torch.float32, device=dev)
+        if pipe is None or pipe.first:
+            x, ctx = self._embed_in(params, inputs, ctx)
+            for i in range(group_layers(self.arch)[0]):
+                x, ctx, _, a = self._layer(self._prelude(params, i), x, ctx, pos)
+                if a is not None:
+                    aux = aux + a
         if self.pp_stages > 1:
-            x, acc, aux = self._blocks_pipelined(params, x, ctx, aux, pos)
+            x, acc, aux = self._blocks_pipelined(params, x, ctx, aux, pos, pipe)
         else:
-            x, acc, aux = self._blocks(params, range(reps), (x, ctx.acc, aux),
-                                       ctx, pos)
+            x, acc, aux = self._blocks(params, range(self._local_reps(params)),
+                                       (x, ctx.acc, aux), ctx, pos)
         ctx = dataclasses.replace(ctx, acc=acc)
+        if pipe is not None and not pipe.last:
+            # the head runs on the last stage rank: its losses, with edges
+            # to this rank's sends and to the leaves it does not run
+            tail = runtime.anchor(*tree.leaves(params["final_norm"]),
+                                  *tree.leaves(params["head"]))
+            return pipe.share_losses(tokens=x, anchor=tail), ctx
         logits, ctx = self._head(params, x, ctx)
         lo = self._vocab_lo("head")
         losses = (per_example_xent(logits, labels, self.arch.vocab) if lo is None
                   else vocab_parallel_xent(logits, labels, self.arch.vocab, lo))
-        return losses + AUX_LOSS_WEIGHT * aux, ctx
+        losses = losses + AUX_LOSS_WEIGHT * aux
+        return losses if pipe is None else pipe.share_losses(losses), ctx
+
+    def _pipe(self, B: int, T: int, ctx: DPContext, device):
+        """The loss call's ``StagePipe``: each microbatch's (x, acc, aux)
+        specs, the microbatches ``_blocks_pipelined`` cuts the batch into."""
+        n_ex = B if ctx.acc is None else ctx.acc.shape[0]
+        M = stage_microbatches(n_ex, self.pp_stages, self.pp_microbatches)
+        specs = (((B // M, T, self.arch.d_model), self.dtype),
+                 None if ctx.acc is None else ((n_ex // M,), torch.float32),
+                 ((B // M,), torch.float32))
+        return runtime.StagePipe(specs, B, device)
+
+    def stage_width(self) -> int:
+        """The ``stage`` axis width the blocks are sliced for (1: whole)."""
+        if self.stage is None:
+            return 1
+        return next(sh.count for sh in tree.leaves(self.stage))
+
+    @staticmethod
+    def _local_reps(params) -> int:
+        """The blocks this rank holds (all of them but on a stage axis)."""
+        blocks = params.get("blocks")
+        return 0 if blocks is None else tree.leaves(blocks)[0].shape[0]
 
     def tp_width(self) -> int:
         """The ``model`` axis width the params are sliced for (1: whole)."""
@@ -622,7 +725,7 @@ class Model(ParamModel):
             carry = L.remat_wrap(block, self.remat)(*carry)
         return carry
 
-    def _blocks_pipelined(self, params, x, ctx: DPContext, aux, pos):
+    def _blocks_pipelined(self, params, x, ctx: DPContext, aux, pos, pipe=None):
         """The repeated blocks on the shifted-buffer pipeline schedule of
         the JAX package's ``_blocks_pipelined``: the (reps, ...) block
         params are viewed stage-major, stage s owning blocks [s·reps/S,
@@ -642,28 +745,56 @@ class Model(ParamModel):
         rather than run on zeros: its outputs are discarded in the
         reference.  Every batch op of the stack is per example, so each
         microbatch's losses and norms² are those of the sequential loop on
-        its rows.  Returns (x, acc, aux)."""
-        S = self.pp_stages
-        reps = group_layers(self.arch)[2]
-        per = reps // S
-        rows = x.shape[0]
+        its rows.
+
+        Across processes (``pipe``, a ``StagePipe``), this rank's params
+        hold the blocks of its S/W local stages and the schedule runs those:
+        a microbatch enters the first local stage from ``pipe.recv_prev``
+        (on the first stage rank, from ``x``) and leaves the last through
+        ``pipe.send_next``, whose tokens stand in for x (the last stage
+        rank collects its outputs as above).  Returns (x, acc, aux), on a
+        rank that sends them (x = the send tokens, acc the accumulators it
+        sent, aux None)."""
+        S = self.pp_stages // self.stage_width()        # the local stages
+        per = self._local_reps(params) // S
+        rows = pos.shape[0]
         n_ex = rows if ctx.acc is None else ctx.acc.shape[0]
-        M = stage_microbatches(n_ex, S, self.pp_microbatches)
+        M = stage_microbatches(n_ex, self.pp_stages, self.pp_microbatches)
+        sends = pipe is not None and not pipe.last
 
         def chunks(a, n):
             return [None] * M if a is None else list(a.split(n))
-        mbs = list(zip(chunks(x, rows // M), chunks(ctx.acc, n_ex // M),
-                       chunks(aux, rows // M), chunks(pos, rows // M)))
+        pos_mb = chunks(pos, rows // M)
+        if pipe is None or pipe.first:
+            mbs = list(zip(chunks(x, rows // M), chunks(ctx.acc, n_ex // M),
+                           chunks(aux, rows // M), pos_mb))
+        else:
+            # the first local stage's input arrives from rank w-1, with an
+            # edge to what this rank does not run (the embedding, prelude)
+            # or else to its first block, and to the accumulator
+            unused = [p for k in ("embed", "prelude")
+                      for p in tree.leaves(params.get(k))]
+            edge = runtime.anchor(ctx.acc,
+                                  *(unused or tree.leaves(params["blocks"])[:1]))
+            mbs = [None] * M
         buf, outs = [None] * S, []
         for t in range(M + S - 1):
+            if t < M and pipe is not None and not pipe.first:
+                mbs[t] = pipe.recv_prev(t, edge) + (pos_mb[t],)
             buf = L.pipeline_shift(buf, mbs[t] if t < M else None)
             buf = [None if slot is None else
                    self._blocks(params, range(s * per, (s + 1) * per),
                                 slot[:3], ctx, slot[3]) + (slot[3],)
                    for s, slot in enumerate(buf)]
             if buf[-1] is not None:
-                outs.append(buf[-1])
+                if sends:
+                    outs.append((pipe.send_next(len(outs), *buf[-1][:3]),
+                                 buf[-1][1]))
+                else:
+                    outs.append(buf[-1])
         acc = None if ctx.acc is None else torch.cat([o[1] for o in outs])
+        if sends:
+            return [o[0] for o in outs], acc, None
         return torch.cat([o[0] for o in outs]), acc, torch.cat([o[2] for o in outs])
 
     def _block_fn(self, layer_params, ctx: DPContext, pos):
@@ -744,7 +875,7 @@ class Model(ParamModel):
         attention: padded positions are causally masked; a Mamba state
         absorbs pad tokens, so SSM and hybrid callers pass equal-length
         prompts)."""
-        if self.tp is not None:
+        if self.tp is not None or self.stage is not None:
             self._whole_params("prefill")
 
         def pad(a):     # (B, T, KV, hd) -> (B, cache_len, KV, hd)

@@ -14,8 +14,8 @@ of its leaves (dict keys sorted, as ``jax.tree`` orders them).
 Multi-process, as in the reference: ``save`` and ``restore`` take
 ``shards``, each leaf's layout on this rank (``TrainStep.ckpt_shards``):
 None for a whole leaf, which rank 0 writes as one shard file, or ``(cuts,
-writes)`` for a region of it (a ZeRO-1, FSDP or tensor-parallel slice of
-an optimizer-state leaf or of a param): ``cuts`` a ``(dim, index, count)``
+writes)`` for a region of it (a ZeRO-1, FSDP, tensor-parallel or stage
+slice of an optimizer-state leaf or of a param): ``cuts`` a ``(dim, index, count)``
 for each dim the region cuts, slice ``index`` of ``count`` equal slices of
 the global leaf along ``dim`` (a model slice's optimizer state under
 ZeRO-1 is cut along two dims), one shard file for each region, which this
@@ -28,7 +28,10 @@ calling thread: its barriers are collectives, which must run in one order
 on every rank.  ``restore`` assembles each leaf's slice (or the whole
 leaf) from whatever shards the manifest lists, so a 2-rank ZeRO-1 or
 FSDP checkpoint restores into one process and the reverse, and the JAX
-package's reader restores it.
+package's reader restores it; a stage-cut checkpoint (each stage rank's
+blocks a region of the ``layers`` dim) restores into one process and the
+reverse, the resume on "a different stage/data" layout the reference
+promises.
 
 bf16 leaves go to disk as their raw bits in a 2-byte void dtype, with the
 manifest dtype ``"bfloat16"``, which is how ``np.load`` returns the JAX
@@ -319,8 +322,8 @@ class CheckpointManager:
                 shards: Optional[list] = None):
         """Restore checkpoint ``step`` (default the latest) into ``like``: a
         ``TrainState`` or tree whose tensor leaves receive the values in
-        place, each its region under ``shards`` (this rank's ZeRO-1, FSDP or
-        tensor-parallel slice; default every leaf whole), whatever shards the checkpoint was
+        place, each its region under ``shards`` (this rank's ZeRO-1, FSDP,
+        tensor-parallel or stage slice; default every leaf whole), whatever shards the checkpoint was
         written in.  Returns ``like``'s structure with those tensors and
         the step (an int leaf) as read."""
         self.wait()

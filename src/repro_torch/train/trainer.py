@@ -82,6 +82,17 @@ and cuts the rank's model-local leaf along its ``data`` dim.
 checkpoint each model rank writes its slices (and their state) from its
 first data replica; the int8 riders are refused here too.
 
+Pipeline stages across processes (a model built on a mesh with a
+``stage`` axis above 1): each rank's blocks slice (``stage_shard``) is a
+param of its own, with its own optimizer state, placed under ZeRO-1 by the
+whole leaf's axes as a model slice's is; the leaves every stage rank holds
+whole get the same noised gradient on every one of them, so they stay
+alike.  ``update_norm`` sums the slices' squares over the ``stage`` group
+and counts the whole leaves once.  In a checkpoint each stage rank writes
+its blocks' region of the ``layers`` dim (and its state) from its first
+data replica, and rank 0 the whole leaves; the int8 riders are refused
+here too.
+
 Launch plans (``plan``, launch/autotune.py): a solved ``LaunchPlan`` is
 applied onto the config up front and takes the place of the
 auto-microbatch search (the one-dimensional case of the plan space), as in
@@ -135,8 +146,8 @@ def physical_batch_size(train_cfg: TrainConfig, shape: ShapeConfig,
 
 
 def fsdp_refusal(cfg: TrainConfig) -> str:
-    """Why ``cfg`` cannot train FSDP-sharded params or tensor-parallel
-    model slices, naming ROADMAP; "" when it can.  Both int8 codecs
+    """Why ``cfg`` cannot train FSDP-sharded params, tensor-parallel model
+    slices or pipeline stage slices, naming ROADMAP; "" when it can.  Both int8 codecs
     quantize in blocks of the flattened whole leaf, so on a slice they
     would compute something other than the reference."""
     parts = [what for what, on in (
@@ -144,20 +155,27 @@ def fsdp_refusal(cfg: TrainConfig) -> str:
         ("optim.name='adam8bit'", cfg.optim.name == "adam8bit")) if on]
     if not parts:
         return ""
-    return (f"{' and '.join(parts)} with FSDP-sharded params or "
-            f"tensor-parallel model slices is not ported: the int8 blocks "
+    return (f"{' and '.join(parts)} with FSDP-sharded params, "
+            f"tensor-parallel model slices or pipeline stage slices is not "
+            f"ported: the int8 blocks "
             f"span the flattened whole leaf, and a rank holds a slice of it "
             f"(ROADMAP queue 1)")
 
 
+# the process group over which the other slices of a param cut along each
+# axis lie (``runtime.cut_of``)
+_GROUPS = {"data": runtime.fsdp_group, sharding.MODEL_AXIS: runtime.model_group,
+           sharding.STAGE_AXIS: runtime.stage_group}
+
+
 def _sliced(p) -> bool:
-    return (runtime.fsdp_shard_of(p) is not None
-            or runtime.model_shard_of(p) is not None)
+    return runtime.cut_of(p) is not None
 
 
 def _whole_shape(p):
-    """A param's whole leaf's shape (a model slice's, its leaf's)."""
-    sh = runtime.model_shard_of(p)
+    """A param's whole leaf's shape (a model or stage slice's, its
+    leaf's)."""
+    sh = runtime.model_shard_of(p) or runtime.stage_shard_of(p)
     shape = list(p.shape)
     if sh is not None:
         shape[sh.dim] = sh.size
@@ -207,8 +225,8 @@ class TrainStep:
         ``state_shardings`` places the optimizer's state of a leaf on the
         ``data`` axis (every param-shaped state leaf of it alike), this
         rank's slice of that dim, else None.  The placements are of the
-        whole leaves (a model slice's is its leaf's), and a model slice's
-        state is cut along the same dim of the slice."""
+        whole leaves (a model or stage slice's is its leaf's), and such a
+        slice's state is cut along the same dim of the slice."""
         none = [None] * len(leaves)
         if self.mesh is None or not self.zero1:
             return none
@@ -273,8 +291,8 @@ class TrainStep:
         """Each leaf's layout for ``CheckpointManager``, aligned with
         ``checkpoint.flatten(state)``: ``(cuts, writes)`` for a leaf this
         rank holds a region of, ``cuts`` its ``(dim, index, count)`` cut
-        along each sharded dim (an FSDP slice's; a model slice's; a ZeRO-1
-        slice's of the state, beside its param's model cut) and ``writes``
+        along each sharded dim (an FSDP slice's; a model or stage slice's; a
+        ZeRO-1 slice's of the state, beside its param's own cut) and ``writes``
         whether the rank is the region's first replica, the one that
         writes it (coordinate 0 on every axis above 1 that does not cut
         it); None for a whole leaf."""
@@ -282,8 +300,7 @@ class TrainStep:
 
         def cut(sh):
             return () if sh is None else ((sh.dim, sh.index, sh.count),)
-        own = [cut(runtime.fsdp_shard_of(p)) or cut(runtime.model_shard_of(p))
-               for p in params]
+        own = [() if c is None else cut(c[0]) for c in map(runtime.cut_of, params)]
         zero1 = [() if z is None else (z,) for z in self._leaf_shards(len(params))]
 
         def layout(cuts, axes):
@@ -296,9 +313,8 @@ class TrainStep:
             return cuts, writes
 
         def axes_of(p):
-            if runtime.model_shard_of(p) is not None:
-                return {sharding.MODEL_AXIS}
-            return {"data"} if runtime.fsdp_shard_of(p) is not None else set()
+            c = runtime.cut_of(p)
+            return set() if c is None else {c[1]}
         param_part = [layout(c, axes_of(p)) for c, p in zip(own, params)]
         state_part = [layout(c + z, axes_of(p) | ({"data"} if z else set()))
                       for c, z, p in zip(own, zero1, params)]
@@ -330,13 +346,14 @@ class TrainStep:
     def _update_norm(grads, state: TrainState):
         """‖update‖ of the whole gradient: an FSDP slice's squares are
         summed over the ranks that hold the other slices (the ``data``
-        group), a model slice's over the ``model`` group."""
+        group), a model slice's over the ``model`` group, a stage slice's
+        over the ``stage`` group; a whole leaf counts once."""
         params = tree.leaves(state.params)
         sq = [(g * g).sum() for g in grads]
         total = sum(q for q, p in zip(sq, params) if not _sliced(p))
-        for shard_of, group in ((runtime.fsdp_shard_of, runtime.fsdp_group),
-                                (runtime.model_shard_of, runtime.model_group)):
-            part = [q for q, p in zip(sq, params) if shard_of(p) is not None]
+        cuts = [runtime.cut_of(p) for p in params]
+        for axis, group in _GROUPS.items():
+            part = [q for q, c in zip(sq, cuts) if c is not None and c[1] == axis]
             if part:
                 part = torch.stack(part).sum()
                 runtime.all_reduce_([part], group())

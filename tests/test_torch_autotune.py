@@ -22,10 +22,17 @@ pins (``tests/test_autotune.py``) held on the port.
   launcher's ``--autotune`` on the CPU, in one process and in a 2-rank
   gloo world where every rank trains rank 0's winner.
 
-Each JAX solve runs once; the port's later solves reuse the exhaustive
-solve's traces (a trace is a pure function of the plan's knobs).
+Each JAX solve runs once, in a process of its own beside the port's
+solve (``jax_side``), and the 2-rank launcher starts beside them; the
+port's later solves reuse the exhaustive solve's traces (a trace is a pure
+function of the plan's knobs).
 """
+import concurrent.futures
+import multiprocessing
+import os
 import re
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -66,17 +73,63 @@ def _scorer(cfg, traces=None):
     return s
 
 
+STRATEGIES = ("auto", "materialize", "gram", "fused")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _jax_exhaustive():
+    return ja.solve(JARCH, _jcfg(tune=JTuneConfig(method="exhaustive", topk=18)),
+                    JSHAPE, mesh_shapes=MESH, measure=False)
+
+
+def _jax_dpsgd_r_seconds():
+    js = ja.PlanScorer(JARCH, _jcfg(dp=JDPConfig(algo="dpsgd_r")), JSHAPE)
+    return [js.score(ja.LaunchPlan(remat="block", norm_strategy=s)).pred_seconds
+            for s in STRATEGIES]
+
+
+def _two_rank_launcher(ckpt_dir):
+    """The 2-rank gloo launcher of ``test_launcher_autotune_two_ranks_train_one_plan``,
+    started."""
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"), "OMP_NUM_THREADS": "1"}
+    return subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "2", "-m", "repro_torch.launch.train", "--arch", PHI3,
+         "--reduced", "--steps", "1", "--batch", "4", "--seq", "8", "--device", "cpu",
+         "--dtype", "float32", "--autotune", "--set", "dp.algo=sgd",
+         "--set", "tune.method=ga", "--set", "tune.population=2",
+         "--set", "tune.generations=1", "--set", "tune.topk=1",
+         "--set", "tune.measure_iters=1", "--set", f"ckpt_dir={ckpt_dir}"],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
 @pytest.fixture(scope="module")
-def ex_reports():
+def jax_side(tmp_path_factory):
+    """The reference's exhaustive solve and its four ``dpsgd_r`` plans'
+    seconds, computed in a process of their own, and the 2-rank launcher,
+    started: all three run beside the port's work in this process."""
+    pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    launcher = _two_rank_launcher(tmp_path_factory.mktemp("two_ranks"))
+    try:
+        yield dict(exhaustive=pool.submit(_jax_exhaustive),
+                   dpsgd_r=pool.submit(_jax_dpsgd_r_seconds), launcher=launcher)
+    finally:
+        pool.shutdown(cancel_futures=True)
+        if launcher.poll() is None:
+            launcher.kill()
+            launcher.communicate()
+
+
+@pytest.fixture(scope="module")
+def ex_reports(jax_side):
     """The reference's and the port's exhaustive solves of the 18-plan
     space, and the port's scorer (its traces)."""
-    jr = ja.solve(JARCH, _jcfg(tune=JTuneConfig(method="exhaustive", topk=18)),
-                  JSHAPE, mesh_shapes=MESH, measure=False)
     cfg = _tcfg(tune=tb.TuneConfig(method="exhaustive", topk=18))
     scorer = _scorer(cfg)
     tr = ta.solve(TARCH, cfg, TSHAPE, mesh_shapes=MESH, measure=False, device="cpu",
                   link_bw=ICI_BW, scorer=scorer)
-    return jr, tr, scorer._traces
+    return jax_side["exhaustive"].result(), tr, scorer._traces
 
 
 def _key(plan):
@@ -182,14 +235,12 @@ def test_same_seed_same_winning_plan(ex_reports):
     assert r1.plan == ex_reports[1].plan          # the 18-plan optimum
 
 
-def test_dpsgd_r_plans_within_a_quarter_of_jax():
-    jcfg, tcfg = _jcfg(dp=JDPConfig(algo="dpsgd_r")), _tcfg(dp=tb.DPConfig(algo="dpsgd_r"))
-    js, ts = ja.PlanScorer(JARCH, jcfg, JSHAPE), _scorer(tcfg)
-    strategies = ("auto", "materialize", "gram", "fused")
-    want = [js.score(ja.LaunchPlan(remat="block", norm_strategy=s)).pred_seconds
-            for s in strategies]
+def test_dpsgd_r_plans_within_a_quarter_of_jax(jax_side):
+    ts = _scorer(_tcfg(dp=tb.DPConfig(algo="dpsgd_r")))
+    strategies = STRATEGIES
     got = [ts.score(ta.LaunchPlan(remat="block", norm_strategy=s)).pred_seconds
            for s in strategies]
+    want = jax_side["dpsgd_r"].result()
     for s, g, w in zip(strategies, got, want):
         assert abs(g - w) <= 0.25 * w, (s, g, w)
     for i in range(4):
@@ -305,23 +356,13 @@ def test_launcher_autotune_on_the_cpu(tmp_path, capsys):
     assert "finished at step 2; privacy spent: eps=" in out
 
 
-def test_launcher_autotune_two_ranks_train_one_plan(tmp_path):
-    """A 2-rank gloo world: rank 0 solves over the (2, 1) space (its
-    compression gene included) and every rank trains its winner."""
-    import os
-    import subprocess
-    import sys
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = {**os.environ, "PYTHONPATH": os.path.join(root, "src"), "OMP_NUM_THREADS": "1"}
-    run = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc_per_node", "2", "-m", "repro_torch.launch.train", "--arch", PHI3,
-         "--reduced", "--steps", "1", "--batch", "4", "--seq", "8", "--device", "cpu",
-         "--dtype", "float32", "--autotune", "--set", "dp.algo=sgd",
-         "--set", "tune.method=ga", "--set", "tune.population=2",
-         "--set", "tune.generations=1", "--set", "tune.topk=1",
-         "--set", "tune.measure_iters=1", "--set", f"ckpt_dir={tmp_path}"],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, timeout=120)
+def test_launcher_autotune_two_ranks_train_one_plan(jax_side):
+    """A 2-rank gloo world (started with the module's JAX side): rank 0
+    solves over the (2, 1) space (its compression gene included) and every
+    rank trains its winner."""
+    launcher = jax_side["launcher"]
+    stdout = launcher.communicate(timeout=120)[0]
+    run = subprocess.CompletedProcess(launcher.args, launcher.returncode, stdout)
     assert run.returncode == 0, run.stdout[-4000:]
     m = re.search(r"\[train\] autotune \(ga, seed=0\): .*; winner (LaunchPlan\(.*\))",
                   run.stdout)

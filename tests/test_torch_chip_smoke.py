@@ -900,8 +900,9 @@ def test_worlds_agree_on_a_model_axis(smoke):
 
 def test_tp_command_and_shards(smoke):
     """Phase 19's launcher commands (a data axis of 1; a (1, 2) data,model
-    mesh), the model slices it expects in the checkpoint (2 files for
-    every weight matrix, 1 for the norm scales) and the norm scales' bytes
+    mesh; a (1, 2) data,stage mesh), the slices it expects in the
+    checkpoints (model: 2 files for every weight matrix, 1 for the norm
+    scales; stage: 2 for every block leaf, 1 for the rest) and the bytes
     each rank holds whole beside its slices."""
     import dataclasses
     two, one = smoke.tp_cmd(2, "/x"), smoke.tp_cmd(1, "/x")
@@ -918,6 +919,17 @@ def test_tp_command_and_shards(smoke):
     d, L = arch.d_model, smoke.TP_LAYERS
     # float32 scales, SGD's float32 momentum of each
     assert smoke.replicated_bytes(arch, 2, "sgd") == ((2 * L + 1) * d * 4,) * 2
+    # the stage world: a (1, 2) data,stage mesh at pp_stages 2; the blocks in
+    # 2 files, the embedding, final norm and head in 1, held whole on a rank
+    stage = smoke.stage_cmd("/x")
+    at = stage.index("--mesh")
+    assert stage[at:at + 4] == ["--mesh", "1,2", "--axes", "data,stage"]
+    assert "pp_stages=2" in stage and stage[3:6] == ["--standalone",
+                                                      "--nproc_per_node", "2"]
+    assert smoke.zero1_expected_shards(arch, 2, axis="stage") == [2] * 9 + [1] * 3
+    V = 32256
+    assert smoke.replicated_bytes(arch, 2, "sgd", axis="stage") == (
+        2 * V * d * 2 + d * 4, (2 * V * d + d) * 4)
 
 
 @pytest.mark.parametrize("algo,remat", [("dpsgd_r", "none"), ("dpsgd_r1f", "block"),
@@ -952,3 +964,69 @@ def test_path_launches_count_a_model_ranks_wrapper_calls(smoke, monkeypatch, alg
         trainer.train_step(state, trainer.make_batch(0))
     assert smoke.read_counts() == smoke.path_launches(
         "fused", arch.n_layers, algo=algo, remat=remat)
+
+
+@pytest.mark.parametrize("algo,remat", [("dpsgd_r", "none"), ("dpsgd_r1f", "block"),
+                                        ("sgd", "none")])
+def test_stage_launches_count_a_stage_ranks_wrapper_calls(smoke, monkeypatch, algo,
+                                                          remat):
+    """Phase 19's stage world: ``stage_launches`` of each rank against the
+    wrapper calls of one Trainer step of that stage rank's blocks (reduced
+    phi3 at pp_stages 2 on a 2-wide stage axis), in one process under a
+    cost trace's layout, whose stage messages are recorded and received as
+    zeros; the two ranks' counts sum to the pipelined whole's
+    ``path_launches``."""
+    import types
+    import torch
+    from repro_torch.configs import reduced
+    from repro_torch.configs.base import (DPConfig, OptimConfig, ShapeConfig,
+                                          TrainConfig)
+    from repro_torch.dist import runtime
+    from repro_torch.models.transformer import Model
+    from repro_torch.train import Trainer
+    _count_wrapper_calls(smoke, monkeypatch)
+    arch = reduced(get_arch("phi3-mini-3.8b"))
+    cfg = TrainConfig(param_dtype="float32", compute_dtype="float32", remat=remat,
+                      pp_stages=2, optim=OptimConfig(schedule="constant"),
+                      dp=DPConfig(algo=algo, norm_strategy="fused", use_kernels=True))
+    got = []
+    for index in range(2):
+        mesh = types.SimpleNamespace(axis_names=("data", "stage"), shape=(1, 2),
+                                     get_local_rank=lambda axis, i=index: i)
+        model = Model(arch, dtype=torch.float32, device="cpu", remat=remat,
+                      pp_stages=2, mesh=mesh)
+        trainer = Trainer(model, cfg, ShapeConfig("t", 8, 4, "train"))
+        with runtime.traced(), runtime.layout(mesh, None):
+            state = trainer.init_state()
+            smoke.zero_counts()
+            trainer.train_step(state, trainer.make_batch(0))
+        got.append(smoke.read_counts())
+        assert got[-1] == smoke.stage_launches(index, 2, "fused", arch.n_layers,
+                                               algo=algo, remat=remat, microbatches=2)
+    whole = smoke.path_launches("fused", arch.n_layers, algo=algo, remat=remat,
+                                microbatches=2)
+    assert {k: got[0][k] + got[1][k] for k in whole} == whole
+
+
+def test_stage_moved_is_a_traced_stage_rank(smoke):
+    """Phase 19's prediction of the first stage rank's bytes a step by kind
+    (``stage_moved``) against ``traced_rank_collectives`` of that rank at
+    reduced phi3 (float32); the last rank sends the losses besides."""
+    import collections
+    import torch
+    from repro_torch.configs import reduced
+    from repro_torch.configs.base import DPConfig, TrainConfig
+    from repro_torch.launch.costs import traced_rank_collectives
+    from repro_torch.launch.memory import abstract_batch
+    from repro_torch.models.transformer import Model
+    arch = reduced(get_arch("phi3-mini-3.8b"))
+    model = Model(arch, dtype=torch.float32, device="cpu", pp_stages=2)
+    cfg = TrainConfig(param_dtype="float32", compute_dtype="float32", pp_stages=2,
+                      dp=DPConfig(norm_strategy="fused"))
+    traced = collections.Counter()
+    for r in traced_rank_collectives(model, cfg, abstract_batch(arch, 8, 16), 1,
+                                     stages=2):
+        traced[r["kind"]] += r["bytes"]
+    first, last = smoke.stage_moved(arch, 8, 16, element=4)
+    assert dict(traced) == first
+    assert last == dict(first, send=first["send"] + 2 * 4 * 8)

@@ -204,21 +204,28 @@ def test_cache_shardings_match_jax(name, spec_only):
 
 
 def test_launcher_refuses_the_unported_axes():
-    """A ``stage`` axis above 1 raises "not ported" naming ROADMAP, and so
-    does a ``model`` axis above 1 for what tensor parallelism does not run
-    (a ``use_fsdp`` arch); a ``use_fsdp`` arch on a ``data`` axis above 1
-    runs (FSDP), except with ``compress_pod_grads`` or ``adam8bit``, which
-    raise by name; a data axis alone, a width-1 model axis, or a dense
-    decoder on a model axis above 1 (tensor parallelism), runs."""
+    """A ``stage`` axis above 1 raises "not ported" naming ROADMAP for what
+    pipeline stages across processes do not run (a width that does not
+    divide ``pp_stages``, a ``use_fsdp`` arch), and so does a ``model``
+    axis above 1 for what tensor parallelism does not run (a ``use_fsdp``
+    arch); a ``use_fsdp`` arch on a ``data`` axis above 1 runs (FSDP),
+    except with ``compress_pod_grads`` or ``adam8bit``, which raise by
+    name; a data axis alone, a width-1 model axis, a dense decoder on a
+    model axis above 1 (tensor parallelism) or on a stage axis that divides
+    its ``pp_stages``, runs."""
     from repro_torch.configs.base import OptimConfig, TrainConfig
     from repro_torch.launch.train import refuse_unported
     phi3, chameleon = TARCHS["phi3-mini-3.8b"], TARCHS["chameleon-34b"]
     assert chameleon.use_fsdp and not phi3.use_fsdp
     refuse_unported(_ShapeMesh({"data": 1, "model": 2}), phi3)
-    for sizes, arch, what in (({"data": 1, "model": 2}, chameleon, "tensor parallelism"),
-                              ({"stage": 2, "data": 1}, phi3, "across processes")):
+    refuse_unported(_ShapeMesh({"stage": 2, "data": 1}), phi3, TrainConfig(pp_stages=2))
+    for sizes, arch, cfg, what in (
+            ({"data": 1, "model": 2}, chameleon, None, "tensor parallelism"),
+            ({"stage": 2, "data": 1}, phi3, None, "pp_stages=1, which the axis"),
+            ({"stage": 2, "data": 1}, chameleon, TrainConfig(pp_stages=2),
+             "FSDP with pipeline stages")):
         with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP queue 1"):
-            refuse_unported(_ShapeMesh(sizes), arch)
+            refuse_unported(_ShapeMesh(sizes), arch, cfg)
     for cfg, what in ((TrainConfig(compress_pod_grads=True), "compress_pod_grads"),
                       (TrainConfig(optim=OptimConfig(name="adam8bit")), "adam8bit")):
         with pytest.raises(NotImplementedError, match=f"{what}.*FSDP.*ROADMAP queue 1"):

@@ -29,6 +29,10 @@ for n in ("repro_torch.launch.memory", "repro_torch.serve.host_loop",
 from repro_torch.dist.runtime import from_model, model_group, model_shard, to_model
 from repro_torch.dist.sharding import model_shards
 from repro_torch.models.transformer import tp_refusal, vocab_parallel_xent
+# and the stage axis's: its layout, point-to-point pipe and refusals
+from repro_torch.dist.runtime import StagePipe, broadcast_, stage_group, stage_shard
+from repro_torch.dist.sharding import stage_shards
+from repro_torch.models.transformer import stage_refusal
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.") or n == "repro" or n.startswith("repro."))
 assert not bad, bad

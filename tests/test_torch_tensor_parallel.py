@@ -612,7 +612,8 @@ LAUNCHER_REFUSALS = {
     "launcher-compress": (dict(arch=_tarch(), sizes={"model": 2, "data": 2},
                                cfg=TrainConfig(compress_pod_grads=True)),
                           "compress_pod_grads"),
-    "launcher-stage": (dict(arch=_tarch(), sizes={"stage": 2}), "across processes"),
+    "launcher-stage": (dict(arch=_tarch(), sizes={"stage": 2, "model": 2},
+                            cfg=TrainConfig(pp_stages=2)), "'model' axis beside it"),
 }
 
 
