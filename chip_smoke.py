@@ -319,7 +319,27 @@ the script exits nonzero and prints no ``ok`` line:
    whole are added back, the model ranks' launches ``path_launches`` of the
    whole batch, the stage ranks' ``stage_launches`` of each (their sum the
    pipelined whole's), and the stage ranks' bytes a step by kind
-   ``stage_moved``'s.
+   ``stage_moved``'s;
+20. the dry-run and serving on model slices: (a) ``launch/dryrun.py``'s
+   cells of phi3-mini (``DRYRUN_CELLS``: its three shapes on the (16, 16)
+   ``data,model`` mesh, ``train_4k`` on the (2, 16, 16) ``pod,data,model``
+   one), each one rank's trace on fake CUDA tensors, in subprocesses beside
+   phases 17 (c), 18, 19 and 16 (b)-(c) (``chip_smoke.py --dryrun-cells``),
+   whose gates read no time: every cell ``ok``,
+   each train cell's rank peak under the card's memory, with its rank
+   FLOPs, collective bytes, roofline terms and trace seconds printed; and
+   chatglm3-6b's ``train_4k`` refused with its reason (``[dryrun]``); (b)
+   ``flash_attn_fwd`` against its plain version at a model rank's prefill
+   shape (4 x 16 heads, T 512, hd 96), then phi3-mini at full width on
+   ``SERVE_TP_LAYERS`` of its 32 layers prefilling 4 prompts of 512 into a
+   cache of 1024 and taking 32 greedy decode steps on 2 gloo ranks of a
+   (1, 2) ``data,model`` mesh (``chip_smoke.py --serve-tp-rank`` under
+   ``torch.distributed.run``) against a world of one on whole params of
+   the same seed (``[serve-tp]``): greedy tokens equal, logits within
+   ``SERVE_TP_TOL``, a rank's cache bytes half and param bytes half once
+   the norm scales are added back, each rank's collectives of the prefill
+   and of a decode step those of the dry-run's traced cells of the same
+   configuration, ``flash_attn_fwd`` once a layer in each prefill.
 
 A ``[disk]`` line sums the launchers' checkpoints, most of what the run
 writes to the disk (each removed after its phase).
@@ -330,7 +350,9 @@ by algorithm, norm route and remat policy): every kernel of the path at
 least once, no other.  The line before the last
 is the per-kernel JSON record; the last line is ``{"ok": true, "device":
 {...}}``.
-Imports nothing of JAX or of the JAX package.  Needs one card.
+Imports nothing of JAX or of the JAX package.  Needs one card.  Run with
+no arguments; ``--serve-tp-rank DIR`` and ``--dryrun-cells DIR GROUP``
+are phase 20's subprocesses.
 Measurements also go to ``chip_smoke.json`` in the output directory.
 """
 from __future__ import annotations
@@ -503,6 +525,42 @@ TP_LAYERS, TP_STEPS, TP_TIMEOUT = 2, 2, 300
 TP_OPTIM = "sgd"
 TP_SHAPES = (("tp-qkv", 3072, 1536), ("tp-o", 1536, 3072), ("tp-w1w3", 3072, 4096),
              ("tp-w2", 4096, 3072), ("tp-head", 3072, 16128))
+# phase 20: the dry-run and serving on model slices.  (a) phi3-mini's cells
+# DRYRUN_CELLS (shape, production mesh), each one rank's trace on fake CUDA
+# tensors, and DRYRUN_REFUSED, a cell the port refuses; subprocesses beside
+# phases 17 (c) to 19 (host-only tracing; no gate of phases 16 (b)-(c) and
+# 17 (c) to 19 reads a time), DRYRUN_TIMEOUT bounding each (s).  (b) phi3-mini at full width on
+# SERVE_TP_LAYERS of its 32 layers (cut for the run's time), seeded bf16
+# weights: SERVE_TP_B prompts of SERVE_TP_T tokens into a cache of
+# SERVE_TP_S, then SERVE_TP_STEPS greedy decode steps, on 2 gloo ranks of
+# a (1, 2) data,model mesh against a world of one in this process;
+# SERVE_TP_TIMEOUT bounds the ranks (s).  SERVE_TP_TOL: the logits of the
+# two worlds, a share of the largest: each row-parallel sum (wo, w2, the
+# embedding's rows) is two bf16 partial products rounded apart and then
+# summed, where world 1 rounds one product, so the residual stream moves by
+# about a bf16 ulp (2^-8 of a value) a sum, 17 sums deep; CHAIN_TOL's
+# share for two bf16 paths that round in other places
+DRYRUN_CELLS = (("train_4k", "single"), ("prefill_32k", "single"),
+                ("decode_32k", "single"), ("train_4k", "multi"))
+DRYRUN_REFUSED = ("chatglm3-6b", "train_4k", "single")
+DRYRUN_TIMEOUT = 900
+# (a)'s cells, one subprocess a group, side by side (a cell is one Python
+# thread of fake-tensor dispatch: on an H100 80GB HBM3 host the (16, 16)
+# train cell's two traces took 103.5 s, the (2, 16, 16) one's 38.2 s, the
+# serving cells 5.9 s); the last group also traces (b)'s two cells
+DRYRUN_GROUPS = ((0,), (3,), (1, 2))
+SERVE_TP_LAYERS, SERVE_TP_B, SERVE_TP_T, SERVE_TP_S, SERVE_TP_STEPS = 8, 4, 512, 1024, 32
+SERVE_TP_TIMEOUT = 300
+SERVE_TP_TOL = CHAIN_TOL
+# (b) runs in bf16 and again in float32 over the same bf16 weights: bf16
+# logits a rank moves by an ulp take another greedy token at a near-tie of
+# the top two (call 1: the streams parted after 8-22 steps), so the token
+# streams are held equal in float32, where a row-parallel sum's reordering
+# moves a logit by ~1e-6 of the largest; SERVE_TP_F32_TOL bounds that
+# (a sum of up to 8192 float32 products reordered, ~sqrt(k) ulps, through
+# 17 sums)
+SERVE_TP_COMPUTE = ("bfloat16", "float32")
+SERVE_TP_F32_TOL = 1e-3
 # phase 17: the launch tools.  (b) a solve on the card: phi3-mini at full
 # width on TUNE_LAYERS of its 32 layers (pipeline stages 1 and 2 divide
 # them), B 8 x T 512, the GA's TUNE_POP x TUNE_GENS, the TUNE_TOPK best
@@ -5525,6 +5583,358 @@ def tp_path(kernels):
 
 
 # ---------------------------------------------------------------------------
+# phase 20: the dry-run, and prefill and decode on model slices
+# ---------------------------------------------------------------------------
+
+def dryrun_cmd(out: str, group: int) -> list:
+    """Phase 20 (a)'s subprocess of ``DRYRUN_GROUPS[group]``:
+    ``dryrun_cells`` into ``out``."""
+    return [sys.executable, str(ROOT / "chip_smoke.py"), "--dryrun-cells", out,
+            str(group)]
+
+
+def serve_tp_cells():
+    """Phase 20 (b)'s configuration as ``launch/dryrun.py`` cells: (the
+    arch cut to ``SERVE_TP_LAYERS``, {kind: its ``ShapeConfig``}) of the
+    prefill of ``SERVE_TP_B`` x ``SERVE_TP_T`` and of a decode step
+    against a cache of ``SERVE_TP_S``, on a traced (1, 2) data,model mesh."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    arch = dataclasses.replace(get_arch("phi3-mini-3.8b"), n_layers=SERVE_TP_LAYERS)
+    return arch, {kind: ShapeConfig(f"serve_tp_{kind}", seq, SERVE_TP_B, kind)
+                  for kind, seq in (("prefill", SERVE_TP_T), ("decode", SERVE_TP_S))}
+
+
+def dryrun_cells(out: str, group: int) -> None:
+    """``launch/dryrun.py`` ``run_cell`` on fake CUDA tensors, artifacts in
+    ``out``: phi3-mini's ``DRYRUN_CELLS`` of ``DRYRUN_GROUPS[group]``; the
+    last group also ``DRYRUN_REFUSED`` and phase 20 (b)'s two cells (the
+    body of ``dryrun_cmd``)."""
+    from repro_torch.launch import dryrun
+    for i in DRYRUN_GROUPS[group]:
+        dryrun.run_cell("phi3-mini-3.8b", *DRYRUN_CELLS[i], out, device="cuda")
+    if group == len(DRYRUN_GROUPS) - 1:
+        dryrun.run_cell(*DRYRUN_REFUSED, out, device="cuda")
+        arch, shapes = serve_tp_cells()
+        for shape in shapes.values():
+            dryrun.run_cell(arch, shape, "serve-tp", out, mesh_shape="1,2",
+                            mesh_axes="data,model", device="cuda")
+
+
+def start_dryrun(out: Path) -> list:
+    """Phase 20 (a)'s subprocesses (``dryrun_cmd``), one a group, started
+    side by side."""
+    return [start_launcher(dryrun_cmd(str(out), g)) for g in range(len(DRYRUN_GROUPS))]
+
+
+def stop_dryrun(started) -> None:
+    """Kill what is left of ``start_dryrun``'s subprocesses."""
+    for proc, _ in started:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+
+
+def dryrun_path(started, out: Path) -> dict:
+    """Phase 20 (a): wait for ``start_dryrun``'s subprocesses (their output
+    to ``chiprun_out/chip_smoke_dryrun<group>.log``) and read the
+    artifacts: every phi3 cell ``ok``, each train cell's rank peak under the
+    card's memory; the refused cell ``ok: false`` with a
+    ``NotImplementedError`` naming ROADMAP.  Prints each cell's rank peak,
+    FLOPs, collective bytes and roofline terms and its trace's seconds."""
+    import torch
+    t = time.perf_counter()
+    try:
+        for group, (proc, _) in enumerate(started):
+            text, err = proc.communicate(timeout=DRYRUN_TIMEOUT)
+            (ROOT / "chiprun_out" / f"chip_smoke_dryrun{group}.log").write_text(
+                text + "\n--- stderr\n" + err)
+            if proc.returncode != 0:
+                raise RuntimeError(f"the dry-run's cells (group {group}) exited "
+                                   f"{proc.returncode}:\n{text[-3000:]}\n{err[-3000:]}")
+    finally:
+        stop_dryrun(started)
+    card = torch.cuda.get_device_properties(0).total_memory
+    cells = {}
+    for shape, mesh in DRYRUN_CELLS:
+        rec = json.loads((out / f"phi3-mini-3.8b--{shape}--{mesh}.json").read_text())
+        assert rec["ok"], (shape, mesh, rec.get("error"), rec.get("traceback"))
+        peak = rec["rank_memory"]["peak_bytes"]
+        if rec["shape"] == "train_4k":
+            assert peak < card, (shape, mesh, peak, card)
+        roof = rec["roofline"]
+        print(f"[dryrun] phi3-mini-3.8b {shape} on the {mesh} mesh "
+              f"({rec['mesh_shape']}, batch over {rec['batch_axes']}"
+              + (f", grad_accum {rec['grad_accum']}" if "grad_accum" in rec else "")
+              + f"), one rank's trace on fake CUDA tensors: rank peak "
+              f"{peak / 1e9:.3f} GB (the card {card / 1e9:.1f} GB; at "
+              f"{rec['rank_memory']['peak_op']}), rank {rec['rank_flops']:.4e} FLOPs "
+              f"and {rec['rank_bytes']:.4e} B, collectives a rank "
+              f"{rec['collective_bytes_per_device']['total']:.4e} wire B "
+              f"{ {k: v for k, v in rec['collective_bytes_per_device'].items() if k != 'total'} }; "
+              f"global {rec['analytic']['total_flops']:.4e} FLOPs, peak "
+              f"{rec['memory']['peak_bytes'] / 1e9:.2f} GB; H100 roofline compute "
+              f"{roof['compute_s']:.4e} s, memory {roof['memory_s']:.4e} s, "
+              f"collective {roof['collective_s']:.4e} s ({roof['bottleneck']}), "
+              f"model / traced FLOPs {roof['model_vs_hlo_flops']:.3f}; trace "
+              f"{rec['trace_s']:.1f} s", flush=True)
+        cells[f"{shape}/{mesh}"] = {k: rec[k] for k in (
+            "rank_memory", "rank_flops", "rank_bytes", "collective_bytes_per_device",
+            "roofline", "trace_s", "total_s", "batch_axes", "memory")}
+    arch, shape, mesh = DRYRUN_REFUSED
+    rec = json.loads((out / f"{arch}--{shape}--{mesh}.json").read_text())
+    assert rec["ok"] is False and rec["error"].startswith("NotImplementedError: ") \
+        and "ROADMAP" in rec["error"], rec
+    waited = time.perf_counter() - t
+    print(f"[dryrun] {arch} {shape} on the {mesh} mesh refused, as recorded: "
+          f"{rec['error']}; the cells' traces {[c['total_s'] for c in cells.values()]} "
+          f"s in {len(started)} subprocesses beside phases 17 (c) to 19, "
+          f"{waited:.1f} s waited after them", flush=True)
+    return dict(cells=cells, refused=rec["error"], waited=waited)
+
+
+def serve_tp_cmd(out: str) -> list:
+    """Phase 20 (b)'s two gloo ranks: ``serve_tp_rank`` under
+    ``torch.distributed.run`` (``env://``), their logits to ``out``."""
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", "2", str(ROOT / "chip_smoke.py"), "--serve-tp-rank", out]
+
+
+def serve_tp_model(compute: str, mesh=None):
+    """phi3-mini at full width on ``SERVE_TP_LAYERS`` layers, seeded bf16
+    weights on the card (the same bits whatever the compute type),
+    activations in ``compute``: whole, or this rank's slices on ``mesh``
+    (seeded init draws only them)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import Model
+    arch = dataclasses.replace(get_arch("phi3-mini-3.8b"), n_layers=SERVE_TP_LAYERS)
+    return Model(arch, seed=0, mesh=mesh, dtype=getattr(torch, compute),
+                 param_dtype=torch.bfloat16)
+
+
+def serve_tp_greedy(model) -> dict:
+    """``SERVE_TP_B`` seeded prompts of ``SERVE_TP_T`` tokens prefilled into
+    a cache of ``SERVE_TP_S``, then ``SERVE_TP_STEPS`` greedy decode steps,
+    under the active layout: the greedy tokens (steps + 1, B), every step's
+    last-position logits (``logits``, (steps + 1, B, Vpad) on the host), the
+    collectives metered in the prefill and in the first decode step
+    (``dryrun.collective_summary``), the cache's and the params' bytes, the
+    launches (counted from zero) and the times."""
+    import numpy as np
+    import torch
+    from repro_torch import tree
+    from repro_torch.dist import runtime
+    from repro_torch.launch.dryrun import collective_summary
+    V = model.arch.vocab
+    rng = np.random.default_rng(20)
+    prompts = torch.from_numpy(rng.integers(0, V, (SERVE_TP_B, SERVE_TP_T))).cuda()
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with runtime.metered() as pre:
+        logits, cache = model.prefill(prompts, SERVE_TP_S)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    steps, toks, dec = [logits[:, -1]], [logits[:, -1, :V].argmax(-1)], None
+    for i in range(SERVE_TP_STEPS):
+        pos = torch.full((SERVE_TP_B,), SERVE_TP_T + i, device=prompts.device)
+        with runtime.metered() as rec:
+            logits, cache = model.decode_step(cache, toks[-1][:, None], pos)
+        dec = rec if dec is None else dec
+        steps.append(logits[:, -1])
+        toks.append(logits[:, -1, :V].argmax(-1))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return dict(tokens=torch.stack(toks).cpu().tolist(),
+                logits=torch.stack(steps).cpu(), launches=read_counts(),
+                prefill_records=collective_summary(pre),
+                decode_records=collective_summary(dec),
+                cache_bytes=sum(t.numel() * t.element_size() for t in tree.leaves(cache)),
+                param_bytes=sum(p.numel() * p.element_size() for p in model.parameters()),
+                prefill_ms=1e3 * (t1 - t0), decode_ms=1e3 * (t2 - t1) / SERVE_TP_STEPS)
+
+
+def serve_tp_rank(out: str) -> int:
+    """One of phase 20 (b)'s ranks: on a (1, 2) data,model mesh over gloo,
+    both ranks on the card, ``serve_tp_greedy`` of its slices in bf16 and
+    then in float32 over the same bf16 weights; each run's logits saved to
+    ``out`` (``rank<r>_<compute>.pt``), the rest printed as one
+    ``[serve-tp-rank]`` JSON line."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist import runtime
+    from repro_torch.launch.mesh import make_mesh
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method="env://",
+                            timeout=datetime.timedelta(seconds=SERVE_TP_TIMEOUT))
+    rank = dist.get_rank()
+    mesh = make_mesh((1, 2), ("data", "model"))
+    got = {}
+    for compute in SERVE_TP_COMPUTE:
+        model = serve_tp_model(compute, mesh)
+        with runtime.layout(mesh, None):
+            run = serve_tp_greedy(model)
+        del model
+        torch.cuda.empty_cache()
+        torch.save(run.pop("logits"), Path(out) / f"rank{rank}_{compute}.pt")
+        got[compute] = run
+    print("[serve-tp-rank] " + json.dumps(dict(rank=rank, runs=got)), flush=True)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _first_divergence(a, b) -> list:
+    """For each prompt, the first step whose greedy token differs between
+    the token streams ``a`` and ``b`` ((steps + 1, B) lists), or their
+    length when none does."""
+    n = len(a)
+    return [next((i for i in range(n) if a[i][j] != b[i][j]), n)
+            for j in range(len(a[0]))]
+
+
+def serve_tp_path(cells_dir: Path) -> dict:
+    """Phase 20 (b): ``flash_attn_fwd`` against its plain version at a model
+    rank's prefill shape (``SERVE_TP_B`` x 16 heads, T ``SERVE_TP_T``, hd
+    96) in both compute types; then the two ranks (``serve_tp_cmd``) beside
+    a world of one in this process on whole params of the same seed, in
+    bf16 and in float32 over the same bf16 weights (``SERVE_TP_COMPUTE``),
+    and the checks.  float32: greedy tokens equal over every step, logits
+    within ``SERVE_TP_F32_TOL`` of the largest.  bf16: the prefill's
+    logits, and each prompt's logits up to its first differing greedy token
+    (a near-tie of the top two bf16 logits, which a row-parallel sum's
+    other rounding can flip, after which the streams are two
+    conversations), within ``SERVE_TP_TOL``; the agreeing prefixes printed.
+    Each rank's cache bytes exactly half of world 1's, its param bytes half
+    once the norm scales each holds whole are added back (``BYTES_RTOL``);
+    its collectives of the prefill and of a decode step those of
+    ``launch/dryrun.py``'s cells of the same configuration on a traced (1,
+    2) mesh (``serve_tp_cells``, traced by phase 20 (a) into
+    ``cells_dir``); ``flash_attn_fwd`` launched once a layer in each
+    prefill."""
+    import shutil
+    import tempfile
+    import torch
+    t0 = time.perf_counter()
+    kernels = {c: check_flash(f"serve-tp-{c}", SERVE_TP_B, 16, 16, SERVE_TP_T, 96, True,
+                              getattr(torch, c)) for c in SERVE_TP_COMPUTE}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_tp_")
+    started = start_launcher(serve_tp_cmd(tmp))
+    try:
+        one = {}
+        for compute in SERVE_TP_COMPUTE:
+            model = serve_tp_model(compute)
+            one[compute] = serve_tp_greedy(model)
+            arch = model.arch
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+        proc, t = started
+        text, err = proc.communicate(timeout=SERVE_TP_TIMEOUT)
+        (ROOT / "chiprun_out" / "chip_smoke_serve_tp.log").write_text(
+            text + "\n--- stderr\n" + err)
+        if proc.returncode != 0:
+            raise RuntimeError(f"the serving ranks exited {proc.returncode}:\n"
+                               f"{text[-3000:]}\n{err[-3000:]}")
+        ranks = sorted((json.loads(ln.split(" ", 1)[1]) for ln in text.splitlines()
+                        if ln.startswith("[serve-tp-rank] ")), key=lambda r: r["rank"])
+        assert len(ranks) == 2, text[-3000:]
+        for r in ranks:
+            for compute in SERVE_TP_COMPUTE:
+                r["runs"][compute]["logits"] = torch.load(
+                    Path(tmp) / f"rank{r['rank']}_{compute}.pt")
+    finally:
+        if started[0].poll() is None:
+            started[0].kill()
+            started[0].communicate()
+        shutil.rmtree(tmp, ignore_errors=True)
+    cells = {kind: json.loads((cells_dir / f"{arch.name}--{shape.name}--serve-tp.json"
+                               ).read_text())
+             for kind, shape in serve_tp_cells()[1].items()}
+    rep_params = replicated_bytes(arch, 2, TP_OPTIM)[0]
+    gaps, halves, agree = {c: [] for c in SERVE_TP_COMPUTE}, [], []
+    for r in ranks:
+        bf, f32 = r["runs"]["bfloat16"], r["runs"]["float32"]
+        # float32: the same greedy streams, every step's logits close
+        assert f32["tokens"] == one["float32"]["tokens"], (
+            r["rank"], _first_divergence(f32["tokens"], one["float32"]["tokens"]))
+        want = one["float32"]["logits"]
+        gap = ((f32["logits"] - want).abs().max() / want.abs().max()).item()
+        assert gap <= SERVE_TP_F32_TOL, (r["rank"], gap)
+        gaps["float32"].append(gap)
+        # bf16: each prompt's logits up to its first differing token
+        first = _first_divergence(bf["tokens"], one["bfloat16"]["tokens"])
+        agree.append(first)
+        want = one["bfloat16"]["logits"].float()
+        got = bf["logits"].float()
+        for b, k in enumerate(first):
+            steps = slice(0, min(k + 1, len(bf["tokens"])))
+            gap = ((got[steps, b] - want[steps, b]).abs().max()
+                   / want[steps, b].abs().max()).item()
+            assert gap <= SERVE_TP_TOL, (r["rank"], b, k, gap)
+            gaps["bfloat16"].append(gap)
+        for compute, run in r["runs"].items():
+            w1 = one[compute]
+            assert 2 * run["cache_bytes"] == w1["cache_bytes"], (run["cache_bytes"],
+                                                                 w1["cache_bytes"])
+            assert run["launches"]["flash_attn_fwd"] == SERVE_TP_LAYERS, run["launches"]
+        half = (2 * bf["param_bytes"] - rep_params) / one["bfloat16"]["param_bytes"]
+        assert abs(half - 1) <= BYTES_RTOL, (bf["param_bytes"], one["bfloat16"]["param_bytes"])
+        halves.append(half)
+        for kind in ("prefill", "decode"):
+            want = [list(x) for x in cells[kind]["collective_records"]]
+            assert cells[kind]["ok"] and [list(x) for x in bf[f"{kind}_records"]] == want, (
+                kind, bf[f"{kind}_records"], want)
+    for run in one.values():
+        assert run["launches"]["flash_attn_fwd"] == SERVE_TP_LAYERS, run["launches"]
+    moved = {kind: sum(n * b for k, b, g, n in cells[kind]["collective_records"])
+             for kind in ("prefill", "decode")}
+    secs = time.perf_counter() - t0
+    bf1 = one["bfloat16"]
+    print(f"[serve-tp] phi3-mini-3.8b at full width, {SERVE_TP_LAYERS} of 32 layers, "
+          f"seeded bf16 weights: {SERVE_TP_B} prompts of {SERVE_TP_T} into a cache of "
+          f"{SERVE_TP_S}, {SERVE_TP_STEPS} greedy decode steps, on 2 gloo ranks of a "
+          f"(1, 2) data,model mesh sharing the card (16 heads, 4096 FFN columns, 16128 "
+          f"vocab rows each) against a world of one: float32 compute: greedy tokens "
+          f"equal over {len(bf1['tokens'])} positions of {SERVE_TP_B} prompts, logits "
+          f"within {max(gaps['float32']):.3e} of the largest (limit {SERVE_TP_F32_TOL}); "
+          f"bf16 compute: greedy streams agree for {agree} steps of "
+          f"{len(bf1['tokens'])} by rank and prompt (a near-tie flips them apart), "
+          f"logits up to each prompt's first differing token within "
+          f"{max(gaps['bfloat16']):.3e} of the largest (limit {SERVE_TP_TOL})",
+          flush=True)
+    print(f"[serve-tp] bf16: cache a rank {ranks[0]['runs']['bfloat16']['cache_bytes']} B "
+          f"= world 1's {bf1['cache_bytes']} B / 2; params a rank "
+          f"{[r['runs']['bfloat16']['param_bytes'] for r in ranks]} B against "
+          f"{bf1['param_bytes']} B, (2 x rank - the norm scales {rep_params} B) / world 1 "
+          f"{halves}; collectives a rank = the dry-run's traced cells: prefill "
+          f"{moved['prefill']} B, a decode step {moved['decode']} B "
+          f"({cells['decode']['collective_records']}); flash_attn_fwd {SERVE_TP_LAYERS} "
+          f"launches a prefill on each process and compute type; prefill ms "
+          f"{[round(r['runs']['bfloat16']['prefill_ms'], 1) for r in ranks]} against "
+          f"{bf1['prefill_ms']:.1f}, decode ms a step "
+          f"{[round(r['runs']['bfloat16']['decode_ms'], 2) for r in ranks]} against "
+          f"{bf1['decode_ms']:.2f} (float32: "
+          f"{[round(r['runs']['float32']['decode_ms'], 2) for r in ranks]} against "
+          f"{one['float32']['decode_ms']:.2f}); {secs:.1f} s", flush=True)
+    launches = sum(run["launches"]["flash_attn_fwd"] for r in ranks
+                   for run in r["runs"].values())
+    launches += sum(run["launches"]["flash_attn_fwd"] for run in one.values())
+    return dict(kernels=kernels, agree=agree, logit_gap=gaps, param_halves=halves,
+                cache_bytes=[r["runs"]["bfloat16"]["cache_bytes"] for r in ranks]
+                + [bf1["cache_bytes"]], moved=moved, launches=launches,
+                prefill_ms={c: [r["runs"][c]["prefill_ms"] for r in ranks]
+                            + [one[c]["prefill_ms"]] for c in SERVE_TP_COMPUTE},
+                decode_ms={c: [r["runs"][c]["decode_ms"] for r in ranks]
+                           + [one[c]["decode_ms"]] for c in SERVE_TP_COMPUTE},
+                seconds=secs)
+
+
+# ---------------------------------------------------------------------------
 # phase 17: the launch tools (launch/roofline.py, costs.py, autotune.py)
 # ---------------------------------------------------------------------------
 
@@ -5832,12 +6242,18 @@ class _Tee:
         return self.streams[0].fileno()
 
 
-def main() -> int:
+def main(argv=None) -> int:
     import torch
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the "
               "card", file=sys.stderr)
         return 1
+    if argv[:1] == ["--serve-tp-rank"]:       # phase 20 (b)'s ranks
+        return serve_tp_rank(argv[1])
+    if argv[:1] == ["--dryrun-cells"]:        # phase 20 (a)'s cells
+        dryrun_cells(argv[1], int(argv[2]))
+        return 0
     from repro_torch.configs import get_arch
     from repro_torch.kernels import build
     from repro_torch.models.transformer import padded_vocab
@@ -6103,33 +6519,49 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     lap("phase 17 (a)-(b)")
-    # 18. FSDP: chameleon-34b through the launcher in a world of 1 (NCCL)
-    # and of 2 ranks sharing the card (gloo), each holding half its params
+    # 20 (a): phi3-mini's dry-run cells, traced on the host beside phases
+    # 17 (c), 18, 19 and 16 (b)-(c), whose gates read no time
+    dry_out = ROOT / "chiprun_out" / "dryrun_torch"
+    dry = start_dryrun(dry_out)
     try:
-        fsdp = fsdp_path()
-    except BaseException:               # stop phase 17 (c) before leaving
-        tools["started"][0].kill()
-        tools["started"][0].communicate()
-        raise
-    tools["launcher"] = launcher_autotune(tools.pop("started"))
+        # 18. FSDP: chameleon-34b through the launcher in a world of 1
+        # (NCCL) and of 2 ranks sharing the card (gloo), each holding half
+        # its params
+        try:
+            fsdp = fsdp_path()
+        except BaseException:           # stop phase 17 (c) before leaving
+            tools["started"][0].kill()
+            tools["started"][0].communicate()
+            raise
+        tools["launcher"] = launcher_autotune(tools.pop("started"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        lap("phases 17 (c) and 18")
+        # 19. the model and stage axes: the kernels at a model rank's
+        # shapes, then phi3-mini through the launcher in a world of 1
+        # (NCCL), of 2 model ranks sharing the card (gloo), each holding
+        # half of its heads, FFN and vocabulary, and of 2 stage ranks
+        # (gloo), each holding one layer's blocks, beside phase 16
+        # (b)-(c)'s worlds
+        tp_kernels = tp_kernel_checks()
+        lap("phase 19 kernels")
+        dist_worlds = start_worlds(_worlds(dist_cmd), "dist")
+        try:
+            tp = tp_path(tp_kernels)
+        except BaseException:           # stop phase 16's worlds before leaving
+            stop_worlds(dist_worlds)
+            raise
+        dist = dist_path(pipe, dist_worlds)
+        lap("phases 16 (b)-(c) and 19")
+        dry_rec = dryrun_path(dry, dry_out)
+    finally:
+        stop_dryrun(dry)
+    lap("phase 20 (a)")
+    # 20 (b): prefill and decode on two model ranks against a world of one
+    serve_tp = serve_tp_path(dry_out)
     gc.collect()
     torch.cuda.empty_cache()
-    lap("phases 17 (c) and 18")
-    # 19. the model and stage axes: the kernels at a model rank's shapes,
-    # then phi3-mini through the launcher in a world of 1 (NCCL), of 2 model
-    # ranks sharing the card (gloo), each holding half of its heads, FFN and
-    # vocabulary, and of 2 stage ranks (gloo), each holding one layer's
-    # blocks, beside phase 16 (b)-(c)'s worlds
-    tp_kernels = tp_kernel_checks()
-    lap("phase 19 kernels")
-    dist_worlds = start_worlds(_worlds(dist_cmd), "dist")
-    try:
-        tp = tp_path(tp_kernels)
-    except BaseException:               # stop phase 16's worlds before leaving
-        stop_worlds(dist_worlds)
-        raise
-    dist = dist_path(pipe, dist_worlds)
-    lap("phases 16 (b)-(c) and 19")
+    lap("phase 20 (b)")
     ckpts = {**{f"16 ({'b' if k == 1 else 'c'})": w["ckpt_bytes"]
                 for k, w in dist["worlds"].items()},
              "17 (c)": tools["launcher"]["ckpt_bytes"],
@@ -6145,7 +6577,7 @@ def main() -> int:
         for got, _, _ in world["launches"]:       # every rank's steps
             for k, v in json.loads(got).items():
                 launches[k] += v
-    launches["flash_attn_fwd"] += serve_launches
+    launches["flash_attn_fwd"] += serve_launches + serve_tp["launches"]
 
     flash_rec = pick(kernel_recs, "phi3-wave")
     bwd_rec, gram_rec = pick(bwd_recs, "phi3-train"), pick(gram_recs, "embed")
@@ -6241,7 +6673,12 @@ def main() -> int:
               "src/repro/kernels/flash_attn.py:77", launches["flash_attn_fwd"],
               flash_rec, shape="serving wave, bf16", path=flash_rec["path"],
               chatglm3=glm_row(gk["flash_fwd"], f"({TRAIN_B} x 32 heads, kv 2, "
-                               f"T {TRAIN_T}, hd 128) causal")),
+                               f"T {TRAIN_T}, hd 128) causal"),
+              serve_tp=dict(launches=serve_tp["launches"], shapes=[
+                  {k: rec[k] for k in ("shape", "dtype", "BH", "T", "hd", "max_abs_err",
+                                       "ms", "plain_ms", "bound_ms", "bound_by",
+                                       "library_ms", "path")}
+                  for rec in serve_tp["kernels"].values()])),
         entry("dense_bwd_norm", "dense_bwd_norm.cu",
               "src/repro/kernels/fused_bwd.py:114", launches["dense_bwd_norm"],
               step_sum(dense_recs),
@@ -6292,7 +6729,8 @@ def main() -> int:
          "planner": planner, "train": train, "routes": routes,
          "remat": remat, "algos": algos, "glm": glm, "image_kernels": image_kernels,
          "images": images, "moe": moe, "ssm": ssm, "embed": embed, "dist": dist,
-         "tools": tools, "fsdp": fsdp, "tp": tp, "json_line": kernels},
+         "tools": tools, "fsdp": fsdp, "tp": tp, "dryrun": dry_rec,
+         "serve_tp": serve_tp, "json_line": kernels},
         indent=1, default=str))
     print(f"[time] chip_smoke.py: {time.perf_counter() - t_start:.1f} s from the device "
           f"query to the last check", flush=True)

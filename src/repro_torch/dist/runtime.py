@@ -85,7 +85,10 @@ step: its batch group is a ``TracedGroup`` of the batch axes' size, whose
 collectives record and return what a real group's would in shape, moving
 nothing (a stage message records its send and is received as zeros).
 Anywhere else such a layout raises, as a step that would skip its
-collectives must not run.
+collectives must not run.  In a trace the rank is coordinate 0 of every
+axis, and any batch axes take a ``TracedGroup`` (the production meshes'
+``pod`` and ``data`` together, beside a ``model`` axis: launch/dryrun.py),
+where a real world takes only the whole world or one axis.
 """
 from __future__ import annotations
 
@@ -329,17 +332,26 @@ def batch_shard() -> Tuple[int, int]:
     mesh, bax = state
     idx = 0
     for a in bax:
-        idx = idx * _sh._axis_size(mesh, a) + mesh.get_local_rank(a)
+        idx = idx * _sh._axis_size(mesh, a) + _local_rank(mesh, a)
     return idx, _n_shards(mesh, bax)
+
+
+def _local_rank(mesh, name: str) -> int:
+    """This rank's coordinate on axis ``name``: 0 on a mesh with no process
+    group (a trace of rank 0's program)."""
+    return mesh.get_local_rank(name) if hasattr(mesh, "get_local_rank") else 0
 
 
 def axis_shard(mesh, name: str) -> Tuple[int, int, object]:
     """(this rank's coordinate, the size, the process group) of one mesh
-    axis; (0, 1, None) when the mesh lacks it."""
+    axis; (0, 1, None) when the mesh lacks it; (0, the size, a
+    ``TracedGroup``) on a mesh with no process group inside a cost trace."""
     size = _sh._axis_size(mesh, name)
     if size == 1:
         return 0, 1, None
-    return mesh.get_local_rank(name), size, mesh.get_group(name)
+    if hasattr(mesh, "get_group"):
+        return mesh.get_local_rank(name), size, mesh.get_group(name)
+    return 0, size, _group_of(mesh, (name,))
 
 
 # ---------------------------------------------------------------------------

@@ -356,25 +356,42 @@ def state_shardings(mesh, model, state, zero1: bool = True):
                       opt_state=walk(state.opt_state, ()))
 
 
-def cache_shardings(mesh, cache, global_batch: int):
+def cache_shardings(mesh, cache, global_batch: int, model=None):
     """The placement tree of a cache (``model.init_cache``, real or meta
     tensors): the batch dim (dim 0 for prelude layers, dim 1 for the
     stacked blocks, which lead with their layer dim) over the batch axes,
-    the rest replicated."""
+    the rest replicated.  With ``model`` (whose arch names each layer's
+    kind), an attention layer's (k, v) also put their KV-heads dim (the
+    second to last) on the ``model`` axis where it divides the KV heads:
+    a model rank holds the KV heads of its query heads alone.  The
+    reference keeps the cache replicated over ``model`` and lets GSPMD
+    reshard it; the port's tensor-parallel decode reads only its heads'."""
     bax = batch_pspec(mesh, global_batch)
+    kinds = {}
+    if model is not None:
+        from repro_torch.models.transformer import group_layers
+        pattern = model.arch.pattern()
+        pre = group_layers(model.arch)[0]
+        msz = _axis_size(mesh, MODEL_AXIS)
+        if msz > 1 and model.arch.n_kv_heads % msz == 0:
+            kinds = {("prelude", i): pattern[i] for i in range(pre)}
+            kinds.update({("blocks", j): pattern[pre + j]
+                          for j in range(len(pattern) - pre)})
 
-    def walk(t, top):
+    def walk(t, top, layer=None):
         if isinstance(t, dict):
-            return {k: walk(v, k if top is None else top) for k, v in t.items()}
+            return {k: walk(v, k) for k, v in t.items()}
         if isinstance(t, (list, tuple)):
-            out = [walk(v, top) for v in t]
+            out = [walk(v, top, i if layer is None else layer)
+                   for i, v in enumerate(t)]
             return tuple(out) if isinstance(t, tuple) else out
         if t is None:
             return None
-        if bax is None or t.dim() == 0:
-            return PartitionSpec()
         entries = [None] * t.dim()
-        entries[1 if top == "blocks" and t.dim() > 1 else 0] = bax
-        return PartitionSpec(*entries)
+        if bax is not None and t.dim() > 0:
+            entries[1 if top == "blocks" and t.dim() > 1 else 0] = bax
+        if kinds.get((top, layer)) == "attn":
+            entries[-2] = MODEL_AXIS
+        return PartitionSpec(*entries) if any(entries) else PartitionSpec()
 
     return walk(cache, None)

@@ -34,8 +34,8 @@ runs only what the card runs, so whatever it computes is counted.
   ``all_gather`` and FSDP's gathers and slice reductions append ``{"kind",
   "bytes", "group"}`` while a counter is active, under a layout with a
   process group or a group-less one of the mesh's shape (a trace of one
-  rank's step, ``traced_rank_collectives``); ``roofline.collective_bytes``
-  turns them into wire bytes.
+  rank's program, ``traced_rank``: its costs, collectives and peak from one
+  trace); ``roofline.collective_bytes`` turns them into wire bytes.
 """
 from __future__ import annotations
 
@@ -353,75 +353,143 @@ def traced_costs(fn, *args, device=None) -> dict:
     return d
 
 
-def traced_rank_collectives(model, train_cfg, batch_abs, width: int,
-                            expected_batch_size=None, device=None,
-                            stages: int = 1) -> List[dict]:
-    """The collective records (``{"kind", "bytes", "group"}``) of one
-    rank's ``TrainStep`` on a ``width``-wide ``data`` axis, traced on fake
-    tensors under a layout with no process group (its groups are
-    ``TracedGroup``s): the first rank's FSDP slices of ``model``'s params
-    (``dist.sharding.fsdp_shards``; whole leaves for an arch without
-    ``use_fsdp``), its ``1/width`` of ``batch_abs``'s rows, and every
-    gather, gradient reduction and all-gather that step makes.  ``stages``
-    above 1 adds a ``stage`` axis of that width: the rank is the first
-    stage rank, holding the blocks of its stages
-    (``dist.sharding.stage_shards``; ``model`` built whole, with the run's
-    ``pp_stages``), and its records hold the sends of its microbatches'
-    activations (the received cotangents and losses are the sends of the
-    other stage ranks), the norms²'s sum over the stage group and the
-    broadcast of the clipped sums of the leaves it runs alone.  ``device``
-    (default the model's) is the fake tensors' device.  The model, its
-    remat policy and every generator are as they were afterwards."""
-    import types
+# the model attribute and param attribute of each layout of a rank's slices,
+# in the order ``Model`` registers them (one a param)
+_RANK_LAYOUTS = (("stage", "stage_shard", "stage_shards"),
+                 ("tp", "model_shard", "model_shards"),
+                 ("fsdp", "fsdp_shard", "fsdp_shards"))
+
+
+def traced_rank(model, mesh, batch_abs, *, train_cfg=None, kind: str = "train",
+                cache_len: int = 0, expected_batch_size=None, device=None,
+                zero1: bool = True, costs: bool = True, peak: bool = True) -> dict:
+    """One trace of rank 0's program on ``mesh``, a mesh of axis names and
+    sizes with no process group (``launch/mesh.py`` ``traced_mesh``), on
+    fake tensors under its layout (``dist.runtime.layout`` inside
+    ``runtime.traced()``: every group a ``TracedGroup``, its collectives
+    recorded and not run).
+
+    The rank holds the first slice of each of ``model``'s params that the
+    mesh cuts (``dist.sharding``'s ``stage_shards``, ``model_shards`` and
+    ``fsdp_shards``; ``model`` is built whole, on any device, and its
+    refusals, ``tp_refusal`` and the like, are the caller's to check) and
+    its share of ``batch_abs``'s rows over the batch axes
+    (``sharding.batch_pspec``; every row where the batch does not divide).
+    ``kind``: ``"train"``, the Trainer's ``TrainStep`` of ``train_cfg``
+    (its ZeRO-1 over the mesh's ``data`` axis with ``zero1``); or
+    ``"prefill"`` or ``"decode"`` (``launch/memory.py`` ``serve_program``)
+    into or against a cache of ``cache_len`` positions, the rank's KV heads
+    of it.  ``device`` (default the model's) is the fake tensors' device,
+    so it picks the kernel routes.
+
+    Returns ``{"collectives": [...]}`` (``{"kind", "bytes", "group"}``)
+    and, with ``costs``, ``"costs"`` (a ``CostCounter``'s ``Costs.as_dict``
+    and ``io_bytes``) and, with ``peak``, ``"memory"`` (the
+    ``PeakEstimate`` of the rank's program and ``peak_op``): the three from
+    the same trace.  The model, its params and remat policy and every
+    generator are as they were afterwards."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from repro_torch import tree
     from repro_torch.dist import sharding
+    from repro_torch.launch import memory
     from repro_torch.train.trainer import TrainStep
     device = model.device if device is None else torch.device(device)
-    mesh = types.SimpleNamespace(axis_names=("data", sharding.STAGE_AXIS),
-                                 shape=(width, stages))
-    fsdp = sharding.fsdp_shards(mesh, model, index=0)
-    stage = sharding.stage_shards(mesh, model, index=0)
-    attr, shards = (("stage_shard", stage) if stages > 1 else
-                    ("fsdp_shard", fsdp))
+    layouts = {}
+    for attr, _, fn in _RANK_LAYOUTS:
+        cut = getattr(sharding, fn)(mesh, model, index=0)
+        layouts[attr] = cut if tree.leaves(cut) else None
+    attr, shards = next(((a, layouts[m]) for m, a, _ in _RANK_LAYOUTS
+                         if layouts[m] is not None), (None, None))
+    width = sharding.stage_axis_width(mesh)
 
     def walk(p, sh, key=None):
         """A fake param of ``p``'s type: the slice ``sh`` names, or whole
         (on a stage axis, owned by the stage rank that runs it)."""
         if isinstance(p, dict):
-            return {k: walk(v, sh[k], k if key is None else key)
+            return {k: walk(v, None if sh is None else sh[k], k if key is None else key)
                     for k, v in p.items()}
         if isinstance(p, (list, tuple)):
-            out = [walk(v, s, key) for v, s in zip(p, sh)]
+            out = [walk(v, None if sh is None else s, key)
+                   for v, s in zip(p, sh if sh is not None else [None] * len(p))]
             return tuple(out) if isinstance(p, tuple) else out
         shape = list(p.shape)
         if sh is not None:
             shape[sh.dim] = sh.part
-        t = torch.empty(shape, dtype=p.dtype, device=device).requires_grad_(True)
+        t = torch.empty(shape, dtype=p.dtype, device=device).requires_grad_(kind == "train")
         if sh is not None:
             setattr(t, attr, sh)
-        elif stages > 1:
-            t.stage_owner = sharding.stage_owner(key, stages)
+        elif width > 1:
+            t.stage_owner = sharding.stage_owner(key, width)
         return t
 
-    saved = model.fsdp, model.stage, model.remat
-    model.remat = train_cfg.remat
-    if stages > 1:
-        model.stage = stage
-    else:
-        model.fsdp = fsdp
-    step = TrainStep(model, train_cfg, expected_batch_size)
+    rows = tree.leaves(batch_abs)[0].shape[0]
+    bax = sharding.batch_pspec(mesh, rows)
+    n = 1 if bax is None else math.prod(sharding._axis_size(mesh, a) for a in bax)
+    saved = (model.fsdp, model.tp, model.stage, model.remat, model.params)
+    for a in layouts:
+        setattr(model, a, layouts[a])
+    cache_abs = (memory.abstract_cache(model, rows // n, cache_len)
+                 if kind == "decode" else None)
     try:
-        with runtime.traced(), runtime.metered() as records, FakeTensorMode():
-            state = step.init_state(walk(model.abstract_params(), shards), device)
+        with runtime.traced(), FakeTensorMode():
+            def fake(t):
+                return torch.empty(t.shape, dtype=t.dtype, device=device)
+            params = walk(model.abstract_params(), shards)
             batch = tree.tree_map(lambda t: torch.empty(
-                (t.shape[0] // width,) + tuple(t.shape[1:]), dtype=t.dtype,
+                (t.shape[0] // n,) + tuple(t.shape[1:]), dtype=t.dtype,
                 device=device), batch_abs)
-            with runtime.layout(mesh, ("data",) if width > 1 else None):
-                step(state, batch, torch.Generator())
+            if kind == "train":
+                model.remat = train_cfg.remat
+                step = TrainStep(model, train_cfg, expected_batch_size,
+                                 mesh=mesh if zero1 else None)
+                state = step.init_state(params, device)
+                fn = lambda: step(state, batch, torch.Generator())    # noqa: E731
+                resident = [state.params, state.opt_state, batch]
+            else:
+                model.params = params
+                cache = None if cache_abs is None else tree.tree_map(fake, cache_abs)
+                fn, resident = memory.serve_program(model, kind, batch, cache_len, cache)
+                resident = [params] + resident
+            counter = CostCounter() if costs else None
+            with counter or contextlib.nullcontext(), \
+                    runtime.metered() as records, runtime.layout(mesh, bax):
+                if peak:
+                    est, peak_op = memory.traced_peak_bytes(fn, resident)
+                else:
+                    fn()
     finally:
-        model.fsdp, model.stage, model.remat = saved
-    return records
+        model.fsdp, model.tp, model.stage, model.remat, model.params = saved
+    out = {"collectives": records}
+    if peak:
+        out["memory"] = dict(est.as_dict(), peak_op=str(peak_op))
+    if counter is not None:
+        io = (est.arg_bytes + est.out_bytes) if peak else _io_bytes(resident)
+        out["costs"] = dict(counter.costs.as_dict(), io_bytes=float(io),
+                            collectives=[dict(r) for r in records])
+    return out
+
+
+def traced_rank_collectives(model, train_cfg, batch_abs, width: int,
+                            expected_batch_size=None, device=None,
+                            stages: int = 1) -> List[dict]:
+    """The collective records (``{"kind", "bytes", "group"}``) of one
+    rank's ``TrainStep`` on a ``width``-wide ``data`` axis beside a
+    ``stages``-wide ``stage`` axis (``traced_rank`` on that mesh, no ZeRO-1,
+    nothing counted but the collectives): the first rank's FSDP slices of
+    ``model``'s params (whole leaves for an arch without ``use_fsdp``), its
+    ``1/width`` of ``batch_abs``'s rows, and every gather, gradient
+    reduction and all-gather that step makes.  ``stages`` above 1: the
+    first stage rank, holding the blocks of its stages (``model`` built
+    whole, with the run's ``pp_stages``), its records the sends of its
+    microbatches' activations (the received cotangents and losses are the
+    sends of the other stage ranks), the norms²'s sum over the stage group
+    and the broadcast of the clipped sums of the leaves it runs alone."""
+    from repro_torch.dist import sharding
+    from repro_torch.launch.mesh import traced_mesh
+    mesh = traced_mesh((width, stages), ("data", sharding.STAGE_AXIS))
+    return traced_rank(model, mesh, batch_abs, train_cfg=train_cfg,
+                       expected_batch_size=expected_batch_size, device=device,
+                       zero1=False, costs=False, peak=False)["collectives"]
 
 
 # ---------------------------------------------------------------------------

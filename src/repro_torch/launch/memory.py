@@ -318,6 +318,87 @@ def estimate_train_memory(model, train_cfg, batch_abs,
 
 
 # ---------------------------------------------------------------------------
+# Serving programs: the prefill and the decode step
+# ---------------------------------------------------------------------------
+
+SERVE_KINDS = ("prefill", "decode")
+
+
+def abstract_cache(model, batch_size: int, cache_len: int):
+    """Meta tensors of ``model.init_cache(batch_size, cache_len)`` (a
+    tensor-parallel model's: its KV heads), nothing allocated."""
+    device = model.device
+    model.device = torch.device("meta")
+    try:
+        return model.init_cache(batch_size, cache_len)
+    finally:
+        model.device = device
+
+
+def serve_program(model, kind: str, batch, cache_len: int, cache=None):
+    """``(fn, resident inputs)`` of a serving program of ``model`` on the
+    tensors ``batch`` (``{"tokens": (B, T)}``, or ``{"embeds": (B, T,
+    d)}`` for an embedding-input arch): ``"prefill"``, the prompt's forward
+    into a cache of ``cache_len`` positions (``model.prefill``), or
+    ``"decode"``, one token against the cache ``cache`` of ``cache_len``
+    positions (``abstract_cache``'s shapes, on the batch's device), written
+    at its last position (``model.decode_step``).  The counterparts of the
+    reference dry-run's jitted ``prefill`` and ``decode_step``."""
+    if kind not in SERVE_KINDS:
+        raise ValueError(f"serving program {kind!r}: one of {SERVE_KINDS}")
+    inputs = batch["embeds"] if "embeds" in batch else batch["tokens"]
+    if kind == "prefill":
+        return (lambda: model.prefill(inputs, cache_len)), [batch]
+    B = inputs.shape[0]
+    pos = torch.full((B,), cache_len - 1, dtype=torch.long, device=inputs.device)
+    return (lambda: model.decode_step(cache, inputs, pos)), [batch, cache, pos]
+
+
+def estimate_serve_memory(model, kind: str, batch_abs, cache_len: int,
+                          device=None, costs: bool = False) -> dict:
+    """The ``PeakEstimate`` of one serving program (``serve_program``) of
+    the whole model on ``batch_abs``'s meta tensors, traced on fake tensors
+    as ``estimate_train_memory`` traces a step (whole params; no
+    collective), with ``params_bytes``, ``batch_bytes``, ``cache_bytes``
+    (decode: the cache it reads; prefill: none resident) and the op at
+    the peak; with ``costs``, the same trace's ``CostCounter`` record under
+    ``"costs"``.  The model and its params are as they were afterwards."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.dist import runtime
+    device = model.device if device is None else torch.device(device)
+    B = tree.leaves(batch_abs)[0].shape[0]
+    cache_abs = abstract_cache(model, B, cache_len) if kind == "decode" else None
+    whole = (model.params if getattr(model, "fsdp", None) is None
+             else model.abstract_params())
+    saved = model.params
+    try:
+        with runtime.suspended(), FakeTensorMode():
+            def fake(t):
+                return torch.empty(t.shape, dtype=t.dtype, device=device)
+            model.params = params = tree.tree_map(fake, whole)
+            batch = tree.tree_map(fake, batch_abs)
+            cache = None if cache_abs is None else tree.tree_map(fake, cache_abs)
+            fn, resident = serve_program(model, kind, batch, cache_len, cache)
+            counter = None
+            if costs:
+                from repro_torch.launch.costs import CostCounter
+                counter = CostCounter()
+            with counter or contextlib.nullcontext():
+                est, peak_op = traced_peak_bytes(fn, [params] + resident)
+            sizes = dict(params_bytes=_tree_bytes(params), batch_bytes=_tree_bytes(batch),
+                         cache_bytes=_tree_bytes(cache))
+    finally:
+        model.params = saved
+    out = est.as_dict()
+    out.update(sizes, kind=kind, batch_size=int(B), cache_len=int(cache_len),
+               peak_op=str(peak_op))
+    if counter is not None:
+        out["costs"] = dict(counter.costs.as_dict(),
+                            io_bytes=float(est.arg_bytes + est.out_bytes))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Budget-driven auto-microbatching (MemConfig)
 # ---------------------------------------------------------------------------
 

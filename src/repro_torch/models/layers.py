@@ -313,9 +313,10 @@ def attn_apply(p, x, ctx: DPContext, cfg, pos):
 
 def _decode_attend(q, gk, gv, pos, p, cfg):
     """One query per row against a (B, S, KV, hd) cache, keys at
-    positions <= pos.  Scores and softmax in float32."""
+    positions <= pos, on the heads ``p`` holds (``_heads``).  Scores and
+    softmax in float32."""
     B = q.shape[0]
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    (H, KV), hd = _heads(p, cfg), cfg.hd
     S = gk.shape[1]
     qg = q.reshape(B, KV, H // KV, hd)
     s = torch.einsum("bkrh,bskh->bkrs", qg.float(), gk.float()) / math.sqrt(hd)
@@ -329,14 +330,23 @@ def _decode_attend(q, gk, gv, pos, p, cfg):
 def attn_decode(p, x, cache_kv, pos, cfg):
     """Single-token decode. x: (B,1,d); cache_kv: (k, v) each (B,S,KV,hd);
     pos: (B,) write positions.  Writes the new k/v into the cache IN PLACE
-    (the JAX version returns updated copies) and returns (y, cache_kv)."""
+    (the JAX version returns updated copies) and returns (y, cache_kv).
+
+    Tensor parallel as ``attn_apply``: ``x`` through ``runtime.to_model``,
+    the column slices of ``wq``, ``wk``, ``wv`` give the rank's heads, whose
+    (k, v) alone its cache holds (KV = the rank's KV heads), attention on
+    them (``runtime.attn_local``), and the row slice of ``wo``'s partial
+    sum made whole by ``runtime.from_model``."""
     B = x.shape[0]
+    x = runtime.to_model(x)
     q, k, v, _ = _qkv(p, x, pos[:, None], cfg, DPContext.off())
     ck, cv = cache_kv
     b = torch.arange(B, device=x.device)
     ck[b, pos] = k[:, 0].to(ck.dtype)
     cv[b, pos] = v[:, 0].to(cv.dtype)
-    return _decode_attend(q, ck, cv, pos, p, cfg), (ck, cv)
+    y = runtime.attn_local(lambda q, ck, cv: _decode_attend(q, ck, cv, pos, p, cfg),
+                           cfg.n_kv_heads)(q, ck, cv)
+    return runtime.from_model(y), (ck, cv)
 
 
 def put_rows(pool, pb, off, val):
@@ -369,6 +379,10 @@ def attn_decode_paged(p, x, cache_kv, tables, pos, cfg):
     contiguous path.  Returns (y, cache_kv)."""
     B = x.shape[0]
     KV, hd = cfg.n_kv_heads, cfg.hd
+    if _heads(p, cfg) != (cfg.n_heads, KV):
+        raise NotImplementedError(
+            f"{cfg.name}: the paged decode of tensor-parallel model slices is "
+            f"not ported (ROADMAP queue 1)")
     ck, cv = cache_kv
     nb_pool, bs = ck.shape[0], ck.shape[1]
     q, k, v, _ = _qkv(p, x, pos[:, None], cfg, DPContext.off())

@@ -32,7 +32,9 @@ of its ``data`` coordinate.  Attention and the FFN are Megatron's column
 and row pairs (models/layers.py); the embedding is vocabulary-parallel
 (an id outside the rank's rows gives a zero row, then a sum over the
 group); the head gives the rank's columns of the logits, and the
-cross-entropy is vocabulary-parallel (``vocab_parallel_xent``).  Each norm
+cross-entropy is vocabulary-parallel (``vocab_parallel_xent``); prefill
+and the contiguous decode run on the same slices, each rank's cache
+holding its KV heads and the logits gathered whole.  Each norm
 site on a slice yields that slice's partial norm², and the norm scales'
 taps count once over the group (core/context.py), so the sum over the
 ``model`` group (core/algo.py ``norm_pass``) is the exact norm².
@@ -170,6 +172,38 @@ def tp_refusal(arch: ArchConfig, width: int, pp_stages: int = 1) -> str:
         return ""
     return (f"{arch.name} on a {width}-wide 'model' axis (tensor "
             f"parallelism): {'; '.join(why)} not ported (ROADMAP queue 1)")
+
+
+def serving_refusal(arch: ArchConfig, what: str, sliced: str) -> str:
+    """The refusal, naming ROADMAP, of ``what`` (the prefill, the decode,
+    the engines, the host loop) on params ``sliced`` over one mesh axis:
+    ``"stage"`` (pipeline stage slices), ``"fsdp"`` (FSDP-sharded params)
+    or ``"model"`` (tensor-parallel model slices, on which only prefill and
+    the contiguous decode run)."""
+    if sliced == "stage":
+        return (f"{arch.name}: {what} of pipeline stage slices is not ported "
+                f"(the reference serves with no mesh; ROADMAP queue 1 item 9)")
+    if sliced == "fsdp":
+        return (f"{arch.name}: {what} of FSDP-sharded params is not ported "
+                f"(ROADMAP queue 1 item 7)")
+    return (f"{arch.name}: {what} of tensor-parallel model slices is not "
+            f"ported (prefill and the contiguous decode run on them; ROADMAP "
+            f"queue 1 item 8)")
+
+
+def serve_mesh_refusal(arch: ArchConfig, sizes: dict, fsdp: bool = True) -> str:
+    """Why the port cannot prefill or decode ``arch`` on a mesh of these
+    axis sizes (``{"model": 16, "data": 16}``; an absent axis is 1), naming
+    ROADMAP; "" when it can.  ``fsdp``: a ``use_fsdp`` arch's params are
+    sharded over a ``data`` axis above 1 (the reference's ``serve_fsdp``)."""
+    if sizes.get(dist_sharding.STAGE_AXIS, 1) > 1:
+        return serving_refusal(arch, "serving", "stage")
+    width = sizes.get(dist_sharding.MODEL_AXIS, 1)
+    if width > 1:
+        return tp_refusal(arch, width)
+    if fsdp and arch.use_fsdp and sizes.get("data", 1) > 1:
+        return serving_refusal(arch, "serving", "fsdp")
+    return ""
 
 
 def stage_refusal(arch: ArchConfig, width: int, pp_stages: int = 1,
@@ -576,22 +610,28 @@ class Model(ParamModel):
         """Prelude layer i's params, gathered whole under FSDP."""
         return gathered(params["prelude"][i], self._shards("prelude", str(i)))
 
-    def _whole_params(self, what: str):
-        """Raise, naming ROADMAP, for ``what`` (serving) on sliced params."""
-        if self.stage is not None:
-            raise NotImplementedError(
-                f"{self.arch.name}: {what} of pipeline stage slices is not "
-                f"ported (the reference serves with no mesh; ROADMAP queue 1)")
-        if self.fsdp is not None:
-            raise NotImplementedError(
-                f"{self.arch.name}: {what} of FSDP-sharded params is not "
-                f"ported (the reference serves use_fsdp archs sharded only "
-                f"in launch/dryrun.py; ROADMAP queue 1)")
-        if self.tp is not None:
-            raise NotImplementedError(
-                f"{self.arch.name}: {what} of tensor-parallel model slices is "
-                f"not ported (the reference serves with no mesh; ROADMAP "
-                f"queue 1)")
+    def _whole_params(self, what: str, model_slices: bool = False):
+        """Raise, naming ROADMAP, for ``what`` (serving) on sliced params;
+        ``model_slices``: ``what`` runs on tensor-parallel model slices
+        (prefill and the contiguous decode)."""
+        for sliced, layout in (("stage", self.stage), ("fsdp", self.fsdp),
+                               ("model", None if model_slices else self.tp)):
+            if layout is not None:
+                raise NotImplementedError(serving_refusal(self.arch, what, sliced))
+
+    def _check_layout(self):
+        """Raise unless the active layout's ``model`` and ``stage`` axes are
+        those the params are sliced for (a trace of the whole program, under
+        ``runtime.suspended``, takes any)."""
+        for axis, (width, built) in (
+                ("model", (runtime.model_shard()[1], self.tp_width())),
+                ("stage", (runtime.stage_shard()[1], self.stage_width()))):
+            if width != built and not runtime.is_suspended():
+                raise RuntimeError(
+                    f"{self.arch.name}: params sliced for a {built}-wide "
+                    f"{axis} axis under a layout of a {width}-wide one; a model "
+                    f"runs inside dist.runtime.layout over the mesh it was "
+                    f"built on (Model(mesh=...))")
 
     def _vocab_lo(self, leaf: str) -> Optional[int]:
         """The first vocabulary row (``embed``) or logits column (``head``)
@@ -641,15 +681,7 @@ class Model(ParamModel):
         this model's layout (``self.params``, or the same tree detached);
         batch: ``{"tokens": (B, T+1) int}``, or for an embedding-input arch
         ``{"embeds": (B, T, d) float, "labels": (B, T) int}``."""
-        for axis, (width, built) in (
-                ("model", (runtime.model_shard()[1], self.tp_width())),
-                ("stage", (runtime.stage_shard()[1], self.stage_width()))):
-            if width != built and not runtime.is_suspended():
-                raise RuntimeError(
-                    f"{self.arch.name}: params sliced for a {built}-wide "
-                    f"{axis} axis under a layout of a {width}-wide one; a model "
-                    f"runs inside dist.runtime.layout over the mesh it was "
-                    f"built on (Model(mesh=...))")
+        self._check_layout()
         if self.arch.embed_stub:
             inputs, labels = batch["embeds"], batch["labels"]
         else:
@@ -829,11 +861,12 @@ class Model(ParamModel):
                                  for j in range(period)) if reps > 0 else None)}
 
     def init_cache(self, B: int, S: int):
-        """Contiguous cache: (k, v) of (B, S, KV, hd) per attention layer;
-        (conv window (B, K-1, C) in the compute type, SSM state (B, H, P,
-        N) float32) per Mamba layer."""
+        """Contiguous cache: (k, v) of (B, S, KV, hd) per attention layer,
+        KV this rank's KV heads on tensor-parallel model slices
+        (``dist.sharding.cache_shardings``); (conv window (B, K-1, C) in the
+        compute type, SSM state (B, H, P, N) float32) per Mamba layer."""
         arch = self.arch
-        kv = (B, S, arch.n_kv_heads, arch.hd)
+        kv = (B, S, arch.n_kv_heads // self.tp_width(), arch.hd)
 
         def leaves(kind):
             if kind == ATTN:
@@ -874,9 +907,11 @@ class Model(ParamModel):
         prompts; logits are then taken at ``lengths - 1`` (exact for
         attention: padded positions are causally masked; a Mamba state
         absorbs pad tokens, so SSM and hybrid callers pass equal-length
-        prompts)."""
-        if self.tp is not None or self.stage is not None:
-            self._whole_params("prefill")
+        prompts).  On tensor-parallel model slices, inside their layout:
+        attention on the rank's heads (its cache holds their (k, v)), the
+        FFN on its columns, and the logits gathered whole."""
+        self._whole_params("prefill", model_slices=True)
+        self._check_layout()
 
         def pad(a):     # (B, T, KV, hd) -> (B, cache_len, KV, hd)
             if cache_len == T:
@@ -904,27 +939,39 @@ class Model(ParamModel):
         else:
             idx = (lengths.long() - 1).to(x.device)
             x_last = x[torch.arange(B, device=x.device), idx][:, None]
-        logits, _ = self._head(self.params, x_last, off)
+        logits = self._whole_logits(self._head(self.params, x_last, off)[0])
         cache = {"prelude": pre_c,
                  "blocks": (tuple(tuple(torch.stack(leaf) for leaf in zip(*blk_c[j]))
                                   for j in sorted(blk_c))
                             if blk_c else None)}
         return logits, cache
 
+    def _whole_logits(self, logits):
+        """The head's logits whole: a tensor-parallel rank's columns
+        gathered over the ``model`` group (``runtime.all_gather``, metered),
+        so the caller sees (B, T, Vpad) as from whole params."""
+        if self._vocab_lo("head") is None:
+            return logits
+        return runtime.all_gather(logits, runtime.model_group(), dim=-1)
+
     def _decode(self, cache, tokens, pos, tables):
-        self._whole_params("decode")
+        self._whole_params("decode" if tables is None else "the paged decode",
+                           model_slices=tables is None)
+        self._check_layout()
         off = DPContext.off()
         x, _ = self._embed_in(self.params, tokens, off)
         for p, addr in self._layers():
             x, _ = self._layer_decode(p, x, self._layer_cache(cache, addr),
                                       pos, tables)
-        return self._head(self.params, x, off)[0], cache
+        return self._whole_logits(self._head(self.params, x, off)[0]), cache
 
     @torch.no_grad()
     def decode_step(self, cache, tokens, pos):
         """One-token decode. tokens: (B, 1), or for an embedding-input arch
         (B, 1, d) embeddings; pos: (B,) write positions.  Writes the cache
-        in place; returns (logits (B,1,Vpad), cache)."""
+        in place; returns (logits (B,1,Vpad), cache).  On tensor-parallel
+        model slices (inside their layout) the cache holds the rank's KV
+        heads (``init_cache``) and the logits are whole, as ``prefill``'s."""
         return self._decode(cache, tokens, pos, None)
 
     @torch.no_grad()

@@ -1030,3 +1030,34 @@ def test_stage_moved_is_a_traced_stage_rank(smoke):
     first, last = smoke.stage_moved(arch, 8, 16, element=4)
     assert dict(traced) == first
     assert last == dict(first, send=first["send"] + 2 * 4 * 8)
+
+
+def test_phase20_cells_and_commands(smoke):
+    """Phase 20: the dry-run's cells (phi3-mini's three shapes on the
+    single mesh, train_4k on the multi one; chatglm3-6b refused), the
+    serving cut and its ranks' command (two ranks under
+    ``torch.distributed.run`` running this script's rank body); a model
+    rank's prefill shape is 16 of phi3-mini's 32 heads of hd 96."""
+    assert smoke.DRYRUN_CELLS == (("train_4k", "single"), ("prefill_32k", "single"),
+                                  ("decode_32k", "single"), ("train_4k", "multi"))
+    assert smoke.DRYRUN_REFUSED == ("chatglm3-6b", "train_4k", "single")
+    assert (smoke.SERVE_TP_LAYERS, smoke.SERVE_TP_B, smoke.SERVE_TP_T, smoke.SERVE_TP_S,
+            smoke.SERVE_TP_STEPS) == (8, 4, 512, 1024, 32)
+    assert smoke.SERVE_TP_COMPUTE == ("bfloat16", "float32")
+    cmd = smoke.serve_tp_cmd("/x")
+    assert cmd[1:6] == ["-m", "torch.distributed.run", "--standalone",
+                        "--nproc_per_node", "2"]
+    assert cmd[-3].endswith("chip_smoke.py") and cmd[-2:] == ["--serve-tp-rank", "/x"]
+    assert smoke._first_divergence([[1, 2], [3, 4], [5, 6]],
+                                   [[1, 2], [3, 9], [7, 6]]) == [2, 1]
+    assert smoke.dryrun_cmd("/x", 1)[1:] == [str(smoke.ROOT / "chip_smoke.py"),
+                                             "--dryrun-cells", "/x", "1"]
+    # every cell in one group; each train cell in a group of its own
+    assert sorted(i for g in smoke.DRYRUN_GROUPS for i in g) == [0, 1, 2, 3]
+    assert (0,) in smoke.DRYRUN_GROUPS and (3,) in smoke.DRYRUN_GROUPS
+    arch, shapes = smoke.serve_tp_cells()
+    assert arch.n_layers == smoke.SERVE_TP_LAYERS and arch.d_model == 3072
+    assert [(s.kind, s.seq_len, s.global_batch) for s in shapes.values()] == [
+        ("prefill", 512, 4), ("decode", 1024, 4)]
+    arch = get_arch("phi3-mini-3.8b")
+    assert (arch.n_heads // 2, arch.n_kv_heads // 2, arch.hd) == (16, 16, 96)

@@ -257,18 +257,27 @@ def test_pass1_norms_match_jax(phi3, strategy, use_kernels):
     assert all(p.grad is None for p in tm.parameters())    # pass 1 forms none
 
 
+@pytest.fixture(scope="module")
+def sigma0_jax(phi3):
+    """The clip norm (the median per-example norm) and JAX's σ = 0
+    ``dpsgd_r`` update with the fused route at it: one compile, which every
+    ``grad_accum`` of the port is held to."""
+    jm, params, toks, nsq, _ = phi3
+    C = float(np.sqrt(np.median(nsq)))
+    jdp = JDPConfig(algo="dpsgd_r", norm_strategy="fused", noise_multiplier=0.0,
+                    clip_norm=C)
+    return C, jax.jit(j_make_noisy_grad_fn(jm.loss_fn, jdp))(
+        params, {"tokens": jnp.asarray(toks)}, jax.random.PRNGKey(0))
+
+
 @pytest.mark.parametrize("grad_accum", [1, 3])
-def test_sigma0_update_matches_jax_dpsgd_r(phi3, grad_accum):
+def test_sigma0_update_matches_jax_dpsgd_r(phi3, sigma0_jax, grad_accum):
     """make_noisy_grad_fn at σ = 0, fused + use_kernels (the plain versions
     on the CPU), against JAX's dpsgd_r with the fused route; the clip
     norm sits among the per-example norms so some examples are clipped."""
     jm, params, toks, nsq, _ = phi3
     tm = _port_model(params)
-    C = float(np.sqrt(np.median(nsq)))
-    jdp = JDPConfig(algo="dpsgd_r", norm_strategy="fused", noise_multiplier=0.0,
-                    clip_norm=C)
-    jgrads, jmet = jax.jit(j_make_noisy_grad_fn(jm.loss_fn, jdp))(
-        params, {"tokens": jnp.asarray(toks)}, jax.random.PRNGKey(0))
+    C, (jgrads, jmet) = sigma0_jax
     dp = DPConfig(algo="dpsgd_r", norm_strategy="fused", use_kernels=True,
                   noise_multiplier=0.0, clip_norm=C)
     fn = talgo.make_noisy_grad_fn(tm.loss_fn, dp, grad_accum=grad_accum)

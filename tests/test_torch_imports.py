@@ -22,7 +22,8 @@ for n in ("repro_torch.launch.memory", "repro_torch.serve.host_loop",
           "repro_torch.dist", "repro_torch.dist.sharding",
           "repro_torch.dist.runtime", "repro_torch.dist.compress",
           "repro_torch.launch.mesh", "repro_torch.launch.roofline",
-          "repro_torch.launch.costs", "repro_torch.launch.autotune"):
+          "repro_torch.launch.costs", "repro_torch.launch.autotune",
+          "repro_torch.launch.dryrun"):
     assert n in names, n
 # the tensor-parallel pieces (the model axis's operators, its layout, the
 # vocabulary-parallel loss and the refusals) come with the modules above
@@ -33,6 +34,12 @@ from repro_torch.models.transformer import tp_refusal, vocab_parallel_xent
 from repro_torch.dist.runtime import StagePipe, broadcast_, stage_group, stage_shard
 from repro_torch.dist.sharding import stage_shards
 from repro_torch.models.transformer import stage_refusal
+# and the dry-run's: a traced mesh, one rank's trace, the serving programs
+from repro_torch.launch.dryrun import all_cells, main, run_cell
+from repro_torch.launch.costs import traced_rank
+from repro_torch.launch.memory import estimate_serve_memory, serve_program
+from repro_torch.launch.mesh import PRODUCTION, traced_mesh
+from repro_torch.models.transformer import serve_mesh_refusal
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.") or n == "repro" or n.startswith("repro."))
 assert not bad, bad

@@ -140,35 +140,50 @@ def test_pp_stages_validation():
                            device="cpu").pp_stages == 2
 
 
-@pytest.mark.parametrize("name", ["stablelm-3b", "deepseek-moe-16b",
-                                  "jamba-1.5-large-398b"])
-def test_pipelined_losses_and_norms_match_jax(name):
-    """S 2, M 2 and 4: per-example losses and the fused route's norms² of
-    the port's pipelined forward against the JAX pipelined forward."""
-    jarch, tarch = _archs(name)
-    jseq = j_build_model_for(jarch, param_dtype="float32", compute_dtype="float32")
-    params = jseq.init(jax.random.PRNGKey(0))
-    toks = np.random.default_rng(1).integers(0, jarch.vocab, (B, T + 1)).astype(np.int32)
-    tp = interop.params_from_numpy(jax.tree.map(np.asarray, params), "cpu")
-    # both references compile in the background (XLA compiles without the
-    # GIL) while the port runs
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+PIPELINED = ("stablelm-3b", "deepseek-moe-16b", "jamba-1.5-large-398b")
+
+
+@pytest.fixture(scope="module")
+def pipelined_refs():
+    """For each of ``PIPELINED``: its JAX-initialised params, tokens, and
+    the reference's pipelined losses and norms² at M 2 and 4, all six
+    compiles started at once on a thread pool (XLA compiles without the
+    GIL) and awaited by the test that reads them."""
+    pool = concurrent.futures.ThreadPoolExecutor(2 * len(PIPELINED))
+    out = {}
+    for name in PIPELINED:
+        jarch, _ = _archs(name)
+        jseq = j_build_model_for(jarch, param_dtype="float32", compute_dtype="float32")
+        params = jseq.init(jax.random.PRNGKey(0))
+        toks = np.random.default_rng(1).integers(0, jarch.vocab, (B, T + 1)).astype(np.int32)
         refs = {mb: pool.submit(_jax_losses_and_norms(j_build_model_for(
             jarch, param_dtype="float32", compute_dtype="float32", remat="none",
             pp_stages=2, pp_microbatches=mb)), params, {"tokens": jnp.asarray(toks)})
             for mb in (2, 4)}
-        for mb, ref in refs.items():
-            tm = Model(tarch, tp, dtype=torch.float32, device="cpu", pp_stages=2,
-                       pp_microbatches=mb)
-            got, _ = tm.loss_fn(tm.params, {"tokens": torch.from_numpy(toks)},
-                                DPContext.off())
-            nsq, losses = algo.norm_pass(tm.loss_fn, tm.params,
-                                         {"tokens": torch.from_numpy(toks)},
-                                         DPConfig(norm_strategy="fused"))
-            want, want_nsq = ref.result()
-            np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **PINS)
-            np.testing.assert_allclose(losses.numpy(), np.asarray(want), **PINS)
-            np.testing.assert_allclose(nsq.numpy(), np.asarray(want_nsq), **PINS)
+        out[name] = (params, toks, refs)
+    yield out
+    pool.shutdown(wait=True)
+
+
+@pytest.mark.parametrize("name", PIPELINED)
+def test_pipelined_losses_and_norms_match_jax(name, pipelined_refs):
+    """S 2, M 2 and 4: per-example losses and the fused route's norms² of
+    the port's pipelined forward against the JAX pipelined forward."""
+    _, tarch = _archs(name)
+    params, toks, refs = pipelined_refs[name]
+    tp = interop.params_from_numpy(jax.tree.map(np.asarray, params), "cpu")
+    for mb, ref in refs.items():
+        tm = Model(tarch, tp, dtype=torch.float32, device="cpu", pp_stages=2,
+                   pp_microbatches=mb)
+        got, _ = tm.loss_fn(tm.params, {"tokens": torch.from_numpy(toks)},
+                            DPContext.off())
+        nsq, losses = algo.norm_pass(tm.loss_fn, tm.params,
+                                     {"tokens": torch.from_numpy(toks)},
+                                     DPConfig(norm_strategy="fused"))
+        want, want_nsq = ref.result()
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **PINS)
+        np.testing.assert_allclose(losses.numpy(), np.asarray(want), **PINS)
+        np.testing.assert_allclose(nsq.numpy(), np.asarray(want_nsq), **PINS)
 
 
 def _models(**kw):

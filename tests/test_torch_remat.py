@@ -113,7 +113,9 @@ def test_policies_agree(weights, masked):
 @pytest.mark.parametrize("remat", POLICIES)
 def test_policy_matches_jax(weights, remat):
     """Each policy against the JAX package's dpsgd_r under the same policy,
-    unmasked and on the masked batch: update and metrics."""
+    unmasked and on the masked batch: update and metrics.  The reference
+    takes the unmasked batch with a mask of ones (the same update and
+    metrics), so both batches share one compile."""
     params, toks, mtoks, C = weights
     jm = build_model(jreduced(JARCHS[ARCH]), param_dtype="float32",
                      compute_dtype="float32", remat=remat)
@@ -125,9 +127,8 @@ def test_policy_matches_jax(weights, remat):
     jparams = jax.tree.map(jnp.asarray, params)
     for masked in (False, True):
         t = mtoks if masked else toks
-        jbatch = {"tokens": jnp.asarray(t)}
-        if masked:
-            jbatch["mask"] = jnp.asarray(MASK)
+        jbatch = {"tokens": jnp.asarray(t),
+                  "mask": jnp.asarray(MASK if masked else np.ones_like(MASK))}
         jgrads, jmet = jfn(jparams, jbatch, jax.random.PRNGKey(0))
         grads, met = _update(tm, _batch(t, masked), C)
         for g, w in zip(grads, jax.tree.leaves(jgrads)):

@@ -24,7 +24,13 @@ ranks of one ``data`` coordinate take the same examples:
   σ > 0 a model slice's noise alike on the data ranks and not on the model
   ranks, with std σC/denom; the 4-rank checkpoint restored whole by the
   port and by ``repro.train.checkpoint``, and a world of one's restored
-  into the slices.
+  into the slices;
+* prefill and ``SERVE_STEPS`` greedy decode steps on the slices against
+  the reference's single-device ``prefill`` and ``decode_step``: the whole
+  logits at the pins, the tokens equal, each rank's cache its KV heads;
+* the collectives a rank meters for one train step, the prefill and one
+  decode step against the dry-run's traced cell of that configuration
+  (``launch/dryrun.py``).
 
 ``test_tensor_parallel_refusal``'s cases: what the port does not run on a
 ``model`` axis raises ``NotImplementedError`` naming ROADMAP.
@@ -75,6 +81,9 @@ ROUTES = ("fused", "materialize", "gram", "auto")
 METRICS = ("loss", "grad_norm_mean", "grad_norm_max", "clipped_frac")
 MESHES = {"1x2": (1, 2), "2x2": (2, 2)}
 SIGMA = 1.0
+# serving on the slices: prompts of SERVE_T tokens into a cache of SERVE_S,
+# then SERVE_STEPS greedy decode steps
+SERVE_B, SERVE_T, SERVE_S, SERVE_STEPS = 4, 8, 12, 4
 
 
 def _tarch():
@@ -244,6 +253,41 @@ CHILD = textwrap.dedent('''
                 for i, p1 in enumerate(tree.leaves(state1.params)):
                     res[f"w1/p{i}"] = p1.detach().numpy()
 
+        # prefill and the contiguous decode on the slices: a data
+        # coordinate's ranks take its rows; logits whole, greedy over the
+        # vocabulary; the collectives of the prefill and the first decode
+        # step metered
+        from repro_torch.launch import dryrun
+        from repro_torch.launch.mesh import traced_mesh
+        from repro_torch.train.trainer import TrainStep
+        sm, V, S = build(), int(inp["vocab"]), int(inp["cache_len"])
+        prompts = local({"p": inp["ptoks"]})["p"]
+        with runtime.metered() as rec:
+            logits, cache = sm.prefill(prompts, S)
+        mine["prefill_records"] = dryrun.collective_summary(rec)
+        steps, toks = [logits], [logits[:, -1, :V].argmax(-1)]
+        for i in range(int(inp["steps"])):
+            pos = torch.full((len(prompts),), prompts.shape[1] + i)
+            with runtime.metered() as rec:
+                logits, cache = sm.decode_step(cache, toks[-1][:, None], pos)
+            if i == 0:
+                mine["decode_records"] = dryrun.collective_summary(rec)
+            steps.append(logits)
+            toks.append(logits[:, -1, :V].argmax(-1))
+        res["serve/logits"] = runtime.all_gather(torch.stack(steps), group, 1).numpy()
+        res["serve/tokens"] = runtime.all_gather(torch.stack(toks), group, 1).numpy()
+        mine["cache_shapes"] = [tuple(t.shape) for t in tree.leaves(cache)]
+        # one train step of the dry-run's train cell, metered
+        tm = build(remat="block")
+        tshape = ShapeConfig("t", inp["toks"].shape[1] - 1, len(inp["toks"]), "train")
+        cfg = dryrun.train_config(tm.arch, tshape, traced_mesh(shape, ("data", "model")),
+                                  dtype="float32")
+        step = TrainStep(tm, cfg, mesh=mesh)
+        st = step.init_state(tm.params, "cpu")
+        with runtime.metered() as rec:
+            step(st, local(batch), torch.Generator().manual_seed(0))
+        mine["train_records"] = dryrun.collective_summary(rec)
+
     # seeded init: the slices of the whole init, row blocks too
     exact = True
     for draw in (transformer.DRAW_ELEMS, 100):
@@ -300,7 +344,9 @@ def worlds(tmp_path_factory):
     batch = {"tokens": toks}
     nsq, losses = _jax_norms(jm, params, batch)
     C = float(np.sqrt(np.median(nsq)))
-    inp = dict(toks=toks, C=C, sigma=SIGMA, vocab=VOCAB)
+    ptoks = rng.integers(0, VOCAB, (SERVE_B, SERVE_T)).astype(np.int32)
+    inp = dict(toks=toks, C=C, sigma=SIGMA, vocab=VOCAB, ptoks=ptoks,
+               cache_len=SERVE_S, steps=SERVE_STEPS)
     for i, p in enumerate(jax.tree.leaves(params)):
         inp[f"p{i}"] = np.asarray(p)
     # musicgen-medium reduced: embeddings in, no embedding table
@@ -331,6 +377,8 @@ def worlds(tmp_path_factory):
                 batch) for name in ALGOS}
             jobs["mg"] = pool.submit(_jax_grads, mg, mg_params, JDPConfig(
                 clip_norm=inp["mgC"], noise_multiplier=0.0), mg_batch)
+            jobs["serve"] = pool.submit(_jax_serve, jm, params, ptoks)
+            cells = _dryrun_cells(out)
             want = {k: job.result() for k, job in jobs.items()}
         logs = {k: p.communicate(timeout=150)[0] for k, p in procs.items()}
     finally:
@@ -341,7 +389,41 @@ def worlds(tmp_path_factory):
     res = {k: dict(np.load(out / k / "results.npz", allow_pickle=True))
            for k in MESHES}
     return dict(res=res, want=want, nsq=nsq, losses=losses, out=out,
-                params=params, C=C)
+                params=params, C=C, cells=cells)
+
+
+def _jax_serve(jm, params, ptoks):
+    """The reference's single-device prefill and ``SERVE_STEPS`` greedy
+    ``decode_step``s: the logits of each (steps + 1, B, 1, Vpad) and the
+    greedy tokens (steps + 1, B)."""
+    logits, cache = jax.jit(jm.prefill, static_argnums=2)(
+        params, {"tokens": jnp.asarray(ptoks)}, SERVE_S)
+    decode = jax.jit(jm.decode_step)
+    steps, toks = [logits], [jnp.argmax(logits[:, -1, :VOCAB], -1)]
+    for i in range(SERVE_STEPS):
+        pos = jnp.full((SERVE_B,), SERVE_T + i, jnp.int32)
+        logits, cache = decode(params, cache, {"tokens": toks[-1][:, None]}, pos)
+        steps.append(logits)
+        toks.append(jnp.argmax(logits[:, -1, :VOCAB], -1))
+    return np.asarray(jnp.stack(steps)), np.asarray(jnp.stack(toks))
+
+
+def _dryrun_cells(out):
+    """The dry-run's train, prefill and decode cells of the worlds'
+    configurations on traced meshes of their shapes (float32, the CPU)."""
+    from repro_torch.launch import dryrun
+    shapes = {"train": ShapeConfig("t", T, B, "train"),
+              "prefill": ShapeConfig("p", SERVE_T, SERVE_B, "prefill"),
+              "decode": ShapeConfig("d", SERVE_S, SERVE_B, "decode")}
+    cells = {}
+    for mesh, shape in MESHES.items():
+        for kind, sh in shapes.items():
+            rec = dryrun.run_cell(_tarch(), sh, mesh, str(out / "dryrun"),
+                                  mesh_shape=",".join(map(str, shape)),
+                                  mesh_axes="data,model", device="cpu", dtype="float32")
+            assert rec["ok"], rec
+            cells[mesh, kind] = rec
+    return cells
 
 
 def _check_norms(mesh, route):
@@ -530,6 +612,42 @@ def _check_fingerprint(worlds):
     assert int(worlds["res"]["1x2"]["fp"]) == int(worlds["res"]["2x2"]["fp"])
 
 
+def _check_serve(mesh):
+    """Prefill and ``SERVE_STEPS`` greedy decode steps on the slices
+    against the reference's single-device run: the whole logits of every
+    step at the pins, the greedy tokens equal, and each rank's cache
+    holding its KV heads alone."""
+    def check(worlds):
+        res = worlds["res"][mesh]
+        logits, toks = worlds["want"]["serve"]
+        np.testing.assert_allclose(res["serve/logits"], logits, **PINS)
+        np.testing.assert_array_equal(res["serve/tokens"], toks)
+        width = MESHES[mesh][1]
+        kv = _tarch().n_kv_heads
+        for r in range(MESHES[mesh][0] * width):
+            shapes = res[f"rank{r}/cache_shapes"]
+            assert len(shapes) == 2 and all(
+                tuple(s)[-2:] == (kv // width, _tarch().hd) for s in shapes), shapes
+    return check
+
+
+def _check_dryrun_records(mesh):
+    """The collectives every rank meters for one train step (the dry-run's
+    train config), the prefill and one decode step equal the records of
+    rank 0's traced program in the dry-run cell of that configuration."""
+    def check(worlds):
+        res = worlds["res"][mesh]
+        def norm(records):
+            return [(str(k), int(b), int(g), int(n)) for k, b, g, n in records]
+        for kind in ("train", "prefill", "decode"):
+            want = norm(worlds["cells"][mesh, kind]["collective_records"])
+            assert want, kind
+            for r in range(MESHES[mesh][0] * MESHES[mesh][1]):
+                got = norm(res[f"rank{r}/{kind}_records"])
+                assert got == want, (kind, r, got, want)
+    return check
+
+
 CHECKS = {
     **{f"{mesh}-norms-{route}": _check_norms(mesh, route)
        for mesh in MESHES for route in ROUTES},
@@ -545,6 +663,8 @@ CHECKS = {
     "2x2-ckpt-whole-to-slices": _check_ckpt_into_slices,
     "fingerprint-rule": _check_fingerprint,
     "1x2-grads-embed-inputs": _check_embed_inputs,
+    **{f"{mesh}-serve-prefill-decode": _check_serve(mesh) for mesh in MESHES},
+    **{f"{mesh}-dryrun-records": _check_dryrun_records(mesh) for mesh in MESHES},
 }
 
 
@@ -589,10 +709,29 @@ REFUSALS = {
         optim=OptimConfig(name="adam8bit")), ShapeConfig("t", T, B, "train")
         ).init_state(), "adam8bit"),
     "serving": (lambda: _engine(_model(_tarch())), "tensor-parallel model slices"),
-    "decode": (lambda: (lambda m: m.decode_step(m.init_cache(1, 4), torch.zeros(
-        (1, 1), dtype=torch.long), torch.zeros((1,), dtype=torch.long)))(
-        _model(_tarch())), "tensor-parallel model slices"),
+    "host-loop": (lambda: _host_loop(_model(_tarch())), "tensor-parallel model slices"),
+    "decode": (lambda: (lambda m: m.decode_step_paged(
+        m.init_paged_cache(2, 4), torch.zeros((1, 1), dtype=torch.long),
+        torch.zeros((1,), dtype=torch.long), torch.zeros((1, 1), dtype=torch.long)))(
+        _model(_tarch())), "paged decode of tensor-parallel model slices"),
+    "paged-attention": (lambda: _paged_layer(_model(_tarch())),
+                        "paged decode of tensor-parallel model slices"),
 }
+
+
+def _host_loop(model):
+    from repro_torch.serve import HostLoopEngine
+    return HostLoopEngine(model)
+
+
+def _paged_layer(model):
+    """``layers.attn_decode_paged`` on a rank's slices of one layer."""
+    from repro_torch.models import layers as L
+    p = {k: v[0] for k, v in model.params["blocks"][0]["attn"].items()}
+    pool = torch.zeros((2, 4, model.arch.n_kv_heads, model.arch.hd))
+    L.attn_decode_paged(p, torch.zeros((1, 1, model.arch.d_model)), (pool, pool.clone()),
+                        torch.zeros((1, 1), dtype=torch.long),
+                        torch.zeros((1,), dtype=torch.long), model.arch)
 
 
 def _dpsgd_step():
